@@ -9,24 +9,34 @@ no result line):
      version and torch's;
   2. build the CUDA kernels from kernels/csrc with nvcc and print the
      build time and ptxas's register report;
-  3. hold each kernel against its plain PyTorch version on the card:
-     lid cavity 64^3 and poiseuille 32^3 (f after 4 steps at rtol 3e-6,
-     atol 1e-7, velsum at 1e-5 relative, macro() after 200 steps at
-     relative L2 <= 1e-5, K3 at rtol 1e-6, atol 1e-7), then lid 256^3
-     for 2 steps; time kernel and plain versions in turns with CUDA
-     events;
-  4. the main path: Simulation(lid_driven_cavity n=256).run(1000 steps,
-     time_save=250) and macro(), with every launch counter reset just
-     before and read just after (K1a must launch 1000 times, K3 at
-     least once) and finite, bounded fields;
-  5. the CLI: `python -m lbm_tpu_torch run` on the 64^3 cavity for 500
-     steps writes VTK and CONVERGENCE.log.
+  3. hold each kernel against its plain PyTorch version on the card (f
+     at rtol 3e-6, atol 1e-7, expected bit-equal; velsum at 1e-5
+     relative; macro() after 200 steps at relative L2 <= 1e-5; K3 at
+     rtol 1e-6, atol 1e-7): the whole step and each kernel alone on lid
+     64^3, poiseuille 32^3, coronary (64, 48, 96) r=4 steady and
+     pulsatile=[4, 40] for 200 steps, curved_vessel 64^3, then lid 256^3
+     and the full-size coronary for 2 steps; the live-block launch
+     against the full one; then time kernels and plain versions in turns
+     with CUDA events, with each kernel's bound (bytes over 3.35 TB/s);
+  4. the lid main path: Simulation(lid_driven_cavity n=256).run(1000
+     steps, time_save=250) and macro(), launch counters reset just
+     before and read just after (K1a 1000 times over the full grid, K3
+     at least once), finite, bounded fields;
+  5. the vessel path: Simulation(coronary 291x291x372, radius=12,
+     pulsatile=[40, 2000]).run(2000 steps, time_save=500) and macro(),
+     counters reset just before and read just after (K1a 2000, the
+     z-plane fixup 6000, K3 at least 4), finite fields with max|u| within
+     3x the inlet speed;
+  6. the CLI: `python -m lbm_tpu_torch run` on the 64^3 cavity for 500
+     steps writes VTK and CONVERGENCE.log, and on the default coronary
+     (128, 64, 96) writes VTK with density.
 Before the last line it prints one JSON object describing each kernel;
 the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -36,6 +46,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 K1A_SOURCE = "lbm_tpu_torch/kernels/csrc/collide_stream.cu"
+HBM_BYTES_PER_S = 3.35e12   # published H100 SXM peak at 700 W
+FULL_CORONARY = dict(shape=[291, 291, 372], radius=12, pulsatile=[40, 2000])
 
 
 class SmokeFailure(RuntimeError):
@@ -65,6 +77,19 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def in_turns(label, plain, kernel, iters_p, iters_k):
+    """(kernel ms, plain ms): turns plain, kernel, kernel, plain."""
+    p1, k1 = time_ms(plain, iters_p), time_ms(kernel, iters_k)
+    k2, p2 = time_ms(kernel, iters_k), time_ms(plain, iters_p)
+    print(f"[3] timing {label} (ms per call, turns plain/kernel/kernel/"
+          f"plain): {p1:.4f} {k1:.4f} {k2:.4f} {p2:.4f}", flush=True)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound_ms(n_bytes: float) -> float:
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
 def rel_l2(a, b) -> float:
     import torch
 
@@ -87,9 +112,11 @@ def check_close(name, got, ref, rtol, atol) -> float:
     return float(err.max())
 
 
-def compare_case(case, steps, device, errs, macro_steps=None):
-    """Kernel vs plain on one case: f and velsum after `steps` steps, K3 on
-    the result, and optionally macro() after `macro_steps` steps."""
+def compare_case(case, steps, device, errs, macro_steps=None, spec=None):
+    """Kernel vs plain on one case: the whole step (collide-stream plus
+    z-plane fixups) for `steps` steps, then each kernel alone on the
+    result, the live-block launch against the full one, K3, and
+    optionally macro() after `macro_steps` steps of both backends."""
     import torch
 
     from lbm_tpu_torch.cases import get_case
@@ -99,57 +126,88 @@ def compare_case(case, steps, device, errs, macro_steps=None):
     from lbm_tpu_torch.kernels import collide_stream as K
 
     name, kw = case
-    spec = get_case(name, **kw)
+    spec = spec or get_case(name, **kw)
     cc = compile_case(spec, device)
     f0 = initial_f(cc)
-    fk, buf = f0.clone(), torch.empty_like(f0)
+    fk, buf = f0.clone(), f0.clone()
     vs_k = torch.zeros(steps, dtype=torch.float64, device=device)
     fp = f0
     vs_p = torch.zeros(steps, dtype=torch.float64, device=device)
     for t in range(steps):
-        K.collide_stream(fk, buf, cc, vs_k, t)
+        K.step(fk, buf, cc, vs_k, t, t)
         fk, buf = buf, fk
-        fp, vs = K.collide_stream_plain(fp, cc)
-        vs_p[t] = vs
+        fp, vs_p[t] = K.step_plain(fp, cc, t)
     torch.cuda.synchronize()
-    tag = f"{name} {tuple(spec.shape)}"
-    e_f = check_close(f"K1a f after {steps} steps, {tag}", fk, fp, 3e-6, 1e-7)
+    tag = f"{name} {tuple(spec.shape)} {kw}"
+    e_f = check_close(f"step f after {steps} steps, {tag}", fk, fp, 3e-6,
+                      1e-7)
     vs_rel = float(((vs_k - vs_p).abs() / vs_p.abs()).max())
-    require(vs_rel <= 1e-5, f"K1a velsum {tag}: rel err {vs_rel:.3e} > 1e-5")
+    require(vs_rel <= 1e-5, f"step velsum {tag}: rel err {vs_rel:.3e}")
+    # each kernel alone, from the same input
+    t = steps
+    s = torch.zeros(1, dtype=torch.float64, device=device)
+    out_k = K.collide_stream(fk, buf, cc, s, 0, t)
+    out_p, v_p = K.collide_stream_plain(fk, cc, t)
+    e_k1 = check_close(f"K1a alone {tag}", out_k, out_p, 3e-6, 1e-7)
+    require(abs(float(s[0] - v_p)) <= 1e-5 * abs(float(v_p)),
+            f"K1a velsum {tag}")
+    e_z = 0.0
+    for bc in cc.z_bcs:
+        zk, zp = out_p.clone(), out_p.clone()
+        s.zero_()
+        K.fix_z_plane(fk, zk, cc, bc, s, 0, t)
+        d_p = K.fix_z_plane_plain(fk, zp, cc, bc, t)
+        e_z = max(e_z, check_close(f"lbm_fix_z_plane z={bc.consumer_coord} "
+                                   f"{tag}", zk, zp, 3e-6, 1e-7))
+        require(abs(float(s[0] - d_p)) <= 1e-5 * max(abs(float(d_p)), 1e-30)
+                + 1e-12, f"lbm_fix_z_plane velsum {tag}: {float(s[0])} vs "
+                f"{float(d_p)}")
+    if cc.live_blocks is not None:
+        all_k = K.collide_stream(fk, torch.empty_like(fk).copy_(fk), cc, s,
+                                 0, t, all_blocks=True)
+        require(torch.equal(all_k, out_k),
+                f"live-block launch differs from the full launch, {tag}")
     rho_k, u_k = K.macro(fk)
     rho_p, u_p = K.macro_plain(fk)
     e_m = max(check_close(f"K3 rho {tag}", rho_k, rho_p, 1e-6, 1e-7),
               check_close(f"K3 u {tag}", u_k, u_p, 1e-6, 1e-7))
-    errs["K1a"] = max(errs["K1a"], e_f)
+    errs["K1a"] = max(errs["K1a"], e_f, e_k1)
+    errs["Kz"] = max(errs["Kz"], e_z)
     errs["K3"] = max(errs["K3"], e_m)
-    print(f"[3] {tag}: K1a f max abs err {e_f:.3e} after {steps} steps, "
-          f"velsum max rel err {vs_rel:.3e}; K3 max abs err {e_m:.3e}",
-          flush=True)
+    live = ("all" if cc.live_blocks is None
+            else f"{cc.live_blocks.numel()} live")
+    print(f"[3] {tag}: step f max abs err {e_f:.3e} after {steps} steps, "
+          f"velsum max rel err {vs_rel:.3e}; K1a alone {e_k1:.3e} ({live} "
+          f"blocks); lbm_fix_z_plane {e_z:.3e} ({len(cc.z_bcs)} z planes); "
+          f"K3 {e_m:.3e}", flush=True)
     if macro_steps:
         sk = Simulation(spec, device=device, backend="kernel")
         sp = Simulation(spec, device=device, backend="dense")
-        rk = sk.run(max_steps=macro_steps, time_save=macro_steps,
+        rk = sk.run(max_steps=macro_steps, time_save=macro_steps // 2,
                     verbose=False)
-        rp = sp.run(max_steps=macro_steps, time_save=macro_steps,
+        rp = sp.run(max_steps=macro_steps, time_save=macro_steps // 2,
                     verbose=False)
         (rho_k, u_k), (rho_p, u_p) = sk.macro(), sp.macro()
         e_rho, e_u = rel_l2(rho_k, rho_p), rel_l2(u_k, u_p)
         require(e_rho <= 1e-5 and e_u <= 1e-5,
                 f"macro() after {macro_steps} steps {tag}: rel L2 rho "
                 f"{e_rho:.3e}, u {e_u:.3e} > 1e-5")
-        vs_rel = float((abs(rk.velsum_series - rp.velsum_series)
-                        / abs(rp.velsum_series)).max())
-        require(vs_rel <= 1e-5,
-                f"velsum series over {macro_steps} steps {tag}: rel err "
-                f"{vs_rel:.3e} > 1e-5")
+        if rk.velsum_series is not None:
+            got, want = rk.velsum_series, rp.velsum_series
+        else:  # the 'usq' flavor: its residuals (the first is inf)
+            got, want = rk.residual_history[1:], rp.residual_history[1:]
+        r_rel = max((abs(a - b) / abs(b) for a, b in zip(got, want)),
+                    default=0.0)
+        require(r_rel <= 1e-5,
+                f"residual series over {macro_steps} steps {tag}: rel err "
+                f"{r_rel:.3e} > 1e-5")
         print(f"[3] {tag}: macro() after {macro_steps} steps rel L2 rho "
-              f"{e_rho:.3e} u {e_u:.3e}; velsum series max rel err "
-              f"{vs_rel:.3e}", flush=True)
+              f"{e_rho:.3e} u {e_u:.3e}; residual series max rel err "
+              f"{r_rel:.3e}", flush=True)
 
 
-def time_kernels(n, device, iters_k, iters_p):
-    """(K1a ms, plain ms, K3 ms, plain ms) per call at lid n^3, in turns
-    plain, kernel, kernel, plain."""
+def time_lid(n, device, iters_k, iters_p):
+    """(K1a ms, plain ms, K3 ms, plain ms) per call at lid n^3."""
     import torch
 
     from lbm_tpu_torch.cases import get_case
@@ -158,33 +216,134 @@ def time_kernels(n, device, iters_k, iters_p):
     from lbm_tpu_torch.kernels import collide_stream as K
 
     cc = compile_case(get_case("lid_driven_cavity", n=n), device)
-    state = [initial_f(cc), None]
-    state[1] = torch.empty_like(state[0])
+    state = [initial_f(cc), initial_f(cc)]
     series = torch.zeros(1, dtype=torch.float64, device=device)
     plain_f = [initial_f(cc)]
 
     def k1a():
-        K.collide_stream(state[0], state[1], cc, series, 0)
+        K.collide_stream(state[0], state[1], cc, series, 0, 0)
         state.reverse()
 
     def k1a_plain():
-        plain_f[0] = K.collide_stream_plain(plain_f[0], cc)[0]
+        plain_f[0] = K.collide_stream_plain(plain_f[0], cc, 0)[0]
 
     f = state[0]
+    k1a_ms = in_turns(f"K1a lid {n}^3", k1a_plain, k1a, iters_p, iters_k)
+    k3_ms = in_turns(f"K3 lid {n}^3", lambda: K.macro_plain(f),
+                     lambda: K.macro(f), iters_p, iters_k)
+    return k1a_ms + k3_ms
+
+
+def time_vessel(spec, device):
+    """Times and bounds at the full-size coronary: K1a over the live
+    blocks and over every block, lbm_fix_z_plane per launch, K3 and the
+    one-matmul moments that K3's library_ms names."""
+    import torch
+
+    from lbm_tpu_torch.core.lattice import D3Q19
+    from lbm_tpu_torch.engine.compile import compile_case
+    from lbm_tpu_torch.engine.step import initial_f
+    from lbm_tpu_torch.kernels import collide_stream as K
+
+    cc = compile_case(spec, device)
+    n_cells = cc.mask.numel()
+    f0 = initial_f(cc)
+    state = [f0, f0.clone()]
+    series = torch.zeros(1, dtype=torch.float64, device=device)
     out = {}
-    for label, fn, iters in (("p1", k1a_plain, iters_p), ("k1", k1a, iters_k),
-                             ("k2", k1a, iters_k), ("p2", k1a_plain, iters_p),
-                             ("m_p1", lambda: K.macro_plain(f), iters_p),
-                             ("m_k1", lambda: K.macro(f), iters_k),
-                             ("m_k2", lambda: K.macro(f), iters_k),
-                             ("m_p2", lambda: K.macro_plain(f), iters_p)):
-        out[label] = time_ms(fn, iters)
-    print(f"[3] timing lid {n}^3 (ms per call, turns plain/kernel/kernel/"
-          f"plain): K1a {out['p1']:.4f} {out['k1']:.4f} {out['k2']:.4f} "
-          f"{out['p2']:.4f}; K3 {out['m_p1']:.4f} {out['m_k1']:.4f} "
-          f"{out['m_k2']:.4f} {out['m_p2']:.4f}", flush=True)
-    return ((out["k1"] + out["k2"]) / 2, (out["p1"] + out["p2"]) / 2,
-            (out["m_k1"] + out["m_k2"]) / 2, (out["m_p1"] + out["m_p2"]) / 2)
+
+    def k1a(all_blocks):
+        def go():
+            K.collide_stream(state[0], state[1], cc, series, 0, 0,
+                             all_blocks)
+            state.reverse()
+        return go
+
+    def k1a_plain():
+        K.collide_stream_plain(state[0], cc, 0)
+
+    out["k1a_live"], out["k1a_plain"] = in_turns(
+        "K1a coronary full, live blocks", k1a_plain, k1a(False), 5, 1000)
+    out["k1a_all"], _ = in_turns(
+        "K1a coronary full, every block", k1a_plain, k1a(True), 1, 300)
+    n_live = cc.live_blocks.numel()
+    live_cells = min(n_live * 256, n_cells)
+    # f read + f written + the mask, over the cells of the live blocks
+    out["k1a_bound"] = bound_ms(live_cells * (19 * 4 * 2 + 1))
+    out["k1a_all_bound"] = bound_ms(n_cells * (19 * 4 * 2 + 1))
+    out["live_share"] = n_live / -(-n_cells // 256)
+
+    fz = [state[0], state[1].clone()]
+    kz, pz, bz = [], [], []
+    for bc in cc.z_bcs:
+        x0, x1, y0, y1 = bc.window
+        k_ms, p_ms = in_turns(
+            f"lbm_fix_z_plane z={bc.consumer_coord} window "
+            f"{x1 - x0}x{y1 - y0}",
+            lambda bc=bc: K.fix_z_plane_plain(fz[0], fz[1], cc, bc, 0),
+            lambda bc=bc: K.fix_z_plane(fz[0], fz[1], cc, bc, series, 0, 0),
+            20, 2000)
+        n_win = (x1 - x0) * (y1 - y0)
+        n_fl = int(cc.fluid[x0:x1, y0:y1, bc.consumer_coord].sum())
+        d = len(bc.dirs)
+        # a window fluid cell reads its 19 own and 18 pulled populations
+        # and D valid bytes + D phi* floats, and writes 19; every window
+        # cell reads its mask byte
+        nbytes = n_fl * (19 * 4 + 18 * 4 + 19 * 4 + d * 5) + n_win
+        kz.append(k_ms), pz.append(p_ms), bz.append(bound_ms(nbytes))
+    out["fix"], out["fix_plain"] = sum(kz) / len(kz), sum(pz) / len(pz)
+    out["fix_bound"] = sum(bz) / len(bz)
+
+    f = state[0]
+    m = torch.zeros((4, 19), dtype=torch.float32, device=device)
+    m[0] = 1.0
+    m[1:] = torch.from_numpy(D3Q19.E.T.astype("float32")).to(device)
+    out["k3"], out["k3_plain"] = in_turns(
+        "K3 coronary full", lambda: K.macro_plain(f), lambda: K.macro(f),
+        5, 200)
+    out["k3_library"] = time_ms(lambda: torch.matmul(m, f.view(19, -1)), 200)
+    out["k3_bound"] = bound_ms(n_cells * (19 * 4 + 4 * 4))
+    print(f"[3] coronary full bounds at 3.35 TB/s (ms): K1a live "
+          f"{out['k1a_bound']:.4f}, every block {out['k1a_all_bound']:.4f}; "
+          f"lbm_fix_z_plane {out['fix_bound']:.6f} per launch; K3 "
+          f"{out['k3_bound']:.4f}; torch.matmul moments "
+          f"{out['k3_library']:.4f} ms; live-block share "
+          f"{out['live_share']:.4f}", flush=True)
+    return out
+
+
+def profile_run(sim, steps):
+    """Device time by kernel over a `steps`-step run (one chunk), by
+    torch.profiler: ({kernel name: (ms per step, launches per step)},
+    device busy share of the wall time). Empty when the profiler sees no
+    device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run(max_steps=steps, time_save=steps, verbose=False)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, busy_ms = {}, 0.0
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA"):
+            continue  # host-side events; their kernels are listed apart
+        dev_ms = getattr(ev, "device_time_total", 0.0) / 1e3
+        if dev_ms > 0:
+            by_name[ev.key] = (dev_ms / steps, ev.count / steps)
+            busy_ms += dev_ms
+    return by_name, busy_ms / wall_ms
+
+
+def free_device():
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -227,35 +386,52 @@ def main() -> int:
             print(f"[2] ptxas: {line.strip()}", flush=True)
 
     # -- phase 3: kernels vs plain versions --------------------------------
-    errs = {"K1a": 0.0, "K3": 0.0}
+    from lbm_tpu_torch.cases import get_case
+
+    errs = {"K1a": 0.0, "Kz": 0.0, "K3": 0.0}
     compare_case(("lid_driven_cavity", dict(n=64)), 4, device, errs,
                  macro_steps=200)
     compare_case(("poiseuille", dict(n=32)), 4, device, errs,
                  macro_steps=200)
+    small = dict(shape=[64, 48, 96], radius=4)
+    compare_case(("coronary", small), 4, device, errs, macro_steps=200)
+    compare_case(("coronary", dict(small, pulsatile=[4, 40])), 200, device,
+                 errs, macro_steps=200)
+    compare_case(("curved_vessel", dict(n=64, nphase=4, period_steps=40)), 4,
+                 device, errs, macro_steps=200)
     compare_case(("lid_driven_cavity", dict(n=256)), 2, device, errs)
-    t64 = time_kernels(64, device, iters_k=2000, iters_p=100)
-    t256 = time_kernels(256, device, iters_k=1000, iters_p=20)
+    t0 = time.perf_counter()
+    full = get_case("coronary", **FULL_CORONARY)
+    print(f"[3] full-size coronary spec built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    compare_case(("coronary", FULL_CORONARY), 2, device, errs, spec=full)
+    free_device()
+    t64 = time_lid(64, device, iters_k=2000, iters_p=100)
+    t256 = time_lid(256, device, iters_k=1000, iters_p=20)
+    tv = time_vessel(full, device)
+    free_device()
 
-    # -- phase 4: the main path --------------------------------------------
-    from lbm_tpu_torch.cases import get_case
+    # -- phase 4: the lid main path ----------------------------------------
     from lbm_tpu_torch.engine.runner import Simulation
 
     spec = get_case("lid_driven_cavity", n=256)
     sim = Simulation(spec, device=device)
+    require(sim.cc.live_blocks is None,
+            "the lid cavity launches K1a with a block list")
     torch.cuda.reset_peak_memory_stats(device)
     K.reset_launches()
     res = sim.run(max_steps=1000, time_save=250, verbose=False)
     rho, u = sim.macro()
     torch.cuda.synchronize()
-    counts = dict(K.launches)
-    require(counts["lbm_collide_stream_bgk"] == 1000,
-            f"K1a launched {counts['lbm_collide_stream_bgk']} times in a "
-            "1000-step run")
-    require(counts["lbm_macro"] >= 1, "macro() did not launch K3")
+    lid_counts = dict(K.launches)
+    require(lid_counts["lbm_collide_stream_bgk"] == 1000,
+            f"K1a launched {lid_counts['lbm_collide_stream_bgk']} times in "
+            "a 1000-step run")
+    require(lid_counts["lbm_macro"] >= 1, "macro() did not launch K3")
     require(res.steps == 1000 and not res.converged,
             f"run took {res.steps} steps (converged={res.converged})")
-    require(tuple(rho.shape) == (256,) * 3 and tuple(u.shape) == (3,) + (256,) * 3,
-            "macro() shapes")
+    require(tuple(rho.shape) == (256,) * 3
+            and tuple(u.shape) == (3,) + (256,) * 3, "macro() shapes")
     require(bool(torch.isfinite(rho).all() and torch.isfinite(u).all()),
             "non-finite fields after 1000 steps")
     u_lid = 0.15 / 2.4705
@@ -269,46 +445,140 @@ def main() -> int:
     vs = res.velsum_series
     require(len(vs) == 1000 and bool((vs > 0).all()) and vs[-1] > vs[0],
             "velsum series is not the spin-up of a driven cavity")
-    ms_step = res.elapsed_s / res.steps * 1e3
-    print(f"[4] main path lid 256^3: {res.steps} steps in "
-          f"{res.elapsed_s:.3f} s = {ms_step:.4f} ms/step (host clock, "
-          f"synchronized), mlups_box {res.mlups_box:.1f}, mlups "
-          f"{res.mlups:.1f}, mlups_live {res.mlups_live:.1f}; residual "
-          f"{res.residual:.3e}; max|u| {u_max:.4g}, max|rho-1| "
-          f"{rho_dev:.3g}; peak device memory "
+    print(f"[4] lid main path 256^3: {res.steps} steps in "
+          f"{res.elapsed_s:.3f} s = {res.elapsed_s / res.steps * 1e3:.4f} "
+          f"ms/step (host clock, synchronized), mlups_box "
+          f"{res.mlups_box:.1f}, mlups {res.mlups:.1f}, mlups_live "
+          f"{res.mlups_live:.1f}; residual {res.residual:.3e}; max|u| "
+          f"{u_max:.4g}, max|rho-1| {rho_dev:.3g}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB; "
+          f"launches {lid_counts}", flush=True)
+    del sim, rho, u, fluid
+    free_device()
+
+    # -- phase 5: the vessel path ------------------------------------------
+    t0 = time.perf_counter()
+    sim = Simulation(full, device=device)
+    t_setup = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(device)
+    K.reset_launches()
+    res = sim.run(max_steps=2000, time_save=500, verbose=False)
+    rho, u = sim.macro()
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    require(counts["lbm_collide_stream_bgk"] == 2000,
+            f"K1a launched {counts['lbm_collide_stream_bgk']} times in a "
+            "2000-step vessel run")
+    require(counts["lbm_fix_z_plane"] == 6000,
+            f"lbm_fix_z_plane launched {counts['lbm_fix_z_plane']} times "
+            "(3 z-plane outlets x 2000 steps)")
+    require(counts["lbm_macro"] >= 4, "the usq residual did not launch K3")
+    require(res.steps == 2000, f"vessel run took {res.steps} steps")
+    require(bool(torch.isfinite(rho).all() and torch.isfinite(u).all()),
+            "non-finite fields after the vessel run")
+    u_in = 0.1745 / 2.74909090909091
+    fluid = sim.cc.fluid
+    u_max = float(u.norm(dim=0)[fluid].max())
+    rho_dev = float((rho[fluid] - 1.0).abs().max())
+    require(u_max <= 3.0 * u_in,
+            f"max|u| {u_max:.4g} above 3x the inlet speed {u_in:.4g}")
+    print(f"[5] vessel path coronary {tuple(full.shape)} r=12 pulsatile "
+          f"[40, 2000]: {res.steps} steps in {res.elapsed_s:.3f} s = "
+          f"{res.elapsed_s / res.steps * 1e3:.4f} ms/step (host clock, "
+          f"synchronized), mlups {res.mlups:.1f}, mlups_live "
+          f"{res.mlups_live:.1f}, mlups_box {res.mlups_box:.1f}; usq "
+          f"residuals {[f'{r:.3e}' for r in res.residual_history]}; max|u| "
+          f"{u_max:.4g} (inlet {u_in:.4g}), max|rho-1| {rho_dev:.3g}; "
+          f"live-block share {tv['live_share']:.4f}; set-up {t_setup:.1f} s; "
+          f"peak device memory "
           f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB; "
           f"launches {counts}", flush=True)
+    by_name, busy = profile_run(sim, 200)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    # tracing slows the host, so the busy share of the traced window
+    # understates the untraced run's; give both
+    dev_ms = sum(v[0] for v in by_name.values())
+    print("[5] profile of 200 more vessel steps (device ms per step, calls "
+          "per step): " + "; ".join(f"{k} {v[0]:.5f} x{v[1]:.2f}"
+                                   for k, v in top)
+          + f"; device {dev_ms:.5f} ms per step; device busy share "
+          f"{busy:.3f} of the traced window, "
+          f"{dev_ms / (res.elapsed_s / res.steps * 1e3):.3f} of the untraced "
+          "step", flush=True)
+    fix_dev = [v[0] / v[1] for k, v in by_name.items()
+               if "fix_z_plane_kernel" in k]
+    if not fix_dev:
+        print("[5] the profiler shows no device time for "
+              "fix_z_plane_kernel; its ms is the CUDA-event time",
+              flush=True)
+    del sim, rho, u, fluid
+    free_device()
 
-    # -- phase 5: the CLI --------------------------------------------------
-    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "lbm_tpu_torch", "run", "--case",
-             "lid_driven_cavity", "--opt", "n=64", "--steps", "500",
-             "--out", tmp],
-            cwd=ROOT, capture_output=True, text=True, timeout=600,
-        )
-        require(proc.returncode == 0,
-                f"CLI run failed ({proc.returncode}):\n{proc.stdout}\n"
-                f"{proc.stderr}")
-        files = sorted(os.listdir(tmp))
-        require("CONVERGENCE.log" in files
-                and "lid_driven_cavity_500.vtk" in files,
-                f"CLI outputs missing: {files}")
-        last = proc.stdout.strip().splitlines()[-2:]
-        print(f"[5] CLI run in {time.perf_counter() - t0:.1f} s wrote "
-              f"{files}; {' | '.join(last)}", flush=True)
+    # -- phase 6: the CLI --------------------------------------------------
+    for case, opts, steps, want in (
+            ("lid_driven_cavity", ["n=64"], "500",
+             ["lid_driven_cavity_500.vtk"]),
+            ("coronary", ["--vtk-final"], "200", ["coronary_200.vtk"])):
+        with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") \
+                as tmp:
+            t0 = time.perf_counter()
+            args = [a for a in opts if a.startswith("--")]
+            kv = [a for a in opts if not a.startswith("--")]
+            proc = subprocess.run(
+                [sys.executable, "-m", "lbm_tpu_torch", "run", "--case",
+                 case, "--steps", steps, "--time-save", "100", "--out", tmp,
+                 *args] + (["--opt", *kv] if kv else []),
+                cwd=ROOT, capture_output=True, text=True, timeout=600,
+            )
+            require(proc.returncode == 0,
+                    f"CLI run of {case} failed ({proc.returncode}):\n"
+                    f"{proc.stdout}\n{proc.stderr}")
+            files = sorted(os.listdir(tmp))
+            require("CONVERGENCE.log" in files
+                    and all(w in files for w in want),
+                    f"CLI outputs of {case} missing: {files}")
+            if case == "coronary":
+                with open(os.path.join(tmp, want[0])) as fh:
+                    head = fh.read(1 << 16)
+                require("SCALARS DENSITY float" in head,
+                        "coronary VTK has no density")
+            last = proc.stdout.strip().splitlines()[-2:]
+            print(f"[6] CLI {case} run in {time.perf_counter() - t0:.1f} s "
+                  f"wrote {files}; {' | '.join(last)}", flush=True)
 
     kernels = [
         {"name": "lbm_collide_stream_bgk", "route": "cuda",
          "source": K1A_SOURCE,
          "replaces": "lbm_tpu/kernels/collide_stream.py:1333",
          "launches": counts["lbm_collide_stream_bgk"],
-         "max_abs_err": errs["K1a"], "ms": t256[0], "plain_ms": t256[1]},
+         "max_abs_err": errs["K1a"], "ms": tv["k1a_live"],
+         "plain_ms": tv["k1a_plain"], "bound_ms": tv["k1a_bound"],
+         "bound_by": "bytes", "library_ms": None,
+         "ms_every_block": tv["k1a_all"],
+         "bound_ms_every_block": tv["k1a_all_bound"],
+         "lid256_launches": lid_counts["lbm_collide_stream_bgk"],
+         "lid256_ms": t256[0], "lid256_plain_ms": t256[1],
+         "lid256_bound_ms": bound_ms(256**3 * (19 * 4 * 2 + 1))},
+        {"name": "lbm_fix_z_plane", "route": "cuda", "source": K1A_SOURCE,
+         "replaces": "lbm_tpu/kernels/collide_stream.py:2695",
+         "also_replaces": "lbm_tpu/kernels/collide_stream.py:2770",
+         "launches": counts["lbm_fix_z_plane"],
+         "max_abs_err": errs["Kz"],
+         "ms": fix_dev[0] if fix_dev else tv["fix"],
+         "ms_by": ("torch.profiler device time of fix_z_plane_kernel"
+                   if fix_dev else "cuda events"),
+         "ms_host_enqueue_bound": tv["fix"],
+         "plain_ms": tv["fix_plain"], "bound_ms": tv["fix_bound"],
+         "bound_by": "bytes", "library_ms": None},
         {"name": "lbm_macro", "route": "cuda", "source": K1A_SOURCE,
          "replaces": "lbm_tpu/kernels/collide_stream.py:2470",
          "launches": counts["lbm_macro"],
-         "max_abs_err": errs["K3"], "ms": t256[2], "plain_ms": t256[3]},
+         "max_abs_err": errs["K3"], "ms": tv["k3"],
+         "plain_ms": tv["k3_plain"], "bound_ms": tv["k3_bound"],
+         "bound_by": "bytes", "library_ms": tv["k3_library"],
+         "lid256_launches": lid_counts["lbm_macro"],
+         "lid256_ms": t256[2], "lid256_plain_ms": t256[3],
+         "lid256_bound_ms": bound_ms(256**3 * (19 * 4 + 4 * 4))},
     ]
     print(f"[done] ms at 64^3: K1a {t64[0]:.4f} plain {t64[1]:.4f}, K3 "
           f"{t64[2]:.4f} plain {t64[3]:.4f}; total "

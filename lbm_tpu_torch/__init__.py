@@ -4,12 +4,14 @@ hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 A port of `lbm_tpu` (JAX/Pallas). It imports torch and numpy and never
 jax, so it runs on a machine without JAX. It mirrors lbm_tpu's layout:
   core      — D3Q19 constants, equilibrium, moments, unit system
-  geometry  — cell labels and the analytic masks of the ported cases
+  geometry  — cell labels, the analytic masks of the ported cases and
+              the reference's geo/bc file formats
   engine    — case specs, compiled cases, the dense step, the runner,
               checkpoints
-  kernels   — the CUDA collide-stream and moments kernels, their plain
-              PyTorch versions and the nvcc/ctypes build
-  cases     — lid_driven_cavity and poiseuille
+  kernels   — the CUDA collide-stream, z-plane fixup and moments
+              kernels, their plain PyTorch versions and the nvcc/ctypes
+              build
+  cases     — lid_driven_cavity, poiseuille, curved_vessel and coronary
   io        — VTK writer, convergence log
   bridge    — carries CaseSpecs and states across from lbm_tpu
 """

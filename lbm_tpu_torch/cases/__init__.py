@@ -19,7 +19,12 @@ def register(name: str):
 
 def _load_all() -> None:
     # imported for their registration side effect, lazily to avoid cycles
-    from lbm_tpu_torch.cases import lid_driven_cavity, poiseuille  # noqa: F401
+    from lbm_tpu_torch.cases import (  # noqa: F401
+        coronary,
+        curved_vessel,
+        lid_driven_cavity,
+        poiseuille,
+    )
 
 
 def get_case(name: str, **kwargs) -> CaseSpec:

@@ -3,7 +3,12 @@
     python -m lbm_tpu_torch run --case lid_driven_cavity --out out/
     python -m lbm_tpu_torch run --case poiseuille --steps 4400 --device cuda
     python -m lbm_tpu_torch run --case lid_driven_cavity --resume out/lid_driven_cavity.ckpt.npz
+    python -m lbm_tpu_torch run --case coronary \
+        --opt shape=[291,291,372] radius=12 pulsatile=[40,2000]
     python -m lbm_tpu_torch list
+
+--opt values are read as JSON where they parse (lists, numbers) and as
+strings otherwise.
 """
 
 from __future__ import annotations

@@ -9,8 +9,17 @@ then moved to the device once:
     opposite population instead). Only the dense step reads it; the
     CUDA kernel tests the int8 mask directly.
   - per NEE boundary, on its one-cell-thick consumer plane: the (D, A, B)
-    `valid` bytes and the (D, A, B) fp32 `phi_star` equilibria, with D the
-    directions the plane prescribes and (A, B) its lateral extent.
+    `valid` bytes and the (D, A, B) fp32 `phi_star` equilibria (or the
+    (T, D, A, B) `phi_star_series` of a u_mode='series' boundary, phase
+    (t // series_stride) % T at step t), with D the directions the plane
+    prescribes and (A, B) its lateral extent;
+  - per z-plane boundary, the static (x0, x1, y0, y1) window around its
+    valid consumer cells (lbm_tpu's `_valid_bbox`): the fixup kernel
+    recomputes the step there after the collide-stream kernel, which
+    takes the x/y boundaries only;
+  - `live_blocks`: ids of the collide-stream kernel's 256-cell blocks
+    that hold a non-DEAD cell (lbm_tpu's `live_tile_ids`), or None when
+    skipping would not pay (lbm_tpu's tile_skip='auto' rule);
   - `velsum_offset`/`usq_offset`: the constant residual contribution of
     non-fluid cells, which hold their initial state forever.
 
@@ -21,6 +30,7 @@ ROADMAP item that ports it; nothing falls back silently.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -33,9 +43,17 @@ from lbm_tpu_torch.geometry.mask import CellType
 _W64 = np.array([1.0 / 3.0] + [1.0 / 18.0] * 6 + [1.0 / 36.0] * 12,
                 dtype=np.float64)
 
-# Most boundaries the CUDA kernel takes in one launch (a fixed-size array
-# of descriptors passed by value).
+# Most x/y-plane boundaries the collide-stream kernel takes in one launch
+# (a fixed-size array of descriptors passed by value). z-plane boundaries
+# go to the fixup kernel, one launch each, and do not count.
 MAX_BCS = 4
+# Cells per block of the collide-stream kernel (kBlock in
+# kernels/csrc/collide_stream.cu): the unit of the live-block list.
+BLOCK = 256
+# lbm_tpu's tile_skip='auto' rule: skip dead blocks only when fewer than
+# this share of the blocks is live (the lid cavity's dead border rows
+# leave 98% of its blocks live, so it launches over the full grid).
+SKIP_BELOW = 0.6
 
 
 def _phi_np(u: np.ndarray, dirs: np.ndarray) -> np.ndarray:
@@ -68,9 +86,22 @@ class CompiledBC:
     dirs: tuple[int, ...]            # direction indices the plane sets
     valid: torch.Tensor              # (D, A, B) bool
     rho_fixed: Optional[float]       # None => extrapolate rho_F
-    u_mode: str                      # 'fixed' | 'field' | 'extrapolate'
-    phi_star: Optional[torch.Tensor]  # (D, A, B) f32; None if extrapolate
+    u_mode: str                      # 'fixed' | 'field' | 'extrapolate' | 'series'
+    phi_star: Optional[torch.Tensor]  # (D, A, B) f32 for 'fixed'/'field'
     omega: float                     # 1 - 1/tau, composed in fp32
+    phi_star_series: Optional[torch.Tensor] = None  # (T, D, A, B) f32
+    series_stride: int = 1           # steps per series phase
+    window: Optional[tuple[int, int, int, int]] = None  # z planes: x0 x1 y0 y1
+
+    def phi_star_at(self, t: int) -> Optional[torch.Tensor]:
+        """The (D, A, B) phi* table in force at step t (None for
+        'extrapolate', whose phi* is the neighbor's own phi)."""
+        if self.u_mode != "series":
+            return self.phi_star
+        return self.phi_star_series[self.series_phase(t)]
+
+    def series_phase(self, t: int) -> int:
+        return (int(t) // self.series_stride) % self.phi_star_series.shape[0]
 
 
 @dataclasses.dataclass
@@ -81,13 +112,34 @@ class CompiledCase:
     device: torch.device
     mask: torch.Tensor               # (X, Y, Z) int8 labels
     fluid: torch.Tensor              # (X, Y, Z) bool
-    nbr_wall: torch.Tensor           # (19, X, Y, Z) bool
     bcs: list[CompiledBC]
     rho0: torch.Tensor               # (X, Y, Z) f32 (init / non-fluid macro)
     u0: torch.Tensor                 # (3, X, Y, Z) f32
     velsum_offset: float
     usq_offset: float
     spec: CaseSpec
+    live_blocks: Optional[torch.Tensor] = None  # (n,) int32 block ids
+    # per-case scratch of the kernel wrappers (descriptor rows, partials)
+    cache: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @functools.cached_property
+    def nbr_wall(self) -> torch.Tensor:
+        """(19, X, Y, Z) bool, built at first use: only the dense step
+        reads it (600 MB at the full-size coronary)."""
+        return torch.from_numpy(neighbor_wall(np.asarray(self.spec.mask))
+                                ).to(self.device)
+
+    @property
+    def kernel_bcs(self) -> list[CompiledBC]:
+        """The x/y-plane boundaries, which the collide-stream kernel
+        applies in its own launch."""
+        return [bc for bc in self.bcs if bc.axis != 2]
+
+    @property
+    def z_bcs(self) -> list[CompiledBC]:
+        """The z-plane boundaries, one fixup launch each after the
+        collide-stream kernel, in boundary order."""
+        return [bc for bc in self.bcs if bc.axis == 2]
 
 
 def _refuse(what: str, item: str) -> None:
@@ -116,12 +168,12 @@ def check_supported(spec: CaseSpec) -> None:
         if bc.windkessel is not None:
             _refuse("windkessel outlets (PlaneBC.windkessel)",
                     "Queue 1 item 8")
-        if bc.u_mode == "series":
-            _refuse("u_mode='series' boundaries", "Queue 1 item 6")
-        if bc.axis == 2:
-            _refuse("NEE boundaries on z planes", "Queue 1 item 6")
-    if len(spec.boundaries) > MAX_BCS:
-        _refuse(f"more than {MAX_BCS} NEE boundaries", "Queue 1 item 6")
+    n_xy = sum(bc.axis != 2 for bc in spec.boundaries)
+    if n_xy > MAX_BCS:
+        raise NotImplementedError(
+            f"{n_xy} NEE boundaries on x/y planes: the collide-stream "
+            f"kernel takes at most {MAX_BCS} (z-plane boundaries do not "
+            "count)")
     for a, n in enumerate(spec.shape):
         if n < 3:
             raise ValueError(f"axis {a} has {n} cells; the step needs >= 3")
@@ -135,18 +187,26 @@ def compile_bc(bc: PlaneBC, mask: np.ndarray, tau: float,
     e_lats = [tuple(int(D3Q19.E[i][a]) for a in lat) for i in dirs]
     valid = np.stack([_shift_lat(plane_mask, el) for el in e_lats])
 
-    phi_star = None
-    if bc.u_mode in ("fixed", "field"):
-        if bc.u_mode == "fixed":
-            a, b = plane_mask.shape
-            u_star = np.broadcast_to(
-                np.asarray(bc.u_value, np.float32)[:, None, None], (3, a, b))
-        else:
-            u_star = bc.u_field
-        phi_star = np.stack([
+    def phi_table(u_star):
+        return np.stack([
             _phi_np(_shift_lat(u_star, el), dirs[d : d + 1])[0]
             for d, el in enumerate(e_lats)
         ])
+
+    phi_star = phi_series = None
+    if bc.u_mode == "fixed":
+        a, b = plane_mask.shape
+        phi_star = phi_table(np.broadcast_to(
+            np.asarray(bc.u_value, np.float32)[:, None, None], (3, a, b)))
+    elif bc.u_mode == "field":
+        phi_star = phi_table(bc.u_field)
+    elif bc.u_mode == "series":
+        phi_series = np.stack([phi_table(u) for u in bc.u_series])
+
+    def dev(a):
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a)).to(device)
+
     return CompiledBC(
         axis=bc.axis,
         consumer_coord=bc.coord + bc.normal,
@@ -154,11 +214,79 @@ def compile_bc(bc: PlaneBC, mask: np.ndarray, tau: float,
         valid=torch.from_numpy(np.ascontiguousarray(valid)).to(device),
         rho_fixed=(float(bc.rho_value) if bc.rho_mode == "fixed" else None),
         u_mode=bc.u_mode,
-        phi_star=(None if phi_star is None
-                  else torch.from_numpy(phi_star).to(device)),
+        phi_star=dev(phi_star),
         # fp32-compose like the reference's (1.0f - 1.0f/tau)
         omega=float(np.float32(1.0) - np.float32(1.0) / np.float32(tau)),
+        phi_star_series=dev(phi_series),
+        series_stride=int(bc.u_series_stride),
+        window=(valid_bbox(valid, plane_mask.shape) if bc.axis == 2
+                else None),
     )
+
+
+def valid_bbox(valid: np.ndarray, shape_xy, margin: int = 2):
+    """Static (x0, x1, y0, y1) window around a z-plane boundary's valid
+    consumer cells, `margin` cells wider on each side and clipped to the
+    plane (lbm_tpu's `_valid_bbox`); None when no cell is valid."""
+    xs, ys = np.nonzero(np.asarray(valid).any(axis=0))
+    if xs.size == 0:
+        return None
+    return (max(int(xs.min()) - margin, 0),
+            min(int(xs.max()) + 1 + margin, shape_xy[0]),
+            max(int(ys.min()) - margin, 0),
+            min(int(ys.max()) + 1 + margin, shape_xy[1]))
+
+
+def _consumers_on_z_plane(bc: CompiledBC, z: int, shape) -> np.ndarray:
+    """(X, Y) bool: the cells of plane z at which `bc` rewrites a
+    population."""
+    nx, ny, _ = shape
+    v = bc.valid.cpu().numpy().any(axis=0)
+    out = np.zeros((nx, ny), bool)
+    if bc.axis == 2:
+        if bc.consumer_coord == z:
+            out |= v
+    elif bc.axis == 0:
+        out[bc.consumer_coord, :] = v[:, z]
+    else:
+        out[:, bc.consumer_coord] = v[:, z]
+    return out
+
+
+def check_z_windows(bcs: list[CompiledBC], shape) -> None:
+    """The kernel path applies the x/y boundaries inside the
+    collide-stream kernel and then recomputes each z-plane boundary's
+    window from the pre-step state with that boundary alone. That equals
+    the dense step, which applies every boundary in order, only if the
+    window covers the boundary's consumer cells and holds no cell that
+    another boundary rewrites."""
+    for k, bc in enumerate(bcs):
+        if bc.axis != 2 or bc.window is None:
+            continue
+        x0, x1, y0, y1 = bc.window
+        own = _consumers_on_z_plane(bc, bc.consumer_coord, shape)
+        if own.sum() != own[x0:x1, y0:y1].sum():
+            raise AssertionError(f"z window {bc.window} misses consumer "
+                                 f"cells of boundary {k}")
+        for j, other in enumerate(bcs):
+            if j == k:
+                continue
+            cells = _consumers_on_z_plane(other, bc.consumer_coord, shape)
+            if cells[x0:x1, y0:y1].any():
+                raise ValueError(
+                    f"boundary {j} rewrites cells inside the window "
+                    f"{bc.window} of z-plane boundary {k} on z="
+                    f"{bc.consumer_coord}; the z-plane fixup would "
+                    "overwrite them")
+
+
+def live_block_ids(mask: np.ndarray, block: int = BLOCK) -> np.ndarray:
+    """int32 ids of the `block`-cell blocks of the flattened (x, y, z)
+    lattice, z fastest, that hold at least one non-DEAD cell."""
+    live = np.asarray(mask).reshape(-1) != CellType.DEAD
+    pad = (-live.size) % block
+    live = np.concatenate([live, np.zeros(pad, bool)])
+    return np.nonzero(live.reshape(-1, block).any(axis=1))[0].astype(np.int32)
 
 
 def neighbor_wall(mask: np.ndarray) -> np.ndarray:
@@ -191,22 +319,30 @@ def compile_case(spec: CaseSpec, device="cpu") -> CompiledCase:
     rho0 = np.asarray(spec.rho0, np.float32)
     nonfluid = ~fluid
     speed0 = np.sqrt(np.sum(u0.astype(np.float64) ** 2, axis=0))
+    shape = tuple(int(s) for s in spec.shape)
+    bcs = [compile_bc(bc, mask, spec.tau, device) for bc in spec.boundaries]
+    check_z_windows(bcs, shape)
+    ids = live_block_ids(mask)
+    n_blocks = -(-mask.size // BLOCK)
     return CompiledCase(
         name=spec.name,
-        shape=tuple(int(s) for s in spec.shape),
+        shape=shape,
         tau=float(spec.tau),
         device=device,
         mask=torch.from_numpy(mask.astype(np.int8)).to(device),
         fluid=torch.from_numpy(fluid).to(device),
-        nbr_wall=torch.from_numpy(neighbor_wall(mask)).to(device),
-        bcs=[compile_bc(bc, mask, spec.tau, device) for bc in spec.boundaries],
+        bcs=bcs,
         rho0=torch.from_numpy(np.ascontiguousarray(rho0)).to(device),
         u0=torch.from_numpy(np.ascontiguousarray(u0)).to(device),
         velsum_offset=float(np.sum(speed0[nonfluid], dtype=np.float64)),
         usq_offset=float(np.sum(speed0[nonfluid] ** 2, dtype=np.float64)),
         spec=spec,
+        live_blocks=(torch.from_numpy(ids).to(device)
+                     if len(ids) < SKIP_BELOW * n_blocks else None),
     )
 
 
 __all__ = ["CompiledBC", "CompiledCase", "compile_case", "compile_bc",
-           "canonical_device", "check_supported", "neighbor_wall", "MAX_BCS"]
+           "canonical_device", "check_supported", "check_z_windows",
+           "live_block_ids", "neighbor_wall", "valid_bbox", "BLOCK",
+           "MAX_BCS", "SKIP_BELOW"]

@@ -13,8 +13,11 @@ chunked stepping, convergence policy, throughput metering.
   - MLUPS in three site conventions (RunResult).
 
 backend='kernel' (default) steps with the CUDA kernels on a CUDA device
-and their plain versions on the CPU; backend='dense' runs the dense
-PyTorch step (engine/step.py), the counterpart of lbm_tpu's 'xla'.
+and their plain versions on the CPU: the collide-stream kernel over the
+case's live blocks, then one fixup launch per z-plane boundary.
+backend='dense' runs the dense PyTorch step (engine/step.py), the
+counterpart of lbm_tpu's 'xla'. Every step gets its absolute index, so a
+series boundary's phase continues across chunks and resumed runs.
 """
 
 from __future__ import annotations
@@ -77,7 +80,8 @@ class Simulation:
     The state `f` is (19, nx, ny, nz) float32, z contiguous — the layout
     of lbm_tpu's dense backend and of the portable checkpoint. The kernel
     backend keeps a second buffer of the same shape and swaps the two
-    each step.
+    each step. The kernel never writes the cells of skipped (all-DEAD)
+    blocks, so both buffers always hold the same non-fluid state.
     """
 
     def __init__(self, spec: CaseSpec, device="cuda", backend: str = "kernel"):
@@ -94,8 +98,7 @@ class Simulation:
     # -- state ------------------------------------------------------------
     def reset(self):
         self.f = initial_f(self.cc)
-        self._spare = (torch.empty_like(self.f) if self.backend == "kernel"
-                       else None)
+        self._spare = self.f.clone() if self.backend == "kernel" else None
         self.t = 0
         self._last_velsum: Optional[float] = None
         self._last_usq: Optional[float] = None
@@ -105,13 +108,16 @@ class Simulation:
         return self.f
 
     def set_f_standard(self, f):
-        """Load a (19, nx, ny, nz) state (array or tensor); the simulation
-        keeps its own copy, since stepping writes into its buffers."""
+        """Load a (19, nx, ny, nz) state (array or tensor) into both
+        buffers; the simulation keeps its own copies, since stepping
+        writes into them."""
         f = torch.as_tensor(f, dtype=torch.float32)
         if tuple(f.shape) != (19,) + tuple(self.spec.shape):
             raise ValueError(f"state shape {tuple(f.shape)} != "
                              f"(19, *{tuple(self.spec.shape)})")
         self.f = f.to(self.device, copy=True).contiguous()
+        if self.backend == "kernel":
+            self._spare = self.f.clone()
 
     def macro(self):
         """(rho, u) persistent macroscopic fields (lattice units): moments
@@ -128,10 +134,11 @@ class Simulation:
         series = torch.empty(n, dtype=torch.float64, device=self.device)
         for k in range(n):
             if self.backend == "kernel":
-                kernels.collide_stream(self.f, self._spare, self.cc, series, k)
+                kernels.step(self.f, self._spare, self.cc, series, k,
+                             self.t + k)
                 self.f, self._spare = self._spare, self.f
             else:
-                self.f, _, u = self._step(self.f)
+                self.f, _, u = self._step(self.f, self.t + k)
                 series[k] = fluid_speed_sum(self.cc, u)
         self.t += n
         return series.cpu().numpy() + self.cc.velsum_offset

@@ -3,9 +3,9 @@ lbm_tpu/engine/spec.py, so a spec carries across as a field copy
 (bridge.case_from_reference).
 
 The fields this port does not run yet (collision != 'bgk', force,
-closures, curved or moving walls, series and windkessel boundaries,
-z-plane boundaries) are kept so specs stay interchangeable;
-engine/compile.compile_case refuses them by name.
+closures, curved or moving walls, windkessel boundaries) are kept so
+specs stay interchangeable; engine/compile.compile_case refuses them by
+name.
 """
 
 from __future__ import annotations

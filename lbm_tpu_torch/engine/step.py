@@ -12,8 +12,10 @@ against (kernels/collide_stream.collide_stream_plain):
                                                on an NEE consumer plane
   rho, u = moments(pulled); f'(x) = pulled - (pulled - feq(rho, u)) / tau
 
-rho_prev/u_prev are the moments of the cell's own pre-step f. Non-fluid
-cells keep their f.
+rho_prev/u_prev are the moments of the cell's own pre-step f; phi* of a
+u_mode='series' boundary is its table at phase (t // stride) % T, with t
+the absolute step. Non-fluid cells keep their f. Boundaries on x, y and
+z planes all go through `apply_bc_fixup`, in boundary order.
 """
 
 from __future__ import annotations
@@ -53,15 +55,17 @@ def streamed(f, nbr_wall):
     return torch.stack(pulled)
 
 
-def apply_bc_fixup(pulled, f_src, bc: CompiledBC):
+def apply_bc_fixup(pulled, f_src, bc: CompiledBC, t: int):
     """Overwrite the pulled populations on one NEE boundary's consumer
-    plane, in place. Reads the pre-step f_src of the plane's own cells."""
+    plane, in place, at absolute step t. Reads the pre-step f_src of the
+    plane's own cells."""
     src_pl = f_src.select(bc.axis + 1, bc.consumer_coord)   # (19, A, B)
     rho_prev, mom = momentum(src_pl)
     u_prev = _safe_velocity(rho_prev, mom)
     phi_nbr = phi(u_prev, dirs=bc.dirs)                      # (D, A, B)
     feq_nbr = rho_prev[None] * phi_nbr
-    phi_star = phi_nbr if bc.u_mode == "extrapolate" else bc.phi_star
+    phi_star = (phi_nbr if bc.u_mode == "extrapolate"
+                else bc.phi_star_at(t))
     rho_star = rho_prev[None] if bc.rho_fixed is None else bc.rho_fixed
     src_dirs = src_pl[list(bc.dirs)]
     val = rho_star * phi_star + (src_dirs - feq_nbr) * bc.omega
@@ -71,12 +75,12 @@ def apply_bc_fixup(pulled, f_src, bc: CompiledBC):
     return pulled
 
 
-def pulled_state(cc: CompiledCase, f):
-    """The complete pre-collision state: pull-stream with bounce-back plus
-    every NEE fixup, in boundary order."""
+def pulled_state(cc: CompiledCase, f, t: int, bcs=None):
+    """The pre-collision state at step t: pull-stream with bounce-back
+    plus the NEE fixups of `bcs` (default every boundary), in order."""
     pulled = streamed(f, cc.nbr_wall)
-    for bc in cc.bcs:
-        pulled = apply_bc_fixup(pulled, f, bc)
+    for bc in cc.bcs if bcs is None else bcs:
+        pulled = apply_bc_fixup(pulled, f, bc, t)
     return pulled
 
 
@@ -100,11 +104,12 @@ def step_tail(cc: CompiledCase, f, pulled):
 
 
 def make_step(cc: CompiledCase) -> Callable:
-    """The dense step: f -> (f', rho, u). rho/u are this step's moments,
+    """The dense step: (f, t) -> (f', rho, u), t the absolute step (it
+    sets the phase of series boundaries). rho/u are this step's moments,
     valid at fluid cells (macro_fields gives the persistent fields)."""
 
-    def step(f):
-        return step_tail(cc, f, pulled_state(cc, f))
+    def step(f, t):
+        return step_tail(cc, f, pulled_state(cc, f, t))
 
     return step
 

@@ -1,7 +1,8 @@
 """Build the CUDA kernel library with nvcc at first use and load it with
 ctypes.
 
-The library is kernels/csrc/collide_stream.cu compiled for sm_90a into a
+The library is kernels/csrc/collide_stream.cu (the collide-stream,
+z-plane fixup and moments kernels) compiled for sm_90a into a
 shared object with a plain C interface (no PyTorch headers, so nvcc
 takes seconds). It lands in kernels/_build/ under a name that carries a
 hash of the source and flags, so an edited source is rebuilt and a
@@ -69,11 +70,23 @@ def _declare(lib: ctypes.CDLL) -> None:
         ci, ci, ci,             # nx, ny, nz
         ctypes.c_float,         # tau
         ci, vp, vp, vp, vp,     # n_bc, bc_int, bc_float, valid, phi_star
+        vp, ci,                 # blocks, n_blocks
         vp, ci,                 # partials, n_partials
         vp, ci,                 # series, t
         vp,                     # stream
     ]
     lib.lbm_collide_stream_bgk.restype = ci
+    lib.lbm_fix_z_plane.argtypes = [
+        vp, vp, vp,             # src, dst, mask
+        ci, ci, ci,             # nx, ny, nz
+        ctypes.c_float,         # tau
+        vp, vp, vp, vp,         # bc_int, bc_float, valid, phi_star
+        ci, ci, ci, ci,         # x0, x1, y0, y1
+        vp, ci,                 # partials, n_partials
+        vp, ci,                 # series, t
+        vp,                     # stream
+    ]
+    lib.lbm_fix_z_plane.restype = ci
     lib.lbm_macro.argtypes = [vp, vp, vp, ctypes.c_longlong, vp]
     lib.lbm_macro.restype = ci
 

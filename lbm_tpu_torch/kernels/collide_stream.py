@@ -1,10 +1,17 @@
-"""Wrappers for the Hopper collide-stream (K1a) and moments (K3) kernels,
-their plain PyTorch versions, and launch counters.
+"""Wrappers for the Hopper collide-stream (K1a, with K1c's live-block
+list), z-plane fixup (K5 + K6) and moments (K3) kernels, their plain
+PyTorch versions, and launch counters.
 
   collide_stream  -> lbm_collide_stream_bgk (kernels/csrc/collide_stream.cu),
                      replacing lbm_tpu/kernels/collide_stream.py::_kernel
-                     (BGK branch), ::_row_fix and the velsum
+                     (BGK branch, series phases, live-tile list `tids`),
+                     ::_row_fix and the velsum
+  fix_z_plane     -> lbm_fix_z_plane, replacing ::_extract_z_slab,
+                     ::_splice_z_plane_inplace and the XLA arithmetic of
+                     ::_fix_z_plane_windowed between them
   macro           -> lbm_macro, replacing ::packed_macro
+  step            -> one whole step: collide_stream, then fix_z_plane for
+                     each z-plane boundary in boundary order
 
 A wrapper runs the plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises. `launches` counts kernel
@@ -14,15 +21,28 @@ launches, one per wrapper call that launched.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
 
-from lbm_tpu_torch.core.lattice import moments
-from lbm_tpu_torch.engine.compile import CompiledCase
-from lbm_tpu_torch.engine.step import fluid_speed_sum, make_step
+from lbm_tpu_torch.core.lattice import D3Q19, moments, phi
+from lbm_tpu_torch.engine.compile import (
+    CompiledBC,
+    CompiledCase,
+    live_block_ids,
+)
+from lbm_tpu_torch.engine.step import (
+    apply_bc_fixup,
+    collide,
+    fluid_speed_sum,
+    pulled_state,
+    step_tail,
+)
+from lbm_tpu_torch.geometry.mask import CellType
 
-launches = {"lbm_collide_stream_bgk": 0, "lbm_macro": 0}
+launches = {"lbm_collide_stream_bgk": 0, "lbm_fix_z_plane": 0,
+            "lbm_macro": 0}
 
 # ints per boundary descriptor row: kBCInts in csrc/collide_stream.cu
 _BC_ROW = 11
@@ -33,11 +53,65 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def collide_stream_plain(f, cc: CompiledCase):
-    """The dense step plus the fluid velsum: (f', sum_fluid |u|) with the
-    sum a float64 0-dim tensor."""
-    f_new, _, u = make_step(cc)(f)
+def collide_stream_plain(f, cc: CompiledCase, t: int):
+    """The dense step at absolute step t with the x/y-plane boundaries
+    only (those the kernel applies) plus the fluid velsum: (f',
+    sum_fluid |u|) with the sum a float64 0-dim tensor."""
+    f_new, _, u = step_tail(cc, f, pulled_state(cc, f, t, cc.kernel_bcs))
     return f_new, fluid_speed_sum(cc, u)
+
+
+def _speed(u):
+    return torch.sqrt(u[0] * u[0] + u[1] * u[1] + u[2] * u[2])
+
+
+def fix_z_plane_plain(f_src, f_out, cc: CompiledCase, bc: CompiledBC,
+                      t: int):
+    """One z-plane boundary's fixup over its window: the step of the
+    window's consumer-plane cells again, from the pre-step f_src, with
+    this boundary's NEE rewrite; writes their fluid cells into f_out in
+    place. Returns sum |u_fixed| - sum |u_pre-NEE| over those cells
+    (float64 0-dim), the velsum correction."""
+    x0, x1, y0, y1 = bc.window
+    c = bc.consumer_coord
+    nx, ny, nz = cc.shape
+    xs = torch.arange(x0, x1, device=f_src.device)[:, None]
+    ys = torch.arange(y0, y1, device=f_src.device)[None, :]
+    pulled = [f_src[0, x0:x1, y0:y1, c]]
+    for i in range(1, D3Q19.Q):
+        ex, ey, ez = (int(v) for v in D3Q19.E[i])
+        sx, sy, sz = (xs - ex) % nx, (ys - ey) % ny, (c - ez) % nz
+        wall = cc.mask[sx, sy, sz] == CellType.WALL
+        pulled.append(torch.where(wall,
+                                  f_src[D3Q19.OPP[i], x0:x1, y0:y1, c],
+                                  f_src[i, sx, sy, sz]))
+    pulled = torch.stack(pulled)[..., None]          # (19, wx, wy, 1)
+    speed_before = _speed(moments(pulled)[1])
+    window = dataclasses.replace(
+        bc, consumer_coord=0, valid=bc.valid[:, x0:x1, y0:y1],
+        phi_star=(None if bc.phi_star is None
+                  else bc.phi_star[:, x0:x1, y0:y1]),
+        phi_star_series=(None if bc.phi_star_series is None
+                         else bc.phi_star_series[:, :, x0:x1, y0:y1]))
+    apply_bc_fixup(pulled, f_src[:, x0:x1, y0:y1, c:c + 1], window, t)
+    rho, u = moments(pulled)
+    post = collide(pulled, rho[None] * phi(u), cc.tau)[..., 0]
+    fluid = cc.fluid[x0:x1, y0:y1, c]
+    plane = f_out[:, x0:x1, y0:y1, c]
+    plane.copy_(torch.where(fluid[None], post, plane))
+    diff = _speed(u).double() - speed_before.double()
+    return torch.where(fluid[..., None], diff,
+                       torch.zeros_like(diff)).sum(dtype=torch.float64)
+
+
+def step_plain(f, cc: CompiledCase, t: int):
+    """The plain version of `step`: (f', velsum) with the velsum a
+    float64 0-dim tensor."""
+    f_new, vs = collide_stream_plain(f, cc, t)
+    for bc in cc.z_bcs:
+        if bc.window is not None:
+            vs = vs + fix_z_plane_plain(f, f_new, cc, bc, t)
+    return f_new, vs
 
 
 def macro_plain(f):
@@ -54,14 +128,30 @@ def _check_state(f, cc: CompiledCase, name: str) -> None:
         raise ValueError(f"{name} is on {f.device}, the case on {cc.device}")
 
 
-def _bc_tables(cc: CompiledCase):
-    """Host descriptor rows and device table pointers for the kernel."""
-    n = len(cc.bcs)
+def _check_pair(f, out, cc: CompiledCase, series, slot: int) -> None:
+    _check_state(f, cc, "f")
+    _check_state(out, cc, "out")
+    if f.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {f.device}")
+    if out.data_ptr() == f.data_ptr():
+        raise ValueError("the step reads neighbors: out must not be f")
+    if series.dtype != torch.float64 or series.device != f.device \
+            or series.dim() != 1 or not 0 <= slot < series.numel():
+        raise ValueError("series must be a 1-D float64 tensor on f's device "
+                         "with the slot inside it")
+
+
+def _bc_tables(cc: CompiledCase, bcs=None, t: int = 0):
+    """Host descriptor rows and device table pointers for the kernels
+    (default: the collide-stream kernel's x/y-plane boundaries), with
+    series boundaries at their phase of step t."""
+    bcs = cc.kernel_bcs if bcs is None else bcs
+    n = len(bcs)
     ints = np.zeros((max(n, 1), _BC_ROW), np.int32)
     floats = np.zeros((max(n, 1), 2), np.float32)
     valid = (ctypes.c_void_p * max(n, 1))()
     phis = (ctypes.c_void_p * max(n, 1))()
-    for b, bc in enumerate(cc.bcs):
+    for b, bc in enumerate(bcs):
         lat_a = cc.shape[1] if bc.axis == 0 else cc.shape[0]
         extrap = bc.u_mode == "extrapolate"
         ints[b, :6] = (bc.axis, bc.consumer_coord, lat_a,
@@ -69,28 +159,48 @@ def _bc_tables(cc: CompiledCase):
         ints[b, 6 : 6 + len(bc.dirs)] = bc.dirs
         floats[b] = (0.0 if bc.rho_fixed is None else bc.rho_fixed, bc.omega)
         valid[b] = bc.valid.data_ptr()
-        phis[b] = None if extrap else bc.phi_star.data_ptr()
+        phis[b] = None if extrap else bc.phi_star_at(t).data_ptr()
     return ints, floats, valid, phis
 
 
-def collide_stream(f, out, cc: CompiledCase, series, t: int):
-    """One BGK step of f into out (a different buffer); writes the fluid
-    velsum, sum over fluid cells of |u| after the NEE rewrite, into
-    series[t] (float64). Returns out."""
-    _check_state(f, cc, "f")
-    _check_state(out, cc, "out")
-    if f.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no kernel for device {f.device}")
-    if out.data_ptr() == f.data_ptr():
-        raise ValueError("collide_stream reads neighbors: out must not be f")
-    if series.dtype != torch.float64 or series.device != f.device \
-            or series.dim() != 1 or not 0 <= t < series.numel():
-        raise ValueError("series must be a 1-D float64 tensor on f's device "
-                         "with t inside it")
+def _cached_tables(cc: CompiledCase, key, bcs, t: int):
+    """_bc_tables built once per case; only the phi* pointers of series
+    boundaries move with t."""
+    tab = cc.cache.get(key)
+    if tab is None:
+        tab = cc.cache[key] = _bc_tables(cc, bcs, t)
+    phis = tab[3]
+    for b, bc in enumerate(bcs):
+        if bc.u_mode == "series":
+            phis[b] = bc.phi_star_at(t).data_ptr()
+    return tab
+
+
+def _partials(cc: CompiledCase, key, n: int):
+    """A cached (n,) float64 scratch for a kernel's block partials (each
+    launch's reduction reads it before the next launch on the stream
+    writes it)."""
+    buf = cc.cache.get(key)
+    if buf is None or buf.numel() != n:
+        buf = cc.cache[key] = torch.empty(n, dtype=torch.float64,
+                                          device=cc.device)
+    return buf
+
+
+def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
+                   all_blocks: bool = False):
+    """One BGK step of f into out (a different buffer) at absolute step t
+    with the x/y-plane boundaries; writes the fluid velsum, sum over
+    fluid cells of |u| after their NEE rewrite, into series[slot]
+    (float64). The launch covers the case's live blocks (cc.live_blocks;
+    every block when that is None, or with all_blocks); the blocks left
+    out hold no fluid cell and must be equal in f and out. Returns out."""
+    _check_pair(f, out, cc, series, slot)
+    ids = None if all_blocks else cc.live_blocks
     if f.device.type == "cpu":
-        f_new, vs = collide_stream_plain(f, cc)
+        f_new, vs = collide_stream_plain(f, cc, t)
         out.copy_(f_new)
-        series[t] = vs
+        series[slot] = vs
         return out
     from lbm_tpu_torch.kernels._build import check, load_library
 
@@ -99,21 +209,65 @@ def collide_stream(f, out, cc: CompiledCase, series, t: int):
     n_cells = nx * ny * nz
     if n_cells >= 2**31:
         raise ValueError(f"{n_cells} cells: the kernel indexes cells in int32")
-    block = lib.lbm_block_size()
-    n_partials = -(-n_cells // block)
-    partials = torch.empty(n_partials, dtype=torch.float64, device=f.device)
-    ints, floats, valid, phis = _bc_tables(cc)
+    grid = -(-n_cells // lib.lbm_block_size()) if ids is None else ids.numel()
+    partials = _partials(cc, "k1a_partials", grid)
+    ints, floats, valid, phis = _cached_tables(cc, "k1a", cc.kernel_bcs, t)
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
         err = lib.lbm_collide_stream_bgk(
             f.data_ptr(), out.data_ptr(), cc.mask.data_ptr(),
             nx, ny, nz, cc.tau,
-            len(cc.bcs), ints.ctypes.data, floats.ctypes.data,
+            len(cc.kernel_bcs), ints.ctypes.data, floats.ctypes.data,
             ctypes.addressof(valid), ctypes.addressof(phis),
-            partials.data_ptr(), n_partials,
-            series.data_ptr(), t, stream)
+            None if ids is None else ids.data_ptr(), grid,
+            partials.data_ptr(), grid, series.data_ptr(), slot, stream)
     check(lib, err, "lbm_collide_stream_bgk")
     launches["lbm_collide_stream_bgk"] += 1
+    return out
+
+
+def fix_z_plane(f_src, f_out, cc: CompiledCase, bc: CompiledBC, series,
+                slot: int, t: int):
+    """The z-plane boundary `bc`'s fixup at absolute step t: f_src is the
+    pre-step state, f_out the collide-stream output, rewritten in place
+    over the boundary's window; adds the velsum correction to
+    series[slot]. Returns f_out."""
+    _check_pair(f_src, f_out, cc, series, slot)
+    if not any(b is bc for b in cc.z_bcs) or bc.window is None:
+        raise ValueError("bc must be one of the case's z-plane boundaries "
+                         "with a window")
+    if f_src.device.type == "cpu":
+        series[slot] += fix_z_plane_plain(f_src, f_out, cc, bc, t)
+        return f_out
+    from lbm_tpu_torch.kernels._build import check, load_library
+
+    lib = load_library().lib
+    nx, ny, nz = cc.shape
+    x0, x1, y0, y1 = bc.window
+    k = next(i for i, b in enumerate(cc.z_bcs) if b is bc)
+    grid = -(-((x1 - x0) * (y1 - y0)) // lib.lbm_block_size())
+    partials = _partials(cc, ("z_partials", k), grid)
+    ints, floats, valid, phis = _cached_tables(cc, ("z", k), [bc], t)
+    with torch.cuda.device(f_src.device):
+        stream = torch.cuda.current_stream(f_src.device).cuda_stream
+        err = lib.lbm_fix_z_plane(
+            f_src.data_ptr(), f_out.data_ptr(), cc.mask.data_ptr(),
+            nx, ny, nz, cc.tau, ints.ctypes.data, floats.ctypes.data,
+            valid[0], phis[0], x0, x1, y0, y1,
+            partials.data_ptr(), grid, series.data_ptr(), slot, stream)
+    check(lib, err, "lbm_fix_z_plane")
+    launches["lbm_fix_z_plane"] += 1
+    return f_out
+
+
+def step(f, out, cc: CompiledCase, series, slot: int, t: int):
+    """One whole step of f into out at absolute step t: the
+    collide-stream kernel, then the fixup of each z-plane boundary in
+    boundary order; series[slot] gets the step's fluid velsum."""
+    collide_stream(f, out, cc, series, slot, t)
+    for bc in cc.z_bcs:
+        if bc.window is not None:
+            fix_z_plane(f, out, cc, bc, series, slot, t)
     return out
 
 
@@ -142,5 +296,6 @@ def macro(f):
     return rho, u
 
 
-__all__ = ["collide_stream", "collide_stream_plain", "macro", "macro_plain",
-           "launches", "reset_launches"]
+__all__ = ["collide_stream", "collide_stream_plain", "fix_z_plane",
+           "fix_z_plane_plain", "step", "step_plain", "live_block_ids",
+           "macro", "macro_plain", "launches", "reset_launches"]

@@ -55,7 +55,7 @@ def _run_port(cc, steps):
     out = torch.empty_like(f)
     series = torch.zeros(steps, dtype=torch.float64)
     for t in range(steps):
-        K.collide_stream(f, out, cc, series, t)
+        K.collide_stream(f, out, cc, series, t, t)
         f, out = out, f
     return f, series
 
@@ -82,14 +82,15 @@ def test_wrapper_on_cpu_runs_the_plain_version(name):
     K.reset_launches()
     out = torch.empty_like(f0)
     series = torch.zeros(3, dtype=torch.float64)
-    K.collide_stream(f0, out, cc, series, 1)
-    f_plain, vs = K.collide_stream_plain(f0, cc)
+    K.collide_stream(f0, out, cc, series, 1, 0)
+    f_plain, vs = K.collide_stream_plain(f0, cc, 0)
     assert torch.equal(out, f_plain)
     assert series[1] == vs and series[0] == 0 and series[2] == 0
     rho, u = K.macro(out)
     rho_p, u_p = K.macro_plain(out)
     assert torch.equal(rho, rho_p) and torch.equal(u, u_p)
-    assert K.launches == {"lbm_collide_stream_bgk": 0, "lbm_macro": 0}
+    assert K.launches == {"lbm_collide_stream_bgk": 0, "lbm_fix_z_plane": 0,
+                          "lbm_macro": 0}
 
 
 def test_wrapper_rejects_bad_arguments():
@@ -98,15 +99,15 @@ def test_wrapper_rejects_bad_arguments():
     out = torch.empty_like(f)
     series = torch.zeros(2, dtype=torch.float64)
     with pytest.raises(ValueError, match="out must not be f"):
-        K.collide_stream(f, f, cc, series, 0)
+        K.collide_stream(f, f, cc, series, 0, 0)
     with pytest.raises(ValueError, match="series"):
-        K.collide_stream(f, out, cc, series.float(), 0)
+        K.collide_stream(f, out, cc, series.float(), 0, 0)
     with pytest.raises(ValueError, match="series"):
-        K.collide_stream(f, out, cc, series, 2)
+        K.collide_stream(f, out, cc, series, 2, 0)
     with pytest.raises(ValueError, match="float32"):
-        K.collide_stream(f.double(), out, cc, series, 0)
+        K.collide_stream(f.double(), out, cc, series, 0, 0)
     with pytest.raises(ValueError, match="shape"):
-        K.collide_stream(f[:, :-1].contiguous(), out, cc, series, 0)
+        K.collide_stream(f[:, :-1].contiguous(), out, cc, series, 0, 0)
     with pytest.raises(ValueError, match=r"\(19, X, Y, Z\)"):
         K.macro(f[:18].contiguous())
 
@@ -118,7 +119,7 @@ def test_wrapper_has_no_fallback_off_the_cpu():
     f = torch.empty((19, 8, 8, 8), device="meta")
     series = torch.zeros(1, dtype=torch.float64, device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
-        K.collide_stream(f, torch.empty_like(f), cc, series, 0)
+        K.collide_stream(f, torch.empty_like(f), cc, series, 0, 0)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         K.macro(f)
 

@@ -35,9 +35,9 @@ def test_collide_stream_kernel_matches_plain(device, name, n):
     vs_p = torch.zeros(4, dtype=torch.float64, device=device)
     K.reset_launches()
     for t in range(4):
-        K.collide_stream(fk, buf, cc, vs_k, t)
+        K.collide_stream(fk, buf, cc, vs_k, t, t)
         fk, buf = buf, fk
-        f, vs_p[t] = K.collide_stream_plain(f, cc)
+        f, vs_p[t] = K.collide_stream_plain(f, cc, t)
     torch.cuda.synchronize()
     assert K.launches["lbm_collide_stream_bgk"] == 4
     torch.testing.assert_close(fk, f, rtol=3e-6, atol=1e-7)
@@ -47,7 +47,7 @@ def test_collide_stream_kernel_matches_plain(device, name, n):
 def test_macro_kernel_matches_plain(device):
     cc = compile_case(get_case("poiseuille", n=24), device)
     f = initial_f(cc)
-    f, _ = K.collide_stream_plain(f, cc)
+    f, _ = K.collide_stream_plain(f, cc, 0)
     rho, u = K.macro(f)
     rho_p, u_p = K.macro_plain(f)
     torch.testing.assert_close(rho, rho_p, rtol=1e-6, atol=1e-7)
@@ -63,3 +63,61 @@ def test_simulation_backends_agree_on_the_card(device):
     torch.testing.assert_close(a.f, b.f, rtol=3e-6, atol=1e-7)
     assert abs(ra.velsum_series - rb.velsum_series).max() <= \
         1e-5 * abs(rb.velsum_series).min()
+
+
+VESSELS = [("coronary", dict(shape=(64, 48, 96), radius=4)),
+           ("coronary", dict(shape=(64, 48, 96), radius=4,
+                             pulsatile=(4, 8))),
+           ("curved_vessel", dict(n=32, nphase=4, period_steps=8))]
+
+
+@pytest.mark.parametrize("name,kw", VESSELS)
+def test_vessel_step_matches_plain(device, name, kw):
+    """The whole kernel step (collide-stream over the live blocks, then
+    lbm_fix_z_plane per z-plane outlet) against step_plain, 12 steps
+    across 6 series phases."""
+    cc = compile_case(get_case(name, **kw), device)
+    f = initial_f(cc)
+    fk, buf = f.clone(), f.clone()
+    vs_k = torch.zeros(12, dtype=torch.float64, device=device)
+    vs_p = torch.zeros(12, dtype=torch.float64, device=device)
+    K.reset_launches()
+    for t in range(12):
+        K.step(fk, buf, cc, vs_k, t, t)
+        fk, buf = buf, fk
+        f, vs_p[t] = K.step_plain(f, cc, t)
+    torch.cuda.synchronize()
+    assert K.launches["lbm_collide_stream_bgk"] == 12
+    assert K.launches["lbm_fix_z_plane"] == 12 * len(cc.z_bcs)
+    torch.testing.assert_close(fk, f, rtol=3e-6, atol=1e-7)
+    torch.testing.assert_close(vs_k, vs_p, rtol=1e-5, atol=0.0)
+
+
+def test_fix_z_plane_kernel_matches_plain(device):
+    cc = compile_case(get_case("coronary", shape=(64, 48, 96), radius=4),
+                      device)
+    f0 = initial_f(cc)
+    f1, _ = K.step_plain(f0, cc, 0)
+    xy, _ = K.collide_stream_plain(f1, cc, 1)
+    for bc in cc.z_bcs:
+        a, b = xy.clone(), xy.clone()
+        s = torch.zeros(1, dtype=torch.float64, device=device)
+        K.fix_z_plane(f1, a, cc, bc, s, 0, 1)
+        d = K.fix_z_plane_plain(f1, b, cc, bc, 1)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(a, b, rtol=3e-6, atol=1e-7)
+        assert abs(float(s[0]) - float(d)) <= 1e-5 * abs(float(d)) + 1e-12
+
+
+def test_live_block_launch_equals_the_full_launch(device):
+    cc = compile_case(get_case("coronary", shape=(64, 48, 96), radius=4),
+                      device)
+    assert cc.live_blocks is not None
+    f = initial_f(cc)
+    f, _ = K.step_plain(f, cc, 0)
+    s = torch.zeros(2, dtype=torch.float64, device=device)
+    live = K.collide_stream(f, f.clone(), cc, s, 0, 1)
+    full = K.collide_stream(f, f.clone(), cc, s, 1, 1, all_blocks=True)
+    torch.cuda.synchronize()
+    assert torch.equal(live, full)
+    assert float(s[0]) == pytest.approx(float(s[1]), rel=1e-12)

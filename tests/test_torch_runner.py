@@ -102,9 +102,9 @@ def test_case_from_reference_gives_the_same_run():
     cc_a, cc_b = compile_case(spec), compile_case(own)
     fa, fb = initial_f(cc_a), initial_f(cc_b)
     sa, sb = make_step(cc_a), make_step(cc_b)
-    for _ in range(4):
-        fa, _, _ = sa(fa)
-        fb, _, _ = sb(fb)
+    for t in range(4):
+        fa, _, _ = sa(fa, t)
+        fb, _, _ = sb(fb, t)
     assert torch.equal(fa, fb)
     assert spec.boundaries[0].u_field is not ref_spec.boundaries[0].u_field
     assert type(spec.units).__module__.startswith("lbm_tpu_torch")
@@ -185,7 +185,8 @@ def test_cli_writes_vtk_and_convergence_log(tmp_path):
     listing = subprocess.run([sys.executable, "-m", "lbm_tpu_torch", "list"],
                              cwd=ROOT, capture_output=True, text=True,
                              timeout=120)
-    assert listing.stdout.split() == ["lid_driven_cavity", "poiseuille"]
+    assert listing.stdout.split() == ["coronary", "curved_vessel",
+                                      "lid_driven_cavity", "poiseuille"]
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -209,13 +210,14 @@ def test_refuses_unported_boundaries():
     spec.wall_sdf = np.ones(spec.shape, np.float32)
     with pytest.raises(NotImplementedError, match="Bouzidi"):
         compile_case(spec)
-    for change in (dict(u_mode="series",
-                        u_series=np.zeros((2, 3, 8, 8), np.float32)),
-                   dict(axis=2)):
-        spec = get_case("poiseuille", n=8)
-        spec.boundaries[0] = dataclasses.replace(spec.boundaries[0], **change)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            compile_case(spec)
+    # five x/y-plane boundaries: one more than the kernel's descriptor
+    # array; z-plane boundaries do not count (coronary has three)
+    spec = get_case("poiseuille", n=8)
+    spec.boundaries = spec.boundaries * 2 + spec.boundaries[:1]
+    with pytest.raises(NotImplementedError, match="at most 4"):
+        compile_case(spec)
+    assert len(compile_case(get_case(
+        "coronary", shape=(24, 20, 32), radius=4)).z_bcs) == 3
 
 
 def test_cuda_without_a_card_raises(monkeypatch):

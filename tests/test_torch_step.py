@@ -40,7 +40,7 @@ def test_dense_step_matches_reference(name):
     rf = ref_step.initial_f(ref)
     st, rst = step.make_step(cc), jax.jit(ref_step.make_step(ref))
     for t in range(4):
-        f, rho, u = st(f)
+        f, rho, u = st(f, t)
         rf, rrho, ru = rst(rf, jnp.int32(t))
     np.testing.assert_allclose(f.numpy(), np.asarray(rf), rtol=3e-6, atol=1e-7)
     fluid = np.asarray(ref.fluid)
@@ -57,8 +57,8 @@ def test_dense_step_matches_reference(name):
 def test_macro_fields_match_reference():
     cc, ref = _both("poiseuille")
     f = step.initial_f(cc)
-    for _ in range(3):
-        f, _, _ = step.make_step(cc)(f)
+    for t in range(3):
+        f, _, _ = step.make_step(cc)(f, t)
     rho, u = step.macro_fields(cc, f)
     rrho, ru = ref_step.macro_fields(ref, jnp.asarray(f.numpy()))
     np.testing.assert_allclose(rho.numpy(), np.asarray(rrho), rtol=1e-6)
@@ -73,7 +73,7 @@ def test_macro_fields_match_reference():
 def test_non_fluid_cells_keep_their_state():
     cc, _ = _both("lid_driven_cavity")
     f0 = step.initial_f(cc)
-    f, _, _ = step.make_step(cc)(f0)
+    f, _, _ = step.make_step(cc)(f0, 0)
     nonfluid = ~cc.fluid
     assert torch.equal(f[:, nonfluid], f0[:, nonfluid])
 
@@ -84,8 +84,8 @@ def test_lid16_golden_field():
     cc, _ = _both("lid_driven_cavity")
     f = step.initial_f(cc)
     st = step.make_step(cc)
-    for _ in range(100):
-        f, _, _ = st(f)
+    for t in range(100):
+        f, _, _ = st(f, t)
     rho, u = step.macro_fields(cc, f)
     with np.load(GOLDEN) as g:
         np.testing.assert_allclose(u.numpy(), g["u"], rtol=2e-4, atol=1.5e-6)
