@@ -77,17 +77,50 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def in_turns(label, plain, kernel, iters_p, iters_k):
+def in_turns(label, plain, kernel, iters_p, iters_k, names="plain/kernel"):
     """(kernel ms, plain ms): turns plain, kernel, kernel, plain."""
     p1, k1 = time_ms(plain, iters_p), time_ms(kernel, iters_k)
     k2, p2 = time_ms(kernel, iters_k), time_ms(plain, iters_p)
-    print(f"[3] timing {label} (ms per call, turns plain/kernel/kernel/"
-          f"plain): {p1:.4f} {k1:.4f} {k2:.4f} {p2:.4f}", flush=True)
+    a, b = names.split("/")
+    print(f"[3] timing {label} (ms per call, turns {a}/{b}/{b}/{a}): "
+          f"{p1:.4f} {k1:.4f} {k2:.4f} {p2:.4f}", flush=True)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
 def bound_ms(n_bytes: float) -> float:
     return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def step_bytes(cc, sel, bcs) -> int:
+    """The least bytes that stepping the fluid cells `sel` ((X, Y, Z)
+    bool) with the NEE boundaries `bcs` must move: each population they
+    pull (a neighbor's, or their own opposite off a wall) and each own
+    pre-step population an NEE rewrite reads, once; their 19 populations
+    written once; their mask bytes; the valid bytes and phi* floats of
+    their NEE directions. Non-fluid cells keep their state in both
+    buffers, so they cost nothing."""
+    import torch
+
+    from lbm_tpu_torch.core.lattice import D3Q19
+    from lbm_tpu_torch.geometry.mask import CellType
+
+    wall = cc.mask == CellType.WALL
+    nee = torch.zeros_like(sel)
+    tables = 0
+    for bc in bcs:
+        on = bc.valid.any(0) & sel.select(bc.axis, bc.consumer_coord)
+        nee.select(bc.axis, bc.consumer_coord).logical_or_(on)
+        per_dir = 1 if bc.u_mode == "extrapolate" else 5
+        tables += int(on.sum()) * len(bc.dirs) * per_dir
+    reads = int((sel | nee).sum())             # population 0
+    for j in range(1, 19):
+        back = tuple(-int(v) for v in D3Q19.E[j])
+        # population j of cell s is pulled by fluid cell s + e_j unless s
+        # is a wall; off a wall at x + e_j, fluid cell x reads its own
+        pulled = ((torch.roll(sel, back, (0, 1, 2)) & ~wall)
+                  | (sel & torch.roll(wall, back, (0, 1, 2))))
+        reads += int((pulled | nee).sum())
+    return reads * 4 + int(sel.sum()) * (19 * 4 + 1) + tables
 
 
 def rel_l2(a, b) -> float:
@@ -206,12 +239,16 @@ def compare_case(case, steps, device, errs, macro_steps=None, spec=None):
               f"{r_rel:.3e}", flush=True)
 
 
-def time_lid(n, device, iters_k, iters_p):
-    """(K1a ms, plain ms, K3 ms, plain ms) per call at lid n^3."""
+def time_lid(n, device, iters_k, iters_p, with_list=False):
+    """{K1a, its plain version, K3, its plain version, K1a's bound} in ms
+    per call at lid n^3; with_list adds K1a over the live-block list
+    against K1a over every block ("list", "full")."""
+    import dataclasses
+
     import torch
 
     from lbm_tpu_torch.cases import get_case
-    from lbm_tpu_torch.engine.compile import compile_case
+    from lbm_tpu_torch.engine.compile import compile_case, live_block_ids
     from lbm_tpu_torch.engine.step import initial_f
     from lbm_tpu_torch.kernels import collide_stream as K
 
@@ -228,10 +265,30 @@ def time_lid(n, device, iters_k, iters_p):
         plain_f[0] = K.collide_stream_plain(plain_f[0], cc, 0)[0]
 
     f = state[0]
-    k1a_ms = in_turns(f"K1a lid {n}^3", k1a_plain, k1a, iters_p, iters_k)
-    k3_ms = in_turns(f"K3 lid {n}^3", lambda: K.macro_plain(f),
-                     lambda: K.macro(f), iters_p, iters_k)
-    return k1a_ms + k3_ms
+    out = {}
+    out["k1a"], out["k1a_plain"] = in_turns(f"K1a lid {n}^3", k1a_plain,
+                                            k1a, iters_p, iters_k)
+    out["k3"], out["k3_plain"] = in_turns(
+        f"K3 lid {n}^3", lambda: K.macro_plain(f), lambda: K.macro(f),
+        iters_p, iters_k)
+    out["k1a_bound"] = bound_ms(step_bytes(cc, cc.fluid, cc.kernel_bcs))
+    if with_list:
+        ids = live_block_ids(cc.spec.mask)
+        listed = dataclasses.replace(
+            cc, live_blocks=torch.from_numpy(ids).to(device))
+
+        def launch(case, all_blocks):
+            def go():
+                K.collide_stream(state[0], state[1], case, series, 0, 0,
+                                 all_blocks)
+                state.reverse()
+            return go
+
+        out["list"], out["full"] = in_turns(
+            f"K1a lid {n}^3 over {len(ids)} of {-(-cc.mask.numel() // 256)} "
+            "blocks", launch(cc, True), launch(listed, False), iters_k,
+            iters_k, names="every block/live list")
+    return out
 
 
 def time_vessel(spec, device):
@@ -267,10 +324,8 @@ def time_vessel(spec, device):
     out["k1a_all"], _ = in_turns(
         "K1a coronary full, every block", k1a_plain, k1a(True), 1, 300)
     n_live = cc.live_blocks.numel()
-    live_cells = min(n_live * 256, n_cells)
-    # f read + f written + the mask, over the cells of the live blocks
-    out["k1a_bound"] = bound_ms(live_cells * (19 * 4 * 2 + 1))
-    out["k1a_all_bound"] = bound_ms(n_cells * (19 * 4 * 2 + 1))
+    # the same work whatever the launch covers: the fluid cells' step
+    out["k1a_bound"] = bound_ms(step_bytes(cc, cc.fluid, cc.kernel_bcs))
     out["live_share"] = n_live / -(-n_cells // 256)
 
     fz = [state[0], state[1].clone()]
@@ -283,14 +338,11 @@ def time_vessel(spec, device):
             lambda bc=bc: K.fix_z_plane_plain(fz[0], fz[1], cc, bc, 0),
             lambda bc=bc: K.fix_z_plane(fz[0], fz[1], cc, bc, series, 0, 0),
             20, 2000)
-        n_win = (x1 - x0) * (y1 - y0)
-        n_fl = int(cc.fluid[x0:x1, y0:y1, bc.consumer_coord].sum())
-        d = len(bc.dirs)
-        # a window fluid cell reads its 19 own and 18 pulled populations
-        # and D valid bytes + D phi* floats, and writes 19; every window
-        # cell reads its mask byte
-        nbytes = n_fl * (19 * 4 + 18 * 4 + 19 * 4 + d * 5) + n_win
-        kz.append(k_ms), pz.append(p_ms), bz.append(bound_ms(nbytes))
+        sel = torch.zeros_like(cc.fluid)
+        sel[x0:x1, y0:y1, bc.consumer_coord] = \
+            cc.fluid[x0:x1, y0:y1, bc.consumer_coord]
+        kz.append(k_ms), pz.append(p_ms)
+        bz.append(bound_ms(step_bytes(cc, sel, [bc])))
     out["fix"], out["fix_plain"] = sum(kz) / len(kz), sum(pz) / len(pz)
     out["fix_bound"] = sum(bz) / len(bz)
 
@@ -303,8 +355,8 @@ def time_vessel(spec, device):
         5, 200)
     out["k3_library"] = time_ms(lambda: torch.matmul(m, f.view(19, -1)), 200)
     out["k3_bound"] = bound_ms(n_cells * (19 * 4 + 4 * 4))
-    print(f"[3] coronary full bounds at 3.35 TB/s (ms): K1a live "
-          f"{out['k1a_bound']:.4f}, every block {out['k1a_all_bound']:.4f}; "
+    print(f"[3] coronary full bounds at 3.35 TB/s (ms): K1a "
+          f"{out['k1a_bound']:.6f} ({int(cc.fluid.sum())} fluid cells); "
           f"lbm_fix_z_plane {out['fix_bound']:.6f} per launch; K3 "
           f"{out['k3_bound']:.4f}; torch.matmul moments "
           f"{out['k3_library']:.4f} ms; live-block share "
@@ -407,7 +459,7 @@ def main() -> int:
     compare_case(("coronary", FULL_CORONARY), 2, device, errs, spec=full)
     free_device()
     t64 = time_lid(64, device, iters_k=2000, iters_p=100)
-    t256 = time_lid(256, device, iters_k=1000, iters_p=20)
+    t256 = time_lid(256, device, iters_k=1000, iters_p=20, with_list=True)
     tv = time_vessel(full, device)
     free_device()
 
@@ -555,10 +607,11 @@ def main() -> int:
          "plain_ms": tv["k1a_plain"], "bound_ms": tv["k1a_bound"],
          "bound_by": "bytes", "library_ms": None,
          "ms_every_block": tv["k1a_all"],
-         "bound_ms_every_block": tv["k1a_all_bound"],
          "lid256_launches": lid_counts["lbm_collide_stream_bgk"],
-         "lid256_ms": t256[0], "lid256_plain_ms": t256[1],
-         "lid256_bound_ms": bound_ms(256**3 * (19 * 4 * 2 + 1))},
+         "lid256_ms": t256["k1a"], "lid256_plain_ms": t256["k1a_plain"],
+         "lid256_bound_ms": t256["k1a_bound"],
+         "lid256_ms_every_block": t256["full"],
+         "lid256_ms_live_list": t256["list"]},
         {"name": "lbm_fix_z_plane", "route": "cuda", "source": K1A_SOURCE,
          "replaces": "lbm_tpu/kernels/collide_stream.py:2695",
          "also_replaces": "lbm_tpu/kernels/collide_stream.py:2770",
@@ -577,11 +630,12 @@ def main() -> int:
          "plain_ms": tv["k3_plain"], "bound_ms": tv["k3_bound"],
          "bound_by": "bytes", "library_ms": tv["k3_library"],
          "lid256_launches": lid_counts["lbm_macro"],
-         "lid256_ms": t256[2], "lid256_plain_ms": t256[3],
+         "lid256_ms": t256["k3"], "lid256_plain_ms": t256["k3_plain"],
          "lid256_bound_ms": bound_ms(256**3 * (19 * 4 + 4 * 4))},
     ]
-    print(f"[done] ms at 64^3: K1a {t64[0]:.4f} plain {t64[1]:.4f}, K3 "
-          f"{t64[2]:.4f} plain {t64[3]:.4f}; total "
+    print(f"[done] ms at 64^3: K1a {t64['k1a']:.4f} plain "
+          f"{t64['k1a_plain']:.4f}, K3 {t64['k3']:.4f} plain "
+          f"{t64['k3_plain']:.4f}; total "
           f"{time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,7 @@ then moved to the device once:
     takes the x/y boundaries only;
   - `live_blocks`: ids of the collide-stream kernel's 256-cell blocks
     that hold a non-DEAD cell (lbm_tpu's `live_tile_ids`), or None when
-    skipping would not pay (lbm_tpu's tile_skip='auto' rule);
+    skipping would not pay (SKIP_BELOW, measured on the H100);
   - `velsum_offset`/`usq_offset`: the constant residual contribution of
     non-fluid cells, which hold their initial state forever.
 
@@ -50,10 +50,13 @@ MAX_BCS = 4
 # Cells per block of the collide-stream kernel (kBlock in
 # kernels/csrc/collide_stream.cu): the unit of the live-block list.
 BLOCK = 256
-# lbm_tpu's tile_skip='auto' rule: skip dead blocks only when fewer than
-# this share of the blocks is live (the lid cavity's dead border rows
-# leave 98% of its blocks live, so it launches over the full grid).
-SKIP_BELOW = 0.6
+# Launch over the live-block list only when fewer than this share of the
+# blocks is live. On an H100 a listed block costs 2.3% more than the same
+# block in the full launch (the load of its id) and a dead block's copy
+# 79% of a live block, so the list pays below about 97% live blocks;
+# 0.95 leaves a margin for that two-point estimate (PERF.md, PR 2). The
+# lid cavity at 64^3 and up (97-98% live) keeps the full launch.
+SKIP_BELOW = 0.95
 
 
 def _phi_np(u: np.ndarray, dirs: np.ndarray) -> np.ndarray:
@@ -104,7 +107,7 @@ class CompiledBC:
         return (int(t) // self.series_stride) % self.phi_star_series.shape[0]
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(eq=False)  # hashed by identity: a weak-dict key
 class CompiledCase:
     name: str
     shape: tuple[int, int, int]
@@ -119,8 +122,6 @@ class CompiledCase:
     usq_offset: float
     spec: CaseSpec
     live_blocks: Optional[torch.Tensor] = None  # (n,) int32 block ids
-    # per-case scratch of the kernel wrappers (descriptor rows, partials)
-    cache: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @functools.cached_property
     def nbr_wall(self) -> torch.Tensor:

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
@@ -163,28 +164,31 @@ def _bc_tables(cc: CompiledCase, bcs=None, t: int = 0):
     return ints, floats, valid, phis
 
 
-def _cached_tables(cc: CompiledCase, key, bcs, t: int):
-    """_bc_tables built once per case; only the phi* pointers of series
-    boundaries move with t."""
-    tab = cc.cache.get(key)
-    if tab is None:
-        tab = cc.cache[key] = _bc_tables(cc, bcs, t)
+# The wrappers' scratch per case, dropped with the case: {(kernel, bc
+# ids): (bcs, descriptor rows, partials)}. An entry holds its boundaries,
+# so their ids stay unique while it lives.
+_scratch: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _launch_scratch(cc: CompiledCase, kernel: str, bcs, t: int, n: int):
+    """The descriptor rows of `bcs` at step t and an (n,) float64 buffer
+    for the kernel's block partials, both built once per case and
+    boundary list: only the phi* pointers of series boundaries move with
+    t. (Each launch's reduction reads the partials before the next launch
+    on the stream writes them.)"""
+    per_case = _scratch.setdefault(cc, {})
+    key = (kernel,) + tuple(id(bc) for bc in bcs)
+    entry = per_case.get(key)
+    if entry is None:
+        entry = per_case[key] = (list(bcs), _bc_tables(cc, bcs, t), {})
+    _, tab, partials = entry
     phis = tab[3]
     for b, bc in enumerate(bcs):
         if bc.u_mode == "series":
             phis[b] = bc.phi_star_at(t).data_ptr()
-    return tab
-
-
-def _partials(cc: CompiledCase, key, n: int):
-    """A cached (n,) float64 scratch for a kernel's block partials (each
-    launch's reduction reads it before the next launch on the stream
-    writes it)."""
-    buf = cc.cache.get(key)
-    if buf is None or buf.numel() != n:
-        buf = cc.cache[key] = torch.empty(n, dtype=torch.float64,
-                                          device=cc.device)
-    return buf
+    if n not in partials:
+        partials[n] = torch.empty(n, dtype=torch.float64, device=cc.device)
+    return tab, partials[n]
 
 
 def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
@@ -210,8 +214,8 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
     if n_cells >= 2**31:
         raise ValueError(f"{n_cells} cells: the kernel indexes cells in int32")
     grid = -(-n_cells // lib.lbm_block_size()) if ids is None else ids.numel()
-    partials = _partials(cc, "k1a_partials", grid)
-    ints, floats, valid, phis = _cached_tables(cc, "k1a", cc.kernel_bcs, t)
+    (ints, floats, valid, phis), partials = _launch_scratch(
+        cc, "k1a", cc.kernel_bcs, t, grid)
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
         err = lib.lbm_collide_stream_bgk(
@@ -244,10 +248,9 @@ def fix_z_plane(f_src, f_out, cc: CompiledCase, bc: CompiledBC, series,
     lib = load_library().lib
     nx, ny, nz = cc.shape
     x0, x1, y0, y1 = bc.window
-    k = next(i for i, b in enumerate(cc.z_bcs) if b is bc)
     grid = -(-((x1 - x0) * (y1 - y0)) // lib.lbm_block_size())
-    partials = _partials(cc, ("z_partials", k), grid)
-    ints, floats, valid, phis = _cached_tables(cc, ("z", k), [bc], t)
+    (ints, floats, valid, phis), partials = _launch_scratch(
+        cc, "z", [bc], t, grid)
     with torch.cuda.device(f_src.device):
         stream = torch.cuda.current_stream(f_src.device).cuda_stream
         err = lib.lbm_fix_z_plane(

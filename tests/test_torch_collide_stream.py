@@ -158,3 +158,34 @@ def test_bc_descriptor_rows():
     assert floats[0, 1] == np.float32(cc.bcs[0].omega)
     assert valid[0] == cc.bcs[0].valid.data_ptr()
     assert phis[1] == cc.bcs[1].phi_star.data_ptr()
+
+
+def test_launch_scratch_is_per_case_and_moves_series_phases():
+    """The wrappers' descriptor rows and partials live in the kernels
+    module, one set per case object: a copy of the case builds its own,
+    series boundaries get the phi* table of the step's phase, and the
+    rows go with the case."""
+    import dataclasses
+    import gc
+
+    cc = compile_case(get_case("coronary", shape=(24, 20, 32), radius=4,
+                               pulsatile=(4, 8)))
+    inlet = cc.kernel_bcs[0]
+    assert inlet.u_mode == "series"
+    (ints, _, _, phis), part = K._launch_scratch(cc, "k1a", cc.kernel_bcs,
+                                                 0, 5)
+    assert phis[0] == inlet.phi_star_series[0].data_ptr()
+    t = 3 * inlet.series_stride  # phase 3
+    (ints2, _, _, phis2), part2 = K._launch_scratch(cc, "k1a", cc.kernel_bcs,
+                                                    t, 5)
+    assert ints2 is ints and part2 is part and part.shape == (5,)
+    assert phis2[0] == inlet.phi_star_series[3].data_ptr()
+    copy = dataclasses.replace(cc)
+    (ints3, _, _, _), part3 = K._launch_scratch(copy, "k1a", copy.kernel_bcs,
+                                                0, 5)
+    assert ints3 is not ints and part3 is not part
+    assert not hasattr(cc, "cache")
+    n = len(K._scratch)
+    del cc, copy
+    gc.collect()
+    assert len(K._scratch) == n - 2
