@@ -8,16 +8,29 @@ no result line):
   1. a CUDA card is present; print its name and power limit, nvcc's
      version and torch's;
   2. build the CUDA kernels from kernels/csrc with nvcc and print the
-     build time and ptxas's register report;
+     build time and ptxas's registers and spills per kernel instance;
   3. hold each kernel against its plain PyTorch version on the card (f
-     at rtol 3e-6, atol 1e-7, expected bit-equal; velsum at 1e-5
-     relative; macro() after 200 steps at relative L2 <= 1e-5; K3 at
-     rtol 1e-6, atol 1e-7): the whole step and each kernel alone on lid
-     64^3, poiseuille 32^3, coronary (64, 48, 96) r=4 steady and
-     pulsatile=[4, 40] for 200 steps, curved_vessel 64^3, then lid 256^3
-     and the full-size coronary for 2 steps; the live-block launch
-     against the full one; then time kernels and plain versions in turns
-     with CUDA events, with each kernel's bound (bytes over 3.35 TB/s);
+     at rtol 3e-6, atol 1e-7; velsum at 1e-5 relative; macro() after 200
+     steps at relative L2 <= 1e-5; K3 at rtol 1e-6, atol 1e-7): the whole
+     step and each kernel alone on lid 64^3, poiseuille 32^3, coronary
+     (64, 48, 96) r=4 steady and pulsatile=[4, 40] for 200 steps,
+     curved_vessel 64^3, then lid 256^3 and the full-size coronary for 2
+     steps; the live-block launch against the full one. Then the
+     collision branches (K1b), 200 steps each: lid 64^3 with TRT, MRT,
+     Smagorinsky and the moving (bounce-back) lid, gravity_channel 32^3
+     with BGK and TRT (MRT on the dense backend, the kernel route
+     refusing it), pipe n=36 (staircase) with its force, poiseuille 32^3
+     with power-law, Carreau (a=2, a=1.5) and Casson, and the pulsatile
+     coronary with TRT + Carreau blood (the z-plane fixup runs the
+     closure): BGK/TRT with and without force, MRT and the moving walls
+     must be bit-equal, the closures within the tolerance above, K3 with
+     the force shift bit-equal; the blood path's instance (TRT + Carreau
+     blood at the full coronary's units) and the force path's
+     (gravity_channel 256^3 TRT + force, bit-equal) at their own sizes
+     for 2 steps. Then time kernels and plain versions in turns with CUDA
+     events, with each kernel's bound (the bytes it must move over 3.35
+     TB/s), including one collide-stream launch per branch at lid 256^3
+     and gravity_channel 256^3 TRT+force;
   4. the lid main path: Simulation(lid_driven_cavity n=256).run(1000
      steps, time_save=250) and macro(), launch counters reset just
      before and read just after (K1a 1000 times over the full grid, K3
@@ -27,9 +40,21 @@ no result line):
      counters reset just before and read just after (K1a 2000, the
      z-plane fixup 6000, K3 at least 4), finite fields with max|u| within
      3x the inlet speed;
-  6. the CLI: `python -m lbm_tpu_torch run` on the 64^3 cavity for 500
-     steps writes VTK and CONVERGENCE.log, and on the default coronary
-     (128, 64, 96) writes VTK with density.
+  6. the blood path: the same coronary with collision='trt' and the
+     Carreau blood closure (carreau_blood of its units), 2000 steps
+     (one pulse period): counters reset just before and read just after
+     (the TRT+Carreau collide-stream instance 2000, its z-plane fixup
+     6000, K3 at least 4), finite fields, max|u| within 3x the inlet
+     speed, tau_eff inside the closure's clip and varying; ms/step, mlups,
+     peak memory and a 200-step profile;
+  7. the force path: gravity_channel n=256 nz=256 with collision='trt'
+     and its default fz, 1000 steps (counters: TRT+force 1000, K3 with
+     the force shift at least twice), finite fields, u_z > 0 at the duct
+     centre, mean u_z rising, |u_x|, |u_y| <= 1e-3 max u_z;
+  8. the CLI: `python -m lbm_tpu_torch run` on the 64^3 cavity for 500
+     steps writes VTK and CONVERGENCE.log, on the default coronary
+     (128, 64, 96) writes VTK with density, and on gravity_channel 64^3
+     with --opt collision=trt writes VTK.
 Before the last line it prints one JSON object describing each kernel;
 the last line is {"ok": true, "device": {...}}.
 """
@@ -145,11 +170,14 @@ def check_close(name, got, ref, rtol, atol) -> float:
     return float(err.max())
 
 
-def compare_case(case, steps, device, errs, macro_steps=None, spec=None):
+def compare_case(case, steps, device, errs, macro_steps=None, spec=None,
+                 exact=False, label=None):
     """Kernel vs plain on one case: the whole step (collide-stream plus
     z-plane fixups) for `steps` steps, then each kernel alone on the
-    result, the live-block launch against the full one, K3, and
-    optionally macro() after `macro_steps` steps of both backends."""
+    result, the live-block launch against the full one, K3 (with the
+    case's force shift), and optionally macro() after `macro_steps` steps
+    of both backends. exact: every kernel must equal its plain version
+    bit for bit. Returns the max abs errors {"f", "k1a", "z", "k3"}."""
     import torch
 
     from lbm_tpu_torch.cases import get_case
@@ -171,7 +199,7 @@ def compare_case(case, steps, device, errs, macro_steps=None, spec=None):
         fk, buf = buf, fk
         fp, vs_p[t] = K.step_plain(fp, cc, t)
     torch.cuda.synchronize()
-    tag = f"{name} {tuple(spec.shape)} {kw}"
+    tag = label or f"{name} {tuple(spec.shape)} {kw}"
     e_f = check_close(f"step f after {steps} steps, {tag}", fk, fp, 3e-6,
                       1e-7)
     vs_rel = float(((vs_k - vs_p).abs() / vs_p.abs()).max())
@@ -200,10 +228,14 @@ def compare_case(case, steps, device, errs, macro_steps=None, spec=None):
                                  0, t, all_blocks=True)
         require(torch.equal(all_k, out_k),
                 f"live-block launch differs from the full launch, {tag}")
-    rho_k, u_k = K.macro(fk)
-    rho_p, u_p = K.macro_plain(fk)
+    rho_k, u_k = K.macro(fk, cc.force)
+    rho_p, u_p = K.macro_plain(fk, cc.force)
     e_m = max(check_close(f"K3 rho {tag}", rho_k, rho_p, 1e-6, 1e-7),
               check_close(f"K3 u {tag}", u_k, u_p, 1e-6, 1e-7))
+    if exact:
+        require(e_f == e_k1 == e_z == e_m == 0.0,
+                f"{tag}: not bit-equal (f {e_f:.3e}, K1a {e_k1:.3e}, "
+                f"z {e_z:.3e}, K3 {e_m:.3e})")
     errs["K1a"] = max(errs["K1a"], e_f, e_k1)
     errs["Kz"] = max(errs["Kz"], e_z)
     errs["K3"] = max(errs["K3"], e_m)
@@ -237,6 +269,76 @@ def compare_case(case, steps, device, errs, macro_steps=None, spec=None):
         print(f"[3] {tag}: macro() after {macro_steps} steps rel L2 rho "
               f"{e_rho:.3e} u {e_u:.3e}; residual series max rel err "
               f"{r_rel:.3e}", flush=True)
+    return {"f": e_f, "k1a": e_k1, "z": e_z, "k3": e_m}
+
+
+def branch_cases(blood):
+    """The collision branches phase 3 holds against their plain versions:
+    (label, case, options, bit-equal?). `blood`: the Carreau blood
+    rheology dict of the small coronary's units."""
+    carreau = {"model": "carreau", "nu0": 0.1, "nu_inf": 0.01,
+               "lam": 100.0, "n": 0.4}
+    small = dict(shape=[64, 48, 96], radius=4, pulsatile=[4, 40])
+    return [
+        ("lid 64^3 trt", "lid_driven_cavity", dict(n=64, collision="trt"),
+         True),
+        ("lid 64^3 mrt", "lid_driven_cavity", dict(n=64, collision="mrt"),
+         True),
+        ("lid 64^3 smag 0.15", "lid_driven_cavity",
+         dict(n=64, smagorinsky_cs=0.15), False),
+        ("lid 64^3 moving lid", "lid_driven_cavity",
+         dict(n=64, lid="bounceback"), True),
+        ("gravity_channel 32^3 bgk+force", "gravity_channel",
+         dict(n=32, nz=32), True),
+        ("gravity_channel 32^3 trt+force", "gravity_channel",
+         dict(n=32, nz=32, collision="trt"), True),
+        ("pipe n=36 staircase bgk+force", "pipe", dict(n=36, curved=False),
+         True),
+        ("poiseuille 32^3 power law", "poiseuille", dict(n=32, rheology={
+            "model": "power_law", "K": 0.02, "n": 0.7}), False),
+        ("poiseuille 32^3 carreau a=2", "poiseuille",
+         dict(n=32, rheology=carreau), False),
+        ("poiseuille 32^3 carreau a=1.5", "poiseuille",
+         dict(n=32, rheology=dict(carreau, model="carreau_yasuda", a=1.5)),
+         False),
+        ("poiseuille 32^3 casson", "poiseuille", dict(n=32, rheology={
+            "model": "casson", "nu_c": 0.02, "tau_y": 1e-5}), False),
+        ("coronary (64,48,96) r=4 pulsatile trt+carreau blood", "coronary",
+         dict(small, collision="trt", rheology=blood), False),
+    ]
+
+
+def time_k1a(spec, device, iters_k, iters_p, label):
+    """One collide-stream launch (the case's instance) against its plain
+    version, by CUDA events in turns: {"ms", "plain_ms", "bound_ms",
+    "instance"}."""
+    import torch
+
+    from lbm_tpu_torch.engine.compile import compile_case
+    from lbm_tpu_torch.engine.step import initial_f
+    from lbm_tpu_torch.kernels import collide_stream as K
+
+    cc = compile_case(spec, device)
+    state = [initial_f(cc), initial_f(cc)]
+    series = torch.zeros(1, dtype=torch.float64, device=device)
+    plain_f = [initial_f(cc)]
+
+    def k1a():
+        K.collide_stream(state[0], state[1], cc, series, 0, 0)
+        state.reverse()
+
+    def k1a_plain():
+        plain_f[0] = K.collide_stream_plain(plain_f[0], cc, 0)[0]
+
+    ms, plain_ms = in_turns(f"collide-stream [{K.instance(cc)}] {label}",
+                            k1a_plain, k1a, iters_p, iters_k)
+    out = {"ms": ms, "plain_ms": plain_ms, "instance": K.instance(cc),
+           "bound_ms": bound_ms(step_bytes(cc, cc.fluid, cc.kernel_bcs))}
+    print(f"[3] bound of [{out['instance']}] {label}: "
+          f"{out['bound_ms']:.4f} ms", flush=True)
+    del state, plain_f
+    free_device()
+    return out
 
 
 def time_lid(n, device, iters_k, iters_p, with_list=False):
@@ -271,6 +373,7 @@ def time_lid(n, device, iters_k, iters_p, with_list=False):
     out["k3"], out["k3_plain"] = in_turns(
         f"K3 lid {n}^3", lambda: K.macro_plain(f), lambda: K.macro(f),
         iters_p, iters_k)
+    out["k3_library"] = time_ms(moments_matmul(f), iters_k)
     out["k1a_bound"] = bound_ms(step_bytes(cc, cc.fluid, cc.kernel_bcs))
     if with_list:
         ids = live_block_ids(cc.spec.mask)
@@ -291,13 +394,26 @@ def time_lid(n, device, iters_k, iters_p, with_list=False):
     return out
 
 
+def moments_matmul(f):
+    """K3's yardstick: one torch.matmul of the (4, 19) moment matrix
+    (rows 1 and e_x, e_y, e_z) with the (19, X*Y*Z) state, full fp32."""
+    import torch
+
+    from lbm_tpu_torch.core.lattice import D3Q19
+
+    m = torch.zeros((4, 19), dtype=torch.float32, device=f.device)
+    m[0] = 1.0
+    m[1:] = torch.from_numpy(D3Q19.E.T.astype("float32")).to(f.device)
+    flat = f.view(19, -1)
+    return lambda: torch.matmul(m, flat)
+
+
 def time_vessel(spec, device):
     """Times and bounds at the full-size coronary: K1a over the live
     blocks and over every block, lbm_fix_z_plane per launch, K3 and the
     one-matmul moments that K3's library_ms names."""
     import torch
 
-    from lbm_tpu_torch.core.lattice import D3Q19
     from lbm_tpu_torch.engine.compile import compile_case
     from lbm_tpu_torch.engine.step import initial_f
     from lbm_tpu_torch.kernels import collide_stream as K
@@ -347,13 +463,10 @@ def time_vessel(spec, device):
     out["fix_bound"] = sum(bz) / len(bz)
 
     f = state[0]
-    m = torch.zeros((4, 19), dtype=torch.float32, device=device)
-    m[0] = 1.0
-    m[1:] = torch.from_numpy(D3Q19.E.T.astype("float32")).to(device)
     out["k3"], out["k3_plain"] = in_turns(
         "K3 coronary full", lambda: K.macro_plain(f), lambda: K.macro(f),
         5, 200)
-    out["k3_library"] = time_ms(lambda: torch.matmul(m, f.view(19, -1)), 200)
+    out["k3_library"] = time_ms(moments_matmul(f), 200)
     out["k3_bound"] = bound_ms(n_cells * (19 * 4 + 4 * 4))
     print(f"[3] coronary full bounds at 3.35 TB/s (ms): K1a "
           f"{out['k1a_bound']:.6f} ({int(cc.fluid.sum())} fluid cells); "
@@ -390,12 +503,197 @@ def profile_run(sim, steps):
     return by_name, busy_ms / wall_ms
 
 
+def short_name(kernel: str) -> str:
+    """A profiler kernel name without its namespace noise and argument
+    list, cut to 70 characters."""
+    name = kernel.replace("(anonymous namespace)::", "").replace("void ", "")
+    return name.split("(", 1)[0][:70]
+
+
 def free_device():
     import torch
 
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+
+def ptxas_report(log: str) -> dict:
+    """{"collide_stream_kernel[trt+force]": (registers, spill store bytes,
+    spill load bytes), ...} from nvcc's -Xptxas -v output; instance names
+    as kernels.collide_stream.instance names them ("closure" standing
+    for every closure kind, one instance)."""
+    import re
+
+    def name_of(mangled):
+        m = re.search(r"(collide_stream_kernel|fix_z_plane_kernel)"
+                      r"ILi(\d)ELb(\d)ELb(\d)ELb(\d)E", mangled)
+        if m:
+            parts = [("bgk", "trt", "mrt")[int(m.group(2))]]
+            parts += [w for w, on in zip(("closure", "force", "moving"),
+                                         m.group(3, 4, 5)) if on == "1"]
+            return f"{m.group(1)}[{'+'.join(parts)}]"
+        m = re.search(r"(macro_kernel)ILb(\d)E", mangled)
+        if m:
+            return f"macro_kernel[{'force' if m.group(2) == '1' else 'plain'}]"
+        m = re.search(r"(velsum_reduce_kernel)", mangled)
+        return m.group(1) if m else None
+
+    out, spills, cur = {}, {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = name_of(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            spills[cur] = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = name_of(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur] = int(m.group(1))
+    return {k: (v,) + spills.get(k, (0, 0)) for k, v in out.items()}
+
+
+def vessel_path(spec, device, tag, inst, live_share, closure=False):
+    """A 2000-step run of a full-size coronary through Simulation.run,
+    counters reset just before and read just after: the collide-stream
+    instance `inst` 2000 times, its z-plane fixup 6000, K3 at least 4;
+    finite fields, max|u| within 3x the inlet speed, and with a closure
+    tau_eff inside its clip. Prints the metrics and a 200-step profile;
+    returns (launch counts, fixup device ms per launch or [])."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.engine.runner import Simulation
+    from lbm_tpu_torch.engine.step import tau_eff_field
+    from lbm_tpu_torch.kernels import collide_stream as K
+
+    t0 = time.perf_counter()
+    sim = Simulation(spec, device=device)
+    t_setup = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(device)
+    K.reset_launches()
+    res = sim.run(max_steps=2000, time_save=500, verbose=False)
+    rho, u = sim.macro()
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    require(counts.get(f"lbm_collide_stream[{inst}]") == 2000,
+            f"{tag}: collide-stream [{inst}] launches {counts} in a "
+            "2000-step run")
+    require(counts.get(f"lbm_fix_z_plane[{inst}]") == 6000,
+            f"{tag}: lbm_fix_z_plane [{inst}] launches {counts} (3 z-plane "
+            "outlets x 2000 steps)")
+    require(counts.get("lbm_macro", 0) >= 4,
+            f"{tag}: the usq residual did not launch K3")
+    require(res.steps == 2000, f"{tag}: run took {res.steps} steps")
+    require(bool(torch.isfinite(rho).all() and torch.isfinite(u).all()),
+            f"{tag}: non-finite fields")
+    u_in = 0.1745 / 2.74909090909091
+    fluid = sim.cc.fluid
+    u_max = float(u.norm(dim=0)[fluid].max())
+    rho_dev = float((rho[fluid] - 1.0).abs().max())
+    require(u_max <= 3.0 * u_in,
+            f"{tag}: max|u| {u_max:.4g} above 3x the inlet speed {u_in:.4g}")
+    te_note = ""
+    if closure:
+        lo, hi = sim.cc.closure[-3], sim.cc.closure[-2]
+        te = tau_eff_field(sim.cc, sim.f, sim.t)[fluid]
+        te_lo, te_hi = float(te.min()), float(te.max())
+        require(bool(torch.isfinite(te).all()) and te_lo >= float(
+            np.float32(lo)) and te_hi <= float(np.float32(hi))
+                and te_hi - te_lo > 1e-3,
+                f"{tag}: tau_eff in [{te_lo}, {te_hi}], clip [{lo}, {hi}]")
+        te_note = (f"; tau_eff over the fluid cells {te_lo:.4f}..{te_hi:.4f} "
+                   f"(mean {float(te.mean()):.4f}, clip [{lo}, {hi}])")
+        del te
+    ms = res.elapsed_s / res.steps * 1e3
+    print(f"{tag} coronary {tuple(spec.shape)} r=12 pulsatile [40, 2000]: "
+          f"{res.steps} steps in {res.elapsed_s:.3f} s = {ms:.4f} ms/step "
+          f"(host clock, synchronized), mlups {res.mlups:.1f}, mlups_live "
+          f"{res.mlups_live:.1f}, mlups_box {res.mlups_box:.1f}; usq "
+          f"residuals {[f'{r:.3e}' for r in res.residual_history]}; max|u| "
+          f"{u_max:.4g} (inlet {u_in:.4g}), max|rho-1| {rho_dev:.3g}"
+          f"{te_note}; live-block share {live_share:.4f}; set-up "
+          f"{t_setup:.1f} s; peak device memory {peak:.2f} GiB; launches "
+          f"{counts}", flush=True)
+    del rho, u, fluid
+    by_name, busy = profile_run(sim, 200)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    # tracing slows the host, so the busy share of the traced window
+    # understates the untraced run's; give both
+    dev_ms = sum(v[0] for v in by_name.values())
+    print(f"{tag} profile of 200 more steps (device ms per step, calls per "
+          "step): " + "; ".join(f"{short_name(k)} {v[0]:.5f} x{v[1]:.2f}"
+                                for k, v in top)
+          + f"; device {dev_ms:.5f} ms per step; device busy share "
+          f"{busy:.3f} of the traced window, {dev_ms / ms:.3f} of the "
+          "untraced step", flush=True)
+    fix_dev = [v[0] / v[1] for k, v in by_name.items()
+               if "fix_z_plane_kernel" in k]
+    if not fix_dev:
+        print(f"{tag} the profiler shows no device time for "
+              "fix_z_plane_kernel; its ms is the CUDA-event time",
+              flush=True)
+    del sim
+    free_device()
+    return counts, fix_dev
+
+
+def force_path(device):
+    """gravity_channel n=256 nz=256, TRT, its default fz: two runs of 500
+    steps through Simulation.run with macro() after each, counters reset
+    just before and read just after (TRT+force 1000, K3 with the force
+    shift at least twice). Returns the launch counts."""
+    import torch
+
+    from lbm_tpu_torch.cases import get_case
+    from lbm_tpu_torch.engine.runner import Simulation
+    from lbm_tpu_torch.kernels import collide_stream as K
+
+    spec = get_case("gravity_channel", n=256, nz=256, collision="trt")
+    sim = Simulation(spec, device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    K.reset_launches()
+    r1 = sim.run(max_steps=500, time_save=250, verbose=False)
+    _, u1 = sim.macro()
+    r2 = sim.run(max_steps=500, time_save=250, verbose=False)
+    rho, u2 = sim.macro()
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    require(counts.get("lbm_collide_stream[trt+force]") == 1000,
+            f"force path launches {counts} in 1000 steps")
+    require(counts.get("lbm_macro[force]", 0) >= 2,
+            "macro() did not launch K3 with the force shift")
+    require(r1.steps == r2.steps == 500, "force path step count")
+    require(bool(torch.isfinite(rho).all() and torch.isfinite(u2).all()),
+            "force path: non-finite fields")
+    fluid = sim.cc.fluid
+    uz_centre = float(u2[2, 128, 128].min())
+    mean1 = float(u1[2][fluid].mean())
+    mean2 = float(u2[2][fluid].mean())
+    uz_max = float(u2[2][fluid].max())
+    uxy = float(u2[:2][:, fluid].abs().max())
+    require(uz_centre > 0 and mean2 > mean1 > 0,
+            f"force path: u_z at the centre {uz_centre:.4g}, mean u_z "
+            f"{mean1:.4g} -> {mean2:.4g}")
+    require(uxy <= 1e-3 * uz_max,
+            f"force path: max |u_x|, |u_y| {uxy:.3g} above 1e-3 max u_z "
+            f"{uz_max:.4g}")
+    elapsed = r1.elapsed_s + r2.elapsed_s
+    print(f"[7] force path gravity_channel 256^3 trt fz=1e-5: 1000 steps "
+          f"in {elapsed:.3f} s = {elapsed / 1000 * 1e3:.6f} ms/step (host "
+          f"clock, synchronized), mlups_box {r2.mlups_box:.1f}, mlups_live "
+          f"{r2.mlups_live:.1f}; u_z at the centre {uz_centre:.4e}, mean "
+          f"u_z {mean1:.4e} (500) -> {mean2:.4e} (1000), max u_z "
+          f"{uz_max:.4e}, max |u_x|,|u_y| {uxy:.3e}; peak device memory "
+          f"{peak:.2f} GiB; launches {counts}", flush=True)
+    del sim, rho, u1, u2, fluid
+    return counts
 
 
 def main() -> int:
@@ -433,13 +731,23 @@ def main() -> int:
     print(f"[2] kernels {'built' if lib.built else 'found'} at "
           f"{os.path.relpath(lib.path, ROOT)} in {lib.build_seconds:.2f} s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})", flush=True)
-    for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"[2] ptxas: {line.strip()}", flush=True)
+    ptxas = ptxas_report(lib.log)
+    for name, (regs, spill_st, spill_ld) in sorted(ptxas.items()):
+        print(f"[2] ptxas {name}: {regs} registers, {spill_st} bytes spill "
+              f"stores, {spill_ld} bytes spill loads", flush=True)
+    bgk = ptxas.get("collide_stream_kernel[bgk]")
+    require(bgk is not None, "ptxas reported no BGK collide-stream instance")
+    # the lid main path must not pay for the branches it never takes
+    require(bgk == (78, 0, 0),
+            f"the BGK collide-stream instance: {bgk[0]} registers, {bgk[1]} "
+            f"+ {bgk[2]} bytes spilled, not the BGK-only build's 78 and 0")
 
     # -- phase 3: kernels vs plain versions --------------------------------
     from lbm_tpu_torch.cases import get_case
+    from lbm_tpu_torch.core.rheology import carreau_blood
+    from lbm_tpu_torch.engine.runner import Simulation
 
+    torch.backends.cuda.matmul.allow_tf32 = False  # full fp32 yardsticks
     errs = {"K1a": 0.0, "Kz": 0.0, "K3": 0.0}
     compare_case(("lid_driven_cavity", dict(n=64)), 4, device, errs,
                  macro_steps=200)
@@ -458,14 +766,79 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     compare_case(("coronary", FULL_CORONARY), 2, device, errs, spec=full)
     free_device()
+
+    # the collision branches (K1b), 200 steps each
+    k1b_errs = {"K1a": 0.0, "Kz": 0.0, "K3": 0.0}
+    branch_err = {}
+    blood_small = carreau_blood(get_case("coronary", **small).units)
+    for label, name, kw, exact in branch_cases(blood_small):
+        e = compare_case((name, kw), 200, device, k1b_errs, macro_steps=200,
+                         exact=exact, label=f"K1b {label}")
+        branch_err[label] = max(e["f"], e["k1a"], e["z"])
+        if name == "gravity_channel" or name == "pipe":
+            k1b_errs["K3_force"] = max(k1b_errs.get("K3_force", 0.0),
+                                       e["k3"])
+    refused = get_case("gravity_channel", n=32, nz=32, collision="mrt")
+    try:
+        Simulation(refused, device=device)
+    except NotImplementedError as exc:
+        require("backend='dense'" in str(exc),
+                f"the MRT + force refusal does not name backend='dense': "
+                f"{exc}")
+    else:
+        raise SmokeFailure("the kernel route ran MRT + force")
+    sim = Simulation(refused, device=device, backend="dense")
+    res = sim.run(max_steps=200, time_save=100, verbose=False)
+    rho, u = sim.macro()
+    require(res.steps == 200 and bool(torch.isfinite(u).all())
+            and float(u[2][sim.cc.fluid].mean()) > 0,
+            "gravity_channel 32^3 MRT + force on the dense backend")
+    print(f"[3] K1b gravity_channel 32^3 mrt+force: the kernel route refuses "
+          f"it, the dense backend ran 200 steps (mean u_z "
+          f"{float(u[2][sim.cc.fluid].mean()):.4e})", flush=True)
+    del sim, rho, u
+    free_device()
+    # the blood and force paths' instances at their own sizes
+    blood = get_case("coronary", **FULL_CORONARY, collision="trt",
+                     rheology=carreau_blood(full.units))
+    for label, case, spec, exact in (
+            ("coronary full trt+carreau blood", ("coronary", FULL_CORONARY),
+             blood, False),
+            ("gravity_channel 256^3 trt+force", ("gravity_channel", dict(
+                n=256, nz=256, collision="trt")), None, True)):
+        e = compare_case(case, 2, device, k1b_errs, spec=spec, exact=exact,
+                         label=f"K1b {label}")
+        branch_err[label] = max(e["f"], e["k1a"], e["z"])
+        free_device()
+    # the last is the force path's: K3 with its force shift
+    k1b_errs["K3_force"] = max(k1b_errs["K3_force"], e["k3"])
+    print("[3] K1b max abs err per branch (200 steps; 2 at the full "
+          "sizes): " + "; ".join(f"{k} {v:.3e}" for k, v in
+                                 branch_err.items()), flush=True)
+
     t64 = time_lid(64, device, iters_k=2000, iters_p=100)
     t256 = time_lid(256, device, iters_k=1000, iters_p=20, with_list=True)
     tv = time_vessel(full, device)
     free_device()
+    # one collide-stream launch per branch at lid 256^3, and the force
+    # path's instance at gravity_channel 256^3
+    lid_units = get_case("lid_driven_cavity", n=16).units
+    k1b_time = {}
+    for label, kw in (("bgk", {}), ("trt", dict(collision="trt")),
+                      ("mrt", dict(collision="mrt")),
+                      ("smag", dict(smagorinsky_cs=0.15)),
+                      ("carreau", dict(rheology=carreau_blood(lid_units))),
+                      ("moving lid", dict(lid="bounceback"))):
+        k1b_time[f"lid 256^3 {label}"] = time_k1a(
+            get_case("lid_driven_cavity", n=256, **kw), device, 1000, 10,
+            f"lid 256^3 {label}")
+    k1b_time["gravity_channel 256^3 trt+force"] = time_k1a(
+        get_case("gravity_channel", n=256, nz=256, collision="trt"), device,
+        1000, 10, "gravity_channel 256^3")
+    k1b_time["coronary full trt+carreau"] = time_k1a(
+        blood, device, 1000, 5, "coronary full, live blocks")
 
     # -- phase 4: the lid main path ----------------------------------------
-    from lbm_tpu_torch.engine.runner import Simulation
-
     spec = get_case("lid_driven_cavity", n=256)
     sim = Simulation(spec, device=device)
     require(sim.cc.live_blocks is None,
@@ -476,10 +849,9 @@ def main() -> int:
     rho, u = sim.macro()
     torch.cuda.synchronize()
     lid_counts = dict(K.launches)
-    require(lid_counts["lbm_collide_stream_bgk"] == 1000,
-            f"K1a launched {lid_counts['lbm_collide_stream_bgk']} times in "
-            "a 1000-step run")
-    require(lid_counts["lbm_macro"] >= 1, "macro() did not launch K3")
+    require(lid_counts.get("lbm_collide_stream[bgk]") == 1000,
+            f"K1a launched {lid_counts} in a 1000-step run")
+    require(lid_counts.get("lbm_macro", 0) >= 1, "macro() did not launch K3")
     require(res.steps == 1000 and not res.converged,
             f"run took {res.steps} steps (converged={res.converged})")
     require(tuple(rho.shape) == (256,) * 3
@@ -509,68 +881,28 @@ def main() -> int:
     free_device()
 
     # -- phase 5: the vessel path ------------------------------------------
-    t0 = time.perf_counter()
-    sim = Simulation(full, device=device)
-    t_setup = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats(device)
-    K.reset_launches()
-    res = sim.run(max_steps=2000, time_save=500, verbose=False)
-    rho, u = sim.macro()
-    torch.cuda.synchronize()
-    counts = dict(K.launches)
-    require(counts["lbm_collide_stream_bgk"] == 2000,
-            f"K1a launched {counts['lbm_collide_stream_bgk']} times in a "
-            "2000-step vessel run")
-    require(counts["lbm_fix_z_plane"] == 6000,
-            f"lbm_fix_z_plane launched {counts['lbm_fix_z_plane']} times "
-            "(3 z-plane outlets x 2000 steps)")
-    require(counts["lbm_macro"] >= 4, "the usq residual did not launch K3")
-    require(res.steps == 2000, f"vessel run took {res.steps} steps")
-    require(bool(torch.isfinite(rho).all() and torch.isfinite(u).all()),
-            "non-finite fields after the vessel run")
     u_in = 0.1745 / 2.74909090909091
-    fluid = sim.cc.fluid
-    u_max = float(u.norm(dim=0)[fluid].max())
-    rho_dev = float((rho[fluid] - 1.0).abs().max())
-    require(u_max <= 3.0 * u_in,
-            f"max|u| {u_max:.4g} above 3x the inlet speed {u_in:.4g}")
-    print(f"[5] vessel path coronary {tuple(full.shape)} r=12 pulsatile "
-          f"[40, 2000]: {res.steps} steps in {res.elapsed_s:.3f} s = "
-          f"{res.elapsed_s / res.steps * 1e3:.4f} ms/step (host clock, "
-          f"synchronized), mlups {res.mlups:.1f}, mlups_live "
-          f"{res.mlups_live:.1f}, mlups_box {res.mlups_box:.1f}; usq "
-          f"residuals {[f'{r:.3e}' for r in res.residual_history]}; max|u| "
-          f"{u_max:.4g} (inlet {u_in:.4g}), max|rho-1| {rho_dev:.3g}; "
-          f"live-block share {tv['live_share']:.4f}; set-up {t_setup:.1f} s; "
-          f"peak device memory "
-          f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB; "
-          f"launches {counts}", flush=True)
-    by_name, busy = profile_run(sim, 200)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    # tracing slows the host, so the busy share of the traced window
-    # understates the untraced run's; give both
-    dev_ms = sum(v[0] for v in by_name.values())
-    print("[5] profile of 200 more vessel steps (device ms per step, calls "
-          "per step): " + "; ".join(f"{k} {v[0]:.5f} x{v[1]:.2f}"
-                                   for k, v in top)
-          + f"; device {dev_ms:.5f} ms per step; device busy share "
-          f"{busy:.3f} of the traced window, "
-          f"{dev_ms / (res.elapsed_s / res.steps * 1e3):.3f} of the untraced "
-          "step", flush=True)
-    fix_dev = [v[0] / v[1] for k, v in by_name.items()
-               if "fix_z_plane_kernel" in k]
-    if not fix_dev:
-        print("[5] the profiler shows no device time for "
-              "fix_z_plane_kernel; its ms is the CUDA-event time",
-              flush=True)
-    del sim, rho, u, fluid
+    counts, fix_dev = vessel_path(full, device, "[5] vessel path", "bgk",
+                                  tv["live_share"])
+
+    # -- phase 6: the blood path -------------------------------------------
+    blood_counts, blood_fix_dev = vessel_path(
+        blood, device, "[6] blood path (trt + Carreau blood)", "trt+cy",
+        tv["live_share"], closure=True)
+    del blood
     free_device()
 
-    # -- phase 6: the CLI --------------------------------------------------
+    # -- phase 7: the force path -------------------------------------------
+    force_counts = force_path(device)
+    free_device()
+
+    # -- phase 8: the CLI --------------------------------------------------
     for case, opts, steps, want in (
             ("lid_driven_cavity", ["n=64"], "500",
              ["lid_driven_cavity_500.vtk"]),
-            ("coronary", ["--vtk-final"], "200", ["coronary_200.vtk"])):
+            ("coronary", ["--vtk-final"], "200", ["coronary_200.vtk"]),
+            ("gravity_channel", ["collision=trt", "n=64", "nz=64"], "500",
+             ["gravity_channel_500.vtk"])):
         with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") \
                 as tmp:
             t0 = time.perf_counter()
@@ -595,43 +927,75 @@ def main() -> int:
                 require("SCALARS DENSITY float" in head,
                         "coronary VTK has no density")
             last = proc.stdout.strip().splitlines()[-2:]
-            print(f"[6] CLI {case} run in {time.perf_counter() - t0:.1f} s "
-                  f"wrote {files}; {' | '.join(last)}", flush=True)
+            print(f"[8] CLI {case} {' '.join(opts)} run in "
+                  f"{time.perf_counter() - t0:.1f} s wrote {files}; "
+                  f"{' | '.join(last)}", flush=True)
 
+    bt = k1b_time["coronary full trt+carreau"]
+    ft = k1b_time["gravity_channel 256^3 trt+force"]
     kernels = [
-        {"name": "lbm_collide_stream_bgk", "route": "cuda",
+        {"name": "lbm_collide_stream[bgk]", "route": "cuda",
          "source": K1A_SOURCE,
          "replaces": "lbm_tpu/kernels/collide_stream.py:1333",
-         "launches": counts["lbm_collide_stream_bgk"],
+         "launches": counts["lbm_collide_stream[bgk]"],
          "max_abs_err": errs["K1a"], "ms": tv["k1a_live"],
          "plain_ms": tv["k1a_plain"], "bound_ms": tv["k1a_bound"],
          "bound_by": "bytes", "library_ms": None,
          "ms_every_block": tv["k1a_all"],
-         "lid256_launches": lid_counts["lbm_collide_stream_bgk"],
+         "lid256_launches": lid_counts["lbm_collide_stream[bgk]"],
          "lid256_ms": t256["k1a"], "lid256_plain_ms": t256["k1a_plain"],
          "lid256_bound_ms": t256["k1a_bound"],
          "lid256_ms_every_block": t256["full"],
-         "lid256_ms_live_list": t256["list"]},
+         "lid256_ms_live_list": t256["list"],
+         "registers": bgk[0], "spill_bytes": bgk[1] + bgk[2]},
+        {"name": "lbm_collide_stream[trt+cy]", "route": "cuda",
+         "source": K1A_SOURCE,
+         "replaces": "lbm_tpu/kernels/collide_stream.py:1333 (K1b branches)",
+         "launches": blood_counts["lbm_collide_stream[trt+cy]"],
+         "max_abs_err": max(branch_err.values()),
+         "max_abs_err_blood_path": branch_err[
+             "coronary full trt+carreau blood"],
+         "ms": bt["ms"], "plain_ms": bt["plain_ms"],
+         "bound_ms": bt["bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "branches": k1b_time,
+         "max_abs_err_by_branch": branch_err,
+         "registers": {k: v[0] for k, v in ptxas.items()},
+         "spill_bytes": {k: v[1] + v[2] for k, v in ptxas.items()},
+         "build_s": lib.build_seconds},
+        {"name": "lbm_collide_stream[trt+force]", "route": "cuda",
+         "source": K1A_SOURCE,
+         "replaces": "lbm_tpu/kernels/collide_stream.py:1333 (K1b branches)",
+         "launches": force_counts["lbm_collide_stream[trt+force]"],
+         "max_abs_err": max(branch_err["gravity_channel 32^3 trt+force"],
+                            branch_err["gravity_channel 256^3 trt+force"]),
+         "ms": ft["ms"], "plain_ms": ft["plain_ms"],
+         "bound_ms": ft["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
         {"name": "lbm_fix_z_plane", "route": "cuda", "source": K1A_SOURCE,
          "replaces": "lbm_tpu/kernels/collide_stream.py:2695",
          "also_replaces": "lbm_tpu/kernels/collide_stream.py:2770",
-         "launches": counts["lbm_fix_z_plane"],
-         "max_abs_err": errs["Kz"],
+         "launches": counts["lbm_fix_z_plane[bgk]"],
+         "max_abs_err": max(errs["Kz"], k1b_errs["Kz"]),
          "ms": fix_dev[0] if fix_dev else tv["fix"],
          "ms_by": ("torch.profiler device time of fix_z_plane_kernel"
                    if fix_dev else "cuda events"),
          "ms_host_enqueue_bound": tv["fix"],
          "plain_ms": tv["fix_plain"], "bound_ms": tv["fix_bound"],
-         "bound_by": "bytes", "library_ms": None},
+         "bound_by": "bytes", "library_ms": None,
+         "blood_launches": blood_counts["lbm_fix_z_plane[trt+cy]"],
+         "blood_ms": blood_fix_dev[0] if blood_fix_dev else None},
         {"name": "lbm_macro", "route": "cuda", "source": K1A_SOURCE,
          "replaces": "lbm_tpu/kernels/collide_stream.py:2470",
          "launches": counts["lbm_macro"],
-         "max_abs_err": errs["K3"], "ms": tv["k3"],
+         "max_abs_err": max(errs["K3"], k1b_errs["K3"]), "ms": tv["k3"],
          "plain_ms": tv["k3_plain"], "bound_ms": tv["k3_bound"],
          "bound_by": "bytes", "library_ms": tv["k3_library"],
+         "force_shift_max_abs_err": k1b_errs["K3_force"],
+         "force_launches": force_counts["lbm_macro[force]"],
          "lid256_launches": lid_counts["lbm_macro"],
          "lid256_ms": t256["k3"], "lid256_plain_ms": t256["k3_plain"],
-         "lid256_bound_ms": bound_ms(256**3 * (19 * 4 + 4 * 4))},
+         "lid256_bound_ms": bound_ms(256**3 * (19 * 4 + 4 * 4)),
+         "lid256_library_ms": t256["k3_library"]},
     ]
     print(f"[done] ms at 64^3: K1a {t64['k1a']:.4f} plain "
           f"{t64['k1a_plain']:.4f}, K3 {t64['k3']:.4f} plain "

@@ -22,7 +22,9 @@ def _load_all() -> None:
     from lbm_tpu_torch.cases import (  # noqa: F401
         coronary,
         curved_vessel,
+        gravity_channel,
         lid_driven_cavity,
+        pipe,
         poiseuille,
     )
 

@@ -35,8 +35,8 @@ def build(
     lid: str = "nee",
 ) -> CaseSpec:
     """lid='nee' is the reference's NEE velocity plane; lid='bounceback'
-    labels the lid MOVING (a moving wall, which compile_case refuses until
-    the moving-wall kernel branch is ported)."""
+    labels the lid MOVING: half-way bounce-back plus the Ladd momentum
+    term of CaseSpec.wall_velocity."""
     if lid not in ("nee", "bounceback"):
         raise ValueError(f"lid must be 'nee' or 'bounceback': {lid!r}")
     units = UnitSystem(CH=CH, C_U=C_U, C_rho=1060.0)

@@ -5,10 +5,18 @@
     python -m lbm_tpu_torch run --case lid_driven_cavity --resume out/lid_driven_cavity.ckpt.npz
     python -m lbm_tpu_torch run --case coronary \
         --opt shape=[291,291,372] radius=12 pulsatile=[40,2000]
+    python -m lbm_tpu_torch run --case gravity_channel --opt collision=trt
+    python -m lbm_tpu_torch run --case coronary --opt collision=trt \
+        'rheology={"model": "carreau", "nu0": 0.3145, "nu_inf": 0.01937, "lam": 149036, "n": 0.3568}'
+    python -m lbm_tpu_torch run --case gravity_channel --backend dense \
+        --opt collision=mrt
     python -m lbm_tpu_torch list
 
---opt values are read as JSON where they parse (lists, numbers) and as
-strings otherwise.
+--opt values are read as JSON where they parse (lists, numbers, dicts)
+and as strings otherwise; the rheology dict above is
+core/rheology.carreau_blood at the coronary's units. --backend dense runs the dense PyTorch step,
+which takes the compositions the kernels refuse (MRT or a tau closure
+with a body force).
 """
 
 from __future__ import annotations
@@ -52,6 +60,10 @@ def main(argv=None) -> int:
     runp.add_argument("--device", default="cuda",
                       help="torch device: cuda runs the CUDA kernels, cpu "
                       "their plain PyTorch versions")
+    runp.add_argument("--backend", default="kernel",
+                      choices=("kernel", "dense"),
+                      help="kernel: the collide-stream kernels (their plain "
+                      "versions on the CPU); dense: the dense PyTorch step")
 
     sub.add_parser("list", help="list available cases")
 
@@ -73,7 +85,7 @@ def main(argv=None) -> int:
     from lbm_tpu_torch.io.vtk import case_vtk
 
     spec = get_case(args.case, **_parse_kv(args.opt))
-    sim = Simulation(spec, device=args.device)
+    sim = Simulation(spec, device=args.device, backend=args.backend)
     if args.resume:
         ckpt.restore(sim, args.resume)
         print(f"resumed from {args.resume} at step {sim.t}")

@@ -1,5 +1,5 @@
 """Compile a CaseSpec into device tensors and precomputed boundary tables
-(torch port of lbm_tpu/engine/compile.py, BGK slice).
+(torch port of lbm_tpu/engine/compile.py).
 
 Tables are built on the host in NumPy exactly as lbm_tpu builds them,
 then moved to the device once:
@@ -21,10 +21,16 @@ then moved to the device once:
     that hold a non-DEAD cell (lbm_tpu's `live_tile_ids`), or None when
     skipping would not pay (SKIP_BELOW, measured on the H100);
   - `velsum_offset`/`usq_offset`: the constant residual contribution of
-    non-fluid cells, which hold their initial state forever.
+    non-fluid cells, which hold their initial state forever;
+  - the collision branch: `tau_minus` (TRT), the MRT matrices `mrt_k`/
+    `mrt_kf`, the per-cell tau `closure` (LES / rheology), the Guo
+    `force`, the MOVING walls' `wall_velocity` and, built at first use
+    for the dense step, `nbr_moving`.
 
-What this slice does not carry raises NotImplementedError naming the
-ROADMAP item that ports it; nothing falls back silently.
+What the port does not carry (Bouzidi walls, windkessel outlets) raises
+NotImplementedError naming the ROADMAP item that ports it; the two
+compositions the collide-stream kernel refuses are named by
+`kernel_refusal`. Nothing falls back silently.
 """
 
 from __future__ import annotations
@@ -37,6 +43,8 @@ import numpy as np
 import torch
 
 from lbm_tpu_torch.core.lattice import D3Q19
+from lbm_tpu_torch.core.mrt import mrt_matrices
+from lbm_tpu_torch.core.rheology import normalize_closure
 from lbm_tpu_torch.engine.spec import CaseSpec, PlaneBC
 from lbm_tpu_torch.geometry.mask import CellType
 
@@ -107,6 +115,41 @@ class CompiledBC:
         return (int(t) // self.series_stride) % self.phi_star_series.shape[0]
 
 
+def tau_minus_of(spec: CaseSpec) -> Optional[float]:
+    """TRT odd-moment relaxation time from the magic parameter, or None
+    when the collision is not TRT: tau_minus = 1/2 + Lambda / (tau -
+    1/2)."""
+    if spec.collision != "trt":
+        return None
+    return 0.5 + spec.magic_lambda / (spec.tau - 0.5)
+
+
+def mrt_of(spec: CaseSpec):
+    """(K, KF) f32 (19, 19) matrices for collision='mrt', else (None,
+    None)."""
+    if spec.collision != "mrt":
+        return None, None
+    k, kf = mrt_matrices(spec.tau, spec.mrt_rates)
+    return k.astype(np.float32), kf.astype(np.float32)
+
+
+def kernel_refusal(spec: CaseSpec) -> Optional[str]:
+    """Why the collide-stream kernel refuses this composition, or None.
+    Its MRT has no moment-space source KF and its closures no
+    variable-rate Guo prefactor; the dense step runs both (lbm_tpu's
+    kernel refuses the same two)."""
+    if spec.force is None:
+        return None
+    if spec.collision == "mrt":
+        return ("MRT + a body force needs the moment-space Guo source (KF) "
+                "that the collide-stream kernel does not carry")
+    if spec.smagorinsky_cs is not None or spec.rheology is not None:
+        return ("a per-cell tau closure (LES / rheology) + a body force "
+                "needs the variable-rate Guo prefactor that the "
+                "collide-stream kernel lacks")
+    return None
+
+
 @dataclasses.dataclass(eq=False)  # hashed by identity: a weak-dict key
 class CompiledCase:
     name: str
@@ -122,12 +165,29 @@ class CompiledCase:
     usq_offset: float
     spec: CaseSpec
     live_blocks: Optional[torch.Tensor] = None  # (n,) int32 block ids
+    tau_minus: Optional[float] = None  # TRT odd rate; None => not TRT
+    mrt_k: Optional[np.ndarray] = None   # (19, 19) f32; None => not MRT
+    mrt_kf: Optional[np.ndarray] = None  # (19, 19) f32 Guo prefactor
+    closure: Optional[tuple] = None  # core/rheology.normalize_closure
+    force: Optional[tuple[float, float, float]] = None  # Guo body force
+    wall_velocity: Optional[tuple[float, float, float]] = None  # MOVING
 
     @functools.cached_property
     def nbr_wall(self) -> torch.Tensor:
         """(19, X, Y, Z) bool, built at first use: only the dense step
         reads it (600 MB at the full-size coronary)."""
         return torch.from_numpy(neighbor_wall(np.asarray(self.spec.mask))
+                                ).to(self.device)
+
+    @functools.cached_property
+    def nbr_moving(self) -> Optional[torch.Tensor]:
+        """(19, X, Y, Z) bool, nbr_moving[i][x] = mask[x - e_i] ==
+        MOVING, built at first use by the dense step; None without moving
+        walls. The CUDA kernels test the int8 mask directly."""
+        if self.wall_velocity is None:
+            return None
+        return torch.from_numpy(neighbor_wall(np.asarray(self.spec.mask),
+                                              CellType.MOVING)
                                 ).to(self.device)
 
     @property
@@ -149,19 +209,7 @@ def _refuse(what: str, item: str) -> None:
 
 
 def check_supported(spec: CaseSpec) -> None:
-    """Raise NotImplementedError for every spec feature this slice lacks."""
-    if spec.collision != "bgk":
-        _refuse(f"collision={spec.collision!r}",
-                "Queue 1 item 7, kernel branch K1b")
-    if spec.force is not None:
-        _refuse("a body force (CaseSpec.force)",
-                "Queue 1 item 7, kernel branch K1b")
-    if spec.smagorinsky_cs is not None or spec.rheology is not None:
-        _refuse("a per-cell tau closure (LES / rheology)",
-                "Queue 1 item 7, kernel branch K1b")
-    if spec.wall_velocity is not None:
-        _refuse("moving walls (CaseSpec.wall_velocity)",
-                "Queue 1 item 7, kernel branch K1b")
+    """Raise NotImplementedError for every spec feature the port lacks."""
     if spec.wall_sdf is not None:
         _refuse("Bouzidi curved walls (CaseSpec.wall_sdf)",
                 "Queue 1 item 8")
@@ -290,9 +338,10 @@ def live_block_ids(mask: np.ndarray, block: int = BLOCK) -> np.ndarray:
     return np.nonzero(live.reshape(-1, block).any(axis=1))[0].astype(np.int32)
 
 
-def neighbor_wall(mask: np.ndarray) -> np.ndarray:
-    """(19, X, Y, Z) bool: nbr_wall[i][x] = mask[x - e_i] == WALL, wrapped."""
-    wall = mask == CellType.WALL
+def neighbor_wall(mask: np.ndarray, label: int = CellType.WALL) -> np.ndarray:
+    """(19, X, Y, Z) bool: out[i][x] = mask[x - e_i] == label (WALL by
+    default), wrapped."""
+    wall = mask == label
     out = np.zeros((D3Q19.Q,) + mask.shape, dtype=bool)
     for i in range(1, D3Q19.Q):
         ex, ey, ez = (int(v) for v in D3Q19.E[i])
@@ -325,6 +374,7 @@ def compile_case(spec: CaseSpec, device="cpu") -> CompiledCase:
     check_z_windows(bcs, shape)
     ids = live_block_ids(mask)
     n_blocks = -(-mask.size // BLOCK)
+    mrt_k, mrt_kf = mrt_of(spec)
     return CompiledCase(
         name=spec.name,
         shape=shape,
@@ -340,10 +390,16 @@ def compile_case(spec: CaseSpec, device="cpu") -> CompiledCase:
         spec=spec,
         live_blocks=(torch.from_numpy(ids).to(device)
                      if len(ids) < SKIP_BELOW * n_blocks else None),
+        tau_minus=tau_minus_of(spec),
+        mrt_k=mrt_k,
+        mrt_kf=mrt_kf,
+        closure=normalize_closure(spec.smagorinsky_cs, spec.rheology),
+        force=spec.force,
+        wall_velocity=spec.wall_velocity,
     )
 
 
 __all__ = ["CompiledBC", "CompiledCase", "compile_case", "compile_bc",
            "canonical_device", "check_supported", "check_z_windows",
-           "live_block_ids", "neighbor_wall", "valid_bbox", "BLOCK",
-           "MAX_BCS", "SKIP_BELOW"]
+           "kernel_refusal", "live_block_ids", "mrt_of", "neighbor_wall",
+           "tau_minus_of", "valid_bbox", "BLOCK", "MAX_BCS", "SKIP_BELOW"]

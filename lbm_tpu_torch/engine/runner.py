@@ -14,9 +14,12 @@ chunked stepping, convergence policy, throughput metering.
 
 backend='kernel' (default) steps with the CUDA kernels on a CUDA device
 and their plain versions on the CPU: the collide-stream kernel over the
-case's live blocks, then one fixup launch per z-plane boundary.
-backend='dense' runs the dense PyTorch step (engine/step.py), the
-counterpart of lbm_tpu's 'xla'. Every step gets its absolute index, so a
+case's live blocks, then one fixup launch per z-plane boundary. It
+refuses, with NotImplementedError, the two compositions the kernel lacks
+(compile.kernel_refusal: MRT + force, closure + force) and never moves
+to another backend by itself. backend='dense' runs the dense PyTorch
+step (engine/step.py), the counterpart of lbm_tpu's 'xla', for every
+composition. Every step gets its absolute index, so a
 series boundary's phase continues across chunks and resumed runs.
 """
 
@@ -91,6 +94,8 @@ class Simulation:
         self.backend = backend
         self.spec = spec
         self.cc = compile_case(spec, self.device)
+        if backend == "kernel":
+            kernels.collision_descriptor(self.cc)  # refuses what it lacks
         self._step = make_step(self.cc) if backend == "dense" else None
         self._usq_fn: Optional[Callable] = None
         self.reset()
@@ -124,7 +129,7 @@ class Simulation:
         at fluid cells, the init values elsewhere."""
         if self.backend == "dense":
             return macro_fields(self.cc, self.f)
-        rho, u = kernels.macro(self.f)
+        rho, u = kernels.macro(self.f, self.cc.force)
         return init_override(self.cc, rho, u)
 
     # -- stepping ---------------------------------------------------------

@@ -2,10 +2,9 @@
 lbm_tpu/engine/spec.py, so a spec carries across as a field copy
 (bridge.case_from_reference).
 
-The fields this port does not run yet (collision != 'bgk', force,
-closures, curved or moving walls, windkessel boundaries) are kept so
-specs stay interchangeable; engine/compile.compile_case refuses them by
-name.
+The fields this port does not run yet (Bouzidi curved walls, windkessel
+boundaries) are kept so specs stay interchangeable;
+engine/compile.compile_case refuses them by name.
 """
 
 from __future__ import annotations
@@ -15,6 +14,7 @@ from typing import Optional
 
 import numpy as np
 
+from lbm_tpu_torch.core.rheology import normalize_closure
 from lbm_tpu_torch.core.units import UnitSystem
 from lbm_tpu_torch.geometry.mask import CellType
 
@@ -107,6 +107,20 @@ class CaseSpec:
                  f"mask shape {self.mask.shape} != shape {self.shape}")
         _require(self.collision in ("bgk", "trt", "mrt"),
                  f"unknown collision {self.collision!r}")
+        if self.collision == "trt":
+            _require(self.tau > 0.5, "TRT needs tau > 1/2")
+            _require(self.magic_lambda > 0.0, "TRT needs magic_lambda > 0")
+        if self.collision == "mrt":
+            _require(self.tau > 0.5, "MRT needs tau > 1/2")
+        if self.smagorinsky_cs is not None:
+            self.smagorinsky_cs = float(self.smagorinsky_cs)
+        if self.smagorinsky_cs is not None or self.rheology is not None:
+            # validates the parameters and that at most one is set
+            normalize_closure(self.smagorinsky_cs, self.rheology)
+            _require(self.collision in ("bgk", "trt"),
+                     "per-cell tau closures compose with BGK (tau_eff) and "
+                     "TRT (even at tau_eff, odd at the constant magic "
+                     "Lambda); MRT's moment-space rates are not wired")
         _require(self.residual_flavor in ("velsum", "usq"),
                  f"unknown residual_flavor {self.residual_flavor!r}")
         if self.force is not None:
@@ -115,6 +129,7 @@ class CaseSpec:
         has_moving = bool((self.mask == int(CellType.MOVING)).any())
         if self.wall_velocity is not None:
             self.wall_velocity = tuple(float(c) for c in self.wall_velocity)
+            _require(len(self.wall_velocity) == 3, "wall_velocity is a 3-vector")
             _require(has_moving, "wall_velocity set but no MOVING cells")
         else:
             _require(not has_moving, "MOVING cells need wall_velocity")

@@ -2,7 +2,8 @@
 ctypes.
 
 The library is kernels/csrc/collide_stream.cu (the collide-stream,
-z-plane fixup and moments kernels) compiled for sm_90a into a
+z-plane fixup and moments kernels, each collide-stream and fixup kernel
+in its 14 collision-branch instances) compiled for sm_90a into a
 shared object with a plain C interface (no PyTorch headers, so nvcc
 takes seconds). It lands in kernels/_build/ under a name that carries a
 hash of the source and flags, so an edited source is rebuilt and a
@@ -65,21 +66,21 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.lbm_block_size.restype = ci
     lib.lbm_error_string.argtypes = [ci]
     lib.lbm_error_string.restype = ctypes.c_char_p
-    lib.lbm_collide_stream_bgk.argtypes = [
+    lib.lbm_collide_stream.argtypes = [
         vp, vp, vp,             # src, dst, mask
         ci, ci, ci,             # nx, ny, nz
-        ctypes.c_float,         # tau
+        vp, vp,                 # collision int row, float row
         ci, vp, vp, vp, vp,     # n_bc, bc_int, bc_float, valid, phi_star
         vp, ci,                 # blocks, n_blocks
         vp, ci,                 # partials, n_partials
         vp, ci,                 # series, t
         vp,                     # stream
     ]
-    lib.lbm_collide_stream_bgk.restype = ci
+    lib.lbm_collide_stream.restype = ci
     lib.lbm_fix_z_plane.argtypes = [
         vp, vp, vp,             # src, dst, mask
         ci, ci, ci,             # nx, ny, nz
-        ctypes.c_float,         # tau
+        vp, vp,                 # collision int row, float row
         vp, vp, vp, vp,         # bc_int, bc_float, valid, phi_star
         ci, ci, ci, ci,         # x0, x1, y0, y1
         vp, ci,                 # partials, n_partials
@@ -87,7 +88,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp,                     # stream
     ]
     lib.lbm_fix_z_plane.restype = ci
-    lib.lbm_macro.argtypes = [vp, vp, vp, ctypes.c_longlong, vp]
+    # f, rho, u, n_cells, half_force (host 3 floats or null), stream
+    lib.lbm_macro.argtypes = [vp, vp, vp, ctypes.c_longlong, vp, vp]
     lib.lbm_macro.restype = ci
 
 

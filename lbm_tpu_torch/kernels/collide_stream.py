@@ -1,21 +1,27 @@
-"""Wrappers for the Hopper collide-stream (K1a, with K1c's live-block
+"""Wrappers for the Hopper collide-stream (K1a + K1b, with K1c's live-block
 list), z-plane fixup (K5 + K6) and moments (K3) kernels, their plain
 PyTorch versions, and launch counters.
 
-  collide_stream  -> lbm_collide_stream_bgk (kernels/csrc/collide_stream.cu),
+  collide_stream  -> lbm_collide_stream (kernels/csrc/collide_stream.cu),
                      replacing lbm_tpu/kernels/collide_stream.py::_kernel
-                     (BGK branch, series phases, live-tile list `tids`),
-                     ::_row_fix and the velsum
+                     (BGK and the K1b branches: TRT, Guo force, moving
+                     walls, LES/rheology closures, MRT; series phases;
+                     live-tile list `tids`), ::_row_fix and the velsum
   fix_z_plane     -> lbm_fix_z_plane, replacing ::_extract_z_slab,
                      ::_splice_z_plane_inplace and the XLA arithmetic of
                      ::_fix_z_plane_windowed between them
-  macro           -> lbm_macro, replacing ::packed_macro
+  macro           -> lbm_macro, replacing ::packed_macro (with its F/2
+                     shift when the case has a force)
   step            -> one whole step: collide_stream, then fix_z_plane for
                      each z-plane boundary in boundary order
 
-A wrapper runs the plain version only for tensors on the CPU; for a
-CUDA tensor it launches the kernel or raises. `launches` counts kernel
-launches, one per wrapper call that launched.
+The collide-stream and fixup kernels are templates over the collision
+branch; `instance(cc)` names the one a case runs ("bgk", "trt+cy",
+"bgk+force", "mrt+moving", ...) and `collision_tables` builds its
+by-value operands. A wrapper runs the plain version only for tensors on
+the CPU; for a CUDA tensor it launches the kernel or raises. `launches`
+counts kernel launches per entry point and instance ("lbm_collide_stream
+[trt+cy]"), one per wrapper call that launched.
 """
 
 from __future__ import annotations
@@ -27,31 +33,109 @@ import weakref
 import numpy as np
 import torch
 
-from lbm_tpu_torch.core.lattice import D3Q19, moments, phi
+from lbm_tpu_torch.core.lattice import D3Q19, momentum
+from lbm_tpu_torch.core.rheology import closure_constants
 from lbm_tpu_torch.engine.compile import (
     CompiledBC,
     CompiledCase,
+    kernel_refusal,
     live_block_ids,
 )
 from lbm_tpu_torch.engine.step import (
     apply_bc_fixup,
-    collide,
+    collide_cells,
     fluid_speed_sum,
+    guo_constants,
+    half_force,
+    moving_bb_terms,
     pulled_state,
     step_tail,
+    velocity,
 )
 from lbm_tpu_torch.geometry.mask import CellType
 
-launches = {"lbm_collide_stream_bgk": 0, "lbm_fix_z_plane": 0,
-            "lbm_macro": 0}
+launches: dict[str, int] = {}
 
 # ints per boundary descriptor row: kBCInts in csrc/collide_stream.cu
 _BC_ROW = 11
 
+# The collision descriptor (struct Collision in csrc/collide_stream.cu):
+# an int row and a float row, at these offsets (the enums CInt/CFloat
+# there; a CPU test compares the two).
+CINT = {"coll": 0, "closure": 1, "force": 2, "moving": 3, "iters": 4,
+        "square": 5, "n": 6}
+CFLOAT = {"tau": 0, "two_tau": 1, "two_tau_m": 2, "cp": 3, "half_force": 4,
+          "force": 7, "e_f": 10, "cm_odd": 29, "bb": 48, "mrt_k": 67,
+          "t0": 428, "lam": 429, "lo": 430, "hi": 431, "c": 432, "n": 438}
+COLLISIONS = ("bgk", "trt", "mrt")
+CLOSURES = (None, "smag", "plaw", "cy", "casson")
+# constants of each closure kind, in the order of CFLOAT["c"]
+_CLOSURE_C = {"smag": ("k",), "plaw": ("em1", "c3k"),
+              "cy": ("dnu3", "base", "ea", "ex", "lam"),
+              "casson": ("b", "cc", "dd")}
+
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    launches.clear()
+
+
+def _count(entry: str) -> None:
+    launches[entry] = launches.get(entry, 0) + 1
+
+
+def instance(cc: CompiledCase) -> str:
+    """The kernel instance a case runs: its collision, closure kind,
+    '+force' and '+moving', e.g. 'trt+cy' or 'bgk+force'."""
+    parts = [cc.spec.collision]
+    if cc.closure is not None:
+        parts.append(cc.closure[0])
+    if cc.force is not None:
+        parts.append("force")
+    if cc.wall_velocity is not None:
+        parts.append("moving")
+    return "+".join(parts)
+
+
+def collision_tables(cc: CompiledCase):
+    """The kernels' collision descriptor of a case: (int32 row, float32
+    row) at the CINT/CFLOAT offsets. Every constant is the dense step's,
+    rounded to fp32 the same way."""
+    ci = np.zeros(CINT["n"], np.int32)
+    cf = np.zeros(CFLOAT["n"], np.float32)
+    f32 = np.float32
+    tau = f32(cc.tau)
+    ci[CINT["coll"]] = COLLISIONS.index(cc.spec.collision)
+    cf[CFLOAT["tau"]] = tau
+    cf[CFLOAT["two_tau"]] = 2 * tau
+    if cc.tau_minus is not None:
+        cf[CFLOAT["two_tau_m"]] = f32(2.0 * cc.tau_minus)
+        cf[CFLOAT["lam"]] = f32((cc.tau - 0.5) * (cc.tau_minus - 0.5))
+    if cc.force is not None:
+        e_f, cm_odd, cp, _ = guo_constants(cc.force, cc.tau, cc.tau_minus)
+        ci[CINT["force"]] = 1
+        cf[CFLOAT["cp"]] = cp
+        cf[CFLOAT["half_force"]:CFLOAT["half_force"] + 3] = \
+            half_force(cc.force)
+        cf[CFLOAT["force"]:CFLOAT["force"] + 3] = cc.force
+        cf[CFLOAT["e_f"]:CFLOAT["e_f"] + 19] = e_f
+        cf[CFLOAT["cm_odd"]:CFLOAT["cm_odd"] + 19] = cm_odd
+    if cc.wall_velocity is not None:
+        ci[CINT["moving"]] = 1
+        cf[CFLOAT["bb"]:CFLOAT["bb"] + 19] = moving_bb_terms(
+            cc.wall_velocity)
+    if cc.mrt_k is not None:
+        cf[CFLOAT["mrt_k"]:CFLOAT["mrt_k"] + 19 * 19] = cc.mrt_k.reshape(-1)
+    if cc.closure is not None:
+        k = closure_constants(cc.closure, cc.tau)
+        ci[CINT["closure"]] = CLOSURES.index(k["kind"])
+        ci[CINT["iters"]] = k.get("iters", 0)
+        ci[CINT["square"]] = int(k.get("square", False))
+        cf[CFLOAT["t0"]] = k["t0"]
+        cf[CFLOAT["lo"]] = k.get("lo", 0.0)
+        cf[CFLOAT["hi"]] = k.get("hi", 0.0)
+        for j, name in enumerate(_CLOSURE_C[k["kind"]]):
+            cf[CFLOAT["c"] + j] = k[name]
+    return ci, cf
 
 
 def collide_stream_plain(f, cc: CompiledCase, t: int):
@@ -78,25 +162,30 @@ def fix_z_plane_plain(f_src, f_out, cc: CompiledCase, bc: CompiledBC,
     nx, ny, nz = cc.shape
     xs = torch.arange(x0, x1, device=f_src.device)[:, None]
     ys = torch.arange(y0, y1, device=f_src.device)[None, :]
+    bb = (None if cc.wall_velocity is None
+          else moving_bb_terms(cc.wall_velocity))
     pulled = [f_src[0, x0:x1, y0:y1, c]]
     for i in range(1, D3Q19.Q):
         ex, ey, ez = (int(v) for v in D3Q19.E[i])
         sx, sy, sz = (xs - ex) % nx, (ys - ey) % ny, (c - ez) % nz
-        wall = cc.mask[sx, sy, sz] == CellType.WALL
-        pulled.append(torch.where(wall,
-                                  f_src[D3Q19.OPP[i], x0:x1, y0:y1, c],
-                                  f_src[i, sx, sy, sz]))
+        nbr = cc.mask[sx, sy, sz]
+        own_opp = f_src[D3Q19.OPP[i], x0:x1, y0:y1, c]
+        v = torch.where(nbr == CellType.WALL, own_opp, f_src[i, sx, sy, sz])
+        if bb is not None:
+            v = torch.where(nbr == CellType.MOVING, own_opp + float(bb[i]), v)
+        pulled.append(v)
     pulled = torch.stack(pulled)[..., None]          # (19, wx, wy, 1)
-    speed_before = _speed(moments(pulled)[1])
+    speed_before = _speed(velocity(*momentum(pulled), cc.force))
     window = dataclasses.replace(
         bc, consumer_coord=0, valid=bc.valid[:, x0:x1, y0:y1],
         phi_star=(None if bc.phi_star is None
                   else bc.phi_star[:, x0:x1, y0:y1]),
         phi_star_series=(None if bc.phi_star_series is None
                          else bc.phi_star_series[:, :, x0:x1, y0:y1]))
-    apply_bc_fixup(pulled, f_src[:, x0:x1, y0:y1, c:c + 1], window, t)
-    rho, u = moments(pulled)
-    post = collide(pulled, rho[None] * phi(u), cc.tau)[..., 0]
+    apply_bc_fixup(pulled, f_src[:, x0:x1, y0:y1, c:c + 1], window, t,
+                   cc.force)
+    post, _, u = collide_cells(cc, pulled)
+    post = post[..., 0]
     fluid = cc.fluid[x0:x1, y0:y1, c]
     plane = f_out[:, x0:x1, y0:y1, c]
     plane.copy_(torch.where(fluid[None], post, plane))
@@ -115,9 +204,10 @@ def step_plain(f, cc: CompiledCase, t: int):
     return f_new, vs
 
 
-def macro_plain(f):
-    """(rho, u) moments of every cell: core.lattice.moments."""
-    return moments(f)
+def macro_plain(f, force=None):
+    """(rho, u) moments of every cell, u = (m + F/2) / rho with a force."""
+    rho, mom = momentum(f)
+    return rho, velocity(rho, mom, force)
 
 
 def _check_state(f, cc: CompiledCase, name: str) -> None:
@@ -165,8 +255,9 @@ def _bc_tables(cc: CompiledCase, bcs=None, t: int = 0):
 
 
 # The wrappers' scratch per case, dropped with the case: {(kernel, bc
-# ids): (bcs, descriptor rows, partials)}. An entry holds its boundaries,
-# so their ids stay unique while it lives.
+# ids): (bcs, descriptor rows, partials)} and {"collision": (name, int
+# row, float row)}. An entry holds its boundaries, so their ids stay
+# unique while it lives.
 _scratch: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
@@ -191,15 +282,30 @@ def _launch_scratch(cc: CompiledCase, kernel: str, bcs, t: int, n: int):
     return tab, partials[n]
 
 
+def collision_descriptor(cc: CompiledCase):
+    """(instance name, int row, float row) of the case, built once. Raises
+    NotImplementedError, naming backend='dense', for a composition the
+    kernels lack (compile.kernel_refusal), on every call."""
+    per_case = _scratch.setdefault(cc, {})
+    if "collision" not in per_case:
+        reason = kernel_refusal(cc.spec)
+        if reason is not None:
+            raise NotImplementedError(
+                f"{reason}; run this case with backend='dense'")
+        per_case["collision"] = (instance(cc),) + collision_tables(cc)
+    return per_case["collision"]
+
+
 def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
                    all_blocks: bool = False):
-    """One BGK step of f into out (a different buffer) at absolute step t
-    with the x/y-plane boundaries; writes the fluid velsum, sum over
+    """One step of f into out (a different buffer) at absolute step t
+    with the case's collision branch and x/y-plane boundaries; writes the fluid velsum, sum over
     fluid cells of |u| after their NEE rewrite, into series[slot]
     (float64). The launch covers the case's live blocks (cc.live_blocks;
     every block when that is None, or with all_blocks); the blocks left
     out hold no fluid cell and must be equal in f and out. Returns out."""
     _check_pair(f, out, cc, series, slot)
+    name, ci, cf = collision_descriptor(cc)
     ids = None if all_blocks else cc.live_blocks
     if f.device.type == "cpu":
         f_new, vs = collide_stream_plain(f, cc, t)
@@ -218,15 +324,15 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
         cc, "k1a", cc.kernel_bcs, t, grid)
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
-        err = lib.lbm_collide_stream_bgk(
+        err = lib.lbm_collide_stream(
             f.data_ptr(), out.data_ptr(), cc.mask.data_ptr(),
-            nx, ny, nz, cc.tau,
+            nx, ny, nz, ci.ctypes.data, cf.ctypes.data,
             len(cc.kernel_bcs), ints.ctypes.data, floats.ctypes.data,
             ctypes.addressof(valid), ctypes.addressof(phis),
             None if ids is None else ids.data_ptr(), grid,
             partials.data_ptr(), grid, series.data_ptr(), slot, stream)
-    check(lib, err, "lbm_collide_stream_bgk")
-    launches["lbm_collide_stream_bgk"] += 1
+    check(lib, err, f"lbm_collide_stream[{name}]")
+    _count(f"lbm_collide_stream[{name}]")
     return out
 
 
@@ -237,6 +343,7 @@ def fix_z_plane(f_src, f_out, cc: CompiledCase, bc: CompiledBC, series,
     over the boundary's window; adds the velsum correction to
     series[slot]. Returns f_out."""
     _check_pair(f_src, f_out, cc, series, slot)
+    name, ci, cf = collision_descriptor(cc)
     if not any(b is bc for b in cc.z_bcs) or bc.window is None:
         raise ValueError("bc must be one of the case's z-plane boundaries "
                          "with a window")
@@ -255,11 +362,12 @@ def fix_z_plane(f_src, f_out, cc: CompiledCase, bc: CompiledBC, series,
         stream = torch.cuda.current_stream(f_src.device).cuda_stream
         err = lib.lbm_fix_z_plane(
             f_src.data_ptr(), f_out.data_ptr(), cc.mask.data_ptr(),
-            nx, ny, nz, cc.tau, ints.ctypes.data, floats.ctypes.data,
+            nx, ny, nz, ci.ctypes.data, cf.ctypes.data,
+            ints.ctypes.data, floats.ctypes.data,
             valid[0], phis[0], x0, x1, y0, y1,
             partials.data_ptr(), grid, series.data_ptr(), slot, stream)
-    check(lib, err, "lbm_fix_z_plane")
-    launches["lbm_fix_z_plane"] += 1
+    check(lib, err, f"lbm_fix_z_plane[{name}]")
+    _count(f"lbm_fix_z_plane[{name}]")
     return f_out
 
 
@@ -274,14 +382,17 @@ def step(f, out, cc: CompiledCase, series, slot: int, t: int):
     return out
 
 
-def macro(f):
+def macro(f, force=None):
     """(rho (X, Y, Z), u (3, X, Y, Z)) moments of every cell of a
-    (19, X, Y, Z) float32 state."""
+    (19, X, Y, Z) float32 state; with a body force (a 3-vector) u = (m +
+    F/2) / rho."""
     if f.dtype != torch.float32 or not f.is_contiguous() or f.dim() != 4 \
             or f.shape[0] != 19:
         raise ValueError("f must be a contiguous (19, X, Y, Z) float32 tensor")
+    if force is not None and len(force) != 3:
+        raise ValueError(f"force must be a 3-vector: {force!r}")
     if f.device.type == "cpu":
-        return macro_plain(f)
+        return macro_plain(f, force)
     if f.device.type != "cuda":
         raise ValueError(f"no kernel for device {f.device}")
     from lbm_tpu_torch.kernels._build import check, load_library
@@ -290,15 +401,21 @@ def macro(f):
     rho = torch.empty(f.shape[1:], dtype=torch.float32, device=f.device)
     u = torch.empty((3,) + tuple(f.shape[1:]), dtype=torch.float32,
                     device=f.device)
+    half = (None if force is None
+            else np.asarray(half_force(force), np.float32))
+    name = "lbm_macro" if force is None else "lbm_macro[force]"
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
         err = lib.lbm_macro(f.data_ptr(), rho.data_ptr(), u.data_ptr(),
-                            rho.numel(), stream)
-    check(lib, err, "lbm_macro")
-    launches["lbm_macro"] += 1
+                            rho.numel(),
+                            None if half is None else half.ctypes.data,
+                            stream)
+    check(lib, err, name)
+    _count(name)
     return rho, u
 
 
 __all__ = ["collide_stream", "collide_stream_plain", "fix_z_plane",
            "fix_z_plane_plain", "step", "step_plain", "live_block_ids",
-           "macro", "macro_plain", "launches", "reset_launches"]
+           "macro", "macro_plain", "launches", "reset_launches", "instance",
+           "collision_tables", "collision_descriptor", "CINT", "CFLOAT"]

@@ -89,8 +89,7 @@ def test_wrapper_on_cpu_runs_the_plain_version(name):
     rho, u = K.macro(out)
     rho_p, u_p = K.macro_plain(out)
     assert torch.equal(rho, rho_p) and torch.equal(u, u_p)
-    assert K.launches == {"lbm_collide_stream_bgk": 0, "lbm_fix_z_plane": 0,
-                          "lbm_macro": 0}
+    assert sum(K.launches.values()) == 0  # no kernel launched
 
 
 def test_wrapper_rejects_bad_arguments():

@@ -186,20 +186,34 @@ def test_cli_writes_vtk_and_convergence_log(tmp_path):
                              cwd=ROOT, capture_output=True, text=True,
                              timeout=120)
     assert listing.stdout.split() == ["coronary", "curved_vessel",
-                                      "lid_driven_cavity", "poiseuille"]
+                                      "gravity_channel", "lid_driven_cavity",
+                                      "pipe", "poiseuille"]
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(collision="trt"),
-    dict(collision="mrt"),
-    dict(force=(1e-6, 0.0, 0.0)),
-    dict(smagorinsky_cs=0.1),
-    dict(rheology={"model": "power_law", "K": 0.05, "n": 0.7}),
-    dict(lid="bounceback"),
+_FORCE = dict(force=(1e-6, 0.0, 0.0))
+_PLAW = {"model": "power_law", "K": 0.05, "n": 0.7}
+
+
+@pytest.mark.parametrize("name,kwargs,match", [
+    ("lid_driven_cavity", dict(collision="mrt", **_FORCE), "backend='dense'"),
+    ("lid_driven_cavity", dict(smagorinsky_cs=0.1, **_FORCE),
+     "backend='dense'"),
+    ("lid_driven_cavity", dict(rheology=_PLAW, **_FORCE), "backend='dense'"),
+    ("gravity_channel", dict(n=8, nz=8, collision="trt", rheology=_PLAW),
+     "backend='dense'"),
+    ("pipe", dict(n=16, nz=4, curved=True), "ROADMAP.md Queue 1 item 8"),
+    ("coronary", dict(shape=(24, 20, 32), radius=4,
+                      windkessel=[(1.0, 1.0, 1.0)] * 4),
+     "ROADMAP.md Queue 1 item 8"),
 ])
-def test_refuses_unported_features(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Simulation(get_case("lid_driven_cavity", n=8, **kwargs), device="cpu")
+def test_refuses_unported_features(name, kwargs, match):
+    """What the port does not run raises by name: the two compositions
+    the collide-stream kernel lacks (on backend='kernel', pointing at
+    'dense'), Bouzidi walls and windkessel outlets (ROADMAP)."""
+    if name == "lid_driven_cavity":
+        kwargs = dict(kwargs, n=8)
+    with pytest.raises(NotImplementedError, match=match):
+        Simulation(get_case(name, **kwargs), device="cpu")
 
 
 def test_refuses_unported_boundaries():
