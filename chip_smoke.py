@@ -55,6 +55,34 @@ no result line):
      steps writes VTK and CONVERGENCE.log, on the default coronary
      (128, 64, 96) writes VTK with density, and on gravity_channel 64^3
      with --opt collision=trt writes VTK.
+Scalar transport and thermal flow (K7, K8: lbm_scalar_stream; K1e: the
+force-field instances of lbm_collide_stream):
+  3b. (inside phase 3) each new instance against its plain version for
+     200 steps, f and g bit for bit and the record series to 1e-12: K7 on
+     poiseuille 32^3 wash-in with div_fix and on coronary (64, 48, 96)
+     r=4 in mean-age mode and with a bolus gate; K8 on the pulsatile small
+     coronary; K1e + K8 + Dirichlet walls on heated_cavity_3d n=32 and
+     rayleigh_benard_3d 64x64x34 with BGK and TRT and on the periodic
+     rayleigh_benard 32x1x18; then K7 and K8 per launch at the full
+     coronary over the live list and K7, K8 and K1e at 256^3, in turns
+     with their plain versions, with bounds;
+  9. the washout path: coronary 291x291x372 r=12 (steady), 2000 flow
+     steps, then ScalarTransport with D=0.02 and a 500-step bolus at
+     boundary 0 for 4000 steps, every boundary recorded (K7 4000
+     launches): finite, -0.01 <= c <= 1.1, the inlet record above 0.9
+     inside the gate and below it after, total() > 0;
+ 10. the coupled washout path: the pulsatile full coronary through
+     CoupledTransport, 2000 steps (K1a 2000, the z-plane fixup 6000, K8
+     2000), same checks;
+ 11. the thermal path: heated_cavity_3d n=256, Ra = 1e4, Pr = 0.71, 4 chunks
+     of 250 steps with nusselt_profile each (K1e [bgk+field] 1000, K8
+     1000, K3 at least 4): finite, temperature within the wall values +-
+     1e-2, kinetic energy above zero and growing; then 250 steps with
+     collision='trt' ([trt+field] 250);
+ 12. the CLI: `transport` on the default coronary with a bolus and --vtk
+     writes the washout CSV and the concentration VTK; `thermal` at its
+     defaults (cavity3d n=32, 4 x 5000 steps) ends with 1.8 < Nu < 2.3
+     (Tric et al.: 2.0542).
 Before the last line it prints one JSON object describing each kernel;
 the last line is {"ok": true, "device": {...}}.
 """
@@ -71,6 +99,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 K1A_SOURCE = "lbm_tpu_torch/kernels/csrc/collide_stream.cu"
+K7_SOURCE = "lbm_tpu_torch/kernels/csrc/scalar_stream.cu"
 HBM_BYTES_PER_S = 3.35e12   # published H100 SXM peak at 700 W
 FULL_CORONARY = dict(shape=[291, 291, 372], radius=12, pulsatile=[40, 2000])
 
@@ -478,29 +507,11 @@ def time_vessel(spec, device):
 
 
 def profile_run(sim, steps):
-    """Device time by kernel over a `steps`-step run (one chunk), by
-    torch.profiler: ({kernel name: (ms per step, launches per step)},
-    device busy share of the wall time). Empty when the profiler sees no
-    device activity."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sim.run(max_steps=steps, time_save=steps, verbose=False)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name, busy_ms = {}, 0.0
-    for ev in prof.key_averages():
-        if not str(ev.device_type).endswith("CUDA"):
-            continue  # host-side events; their kernels are listed apart
-        dev_ms = getattr(ev, "device_time_total", 0.0) / 1e3
-        if dev_ms > 0:
-            by_name[ev.key] = (dev_ms / steps, ev.count / steps)
-            busy_ms += dev_ms
-    return by_name, busy_ms / wall_ms
+    """profile_steps over a `steps`-step run of a Simulation (one
+    chunk)."""
+    return profile_steps(
+        lambda: sim.run(max_steps=steps, time_save=steps, verbose=False),
+        steps)
 
 
 def short_name(kernel: str) -> str:
@@ -527,12 +538,25 @@ def ptxas_report(log: str) -> dict:
 
     def name_of(mangled):
         m = re.search(r"(collide_stream_kernel|fix_z_plane_kernel)"
-                      r"ILi(\d)ELb(\d)ELb(\d)ELb(\d)E", mangled)
+                      r"ILi(\d)ELb(\d)ELi(\d)ELb(\d)E", mangled)
         if m:
             parts = [("bgk", "trt", "mrt")[int(m.group(2))]]
-            parts += [w for w, on in zip(("closure", "force", "moving"),
+            if m.group(3) == "1":
+                parts.append("closure")
+            parts += [w for w in (("", "force", "field")[int(m.group(4))],)
+                      if w]
+            if m.group(5) == "1":
+                parts.append("moving")
+            return f"{m.group(1)}[{'+'.join(parts)}]"
+        m = re.search(r"(scalar_stream_kernel)ILb(\d)ELb(\d)ELb(\d)ELb(\d)E",
+                      mangled)
+        if m:
+            parts = ["live" if m.group(2) == "1" else "frozen"]
+            parts += [w for w, on in zip(("comp", "force", "dirichlet"),
                                          m.group(3, 4, 5)) if on == "1"]
             return f"{m.group(1)}[{'+'.join(parts)}]"
+        if "scalar_record_kernel" in mangled:
+            return "scalar_record_kernel"
         m = re.search(r"(macro_kernel)ILb(\d)E", mangled)
         if m:
             return f"macro_kernel[{'force' if m.group(2) == '1' else 'plain'}]"
@@ -696,6 +720,567 @@ def force_path(device):
     return counts
 
 
+def scalar_bytes(sc, live: bool) -> int:
+    """The least bytes one scalar step of the fluid cells must move,
+    counted as step_bytes counts the flow's: per fluid cell its seven
+    pulled g and seven written g, its mask byte, and the velocity's
+    source: the frozen u (3 floats) and comp (1) or the flow state (19)."""
+    n_fluid = int(sc.fluid.sum())
+    vel = 19 * 4 if live else 3 * 4 + (4 if sc.comp is not None else 0)
+    return n_fluid * (7 * 4 + 7 * 4 + 1 + vel)
+
+
+def plain_steps(tr, n):
+    """n steps of a transport's state with the kernel route's plain
+    versions (never the kernels): the (n, n_bc) record series."""
+    import torch
+
+    from lbm_tpu_torch.kernels import scalar_stream as S
+
+    series = torch.zeros((n, len(tr.sc.bcs)), dtype=torch.float64,
+                         device=tr.sc.device)
+    for k in range(n):
+        if hasattr(tr, "cc"):
+            tr.f, tr.g, series[k], _ = S.coupled_step_plain(
+                tr.f, tr.g, tr.cc, tr.sc, tr.t + k, tr.field)
+        else:
+            tr.g, series[k] = S.scalar_stream_plain(tr.g, tr.sc, tr.t + k)
+    tr.t += n
+    return series
+
+
+def compare_transport(label, make, steps, device, want_scalar, want_flow=None):
+    """Kernel route against its plain versions on one transport: `make`
+    builds it twice; one runs `steps` steps through run() (the kernels),
+    the other through plain_steps. f and g must be bit-equal and the
+    record series agree to 1e-12. Returns {"g", "f", "series"} max abs
+    errors."""
+    import torch
+
+    from lbm_tpu_torch.kernels import collide_stream as K
+    from lbm_tpu_torch.kernels import scalar_stream as S
+
+    a, b = make(), make()
+    rec = list(range(len(a.sc.bcs)))
+    K.reset_launches()
+    S.reset_launches()
+    if hasattr(a, "buoyancy"):
+        a.run(steps)
+        sa = torch.zeros((steps, 0), dtype=torch.float64)
+    else:
+        sa = torch.from_numpy(a.run(steps, record=rec))
+    sb = plain_steps(b, steps).cpu()
+    torch.cuda.synchronize()
+    counts = {**K.launches, **S.launches}
+    require(counts.get(f"lbm_scalar_stream[{want_scalar}]") == steps,
+            f"{label}: scalar launches {counts}")
+    if want_flow is not None:
+        require(counts.get(f"lbm_collide_stream[{want_flow}]") == steps,
+                f"{label}: flow launches {counts}")
+    out = {"g": check_close(f"g after {steps} steps, {label}", a.g, b.g,
+                            3e-6, 1e-7), "f": 0.0}
+    if hasattr(a, "cc"):
+        out["f"] = check_close(f"f after {steps} steps, {label}", a.f, b.f,
+                               3e-6, 1e-7)
+    out["series"] = float((sa - sb).abs().max()) if sa.numel() else 0.0
+    require(out["g"] == 0.0 and out["f"] == 0.0 and out["series"] <= 1e-12,
+            f"{label}: not bit-equal (g {out['g']:.3e}, f {out['f']:.3e}, "
+            f"record series {out['series']:.3e})")
+    c = a.concentration()
+    require(bool(torch.isfinite(c).all()) and float(c.abs().max()) > 0,
+            f"{label}: the concentration did not move")
+    print(f"[3] {label}: after {steps} steps max abs err g {out['g']:.3e}, "
+          f"f {out['f']:.3e}, record series {out['series']:.3e} "
+          f"({len(rec)} boundaries); launches {counts}; max|c| "
+          f"{float(c.abs().max()):.4g}", flush=True)
+    del a, b
+    free_device()
+    return out
+
+
+def scalar_comparisons(device):
+    """Phase 3 of the scalar and thermal kernels: every instance against
+    its plain version, 200 steps each. Returns {instance: max abs err of
+    f and g} and, under "record series", the records' max abs error."""
+    import dataclasses
+
+    from lbm_tpu_torch.cases import get_case
+    from lbm_tpu_torch.cases import thermal as tcases
+    from lbm_tpu_torch.engine.runner import Simulation
+    from lbm_tpu_torch.engine.scalar import CoupledTransport, ScalarTransport
+    from lbm_tpu_torch.engine.thermal import BuoyantTransport
+
+    errs = {}
+
+    def note(inst, e):
+        errs[inst] = max(errs.get(inst, 0.0), e["g"], e["f"])
+        errs["record series"] = max(errs.get("record series", 0.0),
+                                    e["series"])
+
+    def flow_u(spec):
+        sim = Simulation(spec, device=device)
+        sim.run(max_steps=200, time_save=200, verbose=False)
+        return sim.macro()[1]
+
+    small = dict(shape=[64, 48, 96], radius=4)
+    pois, cor = get_case("poiseuille", n=32), get_case("coronary", **small)
+    u_p, u_c = flow_u(pois), flow_u(cor)
+    frozen = (
+        ("K7 poiseuille 32^3 wash-in, div_fix", "frozen+comp",
+         lambda: ScalarTransport(pois, u_p, D=0.02, inlet_c={0: 1.0},
+                                 device=device)),
+        ("K7 coronary (64,48,96) r=4 mean age (source=1), div_fix",
+         "frozen+comp",
+         lambda: ScalarTransport(cor, u_c, D=0.02, inlet_c={0: 0.0},
+                                 source=1.0, device=device)),
+        ("K7 coronary (64,48,96) r=4 mean age, no div_fix", "frozen",
+         lambda: ScalarTransport(cor, u_c, D=0.02, inlet_c={0: 0.0},
+                                 source=1.0, div_fix=False, device=device)),
+        ("K7 coronary (64,48,96) r=4 bolus gate 50", "frozen+comp",
+         lambda: ScalarTransport(
+             cor, u_c, D=0.02, device=device,
+             inlet_c={0: lambda t: 1.0 if t < 50 else 0.0})),
+    )
+    for label, inst, make in frozen:
+        note(inst, compare_transport(label, make, 200, device, inst))
+    puls = get_case("coronary", **small, pulsatile=[4, 40])
+    note("live", compare_transport(
+        "K8 coronary (64,48,96) r=4 pulsatile [4,40], bolus gate 50",
+        lambda: CoupledTransport(
+            puls, D=0.02, device=device,
+            inlet_c={0: lambda t: 1.0 if t < 50 else 0.0}),
+        200, device, "live", "bgk"))
+    thermal = (
+        ("heated_cavity_3d n=32", tcases.heated_cavity_3d(n=32), True),
+        ("rayleigh_benard_3d 64x64x34", tcases.rayleigh_benard_3d(), True),
+        ("rayleigh_benard 32x1x18 (periodic)", tcases.rayleigh_benard(),
+         False),
+    )
+    for label, (spec, kw, _), both in thermal:
+        for coll in ("bgk", "trt") if both else ("bgk",):
+            sp = dataclasses.replace(spec, collision=coll)
+            e = compare_transport(
+                f"K1e+K8 {label} {coll}",
+                lambda sp=sp, kw=kw: BuoyantTransport(sp, device=device,
+                                                      **kw),
+                200, device, "live+force+dirichlet", f"{coll}+field")
+            note("live+force+dirichlet", e)
+            note(f"{coll}+field", e)
+    return errs
+
+
+def time_scalar(label, tr, device, iters_k, iters_p):
+    """One scalar launch of a transport's instance against its plain
+    version, in turns: {"ms", "plain_ms", "bound_ms", "instance"}; with a
+    flow state (coupled, thermal) the live instance reads tr.f."""
+    from lbm_tpu_torch.kernels import scalar_stream as S
+
+    live = hasattr(tr, "cc")
+    f = tr.f if live else None
+    state = [tr.g, tr._g_spare]
+
+    def kernel():
+        S.scalar_stream(state[0], state[1], tr.sc, 0, f=f)
+        state.reverse()
+
+    def plain():
+        S.scalar_stream_plain(state[0], tr.sc, 0, f=f)
+
+    inst = S.instance(tr.sc, live)
+    ms, plain_ms = in_turns(f"lbm_scalar_stream [{inst}] {label}", plain,
+                            kernel, iters_p, iters_k)
+    out = {"ms": ms, "plain_ms": plain_ms, "instance": inst,
+           "bound_ms": bound_ms(scalar_bytes(tr.sc, live)),
+           "fluid_cells": int(tr.sc.fluid.sum())}
+    print(f"[3] bound of lbm_scalar_stream [{inst}] {label}: "
+          f"{out['bound_ms']:.6f} ms ({out['fluid_cells']} fluid cells)",
+          flush=True)
+    return out
+
+
+def time_field(bt, device, iters_k, iters_p, label):
+    """One collide-stream launch of a BuoyantTransport's force-field
+    instance against its plain version, in turns."""
+    import torch
+
+    from lbm_tpu_torch.kernels import collide_stream as K
+
+    cc, field, g = bt.cc, bt.field, bt.g
+    state = [bt.f, bt._f_spare]
+    series = torch.zeros(1, dtype=torch.float64, device=device)
+
+    def kernel():
+        K.collide_stream(state[0], state[1], cc, series, 0, 0, field=field,
+                         g=g)
+        state.reverse()
+
+    def plain():
+        K.collide_stream_plain(state[0], cc, 0, field, g)
+
+    inst = K.instance(cc, field)
+    ms, plain_ms = in_turns(f"collide-stream [{inst}] {label}", plain,
+                            kernel, iters_p, iters_k)
+    n_bytes = step_bytes(cc, cc.fluid, cc.kernel_bcs) \
+        + int(cc.fluid.sum()) * 7 * 4
+    out = {"ms": ms, "plain_ms": plain_ms, "instance": inst,
+           "bound_ms": bound_ms(n_bytes)}
+    print(f"[3] bound of [{inst}] {label}: {out['bound_ms']:.4f} ms",
+          flush=True)
+    return out
+
+
+def scalar_timings(full, device):
+    """K7 and K8 a launch at the full coronary over the live list, and
+    K7, K8 and K1e (BGK and TRT) at 256^3, each in turns with its plain
+    version."""
+    import dataclasses
+
+    import torch
+
+    from lbm_tpu_torch.cases import get_case
+    from lbm_tpu_torch.cases import thermal as tcases
+    from lbm_tpu_torch.engine.scalar import CoupledTransport, ScalarTransport
+    from lbm_tpu_torch.engine.thermal import BuoyantTransport
+
+    out = {}
+    rng = torch.Generator(device=device).manual_seed(0)
+    u = 0.02 * torch.randn((3,) + tuple(full.shape), generator=rng,
+                           device=device)
+    tr = ScalarTransport(full, u, D=0.02, inlet_c={0: 1.0}, device=device)
+    del u
+    out["k7_coronary"] = time_scalar("coronary full, live blocks", tr, device,
+                                     1000, 3)
+    del tr
+    free_device()
+    tr = CoupledTransport(full, D=0.02, inlet_c={0: 1.0}, device=device)
+    out["k8_coronary"] = time_scalar("coronary full, live blocks", tr, device,
+                                     1000, 3)
+    del tr
+    free_device()
+    lid = get_case("lid_driven_cavity", n=256)
+    tr = ScalarTransport(lid, torch.zeros((3,) + tuple(lid.shape),
+                                          device=device),
+                         D=0.02, inlet_c={0: 1.0}, device=device)
+    out["k7_256"] = time_scalar("lid 256^3", tr, device, 500, 5)
+    del tr
+    free_device()
+    spec, kw, _ = tcases.heated_cavity_3d(n=256)
+    bt = BuoyantTransport(spec, device=device, **kw)
+    out["k8_256"] = time_scalar("heated_cavity_3d 256^3", bt, device, 500, 5)
+    out["k1e_256"] = time_field(bt, device, 500, 5, "heated_cavity_3d 256^3")
+    del bt
+    free_device()
+    bt = BuoyantTransport(dataclasses.replace(spec, collision="trt"),
+                          device=device, **kw)
+    out["k1e_trt_256"] = time_field(bt, device, 500, 5,
+                                    "heated_cavity_3d 256^3")
+    del bt
+    free_device()
+    return out
+
+
+def profile_steps(run, steps):
+    """Device time by kernel over run() (which advances `steps` steps), by
+    torch.profiler: ({kernel name: (ms per step, launches per step)},
+    device busy share of the traced wall time). Empty when the profiler
+    sees no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, busy_ms = {}, 0.0
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA"):
+            continue  # host-side events; their kernels are listed apart
+        dev_ms = getattr(ev, "device_time_total", 0.0) / 1e3
+        if dev_ms > 0:
+            by_name[ev.key] = (dev_ms / steps, ev.count / steps)
+            busy_ms += dev_ms
+    return by_name, busy_ms / wall_ms
+
+
+def print_profile(tag, by_name, busy, ms):
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    dev_ms = sum(v[0] for v in by_name.values())
+    print(f"{tag} profile of 200 more steps (device ms per step, calls per "
+          "step): " + "; ".join(f"{short_name(k)} {v[0]:.5f} x{v[1]:.2f}"
+                                for k, v in top)
+          + f"; device {dev_ms:.5f} ms per step; device busy share "
+          f"{busy:.3f} of the traced window, {dev_ms / ms:.3f} of the "
+          "untraced step", flush=True)
+
+
+def check_washout(tag, tr, series, gate):
+    """The washout checks: finite series and field, -0.01 <= c <= 1.1 at
+    fluid cells, the inlet record above 0.9 inside the gate and below it
+    after, total() > 0. Prints every boundary's peak."""
+    import numpy as np
+    import torch
+
+    c = tr.concentration()
+    cf = c[tr.fluid]
+    require(bool(np.isfinite(series).all()) and bool(torch.isfinite(c).all()),
+            f"{tag}: non-finite series or field")
+    c_lo, c_hi = float(cf.min()), float(cf.max())
+    require(-0.01 <= c_lo and c_hi <= 1.1,
+            f"{tag}: c in [{c_lo:.4g}, {c_hi:.4g}] outside [-0.01, 1.1]")
+    inlet = series[:, 0]
+    require(inlet[:gate].max() > 0.9 and inlet[-1] < 0.9,
+            f"{tag}: inlet record max {inlet[:gate].max():.4f} inside the "
+            f"gate, {inlet[-1]:.4f} at the end")
+    total = tr.total()
+    require(total > 0, f"{tag}: total() = {total}")
+    peaks = "; ".join(
+        f"bc{k} peak {series[:, k].max():.5f} at step "
+        f"{int(series[:, k].argmax())}, final {series[-1, k]:.5f}"
+        for k in range(series.shape[1]))
+    print(f"{tag} c over the fluid cells {c_lo:.4g}..{c_hi:.4g}, total() "
+          f"{total:.6g}; {peaks}", flush=True)
+
+
+def washout_path(device):
+    """coronary 291x291x372 r=12 (steady): 2000 flow steps, then the
+    frozen-field transport, D=0.02, a 500-step bolus at boundary 0, 4000
+    steps, every boundary recorded. Returns the launch counts."""
+    import torch
+
+    from lbm_tpu_torch.cases import get_case
+    from lbm_tpu_torch.engine.runner import Simulation
+    from lbm_tpu_torch.engine.scalar import ScalarTransport
+    from lbm_tpu_torch.kernels import collide_stream as K
+    from lbm_tpu_torch.kernels import scalar_stream as S
+
+    tag = "[9] washout path"
+    spec = get_case("coronary", shape=[291, 291, 372], radius=12)
+    rec = list(range(len(spec.boundaries)))
+    torch.cuda.reset_peak_memory_stats(device)
+    K.reset_launches()
+    S.reset_launches()
+    sim = Simulation(spec, device=device)
+    flow = sim.run(max_steps=2000, time_save=1000, verbose=False)
+    u = sim.macro()[1]
+    del sim
+    t0 = time.perf_counter()
+    tr = ScalarTransport(spec, u, D=0.02, device=device,
+                         inlet_c={0: lambda t: 1.0 if t < 500 else 0.0})
+    del u
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    series = tr.run(4000, record=rec)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = {**K.launches, **S.launches}
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    require(counts.get("lbm_scalar_stream[frozen+comp]") == 4000
+            and counts.get("lbm_collide_stream[bgk]") == 2000,
+            f"{tag}: launches {counts}")
+    require(series.shape == (4000, len(rec)), f"{tag}: series {series.shape}")
+    ms = elapsed / 4000 * 1e3
+    print(f"{tag} coronary (291, 291, 372) r=12 steady: 2000 flow steps at "
+          f"{flow.elapsed_s / flow.steps * 1e3:.4f} ms/step, transport set-up "
+          f"{t_setup:.2f} s, 4000 transport steps in {elapsed:.3f} s = "
+          f"{ms:.4f} ms/step (host clock, synchronized), "
+          f"{int(tr.fluid.sum()) / ms / 1e3:.1f} M fluid-cell updates/s; g "
+          f"2 x {tr.g.numel() * 4 / 1e9:.2f} GB; peak device memory "
+          f"{peak:.2f} GiB; launches {counts}", flush=True)
+    check_washout(tag, tr, series, 500)
+    by_name, busy = profile_steps(lambda: tr.run(200, record=rec), 200)
+    print_profile(tag, by_name, busy, ms)
+    del tr
+    free_device()
+    return counts
+
+
+def coupled_path(full, device):
+    """The pulsatile full coronary through CoupledTransport on the kernel
+    route, 2000 steps with a 500-step bolus, every boundary recorded.
+    Returns the launch counts."""
+    import torch
+
+    from lbm_tpu_torch.engine.scalar import CoupledTransport
+    from lbm_tpu_torch.kernels import collide_stream as K
+    from lbm_tpu_torch.kernels import scalar_stream as S
+
+    tag = "[10] coupled washout path"
+    rec = list(range(len(full.boundaries)))
+    torch.cuda.reset_peak_memory_stats(device)
+    K.reset_launches()
+    S.reset_launches()
+    tr = CoupledTransport(full, D=0.02, device=device,
+                          inlet_c={0: lambda t: 1.0 if t < 500 else 0.0})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    series = tr.run(2000, record=rec)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = {**K.launches, **S.launches}
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    require(counts.get("lbm_scalar_stream[live]") == 2000
+            and counts.get("lbm_collide_stream[bgk]") == 2000
+            and counts.get("lbm_fix_z_plane[bgk]") == 6000,
+            f"{tag}: launches {counts}")
+    rho, u = tr.macro()
+    require(bool(torch.isfinite(rho).all() and torch.isfinite(u).all()),
+            f"{tag}: non-finite flow")
+    ms = elapsed / 2000 * 1e3
+    print(f"{tag} coronary (291, 291, 372) r=12 pulsatile [40, 2000]: 2000 "
+          f"steps in {elapsed:.3f} s = {ms:.4f} ms/step (host clock, "
+          f"synchronized); peak device memory {peak:.2f} GiB; launches "
+          f"{counts}", flush=True)
+    del rho, u
+    check_washout(tag, tr, series, 500)
+    by_name, busy = profile_steps(lambda: tr.run(200, record=rec), 200)
+    print_profile(tag, by_name, busy, ms)
+    del tr
+    free_device()
+    return counts
+
+
+def thermal_path(device):
+    """heated_cavity_3d n=256, Ra = 1e4, Pr = 0.71: 4 chunks of 250 steps
+    with nusselt_profile each, then 250 steps of the same box with TRT.
+    Returns (launch counts, the TRT run's counts)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.cases import thermal as tcases
+    from lbm_tpu_torch.engine.thermal import BuoyantTransport
+    from lbm_tpu_torch.kernels import collide_stream as K
+    from lbm_tpu_torch.kernels import scalar_stream as S
+
+    tag = "[11] thermal path"
+    spec, kw, info = tcases.heated_cavity_3d(n=256, ra=1e4, pr=0.71)
+    torch.cuda.reset_peak_memory_stats(device)
+    K.reset_launches()
+    S.reset_launches()
+    bt = BuoyantTransport(spec, device=device, **kw)
+    energy, nus, elapsed = [], [], 0.0
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bt.run(250)
+        torch.cuda.synchronize()
+        elapsed += time.perf_counter() - t0
+        _, nu = bt.nusselt_profile(0, info["kappa"], info["dT"], info["H"])
+        nus.append((float(np.mean(nu)), float(np.ptp(nu))))
+        u = bt.macro()[1]
+        energy.append(float(torch.where(bt.fluid[None], u * u, 0.0).sum(
+            dtype=torch.float64)))
+        del u
+    torch.cuda.synchronize()
+    counts = {**K.launches, **S.launches}
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    require(counts.get("lbm_collide_stream[bgk+field]") == 1000
+            and counts.get("lbm_scalar_stream[live+force+dirichlet]") == 1000
+            and counts.get("lbm_macro", 0) >= 4,
+            f"{tag}: launches {counts}")
+    c = bt.concentration()
+    require(bool(torch.isfinite(c).all() and torch.isfinite(bt.f).all()),
+            f"{tag}: non-finite state")
+    c_lo, c_hi = float(c[bt.fluid].min()), float(c[bt.fluid].max())
+    require(-0.51 <= c_lo and c_hi <= 0.51,
+            f"{tag}: temperature {c_lo:.4f}..{c_hi:.4f} outside the wall "
+            "values +- 1e-2")
+    require(energy[0] > 0 and energy[0] < energy[1] < energy[2],
+            f"{tag}: kinetic energy {energy}")
+    ms = elapsed / 1000 * 1e3
+    print(f"{tag} heated_cavity_3d 256^3 Ra = 1e4, Pr = 0.71 ({int(bt.fluid.sum())}"
+          f" fluid cells): 1000 steps in {elapsed:.3f} s = {ms:.4f} ms/step "
+          "(host clock, synchronized, the Nusselt diagnostics apart), "
+          f"{int(bt.fluid.sum()) / ms / 1e3:.1f} M fluid-cell updates/s; Nu "
+          "(mean, plane spread) per chunk "
+          f"{[(round(a, 4), round(b, 4)) for a, b in nus]}; sum u^2 per "
+          f"chunk {[f'{e:.4e}' for e in energy]}; temperature "
+          f"{c_lo:.4f}..{c_hi:.4f}; peak device memory {peak:.2f} GiB; "
+          f"launches {counts}", flush=True)
+    del c
+    by_name, busy = profile_steps(lambda: bt.run(200), 200)
+    print_profile(tag, by_name, busy, ms)
+    del bt
+    free_device()
+    K.reset_launches()
+    S.reset_launches()
+    bt = BuoyantTransport(dataclasses.replace(spec, collision="trt"),
+                          device=device, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bt.run(250)
+    torch.cuda.synchronize()
+    trt_ms = (time.perf_counter() - t0) / 250 * 1e3
+    trt_counts = {**K.launches, **S.launches}
+    require(trt_counts.get("lbm_collide_stream[trt+field]") == 250
+            and bool(torch.isfinite(bt.f).all()),
+            f"{tag} (trt): launches {trt_counts}")
+    print(f"{tag} the same box with collision='trt': 250 steps at "
+          f"{trt_ms:.4f} ms/step; launches {trt_counts}", flush=True)
+    del bt
+    free_device()
+    return counts, trt_counts
+
+
+def cli_transport_and_thermal():
+    """Phase 12: the `transport` and `thermal` subcommands on the card."""
+    import re
+
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "lbm_tpu_torch", "transport", "--case",
+             "coronary", "--flow-steps", "500", "--steps", "1000", "--bolus",
+             "200", "--vtk", "--out", tmp],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        require(proc.returncode == 0,
+                f"CLI transport failed ({proc.returncode}):\n{proc.stdout}\n"
+                f"{proc.stderr}")
+        files = sorted(os.listdir(tmp))
+        require(files == ["coronary_c_1000.vtk", "coronary_washout.csv"],
+                f"CLI transport outputs: {files}")
+        with open(os.path.join(tmp, "coronary_washout.csv")) as fh:
+            rows = fh.read().strip().splitlines()
+        require(rows[0].startswith("step,bc0,bc1") and len(rows) == 1001,
+                f"washout CSV: {len(rows)} lines, header {rows[0]!r}")
+        lines = proc.stdout.strip().splitlines()
+        print(f"[12] CLI transport (coronary default, bolus 200, --vtk) in "
+              f"{time.perf_counter() - t0:.1f} s wrote {files}; "
+              f"{lines[0]} | {' | '.join(l.strip() for l in lines[2:4])}",
+              flush=True)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "lbm_tpu_torch", "thermal", "--vtk",
+             "--out", tmp],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
+        require(proc.returncode == 0,
+                f"CLI thermal failed ({proc.returncode}):\n{proc.stdout}\n"
+                f"{proc.stderr}")
+        files = sorted(os.listdir(tmp))
+        require(files == ["heated_cavity_3d_20000.vtk"],
+                f"CLI thermal outputs: {files}")
+        m = re.findall(r"chunk (\d): t=(\d+)  Nu=([-\d.]+) \(spread "
+                       r"([-\d.]+)\)", proc.stdout)
+        require(len(m) == 4 and m[-1][1] == "20000",
+                f"CLI thermal output:\n{proc.stdout}")
+        nu, spread = float(m[-1][2]), float(m[-1][3])
+        require(1.8 < nu < 2.3,
+                f"heated_cavity_3d n=32 Ra 1e4: Nu {nu} outside (1.8, 2.3)")
+        print(f"[12] CLI thermal (cavity3d n=32 Ra = 1e4, Pr = 0.71, 4 x 5000 "
+              f"steps, --vtk) in {time.perf_counter() - t0:.1f} s wrote "
+              f"{files}: Nu {nu:.4f} beside Tric et al.'s 2.0542, plane "
+              f"spread {spread:.4f}; Nu per chunk "
+              f"{[float(x[2]) for x in m]}; "
+              f"{proc.stdout.strip().splitlines()[-2]}", flush=True)
+    return nu
+
+
 def main() -> int:
     import torch
 
@@ -731,7 +1316,11 @@ def main() -> int:
     print(f"[2] kernels {'built' if lib.built else 'found'} at "
           f"{os.path.relpath(lib.path, ROOT)} in {lib.build_seconds:.2f} s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})", flush=True)
-    ptxas = ptxas_report(lib.log)
+    slib = _build.load_scalar_library()
+    print(f"[2] scalar kernels {'built' if slib.built else 'found'} at "
+          f"{os.path.relpath(slib.path, ROOT)} in {slib.build_seconds:.2f} s, "
+          "side by side with the collide-stream library", flush=True)
+    ptxas = ptxas_report(lib.log + "\n" + slib.log)
     for name, (regs, spill_st, spill_ld) in sorted(ptxas.items()):
         print(f"[2] ptxas {name}: {regs} registers, {spill_st} bytes spill "
               f"stores, {spill_ld} bytes spill loads", flush=True)
@@ -838,6 +1427,13 @@ def main() -> int:
     k1b_time["coronary full trt+carreau"] = time_k1a(
         blood, device, 1000, 5, "coronary full, live blocks")
 
+    # the scalar and thermal kernels (K7, K8, K1e)
+    scalar_err = scalar_comparisons(device)
+    print("[3] scalar/thermal max abs err per instance (200 steps): "
+          + "; ".join(f"{k} {v:.3e}" for k, v in scalar_err.items()),
+          flush=True)
+    ts = scalar_timings(full, device)
+
     # -- phase 4: the lid main path ----------------------------------------
     spec = get_case("lid_driven_cavity", n=256)
     sim = Simulation(spec, device=device)
@@ -896,6 +1492,11 @@ def main() -> int:
     force_counts = force_path(device)
     free_device()
 
+    # -- phases 9-11: washout, coupled washout, thermal ---------------------
+    washout_counts = washout_path(device)
+    coupled_counts = coupled_path(full, device)
+    thermal_counts, thermal_trt_counts = thermal_path(device)
+
     # -- phase 8: the CLI --------------------------------------------------
     for case, opts, steps, want in (
             ("lid_driven_cavity", ["n=64"], "500",
@@ -930,6 +1531,8 @@ def main() -> int:
             print(f"[8] CLI {case} {' '.join(opts)} run in "
                   f"{time.perf_counter() - t0:.1f} s wrote {files}; "
                   f"{' | '.join(last)}", flush=True)
+
+    nu32 = cli_transport_and_thermal()
 
     bt = k1b_time["coronary full trt+carreau"]
     ft = k1b_time["gravity_channel 256^3 trt+force"]
@@ -996,6 +1599,60 @@ def main() -> int:
          "lid256_ms": t256["k3"], "lid256_plain_ms": t256["k3_plain"],
          "lid256_bound_ms": bound_ms(256**3 * (19 * 4 + 4 * 4)),
          "lid256_library_ms": t256["k3_library"]},
+        {"name": "lbm_scalar_stream[frozen+comp]", "route": "cuda",
+         "source": K7_SOURCE,
+         "replaces": "lbm_tpu/kernels/scalar_stream.py:507 (K7, _subtile7 "
+                     ":141)",
+         "launches": washout_counts["lbm_scalar_stream[frozen+comp]"],
+         "max_abs_err": max(scalar_err["frozen+comp"],
+                            scalar_err["frozen"]),
+         "record_series_max_abs_err": scalar_err["record series"],
+         "ms": ts["k7_coronary"]["ms"],
+         "plain_ms": ts["k7_coronary"]["plain_ms"],
+         "bound_ms": ts["k7_coronary"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "at_256": ts["k7_256"],
+         "registers": {k: v[0] for k, v in ptxas.items()
+                       if k.startswith("scalar")},
+         "build_s": slib.build_seconds},
+        {"name": "lbm_scalar_stream[live]", "route": "cuda",
+         "source": K7_SOURCE,
+         "replaces": "lbm_tpu/kernels/scalar_stream.py:507 (K8, _subtile7f "
+                     ":220)",
+         "launches": coupled_counts["lbm_scalar_stream[live]"],
+         "max_abs_err": scalar_err["live"],
+         "ms": ts["k8_coronary"]["ms"],
+         "plain_ms": ts["k8_coronary"]["plain_ms"],
+         "bound_ms": ts["k8_coronary"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "lbm_scalar_stream[live+force+dirichlet]", "route": "cuda",
+         "source": K7_SOURCE,
+         "replaces": "lbm_tpu/kernels/scalar_stream.py:507 (K8 with the "
+                     "Boussinesq force, _subtile7f :220)",
+         "launches": thermal_counts[
+             "lbm_scalar_stream[live+force+dirichlet]"],
+         "max_abs_err": scalar_err["live+force+dirichlet"],
+         "ms": ts["k8_256"]["ms"], "plain_ms": ts["k8_256"]["plain_ms"],
+         "bound_ms": ts["k8_256"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "cli_nu_n32": nu32},
+        {"name": "lbm_collide_stream[bgk+field]", "route": "cuda",
+         "source": K1A_SOURCE,
+         "replaces": "lbm_tpu/kernels/collide_stream.py:1333 (K1e, fforce "
+                     ":647-675)",
+         "launches": thermal_counts["lbm_collide_stream[bgk+field]"],
+         "max_abs_err": scalar_err["bgk+field"],
+         "ms": ts["k1e_256"]["ms"], "plain_ms": ts["k1e_256"]["plain_ms"],
+         "bound_ms": ts["k1e_256"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "lbm_collide_stream[trt+field]", "route": "cuda",
+         "source": K1A_SOURCE,
+         "replaces": "lbm_tpu/kernels/collide_stream.py:1333 (K1e, fforce "
+                     ":647-675)",
+         "launches": thermal_trt_counts["lbm_collide_stream[trt+field]"],
+         "max_abs_err": scalar_err["trt+field"],
+         "ms": ts["k1e_trt_256"]["ms"],
+         "plain_ms": ts["k1e_trt_256"]["plain_ms"],
+         "bound_ms": ts["k1e_trt_256"]["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
     ]
     print(f"[done] ms at 64^3: K1a {t64['k1a']:.4f} plain "
           f"{t64['k1a_plain']:.4f}, K3 {t64['k3']:.4f} plain "

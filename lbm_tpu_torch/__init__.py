@@ -7,13 +7,16 @@ jax, so it runs on a machine without JAX. It mirrors lbm_tpu's layout:
   geometry  — cell labels, the analytic masks of the ported cases and
               the reference's geo/bc file formats
   engine    — case specs, compiled cases, the dense step, the runner,
-              checkpoints
-  kernels   — the CUDA collide-stream, z-plane fixup and moments
-              kernels, their plain PyTorch versions and the nvcc/ctypes
-              build
-  cases     — lid_driven_cavity, poiseuille, curved_vessel and coronary
+              checkpoints, scalar transport (D3Q7) and Boussinesq
+              thermal flow
+  kernels   — the CUDA collide-stream, z-plane fixup, moments and D3Q7
+              scalar kernels, their plain PyTorch versions and the
+              nvcc/ctypes build
+  cases     — lid_driven_cavity, poiseuille, curved_vessel, coronary,
+              gravity_channel, pipe and the thermal boxes
   io        — VTK writer, convergence log
-  bridge    — carries CaseSpecs and states across from lbm_tpu
+  bridge    — carries CaseSpecs, states and transports across from
+              lbm_tpu
 """
 
 from lbm_tpu_torch.core.lattice import D3Q19

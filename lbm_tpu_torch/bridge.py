@@ -2,8 +2,12 @@
 
 Both packages keep the same CaseSpec/PlaneBC fields and the same
 (19, nx, ny, nz) float32 state layout, so crossing over is a field copy
-and an array copy. Nothing here imports lbm_tpu: a reference spec is read
-by attribute.
+and an array copy. A transport (scalar, coupled or buoyant) crosses as
+its g state in the (7, nx, ny, nz) layout, its flow state, its step and
+its constructor arguments; lbm_tpu's Pallas classes keep g and f packed
+as (nx + 2 + px, ny + 2 + py, C, nz + pz) with a one-cell ring in x and
+y and alignment padding at the ends, which `unpack_lattice` undoes.
+Nothing here imports lbm_tpu: a reference object is read by attribute.
 """
 
 from __future__ import annotations
@@ -60,4 +64,65 @@ def state_to_numpy(f) -> np.ndarray:
     return f.detach().cpu().numpy().astype(np.float32, copy=False)
 
 
-__all__ = ["case_from_reference", "state_from_numpy", "state_to_numpy"]
+def unpack_lattice(packed, shape, channels: int, ring: int = 1):
+    """A packed (X + 2 ring + px, Y + 2 ring + py, C, Z + pz) array of
+    lbm_tpu's Pallas kernels as the dense (channels, X, Y, Z) float32
+    array of the unpadded box `shape`: channels first, the ring and the
+    end padding cut off, the alignment channels dropped."""
+    p = np.asarray(packed)
+    nx, ny, nz = (int(v) for v in shape)
+    if p.ndim != 4 or p.shape[2] < channels or p.shape[0] < nx + 2 * ring \
+            or p.shape[1] < ny + 2 * ring or p.shape[3] < nz:
+        raise ValueError(f"packed shape {p.shape} does not hold "
+                         f"{channels} channels of a {shape} box")
+    return np.ascontiguousarray(
+        p[ring:ring + nx, ring:ring + ny, :channels, :nz]
+        .transpose(2, 0, 1, 3), dtype=np.float32)
+
+
+def transport_state_from_reference(tr) -> dict:
+    """{"g", "f", "t"} of a lbm_tpu transport as NumPy arrays in the
+    port's layouts: g (7, X, Y, Z) from the dense classes' (7, X, Y, Z)
+    or the Pallas classes' packed g; f (19, X, Y, Z) from `f` or the
+    packed `p` (None for the frozen classes); t the step count."""
+    shape = tuple(int(v) for v in tr.spec.shape)
+    g = np.asarray(tr.g)
+    g = (np.ascontiguousarray(g, dtype=np.float32) if g.shape[0] == 7
+         and g.shape[1:] == shape else unpack_lattice(g, shape, 7))
+    f = None
+    if hasattr(tr, "p"):
+        f = unpack_lattice(tr.p, shape, 19)
+    elif hasattr(tr, "f"):
+        f = np.ascontiguousarray(np.asarray(tr.f), dtype=np.float32)
+    return {"g": g, "f": f, "t": int(tr.t)}
+
+
+def load_transport_state(transport, state: dict) -> None:
+    """Load a transport_state_from_reference dict into a port transport
+    (both buffers of each state)."""
+    transport.set_g(state["g"])
+    if state.get("f") is not None:
+        transport.set_f(state["f"])
+    transport.t = int(state["t"])
+
+
+def transport_kwargs_from_reference(tr, u=None, wall_c=None, c0=None) -> dict:
+    """Constructor arguments of the port's counterpart of a lbm_tpu
+    transport: tau_g and source read by attribute, buoyancy and c_ref of
+    a buoyant one, and the arrays the caller gave lbm_tpu (the frozen u,
+    wall_c, c0), copied as float32 NumPy arrays. inlet_c is not carried:
+    lbm_tpu's callables are traced, the port's take the integer step."""
+    kw = {"tau_g": float(tr.tau_g), "source": float(tr.source)}
+    if hasattr(tr, "buoyancy") or hasattr(tr, "_buoy"):
+        buoy = tr.buoyancy if hasattr(tr, "buoyancy") else tr._buoy
+        kw["buoyancy"] = tuple(float(v) for v in np.asarray(buoy))
+        kw["c_ref"] = float(tr.c_ref if hasattr(tr, "c_ref") else tr._cref)
+    for name, arr in (("u", u), ("wall_c", wall_c), ("c0", c0)):
+        if arr is not None:
+            kw[name] = np.array(arr, dtype=np.float32, copy=True)
+    return kw
+
+
+__all__ = ["case_from_reference", "state_from_numpy", "state_to_numpy",
+           "unpack_lattice", "transport_state_from_reference",
+           "load_transport_state", "transport_kwargs_from_reference"]

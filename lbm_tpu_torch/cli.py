@@ -1,4 +1,5 @@
-"""Command-line runner (torch port of lbm_tpu/cli.py's `run` and `list`):
+"""Command-line runner (torch port of lbm_tpu/cli.py's `run`, `list`,
+`transport` and `thermal`):
 
     python -m lbm_tpu_torch run --case lid_driven_cavity --out out/
     python -m lbm_tpu_torch run --case poiseuille --steps 4400 --device cuda
@@ -11,6 +12,20 @@
     python -m lbm_tpu_torch run --case gravity_channel --backend dense \
         --opt collision=mrt
     python -m lbm_tpu_torch list
+    python -m lbm_tpu_torch transport --case coronary --bolus 500 --vtk \
+        --opt shape=[291,291,372] radius=12
+    python -m lbm_tpu_torch transport --case coronary --coupled \
+        --opt pulsatile=[40,2000]
+    python -m lbm_tpu_torch thermal --thermal-case cavity3d --n 32
+
+`transport` converges the flow (--flow-steps), then runs the scalar on
+the frozen velocity (or, with --coupled, flow and scalar together) and
+writes <case>_washout.csv: one row a step, one column a boundary, the
+mean concentration on each boundary's consumer plane. `thermal` runs a
+Boussinesq case of cases/thermal.py in --chunks runs of --steps and
+prints the Nusselt number after each. Both take the kernel route on a
+CUDA device and the plain versions with --device cpu, for every case;
+--backend dense runs the dense PyTorch route.
 
 --opt values are read as JSON where they parse (lists, numbers, dicts)
 and as strings otherwise; the rheology dict above is
@@ -39,6 +54,117 @@ def _parse_kv(pairs: list[str]) -> dict:
     return out
 
 
+def _cmd_transport(args) -> int:
+    import numpy as np
+
+    from lbm_tpu_torch.cases import get_case
+    from lbm_tpu_torch.engine.scalar import CoupledTransport, ScalarTransport
+    from lbm_tpu_torch.io.vtk import write_structured_points
+
+    spec = get_case(args.case, **_parse_kv(args.opt))
+    rec = list(range(len(spec.boundaries)))
+    inlet_c = {args.inlet: 1.0}
+    if args.bolus:
+        gate = int(args.bolus)
+        inlet_c = {args.inlet: lambda t: 1.0 if t < gate else 0.0}
+    t0 = time.perf_counter()
+    if args.coupled:
+        tr = CoupledTransport(spec, D=args.D, inlet_c=inlet_c, div_fix=False,
+                              device=args.device, backend=args.backend)
+        kind = f"coupled ({args.backend} route)"
+    else:
+        from lbm_tpu_torch.engine.runner import Simulation
+
+        sim = Simulation(spec, device=args.device, backend=args.backend)
+        sim.run(max_steps=args.flow_steps,
+                time_save=min(1000, args.flow_steps), verbose=False)
+        tr = ScalarTransport(spec, sim.macro()[1], D=args.D, inlet_c=inlet_c,
+                             device=args.device, backend=args.backend)
+        del sim
+        kind = (f"frozen-field ({args.backend} route) after "
+                f"{args.flow_steps} flow steps")
+    print(f"transport: {kind} on {tr.sc.device}, D={args.D}, horizon "
+          f"{args.steps}")
+    series = tr.run(args.steps, record=rec)
+    dt = time.perf_counter() - t0
+    os.makedirs(args.out, exist_ok=True)
+    path = os.path.join(args.out, f"{spec.name}_washout.csv")
+    hdr = ",".join(f"bc{k}" for k in rec)
+    np.savetxt(path, series, delimiter=",", header="step," + hdr,
+               comments="", fmt="%.6e")
+    print(f"washout series -> {path} ({args.steps} steps, {dt:.1f}s total "
+          "incl. flow)")
+    for k in rec:
+        print(f"  bc{k}: peak {series[:, k].max():.4f} at step "
+              f"{int(series[:, k].argmax())}, final {series[-1, k]:.5f}")
+    if args.vtk:
+        vp = os.path.join(args.out, f"{spec.name}_c_{args.steps}.vtk")
+        write_structured_points(
+            vp, {"CONCENTRATION": tr.concentration().cpu().numpy()},
+            spacing=spec.units.CH, origin=(0.0, 0.0, 0.0), binary=True)
+        print(f"concentration field -> {vp}")
+    return 0
+
+
+def _cmd_thermal(args) -> int:
+    import numpy as np
+
+    from lbm_tpu_torch.cases import thermal as tcases
+    from lbm_tpu_torch.engine.thermal import BuoyantTransport
+    from lbm_tpu_torch.io.vtk import write_structured_points
+
+    if args.thermal_case == "cavity":
+        spec, kwargs, info = tcases.heated_cavity(
+            n=args.n, ra=args.ra, pr=args.pr, tau=args.tau)
+        hot_axis = 0
+    elif args.thermal_case == "rb":
+        spec, kwargs, info = tcases.rayleigh_benard(
+            nx=2 * args.n, nz=args.n, ra=args.ra, pr=args.pr, tau=args.tau)
+        hot_axis = 2
+    elif args.thermal_case == "cavity3d":
+        spec, kwargs, info = tcases.heated_cavity_3d(
+            n=args.n, ra=args.ra, pr=args.pr, tau=args.tau)
+        hot_axis = 0
+    else:
+        nz = args.nz or (args.n // 2 + 2)
+        spec, kwargs, info = tcases.rayleigh_benard_3d(
+            nx=args.n, ny=args.n, nz=nz, ra=args.ra, pr=args.pr,
+            tau=args.tau)
+        hot_axis = 2
+    bt = BuoyantTransport(spec, device=args.device, backend=args.backend,
+                          **kwargs)
+    print(f"thermal: {spec.name} {spec.shape} Ra={args.ra:g} Pr={args.pr} "
+          f"({args.backend} route on {bt.sc.device})")
+    t0 = time.perf_counter()
+    for k in range(args.chunks):
+        bt.run(args.steps)
+        planes, nu = bt.nusselt_profile(hot_axis, info["kappa"], info["dT"],
+                                        info["H"])
+        print(f"chunk {k}: t={bt.t}  Nu={float(np.mean(nu)):.4f} "
+              f"(spread {np.ptp(nu):.4f})", flush=True)
+    dt = time.perf_counter() - t0
+    print(f"{args.chunks * args.steps} steps in {dt:.1f}s = "
+          f"{dt / (args.chunks * args.steps) * 1e3:.3f} ms/step")
+    if args.vtk:
+        os.makedirs(args.out, exist_ok=True)
+        vp = os.path.join(args.out, f"{spec.name}_{bt.t}.vtk")
+        write_structured_points(
+            vp, {"TEMPERATURE": bt.concentration().cpu().numpy(),
+                 "VELOCITY": bt.macro()[1].cpu().numpy()},
+            spacing=spec.units.CH, origin=(0.0, 0.0, 0.0), binary=True)
+        print(f"fields -> {vp}")
+    return 0
+
+
+def _add_device_args(p) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda runs the CUDA kernels, cpu "
+                   "their plain PyTorch versions")
+    p.add_argument("--backend", default="kernel", choices=("kernel", "dense"),
+                   help="kernel: the CUDA kernels (their plain versions on "
+                   "the CPU); dense: the dense PyTorch route")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="lbm_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -57,17 +183,58 @@ def main(argv=None) -> int:
     runp.add_argument("--binary-vtk", action="store_true")
     runp.add_argument("--opt", nargs="*", metavar="KEY=VAL",
                       help="case options (e.g. n=128 tau=0.55)")
-    runp.add_argument("--device", default="cuda",
-                      help="torch device: cuda runs the CUDA kernels, cpu "
-                      "their plain PyTorch versions")
-    runp.add_argument("--backend", default="kernel",
-                      choices=("kernel", "dense"),
-                      help="kernel: the collide-stream kernels (their plain "
-                      "versions on the CPU); dense: the dense PyTorch step")
+    _add_device_args(runp)
 
     sub.add_parser("list", help="list available cases")
 
+    trp = sub.add_parser(
+        "transport",
+        help="contrast washout on a case: converge the flow, then run the "
+        "scalar on the frozen field (or --coupled: flow and scalar "
+        "together)")
+    trp.add_argument("--case", required=True)
+    trp.add_argument("--opt", nargs="*", metavar="KEY=VAL", default=[])
+    trp.add_argument("--out", default="out")
+    trp.add_argument("--D", type=float, default=0.02,
+                     help="lattice diffusivity")
+    trp.add_argument("--flow-steps", type=int, default=2000,
+                     help="flow steps before the transport (frozen route)")
+    trp.add_argument("--steps", type=int, default=4000)
+    trp.add_argument("--bolus", type=int, default=0,
+                     help="inlet c=1 gate length in steps (0 = steady inlet "
+                     "c=1)")
+    trp.add_argument("--inlet", type=int, default=0,
+                     help="inlet boundary index")
+    trp.add_argument("--coupled", action="store_true",
+                     help="time-resolved: flow and scalar advance together "
+                     "(pulsatile cases)")
+    trp.add_argument("--vtk", action="store_true",
+                     help="write the final concentration field")
+    _add_device_args(trp)
+
+    thp = sub.add_parser(
+        "thermal",
+        help="Boussinesq natural convection (cases/thermal.py): heated "
+        "cavity / Rayleigh-Benard")
+    thp.add_argument("--thermal-case", default="cavity3d",
+                     choices=["cavity", "rb", "cavity3d", "rb3d"])
+    thp.add_argument("--n", type=int, default=32)
+    thp.add_argument("--nz", type=int, default=None)
+    thp.add_argument("--ra", type=float, default=1e4)
+    thp.add_argument("--pr", type=float, default=0.71)
+    thp.add_argument("--tau", type=float, default=0.66)
+    thp.add_argument("--steps", type=int, default=5000)
+    thp.add_argument("--chunks", type=int, default=4)
+    thp.add_argument("--out", default="out")
+    thp.add_argument("--vtk", action="store_true")
+    _add_device_args(thp)
+
     args = parser.parse_args(argv)
+
+    if args.cmd == "transport":
+        return _cmd_transport(args)
+    if args.cmd == "thermal":
+        return _cmd_thermal(args)
 
     if args.cmd == "list":
         from lbm_tpu_torch.cases import list_cases

@@ -133,18 +133,24 @@ def mrt_of(spec: CaseSpec):
     return k.astype(np.float32), kf.astype(np.float32)
 
 
-def kernel_refusal(spec: CaseSpec) -> Optional[str]:
+def kernel_refusal(spec: CaseSpec, field: bool = False) -> Optional[str]:
     """Why the collide-stream kernel refuses this composition, or None.
     Its MRT has no moment-space source KF and its closures no
     variable-rate Guo prefactor; the dense step runs both (lbm_tpu's
-    kernel refuses the same two)."""
-    if spec.force is None:
+    kernel refuses the same two). field: the step also takes a per-cell
+    Boussinesq force (the thermal route), which the kernel composes with
+    BGK and TRT only and not with a CaseSpec.force, as lbm_tpu's."""
+    if field and spec.force is not None:
+        return ("the force-field kernel carries no constant base force "
+                "beside the Boussinesq field (CaseSpec.force)")
+    if spec.force is None and not field:
         return None
+    what = "the Boussinesq force field" if field else "a body force"
     if spec.collision == "mrt":
-        return ("MRT + a body force needs the moment-space Guo source (KF) "
+        return (f"MRT + {what} needs the moment-space Guo source (KF) "
                 "that the collide-stream kernel does not carry")
     if spec.smagorinsky_cs is not None or spec.rheology is not None:
-        return ("a per-cell tau closure (LES / rheology) + a body force "
+        return (f"a per-cell tau closure (LES / rheology) + {what} "
                 "needs the variable-rate Guo prefactor that the "
                 "collide-stream kernel lacks")
     return None
@@ -224,8 +230,8 @@ def check_supported(spec: CaseSpec) -> None:
             f"kernel takes at most {MAX_BCS} (z-plane boundaries do not "
             "count)")
     for a, n in enumerate(spec.shape):
-        if n < 3:
-            raise ValueError(f"axis {a} has {n} cells; the step needs >= 3")
+        if n < 1:  # one cell is a thin periodic slab: the pull wraps
+            raise ValueError(f"axis {a} has {n} cells")
 
 
 def compile_bc(bc: PlaneBC, mask: np.ndarray, tau: float,

@@ -1,0 +1,665 @@
+"""Passive scalar transport: advection-diffusion LBM (D3Q7) on a flow —
+contrast washout, virtual bolus curves, residence time (torch port of
+lbm_tpu/engine/scalar.py).
+
+It solves dc/dt + u.grad(c) = D lap(c) + s with a second distribution g
+over the D3Q7 subset of the D3Q19 order (rest + the six axis directions):
+
+    g_i^eq = w_i c (1 + e_i.u / c_s2),   w = (1/4, 1/8 x 6), c_s2 = 1/4
+    D = c_s2 (tau_g - 1/2)
+
+One step (`transport_pass`), for cell x and direction i:
+
+    v_i = g_i(x - e_i)                      pulled, wrapped on every axis
+        = g_opp(i)(x)                       off a WALL or MOVING source
+        = 2 w_i c_w(x - e_i) - g_opp(i)(x)  off a Dirichlet wall
+        = c* phi_d + (g_d(x) - c_prev phi_d) (1 - 1/tau_g)
+                        on a boundary's consumer plane, its one crossing
+                        direction d; c_prev = sum_i g_i(x), c* prescribed
+                        (a float, or a callable of the integer step,
+                        evaluated on the host) or c_prev (zero gradient)
+    c = sum_i v_i
+    g_i'(x) = v_i - (v_i - c phi_i) * (1/tau_g) [+ c comp w_i] [+ s w_i]
+
+at fluid cells; other cells keep their g (zeros from set-up on). phi_i =
+w_i (1 + 4 e_i.u) with u projected (each component zeroed where a
+neighbor along its axis blocks). The arithmetic is fp32 in the order the
+CUDA kernel (kernels/csrc/scalar_stream.cu) repeats: sums in channel
+order and 1/tau_g a multiplication by the fp32 reciprocal, the form of
+lbm_tpu's Pallas kernel; lbm_tpu's dense pass divides by tau_g, which
+differs in the last bit (the tests hold the two at atol 2e-6 on c of
+order 1).
+
+`ScalarTransport` advances g on a frozen velocity field (K7);
+`CoupledTransport` advances the flow and g together, the scalar in each
+step's live velocity (K8). With backend='kernel' (default) both step with
+the CUDA kernels on a CUDA device and with their plain versions on the
+CPU; backend='dense' is the dense PyTorch route. For the frozen class the
+two compute the same pass. For the coupled class they differ as in
+lbm_tpu: the dense route advects in the flow step's in-step Guo velocity
+(m + F/2)/rho and can compensate the discrete divergence (div_fix); the
+kernel route rebuilds (m' - F/2)/rho from the post-collision state, equal
+in exact arithmetic, and has no div_fix. Not ported: mesh= sharding, a
+traced tau_g.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Callable, Optional, Union
+
+import numpy as np
+import torch
+
+from lbm_tpu_torch.core.lattice import D3Q19, momentum
+from lbm_tpu_torch.engine.compile import (
+    BLOCK,
+    SKIP_BELOW,
+    canonical_device,
+    live_block_ids,
+)
+from lbm_tpu_torch.engine.spec import CaseSpec
+from lbm_tpu_torch.engine.step import boussinesq_force, pull_one
+from lbm_tpu_torch.geometry.mask import CellType
+
+Q7 = 7
+E7 = D3Q19.E[:Q7]                     # rest + 6 axis directions
+OPP7 = [int(o) for o in D3Q19.OPP[:Q7]]   # closed under opposition
+W7 = np.array([0.25] + [0.125] * 6, np.float32)
+_F32 = np.float32
+
+
+def tau_g_of(D_lat: float) -> float:
+    """Relaxation time of lattice diffusivity D: tau_g = 1/2 + 4 D."""
+    return 0.5 + 4.0 * float(D_lat)
+
+
+def _tau_g(D, tau_g) -> float:
+    if (D is None) == (tau_g is None):
+        raise ValueError("give exactly one of D (lattice diffusivity) or "
+                         "tau_g")
+    tau_g = float(tau_g_of(D) if D is not None else tau_g)
+    if not tau_g > 0.5:
+        raise ValueError("tau_g must exceed 1/2 (D > 0)")
+    return tau_g
+
+
+def _axis_sign(i: int) -> tuple[int, int]:
+    """(axis, sign) of the axis direction i in 1..6."""
+    a = int(np.argmax(np.abs(E7[i])))
+    return a, int(E7[i][a])
+
+
+def phi7(u):
+    """(7, ...) linear equilibrium factor w_i (1 + 4 e_i.u) of a (3, ...)
+    velocity: g_eq = c[None] * phi7(u). Each moving direction reads one
+    component: 1/8 (1 +- 4 u_a), the 1/8 scale exact."""
+    out = [torch.full_like(u[0], float(W7[0]))]
+    for i in range(1, Q7):
+        a, s = _axis_sign(i)
+        out.append(float(W7[i]) * (1.0 + (4.0 * s) * u[a]))
+    return torch.stack(out)
+
+
+def project(u, blocked_axes):
+    """Impermeability projection: zero each velocity component at cells
+    with a blocking neighbor along that axis."""
+    return torch.where(blocked_axes, torch.zeros_like(u), u)
+
+
+def blocking_tables(mask: np.ndarray):
+    """(nbr_block (6, X, Y, Z), blocked_axes (3, X, Y, Z)) bool arrays:
+    nbr_block[i-1][x] = the pull source x - e_i is a WALL or MOVING cell;
+    blocked_axes[a] = either neighbor along axis a blocks."""
+    mask = np.asarray(mask)
+    blocking = (mask == CellType.WALL) | (mask == CellType.MOVING)
+    nbr = [np.roll(blocking, shift=tuple(int(v) for v in E7[i]),
+                   axis=(0, 1, 2)) for i in range(1, Q7)]
+    return np.stack(nbr), np.stack([nbr[2 * a] | nbr[2 * a + 1]
+                                    for a in range(3)])
+
+
+@dataclasses.dataclass
+class ScalarBC:
+    """One boundary plane of the scalar: its crossing direction, the
+    consumer plane (axis, coord), the (A, B) footprint on it and its size,
+    and the prescribed concentration (None: zero gradient)."""
+
+    dir: int
+    axis: int
+    sign: int
+    coord: int
+    valid: torch.Tensor
+    count: int
+    c_fn: Union[None, float, Callable] = None
+
+    def c_star_at(self, t: int) -> Optional[float]:
+        """The prescribed c* at integer step t, rounded to fp32; None for
+        the zero-gradient plane."""
+        if self.c_fn is None:
+            return None
+        v = self.c_fn(int(t)) if callable(self.c_fn) else self.c_fn
+        return float(_F32(v))
+
+
+def bc_geometry(spec: CaseSpec):
+    """Per boundary (dir, axis, sign, consumer coord, footprint): in D3Q7
+    exactly one direction crosses an axis plane; the footprint is the
+    (A, B) bool array of the boundary's labelled cells."""
+    mask = np.asarray(spec.mask)
+    geo = []
+    for bc in spec.boundaries:
+        dirs = [i for i in range(1, Q7)
+                if int(E7[i][bc.axis]) * bc.normal > 0]
+        assert len(dirs) == 1
+        plane = np.take(mask, bc.coord, axis=bc.axis) == bc.mask_value
+        geo.append((dirs[0], bc.axis, int(E7[dirs[0]][bc.axis]),
+                    bc.coord + bc.normal, plane))
+    return geo
+
+
+def dirichlet_walls(mask, wall_c):
+    """Anti-bounce-back Dirichlet (fixed-value) scalar walls.
+
+    wall_c: (X, Y, Z) float array, the prescribed value c_w at Dirichlet
+    wall cells and NaN where the wall stays adiabatic (plain bounce-back).
+    Every finite cell must be a static WALL cell (the closure omits a
+    moving wall's velocity term). Returns (nbr_dir, cw2): the
+    per-direction masks "the source x - e_i is a Dirichlet wall" and the
+    constants 2 w_i c_w of that source, so the pass replaces the link's
+    bounce-back with g_i(x, t+1) = 2 w_i c_w - g_opp(i)(x, t), which pins
+    the half-way wall point to c_w."""
+    wc = np.asarray(wall_c, np.float32)
+    isd = np.isfinite(wc)
+    if not (np.asarray(mask)[isd] == CellType.WALL).all():
+        raise ValueError(
+            "wall_c prescribes values at non-wall (or MOVING) cells; "
+            "Dirichlet scalar values live on static WALL cells only (NaN = "
+            "adiabatic)")
+    vals = np.where(isd, wc, 0.0).astype(np.float32)
+    nbr_dir, cw2 = [], []
+    for i in range(1, Q7):
+        sh = tuple(int(v) for v in E7[i])
+        nbr_dir.append(np.roll(isd, shift=sh, axis=(0, 1, 2)))
+        cw2.append((_F32(2.0) * W7[i]) * np.roll(vals, shift=sh,
+                                                 axis=(0, 1, 2)))
+    return np.stack(nbr_dir), np.stack(cw2).astype(np.float32)
+
+
+def defect(u_proj, nbr_block, bcs):
+    """The scheme's exact one-pass concentration deviation at uniform c =
+    1 (stream with bounce-back and the plane rewrites, then sum): the
+    discrete divergence that div_fix cancels. bcs: the ScalarBC list."""
+    d = torch.zeros_like(u_proj[0])
+    terms = {}
+    for i in range(1, Q7):
+        a, s = _axis_sign(i)
+        nb_u = torch.roll(u_proj[a], shifts=s, dims=a) * float(s)
+        terms[i] = torch.where(nbr_block[i - 1], torch.zeros_like(nb_u),
+                               0.5 * nb_u)
+        d = d + terms[i]
+    for bc in bcs:
+        # the rewrite takes the crossing pull in the consumer cell's own
+        # u: swap that plane's term
+        own = 0.5 * u_proj[bc.axis].select(bc.axis, bc.coord) * float(bc.sign)
+        swap = own - terms[bc.dir].select(bc.axis, bc.coord)
+        d.select(bc.axis, bc.coord).add_(
+            torch.where(bc.valid, swap, torch.zeros_like(swap)))
+    return d
+
+
+def transport_pass(g, t: int, phi, nbr_block, bcs, omega: float,
+                   inv_tau: float, div_comp, source: float, fluid,
+                   dirichlet=None):
+    """One step of g at integer step t given the equilibrium factor phi:
+    (g', c) with c the post-stream concentration of every cell. omega =
+    1 - 1/tau_g and inv_tau = 1/tau_g are fp32 values; dirichlet is
+    (nbr_dir, cw2) from dirichlet_walls or None."""
+    pulled = [g[0]]
+    for i in range(1, Q7):
+        own_opp = g[OPP7[i]]
+        v = torch.where(nbr_block[i - 1], own_opp, pull_one(g[i], E7[i]))
+        if dirichlet is not None:
+            v = torch.where(dirichlet[0][i - 1], dirichlet[1][i - 1] - own_opp,
+                            v)
+        pulled.append(v)
+    for bc in bcs:
+        ph = phi[bc.dir].select(bc.axis, bc.coord)
+        own = [g[i].select(bc.axis, bc.coord) for i in range(Q7)]
+        c_prev = own[0]
+        for i in range(1, Q7):
+            c_prev = c_prev + own[i]
+        c_star = bc.c_star_at(t)
+        if c_star is None:
+            c_star = c_prev
+        val = c_star * ph + (own[bc.dir] - c_prev * ph) * float(omega)
+        plane = pulled[bc.dir].select(bc.axis, bc.coord)
+        plane.copy_(torch.where(bc.valid, val, plane))
+    c = pulled[0]
+    for i in range(1, Q7):
+        c = c + pulled[i]
+    c_comp = None if div_comp is None else c * div_comp
+    post = []
+    for i in range(Q7):
+        p = pulled[i] - (pulled[i] - c * phi[i]) * float(inv_tau)
+        if c_comp is not None:
+            p = p + c_comp * float(W7[i])
+        if source:
+            p = p + float(_F32(source) * W7[i])
+        post.append(p)
+    return torch.where(fluid[None], torch.stack(post), g), c
+
+
+def live_velocity(f, g, fluid, blocked_axes, force=None):
+    """The velocity the kernel route advects in, from the post-collision
+    flow state f: u = (m' - F/2) * (1/rho), rho == 0 read as 1, projected.
+    force: None or (buoyancy, c_ref, base), F = buoyancy (c - c_ref) +
+    base with c the sum of the pre-update g."""
+    rho, mom = momentum(f)
+    if force is not None:
+        F = boussinesq_force(g, fluid, *force)
+        mom = tuple(m - 0.5 * F[a] for a, m in enumerate(mom))
+    safe = torch.where(rho == 0, torch.ones_like(rho), rho)
+    inv_rho = torch.ones_like(rho) / safe
+    return project(torch.stack([m * inv_rho for m in mom]), blocked_axes)
+
+
+def plane_means(c, bcs):
+    """(n_bc,) float64: the mean of c over each boundary's footprint on
+    its consumer plane (the washout record)."""
+    out = [torch.where(bc.valid, c.select(bc.axis, bc.coord),
+                       torch.zeros((), dtype=c.dtype, device=c.device)
+                       ).sum(dtype=torch.float64) / bc.count for bc in bcs]
+    return (torch.stack(out) if out else
+            torch.zeros(0, dtype=torch.float64, device=c.device))
+
+
+@dataclasses.dataclass(eq=False)  # hashed by identity: a weak-dict key
+class ScalarCase:
+    """The scalar's statics on one device, read by the plain pass and by
+    the kernel wrapper (kernels/scalar_stream.py)."""
+
+    spec: CaseSpec
+    shape: tuple[int, int, int]
+    device: torch.device
+    tau_g: float
+    inv_tau: float                   # fp32 1 / tau_g
+    omega: float                     # fp32 1 - 1 / tau_g
+    source: float
+    mask: torch.Tensor               # (X, Y, Z) int8 labels
+    fluid: torch.Tensor              # (X, Y, Z) bool
+    bcs: list[ScalarBC]
+    live_blocks: Optional[torch.Tensor] = None  # (n,) int32 block ids
+    u: Optional[torch.Tensor] = None       # frozen projected u (3, X, Y, Z)
+    comp: Optional[torch.Tensor] = None    # div_fix field (X, Y, Z)
+    wall_c: Optional[torch.Tensor] = None  # Dirichlet values, NaN elsewhere
+    force: Optional[tuple] = None    # live u: (buoyancy, c_ref, base)
+
+    @functools.cached_property
+    def _tables(self):
+        nbr, axes = blocking_tables(np.asarray(self.spec.mask))
+        return (torch.from_numpy(nbr).to(self.device),
+                torch.from_numpy(axes).to(self.device))
+
+    @property
+    def nbr_block(self) -> torch.Tensor:
+        """(6, X, Y, Z) bool, built at first use (the plain pass and the
+        set-up read it; the kernel tests the int8 mask)."""
+        return self._tables[0]
+
+    @property
+    def blocked_axes(self) -> torch.Tensor:
+        return self._tables[1]
+
+    @functools.cached_property
+    def dirichlet(self):
+        """(nbr_dir, cw2) tensors of the Dirichlet walls, or None."""
+        if self.wall_c is None:
+            return None
+        nbr_dir, cw2 = dirichlet_walls(np.asarray(self.spec.mask),
+                                       self.wall_c.cpu().numpy())
+        return (torch.from_numpy(nbr_dir).to(self.device),
+                torch.from_numpy(cw2).to(self.device))
+
+    @functools.cached_property
+    def phi(self) -> torch.Tensor:
+        """(7, X, Y, Z) equilibrium factor of the frozen velocity."""
+        return phi7(self.u)
+
+    def initial_g(self, c0, u_proj):
+        """g(0) = c0 phi7(u_proj) at fluid cells, zeros elsewhere (zeros
+        everywhere without c0)."""
+        if c0 is None:
+            return torch.zeros((Q7,) + self.shape, dtype=torch.float32,
+                               device=self.device)
+        c0 = torch.as_tensor(np.asarray(c0, np.float32)).to(self.device)
+        if tuple(c0.shape) != self.shape:
+            raise ValueError(f"c0 shape {tuple(c0.shape)} != {self.shape}")
+        return torch.where(self.fluid[None], c0[None] * phi7(u_proj),
+                           torch.zeros((), device=self.device)).contiguous()
+
+
+def compile_scalar(spec: CaseSpec, device, D=None, tau_g=None, inlet_c=None,
+                   source: float = 0.0, wall_c=None, mask=None, fluid=None,
+                   live_blocks=None) -> ScalarCase:
+    """The ScalarCase of a flow case: relaxation constants, boundary
+    planes with their prescribed concentrations (inlet_c: {boundary
+    index: float or callable(step)}, the others zero gradient), Dirichlet
+    wall values. mask, fluid, live_blocks: a CompiledCase's tensors to
+    share, else built here."""
+    device = canonical_device(device)
+    tau_g = _tau_g(D, tau_g)
+    mask_np = np.asarray(spec.mask)
+    inlet_c = dict(inlet_c or {})
+    bcs = []
+    for k, (d, axis, sign, coord, plane) in enumerate(bc_geometry(spec)):
+        if not 0 <= coord < spec.shape[axis]:
+            raise ValueError(f"boundary {k}: consumer plane {coord} outside "
+                             f"axis {axis}")
+        bcs.append(ScalarBC(
+            dir=d, axis=axis, sign=sign, coord=coord,
+            valid=torch.from_numpy(np.ascontiguousarray(plane)).to(device),
+            count=max(int(plane.sum()), 1), c_fn=inlet_c.pop(k, None)))
+    if inlet_c:
+        raise ValueError(f"inlet_c names absent boundaries: {inlet_c}")
+    if mask is None:
+        mask = torch.from_numpy(mask_np.astype(np.int8)).to(device)
+        fluid = torch.from_numpy(mask_np == CellType.FLUID).to(device)
+        ids = live_block_ids(mask_np)
+        if len(ids) < SKIP_BELOW * -(-mask_np.size // BLOCK):
+            live_blocks = torch.from_numpy(ids).to(device)
+    wc = None
+    if wall_c is not None:
+        wc_np = np.ascontiguousarray(wall_c, dtype=np.float32)
+        if wc_np.shape != tuple(spec.shape):
+            raise ValueError(f"wall_c shape {wc_np.shape} != {spec.shape}")
+        dirichlet_walls(mask_np, wc_np)     # refuses non-wall cells
+        wc = torch.from_numpy(wc_np).to(device)
+    return ScalarCase(
+        spec=spec, shape=tuple(int(s) for s in spec.shape), device=device,
+        tau_g=tau_g, inv_tau=float(_F32(1.0 / tau_g)),
+        omega=float(_F32(1.0 - 1.0 / tau_g)), source=float(source),
+        mask=mask, fluid=fluid, bcs=bcs, live_blocks=live_blocks, wall_c=wc)
+
+
+def _as_float_tensor(a) -> torch.Tensor:
+    """A float32 tensor of an array or tensor (arrays are copied: they
+    may be read-only views of another framework's buffers)."""
+    if torch.is_tensor(a):
+        return a.to(torch.float32)
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in ("kernel", "dense"):
+        raise ValueError(f"backend must be 'kernel' or 'dense': {backend!r}")
+
+
+class _ScalarState:
+    """The g state of a transport and what every route reads from it."""
+
+    sc: ScalarCase
+    g: torch.Tensor
+
+    @property
+    def fluid(self) -> torch.Tensor:
+        return self.sc.fluid
+
+    def set_g(self, g) -> None:
+        """Load a (7, X, Y, Z) state (array or tensor) into both buffers;
+        the transport keeps its own copies."""
+        g = _as_float_tensor(g)
+        if tuple(g.shape) != (Q7,) + self.sc.shape:
+            raise ValueError(f"g shape {tuple(g.shape)} != "
+                             f"(7, *{self.sc.shape})")
+        self.g = g.to(self.sc.device, copy=True).contiguous()
+        self._g_spare = self.g.clone()
+
+    def concentration(self) -> torch.Tensor:
+        """(X, Y, Z) scalar field (zeros at non-fluid cells)."""
+        c = self.g[0]
+        for i in range(1, Q7):
+            c = c + self.g[i]
+        return torch.where(self.sc.fluid, c, torch.zeros_like(c))
+
+    def total(self) -> float:
+        """Total scalar content (the conservation audit), summed in
+        float64 on the device."""
+        return float(self.g.sum(dtype=torch.float64))
+
+    def _series(self, n_steps: int, record):
+        if record is None:
+            return None
+        bad = [k for k in record if not 0 <= k < len(self.sc.bcs)]
+        if bad:
+            raise ValueError(f"record names absent boundaries: {bad}")
+        return torch.zeros((n_steps, len(self.sc.bcs)), dtype=torch.float64,
+                           device=self.sc.device)
+
+    @staticmethod
+    def _columns(series, record):
+        if record is None:
+            return None
+        return series[:, list(record)].cpu().numpy()
+
+
+class ScalarTransport(_ScalarState):
+    """Frozen-field advection-diffusion on one case's geometry (the
+    counterpart of lbm_tpu's ScalarTransport, and with backend='kernel'
+    of its ScalarTransportPallas).
+
+    spec: the flow CaseSpec (mask and boundary planes are reused).
+    u: (3, X, Y, Z) frozen lattice velocity (a converged macro()[1]).
+    D / tau_g: lattice diffusivity (one of the two).
+    inlet_c: {boundary index: c}, c a float or a callable of the integer
+       step (a bolus gate: lambda t: 1.0 if t < 500 else 0.0); planes not
+       listed get the zero-gradient outflow rewrite.
+    source: uniform volumetric source s on fluid cells (mean age: source
+       = 1, inlet c = 0).
+    c0: initial concentration field (default 0).
+    div_fix: compensate the frozen field's discrete divergence with
+       + c(x) * -defect(x) (see `defect`), so uniform c is a fixed point.
+    wall_c: (X, Y, Z) Dirichlet wall values, NaN = adiabatic; the
+       divergence compensation assumes bounce-back walls and is
+       approximate next to Dirichlet cells.
+    device, backend: 'kernel' steps with lbm_scalar_stream on a CUDA
+       device (its plain version on the CPU), 'dense' with the plain pass.
+    """
+
+    def __init__(self, spec: CaseSpec, u, D: Optional[float] = None,
+                 tau_g: Optional[float] = None,
+                 inlet_c: Optional[dict] = None, source: float = 0.0,
+                 c0=None, div_fix: bool = True, wall_c=None, device="cuda",
+                 backend: str = "kernel"):
+        from lbm_tpu_torch.engine.runner import resolve_device
+
+        _check_backend(backend)
+        self.backend = backend
+        self.spec = spec
+        sc = compile_scalar(spec, resolve_device(device), D, tau_g, inlet_c,
+                            source, wall_c)
+        u = _as_float_tensor(u)
+        if tuple(u.shape) != (3,) + sc.shape:
+            raise ValueError(f"u shape {tuple(u.shape)} != (3, *{sc.shape})")
+        sc.u = project(u.to(sc.device), sc.blocked_axes).contiguous()
+        if div_fix:
+            d = defect(sc.u, sc.nbr_block, sc.bcs)
+            sc.comp = torch.where(sc.fluid, -d, torch.zeros_like(d))
+            if wall_c is not None:
+                print("[lbm_tpu_torch] ScalarTransport: div_fix=True with "
+                      "wall_c: the divergence compensation assumes "
+                      "bounce-back walls and is approximate near Dirichlet "
+                      "cells; pass div_fix=False to silence", flush=True)
+        self.sc = sc
+        self.tau_g = sc.tau_g
+        self.set_g(sc.initial_g(c0, sc.u))
+        self.t = 0
+
+    def run(self, n_steps: int, record: Optional[list] = None):
+        """Advance n_steps. record: boundary indices whose consumer-plane
+        mean concentration is sampled every step; returns the (n_steps,
+        len(record)) float64 series (the washout curves), read from the
+        device once at the end, else None."""
+        from lbm_tpu_torch.kernels import scalar_stream as S
+
+        series = self._series(n_steps, record)
+        for k in range(n_steps):
+            if self.backend == "kernel":
+                S.scalar_stream(self.g, self._g_spare, self.sc, self.t + k,
+                                series=series, slot=k)
+                self.g, self._g_spare = self._g_spare, self.g
+            else:
+                self.g, rec = S.scalar_stream_plain(self.g, self.sc,
+                                                    self.t + k)
+                if series is not None:
+                    series[k] = rec
+        self.t += n_steps
+        return self._columns(series, record)
+
+
+class CoupledTransport(_ScalarState):
+    """Time-resolved transport: the flow and the scalar advance together,
+    the scalar in each step's live velocity — the pulsatile regime where
+    a frozen field is wrong (the counterpart of lbm_tpu's
+    CoupledTransport, and with backend='kernel' of its
+    CoupledTransportPallas). Per step the flow step runs first (with its
+    z-plane fixups), then the scalar step reads the new flow state and
+    the pre-step g.
+
+    div_fix: dense route only (default on there); the kernel route has no
+    divergence compensation, as lbm_tpu's. f0: optional initial flow
+    state. Windkessel outlets are not ported (compile_case names the
+    ROADMAP item).
+    """
+
+    def __init__(self, spec: CaseSpec, D: Optional[float] = None,
+                 tau_g: Optional[float] = None,
+                 inlet_c: Optional[dict] = None, source: float = 0.0,
+                 c0=None, div_fix: Optional[bool] = None, wall_c=None,
+                 f0=None, device="cuda", backend: str = "kernel",
+                 field=None):
+        from lbm_tpu_torch.engine.compile import compile_case
+        from lbm_tpu_torch.engine.runner import resolve_device
+        from lbm_tpu_torch.engine.step import initial_f
+        from lbm_tpu_torch.kernels import collide_stream as K
+
+        _check_backend(backend)
+        if backend == "kernel" and div_fix:
+            raise ValueError("the kernel route has no div_fix (the defect "
+                             "belongs to one frozen field); pass "
+                             "backend='dense'")
+        self.backend = backend
+        self.div_fix = backend == "dense" and div_fix is not False
+        self.spec = spec
+        self.field = field              # kernels.collide_stream.ForceField
+        self.cc = compile_case(spec, resolve_device(device))
+        if backend == "kernel":
+            K.collision_descriptor(self.cc, field)  # refuses what it lacks
+        cc = self.cc
+        self.sc = compile_scalar(spec, cc.device, D, tau_g, inlet_c, source,
+                                 wall_c, mask=cc.mask, fluid=cc.fluid,
+                                 live_blocks=cc.live_blocks)
+        base = (0.0, 0.0, 0.0) if cc.force is None else cc.force
+        if field is not None:
+            self.sc.force = (field.buoyancy, field.c_ref, base)
+        elif cc.force is not None:
+            self.sc.force = ((0.0, 0.0, 0.0), 0.0, base)
+        self.tau_g = self.sc.tau_g
+        self.set_f(initial_f(cc) if f0 is None else f0)
+        self.set_g(self.sc.initial_g(
+            c0, None if c0 is None else project(cc.u0, self.sc.blocked_axes)))
+        self.t = 0
+
+    def set_f(self, f) -> None:
+        """Load a (19, X, Y, Z) flow state into both buffers."""
+        f = _as_float_tensor(f)
+        if tuple(f.shape) != (19,) + self.cc.shape:
+            raise ValueError(f"f shape {tuple(f.shape)} != "
+                             f"(19, *{self.cc.shape})")
+        self.f = f.to(self.cc.device, copy=True).contiguous()
+        self._f_spare = self.f.clone() if self.backend == "kernel" else None
+
+    def _force_field(self):
+        """The (3, X, Y, Z) force the dense flow step takes this step
+        (None without a force field: the step uses cc.force)."""
+        if self.field is None:
+            return None
+        return boussinesq_force(self.g, self.sc.fluid, self.field.buoyancy,
+                                self.field.c_ref, self.cc.force)
+
+    def _dense_step(self, t: int):
+        """(c, u): one dense coupled step; the scalar advects in the flow
+        step's in-step velocity."""
+        from lbm_tpu_torch.engine.step import make_step, make_step_force
+
+        sc = self.sc
+        if self.field is None:
+            self.f, _, u = make_step(self.cc)(self.f, t)
+        else:
+            self.f, _, u = make_step_force(self.cc)(self.f, t,
+                                                    self._force_field())
+        u_proj = project(u, sc.blocked_axes)
+        comp = None
+        if self.div_fix:
+            d = defect(u_proj, sc.nbr_block, sc.bcs)
+            comp = torch.where(sc.fluid, -d, torch.zeros_like(d))
+        self.g, c = transport_pass(
+            self.g, t, phi7(u_proj), sc.nbr_block, sc.bcs, sc.omega,
+            sc.inv_tau, comp, sc.source, sc.fluid, sc.dirichlet)
+        return c, u
+
+    def _advance(self, n_steps: int, series, energy=None) -> None:
+        from lbm_tpu_torch.kernels import collide_stream as K
+        from lbm_tpu_torch.kernels import scalar_stream as S
+
+        if self.backend == "kernel":
+            # the flow kernel's per-step velsum samples (not read here)
+            vs = torch.empty(n_steps, dtype=torch.float64,
+                             device=self.cc.device)
+        for k in range(n_steps):
+            t = self.t + k
+            if self.backend == "kernel":
+                # both kernels read the pre-step g; only the scalar
+                # kernel writes the spare one
+                K.step(self.f, self._f_spare, self.cc, vs, k, t,
+                       field=self.field,
+                       g=None if self.field is None else self.g)
+                S.scalar_stream(self.g, self._g_spare, self.sc, t,
+                                f=self._f_spare, series=series, slot=k)
+                self.f, self._f_spare = self._f_spare, self.f
+                self.g, self._g_spare = self._g_spare, self.g
+            else:
+                c, u = self._dense_step(t)
+                if series is not None:
+                    series[k] = plane_means(c, self.sc.bcs)
+                if energy is not None:
+                    energy[k] = torch.where(
+                        self.sc.fluid[None], u * u,
+                        torch.zeros((), device=u.device)).sum(
+                            dtype=torch.float64)
+        self.t += n_steps
+
+    def run(self, n_steps: int, record: Optional[list] = None):
+        """Advance flow and scalar n_steps; record as in
+        ScalarTransport.run."""
+        series = self._series(n_steps, record)
+        self._advance(n_steps, series)
+        return self._columns(series, record)
+
+    def macro(self):
+        """(rho, u) of the live flow: moments at fluid cells, the init
+        values elsewhere."""
+        from lbm_tpu_torch.engine.step import init_override, macro_fields
+        from lbm_tpu_torch.kernels import collide_stream as K
+
+        if self.backend == "dense":
+            return macro_fields(self.cc, self.f)
+        rho, u = K.macro(self.f, self.cc.force)
+        return init_override(self.cc, rho, u)
+
+
+__all__ = ["ScalarTransport", "CoupledTransport", "ScalarCase", "ScalarBC",
+           "compile_scalar", "phi7", "project", "tau_g_of", "bc_geometry",
+           "blocking_tables", "dirichlet_walls", "defect", "transport_pass",
+           "live_velocity", "plane_means", "Q7", "E7", "OPP7", "W7"]

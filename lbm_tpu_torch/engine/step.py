@@ -16,6 +16,9 @@ against (kernels/collide_stream.collide_stream_plain):
   rho = sum pulled, u = (sum e_i pulled_i + F/2) / rho   (F/2: Guo force)
   f'(x) = collide(pulled, rho phi(u)) + Guo source
 
+F is the constant CaseSpec.force or, through make_step_force, a per-cell
+(3, X, Y, Z) field (the Boussinesq buoyancy of engine/thermal.py: e_i.F
+and u.F per cell; the NEE rewrite keeps the constant force).
 rho_prev/u_prev are the moments of the cell's own pre-step f (with the
 same F/2 shift); phi* of a u_mode='series' boundary is its table at
 phase (t // stride) % T, with t the absolute step. Non-fluid cells keep
@@ -63,14 +66,25 @@ def pull_one(fi, e):
     return torch.roll(fi, shifts=[shifts[a] for a in dims], dims=dims)
 
 
-def half_force(force) -> tuple[float, float, float]:
-    """The Guo half-force F/2 per component, in fp32."""
+def is_force_field(force) -> bool:
+    """True for a per-cell (3, X, Y, Z) force tensor (the Boussinesq
+    buoyancy of engine/thermal.py), False for the constant 3-vector a
+    CaseSpec carries."""
+    return torch.is_tensor(force) and force.dim() > 1
+
+
+def half_force(force):
+    """The Guo half-force F/2 per component, in fp32: three floats of a
+    constant force, three tensors of a force field."""
+    if is_force_field(force):
+        return tuple(0.5 * force[a] for a in range(3))
     return tuple(float(_F32(0.5) * _F32(c)) for c in force)
 
 
 def velocity(rho, mom, force=None):
-    """u = (m + F/2) / rho (the Guo velocity; F/2 only with a force),
-    with rho == 0 read as 1. mom: the (mx, my, mz) tensors."""
+    """u = (m + F/2) / rho (the Guo velocity; F/2 only with a force, a
+    constant 3-vector or a per-cell field), with rho == 0 read as 1. mom:
+    the (mx, my, mz) tensors."""
     if force is not None:
         mom = tuple(m + h for m, h in zip(mom, half_force(force)))
     safe = torch.where(rho == 0, torch.ones_like(rho), rho)
@@ -196,6 +210,13 @@ def collide(pulled, f_eq, tau: float, tau_minus: Optional[float] = None,
             - d / _c(_F32(2.0 * tau_minus), pulled))
 
 
+def guo_rates(tau: float, tau_minus: Optional[float] = None):
+    """(cp, cm) fp32 Guo prefactors of the even and odd halves: cp = 1 -
+    1/(2 tau), cm = 1 - 1/(2 tau_minus) (cm = cp without TRT)."""
+    cp = _F32(1.0 - 0.5 / tau)
+    return cp, cp if tau_minus is None else _F32(1.0 - 0.5 / tau_minus)
+
+
 def guo_constants(force, tau: float, tau_minus: Optional[float] = None):
     """Per-direction fp32 constants of the constant-force Guo source:
     (eF_i = e_i . F, cm g_odd_i = cm (3 w_i) eF_i, cp, cm) with cp = 1 -
@@ -203,8 +224,7 @@ def guo_constants(force, tau: float, tau_minus: Optional[float] = None):
     kernels take the same values."""
     fv = np.asarray(force, np.float32)
     e_f = _E.astype(np.float32) @ fv
-    cp = _F32(1.0 - 0.5 / tau)
-    cm = cp if tau_minus is None else _F32(1.0 - 0.5 / tau_minus)
+    cp, cm = guo_rates(tau, tau_minus)
     g_odd = (_F32(3.0) * D3Q19.W) * e_f
     return e_f, (cm * g_odd).astype(np.float32), cp, cm
 
@@ -212,18 +232,27 @@ def guo_constants(force, tau: float, tau_minus: Optional[float] = None):
 def guo_parts(u, force):
     """The raw Guo source split by parity, per direction: g_even_i =
     w_i (9 (e_i.u)(e_i.F) - 3 u.F) (tensors) and g_odd_i = 3 w_i e_i.F
-    (fp32 constants)."""
-    fv = np.asarray(force, np.float32)
-    e_f = _E.astype(np.float32) @ fv
-    u_f = u[0] * float(fv[0]) + u[1] * float(fv[1]) + u[2] * float(fv[2])
+    (fp32 constants of a constant force; tensors of a force field, whose
+    e_i.F is the signed sum of its components in x, y, z order)."""
+    w3 = _F32(3.0) * D3Q19.W
+    if is_force_field(force):
+        zero = torch.zeros_like(u[0])
+        e_f = [_signed_sum(force, _E[i]) for i in range(D3Q19.Q)]
+        e_f = [zero if v is None else v for v in e_f]
+        u_f = u[0] * force[0] + u[1] * force[1] + u[2] * force[2]
+        odd = [float(w3[i]) * e_f[i] for i in range(D3Q19.Q)]
+    else:
+        fv = np.asarray(force, np.float32)
+        e_f = [float(v) for v in _E.astype(np.float32) @ fv]
+        u_f = u[0] * float(fv[0]) + u[1] * float(fv[1]) + u[2] * float(fv[2])
+        odd = w3 * (_E.astype(np.float32) @ fv)
     even = []
     for i in range(D3Q19.Q):
         eu = _signed_sum(u, _E[i])
         if eu is None:
             eu = torch.zeros_like(u_f)
-        even.append(float(D3Q19.W[i]) * (9.0 * eu * float(e_f[i])
-                                         - 3.0 * u_f))
-    return even, (_F32(3.0) * D3Q19.W) * e_f
+        even.append(float(D3Q19.W[i]) * (9.0 * eu * e_f[i] - 3.0 * u_f))
+    return even, odd
 
 
 def guo_source(u, force, tau: float, tau_minus: Optional[float] = None,
@@ -235,23 +264,35 @@ def guo_source(u, force, tau: float, tau_minus: Optional[float] = None,
     (1 - 1/(2 tau_eff)) on both halves (TRT + closure: the odd half at
     tau_local_minus)."""
     even, odd = guo_parts(u, force)
+    field = is_force_field(force)
+    if not field:
+        odd = [float(o) for o in odd]
     if mrt_kf is not None:
-        return _matvec(mrt_kf, [g + float(o) for g, o in zip(even, odd)])
+        return _matvec(mrt_kf, [g + o for g, o in zip(even, odd)])
     if tau_local is not None:
         cp = 1.0 - _c(0.5, u) / tau_local
         if tau_local_minus is not None:
             cm = 1.0 - _c(0.5, u) / tau_local_minus
-            return torch.stack([cp * g + cm * float(o)
-                                for g, o in zip(even, odd)])
-        return torch.stack([cp * (g + float(o)) for g, o in zip(even, odd)])
+            return torch.stack([cp * g + cm * o for g, o in zip(even, odd)])
+        return torch.stack([cp * (g + o) for g, o in zip(even, odd)])
+    if field:
+        cp, cm = guo_rates(tau, tau_minus)
+        return torch.stack([float(cp) * g + float(cm) * o
+                            for g, o in zip(even, odd)])
     _, cm_odd, cp, _ = guo_constants(force, tau, tau_minus)
     return torch.stack([float(cp) * g + float(c)
                         for g, c in zip(even, cm_odd)])
 
 
-def post_collision(cc: CompiledCase, pulled, f_eq, rho, u):
+_UNSET = object()
+
+
+def post_collision(cc: CompiledCase, pulled, f_eq, rho, u, force=_UNSET):
     """Collide + Guo source of one compiled case (no fluid select). A
-    closure computes tau_eff once for the relax and the source."""
+    closure computes tau_eff once for the relax and the source. `force`
+    takes the place of cc.force when given (a per-cell field)."""
+    if force is _UNSET:
+        force = cc.force
     if cc.closure is not None:
         fneq = pulled - f_eq
         te = tau_eff(fneq, rho, cc.tau, cc.closure)
@@ -263,29 +304,33 @@ def post_collision(cc: CompiledCase, pulled, f_eq, rho, u):
             s = fneq + fneq[_OPP_IDX]
             d = fneq - fneq[_OPP_IDX]
             f_post = pulled - s / (2.0 * te[None]) - d / (2.0 * te_m[None])
-        if cc.force is not None:
-            f_post = f_post + guo_source(u, cc.force, cc.tau, tau_local=te,
+        if force is not None:
+            f_post = f_post + guo_source(u, force, cc.tau, tau_local=te,
                                          tau_local_minus=te_m)
         return f_post
     f_post = collide(pulled, f_eq, cc.tau, cc.tau_minus, cc.mrt_k)
-    if cc.force is not None:
-        f_post = f_post + guo_source(u, cc.force, cc.tau, cc.tau_minus,
+    if force is not None:
+        f_post = f_post + guo_source(u, force, cc.tau, cc.tau_minus,
                                      cc.mrt_kf)
     return f_post
 
 
-def collide_cells(cc: CompiledCase, pulled):
+def collide_cells(cc: CompiledCase, pulled, force=_UNSET):
     """Moments (with the F/2 shift) + collide + source of pulled
-    populations: (f_post, rho, u), every cell."""
+    populations: (f_post, rho, u), every cell. `force` takes the place
+    of cc.force when given."""
+    if force is _UNSET:
+        force = cc.force
     rho, mom = momentum(pulled)
-    u = velocity(rho, mom, cc.force)
+    u = velocity(rho, mom, force)
     f_eq = rho[None] * phi(u)
-    return post_collision(cc, pulled, f_eq, rho, u), rho, u
+    return post_collision(cc, pulled, f_eq, rho, u, force), rho, u
 
 
-def step_tail(cc: CompiledCase, f, pulled):
-    """Moments + collide + fluid select. Returns (f', rho, u)."""
-    f_post, rho, u = collide_cells(cc, pulled)
+def step_tail(cc: CompiledCase, f, pulled, force=_UNSET):
+    """Moments + collide + fluid select. Returns (f', rho, u). `force`
+    takes the place of cc.force when given (make_step_force)."""
+    f_post, rho, u = collide_cells(cc, pulled, force)
     return torch.where(cc.fluid[None], f_post, f), rho, u
 
 
@@ -296,6 +341,37 @@ def make_step(cc: CompiledCase) -> Callable:
 
     def step(f, t):
         return step_tail(cc, f, pulled_state(cc, f, t))
+
+    return step
+
+
+def boussinesq_force(g, fluid, buoyancy, c_ref: float, base=None):
+    """(3, X, Y, Z) Boussinesq force field of a (7, X, Y, Z) scalar
+    state: F = buoyancy (c - c_ref) at fluid cells and 0 elsewhere, plus
+    the constant `base` everywhere when given; c the sum of g's seven
+    channels in order. buoyancy, c_ref and base are rounded to fp32
+    first, as the kernels take them."""
+    c = g[0]
+    for i in range(1, g.shape[0]):
+        c = c + g[i]
+    dc = torch.where(fluid, c - float(_F32(c_ref)), torch.zeros_like(c))
+    comps = [float(_F32(b)) * dc for b in buoyancy]
+    if base is not None:
+        comps = [f + float(_F32(b)) for f, b in zip(comps, base)]
+    return torch.stack(comps)
+
+
+def make_step_force(cc: CompiledCase) -> Callable:
+    """The dense step with a runtime force: (f, t, force) -> (f', rho,
+    u), force a per-cell (3, X, Y, Z) tensor (or a constant 3-vector)
+    applied with the same Guo scheme as CaseSpec.force: the half shift
+    of u, the parity-split source with e_i.F and u.F per cell. The
+    plane-boundary NEE rewrites keep the static cc.force in their
+    previous-moment half shift, as lbm_tpu's make_step_force does (closed
+    thermal boxes have no plane boundary)."""
+
+    def step(f, t, force):
+        return step_tail(cc, f, pulled_state(cc, f, t), force)
 
     return step
 
@@ -337,7 +413,8 @@ def init_override(cc: CompiledCase, rho, u):
             torch.where(cc.fluid[None], u, cc.u0))
 
 
-__all__ = ["make_step", "initial_f", "macro_fields", "init_override",
+__all__ = ["make_step", "make_step_force", "boussinesq_force", "is_force_field", "guo_rates",
+           "initial_f", "macro_fields", "init_override",
            "streamed", "pull_one", "collide", "collide_cells",
            "apply_bc_fixup", "pulled_state", "post_collision", "step_tail",
            "fluid_speed_sum", "guo_source", "guo_constants", "half_force",

@@ -1,18 +1,22 @@
-"""Build the CUDA kernel library with nvcc at first use and load it with
-ctypes.
+"""Build the CUDA kernel libraries with nvcc at first use and load them
+with ctypes.
 
-The library is kernels/csrc/collide_stream.cu (the collide-stream,
-z-plane fixup and moments kernels, each collide-stream and fixup kernel
-in its 14 collision-branch instances) compiled for sm_90a into a
-shared object with a plain C interface (no PyTorch headers, so nvcc
-takes seconds). It lands in kernels/_build/ under a name that carries a
-hash of the source and flags, so an edited source is rebuilt and a
-stale object is never loaded. Pointers and the stream cross as
+Two sources, each its own translation unit and shared object, compiled
+side by side (one nvcc process each, started together):
+kernels/csrc/collide_stream.cu (the collide-stream, z-plane fixup and
+moments kernels, each collide-stream and fixup kernel in its 18
+collision-branch instances) and kernels/csrc/scalar_stream.cu (the D3Q7
+scalar kernel in its 8 instances and its record reduction), for sm_90a
+with a plain C interface (no PyTorch headers, so nvcc takes seconds).
+They land in kernels/_build/ under names that carry a hash of the source
+and flags, so an edited source is rebuilt and a stale object is never
+loaded. Pointers and the stream cross as
 ctypes.c_void_p; every entry point returns cudaGetLastError().
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import functools
@@ -25,6 +29,7 @@ import time
 from pathlib import Path
 
 SOURCE = Path(__file__).parent / "csrc" / "collide_stream.cu"
+SCALAR_SOURCE = Path(__file__).parent / "csrc" / "scalar_stream.cu"
 BUILD_DIR = Path(__file__).parent / "_build"
 # -fmad=false: no multiply-add contraction, so the kernels round exactly
 # like their plain PyTorch versions and the collide-stream kernel is bit
@@ -74,6 +79,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, ci,                 # blocks, n_blocks
         vp, ci,                 # partials, n_partials
         vp, ci,                 # series, t
+        vp,                     # g of a field force, or null
         vp,                     # stream
     ]
     lib.lbm_collide_stream.restype = ci
@@ -85,6 +91,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         ci, ci, ci, ci,         # x0, x1, y0, y1
         vp, ci,                 # partials, n_partials
         vp, ci,                 # series, t
+        vp,                     # g of a field force, or null
         vp,                     # stream
     ]
     lib.lbm_fix_z_plane.restype = ci
@@ -93,32 +100,92 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.lbm_macro.restype = ci
 
 
+def _declare_scalar(lib: ctypes.CDLL) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.lbm_scalar_block_size.argtypes = []
+    lib.lbm_scalar_block_size.restype = ci
+    lib.lbm_error_string.argtypes = [ci]
+    lib.lbm_error_string.restype = ctypes.c_char_p
+    lib.lbm_scalar_stream.argtypes = [
+        vp, vp, vp,             # src, dst, mask
+        ci, ci, ci,             # nx, ny, nz
+        vp, vp, vp, vp,         # u, f, comp, wall_c
+        vp, vp,                 # parameter int row, float row
+        ci, vp, vp, vp, vp,     # n_bc, bc_int, bc_float, valid, cplane
+        vp, ci,                 # blocks, n_blocks
+        vp,                     # record row, or null
+        vp,                     # stream
+    ]
+    lib.lbm_scalar_stream.restype = ci
+
+
+_SOURCES = {"collide_stream": (SOURCE, _declare),
+            "scalar_stream": (SCALAR_SOURCE, _declare_scalar)}
+
+
+def _object_path(source: Path) -> Path:
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{source.stem}_{digest[:16]}.so"
+
+
 @functools.lru_cache(maxsize=None)
-def load_library() -> Library:
-    """Build (if needed) and load the kernel library, once per process."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = BUILD_DIR / f"libcollide_stream_{digest[:16]}.so"
-    built, seconds, log = False, 0.0, ""
-    if not so.exists():
+def _load_all() -> dict:
+    """Build what is missing, one nvcc per source and all started
+    together, then load every library: {name: Library}, once per
+    process."""
+    jobs = {}
+    for name, (source, _) in _SOURCES.items():
+        so = _object_path(source)
+        if so.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+        jobs[name] = ([nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(source)],
+                      tmp, so)
+
+    def compile_one(cmd):
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
+        return proc, time.perf_counter() - t0
+
+    built = {}
+    failure = None
+    with concurrent.futures.ThreadPoolExecutor(max(len(jobs), 1)) as pool:
+        runs = {name: pool.submit(compile_one, job[0])
+                for name, job in jobs.items()}
+    for name, (cmd, tmp, so) in jobs.items():
+        proc, seconds = runs[name].result()
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(
+            failure = failure or RuntimeError(
                 f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+            continue
         os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
-        built = True
-    lib = ctypes.CDLL(str(so))
-    _declare(lib)
-    return Library(lib=lib, path=so, built=built, build_seconds=seconds,
-                   log=log)
+        built[name] = (seconds, log)
+    if failure is not None:
+        raise failure
+    out = {}
+    for name, (source, declare) in _SOURCES.items():
+        so = _object_path(source)
+        lib = ctypes.CDLL(str(so))
+        declare(lib)
+        seconds, log = built.get(name, (0.0, ""))
+        out[name] = Library(lib=lib, path=so, built=name in built,
+                            build_seconds=seconds, log=log)
+    return out
+
+
+def load_library() -> Library:
+    """The collide-stream library (built with the others if needed)."""
+    return _load_all()["collide_stream"]
+
+
+def load_scalar_library() -> Library:
+    """The D3Q7 scalar library (built with the others if needed)."""
+    return _load_all()["scalar_stream"]
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
@@ -128,5 +195,5 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-__all__ = ["Library", "load_library", "check", "nvcc_path", "SOURCE",
-           "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["Library", "load_library", "load_scalar_library", "check",
+           "nvcc_path", "SOURCE", "SCALAR_SOURCE", "BUILD_DIR", "NVCC_FLAGS"]

@@ -18,7 +18,11 @@ PyTorch versions, and launch counters.
 The collide-stream and fixup kernels are templates over the collision
 branch; `instance(cc)` names the one a case runs ("bgk", "trt+cy",
 "bgk+force", "mrt+moving", ...) and `collision_tables` builds its
-by-value operands. A wrapper runs the plain version only for tensors on
+by-value operands. With `field=ForceField(buoyancy, c_ref)` and the
+scalar state `g` the step runs its force-field instance ("bgk+field",
+"trt+field": K1e, the `fforce` mode of lbm_tpu's _kernel): the
+Boussinesq force buoyancy (c - c_ref) per fluid cell, c summed from the
+cell's seven pre-step g. A wrapper runs the plain version only for tensors on
 the CPU; for a CUDA tensor it launches the kernel or raises. `launches`
 counts kernel launches per entry point and instance ("lbm_collide_stream
 [trt+cy]"), one per wrapper call that launched.
@@ -43,9 +47,11 @@ from lbm_tpu_torch.engine.compile import (
 )
 from lbm_tpu_torch.engine.step import (
     apply_bc_fixup,
+    boussinesq_force,
     collide_cells,
     fluid_speed_sum,
     guo_constants,
+    guo_rates,
     half_force,
     moving_bb_terms,
     pulled_state,
@@ -66,13 +72,25 @@ CINT = {"coll": 0, "closure": 1, "force": 2, "moving": 3, "iters": 4,
         "square": 5, "n": 6}
 CFLOAT = {"tau": 0, "two_tau": 1, "two_tau_m": 2, "cp": 3, "half_force": 4,
           "force": 7, "e_f": 10, "cm_odd": 29, "bb": 48, "mrt_k": 67,
-          "t0": 428, "lam": 429, "lo": 430, "hi": 431, "c": 432, "n": 438}
+          "t0": 428, "lam": 429, "lo": 430, "hi": 431, "c": 432, "cm": 438,
+          "buoy": 439, "c_ref": 442, "n": 443}
+# CINT["force"]: no force, the constant CaseSpec.force, the force field
+NO_FORCE, CONST_FORCE, FIELD_FORCE = 0, 1, 2
 COLLISIONS = ("bgk", "trt", "mrt")
 CLOSURES = (None, "smag", "plaw", "cy", "casson")
 # constants of each closure kind, in the order of CFLOAT["c"]
 _CLOSURE_C = {"smag": ("k",), "plaw": ("em1", "c3k"),
               "cy": ("dnu3", "base", "ea", "ex", "lam"),
               "casson": ("b", "cc", "dd")}
+
+
+@dataclasses.dataclass(frozen=True)
+class ForceField:
+    """The Boussinesq force of the thermal route: F = buoyancy (c -
+    c_ref) at fluid cells, c the sum of the scalar state's channels."""
+
+    buoyancy: tuple[float, float, float]
+    c_ref: float = 0.0
 
 
 def reset_launches() -> None:
@@ -83,20 +101,23 @@ def _count(entry: str) -> None:
     launches[entry] = launches.get(entry, 0) + 1
 
 
-def instance(cc: CompiledCase) -> str:
+def instance(cc: CompiledCase, field: ForceField | None = None) -> str:
     """The kernel instance a case runs: its collision, closure kind,
-    '+force' and '+moving', e.g. 'trt+cy' or 'bgk+force'."""
+    '+force' (or '+field' with a force field) and '+moving', e.g.
+    'trt+cy' or 'bgk+force'."""
     parts = [cc.spec.collision]
     if cc.closure is not None:
         parts.append(cc.closure[0])
-    if cc.force is not None:
+    if field is not None:
+        parts.append("field")
+    elif cc.force is not None:
         parts.append("force")
     if cc.wall_velocity is not None:
         parts.append("moving")
     return "+".join(parts)
 
 
-def collision_tables(cc: CompiledCase):
+def collision_tables(cc: CompiledCase, field: ForceField | None = None):
     """The kernels' collision descriptor of a case: (int32 row, float32
     row) at the CINT/CFLOAT offsets. Every constant is the dense step's,
     rounded to fp32 the same way."""
@@ -110,9 +131,14 @@ def collision_tables(cc: CompiledCase):
     if cc.tau_minus is not None:
         cf[CFLOAT["two_tau_m"]] = f32(2.0 * cc.tau_minus)
         cf[CFLOAT["lam"]] = f32((cc.tau - 0.5) * (cc.tau_minus - 0.5))
-    if cc.force is not None:
+    if field is not None:
+        ci[CINT["force"]] = FIELD_FORCE
+        cf[CFLOAT["cp"]], cf[CFLOAT["cm"]] = guo_rates(cc.tau, cc.tau_minus)
+        cf[CFLOAT["buoy"]:CFLOAT["buoy"] + 3] = field.buoyancy
+        cf[CFLOAT["c_ref"]] = field.c_ref
+    elif cc.force is not None:
         e_f, cm_odd, cp, _ = guo_constants(cc.force, cc.tau, cc.tau_minus)
-        ci[CINT["force"]] = 1
+        ci[CINT["force"]] = CONST_FORCE
         cf[CFLOAT["cp"]] = cp
         cf[CFLOAT["half_force"]:CFLOAT["half_force"] + 3] = \
             half_force(cc.force)
@@ -138,11 +164,21 @@ def collision_tables(cc: CompiledCase):
     return ci, cf
 
 
-def collide_stream_plain(f, cc: CompiledCase, t: int):
+def _field_tensor(cc: CompiledCase, field, g):
+    """The (3, X, Y, Z) force of `field` from the scalar state g, or
+    cc.force without a field."""
+    if field is None:
+        return cc.force
+    return boussinesq_force(g, cc.fluid, field.buoyancy, field.c_ref)
+
+
+def collide_stream_plain(f, cc: CompiledCase, t: int, field=None, g=None):
     """The dense step at absolute step t with the x/y-plane boundaries
     only (those the kernel applies) plus the fluid velsum: (f',
-    sum_fluid |u|) with the sum a float64 0-dim tensor."""
-    f_new, _, u = step_tail(cc, f, pulled_state(cc, f, t, cc.kernel_bcs))
+    sum_fluid |u|) with the sum a float64 0-dim tensor. field, g: the
+    force field and the pre-step scalar state it is built from."""
+    f_new, _, u = step_tail(cc, f, pulled_state(cc, f, t, cc.kernel_bcs),
+                            _field_tensor(cc, field, g))
     return f_new, fluid_speed_sum(cc, u)
 
 
@@ -151,7 +187,7 @@ def _speed(u):
 
 
 def fix_z_plane_plain(f_src, f_out, cc: CompiledCase, bc: CompiledBC,
-                      t: int):
+                      t: int, field=None, g=None):
     """One z-plane boundary's fixup over its window: the step of the
     window's consumer-plane cells again, from the pre-step f_src, with
     this boundary's NEE rewrite; writes their fluid cells into f_out in
@@ -175,7 +211,10 @@ def fix_z_plane_plain(f_src, f_out, cc: CompiledCase, bc: CompiledBC,
             v = torch.where(nbr == CellType.MOVING, own_opp + float(bb[i]), v)
         pulled.append(v)
     pulled = torch.stack(pulled)[..., None]          # (19, wx, wy, 1)
-    speed_before = _speed(velocity(*momentum(pulled), cc.force))
+    force = cc.force
+    if field is not None:
+        force = _field_tensor(cc, field, g)[:, x0:x1, y0:y1, c:c + 1]
+    speed_before = _speed(velocity(*momentum(pulled), force))
     window = dataclasses.replace(
         bc, consumer_coord=0, valid=bc.valid[:, x0:x1, y0:y1],
         phi_star=(None if bc.phi_star is None
@@ -184,7 +223,7 @@ def fix_z_plane_plain(f_src, f_out, cc: CompiledCase, bc: CompiledBC,
                          else bc.phi_star_series[:, :, x0:x1, y0:y1]))
     apply_bc_fixup(pulled, f_src[:, x0:x1, y0:y1, c:c + 1], window, t,
                    cc.force)
-    post, _, u = collide_cells(cc, pulled)
+    post, _, u = collide_cells(cc, pulled, force)
     post = post[..., 0]
     fluid = cc.fluid[x0:x1, y0:y1, c]
     plane = f_out[:, x0:x1, y0:y1, c]
@@ -194,13 +233,13 @@ def fix_z_plane_plain(f_src, f_out, cc: CompiledCase, bc: CompiledBC,
                        torch.zeros_like(diff)).sum(dtype=torch.float64)
 
 
-def step_plain(f, cc: CompiledCase, t: int):
+def step_plain(f, cc: CompiledCase, t: int, field=None, g=None):
     """The plain version of `step`: (f', velsum) with the velsum a
     float64 0-dim tensor."""
-    f_new, vs = collide_stream_plain(f, cc, t)
+    f_new, vs = collide_stream_plain(f, cc, t, field, g)
     for bc in cc.z_bcs:
         if bc.window is not None:
-            vs = vs + fix_z_plane_plain(f, f_new, cc, bc, t)
+            vs = vs + fix_z_plane_plain(f, f_new, cc, bc, t, field, g)
     return f_new, vs
 
 
@@ -282,33 +321,54 @@ def _launch_scratch(cc: CompiledCase, kernel: str, bcs, t: int, n: int):
     return tab, partials[n]
 
 
-def collision_descriptor(cc: CompiledCase):
-    """(instance name, int row, float row) of the case, built once. Raises
+def collision_descriptor(cc: CompiledCase, field: ForceField | None = None):
+    """(instance name, int row, float row) of the case (with a force
+    field: of its force-field instance), built once. Raises
     NotImplementedError, naming backend='dense', for a composition the
     kernels lack (compile.kernel_refusal), on every call."""
     per_case = _scratch.setdefault(cc, {})
-    if "collision" not in per_case:
-        reason = kernel_refusal(cc.spec)
+    key = ("collision", field)
+    if key not in per_case:
+        reason = kernel_refusal(cc.spec, field is not None)
         if reason is not None:
             raise NotImplementedError(
                 f"{reason}; run this case with backend='dense'")
-        per_case["collision"] = (instance(cc),) + collision_tables(cc)
-    return per_case["collision"]
+        per_case[key] = (instance(cc, field),) + collision_tables(cc, field)
+    return per_case[key]
+
+
+def _check_field(field, g, cc: CompiledCase):
+    """The pointer of the scalar state a force field reads (None without
+    a field), after checking it."""
+    if field is None:
+        if g is not None:
+            raise ValueError("g was given without a force field")
+        return None
+    if g is None or g.dtype != torch.float32 or not g.is_contiguous() \
+            or tuple(g.shape) != (7,) + tuple(cc.shape) \
+            or g.device != cc.device:
+        raise ValueError("a force field needs g, a contiguous float32 "
+                         f"(7, *{cc.shape}) tensor on {cc.device}")
+    return g.data_ptr()
 
 
 def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
-                   all_blocks: bool = False):
+                   all_blocks: bool = False, field: ForceField | None = None,
+                   g=None):
     """One step of f into out (a different buffer) at absolute step t
     with the case's collision branch and x/y-plane boundaries; writes the fluid velsum, sum over
     fluid cells of |u| after their NEE rewrite, into series[slot]
     (float64). The launch covers the case's live blocks (cc.live_blocks;
     every block when that is None, or with all_blocks); the blocks left
-    out hold no fluid cell and must be equal in f and out. Returns out."""
+    out hold no fluid cell and must be equal in f and out. field, g: the
+    Boussinesq force field and the pre-step (7, X, Y, Z) scalar state it
+    reads (the force-field instance). Returns out."""
     _check_pair(f, out, cc, series, slot)
-    name, ci, cf = collision_descriptor(cc)
+    name, ci, cf = collision_descriptor(cc, field)
+    g_ptr = _check_field(field, g, cc)
     ids = None if all_blocks else cc.live_blocks
     if f.device.type == "cpu":
-        f_new, vs = collide_stream_plain(f, cc, t)
+        f_new, vs = collide_stream_plain(f, cc, t, field, g)
         out.copy_(f_new)
         series[slot] = vs
         return out
@@ -330,25 +390,27 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
             len(cc.kernel_bcs), ints.ctypes.data, floats.ctypes.data,
             ctypes.addressof(valid), ctypes.addressof(phis),
             None if ids is None else ids.data_ptr(), grid,
-            partials.data_ptr(), grid, series.data_ptr(), slot, stream)
+            partials.data_ptr(), grid, series.data_ptr(), slot, g_ptr,
+            stream)
     check(lib, err, f"lbm_collide_stream[{name}]")
     _count(f"lbm_collide_stream[{name}]")
     return out
 
 
 def fix_z_plane(f_src, f_out, cc: CompiledCase, bc: CompiledBC, series,
-                slot: int, t: int):
+                slot: int, t: int, field: ForceField | None = None, g=None):
     """The z-plane boundary `bc`'s fixup at absolute step t: f_src is the
     pre-step state, f_out the collide-stream output, rewritten in place
     over the boundary's window; adds the velsum correction to
-    series[slot]. Returns f_out."""
+    series[slot]. field, g as in collide_stream. Returns f_out."""
     _check_pair(f_src, f_out, cc, series, slot)
-    name, ci, cf = collision_descriptor(cc)
+    name, ci, cf = collision_descriptor(cc, field)
+    g_ptr = _check_field(field, g, cc)
     if not any(b is bc for b in cc.z_bcs) or bc.window is None:
         raise ValueError("bc must be one of the case's z-plane boundaries "
                          "with a window")
     if f_src.device.type == "cpu":
-        series[slot] += fix_z_plane_plain(f_src, f_out, cc, bc, t)
+        series[slot] += fix_z_plane_plain(f_src, f_out, cc, bc, t, field, g)
         return f_out
     from lbm_tpu_torch.kernels._build import check, load_library
 
@@ -365,20 +427,23 @@ def fix_z_plane(f_src, f_out, cc: CompiledCase, bc: CompiledBC, series,
             nx, ny, nz, ci.ctypes.data, cf.ctypes.data,
             ints.ctypes.data, floats.ctypes.data,
             valid[0], phis[0], x0, x1, y0, y1,
-            partials.data_ptr(), grid, series.data_ptr(), slot, stream)
+            partials.data_ptr(), grid, series.data_ptr(), slot, g_ptr,
+            stream)
     check(lib, err, f"lbm_fix_z_plane[{name}]")
     _count(f"lbm_fix_z_plane[{name}]")
     return f_out
 
 
-def step(f, out, cc: CompiledCase, series, slot: int, t: int):
+def step(f, out, cc: CompiledCase, series, slot: int, t: int,
+         field: ForceField | None = None, g=None):
     """One whole step of f into out at absolute step t: the
     collide-stream kernel, then the fixup of each z-plane boundary in
-    boundary order; series[slot] gets the step's fluid velsum."""
-    collide_stream(f, out, cc, series, slot, t)
+    boundary order; series[slot] gets the step's fluid velsum. field, g
+    as in collide_stream."""
+    collide_stream(f, out, cc, series, slot, t, field=field, g=g)
     for bc in cc.z_bcs:
         if bc.window is not None:
-            fix_z_plane(f, out, cc, bc, series, slot, t)
+            fix_z_plane(f, out, cc, bc, series, slot, t, field, g)
     return out
 
 
@@ -418,4 +483,5 @@ def macro(f, force=None):
 __all__ = ["collide_stream", "collide_stream_plain", "fix_z_plane",
            "fix_z_plane_plain", "step", "step_plain", "live_block_ids",
            "macro", "macro_plain", "launches", "reset_launches", "instance",
-           "collision_tables", "collision_descriptor", "CINT", "CFLOAT"]
+           "collision_tables", "collision_descriptor", "CINT", "CFLOAT",
+           "ForceField"]

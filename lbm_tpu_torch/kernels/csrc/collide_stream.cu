@@ -10,6 +10,11 @@
 // (K6), ::_splice_z_plane_inplace (K5) and the XLA arithmetic of
 // ::_fix_z_plane_windowed between them, with the same branches.
 // lbm_macro (K3) replaces ::packed_macro, with its F/2 force shift.
+// The force-field instances (K1e) replace the same _kernel's `fforce`
+// mode: the Boussinesq force F = buoy (c - c_ref) per fluid cell, c the
+// sum of the cell's seven pre-step D3Q7 populations g (read from the
+// scalar state's source buffer, 7 loads at the own cell), with the Guo
+// half shift and the parity-split source per cell.
 //
 // State layout: f[19][nx][ny][nz] fp32, z contiguous, two ping-pong
 // buffers (the kernels read `src` and write `dst`, never in place, so a
@@ -33,9 +38,10 @@
 // step after 200 steps of the 64^3 cavity on the H100. K's entries come
 // by value and are read from the constant bank, not registers.
 //
-// The collision branch is a template: <collision, closure?, force,
-// moving>, 14 valid instances per kernel (a closure needs BGK or TRT; a
-// force excludes MRT and closures, as lbm_tpu's kernel does). The
+// The collision branch is a template: <collision, closure?, force (none,
+// constant, field), moving>, 18 valid instances per kernel (a closure
+// needs BGK or TRT; a force excludes MRT and closures, as lbm_tpu's
+// kernel does). The
 // closure's kind (Smagorinsky, power law, Carreau(-Yasuda), Casson) is a
 // uniform runtime switch inside the closure instance: one template
 // instance per kind took the build from 4 s to 60 s on the H100. The
@@ -101,8 +107,10 @@ enum CFloat {
   CF_tau = 0, CF_two_tau = 1, CF_two_tau_m = 2, CF_cp = 3,
   CF_half_force = 4, CF_force = 7, CF_e_f = 10, CF_cm_odd = 29, CF_bb = 48,
   CF_mrt_k = 67, CF_t0 = 428, CF_lam = 429, CF_lo = 430, CF_hi = 431,
-  CF_c = 432, CF_n = 438
+  CF_c = 432, CF_cm = 438, CF_buoy = 439, CF_c_ref = 442, CF_n = 443
 };
+// CI_force: no force, the constant CaseSpec.force, the Boussinesq field.
+enum ForceKind { kNoForce = 0, kConstForce = 1, kFieldForce = 2 };
 
 __host__ __device__ constexpr int EX(int i) {
   constexpr int v[Q] = {0, 1, -1, 0, 0, 0, 0, 1, 1, -1, -1,
@@ -147,6 +155,10 @@ struct Collision {
   int closure;            // ClosureKind
   int iters;              // Picard iterations
   int square;             // Carreau with a == 2
+  float cm;               // Guo prefactor of the odd half (field force)
+  float buoy[3];          // field force: F = buoy (c - c_ref)
+  float c_ref;
+  const float* gfield;    // field force: the scalar state g[7][n_cells]
 };
 
 // One NEE boundary on its consumer plane. The lateral axes are (y, z)
@@ -350,15 +362,36 @@ __device__ __forceinline__ float tau_eff(float P, float inv_rho,
 
 // Collide the pulled populations into dst with the instance's branch;
 // returns the |u|^2 of the collide's moments (u with the F/2 shift).
-template <int COLL, bool CLOSURE, bool FORCE>
+// The field force of one fluid cell and its half, F/2, from the cell's
+// pre-step scalar: c = sum of g's seven channels in order, F = buoy (c -
+// c_ref).
+__device__ __forceinline__ void field_force(const Collision& c,
+                                            long long n_cells, int cell,
+                                            float* F, float* half) {
+  float cs = c.gfield[cell];
+#pragma unroll
+  for (int i = 1; i < 7; ++i) cs += c.gfield[(long long)i * n_cells + cell];
+  const float dc = cs - c.c_ref;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    F[a] = c.buoy[a] * dc;
+    half[a] = 0.5f * F[a];
+  }
+}
+
+// F and half: the cell's force and F/2, read under FORCE (the
+// descriptor's constants, or field_force's).
+template <int COLL, bool CLOSURE, int FORCE>
 __device__ __forceinline__ float collide_store(const float* p,
                                                const Collision& c,
+                                               const float* F,
+                                               const float* half,
                                                float* __restrict__ dst,
                                                long long n_cells, int cell) {
   float rho, ux, uy, uz;
-  moments19<FORCE>(p, c.half_force, rho, ux, uy, uz);
+  moments19<FORCE != kNoForce>(p, half, rho, ux, uy, uz);
   const float usq = ux * ux + uy * uy + uz * uz;
-  if constexpr (COLL == kBGK && !CLOSURE && !FORCE) {
+  if constexpr (COLL == kBGK && !CLOSURE && FORCE == kNoForce) {
 #pragma unroll
     for (int i = 0; i < Q; ++i) {
       const float feq = rho * phi_i(i, ux, uy, uz, usq);
@@ -411,14 +444,21 @@ __device__ __forceinline__ float collide_store(const float* p,
         post[i] = p[i] - acc;
       }
     }
-    if constexpr (FORCE) {
+    if constexpr (FORCE != kNoForce) {
       // Guo source, parity split: cp g_even + cm g_odd
-      const float uf = ux * c.force[0] + uy * c.force[1] + uz * c.force[2];
+      const float uf = ux * F[0] + uy * F[1] + uz * F[2];
 #pragma unroll
       for (int i = 0; i < Q; ++i) {
         const float eu = e_dot(i, ux, uy, uz);
-        const float g_even = WGT(i) * (9.0f * eu * c.e_f[i] - 3.0f * uf);
-        post[i] = post[i] + (c.cp * g_even + c.cm_odd[i]);
+        if constexpr (FORCE == kFieldForce) {
+          const float e_f = e_dot(i, F[0], F[1], F[2]);
+          const float g_even = WGT(i) * (9.0f * eu * e_f - 3.0f * uf);
+          const float g_odd = (3.0f * WGT(i)) * e_f;
+          post[i] = post[i] + (c.cp * g_even + c.cm * g_odd);
+        } else {
+          const float g_even = WGT(i) * (9.0f * eu * c.e_f[i] - 3.0f * uf);
+          post[i] = post[i] + (c.cp * g_even + c.cm_odd[i]);
+        }
       }
     }
 #pragma unroll
@@ -443,7 +483,7 @@ __device__ __forceinline__ void block_sum(double v,
 
 // Launch block b works on cells blocks[b] * kBlock ... + kBlock - 1, or
 // on block b itself when `blocks` is null.
-template <int COLL, bool CLOSURE, bool FORCE, bool MOVING>
+template <int COLL, bool CLOSURE, int FORCE, bool MOVING>
 __global__ void __launch_bounds__(kBlock)
 collide_stream_kernel(const float* __restrict__ src,
                       float* __restrict__ dst,
@@ -478,9 +518,19 @@ collide_stream_kernel(const float* __restrict__ src,
         const BCDesc& bc = bcs.bc[b];
         if ((bc.axis == 0 ? x : y) != bc.coord) continue;
         const long long lat = (long long)(bc.axis == 0 ? y : x) * nz + z;
-        nee_fix<FORCE>(bc, src, n_cells, cell, lat, coll.half_force, p);
+        // the NEE rewrite keeps the static force (none under a field)
+        nee_fix<FORCE == kConstForce>(bc, src, n_cells, cell, lat,
+                                      coll.half_force, p);
       }
-      speed = sqrtf(collide_store<COLL, CLOSURE, FORCE>(p, coll, dst,
+      float ff[3], fh[3];
+      const float* F = coll.force;
+      const float* half = coll.half_force;
+      if constexpr (FORCE == kFieldForce) {
+        field_force(coll, n_cells, cell, ff, fh);
+        F = ff;
+        half = fh;
+      }
+      speed = sqrtf(collide_store<COLL, CLOSURE, FORCE>(p, coll, F, half, dst,
                                                          n_cells, cell));
     }
   }
@@ -491,7 +541,7 @@ collide_stream_kernel(const float* __restrict__ src,
 // consumer plane z = bc.coord: the whole step again for the window's
 // fluid cells, now with the NEE rewrite. partials[block] gets the sum of
 // |u_fixed| - |u_pre-NEE| over its cells.
-template <int COLL, bool CLOSURE, bool FORCE, bool MOVING>
+template <int COLL, bool CLOSURE, int FORCE, bool MOVING>
 __global__ void __launch_bounds__(kBlock)
 fix_z_plane_kernel(const float* __restrict__ src, float* __restrict__ dst,
                    const int8_t* __restrict__ mask, int nx, int ny, int nz,
@@ -509,13 +559,22 @@ fix_z_plane_kernel(const float* __restrict__ src, float* __restrict__ dst,
       float p[Q];
       pull19<MOVING>(src, mask, x, y, z, nx, ny, nz, n_cells, cell, coll.bb,
                      p);
+      float ff[3], fh[3];
+      const float* F = coll.force;
+      const float* half = coll.half_force;
+      if constexpr (FORCE == kFieldForce) {
+        field_force(coll, n_cells, cell, ff, fh);
+        F = ff;
+        half = fh;
+      }
       float rho, ux, uy, uz;
-      moments19<FORCE>(p, coll.half_force, rho, ux, uy, uz);
+      moments19<FORCE != kNoForce>(p, half, rho, ux, uy, uz);
       const float before = sqrtf(ux * ux + uy * uy + uz * uz);
-      nee_fix<FORCE>(bc, src, n_cells, cell, (long long)x * ny + y,
-                     coll.half_force, p);
-      const float after = sqrtf(
-          collide_store<COLL, CLOSURE, FORCE>(p, coll, dst, n_cells, cell));
+      nee_fix<FORCE == kConstForce>(bc, src, n_cells, cell,
+                                    (long long)x * ny + y, coll.half_force,
+                                    p);
+      const float after = sqrtf(collide_store<COLL, CLOSURE, FORCE>(
+          p, coll, F, half, dst, n_cells, cell));
       delta = (double)after - (double)before;
     }
   }
@@ -593,29 +652,37 @@ bool parse_bc(const int* row, const float* frow, const void* valid,
 
 // The instance key of a (collision, closure?, force, moving) branch and
 // whether the kernels have that instance.
-constexpr int kNumKeys = 3 * 2 * 2 * 2;
+constexpr int kNumKeys = 3 * 2 * 3 * 2;
 constexpr int instance_key(int coll, int closure, int force, int moving) {
-  return ((coll * 2 + closure) * 2 + force) * 2 + moving;
+  return ((coll * 2 + closure) * 3 + force) * 2 + moving;
 }
 template <int K>
 struct Inst {
-  static constexpr int kColl = K / 8;
-  static constexpr bool kClosure = (K / 4) % 2 == 1;
-  static constexpr bool kForce = (K / 2) % 2 == 1;
+  static constexpr int kColl = K / 12;
+  static constexpr bool kClosure = (K / 6) % 2 == 1;
+  static constexpr int kForce = (K / 2) % 3;
   static constexpr bool kMovingWall = K % 2 == 1;
-  static constexpr bool kValid = !(kClosure && kColl == kMRT) &&
-                                 !(kForce && (kColl == kMRT || kClosure));
+  static constexpr bool kValid =
+      !(kClosure && kColl == kMRT) &&
+      !(kForce != kNoForce && (kColl == kMRT || kClosure));
 };
 
-// Fill a Collision from its descriptor rows; returns the instance key,
-// or -1 on a malformed row or a branch without an instance.
-int parse_collision(const int* ci, const float* cf, Collision& c) {
+// Fill a Collision from its descriptor rows and the scalar state of a
+// field force; returns the instance key, or -1 on a malformed row or a
+// branch without an instance.
+int parse_collision(const int* ci, const float* cf, const float* gfield,
+                    Collision& c) {
   const int coll = ci[CI_coll], clo = ci[CI_closure];
   const int force = ci[CI_force], moving = ci[CI_moving];
-  if (coll < 0 || coll > 2 || clo < 0 || clo > 4 || (force & ~1) ||
-      (moving & ~1) || ci[CI_iters] < 0 || ci[CI_iters] > 1000) {
+  if (coll < 0 || coll > 2 || clo < 0 || clo > 4 || force < 0 ||
+      force > 2 || (moving & ~1) || ci[CI_iters] < 0 ||
+      ci[CI_iters] > 1000 || ((force == kFieldForce) != (gfield != nullptr))) {
     return -1;
   }
+  c.cm = cf[CF_cm];
+  for (int a = 0; a < 3; ++a) c.buoy[a] = cf[CF_buoy + a];
+  c.c_ref = cf[CF_c_ref];
+  c.gfield = gfield;
   c.tau = cf[CF_tau];
   c.two_tau = cf[CF_two_tau];
   c.two_tau_m = cf[CF_two_tau_m];
@@ -730,7 +797,8 @@ const char* lbm_error_string(int err) {
 
 // One step from src into dst with the collision branch of the descriptor
 // rows coll_int/coll_float (CInt/CFloat) and the x/y-plane boundaries;
-// series[t] = sum over fluid cells of |u|. blocks: null (every block) or
+// series[t] = sum over fluid cells of |u|. gfield: the pre-step scalar
+// state g[7][n_cells] of a field force (CI_force == 2), else null. blocks: null (every block) or
 // a device list of n_blocks block ids to update; the blocks left out must
 // hold no fluid cell and be equal in src and dst. partials holds one
 // double per launched block (n_partials). Boundary rows as parse_bc;
@@ -742,7 +810,8 @@ int lbm_collide_stream(const float* src, float* dst, const int8_t* mask,
                        const float* bc_float, const void* const* valid_ptrs,
                        const void* const* phi_ptrs, const int* blocks,
                        int n_blocks, double* partials, int n_partials,
-                       double* series, int t, void* stream) {
+                       double* series, int t, const float* gfield,
+                       void* stream) {
   const long long n_cells = (long long)nx * ny * nz;
   const long long all_blocks = (n_cells + kBlock - 1) / kBlock;
   const long long grid = blocks ? n_blocks : all_blocks;
@@ -752,7 +821,7 @@ int lbm_collide_stream(const float* src, float* dst, const int8_t* mask,
     return (int)cudaErrorInvalidValue;
   }
   Collision coll = {};
-  const int key = parse_collision(coll_int, coll_float, coll);
+  const int key = parse_collision(coll_int, coll_float, gfield, coll);
   if (key < 0 || kStepTable[key] == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
@@ -780,7 +849,8 @@ int lbm_collide_stream(const float* src, float* dst, const int8_t* mask,
 // axis 2) with the collision branch of coll_int/coll_float, over the
 // window [x0, x1) x [y0, y1) of its consumer plane: src is the pre-step
 // state, dst the collide-stream kernel's output; series[t] += sum
-// |u_fixed| - |u_pre-NEE| over the rewritten cells. partials holds
+// |u_fixed| - |u_pre-NEE| over the rewritten cells. gfield as in
+// lbm_collide_stream. partials holds
 // ceil((x1-x0)*(y1-y0) / lbm_block_size()) doubles. Returns
 // cudaGetLastError().
 int lbm_fix_z_plane(const float* src, float* dst, const int8_t* mask,
@@ -789,7 +859,7 @@ int lbm_fix_z_plane(const float* src, float* dst, const int8_t* mask,
                     const float* bc_float, const void* valid,
                     const void* phi, int x0, int x1, int y0, int y1,
                     double* partials, int n_partials, double* series, int t,
-                    void* stream) {
+                    const float* gfield, void* stream) {
   const long long n_cells = (long long)nx * ny * nz;
   const int wx = x1 - x0, wy = y1 - y0;
   BCDesc bc = {};
@@ -800,7 +870,7 @@ int lbm_fix_z_plane(const float* src, float* dst, const int8_t* mask,
     return (int)cudaErrorInvalidValue;
   }
   Collision coll = {};
-  const int key = parse_collision(coll_int, coll_float, coll);
+  const int key = parse_collision(coll_int, coll_float, gfield, coll);
   if (key < 0 || kFixTable[key] == nullptr) {
     return (int)cudaErrorInvalidValue;
   }

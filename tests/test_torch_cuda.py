@@ -211,3 +211,160 @@ def test_kernel_refuses_mrt_with_a_force_on_the_card(device):
     sim = Simulation(spec, device=device, backend="dense")
     sim.run(max_steps=4, time_save=4, verbose=False)
     assert bool(torch.isfinite(sim.f).all())
+
+
+# -- scalar transport and thermal flow (K7, K8, K1e) ------------------------
+
+def test_scalar_descriptor_offsets_equal_the_source_enums():
+    """Needs no card: the parameter rows' offsets in
+    kernels/scalar_stream.py against the enums of csrc/scalar_stream.cu,
+    the boundary rows' widths and the most boundaries a launch takes."""
+    import re
+
+    import lbm_tpu_torch.kernels.scalar_stream as S
+    from lbm_tpu_torch.kernels import _build
+
+    src = _build.SCALAR_SOURCE.read_text()
+    for prefix, table in (("SI", S.SINT), ("SF", S.SFLOAT)):
+        enum = {m.group(1): int(m.group(2))
+                for m in re.finditer(prefix + r"_(\w+) = (\d+)", src)}
+        assert enum == table
+    consts = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    assert (consts["kBCInts"], consts["kBCFloats"], consts["kMaxBCs"]) == (
+        S.BC_INTS, S.BC_FLOATS, S.MAX_BCS)
+    assert consts["kBlock"] == 256
+    src = _build.SOURCE.read_text()
+    enum = {m.group(1): int(m.group(2))
+            for m in re.finditer(r"CF_(\w+) = (\d+)", src)}
+    assert enum == K.CFLOAT
+    assert "kFieldForce = 2" in src and K.FIELD_FORCE == 2
+
+
+def _transports(make, device):
+    """(kernel route on the card, a twin stepped with the plain versions)."""
+    return make(device=device, backend="kernel"), \
+        make(device=device, backend="kernel")
+
+
+def _run_plain(tr, n, record):
+    """n steps of tr's state with the kernel route's plain versions; the
+    (n, n_bc) record series."""
+    import lbm_tpu_torch.kernels.scalar_stream as S
+
+    series = torch.zeros((n, len(tr.sc.bcs)), dtype=torch.float64,
+                         device=tr.sc.device)
+    for k in range(n):
+        if hasattr(tr, "cc"):
+            tr.f, tr.g, series[k], _ = S.coupled_step_plain(
+                tr.f, tr.g, tr.cc, tr.sc, tr.t + k, tr.field)
+        else:
+            tr.g, series[k] = S.scalar_stream_plain(tr.g, tr.sc, tr.t + k)
+    tr.t += n
+    return series[:, record].cpu().numpy()
+
+
+FROZEN = {
+    "frozen+comp": ("poiseuille", dict(n=24), dict(inlet_c={0: 1.0})),
+    "frozen": ("coronary", dict(shape=(64, 48, 96), radius=4),
+               dict(inlet_c={0: 0.0}, source=1.0, div_fix=False)),
+    "frozen+comp bolus": ("coronary", dict(shape=(64, 48, 96), radius=4),
+                          dict(inlet_c={0: lambda t: 1.0 if t < 10 else 0.0})),
+}
+
+
+@pytest.mark.parametrize("label", sorted(FROZEN))
+def test_scalar_kernel_frozen_matches_plain(device, label):
+    """K7: the frozen-field instances against the plain pass, 40 steps,
+    bit for bit; the record series to 1e-12."""
+    import lbm_tpu_torch.kernels.scalar_stream as S
+    from lbm_tpu_torch.engine.scalar import ScalarTransport
+
+    name, kw, tkw = FROZEN[label]
+    spec = get_case(name, **kw)
+    sim = Simulation(spec, device=device)
+    sim.run(max_steps=40, time_save=40, verbose=False)
+    u = sim.macro()[1]
+    a, b = _transports(lambda **d: ScalarTransport(spec, u, D=0.02, **tkw,
+                                                   **d), device)
+    rec = list(range(len(spec.boundaries)))
+    S.reset_launches()
+    sa = a.run(40, record=rec)
+    sb = _run_plain(b, 40, rec)
+    torch.cuda.synchronize()
+    assert S.launches == {
+        f"lbm_scalar_stream[{S.instance(a.sc, False)}]": 40}
+    assert S.instance(a.sc, False) == label.split()[0]
+    assert torch.equal(a.g, b.g)
+    assert abs(sa - sb).max() <= 1e-12
+    assert a.total() > 0
+
+
+def test_scalar_kernel_coupled_matches_plain(device):
+    """K8 behind the flow kernels on the pulsatile small coronary."""
+    import lbm_tpu_torch.kernels.scalar_stream as S
+    from lbm_tpu_torch.engine.scalar import CoupledTransport
+
+    spec = get_case("coronary", shape=(64, 48, 96), radius=4,
+                    pulsatile=(4, 8))
+    a, b = _transports(lambda **d: CoupledTransport(
+        spec, D=0.02, inlet_c={0: 1.0}, **d), device)
+    rec = list(range(len(spec.boundaries)))
+    S.reset_launches()
+    K.reset_launches()
+    sa = a.run(24, record=rec)
+    sb = _run_plain(b, 24, rec)
+    torch.cuda.synchronize()
+    assert S.launches == {"lbm_scalar_stream[live]": 24}
+    assert K.launches["lbm_collide_stream[bgk]"] == 24
+    assert torch.equal(a.f, b.f) and torch.equal(a.g, b.g)
+    assert abs(sa - sb).max() <= 1e-12
+
+
+THERMAL = {
+    "cavity3d": ("heated_cavity_3d", dict(n=24), {}),
+    "cavity3d trt": ("heated_cavity_3d", dict(n=24), dict(collision="trt")),
+    "rb3d": ("rayleigh_benard_3d", dict(nx=32, ny=32, nz=18), {}),
+    "rb periodic": ("rayleigh_benard", dict(nx=32, ny=1, nz=18), {}),
+    "cavity periodic": ("heated_cavity", dict(n=26), {}),
+}
+
+
+@pytest.mark.parametrize("label", sorted(THERMAL))
+def test_thermal_kernels_match_plain(device, label):
+    """K1e + K8 with Dirichlet walls against their plain versions, 40
+    steps, bit for bit in f and g."""
+    import dataclasses
+
+    import lbm_tpu_torch.kernels.scalar_stream as S
+    from lbm_tpu_torch.cases import thermal as tc
+    from lbm_tpu_torch.engine.thermal import BuoyantTransport
+
+    name, kw, opts = THERMAL[label]
+    spec, tkw, _ = getattr(tc, name)(**kw)
+    spec = dataclasses.replace(spec, **opts)
+    a, b = _transports(lambda **d: BuoyantTransport(spec, **tkw, **d), device)
+    S.reset_launches()
+    K.reset_launches()
+    a.run(40)
+    _run_plain(b, 40, [])
+    torch.cuda.synchronize()
+    coll = opts.get("collision", "bgk")
+    assert K.launches == {f"lbm_collide_stream[{coll}+field]": 40}
+    assert S.launches == {"lbm_scalar_stream[live+force+dirichlet]": 40}
+    assert torch.equal(a.f, b.f) and torch.equal(a.g, b.g)
+    rho, u = a.macro()
+    assert bool(torch.isfinite(u).all()) and float(u.abs().max()) > 0
+
+
+def test_thermal_kernel_route_refusals_on_the_card(device):
+    import dataclasses
+
+    from lbm_tpu_torch.cases import thermal as tc
+    from lbm_tpu_torch.engine.thermal import BuoyantTransport
+
+    spec, tkw, _ = tc.heated_cavity_3d(n=12)
+    for opts in (dict(collision="mrt"), dict(force=(0.0, 0.0, 1e-6))):
+        with pytest.raises(NotImplementedError, match="backend='dense'"):
+            BuoyantTransport(dataclasses.replace(spec, **opts), **tkw,
+                             device=device)
