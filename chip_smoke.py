@@ -749,12 +749,16 @@ def plain_steps(tr, n):
     return series
 
 
-def compare_transport(label, make, steps, device, want_scalar, want_flow=None):
+def compare_transport(label, make, steps, device, want_scalar, want_flow=None,
+                      warm=0, need_fix=False):
     """Kernel route against its plain versions on one transport: `make`
     builds it twice; one runs `steps` steps through run() (the kernels),
     the other through plain_steps. f and g must be bit-equal and the
-    record series agree to 1e-12. Returns {"g", "f", "series"} max abs
-    errors."""
+    record series agree to 1e-12. warm: steps the first takes before
+    the comparison (kernels), its state then copied into the second, so
+    the compared steps start from a developed flow. Each of the flow's
+    z-plane boundaries must launch its fixup every step; need_fix: the
+    case must have one. Returns {"g", "f", "series"} max abs errors."""
     import torch
 
     from lbm_tpu_torch.kernels import collide_stream as K
@@ -762,6 +766,12 @@ def compare_transport(label, make, steps, device, want_scalar, want_flow=None):
 
     a, b = make(), make()
     rec = list(range(len(a.sc.bcs)))
+    if warm:
+        a.run(warm)
+        b.set_g(a.g)
+        if hasattr(a, "cc"):
+            b.set_f(a.f)
+        b.t = a.t
     K.reset_launches()
     S.reset_launches()
     if hasattr(a, "buoyancy"):
@@ -775,8 +785,11 @@ def compare_transport(label, make, steps, device, want_scalar, want_flow=None):
     require(counts.get(f"lbm_scalar_stream[{want_scalar}]") == steps,
             f"{label}: scalar launches {counts}")
     if want_flow is not None:
-        require(counts.get(f"lbm_collide_stream[{want_flow}]") == steps,
-                f"{label}: flow launches {counts}")
+        n_fix = sum(bc.window is not None for bc in a.cc.z_bcs)
+        require(counts.get(f"lbm_collide_stream[{want_flow}]") == steps
+                and counts.get(f"lbm_fix_z_plane[{want_flow}]", 0)
+                == n_fix * steps and (n_fix > 0 or not need_fix),
+                f"{label}: flow launches {counts} ({n_fix} z planes)")
     out = {"g": check_close(f"g after {steps} steps, {label}", a.g, b.g,
                             3e-6, 1e-7), "f": 0.0}
     if hasattr(a, "cc"):
@@ -789,26 +802,34 @@ def compare_transport(label, make, steps, device, want_scalar, want_flow=None):
     c = a.concentration()
     require(bool(torch.isfinite(c).all()) and float(c.abs().max()) > 0,
             f"{label}: the concentration did not move")
-    print(f"[3] {label}: after {steps} steps max abs err g {out['g']:.3e}, "
+    print(f"[3] {label}: after {steps} steps"
+          + (f" (from step {warm})" if warm else "")
+          + f" max abs err g {out['g']:.3e}, "
           f"f {out['f']:.3e}, record series {out['series']:.3e} "
           f"({len(rec)} boundaries); launches {counts}; max|c| "
           f"{float(c.abs().max()):.4g}", flush=True)
-    del a, b
+    del a, b, c
     free_device()
     return out
 
 
-def scalar_comparisons(device):
+def scalar_comparisons(full, device):
     """Phase 3 of the scalar and thermal kernels: every instance against
-    its plain version, 200 steps each. Returns {instance: max abs err of
-    f and g} and, under "record series", the records' max abs error."""
+    its plain version, 200 steps each at small boxes, then 2 steps at the
+    shapes of the washout, coupled washout and thermal paths. Returns
+    ({instance: max abs err of f and g}, with the records' max abs error
+    under "record series"; {path: its full-size max abs err}; the steady
+    full coronary's velocity field, which the timings reuse)."""
     import dataclasses
+
+    import numpy as np
 
     from lbm_tpu_torch.cases import get_case
     from lbm_tpu_torch.cases import thermal as tcases
     from lbm_tpu_torch.engine.runner import Simulation
     from lbm_tpu_torch.engine.scalar import CoupledTransport, ScalarTransport
     from lbm_tpu_torch.engine.thermal import BuoyantTransport
+    from lbm_tpu_torch.geometry.mask import CellType
 
     errs = {}
 
@@ -817,10 +838,13 @@ def scalar_comparisons(device):
         errs["record series"] = max(errs.get("record series", 0.0),
                                     e["series"])
 
-    def flow_u(spec):
+    def flow_u(spec, steps=200):
         sim = Simulation(spec, device=device)
-        sim.run(max_steps=200, time_save=200, verbose=False)
+        sim.run(max_steps=steps, time_save=steps, verbose=False)
         return sim.macro()[1]
+
+    def gate(n):
+        return {0: lambda t: 1.0 if t < n else 0.0}
 
     small = dict(shape=[64, 48, 96], radius=4)
     pois, cor = get_case("poiseuille", n=32), get_case("coronary", **small)
@@ -837,19 +861,17 @@ def scalar_comparisons(device):
          lambda: ScalarTransport(cor, u_c, D=0.02, inlet_c={0: 0.0},
                                  source=1.0, div_fix=False, device=device)),
         ("K7 coronary (64,48,96) r=4 bolus gate 50", "frozen+comp",
-         lambda: ScalarTransport(
-             cor, u_c, D=0.02, device=device,
-             inlet_c={0: lambda t: 1.0 if t < 50 else 0.0})),
+         lambda: ScalarTransport(cor, u_c, D=0.02, device=device,
+                                 inlet_c=gate(50))),
     )
     for label, inst, make in frozen:
         note(inst, compare_transport(label, make, 200, device, inst))
     puls = get_case("coronary", **small, pulsatile=[4, 40])
     note("live", compare_transport(
         "K8 coronary (64,48,96) r=4 pulsatile [4,40], bolus gate 50",
-        lambda: CoupledTransport(
-            puls, D=0.02, device=device,
-            inlet_c={0: lambda t: 1.0 if t < 50 else 0.0}),
-        200, device, "live", "bgk"))
+        lambda: CoupledTransport(puls, D=0.02, device=device,
+                                 inlet_c=gate(50)),
+        200, device, "live", "bgk", need_fix=True))
     thermal = (
         ("heated_cavity_3d n=32", tcases.heated_cavity_3d(n=32), True),
         ("rayleigh_benard_3d 64x64x34", tcases.rayleigh_benard_3d(), True),
@@ -866,7 +888,68 @@ def scalar_comparisons(device):
                 200, device, "live+force+dirichlet", f"{coll}+field")
             note("live+force+dirichlet", e)
             note(f"{coll}+field", e)
-    return errs
+
+    # the force field with z-plane boundaries (the fixup kernel's field
+    # instances) and with moving walls: a buoyant scalar in the small
+    # pulsatile tree, then the same tree with the walls of its x < 32 half
+    # sliding along z
+    rng = np.random.default_rng(0)
+    c0_small = rng.random(tuple(puls.shape), dtype=np.float32)
+    mask = np.array(puls.mask)
+    mask[:32][mask[:32] == int(CellType.WALL)] = int(CellType.MOVING)
+    sliding = dataclasses.replace(puls, mask=mask,
+                                  wall_velocity=(0.0, 0.0, 1e-3))
+    for what, base, sfx in (("buoyant", puls, ""),
+                            ("buoyant, sliding walls", sliding, "+moving")):
+        for coll in ("bgk", "trt"):
+            sp = dataclasses.replace(base, collision=coll)
+            e = compare_transport(
+                f"K1e+K8 coronary (64,48,96) r=4 pulsatile [4,40] {what} "
+                f"{coll}",
+                lambda sp=sp: BuoyantTransport(
+                    sp, D=0.02, buoyancy=(0.0, 1e-4, 2e-4), c_ref=0.5,
+                    c0=c0_small, inlet_c=gate(50), device=device),
+                200, device, "live+force", f"{coll}+field{sfx}",
+                need_fix=True)
+            note("live+force", e)
+            note(f"{coll}+field{sfx}", e)
+    del c0_small
+
+    # the three paths' own shapes, 2 steps each from a developed state on
+    # a random scalar field, so every cell, live block and recorded plane
+    # of the full boxes is compared
+    at_full = {}
+    steady = get_case("coronary", shape=FULL_CORONARY["shape"],
+                      radius=FULL_CORONARY["radius"])
+    u_full = flow_u(steady, 500)
+    c0 = rng.random(tuple(full.shape), dtype=np.float32)
+    e = compare_transport(
+        "K7 coronary (291,291,372) r=12 on its 500-step flow, bolus gate",
+        lambda: ScalarTransport(steady, u_full, D=0.02, c0=c0,
+                                inlet_c=gate(500), device=device),
+        2, device, "frozen+comp")
+    note("frozen+comp", e)
+    at_full["washout"] = max(e["g"], e["series"])
+    e = compare_transport(
+        "K8 coronary (291,291,372) r=12 pulsatile [40,2000], bolus gate",
+        lambda: CoupledTransport(full, D=0.02, c0=c0, inlet_c=gate(500),
+                                 device=device),
+        2, device, "live", "bgk", warm=200, need_fix=True)
+    note("live", e)
+    at_full["coupled washout"] = max(e["g"], e["f"], e["series"])
+    del c0
+    spec, kw, _ = tcases.heated_cavity_3d(n=256)
+    kw = dict(kw, c0=rng.random((256,) * 3, dtype=np.float32) - 0.5)
+    for coll in ("bgk", "trt"):
+        sp = dataclasses.replace(spec, collision=coll)
+        e = compare_transport(
+            f"K1e+K8 heated_cavity_3d 256^3 {coll}",
+            lambda sp=sp: BuoyantTransport(sp, device=device, **kw),
+            2, device, "live+force+dirichlet", f"{coll}+field", warm=100)
+        note("live+force+dirichlet", e)
+        note(f"{coll}+field", e)
+        at_full[f"thermal {coll}"] = max(e["g"], e["f"])
+    return errs, at_full, u_full
 
 
 def time_scalar(label, tr, device, iters_k, iters_p):
@@ -929,25 +1012,24 @@ def time_field(bt, device, iters_k, iters_p, label):
     return out
 
 
-def scalar_timings(full, device):
-    """K7 and K8 a launch at the full coronary over the live list, and
-    K7, K8 and K1e (BGK and TRT) at 256^3, each in turns with its plain
-    version."""
+def scalar_timings(full, u_full, device):
+    """K7 and K8 a launch at the full coronary over the live list (K7 on
+    u_full, the tree's own flow field), and K7 (on the lid cavity's
+    500-step flow), K8 and K1e (BGK and TRT) at 256^3, each in turns
+    with its plain version."""
     import dataclasses
 
-    import torch
+    import numpy as np
 
     from lbm_tpu_torch.cases import get_case
     from lbm_tpu_torch.cases import thermal as tcases
+    from lbm_tpu_torch.engine.runner import Simulation
     from lbm_tpu_torch.engine.scalar import CoupledTransport, ScalarTransport
     from lbm_tpu_torch.engine.thermal import BuoyantTransport
 
     out = {}
-    rng = torch.Generator(device=device).manual_seed(0)
-    u = 0.02 * torch.randn((3,) + tuple(full.shape), generator=rng,
-                           device=device)
-    tr = ScalarTransport(full, u, D=0.02, inlet_c={0: 1.0}, device=device)
-    del u
+    tr = ScalarTransport(full, u_full, D=0.02, inlet_c={0: 1.0},
+                         device=device)
     out["k7_coronary"] = time_scalar("coronary full, live blocks", tr, device,
                                      1000, 3)
     del tr
@@ -958,10 +1040,15 @@ def scalar_timings(full, device):
     del tr
     free_device()
     lid = get_case("lid_driven_cavity", n=256)
-    tr = ScalarTransport(lid, torch.zeros((3,) + tuple(lid.shape),
-                                          device=device),
-                         D=0.02, inlet_c={0: 1.0}, device=device)
-    out["k7_256"] = time_scalar("lid 256^3", tr, device, 500, 5)
+    sim = Simulation(lid, device=device)
+    sim.run(max_steps=500, time_save=500, verbose=False)
+    u = sim.macro()[1]
+    del sim
+    tr = ScalarTransport(lid, u, D=0.02, inlet_c={0: 1.0}, device=device,
+                         c0=np.ones(tuple(lid.shape), np.float32))
+    del u
+    out["k7_256"] = time_scalar("lid 256^3 on its 500-step flow", tr, device,
+                                500, 5)
     del tr
     free_device()
     spec, kw, _ = tcases.heated_cavity_3d(n=256)
@@ -1428,11 +1515,15 @@ def main() -> int:
         blood, device, 1000, 5, "coronary full, live blocks")
 
     # the scalar and thermal kernels (K7, K8, K1e)
-    scalar_err = scalar_comparisons(device)
-    print("[3] scalar/thermal max abs err per instance (200 steps): "
-          + "; ".join(f"{k} {v:.3e}" for k, v in scalar_err.items()),
+    scalar_err, path_err, u_full = scalar_comparisons(full, device)
+    print("[3] scalar/thermal max abs err per instance (200 steps; 2 at "
+          "the full sizes): "
+          + "; ".join(f"{k} {v:.3e}" for k, v in scalar_err.items())
+          + "; at the paths' own shapes: "
+          + "; ".join(f"{k} {v:.3e}" for k, v in path_err.items()),
           flush=True)
-    ts = scalar_timings(full, device)
+    ts = scalar_timings(full, u_full, device)
+    del u_full
 
     # -- phase 4: the lid main path ----------------------------------------
     spec = get_case("lid_driven_cavity", n=256)
@@ -1606,6 +1697,7 @@ def main() -> int:
          "launches": washout_counts["lbm_scalar_stream[frozen+comp]"],
          "max_abs_err": max(scalar_err["frozen+comp"],
                             scalar_err["frozen"]),
+         "max_abs_err_washout_path": path_err["washout"],
          "record_series_max_abs_err": scalar_err["record series"],
          "ms": ts["k7_coronary"]["ms"],
          "plain_ms": ts["k7_coronary"]["plain_ms"],
@@ -1620,6 +1712,7 @@ def main() -> int:
                      ":220)",
          "launches": coupled_counts["lbm_scalar_stream[live]"],
          "max_abs_err": scalar_err["live"],
+         "max_abs_err_coupled_path": path_err["coupled washout"],
          "ms": ts["k8_coronary"]["ms"],
          "plain_ms": ts["k8_coronary"]["plain_ms"],
          "bound_ms": ts["k8_coronary"]["bound_ms"], "bound_by": "bytes",
@@ -1630,7 +1723,10 @@ def main() -> int:
                      "Boussinesq force, _subtile7f :220)",
          "launches": thermal_counts[
              "lbm_scalar_stream[live+force+dirichlet]"],
-         "max_abs_err": scalar_err["live+force+dirichlet"],
+         "max_abs_err": max(scalar_err["live+force+dirichlet"],
+                            scalar_err["live+force"]),
+         "max_abs_err_thermal_path": max(path_err["thermal bgk"],
+                                         path_err["thermal trt"]),
          "ms": ts["k8_256"]["ms"], "plain_ms": ts["k8_256"]["plain_ms"],
          "bound_ms": ts["k8_256"]["bound_ms"], "bound_by": "bytes",
          "library_ms": None, "cli_nu_n32": nu32},
@@ -1639,7 +1735,9 @@ def main() -> int:
          "replaces": "lbm_tpu/kernels/collide_stream.py:1333 (K1e, fforce "
                      ":647-675)",
          "launches": thermal_counts["lbm_collide_stream[bgk+field]"],
-         "max_abs_err": scalar_err["bgk+field"],
+         "max_abs_err": max(scalar_err["bgk+field"],
+                            scalar_err["bgk+field+moving"]),
+         "max_abs_err_thermal_path": path_err["thermal bgk"],
          "ms": ts["k1e_256"]["ms"], "plain_ms": ts["k1e_256"]["plain_ms"],
          "bound_ms": ts["k1e_256"]["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
@@ -1648,7 +1746,9 @@ def main() -> int:
          "replaces": "lbm_tpu/kernels/collide_stream.py:1333 (K1e, fforce "
                      ":647-675)",
          "launches": thermal_trt_counts["lbm_collide_stream[trt+field]"],
-         "max_abs_err": scalar_err["trt+field"],
+         "max_abs_err": max(scalar_err["trt+field"],
+                            scalar_err["trt+field+moving"]),
+         "max_abs_err_thermal_path": path_err["thermal trt"],
          "ms": ts["k1e_trt_256"]["ms"],
          "plain_ms": ts["k1e_trt_256"]["plain_ms"],
          "bound_ms": ts["k1e_trt_256"]["bound_ms"],

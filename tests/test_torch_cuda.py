@@ -357,6 +357,45 @@ def test_thermal_kernels_match_plain(device, label):
     assert bool(torch.isfinite(u).all()) and float(u.abs().max()) > 0
 
 
+@pytest.mark.parametrize("coll", ["bgk", "trt"])
+@pytest.mark.parametrize("sliding", [False, True])
+def test_force_field_with_z_planes_and_moving_walls(device, coll, sliding):
+    """The force-field instances of the fixup kernel, and the +moving
+    ones of both flow kernels: a buoyant scalar in the small pulsatile
+    tree (three z-plane boundaries), the walls of its x < 32 half sliding
+    along z or not; 40 steps, bit for bit in f and g."""
+    import dataclasses
+
+    import numpy as np
+
+    import lbm_tpu_torch.kernels.scalar_stream as S
+    from lbm_tpu_torch.engine.thermal import BuoyantTransport
+    from lbm_tpu_torch.geometry.mask import CellType
+
+    spec = get_case("coronary", shape=(64, 48, 96), radius=4,
+                    pulsatile=(4, 8), collision=coll)
+    if sliding:
+        mask = np.array(spec.mask)
+        mask[:32][mask[:32] == int(CellType.WALL)] = int(CellType.MOVING)
+        spec = dataclasses.replace(spec, mask=mask,
+                                   wall_velocity=(0.0, 0.0, 1e-3))
+    c0 = np.random.default_rng(0).random(tuple(spec.shape), dtype=np.float32)
+    a, b = _transports(lambda **d: BuoyantTransport(
+        spec, D=0.02, buoyancy=(0.0, 1e-4, 2e-4), c_ref=0.5, c0=c0,
+        inlet_c={0: 1.0}, **d), device)
+    S.reset_launches()
+    K.reset_launches()
+    a.run(40)
+    _run_plain(b, 40, [])
+    torch.cuda.synchronize()
+    inst = f"{coll}+field" + ("+moving" if sliding else "")
+    assert K.launches == {f"lbm_collide_stream[{inst}]": 40,
+                          f"lbm_fix_z_plane[{inst}]": 120}
+    assert S.launches == {"lbm_scalar_stream[live+force]": 40}
+    assert torch.equal(a.f, b.f) and torch.equal(a.g, b.g)
+    assert float(a.concentration().abs().max()) > 0
+
+
 def test_thermal_kernel_route_refusals_on_the_card(device):
     import dataclasses
 
