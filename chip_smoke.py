@@ -83,6 +83,36 @@ force-field instances of lbm_collide_stream):
      writes the washout CSV and the concentration VTK; `thermal` at its
      defaults (cavity3d n=32, 4 x 5000 steps) ends with 1.8 < Nu < 2.3
      (Tric et al.: 2.0542).
+Two fused steps per launch and the chunked state read (K2:
+lbm_collide_stream2, K4: lbm_extract_rows):
+  2b. (inside phase 2) ptxas registers, spills and shared memory of the
+     14 K2 instances and of K4;
+  3c. (inside phase 3) K2 against two K1 launches (bit for bit) and its
+     plain version (bit for bit; the closures at the tolerance above),
+     100 launches (200 steps) each: lid 64^3 BGK, TRT, MRT, Smagorinsky
+     and the moving lid, poiseuille 32^3 and with Carreau, curved_vessel
+     64^3 (a series inlet whose phase moves inside pairs, over its
+     live-tile list and against the full launch), gravity_channel 32^3
+     TRT+force, pipe n=36 and gravity_channel 20x20x3 (boxes the 8^3
+     tile does not fit); lid 256^3 for 2 launches; K4 against its plain
+     version chunk by chunk on a stepped lid 256^3; then K2 a launch at
+     lid 256^3 (BGK, TRT) and gravity_channel 256^3 TRT+force against
+     two K1 launches, in turns, with its plain version and bound;
+ 13. the fuse2 path: Simulation(lid_driven_cavity n=256, fuse=2), 1000
+     steps at time_save=250 (K2 500 launches, K1 none), velsum series,
+     macro() and f against phase 4's fuse=1 run; then 999 steps at
+     time_save=333 (K2 498, K1 3);
+ 14. the lowmem path: lid_driven_cavity 512^3 (lowmem by its size), 20
+     steps, f_standard() through K4: each chunk bit for bit against
+     f.narrow().cpu(), device memory up by at most one 256 MB chunk, host
+     MemAvailable printed (a host that cannot hold the state fails the
+     phase); K4 per chunk against its plain version and
+     narrow().contiguous(); a lowmem save -> restore -> 2 steps round
+     trip on the small pulsatile coronary, bit-equal to an uninterrupted
+     run;
+  8b. (inside phase 8) `run --fuse 2` on the 64^3 cavity and `run
+     --lowmem --checkpoint-every 1` on the default coronary, each writing
+     VTK and CONVERGENCE.log (and the checkpoint).
 Before the last line it prints one JSON object describing each kernel;
 the last line is {"ok": true, "device": {...}}.
 """
@@ -100,8 +130,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 K1A_SOURCE = "lbm_tpu_torch/kernels/csrc/collide_stream.cu"
 K7_SOURCE = "lbm_tpu_torch/kernels/csrc/scalar_stream.cu"
+K2_SOURCE = "lbm_tpu_torch/kernels/csrc/collide_stream2.cu"
 HBM_BYTES_PER_S = 3.35e12   # published H100 SXM peak at 700 W
 FULL_CORONARY = dict(shape=[291, 291, 372], radius=12, pulsatile=[40, 2000])
+T_START = time.perf_counter()
 
 
 class SmokeFailure(RuntimeError):
@@ -111,6 +143,11 @@ class SmokeFailure(RuntimeError):
 def require(cond, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def mark(phase: str) -> None:
+    print(f"[t] phase {phase} done at {time.perf_counter() - T_START:.1f} s",
+          flush=True)
 
 
 def time_ms(fn, iters: int) -> float:
@@ -529,15 +566,17 @@ def free_device():
     torch.cuda.empty_cache()
 
 
-def ptxas_report(log: str) -> dict:
+def ptxas_report(log: str, smem: dict | None = None) -> dict:
     """{"collide_stream_kernel[trt+force]": (registers, spill store bytes,
     spill load bytes), ...} from nvcc's -Xptxas -v output; instance names
     as kernels.collide_stream.instance names them ("closure" standing
-    for every closure kind, one instance)."""
+    for every closure kind, one instance). smem: filled with each
+    kernel's static shared memory bytes."""
     import re
 
     def name_of(mangled):
-        m = re.search(r"(collide_stream_kernel|fix_z_plane_kernel)"
+        m = re.search(r"(collide_stream_kernel|fix_z_plane_kernel|"
+                      r"collide_stream2_kernel)"
                       r"ILi(\d)ELb(\d)ELi(\d)ELb(\d)E", mangled)
         if m:
             parts = [("bgk", "trt", "mrt")[int(m.group(2))]]
@@ -557,6 +596,9 @@ def ptxas_report(log: str) -> dict:
             return f"{m.group(1)}[{'+'.join(parts)}]"
         if "scalar_record_kernel" in mangled:
             return "scalar_record_kernel"
+        m = re.search(r"extract_rows_kernelI(6float4|f)E", mangled)
+        if m:
+            return f"extract_rows_kernel[{m.group(1).lstrip('6')}]"
         m = re.search(r"(macro_kernel)ILb(\d)E", mangled)
         if m:
             return f"macro_kernel[{'force' if m.group(2) == '1' else 'plain'}]"
@@ -578,6 +620,9 @@ def ptxas_report(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and cur:
             out[cur] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if smem is not None:
+                smem[cur] = int(m.group(1)) if m else 0
     return {k: (v,) + spills.get(k, (0, 0)) for k, v in out.items()}
 
 
@@ -1368,6 +1413,348 @@ def cli_transport_and_thermal():
     return nu
 
 
+def pair_cases():
+    """The fused pair's comparisons (label, case, options, bit-equal to
+    its plain version?): every instance a fuse=2 case can run, a series
+    inlet whose phase moves inside pairs, boxes the tile does not fit."""
+    carreau = {"model": "carreau", "nu0": 0.1, "nu_inf": 0.01,
+               "lam": 100.0, "n": 0.4}
+    return [
+        ("lid 64^3 bgk", "lid_driven_cavity", dict(n=64), True),
+        ("poiseuille 32^3", "poiseuille", dict(n=32), True),
+        ("curved_vessel 64^3 series inlet, a phase every 3 steps",
+         "curved_vessel", dict(n=64, nphase=4, period_steps=12), True),
+        ("lid 64^3 trt", "lid_driven_cavity", dict(n=64, collision="trt"),
+         True),
+        ("lid 64^3 mrt", "lid_driven_cavity", dict(n=64, collision="mrt"),
+         True),
+        ("lid 64^3 smag 0.15", "lid_driven_cavity",
+         dict(n=64, smagorinsky_cs=0.15), False),
+        ("lid 64^3 moving lid", "lid_driven_cavity",
+         dict(n=64, lid="bounceback"), True),
+        ("poiseuille 32^3 carreau a=2", "poiseuille",
+         dict(n=32, rheology=carreau), False),
+        ("gravity_channel 32^3 trt+force", "gravity_channel",
+         dict(n=32, nz=32, collision="trt"), True),
+        ("pipe n=36 staircase bgk+force (4.5 tiles a side)", "pipe",
+         dict(n=36, curved=False), True),
+        ("gravity_channel 20x20x3 trt+force (z shorter than a tile)",
+         "gravity_channel", dict(n=20, nz=3, collision="trt"), True),
+    ]
+
+
+def compare_pair(label, spec, launches, device, exact):
+    """K2 against two K1 launches (bit for bit) and against its plain
+    version (bit for bit when exact, else rtol 3e-6 / atol 1e-7) over
+    `launches` launches from the initial state; velsums at 1e-5 relative.
+    With a live-tile list, the listed launch against the full one.
+    Returns the max abs error of f against the plain version."""
+    import torch
+
+    from lbm_tpu_torch.engine.compile import compile_case
+    from lbm_tpu_torch.engine.step import initial_f
+    from lbm_tpu_torch.kernels import collide_stream as K
+
+    cc = compile_case(spec, device)
+    f0 = initial_f(cc)
+    n = 2 * launches
+    out = {}
+    for how in ("pair", "single", "plain"):
+        f, buf = f0.clone(), f0.clone()
+        vs = torch.zeros(n, dtype=torch.float64, device=device)
+        for t in range(0, n, 2):
+            if how == "pair":
+                K.step2(f, buf, cc, vs, t, t)
+                f, buf = buf, f
+            elif how == "single":
+                for k in (t, t + 1):
+                    K.collide_stream(f, buf, cc, vs, k, k)
+                    f, buf = buf, f
+            else:
+                f, vs[t], vs[t + 1] = K.collide_stream2_plain(f, cc, t)
+        out[how] = (f, vs)
+        del buf
+    torch.cuda.synchronize()
+    (fp, vp), (fs, vs1), (fq, vq) = out["pair"], out["single"], out["plain"]
+    e_single = float((fp - fs).abs().max())
+    require(e_single == 0.0, f"K2 {label}: differs from two K1 launches "
+            f"(max abs err {e_single:.3e})")
+    e_plain = check_close(f"K2 {label} vs plain", fp, fq, 3e-6, 1e-7)
+    require(e_plain == 0.0 or not exact,
+            f"K2 {label}: not bit-equal to its plain version ({e_plain:.3e})")
+    v_rel = max(float(((vp - v).abs() / v.abs()).max()) for v in (vs1, vq))
+    require(v_rel <= 1e-5, f"K2 {label}: velsum rel err {v_rel:.3e}")
+    tiles = "every tile"
+    if cc.live_tiles is not None:
+        s = torch.zeros(4, dtype=torch.float64, device=device)
+        live = K.step2(fp, torch.empty_like(fp).copy_(fp), cc, s, 0, n)
+        full = K.step2(fp, torch.empty_like(fp).copy_(fp), cc, s, 2, n,
+                       all_tiles=True)
+        torch.cuda.synchronize()
+        require(torch.equal(live, full) and torch.allclose(
+            s[:2], s[2:], rtol=1e-12, atol=0.0),
+            f"K2 {label}: the live-tile launch differs from the full one")
+        tiles = f"{cc.live_tiles.numel()} live tiles, equal to the full launch"
+    print(f"[3] K2 [{K.instance(cc)}] {label}: {launches} launches ({n} "
+          f"steps), max abs err vs two K1 launches {e_single:.3e}, vs plain "
+          f"{e_plain:.3e}; velsum max rel err {v_rel:.3e}; {tiles}",
+          flush=True)
+    del out, fp, fs, fq, f0
+    free_device()
+    return e_plain
+
+
+def time_pair(spec, device, iters, label):
+    """One K2 launch of the case's instance against two K1 launches (in
+    turns) and against the plain pair, with the bound: the bytes of one
+    step (a pair reads and writes the state once). {"ms", "two_k1_ms",
+    "plain_ms", "bound_ms", "instance"}."""
+    import torch
+
+    from lbm_tpu_torch.engine.compile import compile_case
+    from lbm_tpu_torch.engine.step import initial_f
+    from lbm_tpu_torch.kernels import collide_stream as K
+
+    cc = compile_case(spec, device)
+    state = [initial_f(cc), initial_f(cc)]
+    series = torch.zeros(2, dtype=torch.float64, device=device)
+
+    def pair():
+        K.step2(state[0], state[1], cc, series, 0, 0)
+        state.reverse()
+
+    def two_k1():
+        for k in (0, 1):
+            K.collide_stream(state[0], state[1], cc, series, k, k)
+            state.reverse()
+
+    inst = K.instance(cc)
+    ms, two_ms = in_turns(f"K2 [{inst}] {label}", two_k1, pair, iters,
+                          iters, names="two K1 launches/K2")
+    plain_ms = time_ms(lambda: K.collide_stream2_plain(state[0], cc, 0), 4)
+    out = {"ms": ms, "two_k1_ms": two_ms, "plain_ms": plain_ms,
+           "instance": inst,
+           "bound_ms": bound_ms(step_bytes(cc, cc.fluid, cc.kernel_bcs))}
+    print(f"[3] K2 [{inst}] {label}: {ms:.4f} ms a launch (two steps) "
+          f"against two K1 launches {two_ms:.4f} ms, the plain pair "
+          f"{plain_ms:.4f} ms, bound {out['bound_ms']:.4f} ms", flush=True)
+    del state
+    free_device()
+    return out
+
+
+def compare_rows(device):
+    """K4 against extract_rows_plain, chunk by chunk, on lid 256^3 after
+    20 steps (chunks of chunk_rows x rows and a ragged last one).
+    Returns the max abs error."""
+    import torch
+
+    from lbm_tpu_torch.cases import get_case
+    from lbm_tpu_torch.engine.runner import Simulation
+    from lbm_tpu_torch.kernels import collide_stream as K
+
+    spec = get_case("lid_driven_cavity", n=256)
+    sim = Simulation(spec, device=device)
+    sim.run(max_steps=20, time_save=20, verbose=False)
+    rows, nx = K.chunk_rows(spec.shape), spec.shape[0]
+    err = 0.0
+    for x0 in range(0, nx, rows):
+        w = min(rows, nx - x0)
+        got = K.extract_rows(sim.f, x0, w)
+        err = max(err, float((got - K.extract_rows_plain(sim.f, x0, w))
+                             .abs().max()))
+    require(err == 0.0, f"K4 on lid 256^3: max abs err {err:.3e}")
+    print(f"[3] K4 lid 256^3 after 20 steps, chunks of {rows} x rows: "
+          f"bit-equal to extract_rows_plain", flush=True)
+    del sim
+    free_device()
+    return err
+
+
+def fuse2_path(device, lid1):
+    """Phase 13: Simulation(lid_driven_cavity n=256, fuse=2), 1000 steps
+    at time_save=250 (K2 500, K1 0), then 999 steps at time_save=333
+    (K2 498, K1 3); velsum series and macro() against phase 4's fuse=1
+    run (lid1: its velsum series, ms/step, peak GiB, rho and u)."""
+    import torch
+
+    from lbm_tpu_torch.cases import get_case
+    from lbm_tpu_torch.engine.runner import Simulation
+    from lbm_tpu_torch.kernels import collide_stream as K
+
+    tag = "[13] fuse2 path"
+    spec = get_case("lid_driven_cavity", n=256)
+    held = torch.cuda.memory_allocated(device)  # phase 4's f, rho and u
+    sim = Simulation(spec, device=device, fuse=2)
+    require(sim.cc.live_tiles is None,
+            f"{tag}: the lid cavity launches K2 with a tile list")
+    torch.cuda.reset_peak_memory_stats(device)
+    K.reset_launches()
+    res = sim.run(max_steps=1000, time_save=250, verbose=False)
+    rho, u = sim.macro()
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    peak = (torch.cuda.max_memory_allocated(device) - held) / 2**30
+    require(counts.get("lbm_collide_stream2[bgk]") == 500
+            and "lbm_collide_stream[bgk]" not in counts,
+            f"{tag}: launches {counts} in 1000 steps")
+    require(res.steps == 1000, f"{tag}: {res.steps} steps")
+    vs, vs1 = res.velsum_series, lid1["velsum"]
+    v_rel = float(abs(vs - vs1).max() / abs(vs1).min())
+    e_rho, e_u = rel_l2(rho, lid1["rho"]), rel_l2(u, lid1["u"])
+    f_equal = bool(torch.equal(sim.f, lid1["f"]))
+    require(v_rel <= 1e-5 and e_rho <= 1e-5 and e_u <= 1e-5 and f_equal,
+            f"{tag}: against fuse=1 velsum rel {v_rel:.3e}, macro() rel L2 "
+            f"rho {e_rho:.3e} u {e_u:.3e}, f bit-equal {f_equal}")
+    ms = res.elapsed_s / res.steps * 1e3
+    print(f"{tag} lid 256^3 fuse=2: 1000 steps in {res.elapsed_s:.3f} s = "
+          f"{ms:.4f} ms/step (host clock, synchronized) against fuse=1's "
+          f"{lid1['ms']:.4f} (phase 4), mlups_box {res.mlups_box:.1f} "
+          f"against {lid1['mlups_box']:.1f}; peak device memory {peak:.2f} "
+          f"GiB against {lid1['peak']:.2f}; velsum series max rel err "
+          f"{v_rel:.3e} against fuse=1, macro() rel L2 rho {e_rho:.3e} u "
+          f"{e_u:.3e}, f bit-equal to fuse=1's: {f_equal}; launches "
+          f"{counts}", flush=True)
+    del rho, u
+    by_name, busy = profile_run(sim, 200)
+    print_profile(tag, by_name, busy, ms)
+    k2_dev = [v[0] / v[1] for k, v in by_name.items()
+              if "collide_stream2_kernel" in k]
+    sim.reset()
+    K.reset_launches()
+    res = sim.run(max_steps=999, time_save=333, verbose=False)
+    torch.cuda.synchronize()
+    odd = dict(K.launches)
+    require(odd.get("lbm_collide_stream2[bgk]") == 498
+            and odd.get("lbm_collide_stream[bgk]") == 3,
+            f"{tag}: launches {odd} in 999 steps at time_save=333")
+    v_odd = float(abs(res.velsum_series - vs1[:999]).max() / abs(vs1).min())
+    require(v_odd <= 1e-5, f"{tag}: odd chunks' velsum rel err {v_odd:.3e}")
+    print(f"{tag} 999 steps at time_save=333 (166 pairs and one K1 step a "
+          f"chunk): {res.elapsed_s / 999 * 1e3:.4f} ms/step; velsum max rel "
+          f"err {v_odd:.3e} against fuse=1; launches {odd}", flush=True)
+    del sim
+    free_device()
+    return counts, odd, {"ms_step": ms, "peak": peak,
+                         "k2_device_ms": k2_dev[0] if k2_dev else None,
+                         "busy": busy}
+
+
+def mem_available_gb() -> float:
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    raise SmokeFailure("no MemAvailable in /proc/meminfo")
+
+
+def lowmem_path(device):
+    """Phase 14: lid_driven_cavity 512^3 (lowmem by its size), 20 steps,
+    then f_standard() through K4: every chunk against f.narrow().cpu()
+    bit for bit, device memory up by at most one chunk; K4 per chunk
+    against its plain version and narrow().contiguous(). Then a lowmem
+    save -> restore -> 2 steps round trip on a small pulsatile coronary,
+    bit-equal to an uninterrupted run. Returns the K4 numbers."""
+    import torch
+
+    from lbm_tpu_torch.cases import get_case
+    from lbm_tpu_torch.engine import checkpoint as ckpt
+    from lbm_tpu_torch.engine.runner import Simulation
+    from lbm_tpu_torch.kernels import collide_stream as K
+
+    tag = "[14] lowmem path"
+    t0 = time.perf_counter()
+    spec = get_case("lid_driven_cavity", n=512)
+    sim = Simulation(spec, device=device)
+    t_setup = time.perf_counter() - t0
+    require(sim.lowmem, f"{tag}: 512^3 did not switch lowmem on")
+    res = sim.run(max_steps=20, time_save=20, verbose=False)
+    torch.cuda.synchronize()
+    state_gb = sim.f.numel() * 4 / 1e9
+    avail = mem_available_gb()
+    require(avail > 1.5 * state_gb,
+            f"{tag}: host MemAvailable {avail:.1f} GB cannot hold the "
+            f"{state_gb:.1f} GB state")
+    free_device()
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    host = sim.f_standard()
+    seconds = time.perf_counter() - t0
+    counts = dict(K.launches)
+    rise = torch.cuda.max_memory_allocated(device) - before
+    rows = K.chunk_rows(spec.shape)
+    n_chunks = -(-spec.shape[0] // rows)
+    chunk_bytes = 19 * rows * spec.shape[1] * spec.shape[2] * 4
+    require(counts == {"lbm_extract_rows": n_chunks},
+            f"{tag}: launches {counts}, {n_chunks} chunks")
+    require(rise <= K.CHUNK_BYTES,
+            f"{tag}: device memory rose by {rise} B during the read")
+    require(host.device.type == "cpu" and tuple(host.shape) ==
+            (19,) + tuple(spec.shape), f"{tag}: host state {host.shape}")
+    for x0 in range(0, spec.shape[0], rows):
+        w = min(rows, spec.shape[0] - x0)
+        require(torch.equal(host[:, x0:x0 + w],
+                            sim.f.narrow(1, x0, w).cpu()),
+                f"{tag}: chunk at x0={x0} differs from the state")
+    require(bool(torch.isfinite(host[:, ::64]).all()), f"{tag}: non-finite")
+    del host
+    gc.collect()
+    print(f"{tag} lid 512^3 (2 x {state_gb:.2f} GB state; set-up "
+          f"{t_setup:.1f} s; 20 steps at "
+          f"{res.elapsed_s / 20 * 1e3:.4f} ms/step): f_standard() in "
+          f"{seconds:.3f} s = {state_gb / seconds:.2f} GB/s through "
+          f"{n_chunks} chunks of {rows} x rows ({chunk_bytes / 1e6:.1f} MB); "
+          f"every chunk bit-equal to f.narrow().cpu(); device memory rose by "
+          f"{rise / 1e6:.1f} MB during the read; host MemAvailable "
+          f"{avail:.1f} GB before it; launches {counts}", flush=True)
+
+    f = sim.f
+    out = torch.empty((19, rows) + tuple(spec.shape[1:]), device=device)
+    x0 = spec.shape[0] // 2
+    ms, plain_ms = in_turns(
+        f"K4 lid 512^3, one {rows}-row chunk", lambda: K.extract_rows_plain(
+            f, x0, rows), lambda: K.extract_rows(f, x0, rows, out=out), 50,
+        50)
+    library_ms = time_ms(lambda: f.narrow(1, x0, rows).contiguous(), 50)
+    err = float((K.extract_rows(f, x0, rows, out=out)
+                 - f.narrow(1, x0, rows)).abs().max())
+    require(err == 0.0, f"{tag}: K4 chunk differs from narrow() ({err})")
+    k4 = {"launches": counts["lbm_extract_rows"], "max_abs_err": err,
+          "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+          "bound_ms": bound_ms(2 * chunk_bytes), "read_s": seconds,
+          "read_gb_per_s": state_gb / seconds, "device_rise_mb": rise / 1e6,
+          "chunk_mb": chunk_bytes / 1e6}
+    print(f"[14] K4 per {chunk_bytes / 1e6:.1f} MB chunk: {ms:.4f} ms, plain "
+          f"{plain_ms:.4f}, narrow().contiguous() {library_ms:.4f}, bound "
+          f"{k4['bound_ms']:.4f} ms", flush=True)
+    del sim, f, out
+    free_device()
+
+    spec = get_case("coronary", shape=[64, 48, 96], radius=4,
+                    pulsatile=[4, 40])
+    a = Simulation(spec, device=device, lowmem=True)
+    b = Simulation(spec, device=device, lowmem=True)
+    a.run(max_steps=10, time_save=10, verbose=False)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        path = os.path.join(tmp, "coronary.ckpt.npz")
+        ckpt.save_sim(path, a)
+        ckpt.restore(b, path)
+    a.run(max_steps=2, time_save=2, verbose=False)
+    b.run(max_steps=2, time_save=2, verbose=False)
+    torch.cuda.synchronize()
+    require(b.t == 12 and torch.equal(a.f, b.f),
+            f"{tag}: the lowmem save -> restore -> 2 steps round trip "
+            "differs from the uninterrupted run")
+    print(f"{tag} coronary (64, 48, 96) r=4 pulsatile, lowmem forced: save "
+          "-> restore -> 2 steps bit-equal to the uninterrupted run",
+          flush=True)
+    del a, b
+    free_device()
+    return k4
+
+
 def main() -> int:
     import torch
 
@@ -1407,10 +1794,27 @@ def main() -> int:
     print(f"[2] scalar kernels {'built' if slib.built else 'found'} at "
           f"{os.path.relpath(slib.path, ROOT)} in {slib.build_seconds:.2f} s, "
           "side by side with the collide-stream library", flush=True)
-    ptxas = ptxas_report(lib.log + "\n" + slib.log)
+    plib = _build.load_pair_library()
+    pair_smem = plib.lib.lbm_pair_smem_bytes()
+    print(f"[2] fused-pair and row-extract kernels "
+          f"{'built' if plib.built else 'found'} at "
+          f"{os.path.relpath(plib.path, ROOT)} in {plib.build_seconds:.2f} s, "
+          f"side by side; K2 tile {plib.lib.lbm_pair_tile()}^3, "
+          f"{plib.lib.lbm_pair_block_size()} threads, {pair_smem} bytes of "
+          "dynamic shared memory a block", flush=True)
+    smem = {}
+    ptxas = ptxas_report(lib.log + "\n" + slib.log + "\n" + plib.log, smem)
     for name, (regs, spill_st, spill_ld) in sorted(ptxas.items()):
+        extra = (f"; {smem.get(name, 0)} + {pair_smem} dynamic bytes smem"
+                 if name.startswith("collide_stream2") else "")
         print(f"[2] ptxas {name}: {regs} registers, {spill_st} bytes spill "
-              f"stores, {spill_ld} bytes spill loads", flush=True)
+              f"stores, {spill_ld} bytes spill loads{extra}", flush=True)
+    k2_ptxas = {k: v for k, v in ptxas.items()
+                if k.startswith("collide_stream2_kernel")}
+    require(len(k2_ptxas) == 14 and any(
+        k.startswith("extract_rows_kernel") for k in ptxas),
+        f"ptxas reported {len(k2_ptxas)} K2 instances (want 14) and no K4"
+        if len(k2_ptxas) != 14 else "ptxas reported no K4 kernel")
     bgk = ptxas.get("collide_stream_kernel[bgk]")
     require(bgk is not None, "ptxas reported no BGK collide-stream instance")
     # the lid main path must not pay for the branches it never takes
@@ -1513,6 +1917,28 @@ def main() -> int:
         1000, 10, "gravity_channel 256^3")
     k1b_time["coronary full trt+carreau"] = time_k1a(
         blood, device, 1000, 5, "coronary full, live blocks")
+    mark("3 (K1)")
+
+    # the fused pair (K2), 100 launches (200 steps) each against two K1
+    # launches and its plain version, then lid 256^3 for 2 launches; K4
+    # against its plain version on a stepped 256^3 state; K2 timings
+    k2_err = {}
+    for label, name, kw, exact in pair_cases():
+        k2_err[label] = compare_pair(label, get_case(name, **kw), 100,
+                                     device, exact)
+    k2_err["lid 256^3 bgk"] = compare_pair(
+        "lid 256^3 bgk", get_case("lid_driven_cavity", n=256), 2, device,
+        True)
+    k4_err = compare_rows(device)
+    k2_time = {}
+    for label, name, kw in (
+            ("lid 256^3 bgk", "lid_driven_cavity", dict(n=256)),
+            ("lid 256^3 trt", "lid_driven_cavity", dict(n=256,
+                                                         collision="trt")),
+            ("gravity_channel 256^3 trt+force", "gravity_channel",
+             dict(n=256, nz=256, collision="trt"))):
+        k2_time[label] = time_pair(get_case(name, **kw), device, 300, label)
+    mark("3 (K2, K4)")
 
     # the scalar and thermal kernels (K7, K8, K1e)
     scalar_err, path_err, u_full = scalar_comparisons(full, device)
@@ -1527,6 +1953,7 @@ def main() -> int:
 
     # -- phase 4: the lid main path ----------------------------------------
     spec = get_case("lid_driven_cavity", n=256)
+    held = torch.cuda.memory_allocated(device)
     sim = Simulation(spec, device=device)
     require(sim.cc.live_blocks is None,
             "the lid cavity launches K1a with a block list")
@@ -1556,16 +1983,30 @@ def main() -> int:
     vs = res.velsum_series
     require(len(vs) == 1000 and bool((vs > 0).all()) and vs[-1] > vs[0],
             "velsum series is not the spin-up of a driven cavity")
+    peak = (torch.cuda.max_memory_allocated(device) - held) / 2**30
+    lid1 = {"velsum": vs, "ms": res.elapsed_s / res.steps * 1e3,
+            "mlups_box": res.mlups_box, "rho": rho, "u": u,
+            "f": sim.f.clone(),  # the profile below steps sim on
+            "peak": peak}
     print(f"[4] lid main path 256^3: {res.steps} steps in "
-          f"{res.elapsed_s:.3f} s = {res.elapsed_s / res.steps * 1e3:.4f} "
+          f"{res.elapsed_s:.3f} s = {lid1['ms']:.4f} "
           f"ms/step (host clock, synchronized), mlups_box "
           f"{res.mlups_box:.1f}, mlups {res.mlups:.1f}, mlups_live "
           f"{res.mlups_live:.1f}; residual {res.residual:.3e}; max|u| "
           f"{u_max:.4g}, max|rho-1| {rho_dev:.3g}; peak device memory "
-          f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB; "
-          f"launches {lid_counts}", flush=True)
+          f"{lid1['peak']:.2f} GiB above what was held before; launches "
+          f"{lid_counts}", flush=True)
+    by_name, busy = profile_run(sim, 200)
+    print_profile("[4] lid main path", by_name, busy, lid1["ms"])
     del sim, rho, u, fluid
     free_device()
+    mark("4")
+
+    # -- phase 13: the fuse2 path ------------------------------------------
+    fuse2_counts, fuse2_odd, fuse2_metrics = fuse2_path(device, lid1)
+    del lid1
+    free_device()
+    mark("13")
 
     # -- phase 5: the vessel path ------------------------------------------
     u_in = 0.1745 / 2.74909090909091
@@ -1587,6 +2028,11 @@ def main() -> int:
     washout_counts = washout_path(device)
     coupled_counts = coupled_path(full, device)
     thermal_counts, thermal_trt_counts = thermal_path(device)
+    mark("9-11")
+
+    # -- phase 14: the lowmem path -----------------------------------------
+    k4 = lowmem_path(device)
+    mark("14")
 
     # -- phase 8: the CLI --------------------------------------------------
     for case, opts, steps, want in (
@@ -1594,12 +2040,17 @@ def main() -> int:
              ["lid_driven_cavity_500.vtk"]),
             ("coronary", ["--vtk-final"], "200", ["coronary_200.vtk"]),
             ("gravity_channel", ["collision=trt", "n=64", "nz=64"], "500",
-             ["gravity_channel_500.vtk"])):
+             ["gravity_channel_500.vtk"]),
+            ("lid_driven_cavity", ["n=64", "--fuse", "2"], "500",
+             ["lid_driven_cavity_500.vtk"]),
+            ("coronary", ["--lowmem", "--checkpoint-every", "1",
+                          "--vtk-final"], "200",
+             ["coronary_200.vtk", "coronary.ckpt.npz"])):
         with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") \
                 as tmp:
             t0 = time.perf_counter()
-            args = [a for a in opts if a.startswith("--")]
-            kv = [a for a in opts if not a.startswith("--")]
+            kv = [a for a in opts if "=" in a]
+            args = [a for a in opts if a not in kv]
             proc = subprocess.run(
                 [sys.executable, "-m", "lbm_tpu_torch", "run", "--case",
                  case, "--steps", steps, "--time-save", "100", "--out", tmp,
@@ -1623,7 +2074,9 @@ def main() -> int:
                   f"{time.perf_counter() - t0:.1f} s wrote {files}; "
                   f"{' | '.join(last)}", flush=True)
 
+    mark("8")
     nu32 = cli_transport_and_thermal()
+    mark("12")
 
     bt = k1b_time["coronary full trt+carreau"]
     ft = k1b_time["gravity_channel 256^3 trt+force"]
@@ -1753,6 +2206,38 @@ def main() -> int:
          "plain_ms": ts["k1e_trt_256"]["plain_ms"],
          "bound_ms": ts["k1e_trt_256"]["bound_ms"],
          "bound_by": "bytes", "library_ms": None},
+        {"name": "lbm_collide_stream2[bgk]", "route": "cuda",
+         "source": K2_SOURCE,
+         "replaces": "lbm_tpu/kernels/collide_stream.py:1727 (K2, "
+                     "_pallas_bulk2 :2055)",
+         "launches": fuse2_counts["lbm_collide_stream2[bgk]"],
+         "max_abs_err": max(k2_err.values()),
+         "max_abs_err_by_case": k2_err,
+         "ms": k2_time["lid 256^3 bgk"]["ms"],
+         "plain_ms": k2_time["lid 256^3 bgk"]["plain_ms"],
+         "bound_ms": k2_time["lid 256^3 bgk"]["bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "two_k1_launches_ms": k2_time["lid 256^3 bgk"]["two_k1_ms"],
+         "branches": k2_time, "odd_chunk_launches": fuse2_odd,
+         "path_ms_per_step": fuse2_metrics["ms_step"],
+         "path_device_ms_per_launch": fuse2_metrics["k2_device_ms"],
+         "path_busy_share": fuse2_metrics["busy"],
+         "registers": {k: v[0] for k, v in k2_ptxas.items()},
+         "spill_bytes": {k: v[1] + v[2] for k, v in k2_ptxas.items()},
+         "smem_bytes_per_block": pair_smem + max(
+             smem.get(k, 0) for k in k2_ptxas),
+         "build_s": plib.build_seconds},
+        {"name": "lbm_extract_rows", "route": "cuda", "source": K2_SOURCE,
+         "replaces": "lbm_tpu/kernels/collide_stream.py:2586",
+         "launches": k4["launches"],
+         "max_abs_err": max(k4["max_abs_err"], k4_err), "ms": k4["ms"],
+         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+         "bound_by": "bytes", "library_ms": k4["library_ms"],
+         "chunk_mb": k4["chunk_mb"], "read_512_s": k4["read_s"],
+         "read_512_gb_per_s": k4["read_gb_per_s"],
+         "device_rise_mb": k4["device_rise_mb"],
+         "registers": {k: v[0] for k, v in ptxas.items()
+                       if k.startswith("extract_rows")}},
     ]
     print(f"[done] ms at 64^3: K1a {t64['k1a']:.4f} plain "
           f"{t64['k1a_plain']:.4f}, K3 {t64['k3']:.4f} plain "

@@ -11,6 +11,8 @@
         'rheology={"model": "carreau", "nu0": 0.3145, "nu_inf": 0.01937, "lam": 149036, "n": 0.3568}'
     python -m lbm_tpu_torch run --case gravity_channel --backend dense \
         --opt collision=mrt
+    python -m lbm_tpu_torch run --case lid_driven_cavity --fuse 2
+    python -m lbm_tpu_torch run --case lid_driven_cavity --opt n=512 --lowmem
     python -m lbm_tpu_torch list
     python -m lbm_tpu_torch transport --case coronary --bolus 500 --vtk \
         --opt shape=[291,291,372] radius=12
@@ -183,6 +185,13 @@ def main(argv=None) -> int:
     runp.add_argument("--binary-vtk", action="store_true")
     runp.add_argument("--opt", nargs="*", metavar="KEY=VAL",
                       help="case options (e.g. n=128 tau=0.55)")
+    runp.add_argument("--fuse", type=int, default=1, choices=[1, 2],
+                      help="fused steps per HBM round-trip (kernel backend; "
+                      "fuse=2 needs all BCs on x/y planes)")
+    runp.add_argument("--lowmem", action="store_true",
+                      help="force the 512^3-class lowmem machinery (chunked "
+                      "state read to the host, uncompressed checkpoints; "
+                      "auto-enabled above ~4 GB of state)")
     _add_device_args(runp)
 
     sub.add_parser("list", help="list available cases")
@@ -252,7 +261,8 @@ def main(argv=None) -> int:
     from lbm_tpu_torch.io.vtk import case_vtk
 
     spec = get_case(args.case, **_parse_kv(args.opt))
-    sim = Simulation(spec, device=args.device, backend=args.backend)
+    sim = Simulation(spec, device=args.device, backend=args.backend,
+                     fuse=args.fuse, lowmem=True if args.lowmem else None)
     if args.resume:
         ckpt.restore(sim, args.resume)
         print(f"resumed from {args.resume} at step {sim.t}")

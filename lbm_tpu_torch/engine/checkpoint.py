@@ -5,8 +5,13 @@ State = (f, t, convergence window) plus case identity: f is the
 unpadded (19, nx, ny, nz) float32 array, so a checkpoint written by
 lbm_tpu resumes here and one written here resumes in lbm_tpu. The file
 is written to a temporary name and renamed, so a crash never leaves a
-half-written checkpoint. lbm_tpu's packed layout (512^3-class lowmem
-runs) is not read yet.
+half-written checkpoint. A lowmem Simulation writes the same layout,
+read to the host in chunks, uncompressed (compressing a 512^3-class
+state costs minutes of host CPU for little, as lbm_tpu found). lbm_tpu's
+packed layout (its lowmem checkpoints: the padded (X, Y, C, Z) state
+with `layout` meta) is cropped to the portable one on the host, as
+lbm_tpu's restore does for a target that is not its own lowmem run; a
+packed bf16 state is refused (bf16 storage is not ported).
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ import json
 import os
 
 import numpy as np
+
+from lbm_tpu_torch.bridge import unpack_lattice
 
 
 def save(path: str, f, t: int, case_name: str, meta: dict | None = None,
@@ -41,7 +48,8 @@ def save_sim(path: str, sim, meta: dict | None = None) -> None:
         "last_velsum": sim._last_velsum,
         "last_usq": sim._last_usq,
     }
-    save(path, sim.f_standard().cpu().numpy(), sim.t, sim.spec.name, m)
+    save(path, sim.f_standard().cpu().numpy(), sim.t, sim.spec.name, m,
+         compressed=not sim.lowmem)
 
 
 def load(path: str):
@@ -60,14 +68,18 @@ def restore(sim, path: str) -> None:
         raise ValueError(
             f"checkpoint is for case {case!r}, simulation is {sim.spec.name!r}"
         )
-    if (meta.get("layout") or {}).get("packed"):
-        raise NotImplementedError(
-            "packed (lowmem) checkpoints are not read by lbm_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 10)")
     if meta.get("wk") is not None:
         raise NotImplementedError(
             "checkpoint carries windkessel state; windkessel outlets are "
             "not ported yet (ROADMAP.md Queue 1 item 8)")
+    lay = meta.get("layout") or {}
+    if lay.get("packed"):
+        if lay.get("dtype") != "float32":
+            raise NotImplementedError(
+                f"a packed checkpoint of {lay.get('dtype')} storage: bf16 "
+                "storage is not ported to lbm_tpu_torch yet (ROADMAP.md "
+                "Queue 1 item 10)")
+        f = unpack_lattice(f, sim.spec.shape, 19, int(lay["ring"]))
     if f.shape != (19,) + tuple(sim.spec.shape):
         raise ValueError(
             f"checkpoint shape {f.shape} != case {sim.spec.shape}")

@@ -20,6 +20,8 @@ then moved to the device once:
   - `live_blocks`: ids of the collide-stream kernel's 256-cell blocks
     that hold a non-DEAD cell (lbm_tpu's `live_tile_ids`), or None when
     skipping would not pay (SKIP_BELOW, measured on the H100);
+    `live_tiles`, built at first use, the same for the fused pair's
+    TILE^3 tiles;
   - `velsum_offset`/`usq_offset`: the constant residual contribution of
     non-fluid cells, which hold their initial state forever;
   - the collision branch: `tau_minus` (TRT), the MRT matrices `mrt_k`/
@@ -30,7 +32,8 @@ then moved to the device once:
 What the port does not carry (Bouzidi walls, windkessel outlets) raises
 NotImplementedError naming the ROADMAP item that ports it; the two
 compositions the collide-stream kernel refuses are named by
-`kernel_refusal`. Nothing falls back silently.
+`kernel_refusal`, and the cases the fused pair of steps refuses by
+`fuse2_refusal`. Nothing falls back silently.
 """
 
 from __future__ import annotations
@@ -65,6 +68,9 @@ BLOCK = 256
 # 0.95 leaves a margin for that two-point estimate (PERF.md, PR 2). The
 # lid cavity at 64^3 and up (97-98% live) keeps the full launch.
 SKIP_BELOW = 0.95
+# Interior tile edge of the fused pair of steps (kT in
+# kernels/csrc/collide_stream2.cu): the unit of its live-tile list.
+TILE = 8
 
 
 def _phi_np(u: np.ndarray, dirs: np.ndarray) -> np.ndarray:
@@ -156,6 +162,24 @@ def kernel_refusal(spec: CaseSpec, field: bool = False) -> Optional[str]:
     return None
 
 
+def fuse2_refusal(spec: CaseSpec, lowmem: bool = False) -> Optional[str]:
+    """Why two fused steps per launch (fuse=2) cannot run this case, or
+    None, in lbm_tpu's words (engine/runner.py, make_pallas_step). The
+    pair applies only x/y-plane boundaries: a z-plane (or windkessel)
+    boundary's fixup runs after the bulk step and cannot sit between
+    the two. lowmem stays on the single-step path, as lbm_tpu's (whose
+    lowmem aliases the state in place, which it wires for fuse=1 only).
+    The pair has no force-field instance, as lbm_tpu's has not."""
+    if any(b.axis not in (0, 1) or b.windkessel is not None
+           for b in spec.boundaries):
+        return ("fuse=2 requires a single-chip run with all NEE boundaries "
+                "on x/y planes")
+    if lowmem:
+        return ("lowmem is only wired on the single-call fuse=1 path "
+                "(lbm_tpu's in_place aliasing)")
+    return None
+
+
 @dataclasses.dataclass(eq=False)  # hashed by identity: a weak-dict key
 class CompiledCase:
     name: str
@@ -207,6 +231,17 @@ class CompiledCase:
         """The z-plane boundaries, one fixup launch each after the
         collide-stream kernel, in boundary order."""
         return [bc for bc in self.bcs if bc.axis == 2]
+
+    @functools.cached_property
+    def live_tiles(self) -> Optional[torch.Tensor]:
+        """(n,) int32 ids of the fused pair's TILE^3 tiles that hold a
+        non-DEAD cell, or None when skipping would not pay (the same
+        SKIP_BELOW rule as live_blocks); built at first use."""
+        ids = live_tile_ids(np.asarray(self.spec.mask))
+        n_tiles = int(np.prod([-(-n // TILE) for n in self.shape]))
+        if len(ids) >= SKIP_BELOW * n_tiles:
+            return None
+        return torch.from_numpy(ids).to(self.device)
 
 
 def _refuse(what: str, item: str) -> None:
@@ -344,6 +379,19 @@ def live_block_ids(mask: np.ndarray, block: int = BLOCK) -> np.ndarray:
     return np.nonzero(live.reshape(-1, block).any(axis=1))[0].astype(np.int32)
 
 
+def live_tile_ids(mask: np.ndarray, tile: int = TILE) -> np.ndarray:
+    """int32 ids of the tile^3 tiles of the (x, y, z) lattice (ceil-div,
+    ids row-major over the tile grid with z fastest) whose cells inside
+    the box include a non-DEAD one: the fused pair's live-tile list
+    (lbm_tpu's `live_tile_ids` over 3-D tiles)."""
+    live = np.asarray(mask) != CellType.DEAD
+    pads = [(0, (-n) % tile) for n in live.shape]
+    live = np.pad(live, pads)
+    gx, gy, gz = (n // tile for n in live.shape)
+    tiles = live.reshape(gx, tile, gy, tile, gz, tile).any(axis=(1, 3, 5))
+    return np.nonzero(tiles.reshape(-1))[0].astype(np.int32)
+
+
 def neighbor_wall(mask: np.ndarray, label: int = CellType.WALL) -> np.ndarray:
     """(19, X, Y, Z) bool: out[i][x] = mask[x - e_i] == label (WALL by
     default), wrapped."""
@@ -407,5 +455,6 @@ def compile_case(spec: CaseSpec, device="cpu") -> CompiledCase:
 
 __all__ = ["CompiledBC", "CompiledCase", "compile_case", "compile_bc",
            "canonical_device", "check_supported", "check_z_windows",
-           "kernel_refusal", "live_block_ids", "mrt_of", "neighbor_wall",
-           "tau_minus_of", "valid_bbox", "BLOCK", "MAX_BCS", "SKIP_BELOW"]
+           "fuse2_refusal", "kernel_refusal", "live_block_ids",
+           "live_tile_ids", "mrt_of", "neighbor_wall", "tau_minus_of",
+           "valid_bbox", "BLOCK", "MAX_BCS", "SKIP_BELOW", "TILE"]

@@ -21,6 +21,15 @@ to another backend by itself. backend='dense' runs the dense PyTorch
 step (engine/step.py), the counterpart of lbm_tpu's 'xla', for every
 composition. Every step gets its absolute index, so a
 series boundary's phase continues across chunks and resumed runs.
+
+fuse=2 (kernel backend) advances a chunk of n steps as n // 2 launches of
+the fused pair (two steps per read and write of the state) and one
+single step for an odd tail, lbm_tpu's chunk shape; it refuses, with
+ValueError in lbm_tpu's words, a case with a z-plane boundary, lowmem and
+the dense backend. lowmem (auto above LOWMEM_BYTES of one state buffer,
+lbm_tpu's per-device threshold) makes f_standard() read the state to host
+memory in x-row chunks (kernels.unpack_state_lowmem) and checkpoints go
+uncompressed.
 """
 
 from __future__ import annotations
@@ -32,7 +41,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from lbm_tpu_torch.engine.compile import canonical_device, compile_case
+from lbm_tpu_torch.engine.compile import (
+    canonical_device,
+    compile_case,
+    fuse2_refusal,
+)
 from lbm_tpu_torch.engine.spec import CaseSpec
 from lbm_tpu_torch.engine.step import (
     fluid_speed_sum,
@@ -42,6 +55,10 @@ from lbm_tpu_torch.engine.step import (
     make_step,
 )
 from lbm_tpu_torch.kernels import collide_stream as kernels
+
+# One state buffer above this many bytes turns lowmem on (lbm_tpu's
+# per-device threshold, engine/runner.py): 375^3 cells and up.
+LOWMEM_BYTES = 4e9
 
 
 @dataclasses.dataclass
@@ -83,13 +100,28 @@ class Simulation:
     The state `f` is (19, nx, ny, nz) float32, z contiguous — the layout
     of lbm_tpu's dense backend and of the portable checkpoint. The kernel
     backend keeps a second buffer of the same shape and swaps the two
-    each step. The kernel never writes the cells of skipped (all-DEAD)
-    blocks, so both buffers always hold the same non-fluid state.
+    each launch. The kernels never write the cells of skipped (all-DEAD)
+    blocks or tiles, so both buffers always hold the same non-fluid state.
+    fuse: 1, or 2 for two fused steps per launch; lowmem: None (auto), or
+    force the chunked host read of f_standard() on or off.
     """
 
-    def __init__(self, spec: CaseSpec, device="cuda", backend: str = "kernel"):
+    def __init__(self, spec: CaseSpec, device="cuda", backend: str = "kernel",
+                 fuse: int = 1, lowmem: Optional[bool] = None):
         if backend not in ("kernel", "dense"):
             raise ValueError(f"backend must be 'kernel' or 'dense': {backend!r}")
+        if fuse not in (1, 2):
+            raise ValueError(f"fuse must be 1 or 2: {fuse!r}")
+        if fuse == 2 and backend != "kernel":
+            raise ValueError("fuse=2 runs the kernel backend's fused pair of "
+                             "steps; backend='dense' has none")
+        self.lowmem = (19 * 4 * int(np.prod(spec.shape)) > LOWMEM_BYTES
+                       if lowmem is None else bool(lowmem))
+        if fuse == 2:
+            reason = fuse2_refusal(spec, self.lowmem)
+            if reason is not None:
+                raise ValueError(reason)
+        self.fuse = fuse
         self.device = resolve_device(device)
         self.backend = backend
         self.spec = spec
@@ -109,7 +141,10 @@ class Simulation:
         self._last_usq: Optional[float] = None
 
     def f_standard(self):
-        """f in the portable (19, nx, ny, nz) layout."""
+        """f in the portable (19, nx, ny, nz) layout: the state itself, or
+        under lowmem a copy in host memory read in x-row chunks."""
+        if self.lowmem:
+            return kernels.unpack_state_lowmem(self.f)
         return self.f
 
     def set_f_standard(self, f):
@@ -137,7 +172,11 @@ class Simulation:
         """n steps; returns the n velsum samples (offset included) with one
         device-to-host read."""
         series = torch.empty(n, dtype=torch.float64, device=self.device)
-        for k in range(n):
+        pairs = n // 2 if self.fuse == 2 else 0
+        for k in range(0, 2 * pairs, 2):
+            kernels.step2(self.f, self._spare, self.cc, series, k, self.t + k)
+            self.f, self._spare = self._spare, self.f
+        for k in range(2 * pairs, n):
             if self.backend == "kernel":
                 kernels.step(self.f, self._spare, self.cc, series, k,
                              self.t + k)
@@ -248,4 +287,4 @@ class Simulation:
         )
 
 
-__all__ = ["Simulation", "RunResult", "resolve_device"]
+__all__ = ["Simulation", "RunResult", "resolve_device", "LOWMEM_BYTES"]

@@ -1,16 +1,18 @@
 """Build the CUDA kernel libraries with nvcc at first use and load them
 with ctypes.
 
-Two sources, each its own translation unit and shared object, compiled
+Three sources, each its own translation unit and shared object, compiled
 side by side (one nvcc process each, started together):
 kernels/csrc/collide_stream.cu (the collide-stream, z-plane fixup and
 moments kernels, each collide-stream and fixup kernel in its 18
-collision-branch instances) and kernels/csrc/scalar_stream.cu (the D3Q7
-scalar kernel in its 8 instances and its record reduction), for sm_90a
-with a plain C interface (no PyTorch headers, so nvcc takes seconds).
-They land in kernels/_build/ under names that carry a hash of the source
-and flags, so an edited source is rebuilt and a stale object is never
-loaded. Pointers and the stream cross as
+collision-branch instances), kernels/csrc/collide_stream2.cu (the fused
+pair of steps in its 14 instances and the chunked state read) and
+kernels/csrc/scalar_stream.cu (the D3Q7 scalar kernel in its 8 instances
+and its record reduction), for sm_90a with a plain C interface (no
+PyTorch headers, so nvcc takes seconds). The first two share the device
+functions of kernels/csrc/d3q19.cuh. They land in kernels/_build/ under
+names that carry a hash of the source, the headers and the flags, so an
+edited source is rebuilt and a stale object is never loaded. Pointers and the stream cross as
 ctypes.c_void_p; every entry point returns cudaGetLastError().
 """
 
@@ -30,6 +32,10 @@ from pathlib import Path
 
 SOURCE = Path(__file__).parent / "csrc" / "collide_stream.cu"
 SCALAR_SOURCE = Path(__file__).parent / "csrc" / "scalar_stream.cu"
+PAIR_SOURCE = Path(__file__).parent / "csrc" / "collide_stream2.cu"
+# the D3Q19 device functions, descriptors and their enums, shared by the
+# single-step and the fused-pair sources
+HEADER = Path(__file__).parent / "csrc" / "d3q19.cuh"
 BUILD_DIR = Path(__file__).parent / "_build"
 # -fmad=false: no multiply-add contraction, so the kernels round exactly
 # like their plain PyTorch versions and the collide-stream kernel is bit
@@ -119,12 +125,41 @@ def _declare_scalar(lib: ctypes.CDLL) -> None:
     lib.lbm_scalar_stream.restype = ci
 
 
+def _declare_pair(lib: ctypes.CDLL) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for name in ("lbm_pair_tile", "lbm_pair_block_size"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ci
+    lib.lbm_pair_smem_bytes.argtypes = []
+    lib.lbm_pair_smem_bytes.restype = ctypes.c_longlong
+    lib.lbm_error_string.argtypes = [ci]
+    lib.lbm_error_string.restype = ctypes.c_char_p
+    lib.lbm_collide_stream2.argtypes = [
+        vp, vp, vp,             # src, dst, mask
+        ci, ci, ci,             # nx, ny, nz
+        vp, vp,                 # collision int row, float row
+        ci, vp, vp, vp,         # n_bc, bc_int, bc_float, valid
+        vp, vp,                 # phi_star of step t, of step t + 1
+        vp, ci,                 # tiles, n_tiles
+        vp, ci,                 # partials, n_partials
+        vp, ci,                 # series, slot
+        vp,                     # stream
+    ]
+    lib.lbm_collide_stream2.restype = ci
+    # f, out, X, Y, Z, x0, wx, stream
+    lib.lbm_extract_rows.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp]
+    lib.lbm_extract_rows.restype = ci
+
+
 _SOURCES = {"collide_stream": (SOURCE, _declare),
+            "collide_stream2": (PAIR_SOURCE, _declare_pair),
             "scalar_stream": (SCALAR_SOURCE, _declare_scalar)}
 
 
 def _object_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(
+        source.parent.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{source.stem}_{digest[:16]}.so"
 
@@ -183,6 +218,12 @@ def load_library() -> Library:
     return _load_all()["collide_stream"]
 
 
+def load_pair_library() -> Library:
+    """The fused-pair and row-extract library (built with the others if
+    needed)."""
+    return _load_all()["collide_stream2"]
+
+
 def load_scalar_library() -> Library:
     """The D3Q7 scalar library (built with the others if needed)."""
     return _load_all()["scalar_stream"]
@@ -195,5 +236,6 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-__all__ = ["Library", "load_library", "load_scalar_library", "check",
-           "nvcc_path", "SOURCE", "SCALAR_SOURCE", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["Library", "load_library", "load_pair_library",
+           "load_scalar_library", "check", "nvcc_path", "SOURCE",
+           "PAIR_SOURCE", "SCALAR_SOURCE", "HEADER", "BUILD_DIR", "NVCC_FLAGS"]

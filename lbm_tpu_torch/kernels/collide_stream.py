@@ -1,6 +1,7 @@
 """Wrappers for the Hopper collide-stream (K1a + K1b, with K1c's live-block
-list), z-plane fixup (K5 + K6) and moments (K3) kernels, their plain
-PyTorch versions, and launch counters.
+list), z-plane fixup (K5 + K6), moments (K3), fused-pair (K2) and
+row-extract (K4) kernels, their plain PyTorch versions, and launch
+counters.
 
   collide_stream  -> lbm_collide_stream (kernels/csrc/collide_stream.cu),
                      replacing lbm_tpu/kernels/collide_stream.py::_kernel
@@ -14,6 +15,13 @@ PyTorch versions, and launch counters.
                      shift when the case has a force)
   step            -> one whole step: collide_stream, then fix_z_plane for
                      each z-plane boundary in boundary order
+  step2           -> lbm_collide_stream2 (kernels/csrc/collide_stream2.cu):
+                     two whole steps of a case whose boundaries all lie on
+                     x/y planes, replacing ::_kernel2 (two fused steps per
+                     round trip, with its live-tile list)
+  extract_rows    -> lbm_extract_rows, replacing ::_extract_rows: x rows
+                     of the state as one contiguous chunk, the unit of
+                     unpack_state_lowmem's chunked device-to-host read
 
 The collide-stream and fixup kernels are templates over the collision
 branch; `instance(cc)` names the one a case runs ("bgk", "trt+cy",
@@ -42,6 +50,7 @@ from lbm_tpu_torch.core.rheology import closure_constants
 from lbm_tpu_torch.engine.compile import (
     CompiledBC,
     CompiledCase,
+    fuse2_refusal,
     kernel_refusal,
     live_block_ids,
 )
@@ -447,6 +456,147 @@ def step(f, out, cc: CompiledCase, series, slot: int, t: int,
     return out
 
 
+def collide_stream2_plain(f, cc: CompiledCase, t: int):
+    """The plain version of `step2`: two collide_stream_plain steps at
+    absolute steps t and t + 1, (f'', velsum at t, velsum at t + 1) with
+    the velsums float64 0-dim tensors."""
+    f1, vs1 = collide_stream_plain(f, cc, t)
+    f2, vs2 = collide_stream_plain(f1, cc, t + 1)
+    return f2, vs1, vs2
+
+
+def step2(f, out, cc: CompiledCase, series, slot: int, t: int,
+          all_tiles: bool = False):
+    """Two steps of f into out (a different buffer) at absolute steps t
+    and t + 1, for a case whose NEE boundaries all lie on x/y planes
+    (compile.fuse2_refusal; ValueError otherwise): series[slot] and
+    series[slot + 1] get the two steps' fluid velsums. The launch covers
+    the case's live tiles (cc.live_tiles; every tile when that is None,
+    or with all_tiles); the tiles left out hold only DEAD cells, equal in
+    f and out. Returns out."""
+    _check_pair(f, out, cc, series, slot + 1)
+    reason = fuse2_refusal(cc.spec)
+    if reason is not None:
+        raise ValueError(reason)
+    name, ci, cf = collision_descriptor(cc)
+    if f.device.type == "cpu":
+        f2, vs1, vs2 = collide_stream2_plain(f, cc, t)
+        out.copy_(f2)
+        series[slot], series[slot + 1] = vs1, vs2
+        return out
+    from lbm_tpu_torch.kernels._build import check, load_pair_library
+
+    lib = load_pair_library().lib
+    nx, ny, nz = cc.shape
+    if nx * ny * nz >= 2**31:
+        raise ValueError(f"{nx * ny * nz} cells: the kernel indexes cells "
+                         "in int32")
+    ids = None if all_tiles else cc.live_tiles
+    tile = lib.lbm_pair_tile()
+    grid = (-(-nx // tile) * -(-ny // tile) * -(-nz // tile)
+            if ids is None else ids.numel())
+    bcs = cc.kernel_bcs
+    (ints, floats, valid, phis), partials = _launch_scratch(
+        cc, "k2", bcs, t, 2 * grid)
+    (_, _, _, phis1), _ = _launch_scratch(cc, "k2 t+1", bcs, t + 1, 0)
+    with torch.cuda.device(f.device):
+        stream = torch.cuda.current_stream(f.device).cuda_stream
+        err = lib.lbm_collide_stream2(
+            f.data_ptr(), out.data_ptr(), cc.mask.data_ptr(),
+            nx, ny, nz, ci.ctypes.data, cf.ctypes.data,
+            len(bcs), ints.ctypes.data, floats.ctypes.data,
+            ctypes.addressof(valid), ctypes.addressof(phis),
+            ctypes.addressof(phis1),
+            None if ids is None else ids.data_ptr(), grid,
+            partials.data_ptr(), 2 * grid, series.data_ptr(), slot, stream)
+    check(lib, err, f"lbm_collide_stream2[{name}]")
+    _count(f"lbm_collide_stream2[{name}]")
+    return out
+
+
+def _check_rows(f, x0: int, wx: int) -> None:
+    if f.dtype != torch.float32 or not f.is_contiguous() or f.dim() != 4 \
+            or f.shape[0] != 19:
+        raise ValueError("f must be a contiguous (19, X, Y, Z) float32 tensor")
+    if not (0 <= x0 and 0 < wx and x0 + wx <= f.shape[1]):
+        raise ValueError(f"rows [{x0}, {x0 + wx}) are not inside the "
+                         f"{f.shape[1]} x rows")
+
+
+def extract_rows_plain(f, x0: int, wx: int):
+    """x rows [x0, x0 + wx) of a (19, X, Y, Z) state as a contiguous
+    (19, wx, Y, Z) tensor."""
+    return f[:, x0:x0 + wx].contiguous()
+
+
+def extract_rows(f, x0: int, wx: int, out=None):
+    """x rows [x0, x0 + wx) of a contiguous (19, X, Y, Z) float32 state
+    into out (a contiguous (19, wx, Y, Z) tensor on f's device, made when
+    None). Returns out."""
+    _check_rows(f, x0, wx)
+    shape = (19, wx) + tuple(f.shape[2:])
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=f.device)
+    if out.dtype != torch.float32 or not out.is_contiguous() \
+            or tuple(out.shape) != shape or out.device != f.device:
+        raise ValueError(f"out must be a contiguous float32 {shape} tensor "
+                         f"on {f.device}")
+    if f.device.type == "cpu":
+        return out.copy_(extract_rows_plain(f, x0, wx))
+    if f.device.type != "cuda":
+        raise ValueError(f"no kernel for device {f.device}")
+    from lbm_tpu_torch.kernels._build import check, load_pair_library
+
+    lib = load_pair_library().lib
+    _, nx, ny, nz = f.shape
+    with torch.cuda.device(f.device):
+        stream = torch.cuda.current_stream(f.device).cuda_stream
+        err = lib.lbm_extract_rows(f.data_ptr(), out.data_ptr(), nx, ny, nz,
+                                   x0, wx, stream)
+    check(lib, err, "lbm_extract_rows")
+    _count("lbm_extract_rows")
+    return out
+
+
+# Bytes of one chunk of the chunked state read, as lbm_tpu's
+# unpack_state_lowmem has them
+CHUNK_BYTES = 256_000_000
+
+
+def chunk_rows(shape) -> int:
+    """x rows per chunk of unpack_state_lowmem for a (X, Y, Z) box: as
+    many as fit CHUNK_BYTES, at least one."""
+    _, ny, nz = shape
+    return max(1, CHUNK_BYTES // (19 * ny * nz * 4))
+
+
+def unpack_state_lowmem(f):
+    """The state as a (19, X, Y, Z) float32 tensor in host memory, read in
+    x-row chunks of at most CHUNK_BYTES (extract_rows into one device
+    chunk, then a pinned staging buffer), so device memory rises by one
+    chunk, never by a second state (lbm_tpu's unpack_state_lowmem)."""
+    _check_rows(f, 0, f.shape[1])
+    _, nx, ny, nz = f.shape
+    rows = chunk_rows((nx, ny, nz))
+    out = torch.empty(tuple(f.shape), dtype=torch.float32)
+    if f.device.type == "cpu":
+        for x0 in range(0, nx, rows):
+            w = min(rows, nx - x0)
+            out[:, x0:x0 + w] = extract_rows(f, x0, w)
+        return out
+    n_max = 19 * rows * ny * nz
+    dev = torch.empty(n_max, dtype=torch.float32, device=f.device)
+    host = torch.empty(n_max, dtype=torch.float32, pin_memory=True)
+    for x0 in range(0, nx, rows):
+        w = min(rows, nx - x0)
+        n = 19 * w * ny * nz
+        chunk = extract_rows(f, x0, w, out=dev[:n].view(19, w, ny, nz))
+        staged = host[:n].view(19, w, ny, nz)
+        staged.copy_(chunk)  # waits for the stream: pinned, not async
+        out[:, x0:x0 + w] = staged
+    return out
+
+
 def macro(f, force=None):
     """(rho (X, Y, Z), u (3, X, Y, Z)) moments of every cell of a
     (19, X, Y, Z) float32 state; with a body force (a 3-vector) u = (m +
@@ -481,7 +631,9 @@ def macro(f, force=None):
 
 
 __all__ = ["collide_stream", "collide_stream_plain", "fix_z_plane",
-           "fix_z_plane_plain", "step", "step_plain", "live_block_ids",
-           "macro", "macro_plain", "launches", "reset_launches", "instance",
-           "collision_tables", "collision_descriptor", "CINT", "CFLOAT",
-           "ForceField"]
+           "fix_z_plane_plain", "step", "step_plain", "step2",
+           "collide_stream2_plain", "extract_rows", "extract_rows_plain",
+           "unpack_state_lowmem", "chunk_rows", "CHUNK_BYTES",
+           "live_block_ids", "macro", "macro_plain", "launches",
+           "reset_launches", "instance", "collision_tables",
+           "collision_descriptor", "CINT", "CFLOAT", "ForceField"]

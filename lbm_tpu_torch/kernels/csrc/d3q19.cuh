@@ -1,0 +1,528 @@
+// The D3Q19 device functions and host descriptor parsers that the
+// single-step kernels (collide_stream.cu) and the fused pair
+// (collide_stream2.cu) share: lattice constants, the collision and
+// boundary descriptors, the pull with wall and moving-wall
+// bounce-back, the NEE rewrite, the collision branches, the fixed-order
+// velsum reduction. Each source includes it once, so everything here
+// lives in an anonymous namespace of that translation unit.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <array>
+#include <utility>
+
+namespace {
+
+constexpr int Q = 19;
+constexpr int kMaxBCs = 4;
+constexpr int kMaxDirs = 5;
+constexpr int kBlock = 256;
+constexpr int kReduceBlock = 1024;
+constexpr int kBCInts = 6 + kMaxDirs;  // layout of one row of bc_int
+constexpr int8_t kWall = 1;
+constexpr int8_t kFluid = 4;
+constexpr int8_t kMoving = -2;
+constexpr int kClosureConsts = 6;
+constexpr float kTiny = 1e-30f;
+
+enum CollisionKind { kBGK = 0, kTRT = 1, kMRT = 2 };
+enum ClosureKind { kNone = 0, kSmag = 1, kPlaw = 2, kCY = 3, kCasson = 4 };
+
+// Offsets of the collision descriptor's int and float rows: CINT and
+// CFLOAT in kernels/collide_stream.py (a CPU test compares them).
+enum CInt {
+  CI_coll = 0, CI_closure = 1, CI_force = 2, CI_moving = 3, CI_iters = 4,
+  CI_square = 5, CI_n = 6
+};
+enum CFloat {
+  CF_tau = 0, CF_two_tau = 1, CF_two_tau_m = 2, CF_cp = 3,
+  CF_half_force = 4, CF_force = 7, CF_e_f = 10, CF_cm_odd = 29, CF_bb = 48,
+  CF_mrt_k = 67, CF_t0 = 428, CF_lam = 429, CF_lo = 430, CF_hi = 431,
+  CF_c = 432, CF_cm = 438, CF_buoy = 439, CF_c_ref = 442, CF_n = 443
+};
+// CI_force: no force, the constant CaseSpec.force, the Boussinesq field.
+enum ForceKind { kNoForce = 0, kConstForce = 1, kFieldForce = 2 };
+
+__host__ __device__ constexpr int EX(int i) {
+  constexpr int v[Q] = {0, 1, -1, 0, 0, 0, 0, 1, 1, -1, -1,
+                        1, 1, -1, -1, 0, 0, 0, 0};
+  return v[i];
+}
+__host__ __device__ constexpr int EY(int i) {
+  constexpr int v[Q] = {0, 0, 0, 1, -1, 0, 0, 1, -1, 1, -1,
+                        0, 0, 0, 0, 1, -1, 1, -1};
+  return v[i];
+}
+__host__ __device__ constexpr int EZ(int i) {
+  constexpr int v[Q] = {0, 0, 0, 0, 0, 1, -1, 0, 0, 0, 0,
+                        1, -1, 1, -1, 1, 1, -1, -1};
+  return v[i];
+}
+__host__ __device__ constexpr int OPP(int i) {
+  constexpr int v[Q] = {0, 2, 1, 4, 3, 6, 5, 10, 9, 8, 7,
+                        14, 13, 12, 11, 18, 17, 16, 15};
+  return v[i];
+}
+__host__ __device__ constexpr float WGT(int i) {
+  return i == 0 ? 1.0f / 3.0f : (i < 7 ? 1.0f / 18.0f : 1.0f / 36.0f);
+}
+
+// The collision branch's operands, passed by value (see CFloat/CInt).
+struct Collision {
+  float tau;              // BGK divisor
+  float two_tau;          // TRT divisors 2 tau, 2 tau_minus
+  float two_tau_m;
+  float cp;               // Guo prefactor of the even half
+  float half_force[3];    // F/2
+  float force[3];         // F
+  float e_f[Q];           // e_i . F
+  float cm_odd[Q];        // cm * 3 w_i (e_i . F)
+  float bb[Q];            // Ladd terms 6 w_i (e_i . u_w)
+  float mrt_k[Q][Q];      // MRT collision matrix K (fp32)
+  float t0;               // closure: tau
+  float lam;              // TRT + closure: (tau - 1/2)(tau_minus - 1/2)
+  float lo, hi;           // closure clip
+  float c[kClosureConsts];  // closure constants (kernels/collide_stream.py)
+  int closure;            // ClosureKind
+  int iters;              // Picard iterations
+  int square;             // Carreau with a == 2
+  float cm;               // Guo prefactor of the odd half (field force)
+  float buoy[3];          // field force: F = buoy (c - c_ref)
+  float c_ref;
+  const float* gfield;    // field force: the scalar state g[7][n_cells]
+};
+
+// One NEE boundary on its consumer plane. The lateral axes are (y, z)
+// for axis 0, (x, z) for axis 1 and (x, y) for axis 2, so a plane cell's
+// lateral index is a * B + b; tables are (D, A, B).
+struct BCDesc {
+  int axis;
+  int coord;       // consumer-plane coordinate along axis
+  int lat_a;       // A, the first lateral extent
+  int rho_is_fixed;
+  int u_extrap;    // 1: u* = u_prev (phi* = phi_prev), no phi_star table
+  float rho_fixed;
+  float omega;     // 1 - 1/tau
+  long long plane; // A * B
+  int slot[Q];     // slot[i] = d if direction i is the plane's d-th, else -1
+  const uint8_t* valid;   // (D, A, B) bytes
+  const float* phi_star;  // (D, A, B) fp32 of this step's phase, or null
+                          // when u_extrap
+};
+
+struct BCSet {
+  int n;
+  BCDesc bc[kMaxBCs];
+};
+
+__device__ __forceinline__ int wrap(int v, int n) {
+  return v < 0 ? v + n : (v >= n ? v - n : v);
+}
+
+// e_i . u summed x, y, z in order, as engine/step's signed sums do.
+__device__ __forceinline__ float e_dot(int i, float ux, float uy, float uz) {
+  float cu = 0.0f;
+  if (EX(i) > 0) cu += ux;
+  if (EX(i) < 0) cu -= ux;
+  if (EY(i) > 0) cu += uy;
+  if (EY(i) < 0) cu -= uy;
+  if (EZ(i) > 0) cu += uz;
+  if (EZ(i) < 0) cu -= uz;
+  return cu;
+}
+
+__device__ __forceinline__ float phi_i(int i, float ux, float uy, float uz,
+                                       float usq) {
+  const float cu = e_dot(i, ux, uy, uz);
+  return WGT(i) * (1.0f + 3.0f * cu + 4.5f * cu * cu - 1.5f * usq);
+}
+
+// rho and u = (m + F/2) / rho (rho == 0 read as 1; F/2 only with FORCE)
+// of 19 populations.
+template <bool FORCE>
+__device__ __forceinline__ void moments19(const float* p,
+                                          const float* half_force,
+                                          float& rho, float& ux, float& uy,
+                                          float& uz) {
+  rho = p[0];
+#pragma unroll
+  for (int i = 1; i < Q; ++i) rho += p[i];
+  float mx = 0.0f, my = 0.0f, mz = 0.0f;
+#pragma unroll
+  for (int i = 1; i < Q; ++i) {
+    if (EX(i) > 0) mx += p[i];
+    if (EX(i) < 0) mx -= p[i];
+    if (EY(i) > 0) my += p[i];
+    if (EY(i) < 0) my -= p[i];
+    if (EZ(i) > 0) mz += p[i];
+    if (EZ(i) < 0) mz -= p[i];
+  }
+  if constexpr (FORCE) {
+    mx = mx + half_force[0];
+    my = my + half_force[1];
+    mz = mz + half_force[2];
+  }
+  const float safe = rho == 0.0f ? 1.0f : rho;
+  ux = mx / safe;
+  uy = my / safe;
+  uz = mz / safe;
+}
+
+// The pulled populations of cell (x, y, z): the value at x - e_i,
+// wrapped, or with half-way bounce-back off a wall source the cell's own
+// opposite population, plus the Ladd term bb[i] off a MOVING source.
+template <bool MOVING>
+__device__ __forceinline__ void pull19(const float* __restrict__ src,
+                                       const int8_t* __restrict__ mask,
+                                       int x, int y, int z, int nx, int ny,
+                                       int nz, long long n_cells, int cell,
+                                       const float* bb, float* p) {
+  p[0] = src[cell];
+#pragma unroll
+  for (int i = 1; i < Q; ++i) {
+    const int xs = wrap(x - EX(i), nx);
+    const int ys = wrap(y - EY(i), ny);
+    const int zs = wrap(z - EZ(i), nz);
+    const int nb = (xs * ny + ys) * nz + zs;
+    if constexpr (MOVING) {
+      // one load a direction, from a selected address and with no branch
+      // (reading the own opposite population in every direction doubled
+      // the bytes: 1.96 ms against BGK's 1.16 at lid 256^3 on the H100)
+      const int8_t m = mask[nb];
+      const bool own = m == kWall || m == kMoving;
+      const float v = src[own ? (long long)OPP(i) * n_cells + cell
+                              : (long long)i * n_cells + nb];
+      p[i] = m == kMoving ? v + bb[i] : v;
+    } else {
+      p[i] = mask[nb] == kWall ? src[(long long)OPP(i) * n_cells + cell]
+                               : src[(long long)i * n_cells + nb];
+    }
+  }
+}
+
+// Rewrite the pulled populations of one consumer-plane cell with the
+// NEE formula: p_i = rho* phi*_i + (f_i(x) - rho_prev phi_i(u_prev)) omega
+// for each prescribed direction whose lateral cell is valid (u_prev with
+// the F/2 shift under FORCE).
+template <bool FORCE>
+__device__ __forceinline__ void nee_fix(const BCDesc& bc,
+                                        const float* __restrict__ src,
+                                        long long n_cells, int cell,
+                                        long long lat,
+                                        const float* half_force, float* p) {
+  float own[Q];
+#pragma unroll
+  for (int i = 0; i < Q; ++i) own[i] = src[(long long)i * n_cells + cell];
+  float rp, uxp, uyp, uzp;
+  moments19<FORCE>(own, half_force, rp, uxp, uyp, uzp);
+  const float usqp = uxp * uxp + uyp * uyp + uzp * uzp;
+  const float rho_star = bc.rho_is_fixed ? bc.rho_fixed : rp;
+#pragma unroll
+  for (int i = 1; i < Q; ++i) {
+    const int d = bc.slot[i];
+    if (d < 0 || !bc.valid[d * bc.plane + lat]) continue;
+    const float phi_nbr = phi_i(i, uxp, uyp, uzp, usqp);
+    const float phi_star =
+        bc.u_extrap ? phi_nbr : bc.phi_star[d * bc.plane + lat];
+    const float feq_nbr = rp * phi_nbr;
+    p[i] = rho_star * phi_star + (own[i] - feq_nbr) * bc.omega;
+  }
+}
+
+// P = sqrt(2 Pi:Pi), Pi_ab = sum_i e_ia e_ib fneq_i in direction order
+// (engine/step.pi_norm).
+__device__ __forceinline__ float pi_norm(const float* fneq) {
+  float pxx = 0.0f, pyy = 0.0f, pzz = 0.0f;
+  float pxy = 0.0f, pxz = 0.0f, pyz = 0.0f;
+#pragma unroll
+  for (int i = 1; i < Q; ++i) {
+    if (EX(i) != 0) pxx += fneq[i];
+    if (EY(i) != 0) pyy += fneq[i];
+    if (EZ(i) != 0) pzz += fneq[i];
+    if (EX(i) * EY(i) > 0) pxy += fneq[i];
+    if (EX(i) * EY(i) < 0) pxy -= fneq[i];
+    if (EX(i) * EZ(i) > 0) pxz += fneq[i];
+    if (EX(i) * EZ(i) < 0) pxz -= fneq[i];
+    if (EY(i) * EZ(i) > 0) pyz += fneq[i];
+    if (EY(i) * EZ(i) < 0) pyz -= fneq[i];
+  }
+  const float s = pxx * pxx + pyy * pyy + pzz * pzz +
+                  2.0f * (pxy * pxy + pxz * pxz + pyz * pyz);
+  return sqrtf(2.0f * s);
+}
+
+// Per-cell tau_eff of the closure c.closure from P and 1/rho
+// (core/rheology.py tau_eff_from_p, in its operation order).
+__device__ __forceinline__ float tau_eff(float P, float inv_rho,
+                                         const Collision& c) {
+  const float t0 = c.t0;
+  if (c.closure == kSmag) {
+    return 0.5f * (t0 + sqrtf(t0 * t0 + c.c[0] * P * inv_rho));
+  } else if (c.closure == kCasson) {
+    const float g = fmaxf(1.5f * P * inv_rho, kTiny);
+    const float a = 1.0f - c.c[2] / g;
+    const float cq = c.c[1] / sqrtf(g);
+    const float disc = cq * cq + 4.0f * a * c.c[0];
+    const float s = (cq + sqrtf(fmaxf(disc, 0.0f))) /
+                    (2.0f * fmaxf(a, kTiny));
+    const float te = a > 0.0f ? s * s : c.hi;
+    return fminf(fmaxf(te, c.lo), c.hi);
+  } else {
+    const float g0 = 1.5f * P * inv_rho;
+    float te = t0;
+    for (int k = 0; k < c.iters; ++k) {
+      if (c.closure == kPlaw) {
+        const float lg = logf(fmaxf(g0 / te, kTiny));
+        te = fminf(fmaxf(0.5f + c.c[1] * expf(c.c[0] * lg), c.lo), c.hi);
+      } else {  // Carreau(-Yasuda)
+        float x;
+        if (c.square) {
+          const float z = c.c[4] * g0 / te;
+          x = z * z;
+        } else {
+          const float lg = logf(fmaxf(c.c[4] * g0 / te, kTiny));
+          x = expf(c.c[2] * lg);
+        }
+        const float nu3 = c.c[0] * expf(c.c[3] * log1pf(x));
+        te = fminf(fmaxf(c.c[1] + nu3, c.lo), c.hi);
+      }
+    }
+    return te;
+  }
+}
+
+// Collide the pulled populations into dst with the instance's branch;
+// returns the |u|^2 of the collide's moments (u with the F/2 shift).
+// The field force of one fluid cell and its half, F/2, from the cell's
+// pre-step scalar: c = sum of g's seven channels in order, F = buoy (c -
+// c_ref).
+__device__ __forceinline__ void field_force(const Collision& c,
+                                            long long n_cells, int cell,
+                                            float* F, float* half) {
+  float cs = c.gfield[cell];
+#pragma unroll
+  for (int i = 1; i < 7; ++i) cs += c.gfield[(long long)i * n_cells + cell];
+  const float dc = cs - c.c_ref;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    F[a] = c.buoy[a] * dc;
+    half[a] = 0.5f * F[a];
+  }
+}
+
+// F and half: the cell's force and F/2, read under FORCE (the
+// descriptor's constants, or field_force's).
+template <int COLL, bool CLOSURE, int FORCE>
+__device__ __forceinline__ float collide_store(const float* p,
+                                               const Collision& c,
+                                               const float* F,
+                                               const float* half,
+                                               float* __restrict__ dst,
+                                               long long n_cells, int cell) {
+  float rho, ux, uy, uz;
+  moments19<FORCE != kNoForce>(p, half, rho, ux, uy, uz);
+  const float usq = ux * ux + uy * uy + uz * uz;
+  if constexpr (COLL == kBGK && !CLOSURE && FORCE == kNoForce) {
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+      const float feq = rho * phi_i(i, ux, uy, uz, usq);
+      dst[(long long)i * n_cells + cell] = p[i] - (p[i] - feq) / c.tau;
+    }
+  } else {
+    float feq[Q], post[Q];
+#pragma unroll
+    for (int i = 0; i < Q; ++i) feq[i] = rho * phi_i(i, ux, uy, uz, usq);
+    if constexpr (CLOSURE) {
+      float fneq[Q];
+#pragma unroll
+      for (int i = 0; i < Q; ++i) fneq[i] = p[i] - feq[i];
+      const float safe = rho == 0.0f ? 1.0f : rho;
+      const float te = tau_eff(pi_norm(fneq), 1.0f / safe, c);
+      if constexpr (COLL == kTRT) {
+        // constant magic Lambda: the odd rate follows tau_eff
+        const float te_m = 0.5f + c.lam / (te - 0.5f);
+#pragma unroll
+        for (int i = 0; i < Q; ++i) {
+          const float s = fneq[i] + fneq[OPP(i)];
+          const float d = fneq[i] - fneq[OPP(i)];
+          post[i] = p[i] - s / (2.0f * te) - d / (2.0f * te_m);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < Q; ++i) post[i] = p[i] - fneq[i] / te;
+      }
+    } else if constexpr (COLL == kBGK) {
+#pragma unroll
+      for (int i = 0; i < Q; ++i) post[i] = p[i] - (p[i] - feq[i]) / c.tau;
+    } else if constexpr (COLL == kTRT) {
+#pragma unroll
+      for (int i = 0; i < Q; ++i) {
+        const int o = OPP(i);
+        const float s = (p[i] + p[o]) - (feq[i] + feq[o]);
+        const float d = (p[i] - p[o]) - (feq[i] - feq[o]);
+        post[i] = p[i] - s / c.two_tau - d / c.two_tau_m;
+      }
+    } else {
+      // MRT: f - K (f - feq), each row summed in column order
+      float fneq[Q];
+#pragma unroll
+      for (int j = 0; j < Q; ++j) fneq[j] = p[j] - feq[j];
+#pragma unroll
+      for (int i = 0; i < Q; ++i) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int j = 0; j < Q; ++j) acc = acc + c.mrt_k[i][j] * fneq[j];
+        post[i] = p[i] - acc;
+      }
+    }
+    if constexpr (FORCE != kNoForce) {
+      // Guo source, parity split: cp g_even + cm g_odd
+      const float uf = ux * F[0] + uy * F[1] + uz * F[2];
+#pragma unroll
+      for (int i = 0; i < Q; ++i) {
+        const float eu = e_dot(i, ux, uy, uz);
+        if constexpr (FORCE == kFieldForce) {
+          const float e_f = e_dot(i, F[0], F[1], F[2]);
+          const float g_even = WGT(i) * (9.0f * eu * e_f - 3.0f * uf);
+          const float g_odd = (3.0f * WGT(i)) * e_f;
+          post[i] = post[i] + (c.cp * g_even + c.cm * g_odd);
+        } else {
+          const float g_even = WGT(i) * (9.0f * eu * c.e_f[i] - 3.0f * uf);
+          post[i] = post[i] + (c.cp * g_even + c.cm_odd[i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < Q; ++i) dst[(long long)i * n_cells + cell] = post[i];
+  }
+  return usq;
+}
+
+// Fixed-order block sum in double, written to partials[blockIdx.x].
+__device__ __forceinline__ void block_sum(double v,
+                                          double* __restrict__ partials) {
+  __shared__ double red[kBlock];
+  red[threadIdx.x] = v;
+  __syncthreads();
+#pragma unroll
+  for (unsigned s = kBlock / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) partials[blockIdx.x] = red[0];
+}
+
+// series[t] = (or +=, when accumulate) the sum of the block partials, in
+// a fixed order.
+__global__ void __launch_bounds__(kReduceBlock)
+velsum_reduce_kernel(const double* __restrict__ partials, int n,
+                     double* __restrict__ series, int t, int accumulate) {
+  __shared__ double red[kReduceBlock];
+  double acc = 0.0;
+  for (int k = threadIdx.x; k < n; k += kReduceBlock) acc += partials[k];
+  red[threadIdx.x] = acc;
+  __syncthreads();
+#pragma unroll
+  for (unsigned s = kReduceBlock / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) series[t] = accumulate ? series[t] + red[0] : red[0];
+}
+
+// Fill a BCDesc from its descriptor row. bc_int row: axis, coord,
+// lat_a, rho_is_fixed, u_extrap, ndirs, dirs[kMaxDirs]; bc_float row:
+// rho_fixed, omega. Returns false on a malformed row.
+bool parse_bc(const int* row, const float* frow, const void* valid,
+              const void* phi, int nx, int ny, int nz, BCDesc& d) {
+  d.axis = row[0];
+  d.coord = row[1];
+  d.lat_a = row[2];
+  d.rho_is_fixed = row[3];
+  d.u_extrap = row[4];
+  const int ndirs = row[5];
+  if (ndirs < 0 || ndirs > kMaxDirs || d.axis < 0 || d.axis > 2) {
+    return false;
+  }
+  const int extent[3] = {nx, ny, nz};
+  const int a = d.axis == 0 ? ny : nx;
+  const int b = d.axis == 2 ? ny : nz;
+  if (d.lat_a != a || d.coord < 0 || d.coord >= extent[d.axis]) return false;
+  d.plane = (long long)a * b;
+  for (int i = 0; i < Q; ++i) d.slot[i] = -1;
+  for (int k = 0; k < ndirs; ++k) {
+    const int i = row[6 + k];
+    if (i <= 0 || i >= Q) return false;
+    d.slot[i] = k;
+  }
+  d.rho_fixed = frow[0];
+  d.omega = frow[1];
+  d.valid = static_cast<const uint8_t*>(valid);
+  d.phi_star = static_cast<const float*>(phi);
+  return d.valid != nullptr && (d.u_extrap || d.phi_star != nullptr);
+}
+
+// The instance key of a (collision, closure?, force, moving) branch and
+// whether the kernels have that instance.
+constexpr int kNumKeys = 3 * 2 * 3 * 2;
+constexpr int instance_key(int coll, int closure, int force, int moving) {
+  return ((coll * 2 + closure) * 3 + force) * 2 + moving;
+}
+template <int K>
+struct Inst {
+  static constexpr int kColl = K / 12;
+  static constexpr bool kClosure = (K / 6) % 2 == 1;
+  static constexpr int kForce = (K / 2) % 3;
+  static constexpr bool kMovingWall = K % 2 == 1;
+  static constexpr bool kValid =
+      !(kClosure && kColl == kMRT) &&
+      !(kForce != kNoForce && (kColl == kMRT || kClosure));
+};
+
+// Fill a Collision from its descriptor rows and the scalar state of a
+// field force; returns the instance key, or -1 on a malformed row or a
+// branch without an instance.
+int parse_collision(const int* ci, const float* cf, const float* gfield,
+                    Collision& c) {
+  const int coll = ci[CI_coll], clo = ci[CI_closure];
+  const int force = ci[CI_force], moving = ci[CI_moving];
+  if (coll < 0 || coll > 2 || clo < 0 || clo > 4 || force < 0 ||
+      force > 2 || (moving & ~1) || ci[CI_iters] < 0 ||
+      ci[CI_iters] > 1000 || ((force == kFieldForce) != (gfield != nullptr))) {
+    return -1;
+  }
+  c.cm = cf[CF_cm];
+  for (int a = 0; a < 3; ++a) c.buoy[a] = cf[CF_buoy + a];
+  c.c_ref = cf[CF_c_ref];
+  c.gfield = gfield;
+  c.tau = cf[CF_tau];
+  c.two_tau = cf[CF_two_tau];
+  c.two_tau_m = cf[CF_two_tau_m];
+  c.cp = cf[CF_cp];
+  for (int a = 0; a < 3; ++a) {
+    c.half_force[a] = cf[CF_half_force + a];
+    c.force[a] = cf[CF_force + a];
+  }
+  for (int i = 0; i < Q; ++i) {
+    c.e_f[i] = cf[CF_e_f + i];
+    c.cm_odd[i] = cf[CF_cm_odd + i];
+    c.bb[i] = cf[CF_bb + i];
+  }
+  for (int i = 0; i < Q; ++i) {
+    for (int j = 0; j < Q; ++j) c.mrt_k[i][j] = cf[CF_mrt_k + i * Q + j];
+  }
+  c.t0 = cf[CF_t0];
+  c.lam = cf[CF_lam];
+  c.lo = cf[CF_lo];
+  c.hi = cf[CF_hi];
+  for (int k = 0; k < kClosureConsts; ++k) c.c[k] = cf[CF_c + k];
+  c.closure = clo;
+  c.iters = ci[CI_iters];
+  c.square = ci[CI_square];
+  return instance_key(coll, clo != kNone, force, moving);
+}
+
+}  // namespace

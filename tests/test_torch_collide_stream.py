@@ -130,7 +130,7 @@ def _cu_array(src, fn):
 
 
 def test_cuda_source_tables_match_the_lattice():
-    src = _build.SOURCE.read_text()
+    src = _build.HEADER.read_text()
     for a, fn in enumerate(("EX", "EY", "EZ")):
         assert _cu_array(src, fn) == D3Q19.E[:, a].tolist()
     assert _cu_array(src, "OPP") == D3Q19.OPP.tolist()

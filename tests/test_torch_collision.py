@@ -314,7 +314,7 @@ def test_kernel_instances_and_collision_rows():
     """The instance each case runs and the descriptor rows the kernels
     read: offsets equal to the CUDA source's enums, constants the dense
     step's."""
-    src = _build.SOURCE.read_text()
+    src = _build.HEADER.read_text()
     for prefix, table in (("CI", K.CINT), ("CF", K.CFLOAT)):
         enum = {m.group(1): int(m.group(2))
                 for m in re.finditer(prefix + r"_(\w+) = (\d+)", src)}

@@ -234,7 +234,7 @@ def test_scalar_descriptor_offsets_equal_the_source_enums():
     assert (consts["kBCInts"], consts["kBCFloats"], consts["kMaxBCs"]) == (
         S.BC_INTS, S.BC_FLOATS, S.MAX_BCS)
     assert consts["kBlock"] == 256
-    src = _build.SOURCE.read_text()
+    src = _build.HEADER.read_text()
     enum = {m.group(1): int(m.group(2))
             for m in re.finditer(r"CF_(\w+) = (\d+)", src)}
     assert enum == K.CFLOAT
@@ -407,3 +407,130 @@ def test_thermal_kernel_route_refusals_on_the_card(device):
         with pytest.raises(NotImplementedError, match="backend='dense'"):
             BuoyantTransport(dataclasses.replace(spec, **opts), **tkw,
                              device=device)
+
+
+# the fused pair's instances: (case, options, bit-equal to two single
+# steps and the plain version?)
+PAIRS = {
+    "bgk": ("lid_driven_cavity", dict(n=32), True),
+    "trt": ("lid_driven_cavity", dict(n=32, collision="trt"), True),
+    "mrt": ("lid_driven_cavity", dict(n=32, collision="mrt"), True),
+    "moving": ("lid_driven_cavity", dict(n=32, lid="bounceback"), True),
+    "trt+moving": ("lid_driven_cavity", dict(n=32, lid="bounceback",
+                                             collision="trt"), True),
+    "mrt+moving": ("lid_driven_cavity", dict(n=32, lid="bounceback",
+                                             collision="mrt"), True),
+    "smag": ("lid_driven_cavity", dict(n=32, smagorinsky_cs=0.15), False),
+    "trt+cy": ("lid_driven_cavity", dict(n=32, collision="trt",
+                                         rheology=CARREAU), False),
+    "bgk+force": ("gravity_channel", dict(n=32, nz=32, fz=1e-4), True),
+    "trt+force": ("gravity_channel", dict(n=32, nz=32, fz=1e-4,
+                                          collision="trt"), True),
+    "casson": ("poiseuille", dict(n=24, rheology={
+        "model": "casson", "nu_c": 0.02, "tau_y": 1e-5}), False),
+}
+
+
+def _pair_run(cc, steps, device):
+    """`steps` steps three ways from the same state: step2 launches, K1
+    launches, the plain pair. Returns (f, velsums) of each."""
+    f0 = initial_f(cc)
+    runs = []
+    for how in ("pair", "single", "plain"):
+        f, buf = f0.clone(), f0.clone()
+        vs = torch.zeros(steps, dtype=torch.float64, device=device)
+        for t in range(0, steps, 2):
+            if how == "pair":
+                K.step2(f, buf, cc, vs, t, t)
+                f, buf = buf, f
+            elif how == "single":
+                for k in (t, t + 1):
+                    K.collide_stream(f, buf, cc, vs, k, k)
+                    f, buf = buf, f
+            else:
+                f, vs[t], vs[t + 1] = K.collide_stream2_plain(f, cc, t)
+        runs.append((f, vs))
+    torch.cuda.synchronize()
+    return runs
+
+
+@pytest.mark.parametrize("branch", sorted(PAIRS))
+def test_pair_kernel_matches_two_single_steps_and_plain(device, branch):
+    """K2 (lbm_collide_stream2) against two K1 launches and the plain
+    pair, 40 steps (20 launches): f bit for bit where K1 is (the closures
+    at rtol 3e-6 / atol 1e-7 against the plain version), velsums at 1e-5
+    relative."""
+    name, kw, exact = PAIRS[branch]
+    cc = compile_case(get_case(name, **kw), device)
+    K.reset_launches()
+    (fp, vp), (fs, vs), (fq, vq) = _pair_run(cc, 40, device)
+    inst = K.instance(cc)
+    assert K.launches == {f"lbm_collide_stream2[{inst}]": 20,
+                          f"lbm_collide_stream[{inst}]": 40}
+    assert torch.equal(fp, fs)
+    if exact:
+        assert torch.equal(fp, fq)
+    else:
+        torch.testing.assert_close(fp, fq, rtol=3e-6, atol=1e-7)
+    torch.testing.assert_close(vp, vs, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(vp, vq, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("gravity_channel", dict(n=20, nz=3, collision="trt")),   # z of 3 cells
+    ("pipe", dict(n=36, curved=False)),                       # 36 = 4.5 tiles
+    ("curved_vessel", dict(n=24, nphase=4, period_steps=4)),  # phase a step
+])
+def test_pair_kernel_on_boxes_the_tile_does_not_fit(device, name, kw):
+    """Ceil-div tiles, an axis shorter than the tile, a series inlet
+    whose phase changes between the two steps of a pair: 24 steps, bit
+    for bit against two K1 launches and the plain pair."""
+    cc = compile_case(get_case(name, **kw), device)
+    (fp, vp), (fs, vs), (fq, vq) = _pair_run(cc, 24, device)
+    assert torch.equal(fp, fs) and torch.equal(fp, fq)
+    torch.testing.assert_close(vp, vq, rtol=1e-5, atol=0.0)
+
+
+def test_pair_live_tile_launch_equals_the_full_launch(device):
+    cc = compile_case(get_case("curved_vessel", n=64, nphase=4,
+                               period_steps=8), device)
+    assert cc.live_tiles is not None
+    f = initial_f(cc)
+    f, _, _ = K.collide_stream2_plain(f, cc, 0)
+    s = torch.zeros(4, dtype=torch.float64, device=device)
+    live = K.step2(f, f.clone(), cc, s, 0, 2)
+    full = K.step2(f, f.clone(), cc, s, 2, 2, all_tiles=True)
+    torch.cuda.synchronize()
+    assert torch.equal(live, full)
+    assert s[:2].tolist() == pytest.approx(s[2:].tolist(), rel=1e-12)
+
+
+def test_extract_rows_kernel_matches_narrow(device):
+    f = torch.randn(19, 13, 12, 10, device=device)
+    g = torch.randn(19, 9, 7, 5, device=device)   # rows not 16-byte aligned
+    K.reset_launches()
+    for x, x0, wx in ((f, 0, 13), (f, 5, 3), (g, 2, 4), (g, 8, 1)):
+        out = K.extract_rows(x, x0, wx)
+        assert torch.equal(out, x.narrow(1, x0, wx).contiguous())
+    assert K.launches == {"lbm_extract_rows": 4}
+    sim = Simulation(get_case("lid_driven_cavity", n=24), device=device,
+                     lowmem=True)
+    sim.run(max_steps=4, time_save=4, verbose=False)
+    host = sim.f_standard()
+    assert host.device.type == "cpu" and torch.equal(host, sim.f.cpu())
+
+
+def test_runner_odd_tail_runs_one_single_step(device):
+    """fuse=2 with an odd chunk: n // 2 pairs and one K1 step a chunk;
+    f bit for bit and velsums at 1e-5 against fuse=1."""
+    spec = get_case("lid_driven_cavity", n=32)
+    a = Simulation(spec, device=device, fuse=2)
+    b = Simulation(spec, device=device)
+    K.reset_launches()
+    ra = a.run(max_steps=14, time_save=7, verbose=False)
+    assert K.launches == {"lbm_collide_stream2[bgk]": 6,
+                          "lbm_collide_stream[bgk]": 2}
+    rb = b.run(max_steps=14, time_save=7, verbose=False)
+    assert torch.equal(a.f, b.f)
+    assert abs(ra.velsum_series - rb.velsum_series).max() <= \
+        1e-5 * abs(rb.velsum_series).min()
