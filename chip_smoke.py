@@ -113,6 +113,42 @@ lbm_collide_stream2, K4: lbm_extract_rows):
   8b. (inside phase 8) `run --fuse 2` on the 64^3 cavity and `run
      --lowmem --checkpoint-every 1` on the default coronary, each writing
      VTK and CONVERGENCE.log (and the checkpoint).
+bf16 storage of the flow state (the bf16 instances of K1, the z-plane
+fixup, K2, K3 and K4, built from collide_stream_bf16.cu and
+collide_stream2_bf16.cu):
+  2c. (inside phase 2) ptxas registers and spills of every bf16 instance
+     (14 collide-stream, 14 fixup, 14 K2, K3 with and without the force
+     shift, K4), the build seconds of the five sources side by side, and
+     the BGK instance's registers in both storage types;
+  3d. (inside phase 3) every bf16 instance against its plain version on
+     bf16 state for 200 steps, f bit for bit (the closures, whose fp32
+     transcendentals differ in the last bit, within 2e-2 of max |f|,
+     lbm_tpu's bf16 tolerance; the values that differ are printed),
+     velsums at 1e-5 relative, K1a, each fixup and K3 alone bit for bit:
+     lid 64^3 BGK, TRT, MRT, Smagorinsky and the moving lid, poiseuille
+     32^3 Carreau, gravity_channel 32^3 TRT+force, pipe n=36 and the
+     pulsatile coronary (64, 48, 96) r=4 with the bf16 z fixup; lid 256^3
+     and the full coronary for 2 steps; K2 bf16 against its plain pair
+     (one narrowing a pair) bit for bit on lid 64^3, curved_vessel 64^3
+     over its live tiles and lid 256^3, against two bf16 K1 launches
+     printed, not gated; then K1a [bgk+bf16], K3 [bf16] and K2
+     [bgk+bf16] at lid 256^3, K1a, the fixup and K3 on the full
+     coronary, and K1a [trt+cy+bf16] over its live list, in turns with
+     their plain versions, with bounds (76 B a fluid cell);
+ 15. the bf16 paths at full width, counters reset just before and read
+     just after each: lid 256^3 bf16, 1000 steps at time_save=250 (K1a
+     [bgk+bf16] 1000), ms/step beside phase 4's fp32 run, MLUPS against
+     the bf16 ceiling (76 B a cell at 3.35 TB/s), macro() u against phase
+     4's at relative L2; lid 256^3 fuse=2 bf16, 1000 steps (K2
+     [bgk+bf16] 500, K1 none); the full pulsatile coronary in bf16, 2000
+     steps (K1a [bgk+bf16] 2000, its z fixup 6000, K3 [bf16] at least 4),
+     finite fields, max|u| within 3x the inlet speed; lid 512^3 bf16
+     under lowmem, 20 steps, f_standard() through K4 [bf16] chunk by
+     chunk against f.narrow().cpu(), device memory up by at most one
+     chunk, its seconds beside phase 14's fp32 read;
+  8c. (inside phase 8) `run --dtype bf16` on the 64^3 cavity and `run
+     --dtype bf16 --lowmem --checkpoint-every 1` on the default coronary,
+     each writing VTK and CONVERGENCE.log (the checkpoint float32).
 Before the last line it prints one JSON object describing each kernel;
 the last line is {"ok": true, "device": {...}}.
 """
@@ -131,7 +167,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 K1A_SOURCE = "lbm_tpu_torch/kernels/csrc/collide_stream.cu"
 K7_SOURCE = "lbm_tpu_torch/kernels/csrc/scalar_stream.cu"
 K2_SOURCE = "lbm_tpu_torch/kernels/csrc/collide_stream2.cu"
+K1A_BF16_SOURCE = "lbm_tpu_torch/kernels/csrc/collide_stream_bf16.cu"
+K2_BF16_SOURCE = "lbm_tpu_torch/kernels/csrc/collide_stream2_bf16.cu"
 HBM_BYTES_PER_S = 3.35e12   # published H100 SXM peak at 700 W
+# lbm_tpu's bf16 tolerance (tests/test_pallas_kernel.py): a bf16 state
+# within this share of max |f| of its reference
+BF16_REL = 2e-2
 FULL_CORONARY = dict(shape=[291, 291, 372], radius=12, pulsatile=[40, 2000])
 T_START = time.perf_counter()
 
@@ -178,18 +219,32 @@ def in_turns(label, plain, kernel, iters_p, iters_k, names="plain/kernel"):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def chunk_clock(marks: list):
+    """An on_save callback for Simulation.run that appends the host clock
+    at each chunk's end to `marks` (see chunk_ms)."""
+    return lambda sim, t, residual: marks.append(time.perf_counter())
+
+
+def chunk_ms(t0: float, marks: list, steps: int) -> str:
+    """ms/step of each chunk of `steps` steps, from the run's start t0 and
+    chunk_clock's marks."""
+    return " ".join(f"{(b - a) / steps * 1e3:.4f}"
+                    for a, b in zip([t0] + marks, marks))
+
+
 def bound_ms(n_bytes: float) -> float:
     return n_bytes / HBM_BYTES_PER_S * 1e3
 
 
-def step_bytes(cc, sel, bcs) -> int:
+def step_bytes(cc, sel, bcs, pop: int = 4) -> int:
     """The least bytes that stepping the fluid cells `sel` ((X, Y, Z)
     bool) with the NEE boundaries `bcs` must move: each population they
     pull (a neighbor's, or their own opposite off a wall) and each own
     pre-step population an NEE rewrite reads, once; their 19 populations
     written once; their mask bytes; the valid bytes and phi* floats of
-    their NEE directions. Non-fluid cells keep their state in both
-    buffers, so they cost nothing."""
+    their NEE directions. pop: bytes a population (4 fp32, 2 bf16).
+    Non-fluid cells keep their state in both buffers, so they cost
+    nothing."""
     import torch
 
     from lbm_tpu_torch.core.lattice import D3Q19
@@ -211,7 +266,7 @@ def step_bytes(cc, sel, bcs) -> int:
         pulled = ((torch.roll(sel, back, (0, 1, 2)) & ~wall)
                   | (sel & torch.roll(wall, back, (0, 1, 2))))
         reads += int((pulled | nee).sum())
-    return reads * 4 + int(sel.sum()) * (19 * 4 + 1) + tables
+    return reads * pop + int(sel.sum()) * (19 * pop + 1) + tables
 
 
 def rel_l2(a, b) -> float:
@@ -374,10 +429,17 @@ def branch_cases(blood):
     ]
 
 
-def time_k1a(spec, device, iters_k, iters_p, label):
-    """One collide-stream launch (the case's instance) against its plain
-    version, by CUDA events in turns: {"ms", "plain_ms", "bound_ms",
-    "instance"}."""
+def pop_bytes(dtype) -> int:
+    """Bytes a population in the storage dtype (None: float32)."""
+    import torch
+
+    return 2 if dtype == torch.bfloat16 else 4
+
+
+def time_k1a(spec, device, iters_k, iters_p, label, dtype=None):
+    """One collide-stream launch (the case's instance, on a state of
+    `dtype`, float32 when None) against its plain version, by CUDA events
+    in turns: {"ms", "plain_ms", "bound_ms", "instance"}."""
     import torch
 
     from lbm_tpu_torch.engine.compile import compile_case
@@ -385,9 +447,10 @@ def time_k1a(spec, device, iters_k, iters_p, label):
     from lbm_tpu_torch.kernels import collide_stream as K
 
     cc = compile_case(spec, device)
-    state = [initial_f(cc), initial_f(cc)]
+    dtype = dtype or torch.float32
+    state = [initial_f(cc).to(dtype), initial_f(cc).to(dtype)]
     series = torch.zeros(1, dtype=torch.float64, device=device)
-    plain_f = [initial_f(cc)]
+    plain_f = [state[0].clone()]
 
     def k1a():
         K.collide_stream(state[0], state[1], cc, series, 0, 0)
@@ -396,10 +459,12 @@ def time_k1a(spec, device, iters_k, iters_p, label):
     def k1a_plain():
         plain_f[0] = K.collide_stream_plain(plain_f[0], cc, 0)[0]
 
-    ms, plain_ms = in_turns(f"collide-stream [{K.instance(cc)}] {label}",
+    inst = K.instance(cc) + ("+bf16" if dtype == torch.bfloat16 else "")
+    ms, plain_ms = in_turns(f"collide-stream [{inst}] {label}",
                             k1a_plain, k1a, iters_p, iters_k)
-    out = {"ms": ms, "plain_ms": plain_ms, "instance": K.instance(cc),
-           "bound_ms": bound_ms(step_bytes(cc, cc.fluid, cc.kernel_bcs))}
+    out = {"ms": ms, "plain_ms": plain_ms, "instance": inst,
+           "bound_ms": bound_ms(step_bytes(cc, cc.fluid, cc.kernel_bcs,
+                                           pop_bytes(dtype)))}
     print(f"[3] bound of [{out['instance']}] {label}: "
           f"{out['bound_ms']:.4f} ms", flush=True)
     del state, plain_f
@@ -407,10 +472,12 @@ def time_k1a(spec, device, iters_k, iters_p, label):
     return out
 
 
-def time_lid(n, device, iters_k, iters_p, with_list=False):
-    """{K1a, its plain version, K3, its plain version, K1a's bound} in ms
-    per call at lid n^3; with_list adds K1a over the live-block list
-    against K1a over every block ("list", "full")."""
+def time_lid(n, device, iters_k, iters_p, with_list=False, dtype=None):
+    """{K1a, its plain version, K3, its plain version, K3's library call
+    (on the widened state for bf16), K1a's and K3's bounds} in ms per
+    call at lid n^3 on a state of `dtype` (float32 when None); with_list
+    adds K1a over the live-block list against K1a over every block
+    ("list", "full")."""
     import dataclasses
 
     import torch
@@ -421,9 +488,10 @@ def time_lid(n, device, iters_k, iters_p, with_list=False):
     from lbm_tpu_torch.kernels import collide_stream as K
 
     cc = compile_case(get_case("lid_driven_cavity", n=n), device)
-    state = [initial_f(cc), initial_f(cc)]
+    dtype = dtype or torch.float32
+    state = [initial_f(cc).to(dtype), initial_f(cc).to(dtype)]
     series = torch.zeros(1, dtype=torch.float64, device=device)
-    plain_f = [initial_f(cc)]
+    plain_f = [state[0].clone()]
 
     def k1a():
         K.collide_stream(state[0], state[1], cc, series, 0, 0)
@@ -439,8 +507,10 @@ def time_lid(n, device, iters_k, iters_p, with_list=False):
     out["k3"], out["k3_plain"] = in_turns(
         f"K3 lid {n}^3", lambda: K.macro_plain(f), lambda: K.macro(f),
         iters_p, iters_k)
-    out["k3_library"] = time_ms(moments_matmul(f), iters_k)
-    out["k1a_bound"] = bound_ms(step_bytes(cc, cc.fluid, cc.kernel_bcs))
+    out["k3_library"] = time_ms(moments_matmul(f.float()), iters_k)
+    pop = pop_bytes(dtype)
+    out["k1a_bound"] = bound_ms(step_bytes(cc, cc.fluid, cc.kernel_bcs, pop))
+    out["k3_bound"] = bound_ms(n**3 * (19 * pop + 4 * 4))
     if with_list:
         ids = live_block_ids(cc.spec.mask)
         listed = dataclasses.replace(
@@ -474,10 +544,11 @@ def moments_matmul(f):
     return lambda: torch.matmul(m, flat)
 
 
-def time_vessel(spec, device):
-    """Times and bounds at the full-size coronary: K1a over the live
-    blocks and over every block, lbm_fix_z_plane per launch, K3 and the
-    one-matmul moments that K3's library_ms names."""
+def time_vessel(spec, device, dtype=None):
+    """Times and bounds at the full-size coronary on a state of `dtype`
+    (float32 when None): K1a over the live blocks and over every block,
+    lbm_fix_z_plane per launch, K3 and the one-matmul moments that K3's
+    library_ms names (on the widened state for bf16)."""
     import torch
 
     from lbm_tpu_torch.engine.compile import compile_case
@@ -486,7 +557,10 @@ def time_vessel(spec, device):
 
     cc = compile_case(spec, device)
     n_cells = cc.mask.numel()
-    f0 = initial_f(cc)
+    dtype = dtype or torch.float32
+    pop = pop_bytes(dtype)
+    tag = " bf16" if dtype == torch.bfloat16 else ""
+    f0 = initial_f(cc).to(dtype)
     state = [f0, f0.clone()]
     series = torch.zeros(1, dtype=torch.float64, device=device)
     out = {}
@@ -502,12 +576,14 @@ def time_vessel(spec, device):
         K.collide_stream_plain(state[0], cc, 0)
 
     out["k1a_live"], out["k1a_plain"] = in_turns(
-        "K1a coronary full, live blocks", k1a_plain, k1a(False), 5, 1000)
+        f"K1a{tag} coronary full, live blocks", k1a_plain, k1a(False), 5,
+        1000)
     out["k1a_all"], _ = in_turns(
-        "K1a coronary full, every block", k1a_plain, k1a(True), 1, 300)
+        f"K1a{tag} coronary full, every block", k1a_plain, k1a(True), 1,
+        300)
     n_live = cc.live_blocks.numel()
     # the same work whatever the launch covers: the fluid cells' step
-    out["k1a_bound"] = bound_ms(step_bytes(cc, cc.fluid, cc.kernel_bcs))
+    out["k1a_bound"] = bound_ms(step_bytes(cc, cc.fluid, cc.kernel_bcs, pop))
     out["live_share"] = n_live / -(-n_cells // 256)
 
     fz = [state[0], state[1].clone()]
@@ -515,7 +591,7 @@ def time_vessel(spec, device):
     for bc in cc.z_bcs:
         x0, x1, y0, y1 = bc.window
         k_ms, p_ms = in_turns(
-            f"lbm_fix_z_plane z={bc.consumer_coord} window "
+            f"lbm_fix_z_plane{tag} z={bc.consumer_coord} window "
             f"{x1 - x0}x{y1 - y0}",
             lambda bc=bc: K.fix_z_plane_plain(fz[0], fz[1], cc, bc, 0),
             lambda bc=bc: K.fix_z_plane(fz[0], fz[1], cc, bc, series, 0, 0),
@@ -524,17 +600,17 @@ def time_vessel(spec, device):
         sel[x0:x1, y0:y1, bc.consumer_coord] = \
             cc.fluid[x0:x1, y0:y1, bc.consumer_coord]
         kz.append(k_ms), pz.append(p_ms)
-        bz.append(bound_ms(step_bytes(cc, sel, [bc])))
+        bz.append(bound_ms(step_bytes(cc, sel, [bc], pop)))
     out["fix"], out["fix_plain"] = sum(kz) / len(kz), sum(pz) / len(pz)
     out["fix_bound"] = sum(bz) / len(bz)
 
     f = state[0]
     out["k3"], out["k3_plain"] = in_turns(
-        "K3 coronary full", lambda: K.macro_plain(f), lambda: K.macro(f),
-        5, 200)
-    out["k3_library"] = time_ms(moments_matmul(f), 200)
-    out["k3_bound"] = bound_ms(n_cells * (19 * 4 + 4 * 4))
-    print(f"[3] coronary full bounds at 3.35 TB/s (ms): K1a "
+        f"K3{tag} coronary full", lambda: K.macro_plain(f),
+        lambda: K.macro(f), 5, 200)
+    out["k3_library"] = time_ms(moments_matmul(f.float()), 200)
+    out["k3_bound"] = bound_ms(n_cells * (19 * pop + 4 * 4))
+    print(f"[3] coronary full{tag} bounds at 3.35 TB/s (ms): K1a "
           f"{out['k1a_bound']:.6f} ({int(cc.fluid.sum())} fluid cells); "
           f"lbm_fix_z_plane {out['fix_bound']:.6f} per launch; K3 "
           f"{out['k3_bound']:.4f}; torch.matmul moments "
@@ -566,15 +642,24 @@ def free_device():
     torch.cuda.empty_cache()
 
 
-def ptxas_report(log: str, smem: dict | None = None) -> dict:
+def ptxas_report(log: str, smem: dict | None = None, tag: str = "") -> dict:
     """{"collide_stream_kernel[trt+force]": (registers, spill store bytes,
     spill load bytes), ...} from nvcc's -Xptxas -v output; instance names
     as kernels.collide_stream.instance names them ("closure" standing
-    for every closure kind, one instance). smem: filled with each
+    for every closure kind, one instance), with `tag` ("bf16" for the
+    bf16 libraries) added inside the brackets. smem: filled with each
     kernel's static shared memory bytes."""
     import re
 
     def name_of(mangled):
+        name = plain_name(mangled)
+        if not tag or name is None:
+            return name
+        if name.endswith("]"):
+            return f"{name[:-1]}+{tag}]" if tag not in name else name
+        return f"{name}[{tag}]"
+
+    def plain_name(mangled):
         m = re.search(r"(collide_stream_kernel|fix_z_plane_kernel|"
                       r"collide_stream2_kernel)"
                       r"ILi(\d)ELb(\d)ELi(\d)ELb(\d)E", mangled)
@@ -596,9 +681,12 @@ def ptxas_report(log: str, smem: dict | None = None) -> dict:
             return f"{m.group(1)}[{'+'.join(parts)}]"
         if "scalar_record_kernel" in mangled:
             return "scalar_record_kernel"
-        m = re.search(r"extract_rows_kernelI(6float4|f)E", mangled)
+        m = re.search(r"extract_rows_kernelI(6float4|f|13__nv_bfloat16)E",
+                      mangled)
         if m:
-            return f"extract_rows_kernel[{m.group(1).lstrip('6')}]"
+            elem = {"6float4": "float4", "f": "f",
+                    "13__nv_bfloat16": "bf16"}[m.group(1)]
+            return f"extract_rows_kernel[{elem}]"
         m = re.search(r"(macro_kernel)ILb(\d)E", mangled)
         if m:
             return f"macro_kernel[{'force' if m.group(2) == '1' else 'plain'}]"
@@ -626,13 +714,15 @@ def ptxas_report(log: str, smem: dict | None = None) -> dict:
     return {k: (v,) + spills.get(k, (0, 0)) for k, v in out.items()}
 
 
-def vessel_path(spec, device, tag, inst, live_share, closure=False):
-    """A 2000-step run of a full-size coronary through Simulation.run,
-    counters reset just before and read just after: the collide-stream
-    instance `inst` 2000 times, its z-plane fixup 6000, K3 at least 4;
-    finite fields, max|u| within 3x the inlet speed, and with a closure
-    tau_eff inside its clip. Prints the metrics and a 200-step profile;
-    returns (launch counts, fixup device ms per launch or [])."""
+def vessel_path(spec, device, tag, inst, live_share, closure=False,
+                store_dtype=None):
+    """A 2000-step run of a full-size coronary through Simulation.run
+    (store_dtype as Simulation takes it), counters reset just before and
+    read just after: the collide-stream instance `inst` 2000 times, its
+    z-plane fixup 6000, K3 at least 4; finite fields, max|u| within 3x
+    the inlet speed, and with a closure tau_eff inside its clip. Prints
+    the metrics and a 200-step profile; returns (launch counts, fixup
+    device ms per launch or [])."""
     import numpy as np
     import torch
 
@@ -641,8 +731,9 @@ def vessel_path(spec, device, tag, inst, live_share, closure=False):
     from lbm_tpu_torch.kernels import collide_stream as K
 
     t0 = time.perf_counter()
-    sim = Simulation(spec, device=device)
+    sim = Simulation(spec, device=device, store_dtype=store_dtype)
     t_setup = time.perf_counter() - t0
+    k3 = "lbm_macro[bf16]" if store_dtype == "bf16" else "lbm_macro"
     torch.cuda.reset_peak_memory_stats(device)
     K.reset_launches()
     res = sim.run(max_steps=2000, time_save=500, verbose=False)
@@ -656,8 +747,8 @@ def vessel_path(spec, device, tag, inst, live_share, closure=False):
     require(counts.get(f"lbm_fix_z_plane[{inst}]") == 6000,
             f"{tag}: lbm_fix_z_plane [{inst}] launches {counts} (3 z-plane "
             "outlets x 2000 steps)")
-    require(counts.get("lbm_macro", 0) >= 4,
-            f"{tag}: the usq residual did not launch K3")
+    require(counts.get(k3, 0) >= 4,
+            f"{tag}: the usq residual did not launch K3 ({k3})")
     require(res.steps == 2000, f"{tag}: run took {res.steps} steps")
     require(bool(torch.isfinite(rho).all() and torch.isfinite(u).all()),
             f"{tag}: non-finite fields")
@@ -1640,6 +1731,379 @@ def fuse2_path(device, lid1):
                          "busy": busy}
 
 
+def bf16_cases():
+    """Phase 3d's bf16 comparisons (label, case, options, bit-equal to the
+    plain version?): the bf16 collide-stream branches and the bf16
+    z-plane fixup on the pulsatile small coronary. The closures
+    (Smagorinsky, Carreau) compute transcendentals that round differently
+    on the card in fp32, so a narrowing may differ by a bf16 ulp: they are
+    held at BF16_REL of max |f|."""
+    carreau = {"model": "carreau", "nu0": 0.1, "nu_inf": 0.01,
+               "lam": 100.0, "n": 0.4}
+    return [
+        ("lid 64^3 bgk", "lid_driven_cavity", dict(n=64), True),
+        ("lid 64^3 trt", "lid_driven_cavity", dict(n=64, collision="trt"),
+         True),
+        ("lid 64^3 mrt", "lid_driven_cavity", dict(n=64, collision="mrt"),
+         True),
+        ("lid 64^3 smag 0.15", "lid_driven_cavity",
+         dict(n=64, smagorinsky_cs=0.15), False),
+        ("lid 64^3 moving lid", "lid_driven_cavity",
+         dict(n=64, lid="bounceback"), True),
+        ("poiseuille 32^3 carreau a=2", "poiseuille",
+         dict(n=32, rheology=carreau), False),
+        ("gravity_channel 32^3 trt+force", "gravity_channel",
+         dict(n=32, nz=32, collision="trt"), True),
+        ("pipe n=36 staircase bgk+force", "pipe", dict(n=36, curved=False),
+         True),
+        ("coronary (64,48,96) r=4 pulsatile, bf16 z fixup", "coronary",
+         dict(shape=[64, 48, 96], radius=4, pulsatile=[4, 40]), True),
+    ]
+
+
+def compare_bf16(label, spec, steps, device, exact):
+    """A bf16 instance against its plain version on bf16 state: the whole
+    step (K1a, then the bf16 z-plane fixups) for `steps` steps, then K1a
+    alone, each fixup alone and K3 (with the case's force shift) on the
+    result. exact: f bit for bit; else within BF16_REL of max |f|. K3
+    bit for bit; velsums at 1e-5 relative. Returns {"f", "k1a", "z",
+    "k3", "n_diff", "instance"} (max abs errors; values of f that differ
+    after `steps` steps)."""
+    import torch
+
+    from lbm_tpu_torch.engine.compile import compile_case
+    from lbm_tpu_torch.engine.step import initial_f
+    from lbm_tpu_torch.kernels import collide_stream as K
+
+    cc = compile_case(spec, device)
+    inst = K.instance(cc) + "+bf16"
+    f0 = initial_f(cc).to(torch.bfloat16)
+    fk, buf, fp = f0.clone(), f0.clone(), f0
+    vs_k = torch.zeros(steps, dtype=torch.float64, device=device)
+    vs_p = torch.zeros(steps, dtype=torch.float64, device=device)
+    for t in range(steps):
+        K.step(fk, buf, cc, vs_k, t, t)
+        fk, buf = buf, fk
+        fp, vs_p[t] = K.step_plain(fp, cc, t)
+    torch.cuda.synchronize()
+    require(fk.dtype == fp.dtype == torch.bfloat16, f"{label}: not bf16")
+
+    def err(a, b, what):
+        e = float((a.float() - b.float()).abs().max())
+        lim = 0.0 if exact else BF16_REL * float(b.float().abs().max())
+        require(e <= lim and bool(torch.isfinite(a).all()),
+                f"bf16 {what} {label}: max abs err {e:.3e} > {lim:.3e}")
+        return e
+
+    e_f = err(fk, fp, f"step f after {steps} steps")
+    n_diff = int((fk != fp).sum())
+    vs_rel = float(((vs_k - vs_p).abs() / vs_p.abs()).max())
+    require(vs_rel <= 1e-5, f"bf16 step velsum {label}: rel {vs_rel:.3e}")
+    t = steps
+    s = torch.zeros(1, dtype=torch.float64, device=device)
+    out_p, v_p = K.collide_stream_plain(fk, cc, t)
+    e_k1 = err(K.collide_stream(fk, buf, cc, s, 0, t), out_p, "K1a alone")
+    require(abs(float(s[0] - v_p)) <= 1e-5 * abs(float(v_p)),
+            f"bf16 K1a velsum {label}")
+    e_z = 0.0
+    for bc in cc.z_bcs:
+        zk, zp = out_p.clone(), out_p.clone()
+        s.zero_()
+        K.fix_z_plane(fk, zk, cc, bc, s, 0, t)
+        d_p = K.fix_z_plane_plain(fk, zp, cc, bc, t)
+        e_z = max(e_z, err(zk, zp, f"fixup z={bc.consumer_coord}"))
+        require(abs(float(s[0] - d_p)) <= 1e-5 * max(abs(float(d_p)), 1e-30)
+                + 1e-12, f"bf16 fixup velsum {label}")
+    if cc.live_blocks is not None:
+        all_k = K.collide_stream(fk, torch.empty_like(fk).copy_(fk), cc, s,
+                                 0, t, all_blocks=True)
+        require(torch.equal(all_k, buf),
+                f"bf16 live-block launch differs from the full one, {label}")
+    rho_k, u_k = K.macro(fk, cc.force)
+    rho_p, u_p = K.macro_plain(fk, cc.force)
+    e_m = max(float((rho_k - rho_p).abs().max()),
+              float((u_k - u_p).abs().max()))
+    require(e_m == 0.0, f"bf16 K3 {label}: max abs err {e_m:.3e}")
+    print(f"[3d] bf16 [{inst}] {label}: step f max abs err {e_f:.3e} "
+          f"({n_diff} of {fk.numel()} values differ) after {steps} steps, "
+          f"velsum max rel err {vs_rel:.3e}; K1a alone {e_k1:.3e}; "
+          f"lbm_fix_z_plane {e_z:.3e} ({len(cc.z_bcs)} z planes); K3 "
+          f"{e_m:.3e}", flush=True)
+    del fk, buf, fp, out_p
+    free_device()
+    return {"f": e_f, "k1a": e_k1, "z": e_z, "k3": e_m, "n_diff": n_diff,
+            "instance": inst}
+
+
+def compare_pair_bf16(label, spec, launches, device):
+    """K2 on bf16 state against its plain version (widen, two fp32 steps,
+    narrow) bit for bit over `launches` launches, velsums at 1e-5; with a
+    live-tile list, the listed launch against the full one. Against two
+    bf16 K1 launches (which narrow in between) it prints how many values
+    differ and by how much, without a gate. Returns (max abs err against
+    plain, values differing from two K1 launches, their max abs
+    difference)."""
+    import torch
+
+    from lbm_tpu_torch.engine.compile import compile_case
+    from lbm_tpu_torch.engine.step import initial_f
+    from lbm_tpu_torch.kernels import collide_stream as K
+
+    cc = compile_case(spec, device)
+    f0 = initial_f(cc).to(torch.bfloat16)
+    n = 2 * launches
+    out = {}
+    for how in ("pair", "single", "plain"):
+        f, buf = f0.clone(), f0.clone()
+        vs = torch.zeros(n, dtype=torch.float64, device=device)
+        for t in range(0, n, 2):
+            if how == "pair":
+                K.step2(f, buf, cc, vs, t, t)
+                f, buf = buf, f
+            elif how == "single":
+                for k in (t, t + 1):
+                    K.collide_stream(f, buf, cc, vs, k, k)
+                    f, buf = buf, f
+            else:
+                f, vs[t], vs[t + 1] = K.collide_stream2_plain(f, cc, t)
+        out[how] = (f, vs)
+        del buf
+    torch.cuda.synchronize()
+    (fp, vp), (fs, _), (fq, vq) = out["pair"], out["single"], out["plain"]
+    e_plain = float((fp.float() - fq.float()).abs().max())
+    require(e_plain == 0.0 and bool(torch.isfinite(fp).all()),
+            f"bf16 K2 {label}: not bit-equal to its plain version "
+            f"({e_plain:.3e})")
+    v_rel = float(((vp - vq).abs() / vq.abs()).max())
+    require(v_rel <= 1e-5, f"bf16 K2 {label}: velsum rel err {v_rel:.3e}")
+    n_single = int((fp != fs).sum())
+    e_single = float((fp.float() - fs.float()).abs().max())
+    tiles = "every tile"
+    if cc.live_tiles is not None:
+        s = torch.zeros(4, dtype=torch.float64, device=device)
+        live = K.step2(fp, torch.empty_like(fp).copy_(fp), cc, s, 0, n)
+        full = K.step2(fp, torch.empty_like(fp).copy_(fp), cc, s, 2, n,
+                       all_tiles=True)
+        torch.cuda.synchronize()
+        require(torch.equal(live, full) and torch.allclose(
+            s[:2], s[2:], rtol=1e-12, atol=0.0),
+            f"bf16 K2 {label}: the live-tile launch differs from the full "
+            "one")
+        tiles = f"{cc.live_tiles.numel()} live tiles, equal to the full launch"
+    print(f"[3d] bf16 K2 [{K.instance(cc)}+bf16] {label}: {launches} "
+          f"launches ({n} steps) bit-equal to the plain pair (one narrowing "
+          f"a pair), velsum max rel err {v_rel:.3e}; against two bf16 K1 "
+          f"launches a step (a narrowing a step) {n_single} of {fp.numel()} "
+          f"values differ, max abs {e_single:.3e}; {tiles}", flush=True)
+    del out, fp, fs, fq, f0
+    free_device()
+    return e_plain, n_single, e_single
+
+
+def time_pair_bf16(spec, device, iters, label):
+    """One bf16 K2 launch against its plain pair and two bf16 K1 launches
+    (in turns), with the bound of one bf16 step's bytes. {"ms",
+    "two_k1_ms", "plain_ms", "bound_ms", "instance"}."""
+    import torch
+
+    from lbm_tpu_torch.engine.compile import compile_case
+    from lbm_tpu_torch.engine.step import initial_f
+    from lbm_tpu_torch.kernels import collide_stream as K
+
+    cc = compile_case(spec, device)
+    f0 = initial_f(cc).to(torch.bfloat16)
+    state = [f0, f0.clone()]
+    series = torch.zeros(2, dtype=torch.float64, device=device)
+
+    def pair():
+        K.step2(state[0], state[1], cc, series, 0, 0)
+        state.reverse()
+
+    def two_k1():
+        for k in (0, 1):
+            K.collide_stream(state[0], state[1], cc, series, k, k)
+            state.reverse()
+
+    inst = K.instance(cc) + "+bf16"
+    ms, two_ms = in_turns(f"K2 [{inst}] {label}", two_k1, pair, iters,
+                          iters, names="two K1 launches/K2")
+    plain_ms = time_ms(lambda: K.collide_stream2_plain(state[0], cc, 0), 4)
+    out = {"ms": ms, "two_k1_ms": two_ms, "plain_ms": plain_ms,
+           "instance": inst,
+           "bound_ms": bound_ms(step_bytes(cc, cc.fluid, cc.kernel_bcs, 2))}
+    print(f"[3d] K2 [{inst}] {label}: {ms:.4f} ms a launch (two steps) "
+          f"against two bf16 K1 launches {two_ms:.4f} ms, the plain pair "
+          f"{plain_ms:.4f} ms, bound {out['bound_ms']:.4f} ms", flush=True)
+    del state
+    free_device()
+    return out
+
+
+def bf16_lid_path(device, lid1, fuse):
+    """Phase 15a/15c: Simulation(lid_driven_cavity n=256,
+    store_dtype='bf16', fuse=fuse), 1000 steps at time_save=250, counters
+    reset just before and read just after (fuse 1: K1a [bgk+bf16] 1000;
+    fuse 2: K2 [bgk+bf16] 500 and no K1a), macro() (K3 [bf16]); ms/step
+    beside phase 4's fp32 run (lid1), MLUPS against the bf16 ceiling (76
+    B a cell at 3.35 TB/s), macro() u against phase 4's at relative L2.
+    Returns the counts and metrics, the velsum series and u among them."""
+    import torch
+
+    from lbm_tpu_torch.cases import get_case
+    from lbm_tpu_torch.engine.runner import Simulation
+    from lbm_tpu_torch.kernels import collide_stream as K
+
+    tag = "[15] bf16 lid path" if fuse == 1 else "[15] bf16 fuse2 path"
+    spec = get_case("lid_driven_cavity", n=256)
+    held = torch.cuda.memory_allocated(device)
+    sim = Simulation(spec, device=device, fuse=fuse, store_dtype="bf16")
+    require(sim.f.dtype == torch.bfloat16 and sim.cc.live_blocks is None,
+            f"{tag}: state {sim.f.dtype}, block list "
+            f"{sim.cc.live_blocks is not None}")
+    torch.cuda.reset_peak_memory_stats(device)
+    marks = []
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sim.run(max_steps=1000, time_save=250, verbose=False,
+                  on_save=chunk_clock(marks))
+    rho, u = sim.macro()
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    peak = (torch.cuda.max_memory_allocated(device) - held) / 2**30
+    if fuse == 1:
+        require(counts.get("lbm_collide_stream[bgk+bf16]") == 1000,
+                f"{tag}: launches {counts} in 1000 steps")
+    else:
+        require(counts.get("lbm_collide_stream2[bgk+bf16]") == 500
+                and not any(k.startswith("lbm_collide_stream[")
+                            for k in counts),
+                f"{tag}: launches {counts} in 1000 steps")
+    require(counts.get("lbm_macro[bf16]", 0) >= 1,
+            f"{tag}: macro() did not launch K3 [bf16]")
+    require(res.steps == 1000 and bool(torch.isfinite(rho).all()
+                                       and torch.isfinite(u).all()),
+            f"{tag}: {res.steps} steps, finite fields "
+            f"{bool(torch.isfinite(u).all())}")
+    u_lid = 0.15 / 2.4705
+    fluid = sim.cc.fluid
+    u_max = float(u.norm(dim=0)[fluid].max())
+    require(u_max <= 2.0 * u_lid, f"{tag}: max|u| {u_max:.4g}")
+    ms = res.elapsed_s / res.steps * 1e3
+    ceiling = HBM_BYTES_PER_S / 76 / 1e6
+    e_u, e_rho = rel_l2(u, lid1["u"]), rel_l2(rho, lid1["rho"])
+    vs = res.velsum_series
+    v_rel = float(abs(vs - lid1["velsum"]).max() / abs(lid1["velsum"]).min())
+    print(f"{tag} lid 256^3 bf16 fuse={fuse}: 1000 steps in "
+          f"{res.elapsed_s:.3f} s = {ms:.4f} ms/step (host clock, "
+          f"synchronized; chunks of 250: {chunk_ms(t0, marks, 250)}) against "
+          f"phase 4's fp32 {lid1['ms']:.4f} ({lid1['chunks']}); mlups_box "
+          f"{res.mlups_box:.1f} against the bf16 ceiling {ceiling:.1f} (76 B "
+          f"a cell at 3.35 TB/s; fp32 {lid1['mlups_box']:.1f}); macro() "
+          f"against phase 4's fp32 run: rel L2 u {e_u:.3e}, rho {e_rho:.3e}; "
+          f"velsum series max rel diff {v_rel:.3e}; max|u| {u_max:.4g}; "
+          f"peak device memory {peak:.2f} GiB against fp32's "
+          f"{lid1['peak']:.2f}; launches {counts}", flush=True)
+    out = {"counts": counts, "ms": ms, "mlups_box": res.mlups_box,
+           "rel_l2_u": e_u, "peak": peak, "velsum": vs, "u": u}
+    by_name, busy = profile_run(sim, 200)
+    print_profile(tag, by_name, busy, ms)
+    out["busy"] = busy
+    del sim, rho, fluid
+    free_device()
+    return out
+
+
+def lowmem_read(device, store_dtype, tag):
+    """lid_driven_cavity 512^3 (lowmem by its size) in `store_dtype`, 20
+    steps, then f_standard() through K4 (counters reset just before and
+    read just after): every chunk against f.narrow().cpu() (widened) bit
+    for bit, device memory up by at most one chunk; K4 per chunk against
+    its plain version and narrow().contiguous(). Returns the K4 and read
+    numbers."""
+    import torch
+
+    from lbm_tpu_torch.cases import get_case
+    from lbm_tpu_torch.engine.runner import Simulation
+    from lbm_tpu_torch.kernels import collide_stream as K
+
+    t0 = time.perf_counter()
+    spec = get_case("lid_driven_cavity", n=512)
+    sim = Simulation(spec, device=device, store_dtype=store_dtype)
+    t_setup = time.perf_counter() - t0
+    require(sim.lowmem, f"{tag}: 512^3 did not switch lowmem on")
+    res = sim.run(max_steps=20, time_save=20, verbose=False)
+    torch.cuda.synchronize()
+    elem = sim.f.element_size()
+    state_gb = sim.f.numel() * elem / 1e9
+    avail = mem_available_gb()
+    require(avail > 1.5 * sim.f.numel() * 4 / 1e9,
+            f"{tag}: host MemAvailable {avail:.1f} GB cannot hold the "
+            f"{sim.f.numel() * 4 / 1e9:.1f} GB float32 state")
+    free_device()
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    host = sim.f_standard()
+    seconds = time.perf_counter() - t0
+    counts = dict(K.launches)
+    rise = torch.cuda.max_memory_allocated(device) - before
+    rows = K.chunk_rows(spec.shape)
+    n_chunks = -(-spec.shape[0] // rows)
+    chunk_bytes = 19 * rows * spec.shape[1] * spec.shape[2] * elem
+    k4 = "lbm_extract_rows[bf16]" if elem == 2 else "lbm_extract_rows"
+    require(counts == {k4: n_chunks},
+            f"{tag}: launches {counts}, {n_chunks} chunks")
+    require(rise <= K.CHUNK_BYTES,
+            f"{tag}: device memory rose by {rise} B during the read")
+    require(host.device.type == "cpu" and host.dtype == torch.float32
+            and tuple(host.shape) == (19,) + tuple(spec.shape),
+            f"{tag}: host state {host.dtype} {tuple(host.shape)}")
+    for x0 in range(0, spec.shape[0], rows):
+        w = min(rows, spec.shape[0] - x0)
+        require(torch.equal(host[:, x0:x0 + w],
+                            sim.f.narrow(1, x0, w).cpu().float()),
+                f"{tag}: chunk at x0={x0} differs from the state")
+    require(bool(torch.isfinite(host[:, ::64]).all()), f"{tag}: non-finite")
+    del host
+    gc.collect()
+    print(f"{tag} lid 512^3 {sim.f.dtype} (2 x {state_gb:.2f} GB state; "
+          f"set-up {t_setup:.1f} s; 20 steps at "
+          f"{res.elapsed_s / 20 * 1e3:.4f} ms/step): f_standard() in "
+          f"{seconds:.3f} s = {state_gb / seconds:.2f} GB/s of state "
+          f"through {n_chunks} chunks of {rows} x rows ({chunk_bytes / 1e6:.1f}"
+          f" MB); every chunk bit-equal to f.narrow().cpu(); device memory "
+          f"rose by {rise / 1e6:.1f} MB during the read; host MemAvailable "
+          f"{avail:.1f} GB before it; launches {counts}", flush=True)
+
+    f = sim.f
+    out = torch.empty((19, rows) + tuple(spec.shape[1:]), dtype=f.dtype,
+                      device=device)
+    x0 = spec.shape[0] // 2
+    ms, plain_ms = in_turns(
+        f"K4 {f.dtype} lid 512^3, one {rows}-row chunk",
+        lambda: K.extract_rows_plain(f, x0, rows),
+        lambda: K.extract_rows(f, x0, rows, out=out), 50, 50)
+    library_ms = time_ms(lambda: f.narrow(1, x0, rows).contiguous(), 50)
+    err = float((K.extract_rows(f, x0, rows, out=out).float()
+                 - f.narrow(1, x0, rows).float()).abs().max())
+    require(err == 0.0, f"{tag}: K4 chunk differs from narrow() ({err})")
+    k4_numbers = {"launches": counts.get(k4, 0), "max_abs_err": err,
+                  "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                  "bound_ms": bound_ms(2 * chunk_bytes), "read_s": seconds,
+                  "read_gb_per_s": state_gb / seconds,
+                  "device_rise_mb": rise / 1e6,
+                  "chunk_mb": chunk_bytes / 1e6,
+                  "steps_ms": res.elapsed_s / 20 * 1e3}
+    print(f"{tag} K4 per {chunk_bytes / 1e6:.1f} MB chunk: {ms:.4f} ms, "
+          f"plain {plain_ms:.4f}, narrow().contiguous() {library_ms:.4f}, "
+          f"bound {k4_numbers['bound_ms']:.4f} ms", flush=True)
+    del sim, f, out
+    free_device()
+    return k4_numbers
+
+
 def mem_available_gb() -> float:
     with open("/proc/meminfo") as fh:
         for line in fh:
@@ -1663,74 +2127,7 @@ def lowmem_path(device):
     from lbm_tpu_torch.kernels import collide_stream as K
 
     tag = "[14] lowmem path"
-    t0 = time.perf_counter()
-    spec = get_case("lid_driven_cavity", n=512)
-    sim = Simulation(spec, device=device)
-    t_setup = time.perf_counter() - t0
-    require(sim.lowmem, f"{tag}: 512^3 did not switch lowmem on")
-    res = sim.run(max_steps=20, time_save=20, verbose=False)
-    torch.cuda.synchronize()
-    state_gb = sim.f.numel() * 4 / 1e9
-    avail = mem_available_gb()
-    require(avail > 1.5 * state_gb,
-            f"{tag}: host MemAvailable {avail:.1f} GB cannot hold the "
-            f"{state_gb:.1f} GB state")
-    free_device()
-    before = torch.cuda.memory_allocated(device)
-    torch.cuda.reset_peak_memory_stats(device)
-    K.reset_launches()
-    t0 = time.perf_counter()
-    host = sim.f_standard()
-    seconds = time.perf_counter() - t0
-    counts = dict(K.launches)
-    rise = torch.cuda.max_memory_allocated(device) - before
-    rows = K.chunk_rows(spec.shape)
-    n_chunks = -(-spec.shape[0] // rows)
-    chunk_bytes = 19 * rows * spec.shape[1] * spec.shape[2] * 4
-    require(counts == {"lbm_extract_rows": n_chunks},
-            f"{tag}: launches {counts}, {n_chunks} chunks")
-    require(rise <= K.CHUNK_BYTES,
-            f"{tag}: device memory rose by {rise} B during the read")
-    require(host.device.type == "cpu" and tuple(host.shape) ==
-            (19,) + tuple(spec.shape), f"{tag}: host state {host.shape}")
-    for x0 in range(0, spec.shape[0], rows):
-        w = min(rows, spec.shape[0] - x0)
-        require(torch.equal(host[:, x0:x0 + w],
-                            sim.f.narrow(1, x0, w).cpu()),
-                f"{tag}: chunk at x0={x0} differs from the state")
-    require(bool(torch.isfinite(host[:, ::64]).all()), f"{tag}: non-finite")
-    del host
-    gc.collect()
-    print(f"{tag} lid 512^3 (2 x {state_gb:.2f} GB state; set-up "
-          f"{t_setup:.1f} s; 20 steps at "
-          f"{res.elapsed_s / 20 * 1e3:.4f} ms/step): f_standard() in "
-          f"{seconds:.3f} s = {state_gb / seconds:.2f} GB/s through "
-          f"{n_chunks} chunks of {rows} x rows ({chunk_bytes / 1e6:.1f} MB); "
-          f"every chunk bit-equal to f.narrow().cpu(); device memory rose by "
-          f"{rise / 1e6:.1f} MB during the read; host MemAvailable "
-          f"{avail:.1f} GB before it; launches {counts}", flush=True)
-
-    f = sim.f
-    out = torch.empty((19, rows) + tuple(spec.shape[1:]), device=device)
-    x0 = spec.shape[0] // 2
-    ms, plain_ms = in_turns(
-        f"K4 lid 512^3, one {rows}-row chunk", lambda: K.extract_rows_plain(
-            f, x0, rows), lambda: K.extract_rows(f, x0, rows, out=out), 50,
-        50)
-    library_ms = time_ms(lambda: f.narrow(1, x0, rows).contiguous(), 50)
-    err = float((K.extract_rows(f, x0, rows, out=out)
-                 - f.narrow(1, x0, rows)).abs().max())
-    require(err == 0.0, f"{tag}: K4 chunk differs from narrow() ({err})")
-    k4 = {"launches": counts["lbm_extract_rows"], "max_abs_err": err,
-          "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-          "bound_ms": bound_ms(2 * chunk_bytes), "read_s": seconds,
-          "read_gb_per_s": state_gb / seconds, "device_rise_mb": rise / 1e6,
-          "chunk_mb": chunk_bytes / 1e6}
-    print(f"[14] K4 per {chunk_bytes / 1e6:.1f} MB chunk: {ms:.4f} ms, plain "
-          f"{plain_ms:.4f}, narrow().contiguous() {library_ms:.4f}, bound "
-          f"{k4['bound_ms']:.4f} ms", flush=True)
-    del sim, f, out
-    free_device()
+    k4 = lowmem_read(device, None, tag)
 
     spec = get_case("coronary", shape=[64, 48, 96], radius=4,
                     pulsatile=[4, 40])
@@ -1802,13 +2199,32 @@ def main() -> int:
           f"side by side; K2 tile {plib.lib.lbm_pair_tile()}^3, "
           f"{plib.lib.lbm_pair_block_size()} threads, {pair_smem} bytes of "
           "dynamic shared memory a block", flush=True)
+    blib = _build.load_library(bf16=True)
+    bplib = _build.load_pair_library(bf16=True)
+    print(f"[2] bf16 kernels {'built' if blib.built else 'found'} at "
+          f"{os.path.relpath(blib.path, ROOT)} in {blib.build_seconds:.2f} s "
+          f"and {os.path.relpath(bplib.path, ROOT)} in "
+          f"{bplib.build_seconds:.2f} s, side by side: five nvcc processes, "
+          f"the slowest {max(L.build_seconds for L in (lib, slib, plib, blib, bplib)):.2f} s",
+          flush=True)
     smem = {}
     ptxas = ptxas_report(lib.log + "\n" + slib.log + "\n" + plib.log, smem)
-    for name, (regs, spill_st, spill_ld) in sorted(ptxas.items()):
+    ptxas_bf16 = ptxas_report(blib.log + "\n" + bplib.log, smem, "bf16")
+    for name, (regs, spill_st, spill_ld) in sorted(ptxas.items()) + sorted(
+            ptxas_bf16.items()):
         extra = (f"; {smem.get(name, 0)} + {pair_smem} dynamic bytes smem"
                  if name.startswith("collide_stream2") else "")
         print(f"[2] ptxas {name}: {regs} registers, {spill_st} bytes spill "
               f"stores, {spill_ld} bytes spill loads{extra}", flush=True)
+    n_bf16 = {k: sum(n.startswith(k + "[") for n in ptxas_bf16)
+              for k in ("collide_stream_kernel", "fix_z_plane_kernel",
+                        "collide_stream2_kernel", "macro_kernel")}
+    require(n_bf16 == {"collide_stream_kernel": 14, "fix_z_plane_kernel": 14,
+                       "collide_stream2_kernel": 14, "macro_kernel": 2}
+            and "extract_rows_kernel[bf16]" in ptxas_bf16,
+            f"ptxas reported bf16 instances {n_bf16} (want 14, 14, 14, 2) "
+            "and K4 bf16 "
+            f"{'extract_rows_kernel[bf16]' in ptxas_bf16}")
     k2_ptxas = {k: v for k, v in ptxas.items()
                 if k.startswith("collide_stream2_kernel")}
     require(len(k2_ptxas) == 14 and any(
@@ -1821,6 +2237,10 @@ def main() -> int:
     require(bgk == (78, 0, 0),
             f"the BGK collide-stream instance: {bgk[0]} registers, {bgk[1]} "
             f"+ {bgk[2]} bytes spilled, not the BGK-only build's 78 and 0")
+    bgk16 = ptxas_bf16.get("collide_stream_kernel[bgk+bf16]")
+    print(f"[2] the BGK collide-stream instance: fp32 {bgk[0]} registers, "
+          f"bf16 {bgk16[0]} registers, {bgk16[1] + bgk16[2]} bytes spilled",
+          flush=True)
 
     # -- phase 3: kernels vs plain versions --------------------------------
     from lbm_tpu_torch.cases import get_case
@@ -1940,6 +2360,50 @@ def main() -> int:
         k2_time[label] = time_pair(get_case(name, **kw), device, 300, label)
     mark("3 (K2, K4)")
 
+    # bf16 storage (3d): every bf16 instance against its plain version
+    # for 200 steps, K2 bf16 against its plain pair and two bf16 K1
+    # launches, K3 and K4 bf16, the paths' shapes for 2 steps; timings
+    bf16_err, bf16_diff, bf16_z, bf16_k3 = {}, {}, 0.0, 0.0
+    for label, name, kw, exact in bf16_cases():
+        e = compare_bf16(label, get_case(name, **kw), 200, device, exact)
+        bf16_err[label] = max(e["f"], e["k1a"], e["z"])
+        bf16_diff[label] = e["n_diff"]
+        bf16_z, bf16_k3 = max(bf16_z, e["z"]), max(bf16_k3, e["k3"])
+    for label, spec, exact in (
+            ("lid 256^3 bgk", get_case("lid_driven_cavity", n=256), True),
+            ("coronary full bgk", full, True)):
+        e = compare_bf16(label, spec, 2, device, exact)
+        bf16_err[label] = max(e["f"], e["k1a"], e["z"])
+        bf16_z, bf16_k3 = max(bf16_z, e["z"]), max(bf16_k3, e["k3"])
+    k2_bf16 = {}
+    for label, spec, launches in (
+            ("lid 64^3 bgk", get_case("lid_driven_cavity", n=64), 100),
+            ("curved_vessel 64^3 series inlet", get_case(
+                "curved_vessel", n=64, nphase=4, period_steps=12), 100),
+            ("lid 256^3 bgk", get_case("lid_driven_cavity", n=256), 1)):
+        k2_bf16[label] = compare_pair_bf16(label, spec, launches, device)
+    print("[3d] bf16 max abs err per instance against its plain version "
+          "(200 steps; 2 at the full sizes): " + "; ".join(
+              f"{k} {v:.3e}" for k, v in bf16_err.items())
+          + "; values differing after 200 steps: " + "; ".join(
+              f"{k} {v}" for k, v in bf16_diff.items() if v), flush=True)
+    t256_bf16 = time_lid(256, device, iters_k=1000, iters_p=20,
+                         dtype=torch.bfloat16)
+    tv_bf16 = time_vessel(full, device, dtype=torch.bfloat16)
+    k1_cy_bf16 = time_k1a(blood, device, 1000, 5,
+                          "coronary full, live blocks", dtype=torch.bfloat16)
+    k2_bf16_time = time_pair_bf16(get_case("lid_driven_cavity", n=256),
+                                  device, 300, "lid 256^3 bgk")
+    print(f"[3d] bf16 at lid 256^3 (ms a launch): K1a {t256_bf16['k1a']:.4f} "
+          f"(fp32 {t256['k1a']:.4f}; plain {t256_bf16['k1a_plain']:.4f}; "
+          f"bound {t256_bf16['k1a_bound']:.4f}), K3 {t256_bf16['k3']:.4f} "
+          f"(fp32 {t256['k3']:.4f}; bound {t256_bf16['k3_bound']:.4f}), K2 "
+          f"{k2_bf16_time['ms']:.4f} (fp32 {k2_time['lid 256^3 bgk']['ms']:.4f})"
+          f"; coronary full K1a [bgk+bf16] {tv_bf16['k1a_live']:.4f} (fp32 "
+          f"{tv['k1a_live']:.4f}), [trt+cy+bf16] {k1_cy_bf16['ms']:.4f} (fp32 "
+          f"{k1b_time['coronary full trt+carreau']['ms']:.4f})", flush=True)
+    mark("3d (bf16)")
+
     # the scalar and thermal kernels (K7, K8, K1e)
     scalar_err, path_err, u_full = scalar_comparisons(full, device)
     print("[3] scalar/thermal max abs err per instance (200 steps; 2 at "
@@ -1958,8 +2422,12 @@ def main() -> int:
     require(sim.cc.live_blocks is None,
             "the lid cavity launches K1a with a block list")
     torch.cuda.reset_peak_memory_stats(device)
+    marks = []
     K.reset_launches()
-    res = sim.run(max_steps=1000, time_save=250, verbose=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sim.run(max_steps=1000, time_save=250, verbose=False,
+                  on_save=chunk_clock(marks))
     rho, u = sim.macro()
     torch.cuda.synchronize()
     lid_counts = dict(K.launches)
@@ -1985,12 +2453,14 @@ def main() -> int:
             "velsum series is not the spin-up of a driven cavity")
     peak = (torch.cuda.max_memory_allocated(device) - held) / 2**30
     lid1 = {"velsum": vs, "ms": res.elapsed_s / res.steps * 1e3,
+            "chunks": chunk_ms(t0, marks, 250),
             "mlups_box": res.mlups_box, "rho": rho, "u": u,
             "f": sim.f.clone(),  # the profile below steps sim on
             "peak": peak}
     print(f"[4] lid main path 256^3: {res.steps} steps in "
           f"{res.elapsed_s:.3f} s = {lid1['ms']:.4f} "
-          f"ms/step (host clock, synchronized), mlups_box "
+          f"ms/step (host clock, synchronized; chunks of 250: "
+          f"{lid1['chunks']}), mlups_box "
           f"{res.mlups_box:.1f}, mlups {res.mlups:.1f}, mlups_live "
           f"{res.mlups_live:.1f}; residual {res.residual:.3e}; max|u| "
           f"{u_max:.4g}, max|rho-1| {rho_dev:.3g}; peak device memory "
@@ -2004,9 +2474,21 @@ def main() -> int:
 
     # -- phase 13: the fuse2 path ------------------------------------------
     fuse2_counts, fuse2_odd, fuse2_metrics = fuse2_path(device, lid1)
-    del lid1
     free_device()
     mark("13")
+
+    # -- phase 15a, 15c: the bf16 lid paths, fuse=1 and fuse=2 --------------
+    lid16 = bf16_lid_path(device, lid1, 1)
+    lid16_pair = bf16_lid_path(device, lid1, 2)
+    e_u = rel_l2(lid16_pair.pop("u"), lid16["u"])
+    v_rel = float(abs(lid16_pair["velsum"] - lid16["velsum"]).max()
+                  / abs(lid16["velsum"]).min())
+    print(f"[15] bf16 fuse2 path against the bf16 fuse=1 path (one "
+          f"narrowing a pair against one a step): velsum series max rel diff "
+          f"{v_rel:.3e}, macro() u rel L2 {e_u:.3e}", flush=True)
+    del lid1, lid16["u"]
+    free_device()
+    mark("15a, 15c")
 
     # -- phase 5: the vessel path ------------------------------------------
     u_in = 0.1745 / 2.74909090909091
@@ -2019,6 +2501,13 @@ def main() -> int:
         tv["live_share"], closure=True)
     del blood
     free_device()
+
+    # -- phase 15b: the bf16 vessel path -------------------------------------
+    bf16_counts, bf16_fix_dev = vessel_path(
+        full, device, "[15] bf16 vessel path", "bgk+bf16", tv["live_share"],
+        store_dtype="bf16")
+    free_device()
+    mark("15b")
 
     # -- phase 7: the force path -------------------------------------------
     force_counts = force_path(device)
@@ -2034,6 +2523,12 @@ def main() -> int:
     k4 = lowmem_path(device)
     mark("14")
 
+    # -- phase 15d: the bf16 lowmem read --------------------------------------
+    k4_bf16 = lowmem_read(device, "bf16", "[15] bf16 lowmem path")
+    print(f"[15] bf16 lowmem path: f_standard() {k4_bf16['read_s']:.3f} s "
+          f"against fp32's {k4['read_s']:.3f} s in phase 14", flush=True)
+    mark("15d")
+
     # -- phase 8: the CLI --------------------------------------------------
     for case, opts, steps, want in (
             ("lid_driven_cavity", ["n=64"], "500",
@@ -2045,6 +2540,11 @@ def main() -> int:
              ["lid_driven_cavity_500.vtk"]),
             ("coronary", ["--lowmem", "--checkpoint-every", "1",
                           "--vtk-final"], "200",
+             ["coronary_200.vtk", "coronary.ckpt.npz"]),
+            ("lid_driven_cavity", ["n=64", "--dtype", "bf16"], "500",
+             ["lid_driven_cavity_500.vtk"]),
+            ("coronary", ["--dtype", "bf16", "--lowmem", "--checkpoint-every",
+                          "1", "--vtk-final"], "200",
              ["coronary_200.vtk", "coronary.ckpt.npz"])):
         with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") \
                 as tmp:
@@ -2069,6 +2569,12 @@ def main() -> int:
                     head = fh.read(1 << 16)
                 require("SCALARS DENSITY float" in head,
                         "coronary VTK has no density")
+            if "coronary.ckpt.npz" in want:
+                import numpy as np
+
+                with np.load(os.path.join(tmp, "coronary.ckpt.npz")) as ck:
+                    require(ck["f"].dtype == np.float32,
+                            f"CLI {opts}: checkpoint f is {ck['f'].dtype}")
             last = proc.stdout.strip().splitlines()[-2:]
             print(f"[8] CLI {case} {' '.join(opts)} run in "
                   f"{time.perf_counter() - t0:.1f} s wrote {files}; "
@@ -2238,6 +2744,82 @@ def main() -> int:
          "device_rise_mb": k4["device_rise_mb"],
          "registers": {k: v[0] for k, v in ptxas.items()
                        if k.startswith("extract_rows")}},
+        {"name": "lbm_collide_stream[bgk+bf16]", "route": "cuda",
+         "source": K1A_BF16_SOURCE,
+         "replaces": "lbm_tpu/kernels/collide_stream.py:1333 (bf16 storage: "
+                     "_subtile_compute :626-646, _row_fix :1083-1094, "
+                     "_vs_sum :306-315)",
+         "launches": lid16["counts"]["lbm_collide_stream[bgk+bf16]"],
+         "max_abs_err": max(bf16_err.values()),
+         "max_abs_err_by_case": bf16_err,
+         "values_differing_by_case": bf16_diff,
+         "ms": t256_bf16["k1a"], "plain_ms": t256_bf16["k1a_plain"],
+         "bound_ms": t256_bf16["k1a_bound"], "bound_by": "bytes",
+         "library_ms": None, "fp32_ms": t256["k1a"],
+         "path_ms_per_step": lid16["ms"],
+         "path_mlups_box": lid16["mlups_box"],
+         "path_rel_l2_u_vs_fp32": lid16["rel_l2_u"],
+         "path_busy_share": lid16["busy"],
+         "vessel_launches": bf16_counts["lbm_collide_stream[bgk+bf16]"],
+         "coronary_ms_live": tv_bf16["k1a_live"],
+         "coronary_plain_ms": tv_bf16["k1a_plain"],
+         "coronary_bound_ms": tv_bf16["k1a_bound"],
+         "coronary_ms_every_block": tv_bf16["k1a_all"],
+         "trt_cy_bf16_coronary": k1_cy_bf16,
+         "registers": {k: v[0] for k, v in ptxas_bf16.items()},
+         "spill_bytes": {k: v[1] + v[2] for k, v in ptxas_bf16.items()},
+         "build_s": blib.build_seconds},
+        {"name": "lbm_fix_z_plane[bgk+bf16]", "route": "cuda",
+         "source": K1A_BF16_SOURCE,
+         "replaces": "lbm_tpu/kernels/collide_stream.py:2695 (its bf16 "
+                     "write)",
+         "also_replaces": "lbm_tpu/kernels/collide_stream.py:2770 (its bf16 "
+                          "read)",
+         "launches": bf16_counts["lbm_fix_z_plane[bgk+bf16]"],
+         "max_abs_err": bf16_z,
+         "ms": bf16_fix_dev[0] if bf16_fix_dev else tv_bf16["fix"],
+         "ms_by": ("torch.profiler device time of fix_z_plane_kernel"
+                   if bf16_fix_dev else "cuda events"),
+         "ms_host_enqueue_bound": tv_bf16["fix"],
+         "plain_ms": tv_bf16["fix_plain"], "bound_ms": tv_bf16["fix_bound"],
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "lbm_macro[bf16]", "route": "cuda", "source": K1A_BF16_SOURCE,
+         "replaces": "lbm_tpu/kernels/collide_stream.py:2470 (its bf16 read)",
+         "launches": bf16_counts["lbm_macro[bf16]"], "max_abs_err": bf16_k3,
+         "ms": tv_bf16["k3"], "plain_ms": tv_bf16["k3_plain"],
+         "bound_ms": tv_bf16["k3_bound"], "bound_by": "bytes",
+         "library_ms": tv_bf16["k3_library"],
+         "library_call": "torch.matmul on the widened state",
+         "lid256_launches": lid16["counts"]["lbm_macro[bf16]"],
+         "lid256_ms": t256_bf16["k3"], "lid256_plain_ms": t256_bf16["k3_plain"],
+         "lid256_bound_ms": t256_bf16["k3_bound"],
+         "lid256_library_ms": t256_bf16["k3_library"]},
+        {"name": "lbm_collide_stream2[bgk+bf16]", "route": "cuda",
+         "source": K2_BF16_SOURCE,
+         "replaces": "lbm_tpu/kernels/collide_stream.py:1727 (K2 on bf16 "
+                     "storage, f32 mid tile :2084-2086)",
+         "launches": lid16_pair["counts"]["lbm_collide_stream2[bgk+bf16]"],
+         "max_abs_err": max(v[0] for v in k2_bf16.values()),
+         "against_two_bf16_k1_launches": {
+             k: {"values_differing": v[1], "max_abs": v[2]}
+             for k, v in k2_bf16.items()},
+         "ms": k2_bf16_time["ms"], "plain_ms": k2_bf16_time["plain_ms"],
+         "bound_ms": k2_bf16_time["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "two_k1_launches_ms": k2_bf16_time["two_k1_ms"],
+         "path_ms_per_step": lid16_pair["ms"],
+         "path_busy_share": lid16_pair["busy"],
+         "build_s": bplib.build_seconds},
+        {"name": "lbm_extract_rows[bf16]", "route": "cuda",
+         "source": K2_BF16_SOURCE,
+         "replaces": "lbm_tpu/kernels/collide_stream.py:2586 (bf16 rows)",
+         "launches": k4_bf16["launches"],
+         "max_abs_err": k4_bf16["max_abs_err"], "ms": k4_bf16["ms"],
+         "plain_ms": k4_bf16["plain_ms"], "bound_ms": k4_bf16["bound_ms"],
+         "bound_by": "bytes", "library_ms": k4_bf16["library_ms"],
+         "chunk_mb": k4_bf16["chunk_mb"], "read_512_s": k4_bf16["read_s"],
+         "read_512_gb_per_s": k4_bf16["read_gb_per_s"],
+         "fp32_read_512_s": k4["read_s"],
+         "device_rise_mb": k4_bf16["device_rise_mb"]},
     ]
     print(f"[done] ms at 64^3: K1a {t64['k1a']:.4f} plain "
           f"{t64['k1a_plain']:.4f}, K3 {t64['k3']:.4f} plain "

@@ -6,7 +6,10 @@ and an array copy. A transport (scalar, coupled or buoyant) crosses as
 its g state in the (7, nx, ny, nz) layout, its flow state, its step and
 its constructor arguments; lbm_tpu's Pallas classes keep g and f packed
 as (nx + 2 + px, ny + 2 + py, C, nz + pz) with a one-cell ring in x and
-y and alignment padding at the ends, which `unpack_lattice` undoes.
+y and alignment padding at the ends, which `unpack_lattice` undoes. A
+bf16 state (lbm_tpu's store_dtype='bf16': an ml_dtypes bfloat16 array, or
+the |V2 void array that np.savez leaves of one) is widened to float32 bit
+for bit on the way in (`as_float32`).
 Nothing here imports lbm_tpu: a reference object is read by attribute.
 """
 
@@ -51,33 +54,50 @@ def case_from_reference(spec) -> CaseSpec:
     return _copy_fields(CaseSpec, spec, case_convert)
 
 
-def state_from_numpy(f, device="cpu") -> torch.Tensor:
-    """A (19, nx, ny, nz) array as the port's contiguous float32 state."""
-    f = np.ascontiguousarray(np.asarray(f), dtype=np.float32)
+def as_float32(a) -> np.ndarray:
+    """An array as float32: bf16 words (a 2-byte void array, as np.savez
+    stores ml_dtypes bfloat16) widened bit for bit (the 16 bits become the
+    high half of a float32), an ml_dtypes bfloat16 array through astype,
+    anything else converted as NumPy converts it."""
+    a = np.asarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        bits = np.ascontiguousarray(a).view(np.uint16).astype(np.uint32)
+        return (bits << np.uint32(16)).view(np.float32)
+    return a.astype(np.float32, copy=False)
+
+
+def state_from_numpy(f, device="cpu", dtype=torch.float32) -> torch.Tensor:
+    """A (19, nx, ny, nz) array (float32, or bf16 words widened by
+    as_float32) as the port's contiguous state in `dtype` (float32, or
+    bfloat16 for a store_dtype='bf16' run: narrowed with round-to-nearest-
+    even, exact for a state that was bf16)."""
+    f = np.ascontiguousarray(as_float32(f))
     if f.ndim != 4 or f.shape[0] != 19:
         raise ValueError(f"state must be (19, nx, ny, nz), got {f.shape}")
-    return torch.from_numpy(f).to(device, copy=True)
+    return torch.from_numpy(f).to(device, copy=True).to(dtype)
 
 
 def state_to_numpy(f) -> np.ndarray:
-    """The port's state as a (19, nx, ny, nz) float32 NumPy array."""
-    return f.detach().cpu().numpy().astype(np.float32, copy=False)
+    """The port's state as a (19, nx, ny, nz) float32 NumPy array (a bf16
+    state widened)."""
+    return f.detach().cpu().float().numpy()
 
 
 def unpack_lattice(packed, shape, channels: int, ring: int = 1):
     """A packed (X + 2 ring + px, Y + 2 ring + py, C, Z + pz) array of
     lbm_tpu's Pallas kernels as the dense (channels, X, Y, Z) float32
     array of the unpadded box `shape`: channels first, the ring and the
-    end padding cut off, the alignment channels dropped."""
+    end padding cut off, the alignment channels dropped, a bf16 payload
+    widened (as_float32)."""
     p = np.asarray(packed)
     nx, ny, nz = (int(v) for v in shape)
     if p.ndim != 4 or p.shape[2] < channels or p.shape[0] < nx + 2 * ring \
             or p.shape[1] < ny + 2 * ring or p.shape[3] < nz:
         raise ValueError(f"packed shape {p.shape} does not hold "
                          f"{channels} channels of a {shape} box")
-    return np.ascontiguousarray(
+    return np.ascontiguousarray(as_float32(
         p[ring:ring + nx, ring:ring + ny, :channels, :nz]
-        .transpose(2, 0, 1, 3), dtype=np.float32)
+        .transpose(2, 0, 1, 3)))
 
 
 def transport_state_from_reference(tr) -> dict:
@@ -123,6 +143,7 @@ def transport_kwargs_from_reference(tr, u=None, wall_c=None, c0=None) -> dict:
     return kw
 
 
-__all__ = ["case_from_reference", "state_from_numpy", "state_to_numpy",
+__all__ = ["case_from_reference", "as_float32", "state_from_numpy",
+           "state_to_numpy",
            "unpack_lattice", "transport_state_from_reference",
            "load_transport_state", "transport_kwargs_from_reference"]

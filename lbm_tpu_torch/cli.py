@@ -13,6 +13,7 @@
         --opt collision=mrt
     python -m lbm_tpu_torch run --case lid_driven_cavity --fuse 2
     python -m lbm_tpu_torch run --case lid_driven_cavity --opt n=512 --lowmem
+    python -m lbm_tpu_torch run --case lid_driven_cavity --dtype bf16
     python -m lbm_tpu_torch list
     python -m lbm_tpu_torch transport --case coronary --bolus 500 --vtk \
         --opt shape=[291,291,372] radius=12
@@ -192,6 +193,9 @@ def main(argv=None) -> int:
                       help="force the 512^3-class lowmem machinery (chunked "
                       "state read to the host, uncompressed checkpoints; "
                       "auto-enabled above ~4 GB of state)")
+    runp.add_argument("--dtype", default="f32", choices=["f32", "bf16"],
+                      help="pdf STORAGE dtype on the kernel backend "
+                      "(compute stays fp32; bf16 halves the state's bytes)")
     _add_device_args(runp)
 
     sub.add_parser("list", help="list available cases")
@@ -262,7 +266,8 @@ def main(argv=None) -> int:
 
     spec = get_case(args.case, **_parse_kv(args.opt))
     sim = Simulation(spec, device=args.device, backend=args.backend,
-                     fuse=args.fuse, lowmem=True if args.lowmem else None)
+                     fuse=args.fuse, lowmem=True if args.lowmem else None,
+                     store_dtype=args.dtype)
     if args.resume:
         ckpt.restore(sim, args.resume)
         print(f"resumed from {args.resume} at step {sim.t}")

@@ -10,8 +10,12 @@ read to the host in chunks, uncompressed (compressing a 512^3-class
 state costs minutes of host CPU for little, as lbm_tpu found). lbm_tpu's
 packed layout (its lowmem checkpoints: the padded (X, Y, C, Z) state
 with `layout` meta) is cropped to the portable one on the host, as
-lbm_tpu's restore does for a target that is not its own lowmem run; a
-packed bf16 state is refused (bf16 storage is not ported).
+lbm_tpu's restore does for a target that is not its own lowmem run. A
+packed bf16 state (lbm_tpu's bf16 lowmem runs; np.savez stores its
+bfloat16 words as |V2 void, which lbm_tpu's own restore cannot read) is
+widened to float32 bit for bit on the host. Every file restores into a
+run of either storage dtype (set_f_standard narrows into a bf16 run);
+save_sim writes float32 in both, so the port never writes a |V2 file.
 """
 
 from __future__ import annotations
@@ -74,11 +78,9 @@ def restore(sim, path: str) -> None:
             "not ported yet (ROADMAP.md Queue 1 item 8)")
     lay = meta.get("layout") or {}
     if lay.get("packed"):
-        if lay.get("dtype") != "float32":
-            raise NotImplementedError(
-                f"a packed checkpoint of {lay.get('dtype')} storage: bf16 "
-                "storage is not ported to lbm_tpu_torch yet (ROADMAP.md "
-                "Queue 1 item 10)")
+        if lay.get("dtype") not in ("float32", "bfloat16"):
+            raise ValueError(f"a packed checkpoint of {lay.get('dtype')} "
+                             "storage: lbm_tpu stores float32 or bfloat16")
         f = unpack_lattice(f, sim.spec.shape, 19, int(lay["ring"]))
     if f.shape != (19,) + tuple(sim.spec.shape):
         raise ValueError(

@@ -59,7 +59,7 @@ _W64 = np.array([1.0 / 3.0] + [1.0 / 18.0] * 6 + [1.0 / 36.0] * 12,
 # go to the fixup kernel, one launch each, and do not count.
 MAX_BCS = 4
 # Cells per block of the collide-stream kernel (kBlock in
-# kernels/csrc/collide_stream.cu): the unit of the live-block list.
+# kernels/csrc/collide_stream.cuh): the unit of the live-block list.
 BLOCK = 256
 # Launch over the live-block list only when fewer than this share of the
 # blocks is live. On an H100 a listed block costs 2.3% more than the same
@@ -69,7 +69,7 @@ BLOCK = 256
 # lid cavity at 64^3 and up (97-98% live) keeps the full launch.
 SKIP_BELOW = 0.95
 # Interior tile edge of the fused pair of steps (kT in
-# kernels/csrc/collide_stream2.cu): the unit of its live-tile list.
+# kernels/csrc/collide_stream2.cuh): the unit of its live-tile list.
 TILE = 8
 
 

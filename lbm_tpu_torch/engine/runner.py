@@ -30,6 +30,12 @@ the dense backend. lowmem (auto above LOWMEM_BYTES of one state buffer,
 lbm_tpu's per-device threshold) makes f_standard() read the state to host
 memory in x-row chunks (kernels.unpack_state_lowmem) and checkpoints go
 uncompressed.
+
+store_dtype='bf16' (kernel backend) stores the state in bfloat16 at half
+the bytes; the kernels compute in fp32, widening every load and
+narrowing every store once (lbm_tpu's bf16 storage, bit for bit). The
+dense backend refuses it in lbm_tpu's words, and the lowmem threshold
+counts 4 bytes a population whatever the storage, as lbm_tpu's does.
 """
 
 from __future__ import annotations
@@ -59,6 +65,17 @@ from lbm_tpu_torch.kernels import collide_stream as kernels
 # One state buffer above this many bytes turns lowmem on (lbm_tpu's
 # per-device threshold, engine/runner.py): 375^3 cells and up.
 LOWMEM_BYTES = 4e9
+
+
+def store_dtype_of(store_dtype) -> torch.dtype:
+    """The torch dtype of a store_dtype argument (lbm_tpu's names: None,
+    'f32', 'fp32', 'float32', 'bf16', 'bfloat16'); ValueError in lbm_tpu's
+    words for anything else."""
+    if store_dtype in (None, "f32", "fp32", "float32"):
+        return torch.float32
+    if store_dtype in ("bf16", "bfloat16"):
+        return torch.bfloat16
+    raise ValueError(f"store_dtype must be f32 or bf16, got {store_dtype}")
 
 
 @dataclasses.dataclass
@@ -98,18 +115,26 @@ class Simulation:
     """One case on one device.
 
     The state `f` is (19, nx, ny, nz) float32, z contiguous — the layout
-    of lbm_tpu's dense backend and of the portable checkpoint. The kernel
+    of lbm_tpu's dense backend and of the portable checkpoint — or
+    bfloat16 with store_dtype='bf16'. The kernel
     backend keeps a second buffer of the same shape and swaps the two
     each launch. The kernels never write the cells of skipped (all-DEAD)
     blocks or tiles, so both buffers always hold the same non-fluid state.
     fuse: 1, or 2 for two fused steps per launch; lowmem: None (auto), or
-    force the chunked host read of f_standard() on or off.
+    force the chunked host read of f_standard() on or off; store_dtype:
+    None/'f32' or 'bf16' (kernel backend).
     """
 
     def __init__(self, spec: CaseSpec, device="cuda", backend: str = "kernel",
-                 fuse: int = 1, lowmem: Optional[bool] = None):
+                 fuse: int = 1, lowmem: Optional[bool] = None,
+                 store_dtype=None):
         if backend not in ("kernel", "dense"):
             raise ValueError(f"backend must be 'kernel' or 'dense': {backend!r}")
+        self.store_dtype = store_dtype_of(store_dtype)
+        if self.store_dtype == torch.bfloat16 and backend != "kernel":
+            raise ValueError(
+                "store_dtype='bf16' is a packed-Pallas-state feature; the "
+                "dense/sparse backends keep fp32 state")
         if fuse not in (1, 2):
             raise ValueError(f"fuse must be 1 or 2: {fuse!r}")
         if fuse == 2 and backend != "kernel":
@@ -134,28 +159,32 @@ class Simulation:
 
     # -- state ------------------------------------------------------------
     def reset(self):
-        self.f = initial_f(self.cc)
+        # fp32 feq, then narrowed (lbm_tpu's pack_state dtype=): non-fluid
+        # cells hold the rounded feq for good
+        self.f = initial_f(self.cc).to(self.store_dtype)
         self._spare = self.f.clone() if self.backend == "kernel" else None
         self.t = 0
         self._last_velsum: Optional[float] = None
         self._last_usq: Optional[float] = None
 
     def f_standard(self):
-        """f in the portable (19, nx, ny, nz) layout: the state itself, or
-        under lowmem a copy in host memory read in x-row chunks."""
+        """f in the portable (19, nx, ny, nz) float32 layout: the state
+        itself (a bf16 state widened), or under lowmem a copy in host
+        memory read in x-row chunks."""
         if self.lowmem:
             return kernels.unpack_state_lowmem(self.f)
-        return self.f
+        return self.f.float()
 
     def set_f_standard(self, f):
         """Load a (19, nx, ny, nz) state (array or tensor) into both
-        buffers; the simulation keeps its own copies, since stepping
-        writes into them."""
+        buffers, narrowed to the storage dtype; the simulation keeps its
+        own copies, since stepping writes into them."""
         f = torch.as_tensor(f, dtype=torch.float32)
         if tuple(f.shape) != (19,) + tuple(self.spec.shape):
             raise ValueError(f"state shape {tuple(f.shape)} != "
                              f"(19, *{tuple(self.spec.shape)})")
-        self.f = f.to(self.device, copy=True).contiguous()
+        self.f = f.to(self.device, copy=True).to(self.store_dtype) \
+            .contiguous()
         if self.backend == "kernel":
             self._spare = self.f.clone()
 

@@ -1,19 +1,25 @@
 """Build the CUDA kernel libraries with nvcc at first use and load them
 with ctypes.
 
-Three sources, each its own translation unit and shared object, compiled
+Five sources, each its own translation unit and shared object, compiled
 side by side (one nvcc process each, started together):
 kernels/csrc/collide_stream.cu (the collide-stream, z-plane fixup and
-moments kernels, each collide-stream and fixup kernel in its 18
-collision-branch instances), kernels/csrc/collide_stream2.cu (the fused
-pair of steps in its 14 instances and the chunked state read) and
-kernels/csrc/scalar_stream.cu (the D3Q7 scalar kernel in its 8 instances
-and its record reduction), for sm_90a with a plain C interface (no
-PyTorch headers, so nvcc takes seconds). The first two share the device
-functions of kernels/csrc/d3q19.cuh. They land in kernels/_build/ under
-names that carry a hash of the source, the headers and the flags, so an
-edited source is rebuilt and a stale object is never loaded. Pointers and the stream cross as
-ctypes.c_void_p; every entry point returns cudaGetLastError().
+moments kernels on fp32 state, each collide-stream and fixup kernel in
+its 18 collision-branch instances), kernels/csrc/collide_stream_bf16.cu
+(the same on bf16 state: 14 instances each, no force field),
+kernels/csrc/collide_stream2.cu and collide_stream2_bf16.cu (the fused
+pair of steps in its 14 instances and the chunked state read, on fp32
+and on bf16 state) and kernels/csrc/scalar_stream.cu (the D3Q7 scalar
+kernel in its 8 instances and its record reduction), for sm_90a with a
+plain C interface (no PyTorch headers, so nvcc takes seconds). A source
+and its bf16 twin instantiate one body header (collide_stream.cuh,
+collide_stream2.cuh) with the storage type; the bodies share the device
+functions of kernels/csrc/d3q19.cuh. The bf16 entry points carry the
+fp32 ones' names with _bf16 appended. The objects land in
+kernels/_build/ under names that carry a hash of the source, the headers
+and the flags, so an edited source is rebuilt and a stale object is never
+loaded. Pointers and the stream cross as ctypes.c_void_p; every entry
+point returns cudaGetLastError().
 """
 
 from __future__ import annotations
@@ -30,12 +36,15 @@ import tempfile
 import time
 from pathlib import Path
 
-SOURCE = Path(__file__).parent / "csrc" / "collide_stream.cu"
-SCALAR_SOURCE = Path(__file__).parent / "csrc" / "scalar_stream.cu"
-PAIR_SOURCE = Path(__file__).parent / "csrc" / "collide_stream2.cu"
+CSRC = Path(__file__).parent / "csrc"
+SOURCE = CSRC / "collide_stream.cu"
+BF16_SOURCE = CSRC / "collide_stream_bf16.cu"
+SCALAR_SOURCE = CSRC / "scalar_stream.cu"
+PAIR_SOURCE = CSRC / "collide_stream2.cu"
+PAIR_BF16_SOURCE = CSRC / "collide_stream2_bf16.cu"
 # the D3Q19 device functions, descriptors and their enums, shared by the
 # single-step and the fused-pair sources
-HEADER = Path(__file__).parent / "csrc" / "d3q19.cuh"
+HEADER = CSRC / "d3q19.cuh"
 BUILD_DIR = Path(__file__).parent / "_build"
 # -fmad=false: no multiply-add contraction, so the kernels round exactly
 # like their plain PyTorch versions and the collide-stream kernel is bit
@@ -71,13 +80,17 @@ def nvcc_path() -> str:
         "kernels build from source at first use")
 
 
-def _declare(lib: ctypes.CDLL) -> None:
+def _declare(lib: ctypes.CDLL, sfx: str = "") -> None:
+    """Declare the single-step library's entry points; sfx: "_bf16" for
+    the bf16 library's."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.lbm_block_size.argtypes = []
     lib.lbm_block_size.restype = ci
     lib.lbm_error_string.argtypes = [ci]
     lib.lbm_error_string.restype = ctypes.c_char_p
-    lib.lbm_collide_stream.argtypes = [
+    step, fix, macro = (getattr(lib, f"lbm_{n}{sfx}") for n in (
+        "collide_stream", "fix_z_plane", "macro"))
+    step.argtypes = [
         vp, vp, vp,             # src, dst, mask
         ci, ci, ci,             # nx, ny, nz
         vp, vp,                 # collision int row, float row
@@ -88,8 +101,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp,                     # g of a field force, or null
         vp,                     # stream
     ]
-    lib.lbm_collide_stream.restype = ci
-    lib.lbm_fix_z_plane.argtypes = [
+    step.restype = ci
+    fix.argtypes = [
         vp, vp, vp,             # src, dst, mask
         ci, ci, ci,             # nx, ny, nz
         vp, vp,                 # collision int row, float row
@@ -100,10 +113,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp,                     # g of a field force, or null
         vp,                     # stream
     ]
-    lib.lbm_fix_z_plane.restype = ci
+    fix.restype = ci
     # f, rho, u, n_cells, half_force (host 3 floats or null), stream
-    lib.lbm_macro.argtypes = [vp, vp, vp, ctypes.c_longlong, vp, vp]
-    lib.lbm_macro.restype = ci
+    macro.argtypes = [vp, vp, vp, ctypes.c_longlong, vp, vp]
+    macro.restype = ci
 
 
 def _declare_scalar(lib: ctypes.CDLL) -> None:
@@ -125,7 +138,9 @@ def _declare_scalar(lib: ctypes.CDLL) -> None:
     lib.lbm_scalar_stream.restype = ci
 
 
-def _declare_pair(lib: ctypes.CDLL) -> None:
+def _declare_pair(lib: ctypes.CDLL, sfx: str = "") -> None:
+    """Declare the fused-pair library's entry points; sfx as in
+    _declare."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for name in ("lbm_pair_tile", "lbm_pair_block_size"):
         getattr(lib, name).argtypes = []
@@ -134,7 +149,9 @@ def _declare_pair(lib: ctypes.CDLL) -> None:
     lib.lbm_pair_smem_bytes.restype = ctypes.c_longlong
     lib.lbm_error_string.argtypes = [ci]
     lib.lbm_error_string.restype = ctypes.c_char_p
-    lib.lbm_collide_stream2.argtypes = [
+    pair, rows = (getattr(lib, f"lbm_{n}{sfx}") for n in (
+        "collide_stream2", "extract_rows"))
+    pair.argtypes = [
         vp, vp, vp,             # src, dst, mask
         ci, ci, ci,             # nx, ny, nz
         vp, vp,                 # collision int row, float row
@@ -145,15 +162,21 @@ def _declare_pair(lib: ctypes.CDLL) -> None:
         vp, ci,                 # series, slot
         vp,                     # stream
     ]
-    lib.lbm_collide_stream2.restype = ci
+    pair.restype = ci
     # f, out, X, Y, Z, x0, wx, stream
-    lib.lbm_extract_rows.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp]
-    lib.lbm_extract_rows.restype = ci
+    rows.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp]
+    rows.restype = ci
 
 
-_SOURCES = {"collide_stream": (SOURCE, _declare),
-            "collide_stream2": (PAIR_SOURCE, _declare_pair),
-            "scalar_stream": (SCALAR_SOURCE, _declare_scalar)}
+_SOURCES = {
+    "collide_stream": (SOURCE, _declare),
+    "collide_stream_bf16": (BF16_SOURCE,
+                            functools.partial(_declare, sfx="_bf16")),
+    "collide_stream2": (PAIR_SOURCE, _declare_pair),
+    "collide_stream2_bf16": (PAIR_BF16_SOURCE,
+                             functools.partial(_declare_pair, sfx="_bf16")),
+    "scalar_stream": (SCALAR_SOURCE, _declare_scalar),
+}
 
 
 def _object_path(source: Path) -> Path:
@@ -213,15 +236,17 @@ def _load_all() -> dict:
     return out
 
 
-def load_library() -> Library:
-    """The collide-stream library (built with the others if needed)."""
-    return _load_all()["collide_stream"]
+def load_library(bf16: bool = False) -> Library:
+    """The collide-stream library, of bf16 state with bf16 (built with
+    the others if needed)."""
+    return _load_all()["collide_stream_bf16" if bf16 else "collide_stream"]
 
 
-def load_pair_library() -> Library:
-    """The fused-pair and row-extract library (built with the others if
-    needed)."""
-    return _load_all()["collide_stream2"]
+def load_pair_library(bf16: bool = False) -> Library:
+    """The fused-pair and row-extract library, of bf16 state with bf16
+    (built with the others if needed)."""
+    return _load_all()["collide_stream2_bf16" if bf16
+                       else "collide_stream2"]
 
 
 def load_scalar_library() -> Library:
@@ -238,4 +263,5 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 __all__ = ["Library", "load_library", "load_pair_library",
            "load_scalar_library", "check", "nvcc_path", "SOURCE",
-           "PAIR_SOURCE", "SCALAR_SOURCE", "HEADER", "BUILD_DIR", "NVCC_FLAGS"]
+           "BF16_SOURCE", "PAIR_SOURCE", "PAIR_BF16_SOURCE", "SCALAR_SOURCE",
+           "HEADER", "BUILD_DIR", "NVCC_FLAGS"]

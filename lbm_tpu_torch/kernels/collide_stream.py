@@ -3,7 +3,7 @@ list), z-plane fixup (K5 + K6), moments (K3), fused-pair (K2) and
 row-extract (K4) kernels, their plain PyTorch versions, and launch
 counters.
 
-  collide_stream  -> lbm_collide_stream (kernels/csrc/collide_stream.cu),
+  collide_stream  -> lbm_collide_stream (kernels/csrc/collide_stream.cuh),
                      replacing lbm_tpu/kernels/collide_stream.py::_kernel
                      (BGK and the K1b branches: TRT, Guo force, moving
                      walls, LES/rheology closures, MRT; series phases;
@@ -15,7 +15,7 @@ counters.
                      shift when the case has a force)
   step            -> one whole step: collide_stream, then fix_z_plane for
                      each z-plane boundary in boundary order
-  step2           -> lbm_collide_stream2 (kernels/csrc/collide_stream2.cu):
+  step2           -> lbm_collide_stream2 (kernels/csrc/collide_stream2.cuh):
                      two whole steps of a case whose boundaries all lie on
                      x/y planes, replacing ::_kernel2 (two fused steps per
                      round trip, with its live-tile list)
@@ -34,6 +34,15 @@ cell's seven pre-step g. A wrapper runs the plain version only for tensors on
 the CPU; for a CUDA tensor it launches the kernel or raises. `launches`
 counts kernel launches per entry point and instance ("lbm_collide_stream
 [trt+cy]"), one per wrapper call that launched.
+
+The state is float32 or bfloat16 (bf16 storage, lbm_tpu's pack_state
+dtype=bfloat16): the bf16 kernels and plain versions widen every load to
+fp32, compute as in fp32 and narrow once with round-to-nearest-even when
+they store, once a step for collide_stream and the z-plane fixup (whose
+narrowing of the same cells is that step's) and once a pair for step2,
+whose mid state stays fp32 as lbm_tpu's does. The bf16 kernels are
+separate instances (counted as "lbm_collide_stream[trt+bf16]",
+"lbm_macro[bf16]", "lbm_extract_rows[bf16]"); the force field has none.
 """
 
 from __future__ import annotations
@@ -70,6 +79,9 @@ from lbm_tpu_torch.engine.step import (
 from lbm_tpu_torch.geometry.mask import CellType
 
 launches: dict[str, int] = {}
+
+# the state's storage types
+STORE_DTYPES = (torch.float32, torch.bfloat16)
 
 # ints per boundary descriptor row: kBCInts in csrc/collide_stream.cu
 _BC_ROW = 11
@@ -108,6 +120,22 @@ def reset_launches() -> None:
 
 def _count(entry: str) -> None:
     launches[entry] = launches.get(entry, 0) + 1
+
+
+def _bf16(f) -> bool:
+    return f.dtype == torch.bfloat16
+
+
+def _widen(f):
+    """The state as float32: a bf16 state widened (exactly), a float32
+    one as it is."""
+    return f.float() if _bf16(f) else f
+
+
+def _tagged(name: str, f) -> str:
+    """The counter name of an instance on f's storage: 'trt' -> 'trt+bf16'
+    for bf16 state."""
+    return f"{name}+bf16" if _bf16(f) else name
 
 
 def instance(cc: CompiledCase, field: ForceField | None = None) -> str:
@@ -184,11 +212,13 @@ def _field_tensor(cc: CompiledCase, field, g):
 def collide_stream_plain(f, cc: CompiledCase, t: int, field=None, g=None):
     """The dense step at absolute step t with the x/y-plane boundaries
     only (those the kernel applies) plus the fluid velsum: (f',
-    sum_fluid |u|) with the sum a float64 0-dim tensor. field, g: the
-    force field and the pre-step scalar state it is built from."""
-    f_new, _, u = step_tail(cc, f, pulled_state(cc, f, t, cc.kernel_bcs),
+    sum_fluid |u|) with the sum a float64 0-dim tensor and f' in f's
+    dtype (a bf16 f widened, stepped in fp32, narrowed once). field, g:
+    the force field and the pre-step scalar state it is built from."""
+    f32 = _widen(f)
+    f_new, _, u = step_tail(cc, f32, pulled_state(cc, f32, t, cc.kernel_bcs),
                             _field_tensor(cc, field, g))
-    return f_new, fluid_speed_sum(cc, u)
+    return f_new.to(f.dtype), fluid_speed_sum(cc, u)
 
 
 def _speed(u):
@@ -200,8 +230,9 @@ def fix_z_plane_plain(f_src, f_out, cc: CompiledCase, bc: CompiledBC,
     """One z-plane boundary's fixup over its window: the step of the
     window's consumer-plane cells again, from the pre-step f_src, with
     this boundary's NEE rewrite; writes their fluid cells into f_out in
-    place. Returns sum |u_fixed| - sum |u_pre-NEE| over those cells
-    (float64 0-dim), the velsum correction."""
+    place (narrowed to f_out's dtype). Returns sum |u_fixed| - sum
+    |u_pre-NEE| over those cells (float64 0-dim), the velsum correction."""
+    f_src = _widen(f_src)
     x0, x1, y0, y1 = bc.window
     c = bc.consumer_coord
     nx, ny, nz = cc.shape
@@ -244,7 +275,7 @@ def fix_z_plane_plain(f_src, f_out, cc: CompiledCase, bc: CompiledBC,
 
 def step_plain(f, cc: CompiledCase, t: int, field=None, g=None):
     """The plain version of `step`: (f', velsum) with the velsum a
-    float64 0-dim tensor."""
+    float64 0-dim tensor and f' in f's dtype."""
     f_new, vs = collide_stream_plain(f, cc, t, field, g)
     for bc in cc.z_bcs:
         if bc.window is not None:
@@ -253,14 +284,16 @@ def step_plain(f, cc: CompiledCase, t: int, field=None, g=None):
 
 
 def macro_plain(f, force=None):
-    """(rho, u) moments of every cell, u = (m + F/2) / rho with a force."""
-    rho, mom = momentum(f)
+    """(rho, u) moments of every cell, u = (m + F/2) / rho with a force
+    (fp32, from a bf16 state widened)."""
+    rho, mom = momentum(_widen(f))
     return rho, velocity(rho, mom, force)
 
 
 def _check_state(f, cc: CompiledCase, name: str) -> None:
-    if f.dtype != torch.float32 or not f.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous float32 tensor")
+    if f.dtype not in STORE_DTYPES or not f.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous float32 or bfloat16 "
+                         "tensor")
     if tuple(f.shape) != (19,) + tuple(cc.shape):
         raise ValueError(f"{name} shape {tuple(f.shape)} != (19, *{cc.shape})")
     if f.device != cc.device:
@@ -270,6 +303,9 @@ def _check_state(f, cc: CompiledCase, name: str) -> None:
 def _check_pair(f, out, cc: CompiledCase, series, slot: int) -> None:
     _check_state(f, cc, "f")
     _check_state(out, cc, "out")
+    if out.dtype != f.dtype:
+        raise ValueError(f"out is {out.dtype}, f {f.dtype}: one storage "
+                         "type")
     if f.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {f.device}")
     if out.data_ptr() == f.data_ptr():
@@ -346,13 +382,16 @@ def collision_descriptor(cc: CompiledCase, field: ForceField | None = None):
     return per_case[key]
 
 
-def _check_field(field, g, cc: CompiledCase):
+def _check_field(field, g, cc: CompiledCase, f):
     """The pointer of the scalar state a force field reads (None without
-    a field), after checking it."""
+    a field), after checking it and f's storage."""
     if field is None:
         if g is not None:
             raise ValueError("g was given without a force field")
         return None
+    if _bf16(f):
+        raise ValueError("the force field steps float32 state only: "
+                         "lbm_tpu's transports take no store_dtype")
     if g is None or g.dtype != torch.float32 or not g.is_contiguous() \
             or tuple(g.shape) != (7,) + tuple(cc.shape) \
             or g.device != cc.device:
@@ -374,7 +413,7 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
     reads (the force-field instance). Returns out."""
     _check_pair(f, out, cc, series, slot)
     name, ci, cf = collision_descriptor(cc, field)
-    g_ptr = _check_field(field, g, cc)
+    g_ptr = _check_field(field, g, cc, f)
     ids = None if all_blocks else cc.live_blocks
     if f.device.type == "cpu":
         f_new, vs = collide_stream_plain(f, cc, t, field, g)
@@ -383,7 +422,8 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
         return out
     from lbm_tpu_torch.kernels._build import check, load_library
 
-    lib = load_library().lib
+    lib = load_library(_bf16(f)).lib
+    name = _tagged(name, f)
     nx, ny, nz = cc.shape
     n_cells = nx * ny * nz
     if n_cells >= 2**31:
@@ -393,7 +433,9 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
         cc, "k1a", cc.kernel_bcs, t, grid)
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
-        err = lib.lbm_collide_stream(
+        launch = lib.lbm_collide_stream_bf16 if _bf16(f) \
+            else lib.lbm_collide_stream
+        err = launch(
             f.data_ptr(), out.data_ptr(), cc.mask.data_ptr(),
             nx, ny, nz, ci.ctypes.data, cf.ctypes.data,
             len(cc.kernel_bcs), ints.ctypes.data, floats.ctypes.data,
@@ -414,7 +456,7 @@ def fix_z_plane(f_src, f_out, cc: CompiledCase, bc: CompiledBC, series,
     series[slot]. field, g as in collide_stream. Returns f_out."""
     _check_pair(f_src, f_out, cc, series, slot)
     name, ci, cf = collision_descriptor(cc, field)
-    g_ptr = _check_field(field, g, cc)
+    g_ptr = _check_field(field, g, cc, f_src)
     if not any(b is bc for b in cc.z_bcs) or bc.window is None:
         raise ValueError("bc must be one of the case's z-plane boundaries "
                          "with a window")
@@ -423,7 +465,8 @@ def fix_z_plane(f_src, f_out, cc: CompiledCase, bc: CompiledBC, series,
         return f_out
     from lbm_tpu_torch.kernels._build import check, load_library
 
-    lib = load_library().lib
+    lib = load_library(_bf16(f_src)).lib
+    name = _tagged(name, f_src)
     nx, ny, nz = cc.shape
     x0, x1, y0, y1 = bc.window
     grid = -(-((x1 - x0) * (y1 - y0)) // lib.lbm_block_size())
@@ -431,7 +474,9 @@ def fix_z_plane(f_src, f_out, cc: CompiledCase, bc: CompiledBC, series,
         cc, "z", [bc], t, grid)
     with torch.cuda.device(f_src.device):
         stream = torch.cuda.current_stream(f_src.device).cuda_stream
-        err = lib.lbm_fix_z_plane(
+        launch = lib.lbm_fix_z_plane_bf16 if _bf16(f_src) \
+            else lib.lbm_fix_z_plane
+        err = launch(
             f_src.data_ptr(), f_out.data_ptr(), cc.mask.data_ptr(),
             nx, ny, nz, ci.ctypes.data, cf.ctypes.data,
             ints.ctypes.data, floats.ctypes.data,
@@ -459,10 +504,12 @@ def step(f, out, cc: CompiledCase, series, slot: int, t: int,
 def collide_stream2_plain(f, cc: CompiledCase, t: int):
     """The plain version of `step2`: two collide_stream_plain steps at
     absolute steps t and t + 1, (f'', velsum at t, velsum at t + 1) with
-    the velsums float64 0-dim tensors."""
-    f1, vs1 = collide_stream_plain(f, cc, t)
+    the velsums float64 0-dim tensors and f'' in f's dtype. A bf16 f is
+    widened, stepped twice in fp32 and narrowed once (the kernel's fp32
+    mid tile), which two bf16 single steps are not."""
+    f1, vs1 = collide_stream_plain(_widen(f), cc, t)
     f2, vs2 = collide_stream_plain(f1, cc, t + 1)
-    return f2, vs1, vs2
+    return f2.to(f.dtype), vs1, vs2
 
 
 def step2(f, out, cc: CompiledCase, series, slot: int, t: int,
@@ -486,7 +533,8 @@ def step2(f, out, cc: CompiledCase, series, slot: int, t: int,
         return out
     from lbm_tpu_torch.kernels._build import check, load_pair_library
 
-    lib = load_pair_library().lib
+    lib = load_pair_library(_bf16(f)).lib
+    name = _tagged(name, f)
     nx, ny, nz = cc.shape
     if nx * ny * nz >= 2**31:
         raise ValueError(f"{nx * ny * nz} cells: the kernel indexes cells "
@@ -501,7 +549,9 @@ def step2(f, out, cc: CompiledCase, series, slot: int, t: int,
     (_, _, _, phis1), _ = _launch_scratch(cc, "k2 t+1", bcs, t + 1, 0)
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
-        err = lib.lbm_collide_stream2(
+        launch = lib.lbm_collide_stream2_bf16 if _bf16(f) \
+            else lib.lbm_collide_stream2
+        err = launch(
             f.data_ptr(), out.data_ptr(), cc.mask.data_ptr(),
             nx, ny, nz, ci.ctypes.data, cf.ctypes.data,
             len(bcs), ints.ctypes.data, floats.ctypes.data,
@@ -514,10 +564,15 @@ def step2(f, out, cc: CompiledCase, series, slot: int, t: int,
     return out
 
 
+def _check_whole(f) -> None:
+    if f.dtype not in STORE_DTYPES or not f.is_contiguous() \
+            or f.dim() != 4 or f.shape[0] != 19:
+        raise ValueError("f must be a contiguous (19, X, Y, Z) float32 or "
+                         "bfloat16 tensor")
+
+
 def _check_rows(f, x0: int, wx: int) -> None:
-    if f.dtype != torch.float32 or not f.is_contiguous() or f.dim() != 4 \
-            or f.shape[0] != 19:
-        raise ValueError("f must be a contiguous (19, X, Y, Z) float32 tensor")
+    _check_whole(f)
     if not (0 <= x0 and 0 < wx and x0 + wx <= f.shape[1]):
         raise ValueError(f"rows [{x0}, {x0 + wx}) are not inside the "
                          f"{f.shape[1]} x rows")
@@ -530,31 +585,33 @@ def extract_rows_plain(f, x0: int, wx: int):
 
 
 def extract_rows(f, x0: int, wx: int, out=None):
-    """x rows [x0, x0 + wx) of a contiguous (19, X, Y, Z) float32 state
-    into out (a contiguous (19, wx, Y, Z) tensor on f's device, made when
-    None). Returns out."""
+    """x rows [x0, x0 + wx) of a contiguous (19, X, Y, Z) float32 or
+    bfloat16 state into out (a contiguous (19, wx, Y, Z) tensor of f's
+    dtype on f's device, made when None). Returns out."""
     _check_rows(f, x0, wx)
     shape = (19, wx) + tuple(f.shape[2:])
     if out is None:
-        out = torch.empty(shape, dtype=torch.float32, device=f.device)
-    if out.dtype != torch.float32 or not out.is_contiguous() \
+        out = torch.empty(shape, dtype=f.dtype, device=f.device)
+    if out.dtype != f.dtype or not out.is_contiguous() \
             or tuple(out.shape) != shape or out.device != f.device:
-        raise ValueError(f"out must be a contiguous float32 {shape} tensor "
-                         f"on {f.device}")
+        raise ValueError(f"out must be a contiguous {f.dtype} {shape} "
+                         f"tensor on {f.device}")
     if f.device.type == "cpu":
         return out.copy_(extract_rows_plain(f, x0, wx))
     if f.device.type != "cuda":
         raise ValueError(f"no kernel for device {f.device}")
     from lbm_tpu_torch.kernels._build import check, load_pair_library
 
-    lib = load_pair_library().lib
+    lib = load_pair_library(_bf16(f)).lib
+    name = "lbm_extract_rows[bf16]" if _bf16(f) else "lbm_extract_rows"
+    launch = lib.lbm_extract_rows_bf16 if _bf16(f) else lib.lbm_extract_rows
     _, nx, ny, nz = f.shape
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
-        err = lib.lbm_extract_rows(f.data_ptr(), out.data_ptr(), nx, ny, nz,
-                                   x0, wx, stream)
-    check(lib, err, "lbm_extract_rows")
-    _count("lbm_extract_rows")
+        err = launch(f.data_ptr(), out.data_ptr(), nx, ny, nz, x0, wx,
+                     stream)
+    check(lib, err, name)
+    _count(name)
     return out
 
 
@@ -565,7 +622,9 @@ CHUNK_BYTES = 256_000_000
 
 def chunk_rows(shape) -> int:
     """x rows per chunk of unpack_state_lowmem for a (X, Y, Z) box: as
-    many as fit CHUNK_BYTES, at least one."""
+    many as fit CHUNK_BYTES at 4 bytes a population, at least one
+    (lbm_tpu counts 4 bytes whatever the storage, so a bf16 chunk is half
+    as large)."""
     _, ny, nz = shape
     return max(1, CHUNK_BYTES // (19 * ny * nz * 4))
 
@@ -573,8 +632,10 @@ def chunk_rows(shape) -> int:
 def unpack_state_lowmem(f):
     """The state as a (19, X, Y, Z) float32 tensor in host memory, read in
     x-row chunks of at most CHUNK_BYTES (extract_rows into one device
-    chunk, then a pinned staging buffer), so device memory rises by one
-    chunk, never by a second state (lbm_tpu's unpack_state_lowmem)."""
+    chunk, then a pinned staging buffer, both in the state's dtype), so
+    device memory rises by one chunk, never by a second state (lbm_tpu's
+    unpack_state_lowmem). A bf16 state crosses as bf16 and is widened on
+    the host, as lbm_tpu's is."""
     _check_rows(f, 0, f.shape[1])
     _, nx, ny, nz = f.shape
     rows = chunk_rows((nx, ny, nz))
@@ -585,25 +646,23 @@ def unpack_state_lowmem(f):
             out[:, x0:x0 + w] = extract_rows(f, x0, w)
         return out
     n_max = 19 * rows * ny * nz
-    dev = torch.empty(n_max, dtype=torch.float32, device=f.device)
-    host = torch.empty(n_max, dtype=torch.float32, pin_memory=True)
+    dev = torch.empty(n_max, dtype=f.dtype, device=f.device)
+    host = torch.empty(n_max, dtype=f.dtype, pin_memory=True)
     for x0 in range(0, nx, rows):
         w = min(rows, nx - x0)
         n = 19 * w * ny * nz
         chunk = extract_rows(f, x0, w, out=dev[:n].view(19, w, ny, nz))
         staged = host[:n].view(19, w, ny, nz)
         staged.copy_(chunk)  # waits for the stream: pinned, not async
-        out[:, x0:x0 + w] = staged
+        out[:, x0:x0 + w] = staged  # widens a bf16 chunk on the host
     return out
 
 
 def macro(f, force=None):
-    """(rho (X, Y, Z), u (3, X, Y, Z)) moments of every cell of a
-    (19, X, Y, Z) float32 state; with a body force (a 3-vector) u = (m +
-    F/2) / rho."""
-    if f.dtype != torch.float32 or not f.is_contiguous() or f.dim() != 4 \
-            or f.shape[0] != 19:
-        raise ValueError("f must be a contiguous (19, X, Y, Z) float32 tensor")
+    """(rho (X, Y, Z), u (3, X, Y, Z)) fp32 moments of every cell of a
+    (19, X, Y, Z) float32 or bfloat16 state; with a body force (a
+    3-vector) u = (m + F/2) / rho."""
+    _check_whole(f)
     if force is not None and len(force) != 3:
         raise ValueError(f"force must be a 3-vector: {force!r}")
     if f.device.type == "cpu":
@@ -612,16 +671,19 @@ def macro(f, force=None):
         raise ValueError(f"no kernel for device {f.device}")
     from lbm_tpu_torch.kernels._build import check, load_library
 
-    lib = load_library().lib
+    lib = load_library(_bf16(f)).lib
     rho = torch.empty(f.shape[1:], dtype=torch.float32, device=f.device)
     u = torch.empty((3,) + tuple(f.shape[1:]), dtype=torch.float32,
                     device=f.device)
     half = (None if force is None
             else np.asarray(half_force(force), np.float32))
     name = "lbm_macro" if force is None else "lbm_macro[force]"
+    if _bf16(f):
+        name = "lbm_macro[bf16]" if force is None else "lbm_macro[force+bf16]"
+    launch = lib.lbm_macro_bf16 if _bf16(f) else lib.lbm_macro
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
-        err = lib.lbm_macro(f.data_ptr(), rho.data_ptr(), u.data_ptr(),
+        err = launch(f.data_ptr(), rho.data_ptr(), u.data_ptr(),
                             rho.numel(),
                             None if half is None else half.ctypes.data,
                             stream)

@@ -1,17 +1,26 @@
 // The D3Q19 device functions and host descriptor parsers that the
-// single-step kernels (collide_stream.cu) and the fused pair
-// (collide_stream2.cu) share: lattice constants, the collision and
+// single-step kernels (collide_stream.cuh) and the fused pair
+// (collide_stream2.cuh) share: lattice constants, the collision and
 // boundary descriptors, the pull with wall and moving-wall
 // bounce-back, the NEE rewrite, the collision branches, the fixed-order
-// velsum reduction. Each source includes it once, so everything here
-// lives in an anonymous namespace of that translation unit.
+// velsum reduction. Each translation unit includes it once, so everything
+// here lives in an anonymous namespace of that unit.
+//
+// The state's storage type S is a template parameter of every load and
+// store of populations: float, or __nv_bfloat16 for bf16 storage. Compute
+// is fp32 either way: a load widens (exactly), a store narrows with
+// round-to-nearest-even (__float2bfloat16_rn, as torch's
+// .to(torch.bfloat16) rounds), and a non-fluid cell's copy moves the raw
+// 16-bit words.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <array>
+#include <type_traits>
 #include <utility>
 
 namespace {
@@ -118,6 +127,24 @@ struct BCSet {
   BCDesc bc[kMaxBCs];
 };
 
+// A population as fp32, from either storage type.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// An fp32 population in storage type S (round-to-nearest-even for bf16).
+template <typename S>
+__device__ __forceinline__ S narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
 __device__ __forceinline__ int wrap(int v, int n) {
   return v < 0 ? v + n : (v >= n ? v - n : v);
 }
@@ -174,13 +201,13 @@ __device__ __forceinline__ void moments19(const float* p,
 // The pulled populations of cell (x, y, z): the value at x - e_i,
 // wrapped, or with half-way bounce-back off a wall source the cell's own
 // opposite population, plus the Ladd term bb[i] off a MOVING source.
-template <bool MOVING>
-__device__ __forceinline__ void pull19(const float* __restrict__ src,
+template <bool MOVING, typename S>
+__device__ __forceinline__ void pull19(const S* __restrict__ src,
                                        const int8_t* __restrict__ mask,
                                        int x, int y, int z, int nx, int ny,
                                        int nz, long long n_cells, int cell,
                                        const float* bb, float* p) {
-  p[0] = src[cell];
+  p[0] = widen(src[cell]);
 #pragma unroll
   for (int i = 1; i < Q; ++i) {
     const int xs = wrap(x - EX(i), nx);
@@ -193,12 +220,12 @@ __device__ __forceinline__ void pull19(const float* __restrict__ src,
       // the bytes: 1.96 ms against BGK's 1.16 at lid 256^3 on the H100)
       const int8_t m = mask[nb];
       const bool own = m == kWall || m == kMoving;
-      const float v = src[own ? (long long)OPP(i) * n_cells + cell
-                              : (long long)i * n_cells + nb];
+      const float v = widen(src[own ? (long long)OPP(i) * n_cells + cell
+                                    : (long long)i * n_cells + nb]);
       p[i] = m == kMoving ? v + bb[i] : v;
     } else {
-      p[i] = mask[nb] == kWall ? src[(long long)OPP(i) * n_cells + cell]
-                               : src[(long long)i * n_cells + nb];
+      p[i] = widen(mask[nb] == kWall ? src[(long long)OPP(i) * n_cells + cell]
+                                     : src[(long long)i * n_cells + nb]);
     }
   }
 }
@@ -207,15 +234,17 @@ __device__ __forceinline__ void pull19(const float* __restrict__ src,
 // NEE formula: p_i = rho* phi*_i + (f_i(x) - rho_prev phi_i(u_prev)) omega
 // for each prescribed direction whose lateral cell is valid (u_prev with
 // the F/2 shift under FORCE).
-template <bool FORCE>
+template <bool FORCE, typename S>
 __device__ __forceinline__ void nee_fix(const BCDesc& bc,
-                                        const float* __restrict__ src,
+                                        const S* __restrict__ src,
                                         long long n_cells, int cell,
                                         long long lat,
                                         const float* half_force, float* p) {
   float own[Q];
 #pragma unroll
-  for (int i = 0; i < Q; ++i) own[i] = src[(long long)i * n_cells + cell];
+  for (int i = 0; i < Q; ++i) {
+    own[i] = widen(src[(long long)i * n_cells + cell]);
+  }
   float rp, uxp, uyp, uzp;
   moments19<FORCE>(own, half_force, rp, uxp, uyp, uzp);
   const float usqp = uxp * uxp + uyp * uyp + uzp * uzp;
@@ -315,12 +344,12 @@ __device__ __forceinline__ void field_force(const Collision& c,
 
 // F and half: the cell's force and F/2, read under FORCE (the
 // descriptor's constants, or field_force's).
-template <int COLL, bool CLOSURE, int FORCE>
+template <int COLL, bool CLOSURE, int FORCE, typename S>
 __device__ __forceinline__ float collide_store(const float* p,
                                                const Collision& c,
                                                const float* F,
                                                const float* half,
-                                               float* __restrict__ dst,
+                                               S* __restrict__ dst,
                                                long long n_cells, int cell) {
   float rho, ux, uy, uz;
   moments19<FORCE != kNoForce>(p, half, rho, ux, uy, uz);
@@ -329,7 +358,8 @@ __device__ __forceinline__ float collide_store(const float* p,
 #pragma unroll
     for (int i = 0; i < Q; ++i) {
       const float feq = rho * phi_i(i, ux, uy, uz, usq);
-      dst[(long long)i * n_cells + cell] = p[i] - (p[i] - feq) / c.tau;
+      dst[(long long)i * n_cells + cell] =
+          narrow<S>(p[i] - (p[i] - feq) / c.tau);
     }
   } else {
     float feq[Q], post[Q];
@@ -396,7 +426,9 @@ __device__ __forceinline__ float collide_store(const float* p,
       }
     }
 #pragma unroll
-    for (int i = 0; i < Q; ++i) dst[(long long)i * n_cells + cell] = post[i];
+    for (int i = 0; i < Q; ++i) {
+      dst[(long long)i * n_cells + cell] = narrow<S>(post[i]);
+    }
   }
   return usq;
 }
@@ -481,6 +513,14 @@ struct Inst {
       !(kClosure && kColl == kMRT) &&
       !(kForce != kNoForce && (kColl == kMRT || kClosure));
 };
+
+// Whether storage type S has instance K: bf16 storage has every one but
+// the force field's (lbm_tpu's transports keep fp32 state).
+template <typename S, int K>
+constexpr bool has_instance() {
+  return Inst<K>::kValid &&
+         (std::is_same<S, float>::value || Inst<K>::kForce != kFieldForce);
+}
 
 // Fill a Collision from its descriptor rows and the scalar state of a
 // field force; returns the instance key, or -1 on a malformed row or a

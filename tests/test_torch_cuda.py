@@ -534,3 +534,115 @@ def test_runner_odd_tail_runs_one_single_step(device):
     assert torch.equal(a.f, b.f)
     assert abs(ra.velsum_series - rb.velsum_series).max() <= \
         1e-5 * abs(rb.velsum_series).min()
+
+
+# -- bf16 storage ----------------------------------------------------------
+
+# every bf16 collide-stream instance: BRANCHES and BGK (bit-equal to the
+# plain version where the fp32 instance is)
+BF16_BRANCHES = dict(BRANCHES, bgk=("lid_driven_cavity", dict(n=24), True))
+
+
+def _close_bf16(got, want):
+    """A closure's bf16 state against its plain version: within 2e-2 of
+    max |f|, lbm_tpu's bf16 bound (the fp32 transcendentals differ in the
+    last bit, which a narrowing can carry into a bf16 ulp)."""
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2e-2 * float(want.float().abs().max()), err
+
+
+@pytest.mark.parametrize("branch", sorted(BF16_BRANCHES))
+def test_bf16_branch_kernel_matches_plain(device, branch):
+    """Each bf16 collide-stream instance against the plain step on bf16
+    state, 40 steps: f bit for bit where the fp32 instance is, the
+    closures within lbm_tpu's bf16 bound; velsums at 1e-5 relative; K3 on
+    the bf16 state bit for bit, with the case's force shift."""
+    name, kw, exact = BF16_BRANCHES[branch]
+    cc = compile_case(get_case(name, **kw), device)
+    f = initial_f(cc).to(torch.bfloat16)
+    fk, buf = f.clone(), f.clone()
+    vs_k = torch.zeros(40, dtype=torch.float64, device=device)
+    vs_p = torch.zeros(40, dtype=torch.float64, device=device)
+    K.reset_launches()
+    for t in range(40):
+        K.step(fk, buf, cc, vs_k, t, t)
+        fk, buf = buf, fk
+        f, vs_p[t] = K.step_plain(f, cc, t)
+    torch.cuda.synchronize()
+    assert K.launches == {f"lbm_collide_stream[{K.instance(cc)}+bf16]": 40}
+    assert fk.dtype == f.dtype == torch.bfloat16
+    if exact:
+        assert torch.equal(fk, f)
+    else:
+        _close_bf16(fk, f)
+    torch.testing.assert_close(vs_k, vs_p, rtol=1e-5, atol=0.0)
+    rho, u = K.macro(fk, cc.force)
+    rho_p, u_p = K.macro_plain(fk, cc.force)
+    assert torch.equal(rho, rho_p) and torch.equal(u, u_p)
+
+
+@pytest.mark.parametrize("name,kw", VESSELS)
+def test_bf16_vessel_step_matches_plain(device, name, kw):
+    """The bf16 step on the vessels (live blocks, the bf16 z-plane fixup
+    after it, series phases), 12 steps, bit for bit against step_plain
+    on bf16 state."""
+    cc = compile_case(get_case(name, **kw), device)
+    f = initial_f(cc).to(torch.bfloat16)
+    fk, buf = f.clone(), f.clone()
+    vs_k = torch.zeros(12, dtype=torch.float64, device=device)
+    vs_p = torch.zeros(12, dtype=torch.float64, device=device)
+    K.reset_launches()
+    for t in range(12):
+        K.step(fk, buf, cc, vs_k, t, t)
+        fk, buf = buf, fk
+        f, vs_p[t] = K.step_plain(f, cc, t)
+    torch.cuda.synchronize()
+    assert K.launches["lbm_collide_stream[bgk+bf16]"] == 12
+    assert K.launches.get("lbm_fix_z_plane[bgk+bf16]", 0) == \
+        12 * len(cc.z_bcs)
+    assert torch.equal(fk, f)
+    torch.testing.assert_close(vs_k, vs_p, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("branch", sorted(PAIRS))
+def test_bf16_pair_kernel_matches_plain(device, branch):
+    """The bf16 fused pair (fp32 mid tile, one narrowing a pair) against
+    the plain pair on bf16 state, 40 steps: bit for bit where the fp32
+    pair is, the closures within lbm_tpu's bf16 bound; velsums at 1e-5.
+    Two bf16 K1 launches narrow in between and need not agree."""
+    name, kw, exact = PAIRS[branch]
+    cc = compile_case(get_case(name, **kw), device)
+    f0 = initial_f(cc).to(torch.bfloat16)
+    fp, buf = f0.clone(), f0.clone()
+    fq = f0
+    vp = torch.zeros(40, dtype=torch.float64, device=device)
+    vq = torch.zeros(40, dtype=torch.float64, device=device)
+    K.reset_launches()
+    for t in range(0, 40, 2):
+        K.step2(fp, buf, cc, vp, t, t)
+        fp, buf = buf, fp
+        fq, vq[t], vq[t + 1] = K.collide_stream2_plain(fq, cc, t)
+    torch.cuda.synchronize()
+    assert K.launches == {f"lbm_collide_stream2[{K.instance(cc)}+bf16]": 20}
+    if exact:
+        assert torch.equal(fp, fq)
+    else:
+        _close_bf16(fp, fq)
+    torch.testing.assert_close(vp, vq, rtol=1e-5, atol=0.0)
+
+
+def test_bf16_extract_rows_and_lowmem_read(device):
+    f = torch.randn(19, 13, 12, 16, device=device).to(torch.bfloat16)
+    g = torch.randn(19, 9, 7, 5, device=device).to(torch.bfloat16)
+    K.reset_launches()
+    for x, x0, wx in ((f, 0, 13), (f, 5, 3), (g, 2, 4), (g, 8, 1)):
+        out = K.extract_rows(x, x0, wx)
+        assert out.dtype == torch.bfloat16
+        assert torch.equal(out, x.narrow(1, x0, wx).contiguous())
+    assert K.launches == {"lbm_extract_rows[bf16]": 4}
+    sim = Simulation(get_case("lid_driven_cavity", n=24), device=device,
+                     lowmem=True, store_dtype="bf16")
+    sim.run(max_steps=4, time_save=4, verbose=False)
+    host = sim.f_standard()
+    assert host.device.type == "cpu" and host.dtype == torch.float32
+    assert torch.equal(host, sim.f.float().cpu())

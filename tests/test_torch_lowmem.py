@@ -1,7 +1,7 @@
 """The chunked state read (kernels.extract_rows, unpack_state_lowmem,
 Simulation(lowmem=True)) and the checkpoints around it held against
 lbm_tpu on the CPU: its unpack_state_lowmem on the Pallas state in
-interpret mode, and its packed (lowmem) checkpoints."""
+interpret mode, and its packed (lowmem) checkpoints, fp32 and bf16."""
 
 import zipfile
 
@@ -116,13 +116,53 @@ def test_packed_lbm_tpu_checkpoint_resumes_in_port(tmp_path):
                                rtol=3e-6, atol=1e-7)
 
 
-def test_packed_bf16_checkpoint_is_refused(tmp_path):
+@pytest.mark.parametrize("store_dtype", ["f32", "bf16"])
+def test_packed_bf16_checkpoint_restores(tmp_path, store_dtype):
+    """lbm_tpu's packed bf16 checkpoint (its bf16 lowmem run; np.savez
+    keeps the bfloat16 words as |V2 void, which lbm_tpu's own restore
+    cannot read) restores into a port run of either storage dtype: f is
+    the payload widened bit for bit, which is the writer's f_standard()."""
     path = tmp_path / "bf16.ckpt.npz"
-    _ref_packed_checkpoint(path, 1, "lid_driven_cavity", dict(n=8),
-                           store_dtype="bf16")
-    sim = Simulation(get_case("lid_driven_cavity", n=8), device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16 storage"):
-        ckpt.restore(sim, str(path))
+    ref = _ref_packed_checkpoint(path, 2, "lid_driven_cavity", dict(n=8),
+                                 store_dtype="bf16")
+    payload, _, _, meta = ckpt.load(str(path))
+    assert meta["layout"]["dtype"] == "bfloat16"
+    assert payload.dtype.kind == "V" and payload.dtype.itemsize == 2
+    ring = int(meta["layout"]["ring"])
+    words = payload.view(np.uint16)[ring:ring + 8, ring:ring + 8, :19, :8]
+    widened = (words.astype(np.uint32) << 16).view(np.float32) \
+        .transpose(2, 0, 1, 3)
+    sim = Simulation(get_case("lid_driven_cavity", n=8), device="cpu",
+                     store_dtype=store_dtype)
+    ckpt.restore(sim, str(path))
+    assert sim.t == 2
+    assert sim.f.dtype == (torch.bfloat16 if store_dtype == "bf16"
+                           else torch.float32)
+    np.testing.assert_array_equal(sim.f_standard().numpy(), widened)
+    np.testing.assert_array_equal(sim.f_standard().numpy(),
+                                  np.asarray(ref.f_standard()))
+
+
+def test_bf16_portable_checkpoint_round_trip(tmp_path):
+    """A bf16 run saves the portable float32 layout (never |V2) and
+    resumes from it bit-equal to an uninterrupted run; the file restores
+    into an fp32 run too, as the widened state."""
+    spec = get_case("coronary", **COR, pulsatile=(4, 8))
+    a = Simulation(spec, device="cpu", store_dtype="bf16")
+    a.run(max_steps=3, time_save=3, verbose=False)
+    path = str(tmp_path / "bf16.ckpt.npz")
+    ckpt.save_sim(path, a)
+    f, t, _, meta = ckpt.load(path)
+    assert f.dtype == np.float32 and t == 3 and "layout" not in meta
+    b = Simulation(spec, device="cpu", store_dtype="bf16")
+    ckpt.restore(b, path)
+    assert b.t == 3 and torch.equal(b.f, a.f)
+    a.run(max_steps=2, time_save=2, verbose=False)
+    b.run(max_steps=2, time_save=2, verbose=False)
+    assert torch.equal(a.f, b.f) and torch.equal(a._spare, b._spare)
+    c = Simulation(spec, device="cpu")
+    ckpt.restore(c, path)
+    assert c.f.dtype == torch.float32 and torch.equal(c.f, torch.from_numpy(f))
 
 
 def test_lowmem_checkpoint_round_trip(tmp_path):
