@@ -149,8 +149,51 @@ collide_stream2_bf16.cu):
   8c. (inside phase 8) `run --dtype bf16` on the 64^3 cavity and `run
      --dtype bf16 --lowmem --checkpoint-every 1` on the default coronary,
      each writing VTK and CONVERGENCE.log (the checkpoint float32).
+The sharded collide-stream step (K1d: lbm_collide_stream_halo and
+lbm_fix_z_plane_halo, built from collide_stream_halo.cu once per shard
+axis) and Simulation(mesh=) on torch.distributed:
+  2d. (inside phase 2) the two halo units' build seconds and ptxas's
+     registers and spills of their 28 + 28 instances; the 36 unsharded
+     fp32 instances' registers and spills beside the build of the sources
+     before the sharded step (BASE_PTXAS, commit 0245b70, from
+     probes/ptxas_report.py), which they must equal;
+  3e. (inside phase 3) K1d and its halo z fixup on shards held in one
+     process (no communication library: each shard's planes are its
+     neighbours' edge rows), 20 steps of every fp32 branch on x or y on
+     4 shards (lid 64^3, the small pulsatile coronary, gravity_channel
+     32^3, poiseuille 32^3), then lid 256^3 on x and the full coronary on
+     y (291 rows padded to 292) on 2 and 4 shards for 2 steps: each shard
+     against its plain version and the stitched shards against the
+     whole-box kernel step, bit for bit (the closures within rtol 3e-6 /
+     atol 1e-7), velsums at 1e-5; K1d per launch on a 4-way shard by
+     CUDA events in turns against its plain version and against K1a on
+     the same local shape, and by the profiler's device time, the halo z
+     fixup per launch, with bounds (the local step's bytes plus the
+     planes);
+ 16. the sharded paths on the one card: Simulation(mesh=) on 4 gloo ranks
+     with CUDA tensors sharing the card (planes staged through pinned
+     host memory), counters reset just before and read just after on
+     each rank: lid 256^3 on x, 1000 steps at time_save=250, against
+     phase 4's unsharded run; the full coronary on y, 200 steps at
+     time_save=100 with the 'velsum' residual, against an unsharded run
+     of the same steps: f_standard() bit for bit off the DEAD cells and
+     zeros on them, the velsum series within 1e-5, the same stop step on
+     every rank, K1d [bgk+halo] once a step on every rank and the halo z
+     fixup once a step per z window a rank holds; ms/step and the
+     exchange's ms a step of the one-card arrangement;
+  8d. (inside phase 8) `run --shard 1` on the 64^3 cavity over NCCL
+     writes VTK and CONVERGENCE.log;
+ 17. with two or more cards, the NCCL path on up to 4 of them, one rank
+     a card: the full coronary on y, 200 steps, held as in phase 16
+     against an unsharded run, then `run --shard N` on the 64^3 cavity
+     writing VTK and CONVERGENCE.log; with one card a line saying the
+     NCCL path for several cards was not run.
 Before the last line it prints one JSON object describing each kernel;
 the last line is {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --nccl
+
+runs phase 17 alone on every card of the machine (two or more).
 """
 
 from __future__ import annotations
@@ -169,11 +212,55 @@ K7_SOURCE = "lbm_tpu_torch/kernels/csrc/scalar_stream.cu"
 K2_SOURCE = "lbm_tpu_torch/kernels/csrc/collide_stream2.cu"
 K1A_BF16_SOURCE = "lbm_tpu_torch/kernels/csrc/collide_stream_bf16.cu"
 K2_BF16_SOURCE = "lbm_tpu_torch/kernels/csrc/collide_stream2_bf16.cu"
+K1D_SOURCE = "lbm_tpu_torch/kernels/csrc/collide_stream_halo.cu"
 HBM_BYTES_PER_S = 3.35e12   # published H100 SXM peak at 700 W
 # lbm_tpu's bf16 tolerance (tests/test_pallas_kernel.py): a bf16 state
 # within this share of max |f| of its reference
 BF16_REL = 2e-2
 FULL_CORONARY = dict(shape=[291, 291, 372], radius=12, pulsatile=[40, 2000])
+# The 36 unsharded fp32 collide-stream and fixup instances as the sources
+# before the sharded step (commit 0245b70) build: (registers, spill store
+# bytes, spill load bytes), from probes/ptxas_report.py on that tree's
+# kernels/csrc with kernels/_build.NVCC_FLAGS, on the H100's machine.
+# Phase 2 requires this build's to be the same: K1d leaves them untouched.
+BASE_PTXAS = {
+    "collide_stream_kernel[bgk+closure+moving]": (80, 0, 0),
+    "collide_stream_kernel[bgk+closure]": (78, 0, 0),
+    "collide_stream_kernel[bgk+field+moving]": (80, 0, 0),
+    "collide_stream_kernel[bgk+field]": (80, 0, 0),
+    "collide_stream_kernel[bgk+force+moving]": (80, 0, 0),
+    "collide_stream_kernel[bgk+force]": (80, 0, 0),
+    "collide_stream_kernel[bgk+moving]": (80, 0, 0),
+    "collide_stream_kernel[bgk]": (78, 0, 0),
+    "collide_stream_kernel[mrt+moving]": (80, 0, 0),
+    "collide_stream_kernel[mrt]": (78, 0, 0),
+    "collide_stream_kernel[trt+closure+moving]": (80, 0, 0),
+    "collide_stream_kernel[trt+closure]": (78, 0, 0),
+    "collide_stream_kernel[trt+field+moving]": (80, 4, 16),
+    "collide_stream_kernel[trt+field]": (87, 0, 0),
+    "collide_stream_kernel[trt+force+moving]": (80, 0, 0),
+    "collide_stream_kernel[trt+force]": (80, 0, 0),
+    "collide_stream_kernel[trt+moving]": (80, 0, 0),
+    "collide_stream_kernel[trt]": (78, 0, 0),
+    "fix_z_plane_kernel[bgk+closure+moving]": (74, 0, 0),
+    "fix_z_plane_kernel[bgk+closure]": (64, 0, 0),
+    "fix_z_plane_kernel[bgk+field+moving]": (80, 0, 0),
+    "fix_z_plane_kernel[bgk+field]": (80, 0, 0),
+    "fix_z_plane_kernel[bgk+force+moving]": (80, 0, 0),
+    "fix_z_plane_kernel[bgk+force]": (80, 0, 0),
+    "fix_z_plane_kernel[bgk+moving]": (71, 0, 0),
+    "fix_z_plane_kernel[bgk]": (64, 0, 0),
+    "fix_z_plane_kernel[mrt+moving]": (64, 16, 16),
+    "fix_z_plane_kernel[mrt]": (64, 0, 0),
+    "fix_z_plane_kernel[trt+closure+moving]": (64, 16, 16),
+    "fix_z_plane_kernel[trt+closure]": (64, 0, 0),
+    "fix_z_plane_kernel[trt+field+moving]": (80, 0, 0),
+    "fix_z_plane_kernel[trt+field]": (80, 0, 0),
+    "fix_z_plane_kernel[trt+force+moving]": (80, 0, 0),
+    "fix_z_plane_kernel[trt+force]": (80, 0, 0),
+    "fix_z_plane_kernel[trt+moving]": (71, 0, 0),
+    "fix_z_plane_kernel[trt]": (64, 0, 0),
+}
 T_START = time.perf_counter()
 
 
@@ -2152,7 +2239,415 @@ def lowmem_path(device):
     return k4
 
 
+def halo_cases():
+    """The collision branches phase 3e holds K1d against its plain version
+    and the whole-box step on: (label, case, options, shard axis,
+    bit-equal?), every fp32 instance but the force field's on x or y."""
+    carreau = {"model": "carreau", "nu0": 0.1, "nu_inf": 0.01,
+               "lam": 100.0, "n": 0.4}
+    small = dict(shape=[64, 48, 96], radius=4, pulsatile=[4, 40])
+    return [
+        ("lid 64^3 bgk on x", "lid_driven_cavity", dict(n=64), 0, True),
+        ("coronary (64,48,96) pulsatile bgk on y", "coronary", small, 1,
+         True),
+        ("lid 64^3 trt on x", "lid_driven_cavity",
+         dict(n=64, collision="trt"), 0, True),
+        ("coronary (64,48,96) trt on y", "coronary",
+         dict(small, collision="trt"), 1, True),
+        ("lid 64^3 mrt on x", "lid_driven_cavity",
+         dict(n=64, collision="mrt"), 0, True),
+        ("coronary (64,48,96) mrt on y", "coronary",
+         dict(small, collision="mrt"), 1, True),
+        ("lid 64^3 moving lid on x", "lid_driven_cavity",
+         dict(n=64, lid="bounceback"), 0, True),
+        ("lid 64^3 trt moving lid on y", "lid_driven_cavity",
+         dict(n=64, lid="bounceback", collision="trt"), 1, True),
+        ("gravity_channel 32^3 bgk+force on x", "gravity_channel",
+         dict(n=32, nz=32), 0, True),
+        ("gravity_channel 32^3 trt+force on y", "gravity_channel",
+         dict(n=32, nz=32, collision="trt"), 1, True),
+        ("lid 64^3 smag 0.15 on x", "lid_driven_cavity",
+         dict(n=64, smagorinsky_cs=0.15), 0, False),
+        ("poiseuille 32^3 carreau on x", "poiseuille",
+         dict(n=32, rheology=carreau), 0, False),
+        ("coronary (64,48,96) trt+carreau on y", "coronary",
+         dict(small, collision="trt", rheology=carreau), 1, False),
+    ]
+
+
+def compare_halo(label, spec, axis, world, steps, device, exact):
+    """K1d and its z fixup on `world` shards held in one process for
+    `steps` steps from the initial state: each shard's step against the
+    plain halo step, and the stitched shards against the whole-box kernel
+    step (K1a and its fixups); the shards' velsums against the whole
+    box's. exact: both bit for bit (else rtol 3e-6, atol 1e-7). Returns
+    the max abs error of the two comparisons."""
+    import torch
+
+    from lbm_tpu_torch.bridge import gather_windows, shard_window
+    from lbm_tpu_torch.engine.compile import compile_case, compile_shard
+    from lbm_tpu_torch.engine.step import initial_f
+    from lbm_tpu_torch.kernels import collide_stream as K
+    from lbm_tpu_torch.parallel.halo import ring_planes
+
+    cc = compile_case(spec, device)
+    ccs = [compile_shard(spec, r, world, axis, device) for r in range(world)]
+    f = initial_f(cc)
+    whole, buf = f, f.clone()
+    fk = [shard_window(f, r, world, axis) for r in range(world)]
+    bufs = [x.clone() for x in fk]
+    fp = [x.clone() for x in fk]
+    vk = torch.zeros(world, steps, dtype=torch.float64, device=device)
+    vp = torch.zeros(world, steps, dtype=torch.float64, device=device)
+    vw = torch.zeros(steps, dtype=torch.float64, device=device)
+    K.reset_launches()
+    for t in range(steps):
+        K.step(whole, buf, cc, vw, t, t)
+        whole, buf = buf, whole
+        planes_k, planes_p = ring_planes(fk, axis), ring_planes(fp, axis)
+        for r, c in enumerate(ccs):
+            K.step(fk[r], bufs[r], c, vk[r], t, t, halo=c.halo(*planes_k[r]))
+            fk[r], bufs[r] = bufs[r], fk[r]
+            fp[r], vp[r, t] = K.step_plain(fp[r], c, t,
+                                           halo=c.halo(*planes_p[r]))
+    torch.cuda.synchronize()
+    inst = K.instance(cc)
+    n_z = sum(bc.window is not None for c in ccs for bc in c.z_bcs)
+    counts = dict(K.launches)
+    require(counts.get(f"lbm_collide_stream[{inst}+halo]") == steps * world
+            and counts.get(f"lbm_fix_z_plane[{inst}+halo]", 0)
+            == steps * n_z,
+            f"K1d {label}, {world} shards: launches {counts}")
+    tag = f"K1d {label}, {world} shards of {tuple(ccs[0].shape)}"
+    e_plain = max(check_close(f"{tag}: shard {r} against its plain version",
+                              fk[r], fp[r], 3e-6, 1e-7)
+                  for r in range(world))
+    stitched = gather_windows(fk, axis, spec.shape[axis])
+    e_whole = check_close(f"{tag}: stitched against the whole box", stitched,
+                          whole, 3e-6, 1e-7)
+    if exact:
+        require(e_plain == e_whole == 0.0,
+                f"{tag}: not bit-equal (plain {e_plain:.3e}, whole box "
+                f"{e_whole:.3e})")
+    vs_rel = float(((vk.sum(0) - vw).abs() / vw.abs()).max())
+    vp_rel = float(((vk - vp).abs() / vp.abs().clamp_min(1e-300)).max())
+    require(vs_rel <= 1e-5 and vp_rel <= 1e-5,
+            f"{tag}: velsum rel err {vs_rel:.3e} against the whole box, "
+            f"{vp_rel:.3e} against plain")
+    print(f"[3e] {tag} ({inst}+halo, {n_z} z windows): after {steps} steps "
+          f"max abs err {e_plain:.3e} against plain, {e_whole:.3e} against "
+          f"the whole-box step; velsum rel err {vs_rel:.3e}", flush=True)
+    del whole, buf, fk, bufs, fp, stitched
+    free_device()
+    return max(e_plain, e_whole)
+
+
+def time_halo(spec, axis, world, device, label):
+    """K1d on the rank with the most live blocks of `world` shards of spec:
+    per launch by CUDA events in turns against its plain version and
+    against K1a on the same local shape and live list (the whole-box
+    kernel, wrapping where K1d reads the planes), and the halo z fixup per
+    launch against its plain version. Bounds: the local step's bytes
+    (step_bytes) plus the two planes and their labels read, over 3.35
+    TB/s."""
+    import torch
+
+    from lbm_tpu_torch.engine.compile import compile_shard
+    from lbm_tpu_torch.engine.step import initial_f
+    from lbm_tpu_torch.kernels import collide_stream as K
+    from lbm_tpu_torch.parallel.halo import ring_planes
+
+    ccs = [compile_shard(spec, r, world, axis, device) for r in range(world)]
+    rank = max(range(world), key=lambda r: 0 if ccs[r].live_blocks is None
+               else ccs[r].live_blocks.numel())
+    cc = ccs[rank]
+    del ccs
+    f = initial_f(cc)
+    state = [f, f.clone()]
+    halo = cc.halo(*ring_planes([f], axis)[0])
+    series = torch.zeros(1, dtype=torch.float64, device=device)
+
+    def k1d():
+        K.collide_stream(state[0], state[1], cc, series, 0, 0, halo=halo)
+        state.reverse()
+
+    def k1a():
+        K.collide_stream(state[0], state[1], cc, series, 0, 0)
+        state.reverse()
+
+    def plain():
+        K.collide_stream_plain(state[0], cc, 0, halo=halo)
+
+    def device_ms(fn, n, kernel):
+        # device time a call of the kernels named `kernel`, by the profiler
+        by_name, _ = profile_steps(lambda: [fn() for _ in range(n)], n)
+        return sum(v[0] for k, v in by_name.items() if kernel in k)
+
+    lat = [n for a, n in enumerate(cc.shape) if a != axis]
+    planes = 2 * (5 * 4 + 1) * lat[0] * lat[1]
+    tag = f"{label} rank {rank} of {world}, local {tuple(cc.shape)}"
+    iters = 1000 if cc.live_blocks is not None else 500
+    out = {"rank": rank, "shape": tuple(cc.shape)}
+    out["ms"], out["plain_ms"] = in_turns(f"K1d [bgk+halo] {tag}", plain,
+                                          k1d, 5, iters)
+    _, out["k1a_ms"] = in_turns(f"K1a against K1d, same shard, {tag}", k1a,
+                                k1d, iters, iters, names="K1a/K1d")
+    out["device_ms"] = device_ms(k1d, 200, "collide_stream_kernel")
+    out["k1a_device_ms"] = device_ms(k1a, 200, "collide_stream_kernel")
+    out["bound_ms"] = bound_ms(step_bytes(cc, cc.fluid, cc.kernel_bcs)
+                               + planes)
+    kz, pz, bz = [], [], []
+    fz = [state[0], state[1].clone()]
+    for bc in cc.z_bcs:
+        if bc.window is None:
+            continue
+        x0, x1, y0, y1 = bc.window
+        k_ms, p_ms = in_turns(
+            f"lbm_fix_z_plane [bgk+halo] z={bc.consumer_coord} window "
+            f"{x1 - x0}x{y1 - y0}, {tag}",
+            lambda bc=bc: K.fix_z_plane_plain(fz[0], fz[1], cc, bc, 0,
+                                              halo=halo),
+            lambda bc=bc: K.fix_z_plane(fz[0], fz[1], cc, bc, series, 0, 0,
+                                        halo=halo),
+            20, 2000)
+        sel = torch.zeros_like(cc.fluid)
+        sel[x0:x1, y0:y1, bc.consumer_coord] = \
+            cc.fluid[x0:x1, y0:y1, bc.consumer_coord]
+        # the launch is a few µs of device time behind more of host time:
+        # the profiler's device time, the events' where it sees none
+        dev = device_ms(
+            lambda bc=bc: K.fix_z_plane(fz[0], fz[1], cc, bc, series, 0, 0,
+                                        halo=halo), 200, "fix_z_plane_kernel")
+        out["fix_ms_by"] = ("torch.profiler device time" if dev
+                            else "cuda events")
+        kz.append(dev or k_ms)
+        pz.append(p_ms)
+        bz.append(bound_ms(step_bytes(cc, sel, [bc])))
+    if kz:
+        out["fix_ms"], out["fix_plain_ms"] = sum(kz) / len(kz), \
+            sum(pz) / len(pz)
+        out["fix_bound_ms"] = sum(bz) / len(bz)
+    print(f"[3e] K1d {tag}: {out['ms']:.4f} ms a launch by CUDA events "
+          f"(K1a on the same shard {out['k1a_ms']:.4f}, plain "
+          f"{out['plain_ms']:.4f}); device time by the profiler "
+          f"{out['device_ms']:.4f} (K1a {out['k1a_device_ms']:.4f}); bound "
+          f"{out['bound_ms']:.6f} ms ({int(cc.fluid.sum())} fluid cells, "
+          f"{planes} bytes of planes)"
+          + (f"; halo z fixup {out['fix_ms']:.5f} ms of device time a "
+             f"launch (plain {out['fix_plain_ms']:.4f}, bound "
+             f"{out['fix_bound_ms']:.6f})" if kz else ""), flush=True)
+    del state, fz, halo
+    free_device()
+    return out
+
+
+def sharded_rank(mesh, case, opts, steps, time_save, out_dir):
+    """One rank of phases 16 and 17: get_case(case, **opts) with the
+    'velsum' residual on this rank of `mesh` (gloo ranks sharing the
+    card, or NCCL ranks one card each),
+    `steps` steps in chunks of time_save, counters reset just before and
+    read just after; then 100 rounds of the exchange alone and the
+    gathered f_standard(), which rank 0 writes to out_dir/f.npy. Returns
+    this rank's numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.cases import get_case
+    from lbm_tpu_torch.engine.runner import Simulation
+    from lbm_tpu_torch.kernels import collide_stream as K
+    from lbm_tpu_torch.parallel.halo import Exchange, edge_planes
+
+    def sync():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    spec = dataclasses.replace(get_case(case, **opts),
+                               residual_flavor="velsum")
+    sim = Simulation(spec, device=mesh.device.type, mesh=mesh)
+    setup_s = time.perf_counter() - t0
+    mesh.barrier()
+    K.reset_launches()
+    marks = []
+    t_run = time.perf_counter()
+    res = sim.run(max_steps=steps, time_save=time_save, verbose=False,
+                  on_save=chunk_clock(marks))
+    sync()
+    counts = dict(K.launches)
+    swap = Exchange(mesh)
+    planes = edge_planes(sim.f, sim.shard_axis)
+    mesh.barrier()
+    sync()
+    t1 = time.perf_counter()
+    for _ in range(100):
+        swap(*planes)
+    sync()
+    exchange_ms = (time.perf_counter() - t1) / 100 * 1e3
+    t2 = time.perf_counter()
+    f = sim.f_standard()
+    sync()
+    gather_s = time.perf_counter() - t2
+    if mesh.rank == 0:
+        np.save(os.path.join(out_dir, "f.npy"), f.cpu().numpy())
+    cc = sim.cc
+    return {"rank": mesh.rank, "counts": counts, "steps": res.steps,
+            "converged": res.converged, "velsum": res.velsum_series,
+            "ms": res.elapsed_s / res.steps * 1e3,
+            "chunks": chunk_ms(t_run, marks, time_save),
+            "exchange_ms": exchange_ms, "setup_s": setup_s,
+            "gather_s": gather_s, "shape": tuple(cc.shape),
+            "z_windows": sum(bc.window is not None for bc in cc.z_bcs),
+            "live_blocks": (None if cc.live_blocks is None
+                            else cc.live_blocks.numel()),
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                         if mesh.device.type == "cuda" else 0.0)}
+
+
+def sharded_path(label, case, opts, world, steps, time_save, ref_f, ref_vs,
+                 ref_steps, device_type="cuda", backend="gloo"):
+    """Phase 16: Simulation(mesh=) of `case` on `world` gloo ranks that
+    share the card (their planes staged through pinned host memory), or
+    with backend 'nccl' (phase 17) on `world` cards, one rank each; the
+    'velsum' residual on, against the unsharded run of the same steps
+    (ref_f: its f_standard() as a NumPy file, ref_vs its velsum series,
+    ref_steps its step count): f_standard() bit for bit off the DEAD
+    cells and zeros on them, the velsum series within 1e-5 relative, the
+    same stop step; every rank launched K1d once a step and the halo z
+    fixup once a step per z window it holds. device_type: the gloo ranks'
+    ('cpu' rehearses the phase without a card). Returns the numbers."""
+    import numpy as np
+
+    from lbm_tpu_torch.cases import get_case
+    from lbm_tpu_torch.parallel.launch import spawn
+
+    tag = (f"[16] {label}, {world} gloo ranks on one card"
+           if backend == "gloo" else
+           f"[17] {label}, {world} {backend} ranks, one card each")
+    where = ("in the one-card arrangement, not a scale-out figure"
+             if backend == "gloo" else f"on {world} cards")
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn(sharded_rank, world,
+                      (case, opts, steps, time_save, tmp), backend=backend,
+                      device=device_type, timeout=600)
+        wall_s = time.perf_counter() - t0
+        got = np.load(os.path.join(tmp, "f.npy"))
+    want = np.load(ref_f)
+    live = np.asarray(get_case(case, **opts).mask) != 0
+    require(got.shape == want.shape, f"{tag}: f_standard shape {got.shape}")
+    n_diff = int((got[:, live] != want[:, live]).sum())
+    require(n_diff == 0 and not got[:, ~live].any(),
+            f"{tag}: f_standard() differs from the unsharded run at {n_diff} "
+            "values off the DEAD cells, or is not zero on them")
+    del got, want
+    vs = ranks[0]["velsum"]
+    require(all(r["steps"] == ref_steps for r in ranks)
+            and all(np.array_equal(r["velsum"], vs) for r in ranks),
+            f"{tag}: the ranks' steps or velsum series differ")
+    v_rel = float(np.max(np.abs(vs - ref_vs) / np.abs(ref_vs)))
+    require(v_rel <= 1e-5, f"{tag}: velsum rel err {v_rel:.3e} > 1e-5")
+    for r in ranks:
+        c = r["counts"]
+        require(c.get("lbm_collide_stream[bgk+halo]") == steps
+                and c.get("lbm_fix_z_plane[bgk+halo]", 0)
+                == steps * r["z_windows"],
+                f"{tag}: rank {r['rank']} launched {c} ({r['z_windows']} z "
+                f"windows, {steps} steps)")
+    out = {"ms": max(r["ms"] for r in ranks),
+           "exchange_ms": max(r["exchange_ms"] for r in ranks),
+           "launches": sum(r["counts"].get("lbm_collide_stream[bgk+halo]",
+                                           0) for r in ranks),
+           "fix_launches": sum(r["counts"].get("lbm_fix_z_plane[bgk+halo]",
+                                               0) for r in ranks),
+           "velsum_rel_err": v_rel, "wall_s": wall_s}
+    print(f"{tag} ({ref_steps} steps, chunks of {time_save}), {where}: "
+          "ms/step per rank "
+          f"{[round(r['ms'], 4) for r in ranks]} (host clock, "
+          f"synchronized; rank 0's chunks of {time_save}: "
+          f"{ranks[0]['chunks']}, the first with the group's first "
+          "exchange), the exchange alone "
+          f"{[round(r['exchange_ms'], 4) for r in ranks]} ms a step; local "
+          f"shapes {[r['shape'] for r in ranks]}, live blocks "
+          f"{[r['live_blocks'] for r in ranks]}, z windows "
+          f"{[r['z_windows'] for r in ranks]}; set-up "
+          f"{max(r['setup_s'] for r in ranks):.1f} s, f_standard() gather "
+          f"{max(r['gather_s'] for r in ranks):.1f} s, peak device memory "
+          f"per rank {max(r['peak_gib'] for r in ranks):.2f} GiB, "
+          f"{wall_s:.1f} s in all; f_standard() bit-equal to the unsharded "
+          f"run off the DEAD cells, zeros on them; velsum max rel err "
+          f"{v_rel:.3e}; stop step {ref_steps} on every rank; launches per "
+          f"rank {[r['counts'] for r in ranks]}", flush=True)
+    return out
+
+
+def nccl_path(world, full):
+    """Phase 17: the full coronary `full` (its spec) on y over `world`
+    NCCL ranks, one card each, against an unsharded run of the same 200
+    steps on card 0 (sharded_path's checks), then `run --shard world` on
+    the 64^3 cavity, which must write VTK and CONVERGENCE.log."""
+    import dataclasses
+
+    import numpy as np
+
+    from lbm_tpu_torch.engine.runner import Simulation
+
+    sim = Simulation(dataclasses.replace(full, residual_flavor="velsum"),
+                     device="cuda")
+    res = sim.run(max_steps=200, time_save=100, verbose=False)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        ref = os.path.join(tmp, "coronary.npy")
+        np.save(ref, sim.f_standard().cpu().numpy())
+        ref_vs, ref_steps = res.velsum_series, res.steps
+        del sim, res
+        free_device()
+        sharded_path("coronary full on y", "coronary", FULL_CORONARY, world,
+                     200, 100, ref, ref_vs, ref_steps, backend="nccl")
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "lbm_tpu_torch", "run", "--shard",
+             str(world), "--case", "lid_driven_cavity", "--opt", "n=64",
+             "--steps", "500", "--time-save", "100", "--out", tmp],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        files = sorted(os.listdir(tmp))
+        require(proc.returncode == 0 and "CONVERGENCE.log" in files
+                and "lid_driven_cavity_500.vtk" in files,
+                f"run --shard {world} over NCCL failed ({proc.returncode}), "
+                f"wrote {files}:\n{proc.stdout}\n{proc.stderr}")
+        print(f"[17] CLI run --shard {world} over NCCL in "
+              f"{time.perf_counter() - t0:.1f} s wrote {files}; "
+              f"{' | '.join(proc.stdout.strip().splitlines()[-2:])}",
+              flush=True)
+
+
+def nccl_main() -> int:
+    """`chip_smoke.py --nccl`: phase 17 alone on every card (two or
+    more), the card's name and power limit first."""
+    import torch
+
+    from lbm_tpu_torch.cases import get_case
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"chip_smoke --nccl: needs two or more CUDA cards, found "
+              f"{n_cards}", file=sys.stderr)
+        return 1
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip(), flush=True)
+    nccl_path(n_cards, get_case("coronary", **FULL_CORONARY))
+    print(f"[done] phase 17 on {n_cards} cards in "
+          f"{time.perf_counter() - T_START:.1f} s", flush=True)
+    return 0
+
+
 def main() -> int:
+    import dataclasses
+
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -2241,6 +2736,39 @@ def main() -> int:
     print(f"[2] the BGK collide-stream instance: fp32 {bgk[0]} registers, "
           f"bf16 {bgk16[0]} registers, {bgk16[1] + bgk16[2]} bytes spilled",
           flush=True)
+    # the sharded step (K1d): one unit per shard axis, side by side
+    hlibs = [_build.load_halo_library(a) for a in (0, 1)]
+    ptxas_halo = {}
+    for hl, tag in zip(hlibs, ("halo_x", "halo_y")):
+        ptxas_halo.update(ptxas_report(hl.log, tag=tag))
+    print(f"[2d] sharded-step kernels (K1d) built at "
+          f"{[os.path.relpath(h.path, ROOT) for h in hlibs]} in "
+          f"{[round(h.build_seconds, 2) for h in hlibs]} s, side by side "
+          f"with the others (seven nvcc processes, the slowest "
+          f"{max(L.build_seconds for L in (lib, slib, plib, blib, bplib, *hlibs)):.2f} s)",
+          flush=True)
+    for name, (regs, spill_st, spill_ld) in sorted(ptxas_halo.items()):
+        print(f"[2d] ptxas {name}: {regs} registers, {spill_st} bytes spill "
+              f"stores, {spill_ld} bytes spill loads", flush=True)
+    n_halo = {k: sum(n.startswith(k + "[") for n in ptxas_halo)
+              for k in ("collide_stream_kernel", "fix_z_plane_kernel")}
+    require(n_halo == {"collide_stream_kernel": 28, "fix_z_plane_kernel": 28},
+            f"ptxas reported halo instances {n_halo} (want 28 and 28)")
+    # the unsharded instances keep their code: 0245b70's registers, spills
+    unsharded = {k: v for k, v in ptxas.items()
+                 if k.startswith(("collide_stream_kernel[",
+                                  "fix_z_plane_kernel["))}
+    changed = {k: (v, BASE_PTXAS.get(k)) for k, v in unsharded.items()
+               if v != BASE_PTXAS.get(k)}
+    print("[2d] unsharded fp32 instances, registers and spill bytes (this "
+          "build | 0245b70's build): " + "; ".join(
+              f"{k} {v[0]}+{v[1] + v[2]} | {BASE_PTXAS[k][0]}+"
+              f"{BASE_PTXAS[k][1] + BASE_PTXAS[k][2]}"
+              for k, v in sorted(unsharded.items()) if k in BASE_PTXAS),
+          flush=True)
+    require(len(unsharded) == 36 and not changed,
+            f"unsharded instances changed against 0245b70's build: "
+            f"{changed}")
 
     # -- phase 3: kernels vs plain versions --------------------------------
     from lbm_tpu_torch.cases import get_case
@@ -2414,6 +2942,25 @@ def main() -> int:
           flush=True)
     ts = scalar_timings(full, u_full, device)
     del u_full
+    mark("3 (K7, K8, K1e)")
+
+    # the sharded step (3e): K1d and its halo z fixup on 4 shards held in
+    # one process, every branch, against their plain versions and the
+    # whole-box step; at the paths' shapes on 2 and 4 shards for 2 steps;
+    # timings
+    halo_err = {}
+    for label, name, kw, axis, exact in halo_cases():
+        halo_err[f"{label}, 4 shards"] = compare_halo(
+            label, get_case(name, **kw), axis, 4, 20, device, exact)
+    lid256 = get_case("lid_driven_cavity", n=256)
+    for world in (2, 4):
+        halo_err[f"lid 256^3 on x, {world} shards"] = compare_halo(
+            "lid 256^3 on x", lid256, 0, world, 2, device, True)
+        halo_err[f"coronary full on y, {world} shards"] = compare_halo(
+            "coronary full on y", full, 1, world, 2, device, True)
+    th_lid = time_halo(lid256, 0, 4, device, "lid 256^3 on x")
+    th_cor = time_halo(full, 1, 4, device, "coronary full on y")
+    mark("3e (K1d)")
 
     # -- phase 4: the lid main path ----------------------------------------
     spec = get_case("lid_driven_cavity", n=256)
@@ -2472,6 +3019,16 @@ def main() -> int:
     free_device()
     mark("4")
 
+    # -- phase 16a: the sharded lid path on the one card ------------------
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        ref = os.path.join(tmp, "lid.npy")
+        np.save(ref, lid1["f"].cpu().numpy())
+        sh_lid = sharded_path("lid 256^3 on x", "lid_driven_cavity",
+                              dict(n=256), 4, 1000, 250, ref, lid1["velsum"],
+                              1000)
+    free_device()
+    mark("16a")
+
     # -- phase 13: the fuse2 path ------------------------------------------
     fuse2_counts, fuse2_odd, fuse2_metrics = fuse2_path(device, lid1)
     free_device()
@@ -2489,6 +3046,25 @@ def main() -> int:
     del lid1, lid16["u"]
     free_device()
     mark("15a, 15c")
+
+    # -- phase 16b: the sharded coronary path on the one card --------------
+    vspec = dataclasses.replace(full, residual_flavor="velsum")
+    sim = Simulation(vspec, device=device)
+    res = sim.run(max_steps=200, time_save=100, verbose=False)
+    print(f"[16] coronary full, the unsharded run with the 'velsum' "
+          f"residual: {res.steps} steps, {res.elapsed_s / res.steps * 1e3:.4f} "
+          "ms/step", flush=True)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        ref = os.path.join(tmp, "coronary.npy")
+        np.save(ref, sim.f_standard().cpu().numpy())
+        ref_vs, ref_steps = res.velsum_series, res.steps
+        del sim, res
+        free_device()
+        sh_cor = sharded_path("coronary full on y", "coronary",
+                              FULL_CORONARY, 4, 200, 100, ref, ref_vs,
+                              ref_steps)
+    free_device()
+    mark("16b")
 
     # -- phase 5: the vessel path ------------------------------------------
     u_in = 0.1745 / 2.74909090909091
@@ -2545,7 +3121,9 @@ def main() -> int:
              ["lid_driven_cavity_500.vtk"]),
             ("coronary", ["--dtype", "bf16", "--lowmem", "--checkpoint-every",
                           "1", "--vtk-final"], "200",
-             ["coronary_200.vtk", "coronary.ckpt.npz"])):
+             ["coronary_200.vtk", "coronary.ckpt.npz"]),
+            ("lid_driven_cavity", ["n=64", "--shard", "1"], "500",
+             ["lid_driven_cavity_500.vtk"])):
         with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") \
                 as tmp:
             t0 = time.perf_counter()
@@ -2583,6 +3161,15 @@ def main() -> int:
     mark("8")
     nu32 = cli_transport_and_thermal()
     mark("12")
+
+    # -- phase 17: several cards over NCCL --------------------------------
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        nccl_path(min(n_cards, 4), full)
+        mark("17")
+    else:
+        print(f"[17] the NCCL path for several cards was not run on this "
+              f"machine: it has {n_cards} card", flush=True)
 
     bt = k1b_time["coronary full trt+carreau"]
     ft = k1b_time["gravity_channel 256^3 trt+force"]
@@ -2820,6 +3407,46 @@ def main() -> int:
          "read_512_gb_per_s": k4_bf16["read_gb_per_s"],
          "fp32_read_512_s": k4["read_s"],
          "device_rise_mb": k4_bf16["device_rise_mb"]},
+        {"name": "lbm_collide_stream[bgk+halo]", "route": "cuda",
+         "source": K1D_SOURCE,
+         "replaces": "lbm_tpu/kernels/collide_stream.py:1386 (K1d: _kernel's "
+                     "halo_axis branch, _HaloSplitCopy :1610; called from "
+                     "lbm_tpu/parallel/pallas_sharded.py:445)",
+         "launches": sh_cor["launches"],
+         "launches_per_rank": sh_cor["launches"] // 4,
+         "max_abs_err": max(halo_err.values()),
+         "max_abs_err_by_case": halo_err,
+         "ms": th_cor["ms"], "plain_ms": th_cor["plain_ms"],
+         "bound_ms": th_cor["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "k1a_same_shard_ms": th_cor["k1a_ms"],
+         "device_ms": th_cor["device_ms"],
+         "k1a_same_shard_device_ms": th_cor["k1a_device_ms"],
+         "local_shape": th_cor["shape"], "shard_axis": "y",
+         "path_ms_per_step_one_card": sh_cor["ms"],
+         "path_exchange_ms_one_card": sh_cor["exchange_ms"],
+         "path_velsum_rel_err": sh_cor["velsum_rel_err"],
+         "lid256_x_launches": sh_lid["launches"],
+         "lid256_x_ms": th_lid["ms"], "lid256_x_plain_ms": th_lid["plain_ms"],
+         "lid256_x_bound_ms": th_lid["bound_ms"],
+         "lid256_x_k1a_same_shard_ms": th_lid["k1a_ms"],
+         "lid256_x_device_ms": th_lid["device_ms"],
+         "lid256_x_k1a_same_shard_device_ms": th_lid["k1a_device_ms"],
+         "lid256_x_path_ms_per_step_one_card": sh_lid["ms"],
+         "lid256_x_path_exchange_ms_one_card": sh_lid["exchange_ms"],
+         "registers": {k: v[0] for k, v in ptxas_halo.items()},
+         "spill_bytes": {k: v[1] + v[2] for k, v in ptxas_halo.items()},
+         "build_s": [h.build_seconds for h in hlibs]},
+        {"name": "lbm_fix_z_plane[bgk+halo]", "route": "cuda",
+         "source": K1D_SOURCE,
+         "replaces": "lbm_tpu/parallel/pallas_sharded.py:380 (the sharded "
+                     "z fixup: K6's slab with its shard-edge rows patched "
+                     "from the planes, K5's splice :452-465)",
+         "launches": sh_cor["fix_launches"],
+         "max_abs_err": max(halo_err.values()),
+         "ms": th_cor["fix_ms"], "ms_by": th_cor["fix_ms_by"],
+         "plain_ms": th_cor["fix_plain_ms"],
+         "bound_ms": th_cor["fix_bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
     ]
     print(f"[done] ms at 64^3: K1a {t64['k1a']:.4f} plain "
           f"{t64['k1a_plain']:.4f}, K3 {t64['k3']:.4f} plain "
@@ -2833,4 +3460,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(nccl_main() if sys.argv[1:] == ["--nccl"] else main())

@@ -9,9 +9,12 @@ jax, so it runs on a machine without JAX. It mirrors lbm_tpu's layout:
   engine    — case specs, compiled cases, the dense step, the runner,
               checkpoints, scalar transport (D3Q7) and Boussinesq
               thermal flow
-  kernels   — the CUDA collide-stream, z-plane fixup, moments and D3Q7
-              scalar kernels, their plain PyTorch versions and the
-              nvcc/ctypes build
+  kernels   — the CUDA collide-stream (whole box and shard), z-plane
+              fixup, moments and D3Q7 scalar kernels, their plain
+              PyTorch versions and the nvcc/ctypes build
+  parallel  — the box split over the ranks of a torch.distributed group:
+              the mesh, the ring exchange of the shards' edge planes, the
+              sharded kernel and dense halo steps, spawning the ranks
   cases     — lid_driven_cavity, poiseuille, curved_vessel, coronary,
               gravity_channel, pipe and the thermal boxes
   io        — VTK writer, convergence log

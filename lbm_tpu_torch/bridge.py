@@ -9,7 +9,10 @@ as (nx + 2 + px, ny + 2 + py, C, nz + pz) with a one-cell ring in x and
 y and alignment padding at the ends, which `unpack_lattice` undoes. A
 bf16 state (lbm_tpu's store_dtype='bf16': an ml_dtypes bfloat16 array, or
 the |V2 void array that np.savez leaves of one) is widened to float32 bit
-for bit on the way in (`as_float32`).
+for bit on the way in (`as_float32`). A state split along one axis
+over `world` ranks crosses as each rank's window (`shard_window`: the
+rank's ceil(n / world) rows, the rows past the box filled) and comes
+back whole (`gather_windows`).
 Nothing here imports lbm_tpu: a reference object is read by attribute.
 """
 
@@ -100,6 +103,40 @@ def unpack_lattice(packed, shape, channels: int, ring: int = 1):
         .transpose(2, 0, 1, 3)))
 
 
+def shard_window(f, rank: int, world: int, axis: int, lead: int = 1,
+                 fill=0):
+    """Rank `rank`'s window of a field split along lattice axis `axis`
+    into `world` windows of ceil(n / world) rows (engine/compile.
+    shard_rows), rows past the box filled with `fill`. f: a NumPy array
+    or a tensor of `lead` leading dims before the three lattice axes
+    (1 for a (19, X, Y, Z) state, 0 for a mask); the window is of f's
+    kind, a copy."""
+    dim = lead + axis
+    n = f.shape[dim]
+    rows = -(-n // world)
+    lo, hi = min(rank * rows, n), min((rank + 1) * rows, n)
+    sl = [slice(None)] * f.ndim
+    sl[dim] = slice(lo, hi)
+    own = f[tuple(sl)]
+    pad_shape = list(f.shape)
+    pad_shape[dim] = rows - (hi - lo)
+    if torch.is_tensor(f):
+        pad = torch.full(pad_shape, fill, dtype=f.dtype, device=f.device)
+        return torch.cat([own, pad], dim=dim).contiguous()
+    pad = np.full(pad_shape, fill, dtype=f.dtype)
+    return np.ascontiguousarray(np.concatenate([own, pad], axis=dim))
+
+
+def gather_windows(windows, axis: int, n: int, lead: int = 1):
+    """The whole field of n rows along `axis` from the ranks' windows in
+    rank order (NumPy arrays or tensors): shard_window's inverse."""
+    dim = lead + axis
+    if torch.is_tensor(windows[0]):
+        return torch.cat(list(windows), dim=dim).narrow(dim, 0, n)
+    whole = np.concatenate(list(windows), axis=dim)
+    return np.ascontiguousarray(np.take(whole, np.arange(n), axis=dim))
+
+
 def transport_state_from_reference(tr) -> dict:
     """{"g", "f", "t"} of a lbm_tpu transport as NumPy arrays in the
     port's layouts: g (7, X, Y, Z) from the dense classes' (7, X, Y, Z)
@@ -144,6 +181,6 @@ def transport_kwargs_from_reference(tr, u=None, wall_c=None, c0=None) -> dict:
 
 
 __all__ = ["case_from_reference", "as_float32", "state_from_numpy",
-           "state_to_numpy",
+           "state_to_numpy", "shard_window", "gather_windows",
            "unpack_lattice", "transport_state_from_reference",
            "load_transport_state", "transport_kwargs_from_reference"]

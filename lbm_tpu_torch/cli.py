@@ -14,6 +14,9 @@
     python -m lbm_tpu_torch run --case lid_driven_cavity --fuse 2
     python -m lbm_tpu_torch run --case lid_driven_cavity --opt n=512 --lowmem
     python -m lbm_tpu_torch run --case lid_driven_cavity --dtype bf16
+    python -m lbm_tpu_torch run --case lid_driven_cavity --shard 4
+    python -m lbm_tpu_torch run --device cpu --case coronary --shard 2 \
+        --opt shape=[48,32,40] radius=5
     python -m lbm_tpu_torch list
     python -m lbm_tpu_torch transport --case coronary --bolus 500 --vtk \
         --opt shape=[291,291,372] radius=12
@@ -29,6 +32,13 @@ Boussinesq case of cases/thermal.py in --chunks runs of --steps and
 prints the Nusselt number after each. Both take the kernel route on a
 CUDA device and the plain versions with --device cpu, for every case;
 --backend dense runs the dense PyTorch route.
+
+`run --shard N` splits the box along its first axis without a boundary
+plane over N ranks it starts itself (spawned processes, one
+torch.distributed group): with --device cuda one card a rank over NCCL
+(N above the machine's card count is refused), with --device cpu over
+gloo. Rank 0 alone prints and writes the VTK files, CONVERGENCE.log and
+checkpoints.
 
 --opt values are read as JSON where they parse (lists, numbers, dicts)
 and as strings otherwise; the rheology dict above is
@@ -196,6 +206,9 @@ def main(argv=None) -> int:
     runp.add_argument("--dtype", default="f32", choices=["f32", "bf16"],
                       help="pdf STORAGE dtype on the kernel backend "
                       "(compute stays fp32; bf16 halves the state's bytes)")
+    runp.add_argument("--shard", type=int, default=0,
+                      help="split the lattice over N ranks (0: one device; "
+                      "cuda: one card a rank over NCCL, cpu: gloo)")
     _add_device_args(runp)
 
     sub.add_parser("list", help="list available cases")
@@ -256,6 +269,38 @@ def main(argv=None) -> int:
             print(name)
         return 0
 
+    if args.shard:
+        return _run_sharded(args)
+    return _run(None, args)
+
+
+def _run_sharded(args) -> int:
+    """`run --shard N`: N spawned ranks, NCCL one card each or gloo on
+    the CPU."""
+    import torch
+
+    from lbm_tpu_torch.parallel.launch import spawn
+
+    n = args.shard
+    if torch.device(args.device).type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("--device cuda was requested but "
+                               "torch.cuda.is_available() is False; pass "
+                               "--device cpu to shard over gloo")
+        cards = torch.cuda.device_count()
+        if n > cards:
+            raise SystemExit(f"--shard {n} runs one rank a card over NCCL, "
+                             f"and this machine has {cards} card(s)")
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    spawn(_run, n, (args,), backend=backend, device=args.device)
+    return 0
+
+
+def _run(mesh, args) -> int:
+    """The `run` command on one device (mesh None), or as one rank of
+    `mesh` (every rank steps and gathers; rank 0 prints and writes)."""
     import numpy as np
 
     from lbm_tpu_torch.cases import get_case
@@ -264,45 +309,59 @@ def main(argv=None) -> int:
     from lbm_tpu_torch.io.convlog import ConvergenceLog
     from lbm_tpu_torch.io.vtk import case_vtk
 
+    lead = mesh is None or mesh.rank == 0
     spec = get_case(args.case, **_parse_kv(args.opt))
     sim = Simulation(spec, device=args.device, backend=args.backend,
                      fuse=args.fuse, lowmem=True if args.lowmem else None,
-                     store_dtype=args.dtype)
+                     store_dtype=args.dtype, mesh=mesh)
     if args.resume:
         ckpt.restore(sim, args.resume)
-        print(f"resumed from {args.resume} at step {sim.t}")
+        if lead:
+            print(f"resumed from {args.resume} at step {sim.t}")
+    if mesh is not None and lead:
+        print(f"sharded over {mesh.world} ranks ({mesh.backend}) along axis "
+              f"{sim.shard_axis}")
 
-    os.makedirs(args.out, exist_ok=True)
-    log = ConvergenceLog(args.out)
+    if lead:
+        os.makedirs(args.out, exist_ok=True)
+        log = ConvergenceLog(args.out)
     t0 = time.perf_counter()
     save_count = 0
+
+    def vtk(k):
+        if lead:
+            case_vtk(sim, args.out, k, include_density=spec.vtk_density,
+                     binary=args.binary_vtk)
+        else:
+            sim.macro()  # the gather every rank takes part in
 
     def on_save(sim, k, residual):
         nonlocal save_count
         save_count += 1
-        log.residual(residual)
+        if lead:
+            log.residual(residual)
         if not args.no_vtk and not args.vtk_final:
-            case_vtk(sim, args.out, k, include_density=spec.vtk_density,
-                     binary=args.binary_vtk)
+            vtk(k)
         if args.checkpoint_every and save_count % args.checkpoint_every == 0:
             ckpt.save_sim(
                 os.path.join(args.out, f"{spec.name}.ckpt.npz"), sim
             )
 
     result = sim.run(
-        max_steps=args.steps, time_save=args.time_save, on_save=on_save
+        max_steps=args.steps, time_save=args.time_save, on_save=on_save,
+        verbose=lead,
     )
     elapsed_ms = (time.perf_counter() - t0) * 1e3
     nlattice = int((np.asarray(spec.mask) != 0).sum())
-    print(
-        f"TOTAL RUNNING TIME: {elapsed_ms:.1f} MILLI SECONDS "
-        f"#LATTICE {nlattice}  {result.mlups:.1f} MLUPS ({sim.device})"
-    )
-    print(f"Residual is {result.residual:g}")
-    log.finish(elapsed_ms, nlattice, result.residual)
+    if lead:
+        print(
+            f"TOTAL RUNNING TIME: {elapsed_ms:.1f} MILLI SECONDS "
+            f"#LATTICE {nlattice}  {result.mlups:.1f} MLUPS ({sim.device})"
+        )
+        print(f"Residual is {result.residual:g}")
+        log.finish(elapsed_ms, nlattice, result.residual)
     if not args.no_vtk:
-        case_vtk(sim, args.out, sim.t, include_density=spec.vtk_density,
-                 binary=args.binary_vtk)
+        vtk(sim.t)
     return 0
 
 

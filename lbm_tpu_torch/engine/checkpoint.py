@@ -16,6 +16,10 @@ bfloat16 words as |V2 void, which lbm_tpu's own restore cannot read) is
 widened to float32 bit for bit on the host. Every file restores into a
 run of either storage dtype (set_f_standard narrows into a bf16 run);
 save_sim writes float32 in both, so the port never writes a |V2 file.
+Under a mesh every rank calls save_sim and restore: rank 0 writes the
+gathered whole box (zeros at DEAD cells) and the others wait for it,
+and every rank reads the file and keeps its own window, so a file
+saved by a run of N ranks restores into a run of M ranks or none.
 """
 
 from __future__ import annotations
@@ -52,8 +56,12 @@ def save_sim(path: str, sim, meta: dict | None = None) -> None:
         "last_velsum": sim._last_velsum,
         "last_usq": sim._last_usq,
     }
-    save(path, sim.f_standard().cpu().numpy(), sim.t, sim.spec.name, m,
-         compressed=not sim.lowmem)
+    f = sim.f_standard()
+    if sim.mesh is None or sim.mesh.rank == 0:
+        save(path, f.cpu().numpy(), sim.t, sim.spec.name, m,
+             compressed=not sim.lowmem)
+    if sim.mesh is not None:
+        sim.mesh.barrier()
 
 
 def load(path: str):

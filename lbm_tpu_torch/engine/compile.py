@@ -34,6 +34,12 @@ NotImplementedError naming the ROADMAP item that ports it; the two
 compositions the collide-stream kernel refuses are named by
 `kernel_refusal`, and the cases the fused pair of steps refuses by
 `fuse2_refusal`. Nothing falls back silently.
+
+`compile_shard` compiles one rank's window of a case split along one
+lattice axis into `world` shards (the counterpart of lbm_tpu's
+parallel/pallas_sharded.py windowing): a ShardCase with the rank's rows
+of every table, the two neighbour rows' labels (static, so never
+exchanged) and the rank's own residual offsets.
 """
 
 from __future__ import annotations
@@ -403,6 +409,214 @@ def neighbor_wall(mask: np.ndarray, label: int = CellType.WALL) -> np.ndarray:
     return out
 
 
+@dataclasses.dataclass(eq=False)
+class ShardCase(CompiledCase):
+    """One rank's window of a case split along `shard_axis`: shard_rows(n,
+    world) rows of the axis (its n cells padded with DEAD rows at the end
+    to a multiple of `world`). shape, mask,
+    fluid, rho0, u0, live_blocks and the boundaries' tables are the
+    window's (lateral tables windowed along the shard axis, z windows in
+    local coordinates); spec stays the whole case's. velsum_offset and
+    usq_offset count this rank's own non-fluid cells only, never a pad
+    row. mask_lo and mask_hi: the labels of the low neighbour's last row
+    and the high neighbour's first row (the ring wraps), (A, B) int8 on
+    the device."""
+
+    shard_axis: int = 0
+    rank: int = 0
+    world: int = 1
+    mask_lo: Optional[torch.Tensor] = None
+    mask_hi: Optional[torch.Tensor] = None
+
+    def halo(self, lo, hi) -> tuple:
+        """The halo a shard's step takes with the planes lo and hi its
+        neighbours sent: (shard_axis, lo, hi, mask_lo, mask_hi)."""
+        return self.shard_axis, lo, hi, self.mask_lo, self.mask_hi
+
+    @functools.cached_property
+    def nbr_wall(self) -> torch.Tensor:
+        """(19, X, Y, Z) bool of the window, built at first use by the
+        dense halo step and K1d's plain version: the pull across the
+        shard's faces tests the neighbours' rows mask_lo and mask_hi."""
+        return self._halo_neighbors(CellType.WALL)
+
+    @functools.cached_property
+    def nbr_moving(self) -> Optional[torch.Tensor]:
+        if self.wall_velocity is None:
+            return None
+        return self._halo_neighbors(CellType.MOVING)
+
+    def _halo_neighbors(self, label: int) -> torch.Tensor:
+        """neighbor_wall of the window with the neighbours' rows beyond
+        it on the shard axis (wrapped on the other axes)."""
+        a, n = self.shard_axis, self.shape[self.shard_axis]
+        ext = np.concatenate(
+            [np.expand_dims(self.mask_lo.cpu().numpy(), a),
+             self.mask.cpu().numpy(),
+             np.expand_dims(self.mask_hi.cpu().numpy(), a)], axis=a)
+        table = neighbor_wall(ext, label).take(range(1, n + 1), axis=1 + a)
+        return torch.from_numpy(table).to(self.device)
+
+    @property
+    def live_tiles(self):
+        raise ValueError("fuse=2 requires a single-chip run with all NEE "
+                         "boundaries on x/y planes")
+
+
+def shard_rows(n: int, world: int) -> int:
+    """Rows each of `world` shards holds of an axis of n cells: n padded
+    with DEAD rows to a multiple of world (lbm_tpu pads to 16 world on the
+    TPU; the port to world only)."""
+    return -(-n // world)
+
+
+def _take_rows(arr: np.ndarray, axis: int, idx: np.ndarray, n: int, fill):
+    """Rows idx (padded-extent indices) of arr along `axis`; rows at or
+    past n are padding, filled with `fill`."""
+    out = np.take(arr, np.minimum(idx, n - 1), axis=axis)
+    pad = idx >= n
+    if pad.any():
+        sl = [slice(None)] * out.ndim
+        sl[axis] = pad
+        out[tuple(sl)] = fill
+    return np.ascontiguousarray(out)
+
+
+def _window_bc(bc: CompiledBC, shard_axis: int, idx: np.ndarray, n: int,
+               local_shape, device) -> CompiledBC:
+    """A whole-box boundary's tables windowed to rows idx of the shard
+    axis (one of its lateral axes); a z boundary's window in local
+    coordinates."""
+    dim = _lat_axes(bc.axis).index(shard_axis)
+
+    def win(t, lead):
+        if t is None:
+            return None
+        a = _take_rows(t.cpu().numpy(), lead + dim, idx, n, 0)
+        return torch.from_numpy(a).to(device)
+
+    valid = win(bc.valid, 1)
+    window = None
+    if bc.axis == 2:
+        window = valid_bbox(valid.cpu().numpy(), local_shape[:2])
+    return dataclasses.replace(
+        bc, valid=valid, phi_star=win(bc.phi_star, 1),
+        phi_star_series=win(bc.phi_star_series, 2), window=window)
+
+
+def compile_shard(spec: CaseSpec, rank: int, world: int, shard_axis: int,
+                  device="cpu") -> ShardCase:
+    """Rank `rank`'s window of `spec` split along lattice axis shard_axis
+    into `world` shards of shard_rows(n, world) rows. The boundaries are
+    compiled on the whole box and windowed, so every table is the one the
+    whole-box compile gives. Raises ValueError for a boundary on the
+    shard axis (lbm_tpu's words) and, when the extent needs padding, for
+    a FLUID cell on the axis's first or last row: the pull wraps there,
+    and the pad rows would cut it."""
+    check_supported(spec)
+    if shard_axis not in (0, 1, 2):
+        raise ValueError(f"shard_axis must be 0, 1 or 2: {shard_axis!r}")
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside a world of {world}")
+    for bc in spec.boundaries:
+        if bc.axis == shard_axis:
+            raise ValueError(
+                f"BC on axis {bc.axis} conflicts with shard axis {shard_axis}")
+    device = canonical_device(device)
+    mask = np.asarray(spec.mask)
+    if mask.size and (mask.min() < -128 or mask.max() > 127):
+        raise ValueError("mask labels must fit int8")
+    shape = tuple(int(s) for s in spec.shape)
+    n = shape[shard_axis]
+    rows = shard_rows(n, world)
+    n_pad = rows * world
+    fluid_g = mask == CellType.FLUID
+    if n_pad > n and (np.take(fluid_g, 0, axis=shard_axis).any()
+                      or np.take(fluid_g, n - 1, axis=shard_axis).any()):
+        raise ValueError(
+            f"axis {shard_axis} ({n} cells) pads to {n_pad} for {world} "
+            "shards, but FLUID cells lie on its first or last row, whose "
+            "pull wraps around the box; pick a world size that divides "
+            f"{n}")
+    idx = np.arange(rank * rows, (rank + 1) * rows)
+    ext = np.arange(rank * rows - 1, (rank + 1) * rows + 1) % n_pad
+    local_shape = list(shape)
+    local_shape[shard_axis] = rows
+    local_shape = tuple(local_shape)
+    a = shard_axis
+    mask_loc = _take_rows(mask, a, idx, n, CellType.DEAD).astype(np.int8)
+    mask_ext = _take_rows(mask, a, ext, n, CellType.DEAD).astype(np.int8)
+    rho0 = _take_rows(np.asarray(spec.rho0, np.float32), a, idx, n, 1.0)
+    u0 = _take_rows(np.asarray(spec.u0, np.float32), a + 1, idx, n, 0.0)
+    fluid = mask_loc == CellType.FLUID
+    own_rows = max(0, min(n - rank * rows, rows))
+    own = np.zeros(local_shape, bool)
+    sl = [slice(None)] * 3
+    sl[a] = slice(0, own_rows)
+    own[tuple(sl)] = True
+    bcs = [compile_bc(bc, mask, spec.tau, "cpu") for bc in spec.boundaries]
+    check_z_windows(bcs, shape)
+    bcs = [_window_bc(bc, a, idx, n, local_shape, device) for bc in bcs]
+
+    def ring(k):
+        plane = np.take(mask_ext, k, axis=a)
+        return torch.from_numpy(np.ascontiguousarray(plane)).to(device)
+
+    return ShardCase(
+        name=spec.name,
+        shape=local_shape,
+        tau=float(spec.tau),
+        device=device,
+        mask=torch.from_numpy(mask_loc).to(device),
+        fluid=torch.from_numpy(fluid).to(device),
+        bcs=bcs,
+        rho0=torch.from_numpy(rho0).to(device),
+        u0=torch.from_numpy(u0).to(device),
+        **_residual_offsets(u0, own & ~fluid),
+        spec=spec,
+        live_blocks=_live_blocks(mask_loc, device),
+        **_collision_fields(spec),
+        shard_axis=a,
+        rank=rank,
+        world=world,
+        mask_lo=ring(0),
+        mask_hi=ring(rows + 1),
+    )
+
+
+def _residual_offsets(u0: np.ndarray, static: np.ndarray) -> dict:
+    """velsum_offset and usq_offset: sum |u0| and |u0|^2 over the cells
+    `static` selects (the non-fluid ones, which hold their initial state
+    for good), in float64."""
+    speed0 = np.sqrt(np.sum(u0.astype(np.float64) ** 2, axis=0))
+    return {"velsum_offset": float(np.sum(speed0[static], dtype=np.float64)),
+            "usq_offset": float(np.sum(speed0[static] ** 2,
+                                       dtype=np.float64))}
+
+
+def _live_blocks(mask: np.ndarray, device) -> Optional[torch.Tensor]:
+    """The live-block list of the collide-stream kernel, or None when
+    skipping would not pay (SKIP_BELOW). A box without a live cell (a
+    shard off the vessel tree) still launches once a step, over one
+    all-DEAD block (a copy equal in both buffers, lbm_tpu's dead-tile
+    filler), so its velsum slot is written."""
+    ids = live_block_ids(mask)
+    if len(ids) == 0:
+        ids = np.zeros(1, np.int32)
+    if len(ids) >= SKIP_BELOW * -(-mask.size // BLOCK):
+        return None
+    return torch.from_numpy(ids).to(device)
+
+
+def _collision_fields(spec: CaseSpec) -> dict:
+    """The collision branch's fields of a compiled case."""
+    mrt_k, mrt_kf = mrt_of(spec)
+    return {"tau_minus": tau_minus_of(spec), "mrt_k": mrt_k,
+            "mrt_kf": mrt_kf,
+            "closure": normalize_closure(spec.smagorinsky_cs, spec.rheology),
+            "force": spec.force, "wall_velocity": spec.wall_velocity}
+
+
 def canonical_device(device) -> torch.device:
     """torch.device(device) with the CUDA index filled in, so it compares
     equal to the .device of tensors made on it."""
@@ -421,14 +635,9 @@ def compile_case(spec: CaseSpec, device="cpu") -> CompiledCase:
     fluid = mask == CellType.FLUID
     u0 = np.asarray(spec.u0, np.float32)
     rho0 = np.asarray(spec.rho0, np.float32)
-    nonfluid = ~fluid
-    speed0 = np.sqrt(np.sum(u0.astype(np.float64) ** 2, axis=0))
     shape = tuple(int(s) for s in spec.shape)
     bcs = [compile_bc(bc, mask, spec.tau, device) for bc in spec.boundaries]
     check_z_windows(bcs, shape)
-    ids = live_block_ids(mask)
-    n_blocks = -(-mask.size // BLOCK)
-    mrt_k, mrt_kf = mrt_of(spec)
     return CompiledCase(
         name=spec.name,
         shape=shape,
@@ -439,21 +648,15 @@ def compile_case(spec: CaseSpec, device="cpu") -> CompiledCase:
         bcs=bcs,
         rho0=torch.from_numpy(np.ascontiguousarray(rho0)).to(device),
         u0=torch.from_numpy(np.ascontiguousarray(u0)).to(device),
-        velsum_offset=float(np.sum(speed0[nonfluid], dtype=np.float64)),
-        usq_offset=float(np.sum(speed0[nonfluid] ** 2, dtype=np.float64)),
+        **_residual_offsets(u0, ~fluid),
         spec=spec,
-        live_blocks=(torch.from_numpy(ids).to(device)
-                     if len(ids) < SKIP_BELOW * n_blocks else None),
-        tau_minus=tau_minus_of(spec),
-        mrt_k=mrt_k,
-        mrt_kf=mrt_kf,
-        closure=normalize_closure(spec.smagorinsky_cs, spec.rheology),
-        force=spec.force,
-        wall_velocity=spec.wall_velocity,
+        live_blocks=_live_blocks(mask, device),
+        **_collision_fields(spec),
     )
 
 
-__all__ = ["CompiledBC", "CompiledCase", "compile_case", "compile_bc",
+__all__ = ["CompiledBC", "CompiledCase", "ShardCase", "compile_case",
+           "compile_shard", "compile_bc", "shard_rows",
            "canonical_device", "check_supported", "check_z_windows",
            "fuse2_refusal", "kernel_refusal", "live_block_ids",
            "live_tile_ids", "mrt_of", "neighbor_wall", "tau_minus_of",

@@ -36,6 +36,20 @@ the bytes; the kernels compute in fp32, widening every load and
 narrowing every store once (lbm_tpu's bf16 storage, bit for bit). The
 dense backend refuses it in lbm_tpu's words, and the lowmem threshold
 counts 4 bytes a population whatever the storage, as lbm_tpu's does.
+
+mesh= (a parallel/mesh.LatticeMesh) splits the box along shard_axis
+(default: the first axis without a boundary plane) over the group's
+ranks, each holding only its window (engine/compile.compile_shard) on
+its own device; every rank constructs the Simulation and calls run,
+f_standard, set_f_standard and macro together. The kernel backend steps
+with the sharded K1d kernels (parallel/sharded.py), the dense backend
+with the halo step (parallel/halo.py). run() sums the ranks' velsum
+series once a chunk, in rank order on the host, so every rank takes the
+same stop decision; f_standard() and macro() gather the whole box on
+every rank, f_standard() with zeros at DEAD cells (lbm_tpu's sharded
+unblock contract). Refused under a mesh, in lbm_tpu's words: bf16
+storage, fuse=2, the kernel backend on z, a boundary on the shard axis,
+and lowmem (its chunked read is single-device).
 """
 
 from __future__ import annotations
@@ -50,6 +64,7 @@ import torch
 from lbm_tpu_torch.engine.compile import (
     canonical_device,
     compile_case,
+    compile_shard,
     fuse2_refusal,
 )
 from lbm_tpu_torch.engine.spec import CaseSpec
@@ -60,6 +75,7 @@ from lbm_tpu_torch.engine.step import (
     macro_fields,
     make_step,
 )
+from lbm_tpu_torch.geometry.mask import CellType
 from lbm_tpu_torch.kernels import collide_stream as kernels
 
 # One state buffer above this many bytes turns lowmem on (lbm_tpu's
@@ -101,6 +117,26 @@ def _interior_region(shape):
     return (slice(1, nx - 1), slice(2, ny - 2), slice(1, nz - 1))
 
 
+def mesh_refusal(backend: str, fuse: int, lowmem, store_dtype: torch.dtype,
+                 shard_axis: int):
+    """Why a run under a mesh cannot take these options (ValueError), in
+    lbm_tpu's words, or None."""
+    if store_dtype == torch.bfloat16:
+        return ("store_dtype='bf16' is single-chip for now (the sharded "
+                "z-fixup path computes in the storage dtype)")
+    if fuse == 2:
+        return ("fuse=2 requires a single-chip run with all NEE boundaries "
+                "on x/y planes")
+    if lowmem:
+        return ("lowmem's chunked read of the state is single-device "
+                "(lbm_tpu reads a sharded state through its gather)")
+    if backend == "kernel" and shard_axis == 2:
+        return ("backend='kernel' cannot shard along z (the sharded kernel "
+                "path shards axis 0 (x) or 1 (y) only). This case's only "
+                "BC-free axis is z — use backend='dense' with mesh=.")
+    return None
+
+
 def resolve_device(device) -> torch.device:
     """The canonical torch.device, refusing CUDA without a card."""
     device = torch.device(device)
@@ -122,12 +158,14 @@ class Simulation:
     blocks or tiles, so both buffers always hold the same non-fluid state.
     fuse: 1, or 2 for two fused steps per launch; lowmem: None (auto), or
     force the chunked host read of f_standard() on or off; store_dtype:
-    None/'f32' or 'bf16' (kernel backend).
+    None/'f32' or 'bf16' (kernel backend). mesh, shard_axis: a sharded
+    run (see the module docstring); device must then name the mesh's
+    device type, and the state lives on mesh.device.
     """
 
     def __init__(self, spec: CaseSpec, device="cuda", backend: str = "kernel",
                  fuse: int = 1, lowmem: Optional[bool] = None,
-                 store_dtype=None):
+                 store_dtype=None, mesh=None, shard_axis: Optional[int] = None):
         if backend not in ("kernel", "dense"):
             raise ValueError(f"backend must be 'kernel' or 'dense': {backend!r}")
         self.store_dtype = store_dtype_of(store_dtype)
@@ -140,6 +178,23 @@ class Simulation:
         if fuse == 2 and backend != "kernel":
             raise ValueError("fuse=2 runs the kernel backend's fused pair of "
                              "steps; backend='dense' has none")
+        self.mesh = mesh
+        self.shard_axis = None
+        if mesh is not None:
+            from lbm_tpu_torch.parallel.mesh import free_axis
+
+            self.shard_axis = (free_axis(spec) if shard_axis is None
+                               else shard_axis)
+            reason = mesh_refusal(backend, fuse, lowmem, self.store_dtype,
+                                  self.shard_axis)
+            if reason is not None:
+                raise ValueError(reason)
+            if resolve_device(device).type != mesh.device.type:
+                raise ValueError(f"device={device!r}, but the mesh's ranks "
+                                 f"run on {mesh.device.type}")
+            lowmem = False
+        elif shard_axis is not None:
+            raise ValueError("shard_axis= needs mesh=")
         self.lowmem = (19 * 4 * int(np.prod(spec.shape)) > LOWMEM_BYTES
                        if lowmem is None else bool(lowmem))
         if fuse == 2:
@@ -147,15 +202,40 @@ class Simulation:
             if reason is not None:
                 raise ValueError(reason)
         self.fuse = fuse
-        self.device = resolve_device(device)
         self.backend = backend
         self.spec = spec
-        self.cc = compile_case(spec, self.device)
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.cc = compile_case(spec, self.device)
+        else:
+            self.device = mesh.device
+            self.cc = compile_shard(spec, mesh.rank, mesh.world,
+                                    self.shard_axis, self.device)
         if backend == "kernel":
             kernels.collision_descriptor(self.cc)  # refuses what it lacks
-        self._step = make_step(self.cc) if backend == "dense" else None
+        self._step = self._make_step()
         self._usq_fn: Optional[Callable] = None
         self.reset()
+
+    def _make_step(self):
+        """The step the backend and mesh call for: None for the
+        whole-box kernel route (kernels.step)."""
+        if self.mesh is None:
+            return make_step(self.cc) if self.backend == "dense" else None
+        if self.backend == "dense":
+            from lbm_tpu_torch.parallel.halo import make_halo_step
+
+            return make_halo_step(self.cc, self.mesh, self.shard_axis)
+        from lbm_tpu_torch.parallel.sharded import make_sharded_step
+
+        return make_sharded_step(self.cc, self.mesh, self.shard_axis)
+
+    def _gather(self, t, lead: int):
+        """A window field of `lead` leading dims as the whole box's, on
+        every rank (the pad rows cut)."""
+        whole = self.mesh.all_gather(t, dim=lead + self.shard_axis)
+        return whole.narrow(lead + self.shard_axis, 0,
+                            self.spec.shape[self.shard_axis])
 
     # -- state ------------------------------------------------------------
     def reset(self):
@@ -170,9 +250,13 @@ class Simulation:
     def f_standard(self):
         """f in the portable (19, nx, ny, nz) float32 layout: the state
         itself (a bf16 state widened), or under lowmem a copy in host
-        memory read in x-row chunks."""
+        memory read in x-row chunks. Under a mesh the whole box gathered
+        on every rank, zeros at DEAD cells."""
         if self.lowmem:
             return kernels.unpack_state_lowmem(self.f)
+        if self.mesh is not None:
+            dead = (self.cc.mask == CellType.DEAD)[None]
+            return self._gather(torch.where(dead, 0.0, self.f), 1)
         return self.f.float()
 
     def set_f_standard(self, f):
@@ -183,6 +267,11 @@ class Simulation:
         if tuple(f.shape) != (19,) + tuple(self.spec.shape):
             raise ValueError(f"state shape {tuple(f.shape)} != "
                              f"(19, *{tuple(self.spec.shape)})")
+        if self.mesh is not None:
+            from lbm_tpu_torch.bridge import shard_window
+
+            f = shard_window(f, self.mesh.rank, self.mesh.world,
+                             self.shard_axis)
         self.f = f.to(self.device, copy=True).to(self.store_dtype) \
             .contiguous()
         if self.backend == "kernel":
@@ -190,11 +279,19 @@ class Simulation:
 
     def macro(self):
         """(rho, u) persistent macroscopic fields (lattice units): moments
-        at fluid cells, the init values elsewhere."""
+        at fluid cells, the init values elsewhere; under a mesh the whole
+        box's, on every rank."""
+        rho, u = self._window_macro()
+        if self.mesh is None:
+            return rho, u
+        return self._gather(rho, 0), self._gather(u, 1)
+
+    def _window_macro(self):
+        """macro() of the state this process holds (its window under a
+        mesh)."""
         if self.backend == "dense":
             return macro_fields(self.cc, self.f)
-        rho, u = kernels.macro(self.f, self.cc.force)
-        return init_override(self.cc, rho, u)
+        return init_override(self.cc, *kernels.macro(self.f, self.cc.force))
 
     # -- stepping ---------------------------------------------------------
     def _advance(self, n: int) -> np.ndarray:
@@ -206,19 +303,29 @@ class Simulation:
             kernels.step2(self.f, self._spare, self.cc, series, k, self.t + k)
             self.f, self._spare = self._spare, self.f
         for k in range(2 * pairs, n):
-            if self.backend == "kernel":
-                kernels.step(self.f, self._spare, self.cc, series, k,
-                             self.t + k)
-                self.f, self._spare = self._spare, self.f
-            else:
+            if self.backend == "dense":
                 self.f, _, u = self._step(self.f, self.t + k)
                 series[k] = fluid_speed_sum(self.cc, u)
+                continue
+            if self.mesh is None:
+                kernels.step(self.f, self._spare, self.cc, series, k,
+                             self.t + k)
+            else:
+                self._step(self.f, self._spare, series, k, self.t + k)
+            self.f, self._spare = self._spare, self.f
         self.t += n
-        return series.cpu().numpy() + self.cc.velsum_offset
+        samples = series.cpu().numpy() + self.cc.velsum_offset
+        if self.mesh is not None:
+            return self.mesh.sum_in_rank_order(samples)
+        return samples
 
     def _usq_value(self) -> float:
         """The 'usq' residual sample: sum of u^2 over interior fluid cells
-        (plus static outlet-label cells when the spec counts them)."""
+        (plus static outlet-label cells when the spec counts them); under
+        a mesh each rank sums its own rows and the ranks' sums add in rank
+        order."""
+        if self.mesh is not None:
+            return self._usq_value_sharded()
         if self._usq_fn is None:
             spec = self.spec
             region = _interior_region(spec.shape)
@@ -238,6 +345,34 @@ class Simulation:
 
             self._usq_fn = usq
         return self._usq_fn(self.macro()[1])
+
+    def _usq_value_sharded(self) -> float:
+        if self._usq_fn is None:
+            from lbm_tpu_torch.bridge import shard_window
+
+            spec = self.spec
+            region = _interior_region(spec.shape)
+            mask = np.asarray(spec.mask)
+            sel = np.zeros(mask.shape, bool)
+            sel[region] = mask[region] == CellType.FLUID
+            sel = torch.from_numpy(shard_window(
+                sel, self.mesh.rank, self.mesh.world, self.shard_axis,
+                lead=0)).to(self.device)
+            offset = 0.0
+            if spec.usq_includes_outlet_labels:
+                mask_r = mask[region]
+                u0_r = np.asarray(spec.u0)[(slice(None),) + region]
+                offset = float(np.sum(np.sum(u0_r**2, axis=0)[mask_r > 4],
+                                      dtype=np.float64))
+
+            def usq(u):
+                usq_f = u[0] * u[0] + u[1] * u[1] + u[2] * u[2]
+                own = torch.where(sel, usq_f, 0.0).sum(dtype=torch.float64)
+                total = self.mesh.sum_in_rank_order([float(own)])
+                return float(total[0]) + offset
+
+            self._usq_fn = usq
+        return self._usq_fn(self._window_macro()[1])
 
     # -- main loop ----------------------------------------------------------
     def run(

@@ -16,6 +16,14 @@ against (kernels/collide_stream.collide_stream_plain):
   rho = sum pulled, u = (sum e_i pulled_i + F/2) / rho   (F/2: Guo force)
   f'(x) = collide(pulled, rho phi(u)) + Guo source
 
+On a shard of a box split along one axis (engine/compile.ShardCase) the
+pull across the shard's faces reads the planes its ring neighbours sent
+(`halo`: the five populations with e_axis = +1 from the low neighbour's
+last row, the five with e_axis = -1 from the high neighbour's first
+row); every other source wraps as above (lbm_tpu's parallel/halo.py
+_pull_ext), and the arithmetic is unchanged, so the shards of a box
+stepped this way are the box's step bit for bit.
+
 F is the constant CaseSpec.force or, through make_step_force, a per-cell
 (3, X, Y, Z) field (the Boussinesq buoyancy of engine/thermal.py: e_i.F
 and u.F per cell; the NEE rewrite keeps the constant force).
@@ -100,12 +108,45 @@ def moving_bb_terms(wall_velocity) -> np.ndarray:
     return (6.0 * D3Q19.W.astype(np.float64) * (e @ uw)).astype(np.float32)
 
 
-def streamed(f, nbr_wall, nbr_moving=None, bb=None):
+def inbound_dirs(axis: int, sign: int) -> list[int]:
+    """The five directions that stream across a face normal to `axis`:
+    e_axis == sign, in direction order (lbm_tpu's parallel/halo.py)."""
+    return [i for i in range(1, D3Q19.Q) if int(_E[i][axis]) == sign]
+
+
+def halo_ext(f, axis: int, lo, hi):
+    """A (19, ...) shard state with one ring row on each side of `axis`:
+    row 0 holds lo, the (5, A, B) populations with e_axis = +1 at their
+    directions, the last row hi, those with e_axis = -1; the ring's other
+    populations are zeros (no pull reads them)."""
+    ring = list(f.shape)
+    ring[1 + axis] = 1
+    rows = []
+    for plane, sign in ((lo, 1), (hi, -1)):
+        r = f.new_zeros(ring)
+        r.select(1 + axis, 0)[inbound_dirs(axis, sign)] = plane.to(f.dtype)
+        rows.append(r)
+    return torch.cat([rows[0], f, rows[1]], dim=1 + axis)
+
+
+def streamed(f, nbr_wall, nbr_moving=None, bb=None, halo=None):
     """Pull-stream all 19 directions with fused half-way bounce-back;
-    MOVING sources (nbr_moving) add the Ladd term bb[i]."""
+    MOVING sources (nbr_moving) add the Ladd term bb[i]. halo: None, or
+    (axis, lo, hi) of a shard, whose sources beyond its rows on that axis
+    are the planes'."""
+    if halo is None:
+        def pull(i):
+            return pull_one(f[i], _E[i])
+    else:
+        axis, lo, hi = halo
+        ext = halo_ext(f, axis, lo, hi)
+        n = f.shape[1 + axis]
+
+        def pull(i):
+            return pull_one(ext[i], _E[i]).narrow(axis, 1, n)
     pulled = [f[0]]
     for i in range(1, D3Q19.Q):
-        v = torch.where(nbr_wall[i], f[_OPP[i]], pull_one(f[i], _E[i]))
+        v = torch.where(nbr_wall[i], f[_OPP[i]], pull(i))
         if nbr_moving is not None:
             v = torch.where(nbr_moving[i], f[_OPP[i]] + float(bb[i]), v)
         pulled.append(v)
@@ -133,13 +174,24 @@ def apply_bc_fixup(pulled, f_src, bc: CompiledBC, t: int, force=None):
     return pulled
 
 
-def pulled_state(cc: CompiledCase, f, t: int, bcs=None):
+def halo_mask_ext(mask, axis: int, mask_lo, mask_hi):
+    """A shard's (X, Y, Z) labels with its neighbours' (A, B) rows
+    mask_lo and mask_hi as ring rows on `axis`."""
+    return torch.cat([mask_lo.unsqueeze(axis), mask,
+                      mask_hi.unsqueeze(axis)], dim=axis)
+
+
+def pulled_state(cc: CompiledCase, f, t: int, bcs=None, halo=None):
     """The pre-collision state at step t: pull-stream with bounce-back
     and moving walls plus the NEE fixups of `bcs` (default every
-    boundary), in order."""
+    boundary), in order. halo: None, or a shard's (axis, lo, hi, ...)
+    (ShardCase.halo), the planes its neighbours sent; the shard's
+    neighbour tables (ShardCase.nbr_wall) already hold their rows'
+    labels."""
     bb = (None if cc.wall_velocity is None
           else moving_bb_terms(cc.wall_velocity))
-    pulled = streamed(f, cc.nbr_wall, cc.nbr_moving, bb)
+    pulled = streamed(f, cc.nbr_wall, cc.nbr_moving, bb,
+                      None if halo is None else halo[:3])
     for bc in cc.bcs if bcs is None else bcs:
         pulled = apply_bc_fixup(pulled, f, bc, t, cc.force)
     return pulled
@@ -415,7 +467,9 @@ def init_override(cc: CompiledCase, rho, u):
 
 __all__ = ["make_step", "make_step_force", "boussinesq_force", "is_force_field", "guo_rates",
            "initial_f", "macro_fields", "init_override",
-           "streamed", "pull_one", "collide", "collide_cells",
+           "streamed", "pull_one", "inbound_dirs", "halo_ext",
+           "halo_mask_ext", "collide",
+           "collide_cells",
            "apply_bc_fixup", "pulled_state", "post_collision", "step_tail",
            "fluid_speed_sum", "guo_source", "guo_constants", "half_force",
            "velocity", "moving_bb_terms", "closure_tau_minus", "tau_eff",

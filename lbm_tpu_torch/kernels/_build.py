@@ -1,16 +1,19 @@
 """Build the CUDA kernel libraries with nvcc at first use and load them
 with ctypes.
 
-Five sources, each its own translation unit and shared object, compiled
-side by side (one nvcc process each, started together):
+Six sources in seven translation units, each its own shared object,
+compiled side by side (one nvcc process each, started together):
 kernels/csrc/collide_stream.cu (the collide-stream, z-plane fixup and
 moments kernels on fp32 state, each collide-stream and fixup kernel in
 its 18 collision-branch instances), kernels/csrc/collide_stream_bf16.cu
 (the same on bf16 state: 14 instances each, no force field),
 kernels/csrc/collide_stream2.cu and collide_stream2_bf16.cu (the fused
 pair of steps in its 14 instances and the chunked state read, on fp32
-and on bf16 state) and kernels/csrc/scalar_stream.cu (the D3Q7 scalar
-kernel in its 8 instances and its record reduction), for sm_90a with a
+and on bf16 state), kernels/csrc/collide_stream_halo.cu (the sharded
+collide-stream step and z-plane fixup, 14 instances each, built twice:
+with -DLBM_HALO_AXIS=0 for shards of a box split along x, =1 along y)
+and kernels/csrc/scalar_stream.cu (the D3Q7 scalar kernel in its 8
+instances and its record reduction), for sm_90a with a
 plain C interface (no PyTorch headers, so nvcc takes seconds). A source
 and its bf16 twin instantiate one body header (collide_stream.cuh,
 collide_stream2.cuh) with the storage type; the bodies share the device
@@ -19,14 +22,18 @@ fp32 ones' names with _bf16 appended. The objects land in
 kernels/_build/ under names that carry a hash of the source, the headers
 and the flags, so an edited source is rebuilt and a stale object is never
 loaded. Pointers and the stream cross as ctypes.c_void_p; every entry
-point returns cudaGetLastError().
+point returns cudaGetLastError(). Processes that load at once (the ranks
+of a sharded run) take turns on a file lock in kernels/_build/, so one
+builds and the others load what it built.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import ctypes
 import dataclasses
+import fcntl
 import functools
 import hashlib
 import os
@@ -42,6 +49,7 @@ BF16_SOURCE = CSRC / "collide_stream_bf16.cu"
 SCALAR_SOURCE = CSRC / "scalar_stream.cu"
 PAIR_SOURCE = CSRC / "collide_stream2.cu"
 PAIR_BF16_SOURCE = CSRC / "collide_stream2_bf16.cu"
+HALO_SOURCE = CSRC / "collide_stream_halo.cu"
 # the D3Q19 device functions, descriptors and their enums, shared by the
 # single-step and the fused-pair sources
 HEADER = CSRC / "d3q19.cuh"
@@ -119,6 +127,42 @@ def _declare(lib: ctypes.CDLL, sfx: str = "") -> None:
     macro.restype = ci
 
 
+def _declare_halo(lib: ctypes.CDLL) -> None:
+    """Declare the sharded step's entry points: lbm_collide_stream's and
+    lbm_fix_z_plane's arguments without the field force, plus the halo
+    axis and planes."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.lbm_block_size.argtypes = []
+    lib.lbm_block_size.restype = ci
+    lib.lbm_error_string.argtypes = [ci]
+    lib.lbm_error_string.restype = ctypes.c_char_p
+    halo = [ci, vp, vp, vp, vp]  # axis, lo, hi, mask_lo, mask_hi
+    lib.lbm_collide_stream_halo.argtypes = [
+        vp, vp, vp,             # src, dst, mask
+        ci, ci, ci,             # nx, ny, nz
+        vp, vp,                 # collision int row, float row
+        ci, vp, vp, vp, vp,     # n_bc, bc_int, bc_float, valid, phi_star
+        vp, ci,                 # blocks, n_blocks
+        vp, ci,                 # partials, n_partials
+        vp, ci,                 # series, t
+        *halo,
+        vp,                     # stream
+    ]
+    lib.lbm_collide_stream_halo.restype = ci
+    lib.lbm_fix_z_plane_halo.argtypes = [
+        vp, vp, vp,             # src, dst, mask
+        ci, ci, ci,             # nx, ny, nz
+        vp, vp,                 # collision int row, float row
+        vp, vp, vp, vp,         # bc_int, bc_float, valid, phi_star
+        ci, ci, ci, ci,         # x0, x1, y0, y1
+        vp, ci,                 # partials, n_partials
+        vp, ci,                 # series, t
+        *halo,
+        vp,                     # stream
+    ]
+    lib.lbm_fix_z_plane_halo.restype = ci
+
+
 def _declare_scalar(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.lbm_scalar_block_size.argtypes = []
@@ -168,23 +212,44 @@ def _declare_pair(lib: ctypes.CDLL, sfx: str = "") -> None:
     rows.restype = ci
 
 
+# name -> (source, declare, extra nvcc flags)
 _SOURCES = {
-    "collide_stream": (SOURCE, _declare),
+    "collide_stream": (SOURCE, _declare, ()),
     "collide_stream_bf16": (BF16_SOURCE,
-                            functools.partial(_declare, sfx="_bf16")),
-    "collide_stream2": (PAIR_SOURCE, _declare_pair),
+                            functools.partial(_declare, sfx="_bf16"), ()),
+    "collide_stream2": (PAIR_SOURCE, _declare_pair, ()),
     "collide_stream2_bf16": (PAIR_BF16_SOURCE,
-                             functools.partial(_declare_pair, sfx="_bf16")),
-    "scalar_stream": (SCALAR_SOURCE, _declare_scalar),
+                             functools.partial(_declare_pair, sfx="_bf16"),
+                             ()),
+    "collide_stream_halo_x": (HALO_SOURCE, _declare_halo,
+                              ("-DLBM_HALO_AXIS=0",)),
+    "collide_stream_halo_y": (HALO_SOURCE, _declare_halo,
+                              ("-DLBM_HALO_AXIS=1",)),
+    "scalar_stream": (SCALAR_SOURCE, _declare_scalar, ()),
 }
 
 
-def _object_path(source: Path) -> Path:
+def _object_path(name: str) -> Path:
+    source, _, extra = _SOURCES[name]
     headers = b"".join(h.read_bytes() for h in sorted(
         source.parent.glob("*.cuh")))
+    flags = " ".join(NVCC_FLAGS + extra)
     digest = hashlib.sha256(source.read_bytes() + headers
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{source.stem}_{digest[:16]}.so"
+                            + flags.encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+
+
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on kernels/_build/.lock for the calling process,
+    held while it builds (other processes wait, then find the objects)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
 
 
 @functools.lru_cache(maxsize=None)
@@ -192,16 +257,32 @@ def _load_all() -> dict:
     """Build what is missing, one nvcc per source and all started
     together, then load every library: {name: Library}, once per
     process."""
+    with _build_lock():
+        built = _build_missing()
+    out = {}
+    for name, (_, declare, _) in _SOURCES.items():
+        so = _object_path(name)
+        lib = ctypes.CDLL(str(so))
+        declare(lib)
+        seconds, log = built.get(name, (0.0, ""))
+        out[name] = Library(lib=lib, path=so, built=name in built,
+                            build_seconds=seconds, log=log)
+    return out
+
+
+def _build_missing() -> dict:
+    """nvcc every source whose object is missing, side by side: {name:
+    (seconds, log)} of those built."""
     jobs = {}
-    for name, (source, _) in _SOURCES.items():
-        so = _object_path(source)
+    for name, (source, _, extra) in _SOURCES.items():
+        so = _object_path(name)
         if so.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        jobs[name] = ([nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(source)],
-                      tmp, so)
+        jobs[name] = ([nvcc_path(), *NVCC_FLAGS, *extra, "-o", tmp,
+                       str(source)], tmp, so)
 
     def compile_one(cmd):
         t0 = time.perf_counter()
@@ -225,15 +306,7 @@ def _load_all() -> dict:
         built[name] = (seconds, log)
     if failure is not None:
         raise failure
-    out = {}
-    for name, (source, declare) in _SOURCES.items():
-        so = _object_path(source)
-        lib = ctypes.CDLL(str(so))
-        declare(lib)
-        seconds, log = built.get(name, (0.0, ""))
-        out[name] = Library(lib=lib, path=so, built=name in built,
-                            build_seconds=seconds, log=log)
-    return out
+    return built
 
 
 def load_library(bf16: bool = False) -> Library:
@@ -249,6 +322,13 @@ def load_pair_library(bf16: bool = False) -> Library:
                        else "collide_stream2"]
 
 
+def load_halo_library(axis: int) -> Library:
+    """The sharded collide-stream library of shards split along x (axis
+    0) or y (1) (built with the others if needed)."""
+    return _load_all()[("collide_stream_halo_x", "collide_stream_halo_y")
+                       [axis]]
+
+
 def load_scalar_library() -> Library:
     """The D3Q7 scalar library (built with the others if needed)."""
     return _load_all()["scalar_stream"]
@@ -262,6 +342,7 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 __all__ = ["Library", "load_library", "load_pair_library",
-           "load_scalar_library", "check", "nvcc_path", "SOURCE",
-           "BF16_SOURCE", "PAIR_SOURCE", "PAIR_BF16_SOURCE", "SCALAR_SOURCE",
-           "HEADER", "BUILD_DIR", "NVCC_FLAGS"]
+           "load_halo_library", "load_scalar_library", "check", "nvcc_path",
+           "SOURCE", "BF16_SOURCE", "PAIR_SOURCE", "PAIR_BF16_SOURCE",
+           "HALO_SOURCE", "SCALAR_SOURCE", "HEADER", "BUILD_DIR",
+           "NVCC_FLAGS"]

@@ -35,6 +35,19 @@ the CPU; for a CUDA tensor it launches the kernel or raises. `launches`
 counts kernel launches per entry point and instance ("lbm_collide_stream
 [trt+cy]"), one per wrapper call that launched.
 
+With halo=(axis, lo, hi, mask_lo, mask_hi) collide_stream, fix_z_plane
+and step take one shard of a box split along x (axis 0) or y (axis 1)
+(engine/compile.ShardCase): lbm_collide_stream_halo and
+lbm_fix_z_plane_halo (kernels/csrc/collide_stream_halo.cu, one library
+an axis; K1d: lbm_tpu's
+_kernel with halo_axis, and its sharded z fixup) pull across the shard's
+faces from lo and hi, the (5, A, B) planes its ring neighbours sent,
+testing walls against mask_lo and mask_hi, their rows' (A, B) labels
+(the ShardCase's own: cc.halo(lo, hi) builds the tuple). Their plain
+versions take the same halo, and their counters end in
+"+halo" ("lbm_collide_stream[bgk+halo]"). A shard is float32 and has no
+force field, as lbm_tpu's sharded path.
+
 The state is float32 or bfloat16 (bf16 storage, lbm_tpu's pack_state
 dtype=bfloat16): the bf16 kernels and plain versions widen every load to
 fp32, compute as in fp32 and narrow once with round-to-nearest-even when
@@ -71,6 +84,8 @@ from lbm_tpu_torch.engine.step import (
     guo_constants,
     guo_rates,
     half_force,
+    halo_ext,
+    halo_mask_ext,
     moving_bb_terms,
     pulled_state,
     step_tail,
@@ -209,15 +224,18 @@ def _field_tensor(cc: CompiledCase, field, g):
     return boussinesq_force(g, cc.fluid, field.buoyancy, field.c_ref)
 
 
-def collide_stream_plain(f, cc: CompiledCase, t: int, field=None, g=None):
+def collide_stream_plain(f, cc: CompiledCase, t: int, field=None, g=None,
+                         halo=None):
     """The dense step at absolute step t with the x/y-plane boundaries
     only (those the kernel applies) plus the fluid velsum: (f',
     sum_fluid |u|) with the sum a float64 0-dim tensor and f' in f's
     dtype (a bf16 f widened, stepped in fp32, narrowed once). field, g:
-    the force field and the pre-step scalar state it is built from."""
+    the force field and the pre-step scalar state it is built from.
+    halo: a shard's (axis, lo, hi, mask_lo, mask_hi), K1d's plain
+    version."""
     f32 = _widen(f)
-    f_new, _, u = step_tail(cc, f32, pulled_state(cc, f32, t, cc.kernel_bcs),
-                            _field_tensor(cc, field, g))
+    pulled = pulled_state(cc, f32, t, cc.kernel_bcs, halo)
+    f_new, _, u = step_tail(cc, f32, pulled, _field_tensor(cc, field, g))
     return f_new.to(f.dtype), fluid_speed_sum(cc, u)
 
 
@@ -226,12 +244,14 @@ def _speed(u):
 
 
 def fix_z_plane_plain(f_src, f_out, cc: CompiledCase, bc: CompiledBC,
-                      t: int, field=None, g=None):
+                      t: int, field=None, g=None, halo=None):
     """One z-plane boundary's fixup over its window: the step of the
     window's consumer-plane cells again, from the pre-step f_src, with
     this boundary's NEE rewrite; writes their fluid cells into f_out in
     place (narrowed to f_out's dtype). Returns sum |u_fixed| - sum
-    |u_pre-NEE| over those cells (float64 0-dim), the velsum correction."""
+    |u_pre-NEE| over those cells (float64 0-dim), the velsum correction.
+    halo: a shard's, as collide_stream_plain takes it (the window's rows
+    on the shard's faces pull from its planes)."""
     f_src = _widen(f_src)
     x0, x1, y0, y1 = bc.window
     c = bc.consumer_coord
@@ -240,13 +260,24 @@ def fix_z_plane_plain(f_src, f_out, cc: CompiledCase, bc: CompiledBC,
     ys = torch.arange(y0, y1, device=f_src.device)[None, :]
     bb = (None if cc.wall_velocity is None
           else moving_bb_terms(cc.wall_velocity))
+    src, mask, axis = f_src, cc.mask, None
+    if halo is not None:
+        axis, lo, hi, mask_lo, mask_hi = halo
+        src = halo_ext(f_src, axis, lo, hi)
+        mask = halo_mask_ext(cc.mask, axis, mask_lo, mask_hi)
+
+    def source(v, e, n, a):
+        # the shard axis indexes the ring-extended rows; the others wrap
+        return v - e + 1 if a == axis else (v - e) % n
+
     pulled = [f_src[0, x0:x1, y0:y1, c]]
     for i in range(1, D3Q19.Q):
         ex, ey, ez = (int(v) for v in D3Q19.E[i])
-        sx, sy, sz = (xs - ex) % nx, (ys - ey) % ny, (c - ez) % nz
-        nbr = cc.mask[sx, sy, sz]
+        sx, sy, sz = (source(xs, ex, nx, 0), source(ys, ey, ny, 1),
+                      (c - ez) % nz)
+        nbr = mask[sx, sy, sz]
         own_opp = f_src[D3Q19.OPP[i], x0:x1, y0:y1, c]
-        v = torch.where(nbr == CellType.WALL, own_opp, f_src[i, sx, sy, sz])
+        v = torch.where(nbr == CellType.WALL, own_opp, src[i, sx, sy, sz])
         if bb is not None:
             v = torch.where(nbr == CellType.MOVING, own_opp + float(bb[i]), v)
         pulled.append(v)
@@ -273,13 +304,13 @@ def fix_z_plane_plain(f_src, f_out, cc: CompiledCase, bc: CompiledBC,
                        torch.zeros_like(diff)).sum(dtype=torch.float64)
 
 
-def step_plain(f, cc: CompiledCase, t: int, field=None, g=None):
+def step_plain(f, cc: CompiledCase, t: int, field=None, g=None, halo=None):
     """The plain version of `step`: (f', velsum) with the velsum a
     float64 0-dim tensor and f' in f's dtype."""
-    f_new, vs = collide_stream_plain(f, cc, t, field, g)
+    f_new, vs = collide_stream_plain(f, cc, t, field, g, halo)
     for bc in cc.z_bcs:
         if bc.window is not None:
-            vs = vs + fix_z_plane_plain(f, f_new, cc, bc, t, field, g)
+            vs = vs + fix_z_plane_plain(f, f_new, cc, bc, t, field, g, halo)
     return f_new, vs
 
 
@@ -400,9 +431,35 @@ def _check_field(field, g, cc: CompiledCase, f):
     return g.data_ptr()
 
 
+def _check_halo(halo, cc: CompiledCase, f, field) -> None:
+    """A shard's halo tuple against its case and state."""
+    axis, lo, hi, mask_lo, mask_hi = halo
+    if axis not in (0, 1):
+        raise ValueError(f"the sharded kernel splits x (0) or y (1), not "
+                         f"axis {axis!r}")
+    if field is not None or f.dtype != torch.float32:
+        raise ValueError("a shard steps float32 state without a force field "
+                         "(lbm_tpu's sharded path takes neither bf16 nor the "
+                         "transports' field)")
+    lat = tuple(n for a, n in enumerate(cc.shape) if a != axis)
+    for name, t, dtype, shape in (
+            ("lo", lo, torch.float32, (5,) + lat),
+            ("hi", hi, torch.float32, (5,) + lat),
+            ("mask_lo", mask_lo, torch.int8, lat),
+            ("mask_hi", mask_hi, torch.int8, lat)):
+        if t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous() or t.device != f.device:
+            raise ValueError(f"halo {name} must be a contiguous {dtype} "
+                             f"{shape} tensor on {f.device}")
+    if mask_lo is not getattr(cc, "mask_lo", None) \
+            or mask_hi is not getattr(cc, "mask_hi", None):
+        raise ValueError("halo mask_lo and mask_hi must be the shard case's "
+                         "own (ShardCase.halo), which its plain version reads")
+
+
 def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
                    all_blocks: bool = False, field: ForceField | None = None,
-                   g=None):
+                   g=None, halo=None):
     """One step of f into out (a different buffer) at absolute step t
     with the case's collision branch and x/y-plane boundaries; writes the fluid velsum, sum over
     fluid cells of |u| after their NEE rewrite, into series[slot]
@@ -410,20 +467,23 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
     every block when that is None, or with all_blocks); the blocks left
     out hold no fluid cell and must be equal in f and out. field, g: the
     Boussinesq force field and the pre-step (7, X, Y, Z) scalar state it
-    reads (the force-field instance). Returns out."""
+    reads (the force-field instance). halo: None, or a shard's (axis, lo,
+    hi, mask_lo, mask_hi) (K1d, lbm_collide_stream_halo). Returns out."""
     _check_pair(f, out, cc, series, slot)
     name, ci, cf = collision_descriptor(cc, field)
     g_ptr = _check_field(field, g, cc, f)
+    if halo is not None:
+        _check_halo(halo, cc, f, field)
     ids = None if all_blocks else cc.live_blocks
     if f.device.type == "cpu":
-        f_new, vs = collide_stream_plain(f, cc, t, field, g)
+        f_new, vs = collide_stream_plain(f, cc, t, field, g, halo)
         out.copy_(f_new)
         series[slot] = vs
         return out
-    from lbm_tpu_torch.kernels._build import check, load_library
+    from lbm_tpu_torch.kernels._build import check
 
-    lib = load_library(_bf16(f)).lib
-    name = _tagged(name, f)
+    lib = _library(f, halo)
+    launch, tail, name = _entry(lib, "collide_stream", name, f, g_ptr, halo)
     nx, ny, nz = cc.shape
     n_cells = nx * ny * nz
     if n_cells >= 2**31:
@@ -433,40 +493,65 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
         cc, "k1a", cc.kernel_bcs, t, grid)
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
-        launch = lib.lbm_collide_stream_bf16 if _bf16(f) \
-            else lib.lbm_collide_stream
         err = launch(
             f.data_ptr(), out.data_ptr(), cc.mask.data_ptr(),
             nx, ny, nz, ci.ctypes.data, cf.ctypes.data,
             len(cc.kernel_bcs), ints.ctypes.data, floats.ctypes.data,
             ctypes.addressof(valid), ctypes.addressof(phis),
             None if ids is None else ids.data_ptr(), grid,
-            partials.data_ptr(), grid, series.data_ptr(), slot, g_ptr,
+            partials.data_ptr(), grid, series.data_ptr(), slot, *tail,
             stream)
     check(lib, err, f"lbm_collide_stream[{name}]")
     _count(f"lbm_collide_stream[{name}]")
     return out
 
 
+def _library(f, halo):
+    """The library whose kernels step f: its storage type's, or a shard's
+    of its axis."""
+    from lbm_tpu_torch.kernels._build import load_halo_library, load_library
+
+    return (load_library(_bf16(f)) if halo is None
+            else load_halo_library(halo[0])).lib
+
+
+def _entry(lib, kernel: str, name: str, f, g_ptr, halo):
+    """(the C entry of `kernel` for f's storage or a shard's halo, the
+    arguments after the series slot but the stream, the counter's
+    instance name)."""
+    if halo is None:
+        sfx = "_bf16" if _bf16(f) else ""
+        return getattr(lib, f"lbm_{kernel}{sfx}"), (g_ptr,), _tagged(name, f)
+    axis, lo, hi, mask_lo, mask_hi = halo
+    return (getattr(lib, f"lbm_{kernel}_halo"),
+            (axis, lo.data_ptr(), hi.data_ptr(), mask_lo.data_ptr(),
+             mask_hi.data_ptr()), f"{name}+halo")
+
+
 def fix_z_plane(f_src, f_out, cc: CompiledCase, bc: CompiledBC, series,
-                slot: int, t: int, field: ForceField | None = None, g=None):
+                slot: int, t: int, field: ForceField | None = None, g=None,
+                halo=None):
     """The z-plane boundary `bc`'s fixup at absolute step t: f_src is the
     pre-step state, f_out the collide-stream output, rewritten in place
     over the boundary's window; adds the velsum correction to
-    series[slot]. field, g as in collide_stream. Returns f_out."""
+    series[slot]. field, g, halo as in collide_stream (with a halo,
+    lbm_fix_z_plane_halo). Returns f_out."""
     _check_pair(f_src, f_out, cc, series, slot)
     name, ci, cf = collision_descriptor(cc, field)
     g_ptr = _check_field(field, g, cc, f_src)
+    if halo is not None:
+        _check_halo(halo, cc, f_src, field)
     if not any(b is bc for b in cc.z_bcs) or bc.window is None:
         raise ValueError("bc must be one of the case's z-plane boundaries "
                          "with a window")
     if f_src.device.type == "cpu":
-        series[slot] += fix_z_plane_plain(f_src, f_out, cc, bc, t, field, g)
+        series[slot] += fix_z_plane_plain(f_src, f_out, cc, bc, t, field, g,
+                                          halo)
         return f_out
-    from lbm_tpu_torch.kernels._build import check, load_library
+    from lbm_tpu_torch.kernels._build import check
 
-    lib = load_library(_bf16(f_src)).lib
-    name = _tagged(name, f_src)
+    lib = _library(f_src, halo)
+    launch, tail, name = _entry(lib, "fix_z_plane", name, f_src, g_ptr, halo)
     nx, ny, nz = cc.shape
     x0, x1, y0, y1 = bc.window
     grid = -(-((x1 - x0) * (y1 - y0)) // lib.lbm_block_size())
@@ -474,14 +559,12 @@ def fix_z_plane(f_src, f_out, cc: CompiledCase, bc: CompiledBC, series,
         cc, "z", [bc], t, grid)
     with torch.cuda.device(f_src.device):
         stream = torch.cuda.current_stream(f_src.device).cuda_stream
-        launch = lib.lbm_fix_z_plane_bf16 if _bf16(f_src) \
-            else lib.lbm_fix_z_plane
         err = launch(
             f_src.data_ptr(), f_out.data_ptr(), cc.mask.data_ptr(),
             nx, ny, nz, ci.ctypes.data, cf.ctypes.data,
             ints.ctypes.data, floats.ctypes.data,
             valid[0], phis[0], x0, x1, y0, y1,
-            partials.data_ptr(), grid, series.data_ptr(), slot, g_ptr,
+            partials.data_ptr(), grid, series.data_ptr(), slot, *tail,
             stream)
     check(lib, err, f"lbm_fix_z_plane[{name}]")
     _count(f"lbm_fix_z_plane[{name}]")
@@ -489,15 +572,15 @@ def fix_z_plane(f_src, f_out, cc: CompiledCase, bc: CompiledBC, series,
 
 
 def step(f, out, cc: CompiledCase, series, slot: int, t: int,
-         field: ForceField | None = None, g=None):
+         field: ForceField | None = None, g=None, halo=None):
     """One whole step of f into out at absolute step t: the
     collide-stream kernel, then the fixup of each z-plane boundary in
-    boundary order; series[slot] gets the step's fluid velsum. field, g
-    as in collide_stream."""
-    collide_stream(f, out, cc, series, slot, t, field=field, g=g)
+    boundary order; series[slot] gets the step's fluid velsum. field, g,
+    halo as in collide_stream."""
+    collide_stream(f, out, cc, series, slot, t, field=field, g=g, halo=halo)
     for bc in cc.z_bcs:
         if bc.window is not None:
-            fix_z_plane(f, out, cc, bc, series, slot, t, field, g)
+            fix_z_plane(f, out, cc, bc, series, slot, t, field, g, halo)
     return out
 
 

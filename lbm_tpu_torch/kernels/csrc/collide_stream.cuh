@@ -95,6 +95,13 @@
 // The device functions (pull, NEE rewrite, collision branches, velsum
 // reduction) and the descriptor parsers live in d3q19.cuh, which the
 // fused pair (collide_stream2.cuh) includes too.
+//
+// Both kernels take the halo axis as a last template parameter HALO:
+// -1 for a whole box (every instance of collide_stream.cu and
+// collide_stream_bf16.cu, whose code, registers and spills it leaves as
+// they were), 0 or 1 for one shard of a box split along x or y (K1d,
+// instantiated by collide_stream_halo.cu), whose pulls across its faces
+// read the planes its neighbours sent (pull19 in d3q19.cuh).
 
 #pragma once
 
@@ -103,14 +110,16 @@
 namespace {
 
 // Launch block b works on cells blocks[b] * kBlock ... + kBlock - 1, or
-// on block b itself when `blocks` is null.
-template <int COLL, bool CLOSURE, int FORCE, bool MOVING, typename S>
+// on block b itself when `blocks` is null. HALO -1: the whole box; 0 or
+// 1: a shard split along x or y, pulling across its faces from `halo`.
+template <int COLL, bool CLOSURE, int FORCE, bool MOVING, typename S,
+          int HALO = -1>
 __global__ void __launch_bounds__(kBlock)
 collide_stream_kernel(const S* __restrict__ src, S* __restrict__ dst,
                       const int8_t* __restrict__ mask, int nx, int ny,
                       int nz, const __grid_constant__ Collision coll,
                       BCSet bcs, const int* __restrict__ blocks,
-                      double* __restrict__ partials) {
+                      double* __restrict__ partials, const Halo halo) {
   const long long n_cells = (long long)nx * ny * nz;  // < 2^31 (host check)
   const long long blk = blocks ? (long long)blocks[blockIdx.x] : blockIdx.x;
   const long long cell_ll = blk * kBlock + threadIdx.x;
@@ -130,8 +139,8 @@ collide_stream_kernel(const S* __restrict__ src, S* __restrict__ dst,
       const int y = xy % ny;
       const int x = xy / ny;
       float p[Q];
-      pull19<MOVING>(src, mask, x, y, z, nx, ny, nz, n_cells, cell, coll.bb,
-                     p);
+      pull19<MOVING, HALO>(src, mask, x, y, z, nx, ny, nz, n_cells, cell,
+                           coll.bb, p, halo);
 #pragma unroll
       for (int b = 0; b < kMaxBCs; ++b) {
         if (b >= bcs.n) break;
@@ -160,13 +169,17 @@ collide_stream_kernel(const S* __restrict__ src, S* __restrict__ dst,
 // One z-plane boundary over its window [x0, x0+wx) x [y0, y0+wy) of the
 // consumer plane z = bc.coord: the whole step again for the window's
 // fluid cells, now with the NEE rewrite. partials[block] gets the sum of
-// |u_fixed| - |u_pre-NEE| over its cells.
-template <int COLL, bool CLOSURE, int FORCE, bool MOVING, typename S>
+// |u_fixed| - |u_pre-NEE| over its cells. HALO as in
+// collide_stream_kernel: a shard's window rows on its faces pull from the
+// exchanged planes (lbm_tpu's halo patch of the pre-step slab).
+template <int COLL, bool CLOSURE, int FORCE, bool MOVING, typename S,
+          int HALO = -1>
 __global__ void __launch_bounds__(kBlock)
 fix_z_plane_kernel(const S* __restrict__ src, S* __restrict__ dst,
                    const int8_t* __restrict__ mask, int nx, int ny, int nz,
                    const __grid_constant__ Collision coll, BCDesc bc, int x0,
-                   int wx, int y0, int wy, double* __restrict__ partials) {
+                   int wx, int y0, int wy, double* __restrict__ partials,
+                   const Halo halo) {
   const long long n_cells = (long long)nx * ny * nz;
   const int k = blockIdx.x * kBlock + threadIdx.x;
   double delta = 0.0;
@@ -177,8 +190,8 @@ fix_z_plane_kernel(const S* __restrict__ src, S* __restrict__ dst,
     const int cell = (x * ny + y) * nz + z;
     if (mask[cell] == kFluid) {
       float p[Q];
-      pull19<MOVING>(src, mask, x, y, z, nx, ny, nz, n_cells, cell, coll.bb,
-                     p);
+      pull19<MOVING, HALO>(src, mask, x, y, z, nx, ny, nz, n_cells, cell,
+                           coll.bb, p, halo);
       float ff[3], fh[3];
       const float* F = coll.force;
       const float* half = coll.half_force;
@@ -230,6 +243,7 @@ struct StepArgs {
   double* partials;
   unsigned grid;
   cudaStream_t stream;
+  Halo halo;
 };
 
 template <typename S>
@@ -242,23 +256,27 @@ struct FixArgs {
   double* partials;
   unsigned grid;
   cudaStream_t stream;
+  Halo halo;
 };
 
-template <typename S, int K>
+template <typename S, int K, int HALO>
 void launch_step(const StepArgs<S>& a, const Collision& c, const BCSet& b) {
   using I = Inst<K>;
-  collide_stream_kernel<I::kColl, I::kClosure, I::kForce, I::kMovingWall, S>
+  collide_stream_kernel<I::kColl, I::kClosure, I::kForce, I::kMovingWall, S,
+                        HALO>
       <<<a.grid, kBlock, 0, a.stream>>>(a.src, a.dst, a.mask, a.nx, a.ny,
-                                        a.nz, c, b, a.blocks, a.partials);
+                                        a.nz, c, b, a.blocks, a.partials,
+                                        a.halo);
 }
 
-template <typename S, int K>
+template <typename S, int K, int HALO>
 void launch_fix(const FixArgs<S>& a, const Collision& c, const BCDesc& b) {
   using I = Inst<K>;
-  fix_z_plane_kernel<I::kColl, I::kClosure, I::kForce, I::kMovingWall, S>
+  fix_z_plane_kernel<I::kColl, I::kClosure, I::kForce, I::kMovingWall, S,
+                     HALO>
       <<<a.grid, kBlock, 0, a.stream>>>(a.src, a.dst, a.mask, a.nx, a.ny,
                                         a.nz, c, b, a.x0, a.wx, a.y0, a.wy,
-                                        a.partials);
+                                        a.partials, a.halo);
 }
 
 template <typename S>
@@ -268,42 +286,46 @@ template <typename S>
 using FixLauncher = void (*)(const FixArgs<S>&, const Collision&,
                              const BCDesc&);
 
-template <typename S, int K>
+template <typename S, int K, int HALO>
 constexpr StepLauncher<S> step_entry() {
-  if constexpr (has_instance<S, K>()) {
-    return &launch_step<S, K>;
+  if constexpr (has_instance<S, K, HALO>()) {
+    return &launch_step<S, K, HALO>;
   } else {
     return nullptr;
   }
 }
-template <typename S, int K>
+template <typename S, int K, int HALO>
 constexpr FixLauncher<S> fix_entry() {
-  if constexpr (has_instance<S, K>()) {
-    return &launch_fix<S, K>;
+  if constexpr (has_instance<S, K, HALO>()) {
+    return &launch_fix<S, K, HALO>;
   } else {
     return nullptr;
   }
 }
-template <typename S, int... K>
+template <typename S, int HALO, int... K>
 constexpr std::array<StepLauncher<S>, kNumKeys> step_table(
     std::integer_sequence<int, K...>) {
-  return {step_entry<S, K>()...};
+  return {step_entry<S, K, HALO>()...};
 }
-template <typename S, int... K>
+template <typename S, int HALO, int... K>
 constexpr std::array<FixLauncher<S>, kNumKeys> fix_table(
     std::integer_sequence<int, K...>) {
-  return {fix_entry<S, K>()...};
+  return {fix_entry<S, K, HALO>()...};
 }
-template <typename S>
+// one table per storage type and halo axis; a translation unit
+// instantiates only the tables its entries use
+template <typename S, int HALO>
 constexpr std::array<StepLauncher<S>, kNumKeys> kStepTable =
-    step_table<S>(std::make_integer_sequence<int, kNumKeys>{});
-template <typename S>
+    step_table<S, HALO>(std::make_integer_sequence<int, kNumKeys>{});
+template <typename S, int HALO>
 constexpr std::array<FixLauncher<S>, kNumKeys> kFixTable =
-    fix_table<S>(std::make_integer_sequence<int, kNumKeys>{});
+    fix_table<S, HALO>(std::make_integer_sequence<int, kNumKeys>{});
 
 // The host entries, exported under their C names by collide_stream.cu
 // (S = float) and collide_stream_bf16.cu (S = __nv_bfloat16, names
-// ending in _bf16).
+// ending in _bf16), with HALO = -1; collide_stream_halo.cu exports the
+// shard entries (S = float, HALO 0 and 1), whose `halo` planes must all
+// be set.
 
 // One step from src into dst with the collision branch of the descriptor
 // rows coll_int/coll_float (CInt/CFloat) and the x/y-plane boundaries;
@@ -314,14 +336,15 @@ constexpr std::array<FixLauncher<S>, kNumKeys> kFixTable =
 // double per launched block (n_partials). Boundary rows as parse_bc;
 // phi_ptrs[b] is this step's phase table of a series boundary. Returns
 // cudaGetLastError().
-template <typename S>
+template <typename S, int HALO = -1>
 int collide_stream(const S* src, S* dst, const int8_t* mask, int nx, int ny,
                    int nz, const int* coll_int, const float* coll_float,
                    int n_bc, const int* bc_int, const float* bc_float,
                    const void* const* valid_ptrs, const void* const* phi_ptrs,
                    const int* blocks, int n_blocks, double* partials,
                    int n_partials, double* series, int t,
-                   const float* gfield, void* stream) {
+                   const float* gfield, void* stream,
+                   const Halo& halo = Halo{}) {
   const long long n_cells = (long long)nx * ny * nz;
   const long long all_blocks = (n_cells + kBlock - 1) / kBlock;
   const long long grid = blocks ? n_blocks : all_blocks;
@@ -330,9 +353,12 @@ int collide_stream(const S* src, S* dst, const int8_t* mask, int nx, int ny,
       grid != n_partials) {
     return (int)cudaErrorInvalidValue;
   }
+  if (HALO >= 0 && !(halo.lo && halo.hi && halo.mask_lo && halo.mask_hi)) {
+    return (int)cudaErrorInvalidValue;
+  }
   Collision coll = {};
   const int key = parse_collision(coll_int, coll_float, gfield, coll);
-  if (key < 0 || kStepTable<S>[key] == nullptr) {
+  if (key < 0 || kStepTable<S, HALO>[key] == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   BCSet bcs = {};
@@ -346,8 +372,8 @@ int collide_stream(const S* src, S* dst, const int8_t* mask, int nx, int ny,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const StepArgs<S> args = {src, dst, mask, nx, ny, nz, blocks, partials,
-                            (unsigned)grid, s};
-  kStepTable<S>[key](args, coll, bcs);
+                            (unsigned)grid, s, halo};
+  kStepTable<S, HALO>[key](args, coll, bcs);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   velsum_reduce_kernel<<<1, kReduceBlock, 0, s>>>(partials, n_partials,
@@ -362,14 +388,15 @@ int collide_stream(const S* src, S* dst, const int8_t* mask, int nx, int ny,
 // |u_fixed| - |u_pre-NEE| over the rewritten cells. gfield as in
 // lbm_collide_stream. partials holds
 // ceil((x1-x0)*(y1-y0) / lbm_block_size()) doubles. Returns
-// cudaGetLastError().
-template <typename S>
+// cudaGetLastError(). halo as in collide_stream.
+template <typename S, int HALO = -1>
 int fix_z_plane(const S* src, S* dst, const int8_t* mask, int nx, int ny,
                 int nz, const int* coll_int, const float* coll_float,
                 const int* bc_int, const float* bc_float, const void* valid,
                 const void* phi, int x0, int x1, int y0, int y1,
                 double* partials, int n_partials, double* series, int t,
-                const float* gfield, void* stream) {
+                const float* gfield, void* stream,
+                const Halo& halo = Halo{}) {
   const long long n_cells = (long long)nx * ny * nz;
   const int wx = x1 - x0, wy = y1 - y0;
   BCDesc bc = {};
@@ -379,17 +406,20 @@ int fix_z_plane(const S* src, S* dst, const int8_t* mask, int nx, int ny,
       bc.axis != 2) {
     return (int)cudaErrorInvalidValue;
   }
+  if (HALO >= 0 && !(halo.lo && halo.hi && halo.mask_lo && halo.mask_hi)) {
+    return (int)cudaErrorInvalidValue;
+  }
   Collision coll = {};
   const int key = parse_collision(coll_int, coll_float, gfield, coll);
-  if (key < 0 || kFixTable<S>[key] == nullptr) {
+  if (key < 0 || kFixTable<S, HALO>[key] == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   const long long grid = ((long long)wx * wy + kBlock - 1) / kBlock;
   if (grid != n_partials) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const FixArgs<S> args = {src, dst, mask, nx, ny, nz, x0, wx, y0, wy,
-                           partials, (unsigned)grid, s};
-  kFixTable<S>[key](args, coll, bc);
+                           partials, (unsigned)grid, s, halo};
+  kFixTable<S, HALO>[key](args, coll, bc);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   velsum_reduce_kernel<<<1, kReduceBlock, 0, s>>>(partials, n_partials,

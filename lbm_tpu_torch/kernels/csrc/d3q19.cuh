@@ -198,18 +198,83 @@ __device__ __forceinline__ void moments19(const float* p,
   uz = mz / safe;
 }
 
+// The planes a shard of a domain split along x or y receives from its
+// ring neighbours each step (K1d): lo holds the five populations that
+// stream in across the shard's low face (e_axis = +1, in direction
+// order) from the low neighbour's last row, hi the five that stream in
+// across its high face (e_axis = -1) from the high neighbour's first row,
+// each (5, A, B) fp32 with (A, B) = (ny, nz) for an x shard and (nx, nz)
+// for a y shard; mask_lo and mask_hi are those two rows' (A, B) labels.
+struct Halo {
+  const float* lo;
+  const float* hi;
+  const int8_t* mask_lo;
+  const int8_t* mask_hi;
+};
+
+// The component of e_i along the shard axis a (0: x, 1: y).
+__host__ __device__ constexpr int e_axis(int a, int i) {
+  return a == 0 ? EX(i) : EY(i);
+}
+
+// Direction i's row in its halo plane: its rank, in direction order,
+// among the five directions with its sign of e_axis (a CPU test derives
+// the table from the lattice).
+__host__ __device__ constexpr int halo_slot(int a, int i) {
+  constexpr int x[Q] = {0, 0, 0, 0, 0, 0, 0, 1, 2, 1, 2,
+                        3, 4, 3, 4, 0, 0, 0, 0};
+  constexpr int y[Q] = {0, 0, 0, 0, 0, 0, 0, 1, 1, 2, 2,
+                        0, 0, 0, 0, 3, 3, 4, 4};
+  return a == 0 ? x[i] : y[i];
+}
+
 // The pulled populations of cell (x, y, z): the value at x - e_i,
 // wrapped, or with half-way bounce-back off a wall source the cell's own
 // opposite population, plus the Ladd term bb[i] off a MOVING source.
-template <bool MOVING, typename S>
+// HALO: -1 for a whole box; 0 or 1 for a shard split along x or y, whose
+// sources beyond its own rows on that axis (and their wall tests) come
+// from the exchanged planes h (lbm_tpu's halo_axis ring rows).
+template <bool MOVING, int HALO = -1, typename S>
 __device__ __forceinline__ void pull19(const S* __restrict__ src,
                                        const int8_t* __restrict__ mask,
                                        int x, int y, int z, int nx, int ny,
                                        int nz, long long n_cells, int cell,
-                                       const float* bb, float* p) {
+                                       const float* bb, float* p,
+                                       const Halo& h = Halo{}) {
   p[0] = widen(src[cell]);
 #pragma unroll
   for (int i = 1; i < Q; ++i) {
+    if constexpr (HALO >= 0) {
+      static_assert(std::is_same<S, float>::value, "a shard is fp32");
+      const int ea = e_axis(HALO, i);
+      if (ea != 0) {
+        // the source row on the shard axis lies inside the shard or, for
+        // a cell on the face it streams across, in the neighbour's plane:
+        // the address is selected, with no branch per direction
+        const int c = HALO == 0 ? x : y;
+        const bool face = ea > 0 ? c == 0 : c == (HALO == 0 ? nx : ny) - 1;
+        const int xs = HALO == 0 ? x - EX(i) : wrap(x - EX(i), nx);
+        const int ys = HALO == 1 ? y - EY(i) : wrap(y - EY(i), ny);
+        const int zs = wrap(z - EZ(i), nz);
+        const int lat = (HALO == 0 ? ys : xs) * nz + zs;
+        const int nb = (xs * ny + ys) * nz + zs;
+        const long long own = (long long)OPP(i) * n_cells + cell;
+        const float* from =
+            face ? (ea > 0 ? h.lo : h.hi) +
+                       (long long)halo_slot(HALO, i) *
+                           (HALO == 0 ? ny : nx) * nz + lat
+                 : src + (long long)i * n_cells + nb;
+        const int8_t m =
+            *(face ? (ea > 0 ? h.mask_lo : h.mask_hi) + lat : mask + nb);
+        if constexpr (MOVING) {
+          const float v = *(m == kWall || m == kMoving ? src + own : from);
+          p[i] = m == kMoving ? v + bb[i] : v;
+        } else {
+          p[i] = *(m == kWall ? src + own : from);
+        }
+        continue;
+      }
+    }
     const int xs = wrap(x - EX(i), nx);
     const int ys = wrap(y - EY(i), ny);
     const int zs = wrap(z - EZ(i), nz);
@@ -514,12 +579,16 @@ struct Inst {
       !(kForce != kNoForce && (kColl == kMRT || kClosure));
 };
 
-// Whether storage type S has instance K: bf16 storage has every one but
-// the force field's (lbm_tpu's transports keep fp32 state).
-template <typename S, int K>
+// Whether storage type S has instance K with halo axis HALO: bf16
+// storage has every one but the force field's (lbm_tpu's transports keep
+// fp32 state); a shard (HALO 0 or 1) is fp32 and has no force field, as
+// lbm_tpu's sharded path takes neither bf16 nor the transports' field.
+template <typename S, int K, int HALO = -1>
 constexpr bool has_instance() {
   return Inst<K>::kValid &&
-         (std::is_same<S, float>::value || Inst<K>::kForce != kFieldForce);
+         (std::is_same<S, float>::value || Inst<K>::kForce != kFieldForce) &&
+         (HALO < 0 ||
+          (std::is_same<S, float>::value && Inst<K>::kForce != kFieldForce));
 }
 
 // Fill a Collision from its descriptor rows and the scalar state of a

@@ -646,3 +646,109 @@ def test_bf16_extract_rows_and_lowmem_read(device):
     host = sim.f_standard()
     assert host.device.type == "cpu" and host.dtype == torch.float32
     assert torch.equal(host, sim.f.float().cpu())
+
+
+# the sharded step (K1d): branch -> (case, options, shard axes, bit-equal
+# to the plain version?)
+HALO_BRANCHES = {
+    "bgk": ("lid_driven_cavity", dict(n=24), (0,), True),
+    "bgk z outlets": ("coronary", dict(shape=(64, 48, 96), radius=4,
+                                       pulsatile=(4, 8)), (1,), True),
+    "bgk+force": ("gravity_channel", dict(n=24, nz=24, fz=1e-4), (0, 1),
+                  True),
+    "trt": ("coronary", dict(shape=(64, 48, 96), radius=4,
+                             collision="trt"), (1,), True),
+    "trt+force": ("gravity_channel", dict(n=24, nz=24, fz=1e-4,
+                                          collision="trt"), (0, 1), True),
+    "moving": ("lid_driven_cavity", dict(n=24, lid="bounceback"), (0, 1),
+               True),
+    "trt+moving": ("lid_driven_cavity", dict(n=24, lid="bounceback",
+                                             collision="trt"), (0, 1), True),
+    "mrt": ("coronary", dict(shape=(64, 48, 96), radius=4,
+                             collision="mrt"), (1,), True),
+    "mrt x": ("lid_driven_cavity", dict(n=24, collision="mrt"), (0,), True),
+    "smag": ("lid_driven_cavity", dict(n=24, smagorinsky_cs=0.15), (0,),
+             False),
+    "cy": ("poiseuille", dict(n=24, rheology=CARREAU), (0,), False),
+    "trt+cy": ("coronary", dict(shape=(64, 48, 96), radius=4,
+                                collision="trt", rheology=CARREAU), (1,),
+               False),
+}
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("branch", sorted(HALO_BRANCHES))
+def test_halo_kernels_match_plain_and_the_whole_box(device, branch, world):
+    """The sharded collide-stream kernel and its z fixup (K1d) on `world`
+    shards held in one process, 20 steps: each shard against the plain
+    halo step (bit for bit but for the closures, rtol 3e-6 / atol 1e-7),
+    and the stitched shards against the whole-box kernel step, bit for
+    bit where the plain versions are."""
+    from lbm_tpu_torch.bridge import gather_windows, shard_window
+    from lbm_tpu_torch.engine.compile import compile_shard
+    from lbm_tpu_torch.parallel.halo import ring_planes
+
+    name, kw, axes, exact = HALO_BRANCHES[branch]
+    spec = get_case(name, **kw)
+    for axis in axes:
+        cc = compile_case(spec, device)
+        ccs = [compile_shard(spec, r, world, axis, device)
+               for r in range(world)]
+        f = initial_f(cc)
+        whole, buf = f.clone(), f.clone()
+        fk = [shard_window(f, r, world, axis) for r in range(world)]
+        bufs = [x.clone() for x in fk]
+        fp = [x.clone() for x in fk]
+        vk = torch.zeros(world, 20, dtype=torch.float64, device=device)
+        vp = torch.zeros(world, 20, dtype=torch.float64, device=device)
+        vw = torch.zeros(20, dtype=torch.float64, device=device)
+        K.reset_launches()
+        for t in range(20):
+            K.step(whole, buf, cc, vw, t, t)
+            whole, buf = buf, whole
+            planes_k, planes_p = ring_planes(fk, axis), ring_planes(fp, axis)
+            for r, c in enumerate(ccs):
+                K.step(fk[r], bufs[r], c, vk[r], t, t,
+                       halo=c.halo(*planes_k[r]))
+                fk[r], bufs[r] = bufs[r], fk[r]
+                fp[r], vp[r, t] = K.step_plain(fp[r], c, t,
+                                               halo=c.halo(*planes_p[r]))
+        torch.cuda.synchronize()
+        inst = K.instance(cc)
+        n_z = sum(bc.window is not None for c in ccs for bc in c.z_bcs)
+        assert K.launches[f"lbm_collide_stream[{inst}+halo]"] == 20 * world
+        assert K.launches.get(f"lbm_fix_z_plane[{inst}+halo]", 0) == 20 * n_z
+        stitched = gather_windows(fk, axis, spec.shape[axis])
+        for r in range(world):
+            if exact:
+                assert torch.equal(fk[r], fp[r])
+            else:
+                torch.testing.assert_close(fk[r], fp[r], rtol=3e-6,
+                                           atol=1e-7)
+        if exact:
+            assert torch.equal(stitched, whole)
+        else:
+            torch.testing.assert_close(stitched, whole, rtol=3e-6,
+                                       atol=1e-7)
+        torch.testing.assert_close(vk.sum(0), vw, rtol=1e-12, atol=0.0)
+        torch.testing.assert_close(vk, vp, rtol=1e-5, atol=0.0)
+
+
+def test_sharded_simulation_on_one_card(device):
+    """Simulation(mesh=) on 2 gloo ranks sharing the card (the planes
+    staged through host memory), the coronary split along y: its
+    gathered state equals the whole-box run's bit for bit off the DEAD
+    cells, zeros on them; K1d and its z fixup launched every step."""
+    from lbm_tpu_torch.parallel.launch import run_case, spawn
+
+    opts = dict(shape=(64, 48, 96), radius=4, pulsatile=(4, 8))
+    out = spawn(run_case, 2, ("coronary", opts, "kernel", 12, 6),
+                backend="gloo", device="cuda", timeout=120)[0]
+    sim = Simulation(get_case("coronary", **opts), device=device)
+    sim.run(max_steps=12, time_save=6, verbose=False)
+    f = sim.f_standard().cpu().numpy()
+    live = sim.spec.mask != 0
+    assert (out["f"][:, live] == f[:, live]).all()
+    assert (out["f"][:, ~live] == 0).all()
+    assert out["launches"]["lbm_collide_stream[bgk+halo]"] == 12
+    assert out["launches"]["lbm_fix_z_plane[bgk+halo]"] >= 12
