@@ -15,7 +15,9 @@ no result line):
      step and each kernel alone on lid 64^3, poiseuille 32^3, coronary
      (64, 48, 96) r=4 steady and pulsatile=[4, 40] for 200 steps,
      curved_vessel 64^3, then lid 256^3 and the full-size coronary for 2
-     steps; the live-block launch against the full one. Then the
+     steps; the launch over the fluid-cell list against the launch over
+     every cell (out a copy of f: the kernels store fluid cells only).
+     Then the
      collision branches (K1b), 200 steps each: lid 64^3 with TRT, MRT,
      Smagorinsky and the moving (bounce-back) lid, gravity_channel 32^3
      with BGK and TRT (MRT on the dense backend, the kernel route
@@ -30,7 +32,10 @@ no result line):
      for 2 steps. Then time kernels and plain versions in turns with CUDA
      events, with each kernel's bound (the bytes it must move over 3.35
      TB/s), including one collide-stream launch per branch at lid 256^3
-     and gravity_channel 256^3 TRT+force;
+     and gravity_channel 256^3 TRT+force, K1 over the fluid list against
+     every cell at lid 256^3 and the full coronary, and the card's
+     sustained copy rate (dst.copy_(src) of one lid 256^3 fp32 state, a
+     yardstick on no path);
   4. the lid main path: Simulation(lid_driven_cavity n=256).run(1000
      steps, time_save=250) and macro(), launch counters reset just
      before and read just after (K1a 1000 times over the full grid, K3
@@ -39,7 +44,8 @@ no result line):
      pulsatile=[40, 2000]).run(2000 steps, time_save=500) and macro(),
      counters reset just before and read just after (K1a 2000, the
      z-plane fixup 6000, K3 at least 4), finite fields with max|u| within
-     3x the inlet speed;
+     3x the inlet speed, both buffers' non-fluid cells still the initial
+     state (so in every vessel path);
   6. the blood path: the same coronary with collision='trt' and the
      Carreau blood closure (carreau_blood of its units), 2000 steps
      (one pulse period): counters reset just before and read just after
@@ -85,16 +91,18 @@ force-field instances of lbm_collide_stream):
      (Tric et al.: 2.0542).
 Two fused steps per launch and the chunked state read (K2:
 lbm_collide_stream2, K4: lbm_extract_rows):
-  2b. (inside phase 2) ptxas registers, spills and shared memory of the
-     14 K2 instances and of K4;
+  2b. (inside phase 2) ptxas registers, spills, shared memory and blocks
+     an SM of the 14 K2 instances in each storage, and of K4;
   3c. (inside phase 3) K2 against two K1 launches (bit for bit) and its
      plain version (bit for bit; the closures at the tolerance above),
      100 launches (200 steps) each: lid 64^3 BGK, TRT, MRT, Smagorinsky
      and the moving lid, poiseuille 32^3 and with Carreau, curved_vessel
      64^3 (a series inlet whose phase moves inside pairs, over its
-     live-tile list and against the full launch), gravity_channel 32^3
-     TRT+force, pipe n=36 and gravity_channel 20x20x3 (boxes the 8^3
-     tile does not fit); lid 256^3 for 2 launches; K4 against its plain
+     live-unit list and against the full launch), gravity_channel 32^3
+     TRT+force, pipe n=36, lid 66^3 TRT and gravity_channel 20x20x3
+     (boxes the unit, an x segment of 64 planes of an 8 x 32 (y, z)
+     column tile, does not fit); lid 256^3 for 2 launches; K4 against its
+     plain
      version chunk by chunk on a stepped lid 256^3; then K2 a launch at
      lid 256^3 (BGK, TRT) and gravity_channel 256^3 TRT+force against
      two K1 launches, in turns, with its plain version and bound;
@@ -435,7 +443,7 @@ def compare_case(case, steps, device, errs, macro_steps=None, spec=None,
         all_k = K.collide_stream(fk, torch.empty_like(fk).copy_(fk), cc, s,
                                  0, t, all_blocks=True)
         require(torch.equal(all_k, out_k),
-                f"live-block launch differs from the full launch, {tag}")
+                f"fluid-list launch differs from the full launch, {tag}")
     rho_k, u_k = K.macro(fk, cc.force)
     rho_p, u_p = K.macro_plain(fk, cc.force)
     e_m = max(check_close(f"K3 rho {tag}", rho_k, rho_p, 1e-6, 1e-7),
@@ -447,11 +455,12 @@ def compare_case(case, steps, device, errs, macro_steps=None, spec=None,
     errs["K1a"] = max(errs["K1a"], e_f, e_k1)
     errs["Kz"] = max(errs["Kz"], e_z)
     errs["K3"] = max(errs["K3"], e_m)
-    live = ("all" if cc.live_blocks is None
-            else f"{cc.live_blocks.numel()} live")
+    live = ("every cell" if cc.fluid_cells is None
+            else f"{cc.fluid_cells.numel()} listed fluid cells, equal to the "
+            "full launch")
     print(f"[3] {tag}: step f max abs err {e_f:.3e} after {steps} steps, "
-          f"velsum max rel err {vs_rel:.3e}; K1a alone {e_k1:.3e} ({live} "
-          f"blocks); lbm_fix_z_plane {e_z:.3e} ({len(cc.z_bcs)} z planes); "
+          f"velsum max rel err {vs_rel:.3e}; K1a alone {e_k1:.3e} ({live}"
+          f"); lbm_fix_z_plane {e_z:.3e} ({len(cc.z_bcs)} z planes); "
           f"K3 {e_m:.3e}", flush=True)
     if macro_steps:
         sk = Simulation(spec, device=device, backend="kernel")
@@ -563,14 +572,18 @@ def time_lid(n, device, iters_k, iters_p, with_list=False, dtype=None):
     """{K1a, its plain version, K3, its plain version, K3's library call
     (on the widened state for bf16), K1a's and K3's bounds} in ms per
     call at lid n^3 on a state of `dtype` (float32 when None); with_list
-    adds K1a over the live-block list against K1a over every block
-    ("list", "full")."""
+    adds K1a over the fluid-cell list against K1a over every cell of the
+    box ("list", "full")."""
     import dataclasses
 
     import torch
 
     from lbm_tpu_torch.cases import get_case
-    from lbm_tpu_torch.engine.compile import compile_case, live_block_ids
+    from lbm_tpu_torch.engine.compile import (
+        compile_case,
+        fluid_cell_ids,
+        live_block_ids,
+    )
     from lbm_tpu_torch.engine.step import initial_f
     from lbm_tpu_torch.kernels import collide_stream as K
 
@@ -599,9 +612,10 @@ def time_lid(n, device, iters_k, iters_p, with_list=False, dtype=None):
     out["k1a_bound"] = bound_ms(step_bytes(cc, cc.fluid, cc.kernel_bcs, pop))
     out["k3_bound"] = bound_ms(n**3 * (19 * pop + 4 * 4))
     if with_list:
-        ids = live_block_ids(cc.spec.mask)
+        ids = fluid_cell_ids(cc.spec.mask)
         listed = dataclasses.replace(
-            cc, live_blocks=torch.from_numpy(ids).to(device))
+            cc, live_blocks=torch.from_numpy(live_block_ids(cc.spec.mask))
+            .to(device), fluid_cells=torch.from_numpy(ids).to(device))
 
         def launch(case, all_blocks):
             def go():
@@ -611,9 +625,30 @@ def time_lid(n, device, iters_k, iters_p, with_list=False, dtype=None):
             return go
 
         out["list"], out["full"] = in_turns(
-            f"K1a lid {n}^3 over {len(ids)} of {-(-cc.mask.numel() // 256)} "
-            "blocks", launch(cc, True), launch(listed, False), iters_k,
-            iters_k, names="every block/live list")
+            f"K1a lid {n}^3 over its {len(ids)} fluid cells of "
+            f"{cc.mask.numel()}", launch(cc, True), launch(listed, False),
+            iters_k, iters_k, names="every cell/fluid list")
+    return out
+
+
+def copy_rate(device) -> dict:
+    """The card's sustained copy rate, a yardstick on no path:
+    dst.copy_(src) of one lid 256^3 fp32 state (1.27 GB read and as much
+    written) by CUDA events after a warm-up. {"ms", "gb_per_s"}, the
+    rate counting the bytes read and written."""
+    import torch
+
+    src = torch.ones((19, 256, 256, 256), dtype=torch.float32, device=device)
+    dst = torch.empty_like(src)
+    ms = time_ms(lambda: dst.copy_(src), 200)
+    n_bytes = 2 * src.numel() * src.element_size()
+    out = {"ms": ms, "gb_per_s": n_bytes / (ms * 1e-3) / 1e9}
+    print(f"[3] the card's sustained copy rate: dst.copy_(src) of one lid "
+          f"256^3 fp32 state, {ms:.4f} ms = {out['gb_per_s']:.1f} GB/s "
+          f"(read plus written), {out['gb_per_s'] / 3350:.3f} of the "
+          "published 3.35 TB/s; a yardstick, on no path", flush=True)
+    del src, dst
+    free_device()
     return out
 
 
@@ -633,7 +668,7 @@ def moments_matmul(f):
 
 def time_vessel(spec, device, dtype=None):
     """Times and bounds at the full-size coronary on a state of `dtype`
-    (float32 when None): K1a over the live blocks and over every block,
+    (float32 when None): K1a over the fluid-cell list and over every cell,
     lbm_fix_z_plane per launch, K3 and the one-matmul moments that K3's
     library_ms names (on the widened state for bf16)."""
     import torch
@@ -663,10 +698,10 @@ def time_vessel(spec, device, dtype=None):
         K.collide_stream_plain(state[0], cc, 0)
 
     out["k1a_live"], out["k1a_plain"] = in_turns(
-        f"K1a{tag} coronary full, live blocks", k1a_plain, k1a(False), 5,
+        f"K1a{tag} coronary full, fluid list", k1a_plain, k1a(False), 5,
         1000)
     out["k1a_all"], _ = in_turns(
-        f"K1a{tag} coronary full, every block", k1a_plain, k1a(True), 1,
+        f"K1a{tag} coronary full, every cell", k1a_plain, k1a(True), 1,
         300)
     n_live = cc.live_blocks.numel()
     # the same work whatever the launch covers: the fluid cells' step
@@ -801,6 +836,25 @@ def ptxas_report(log: str, smem: dict | None = None, tag: str = "") -> dict:
     return {k: (v,) + spills.get(k, (0, 0)) for k, v in out.items()}
 
 
+def pair_blocks_per_sm(lib, tag: str = "") -> dict:
+    """{"collide_stream2_kernel[trt+force]": blocks an SM, ...} of every K2
+    instance of a pair library (lbm_pair_blocks_per_sm by instance key),
+    named as ptxas_report names them, `tag` ("bf16") inside the
+    brackets."""
+    out = {}
+    for key in range(36):
+        n = lib.lbm_pair_blocks_per_sm(key)
+        if n < 0:
+            continue
+        coll, closure, force, moving = (key // 12, key // 6 % 2,
+                                        key // 2 % 3, key % 2)
+        parts = [("bgk", "trt", "mrt")[coll]]
+        parts += ["closure"] * closure + [("", "force", "field")[force]] * (
+            force > 0) + ["moving"] * moving + [tag] * bool(tag)
+        out[f"collide_stream2_kernel[{'+'.join(parts)}]"] = n
+    return out
+
+
 def vessel_path(spec, device, tag, inst, live_share, closure=False,
                 store_dtype=None):
     """A 2000-step run of a full-size coronary through Simulation.run
@@ -814,7 +868,7 @@ def vessel_path(spec, device, tag, inst, live_share, closure=False,
     import torch
 
     from lbm_tpu_torch.engine.runner import Simulation
-    from lbm_tpu_torch.engine.step import tau_eff_field
+    from lbm_tpu_torch.engine.step import initial_f, tau_eff_field
     from lbm_tpu_torch.kernels import collide_stream as K
 
     t0 = time.perf_counter()
@@ -839,6 +893,15 @@ def vessel_path(spec, device, tag, inst, live_share, closure=False,
     require(res.steps == 2000, f"{tag}: run took {res.steps} steps")
     require(bool(torch.isfinite(rho).all() and torch.isfinite(u).all()),
             f"{tag}: non-finite fields")
+    # the kernels store fluid cells only: both buffers keep the initial
+    # non-fluid state
+    keep = ~sim.cc.fluid
+    f0 = initial_f(sim.cc).to(sim.f.dtype)
+    same = all(torch.equal(sim.f[i][keep], f0[i][keep])
+               and torch.equal(sim._spare[i][keep], f0[i][keep])
+               for i in range(19))
+    require(same, f"{tag}: the two buffers' non-fluid cells moved")
+    del keep, f0
     u_in = 0.1745 / 2.74909090909091
     fluid = sim.cc.fluid
     u_max = float(u.norm(dim=0)[fluid].max())
@@ -864,7 +927,8 @@ def vessel_path(spec, device, tag, inst, live_share, closure=False,
           f"{res.mlups_live:.1f}, mlups_box {res.mlups_box:.1f}; usq "
           f"residuals {[f'{r:.3e}' for r in res.residual_history]}; max|u| "
           f"{u_max:.4g} (inlet {u_in:.4g}), max|rho-1| {rho_dev:.3g}"
-          f"{te_note}; live-block share {live_share:.4f}; set-up "
+          f"{te_note}; both buffers' non-fluid cells equal the initial "
+          f"state; live-block share {live_share:.4f}; set-up "
           f"{t_setup:.1f} s; peak device memory {peak:.2f} GiB; launches "
           f"{counts}", flush=True)
     del rho, u, fluid
@@ -1594,7 +1658,8 @@ def cli_transport_and_thermal():
 def pair_cases():
     """The fused pair's comparisons (label, case, options, bit-equal to
     its plain version?): every instance a fuse=2 case can run, a series
-    inlet whose phase moves inside pairs, boxes the tile does not fit."""
+    inlet whose phase moves inside pairs, boxes the unit (an x segment of
+    64 planes of an 8 x 32 (y, z) column tile) does not fit."""
     carreau = {"model": "carreau", "nu0": 0.1, "nu_inf": 0.01,
                "lam": 100.0, "n": 0.4}
     return [
@@ -1614,10 +1679,50 @@ def pair_cases():
          dict(n=32, rheology=carreau), False),
         ("gravity_channel 32^3 trt+force", "gravity_channel",
          dict(n=32, nz=32, collision="trt"), True),
-        ("pipe n=36 staircase bgk+force (4.5 tiles a side)", "pipe",
+        ("pipe n=36 staircase bgk+force (4.5 tiles in y, 1.1 in z)", "pipe",
          dict(n=36, curved=False), True),
+        ("lid 66^3 trt (two x segments, ragged tiles, z rows off 16 bytes)",
+         "lid_driven_cavity", dict(n=66, collision="trt"), True),
         ("gravity_channel 20x20x3 trt+force (z shorter than a tile)",
          "gravity_channel", dict(n=20, nz=3, collision="trt"), True),
+    ] + pair_instance_cases()[7:]
+
+
+def pair_instance_cases():
+    """One case for each of the fused pair's 14 instances (label, case,
+    options, bit-equal to its plain version?), in the order bgk, trt,
+    mrt, bgk+closure, bgk+moving, bgk+force, trt+force, then the seven
+    that only these cases reach: a moving lid with TRT, MRT, a closure
+    and a constant force, and TRT with a closure."""
+    carreau = {"model": "carreau", "nu0": 0.1, "nu_inf": 0.01,
+               "lam": 100.0, "n": 0.4}
+    lid = dict(n=32, lid="bounceback")
+    return [
+        ("lid 32^3 bgk", "lid_driven_cavity", dict(n=32), True),
+        ("lid 32^3 trt", "lid_driven_cavity", dict(n=32, collision="trt"),
+         True),
+        ("lid 32^3 mrt", "lid_driven_cavity", dict(n=32, collision="mrt"),
+         True),
+        ("lid 32^3 smag 0.15", "lid_driven_cavity",
+         dict(n=32, smagorinsky_cs=0.15), False),
+        ("lid 32^3 moving lid", "lid_driven_cavity", lid, True),
+        ("pipe n=36 bgk+force", "pipe", dict(n=36, curved=False), True),
+        ("gravity_channel 32^3 trt+force", "gravity_channel",
+         dict(n=32, nz=32, collision="trt"), True),
+        ("lid 32^3 trt moving lid", "lid_driven_cavity",
+         dict(lid, collision="trt"), True),
+        ("lid 32^3 mrt moving lid", "lid_driven_cavity",
+         dict(lid, collision="mrt"), True),
+        ("lid 32^3 smag moving lid", "lid_driven_cavity",
+         dict(lid, smagorinsky_cs=0.15), False),
+        ("lid 32^3 bgk+force moving lid", "lid_driven_cavity",
+         dict(lid, force=(1e-5, 0.0, 0.0)), True),
+        ("lid 32^3 trt+force moving lid", "lid_driven_cavity",
+         dict(lid, collision="trt", force=(1e-5, 0.0, 0.0)), True),
+        ("poiseuille 32^3 trt carreau", "poiseuille",
+         dict(n=32, collision="trt", rheology=carreau), False),
+        ("lid 32^3 trt carreau moving lid", "lid_driven_cavity",
+         dict(lid, collision="trt", rheology=carreau), False),
     ]
 
 
@@ -1721,6 +1826,34 @@ def time_pair(spec, device, iters, label):
     return out
 
 
+def time_pair_developed(f, cc, label, iters=100):
+    """One K2 launch against two K1 launches, in turns, from copies of a
+    run's state f (after 1000 steps the IEEE division's slow path, which
+    the resting state sends many cells down, is rare): (K2 ms, two K1
+    ms)."""
+    import torch
+
+    from lbm_tpu_torch.kernels import collide_stream as K
+
+    state = [f.clone(), f.clone()]
+    series = torch.zeros(2, dtype=torch.float64, device=f.device)
+
+    def pair():
+        K.step2(state[0], state[1], cc, series, 0, 1000)
+        state.reverse()
+
+    def two_k1():
+        for k in (0, 1):
+            K.collide_stream(state[0], state[1], cc, series, k, 1000 + k)
+            state.reverse()
+
+    out = in_turns(label, two_k1, pair, iters, iters,
+                   names="two K1 launches/K2")
+    del state
+    free_device()
+    return out
+
+
 def compare_rows(device):
     """K4 against extract_rows_plain, chunk by chunk, on lid 256^3 after
     20 steps (chunks of chunk_rows x rows and a ragged last one).
@@ -1794,6 +1927,8 @@ def fuse2_path(device, lid1):
           f"{e_u:.3e}, f bit-equal to fuse=1's: {f_equal}; launches "
           f"{counts}", flush=True)
     del rho, u
+    dev_ms, dev_two_ms = time_pair_developed(
+        sim.f, sim.cc, "K2 [bgk] lid 256^3 after the 1000 fuse=2 steps")
     by_name, busy = profile_run(sim, 200)
     print_profile(tag, by_name, busy, ms)
     k2_dev = [v[0] / v[1] for k, v in by_name.items()
@@ -1815,7 +1950,8 @@ def fuse2_path(device, lid1):
     free_device()
     return counts, odd, {"ms_step": ms, "peak": peak,
                          "k2_device_ms": k2_dev[0] if k2_dev else None,
-                         "busy": busy}
+                         "busy": busy, "k2_developed_ms": dev_ms,
+                         "two_k1_developed_ms": dev_two_ms}
 
 
 def bf16_cases():
@@ -1922,9 +2058,11 @@ def compare_bf16(label, spec, steps, device, exact):
             "instance": inst}
 
 
-def compare_pair_bf16(label, spec, launches, device):
+def compare_pair_bf16(label, spec, launches, device, exact=True):
     """K2 on bf16 state against its plain version (widen, two fp32 steps,
-    narrow) bit for bit over `launches` launches, velsums at 1e-5; with a
+    narrow) over `launches` launches, bit for bit when exact (a closure,
+    whose fp32 transcendentals round differently on the card, within
+    BF16_REL of max |f|), velsums at 1e-5; with a
     live-tile list, the listed launch against the full one. Against two
     bf16 K1 launches (which narrow in between) it prints how many values
     differ and by how much, without a gate. Returns (max abs err against
@@ -1958,9 +2096,10 @@ def compare_pair_bf16(label, spec, launches, device):
     torch.cuda.synchronize()
     (fp, vp), (fs, _), (fq, vq) = out["pair"], out["single"], out["plain"]
     e_plain = float((fp.float() - fq.float()).abs().max())
-    require(e_plain == 0.0 and bool(torch.isfinite(fp).all()),
-            f"bf16 K2 {label}: not bit-equal to its plain version "
-            f"({e_plain:.3e})")
+    bound = 0.0 if exact else BF16_REL * float(fq.float().abs().max())
+    require(e_plain <= bound and bool(torch.isfinite(fp).all()),
+            f"bf16 K2 {label}: {e_plain:.3e} from its plain version, over "
+            f"{bound:.3e}")
     v_rel = float(((vp - vq).abs() / vq.abs()).max())
     require(v_rel <= 1e-5, f"bf16 K2 {label}: velsum rel err {v_rel:.3e}")
     n_single = int((fp != fs).sum())
@@ -1978,8 +2117,8 @@ def compare_pair_bf16(label, spec, launches, device):
             "one")
         tiles = f"{cc.live_tiles.numel()} live tiles, equal to the full launch"
     print(f"[3d] bf16 K2 [{K.instance(cc)}+bf16] {label}: {launches} "
-          f"launches ({n} steps) bit-equal to the plain pair (one narrowing "
-          f"a pair), velsum max rel err {v_rel:.3e}; against two bf16 K1 "
+          f"launches ({n} steps), max abs err {e_plain:.3e} against the "
+          f"plain pair (one narrowing a pair), velsum max rel err {v_rel:.3e}; against two bf16 K1 "
           f"launches a step (a narrowing a step) {n_single} of {fp.numel()} "
           f"values differ, max abs {e_single:.3e}; {tiles}", flush=True)
     del out, fp, fs, fq, f0
@@ -2093,6 +2232,10 @@ def bf16_lid_path(device, lid1, fuse):
           f"{lid1['peak']:.2f}; launches {counts}", flush=True)
     out = {"counts": counts, "ms": ms, "mlups_box": res.mlups_box,
            "rel_l2_u": e_u, "peak": peak, "velsum": vs, "u": u}
+    if fuse == 2:
+        out["k2_developed_ms"], out["two_k1_developed_ms"] = \
+            time_pair_developed(sim.f, sim.cc, "K2 [bgk+bf16] lid 256^3 "
+                                "after the 1000 bf16 fuse=2 steps")
     by_name, busy = profile_run(sim, 200)
     print_profile(tag, by_name, busy, ms)
     out["busy"] = busy
@@ -2688,10 +2831,12 @@ def main() -> int:
           "side by side with the collide-stream library", flush=True)
     plib = _build.load_pair_library()
     pair_smem = plib.lib.lbm_pair_smem_bytes()
+    pair_unit = tuple(plib.lib.lbm_pair_unit(a) for a in range(3))
     print(f"[2] fused-pair and row-extract kernels "
           f"{'built' if plib.built else 'found'} at "
           f"{os.path.relpath(plib.path, ROOT)} in {plib.build_seconds:.2f} s, "
-          f"side by side; K2 tile {plib.lib.lbm_pair_tile()}^3, "
+          f"side by side; K2 unit: an x segment of {pair_unit[0]} planes of "
+          f"a {pair_unit[1]} x {pair_unit[2]} (y, z) column tile, "
           f"{plib.lib.lbm_pair_block_size()} threads, {pair_smem} bytes of "
           "dynamic shared memory a block", flush=True)
     blib = _build.load_library(bf16=True)
@@ -2705,12 +2850,17 @@ def main() -> int:
     smem = {}
     ptxas = ptxas_report(lib.log + "\n" + slib.log + "\n" + plib.log, smem)
     ptxas_bf16 = ptxas_report(blib.log + "\n" + bplib.log, smem, "bf16")
+    pair_occ = {**pair_blocks_per_sm(plib.lib, ""),
+                **pair_blocks_per_sm(bplib.lib, "bf16")}
     for name, (regs, spill_st, spill_ld) in sorted(ptxas.items()) + sorted(
             ptxas_bf16.items()):
-        extra = (f"; {smem.get(name, 0)} + {pair_smem} dynamic bytes smem"
+        extra = (f"; {smem.get(name, 0)} + {pair_smem} dynamic bytes smem, "
+                 f"{pair_occ.get(name)} blocks an SM"
                  if name.startswith("collide_stream2") else "")
         print(f"[2] ptxas {name}: {regs} registers, {spill_st} bytes spill "
               f"stores, {spill_ld} bytes spill loads{extra}", flush=True)
+    require(len(pair_occ) == 28 and all(n >= 1 for n in pair_occ.values()),
+            f"K2 blocks an SM: {pair_occ}")
     n_bf16 = {k: sum(n.startswith(k + "[") for n in ptxas_bf16)
               for k in ("collide_stream_kernel", "fix_z_plane_kernel",
                         "collide_stream2_kernel", "macro_kernel")}
@@ -2729,9 +2879,9 @@ def main() -> int:
     bgk = ptxas.get("collide_stream_kernel[bgk]")
     require(bgk is not None, "ptxas reported no BGK collide-stream instance")
     # the lid main path must not pay for the branches it never takes
-    require(bgk == (78, 0, 0),
+    require(bgk[0] <= 80 and bgk[1] + bgk[2] == 0,
             f"the BGK collide-stream instance: {bgk[0]} registers, {bgk[1]} "
-            f"+ {bgk[2]} bytes spilled, not the BGK-only build's 78 and 0")
+            f"+ {bgk[2]} bytes spilled, not at most 80 and 0")
     bgk16 = ptxas_bf16.get("collide_stream_kernel[bgk+bf16]")
     print(f"[2] the BGK collide-stream instance: fp32 {bgk[0]} registers, "
           f"bf16 {bgk16[0]} registers, {bgk16[1] + bgk16[2]} bytes spilled",
@@ -2754,21 +2904,28 @@ def main() -> int:
               for k in ("collide_stream_kernel", "fix_z_plane_kernel")}
     require(n_halo == {"collide_stream_kernel": 28, "fix_z_plane_kernel": 28},
             f"ptxas reported halo instances {n_halo} (want 28 and 28)")
-    # the unsharded instances keep their code: 0245b70's registers, spills
+    # the unsharded instances beside 0245b70's build: K1 now loads and
+    # stores fluid cells only, so its registers move, but no instance may
+    # spill more than it did
     unsharded = {k: v for k, v in ptxas.items()
                  if k.startswith(("collide_stream_kernel[",
                                   "fix_z_plane_kernel["))}
-    changed = {k: (v, BASE_PTXAS.get(k)) for k, v in unsharded.items()
-               if v != BASE_PTXAS.get(k)}
+    # (but the BGK force-field instances, held to three blocks an SM at 80
+    # registers: what the bound buys, with their spill printed)
+    worse = {k: (v, BASE_PTXAS.get(k)) for k, v in unsharded.items()
+             if k not in BASE_PTXAS
+             or (v[1] + v[2] > BASE_PTXAS[k][1] + BASE_PTXAS[k][2]
+                 and not (k.startswith("collide_stream_kernel[bgk+field")
+                          and v[0] <= 80))}
     print("[2d] unsharded fp32 instances, registers and spill bytes (this "
           "build | 0245b70's build): " + "; ".join(
               f"{k} {v[0]}+{v[1] + v[2]} | {BASE_PTXAS[k][0]}+"
               f"{BASE_PTXAS[k][1] + BASE_PTXAS[k][2]}"
               for k, v in sorted(unsharded.items()) if k in BASE_PTXAS),
           flush=True)
-    require(len(unsharded) == 36 and not changed,
-            f"unsharded instances changed against 0245b70's build: "
-            f"{changed}")
+    require(len(unsharded) == 36 and not worse,
+            f"unsharded instances spilling more than 0245b70's build: "
+            f"{worse}")
 
     # -- phase 3: kernels vs plain versions --------------------------------
     from lbm_tpu_torch.cases import get_case
@@ -2846,6 +3003,7 @@ def main() -> int:
 
     t64 = time_lid(64, device, iters_k=2000, iters_p=100)
     t256 = time_lid(256, device, iters_k=1000, iters_p=20, with_list=True)
+    copy = copy_rate(device)
     tv = time_vessel(full, device)
     free_device()
     # one collide-stream launch per branch at lid 256^3, and the force
@@ -2864,12 +3022,20 @@ def main() -> int:
         get_case("gravity_channel", n=256, nz=256, collision="trt"), device,
         1000, 10, "gravity_channel 256^3")
     k1b_time["coronary full trt+carreau"] = time_k1a(
-        blood, device, 1000, 5, "coronary full, live blocks")
+        blood, device, 1000, 5, "coronary full, fluid list")
     mark("3 (K1)")
 
     # the fused pair (K2), 100 launches (200 steps) each against two K1
     # launches and its plain version, then lid 256^3 for 2 launches; K4
     # against its plain version on a stepped 256^3 state; K2 timings
+    from lbm_tpu_torch.engine.compile import compile_case
+
+    k2_insts = {K.instance(compile_case(get_case(name, **kw)))
+                for _, name, kw, _ in pair_instance_cases()}
+    require(len(k2_insts) == 14 and all(
+        f"collide_stream2_kernel[{i.replace('smag', 'closure').replace('cy', 'closure')}]"
+        in ptxas for i in k2_insts),
+        f"the pair's cases reach {sorted(k2_insts)}, not its 14 instances")
     k2_err = {}
     for label, name, kw, exact in pair_cases():
         k2_err[label] = compare_pair(label, get_case(name, **kw), 100,
@@ -2910,6 +3076,9 @@ def main() -> int:
                 "curved_vessel", n=64, nphase=4, period_steps=12), 100),
             ("lid 256^3 bgk", get_case("lid_driven_cavity", n=256), 1)):
         k2_bf16[label] = compare_pair_bf16(label, spec, launches, device)
+    for label, name, kw, exact in pair_instance_cases():
+        k2_bf16[label] = compare_pair_bf16(label, get_case(name, **kw), 20,
+                                           device, exact)
     print("[3d] bf16 max abs err per instance against its plain version "
           "(200 steps; 2 at the full sizes): " + "; ".join(
               f"{k} {v:.3e}" for k, v in bf16_err.items())
@@ -2919,7 +3088,7 @@ def main() -> int:
                          dtype=torch.bfloat16)
     tv_bf16 = time_vessel(full, device, dtype=torch.bfloat16)
     k1_cy_bf16 = time_k1a(blood, device, 1000, 5,
-                          "coronary full, live blocks", dtype=torch.bfloat16)
+                          "coronary full, fluid list", dtype=torch.bfloat16)
     k2_bf16_time = time_pair_bf16(get_case("lid_driven_cavity", n=256),
                                   device, 300, "lid 256^3 bgk")
     print(f"[3d] bf16 at lid 256^3 (ms a launch): K1a {t256_bf16['k1a']:.4f} "
@@ -3181,12 +3350,13 @@ def main() -> int:
          "max_abs_err": errs["K1a"], "ms": tv["k1a_live"],
          "plain_ms": tv["k1a_plain"], "bound_ms": tv["k1a_bound"],
          "bound_by": "bytes", "library_ms": None,
-         "ms_every_block": tv["k1a_all"],
+         "ms_every_cell": tv["k1a_all"],
          "lid256_launches": lid_counts["lbm_collide_stream[bgk]"],
          "lid256_ms": t256["k1a"], "lid256_plain_ms": t256["k1a_plain"],
          "lid256_bound_ms": t256["k1a_bound"],
-         "lid256_ms_every_block": t256["full"],
-         "lid256_ms_live_list": t256["list"],
+         "lid256_ms_every_cell": t256["full"],
+         "lid256_ms_fluid_list": t256["list"],
+         "card_copy_ms": copy["ms"], "card_copy_gb_per_s": copy["gb_per_s"],
          "registers": bgk[0], "spill_bytes": bgk[1] + bgk[2]},
         {"name": "lbm_collide_stream[trt+cy]", "route": "cuda",
          "source": K1A_SOURCE,
@@ -3315,10 +3485,13 @@ def main() -> int:
          "path_ms_per_step": fuse2_metrics["ms_step"],
          "path_device_ms_per_launch": fuse2_metrics["k2_device_ms"],
          "path_busy_share": fuse2_metrics["busy"],
+         "developed_ms": fuse2_metrics["k2_developed_ms"],
+         "developed_two_k1_launches_ms": fuse2_metrics["two_k1_developed_ms"],
          "registers": {k: v[0] for k, v in k2_ptxas.items()},
          "spill_bytes": {k: v[1] + v[2] for k, v in k2_ptxas.items()},
          "smem_bytes_per_block": pair_smem + max(
              smem.get(k, 0) for k in k2_ptxas),
+         "blocks_per_sm": pair_occ, "unit_x_y_z": pair_unit,
          "build_s": plib.build_seconds},
         {"name": "lbm_extract_rows", "route": "cuda", "source": K2_SOURCE,
          "replaces": "lbm_tpu/kernels/collide_stream.py:2586",
@@ -3351,7 +3524,7 @@ def main() -> int:
          "coronary_ms_live": tv_bf16["k1a_live"],
          "coronary_plain_ms": tv_bf16["k1a_plain"],
          "coronary_bound_ms": tv_bf16["k1a_bound"],
-         "coronary_ms_every_block": tv_bf16["k1a_all"],
+         "coronary_ms_every_cell": tv_bf16["k1a_all"],
          "trt_cy_bf16_coronary": k1_cy_bf16,
          "registers": {k: v[0] for k, v in ptxas_bf16.items()},
          "spill_bytes": {k: v[1] + v[2] for k, v in ptxas_bf16.items()},
@@ -3395,6 +3568,12 @@ def main() -> int:
          "library_ms": None, "two_k1_launches_ms": k2_bf16_time["two_k1_ms"],
          "path_ms_per_step": lid16_pair["ms"],
          "path_busy_share": lid16_pair["busy"],
+         "developed_ms": lid16_pair["k2_developed_ms"],
+         "developed_two_k1_launches_ms": lid16_pair["two_k1_developed_ms"],
+         "registers": {k: v[0] for k, v in ptxas_bf16.items()
+                       if k.startswith("collide_stream2")},
+         "spill_bytes": {k: v[1] + v[2] for k, v in ptxas_bf16.items()
+                         if k.startswith("collide_stream2")},
          "build_s": bplib.build_seconds},
         {"name": "lbm_extract_rows[bf16]", "route": "cuda",
          "source": K2_BF16_SOURCE,

@@ -93,8 +93,8 @@ def restore(sim, path: str) -> None:
     if f.shape != (19,) + tuple(sim.spec.shape):
         raise ValueError(
             f"checkpoint shape {f.shape} != case {sim.spec.shape}")
-    # both ping-pong buffers: the kernel backend never rewrites the
-    # cells of all-DEAD blocks
+    # both ping-pong buffers: the kernel backend never writes a
+    # non-fluid cell
     sim.set_f_standard(np.ascontiguousarray(f, dtype=np.float32))
     sim.t = t
     conv = meta.get("conv", {})

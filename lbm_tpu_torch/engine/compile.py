@@ -17,11 +17,14 @@ then moved to the device once:
     valid consumer cells (lbm_tpu's `_valid_bbox`): the fixup kernel
     recomputes the step there after the collide-stream kernel, which
     takes the x/y boundaries only;
-  - `live_blocks`: ids of the collide-stream kernel's 256-cell blocks
-    that hold a non-DEAD cell (lbm_tpu's `live_tile_ids`), or None when
-    skipping would not pay (SKIP_BELOW, measured on the H100);
-    `live_tiles`, built at first use, the same for the fused pair's
-    TILE^3 tiles;
+  - `live_blocks`: ids of the 256-cell blocks that hold a non-DEAD cell
+    (lbm_tpu's `live_tile_ids`), or None when skipping would not pay
+    (SKIP_BELOW, measured on the H100): the scalar kernel's launch list;
+    `fluid_cells`, the ascending ids of the fluid cells, beside it (None
+    with it): the collide-stream kernel's launch list, a thread a fluid
+    cell; `live_tiles`, built at first use, the ids of the fused pair's
+    units (an x segment of a (y, z) column tile, TILE) under the same
+    rule;
   - `velsum_offset`/`usq_offset`: the constant residual contribution of
     non-fluid cells, which hold their initial state forever;
   - the collision branch: `tau_minus` (TRT), the MRT matrices `mrt_k`/
@@ -64,19 +67,19 @@ _W64 = np.array([1.0 / 3.0] + [1.0 / 18.0] * 6 + [1.0 / 36.0] * 12,
 # (a fixed-size array of descriptors passed by value). z-plane boundaries
 # go to the fixup kernel, one launch each, and do not count.
 MAX_BCS = 4
-# Cells per block of the collide-stream kernel (kBlock in
-# kernels/csrc/collide_stream.cuh): the unit of the live-block list.
+# Cells per block of the collide-stream and scalar kernels (kBlock in
+# kernels/csrc/d3q19.cuh): the unit of the live-block list.
 BLOCK = 256
-# Launch over the live-block list only when fewer than this share of the
-# blocks is live. On an H100 a listed block costs 2.3% more than the same
-# block in the full launch (the load of its id) and a dead block's copy
-# 79% of a live block, so the list pays below about 97% live blocks;
-# 0.95 leaves a margin for that two-point estimate (PERF.md, PR 2). The
-# lid cavity at 64^3 and up (97-98% live) keeps the full launch.
+# Launch over the live lists (the scalar kernel's live blocks, the
+# collide-stream kernel's fluid cells) only when fewer than this share of
+# the blocks is live. The lid cavity at 64^3 and up (97-98% live) keeps
+# the full launch: on an H100 its fluid list took 1.39 ms a step at 256^3
+# against 1.09 over every cell (PERF.md).
 SKIP_BELOW = 0.95
-# Interior tile edge of the fused pair of steps (kT in
-# kernels/csrc/collide_stream2.cuh): the unit of its live-tile list.
-TILE = 8
+# The fused pair's unit, the unit of its live list: an x segment of
+# TILE[0] planes of a TILE[1] x TILE[2] (y, z) column tile (kSeg, kTY and
+# kTZ in kernels/csrc/collide_stream2.cuh).
+TILE = (64, 8, 32)
 
 
 def _phi_np(u: np.ndarray, dirs: np.ndarray) -> np.ndarray:
@@ -201,6 +204,7 @@ class CompiledCase:
     usq_offset: float
     spec: CaseSpec
     live_blocks: Optional[torch.Tensor] = None  # (n,) int32 block ids
+    fluid_cells: Optional[torch.Tensor] = None  # (n,) int32 cell ids
     tau_minus: Optional[float] = None  # TRT odd rate; None => not TRT
     mrt_k: Optional[np.ndarray] = None   # (19, 19) f32; None => not MRT
     mrt_kf: Optional[np.ndarray] = None  # (19, 19) f32 Guo prefactor
@@ -240,11 +244,11 @@ class CompiledCase:
 
     @functools.cached_property
     def live_tiles(self) -> Optional[torch.Tensor]:
-        """(n,) int32 ids of the fused pair's TILE^3 tiles that hold a
+        """(n,) int32 ids of the fused pair's units (TILE) that hold a
         non-DEAD cell, or None when skipping would not pay (the same
         SKIP_BELOW rule as live_blocks); built at first use."""
         ids = live_tile_ids(np.asarray(self.spec.mask))
-        n_tiles = int(np.prod([-(-n // TILE) for n in self.shape]))
+        n_tiles = int(np.prod([-(-n // t) for n, t in zip(self.shape, TILE)]))
         if len(ids) >= SKIP_BELOW * n_tiles:
             return None
         return torch.from_numpy(ids).to(self.device)
@@ -385,17 +389,26 @@ def live_block_ids(mask: np.ndarray, block: int = BLOCK) -> np.ndarray:
     return np.nonzero(live.reshape(-1, block).any(axis=1))[0].astype(np.int32)
 
 
-def live_tile_ids(mask: np.ndarray, tile: int = TILE) -> np.ndarray:
-    """int32 ids of the tile^3 tiles of the (x, y, z) lattice (ceil-div,
-    ids row-major over the tile grid with z fastest) whose cells inside
-    the box include a non-DEAD one: the fused pair's live-tile list
-    (lbm_tpu's `live_tile_ids` over 3-D tiles)."""
+def live_tile_ids(mask: np.ndarray, tile=TILE) -> np.ndarray:
+    """int32 ids of the (tile[0], tile[1], tile[2]) units of the (x, y,
+    z) lattice (ceil-div, ids row-major over the unit grid with z
+    fastest) whose cells inside the box include a non-DEAD one: the fused
+    pair's live list (lbm_tpu's `live_tile_ids` over x segments of (y, z)
+    column tiles)."""
     live = np.asarray(mask) != CellType.DEAD
-    pads = [(0, (-n) % tile) for n in live.shape]
+    pads = [(0, (-n) % t) for n, t in zip(live.shape, tile)]
     live = np.pad(live, pads)
-    gx, gy, gz = (n // tile for n in live.shape)
-    tiles = live.reshape(gx, tile, gy, tile, gz, tile).any(axis=(1, 3, 5))
+    (gx, gy, gz), (tx, ty, tz) = ((n // t for n, t in zip(live.shape, tile)),
+                                  tile)
+    tiles = live.reshape(gx, tx, gy, ty, gz, tz).any(axis=(1, 3, 5))
     return np.nonzero(tiles.reshape(-1))[0].astype(np.int32)
+
+
+def fluid_cell_ids(mask: np.ndarray) -> np.ndarray:
+    """int32 ids of the FLUID cells of the flattened (x, y, z) lattice, z
+    fastest, ascending: the collide-stream kernel's launch list."""
+    return np.flatnonzero(np.asarray(mask).reshape(-1) == CellType.FLUID
+                          ).astype(np.int32)
 
 
 def neighbor_wall(mask: np.ndarray, label: int = CellType.WALL) -> np.ndarray:
@@ -414,7 +427,8 @@ class ShardCase(CompiledCase):
     """One rank's window of a case split along `shard_axis`: shard_rows(n,
     world) rows of the axis (its n cells padded with DEAD rows at the end
     to a multiple of `world`). shape, mask,
-    fluid, rho0, u0, live_blocks and the boundaries' tables are the
+    fluid, rho0, u0, live_blocks, fluid_cells and the boundaries' tables
+    are the
     window's (lateral tables windowed along the shard axis, z windows in
     local coordinates); spec stays the whole case's. velsum_offset and
     usq_offset count this rank's own non-fluid cells only, never a pad
@@ -574,7 +588,7 @@ def compile_shard(spec: CaseSpec, rank: int, world: int, shard_axis: int,
         u0=torch.from_numpy(u0).to(device),
         **_residual_offsets(u0, own & ~fluid),
         spec=spec,
-        live_blocks=_live_blocks(mask_loc, device),
+        **_live_lists(mask_loc, device),
         **_collision_fields(spec),
         shard_axis=a,
         rank=rank,
@@ -594,18 +608,22 @@ def _residual_offsets(u0: np.ndarray, static: np.ndarray) -> dict:
                                        dtype=np.float64))}
 
 
-def _live_blocks(mask: np.ndarray, device) -> Optional[torch.Tensor]:
-    """The live-block list of the collide-stream kernel, or None when
-    skipping would not pay (SKIP_BELOW). A box without a live cell (a
-    shard off the vessel tree) still launches once a step, over one
-    all-DEAD block (a copy equal in both buffers, lbm_tpu's dead-tile
-    filler), so its velsum slot is written."""
+def _live_lists(mask: np.ndarray, device) -> dict:
+    """live_blocks and fluid_cells of a box: both None when skipping
+    would not pay (SKIP_BELOW of the live blocks). A box without a live
+    cell (a shard off the vessel tree) still launches once a step, over
+    one all-DEAD block or one non-fluid cell, which the kernels skip
+    (lbm_tpu's dead-tile filler), so its velsum slot is written."""
     ids = live_block_ids(mask)
     if len(ids) == 0:
         ids = np.zeros(1, np.int32)
     if len(ids) >= SKIP_BELOW * -(-mask.size // BLOCK):
-        return None
-    return torch.from_numpy(ids).to(device)
+        return {"live_blocks": None, "fluid_cells": None}
+    cells = fluid_cell_ids(mask)
+    if len(cells) == 0:
+        cells = np.zeros(1, np.int32)
+    return {"live_blocks": torch.from_numpy(ids).to(device),
+            "fluid_cells": torch.from_numpy(cells).to(device)}
 
 
 def _collision_fields(spec: CaseSpec) -> dict:
@@ -650,7 +668,7 @@ def compile_case(spec: CaseSpec, device="cpu") -> CompiledCase:
         u0=torch.from_numpy(np.ascontiguousarray(u0)).to(device),
         **_residual_offsets(u0, ~fluid),
         spec=spec,
-        live_blocks=_live_blocks(mask, device),
+        **_live_lists(mask, device),
         **_collision_fields(spec),
     )
 
@@ -658,6 +676,7 @@ def compile_case(spec: CaseSpec, device="cpu") -> CompiledCase:
 __all__ = ["CompiledBC", "CompiledCase", "ShardCase", "compile_case",
            "compile_shard", "compile_bc", "shard_rows",
            "canonical_device", "check_supported", "check_z_windows",
-           "fuse2_refusal", "kernel_refusal", "live_block_ids",
+           "fluid_cell_ids", "fuse2_refusal", "kernel_refusal",
+           "live_block_ids",
            "live_tile_ids", "mrt_of", "neighbor_wall", "tau_minus_of",
            "valid_bbox", "BLOCK", "MAX_BCS", "SKIP_BELOW", "TILE"]

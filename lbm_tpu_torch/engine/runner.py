@@ -154,8 +154,11 @@ class Simulation:
     of lbm_tpu's dense backend and of the portable checkpoint — or
     bfloat16 with store_dtype='bf16'. The kernel
     backend keeps a second buffer of the same shape and swaps the two
-    each launch. The kernels never write the cells of skipped (all-DEAD)
-    blocks or tiles, so both buffers always hold the same non-fluid state.
+    each launch. The kernels load and store fluid cells only, so the two
+    buffers must hold equal non-fluid state, and every writer of the state
+    writes both: reset() (initial_f and its clone), set_f_standard()
+    (checkpoint.restore calls it) and, under a mesh, compile_shard's
+    window with set_f_standard's shard_window.
     fuse: 1, or 2 for two fused steps per launch; lowmem: None (auto), or
     force the chunked host read of f_standard() on or off; store_dtype:
     None/'f32' or 'bf16' (kernel backend). mesh, shard_axis: a sharded
@@ -262,7 +265,8 @@ class Simulation:
     def set_f_standard(self, f):
         """Load a (19, nx, ny, nz) state (array or tensor) into both
         buffers, narrowed to the storage dtype; the simulation keeps its
-        own copies, since stepping writes into them."""
+        own copies, since stepping writes into them. Both, since the
+        kernels never write a non-fluid cell."""
         f = torch.as_tensor(f, dtype=torch.float32)
         if tuple(f.shape) != (19,) + tuple(self.spec.shape):
             raise ValueError(f"state shape {tuple(f.shape)} != "

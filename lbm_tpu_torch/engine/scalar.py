@@ -572,7 +572,8 @@ class CoupledTransport(_ScalarState):
         self.t = 0
 
     def set_f(self, f) -> None:
-        """Load a (19, X, Y, Z) flow state into both buffers."""
+        """Load a (19, X, Y, Z) flow state into both buffers (the flow
+        kernel never writes a non-fluid cell, so they must agree there)."""
         f = _as_float_tensor(f)
         if tuple(f.shape) != (19,) + self.cc.shape:
             raise ValueError(f"f shape {tuple(f.shape)} != "

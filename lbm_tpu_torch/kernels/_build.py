@@ -8,8 +8,8 @@ moments kernels on fp32 state, each collide-stream and fixup kernel in
 its 18 collision-branch instances), kernels/csrc/collide_stream_bf16.cu
 (the same on bf16 state: 14 instances each, no force field),
 kernels/csrc/collide_stream2.cu and collide_stream2_bf16.cu (the fused
-pair of steps in its 14 instances and the chunked state read, on fp32
-and on bf16 state), kernels/csrc/collide_stream_halo.cu (the sharded
+pair of steps, an x-marching column, in its 14 instances and the chunked
+state read, on fp32 and on bf16 state), kernels/csrc/collide_stream_halo.cu (the sharded
 collide-stream step and z-plane fixup, 14 instances each, built twice:
 with -DLBM_HALO_AXIS=0 for shards of a box split along x, =1 along y)
 and kernels/csrc/scalar_stream.cu (the D3Q7 scalar kernel in its 8
@@ -103,7 +103,7 @@ def _declare(lib: ctypes.CDLL, sfx: str = "") -> None:
         ci, ci, ci,             # nx, ny, nz
         vp, vp,                 # collision int row, float row
         ci, vp, vp, vp, vp,     # n_bc, bc_int, bc_float, valid, phi_star
-        vp, ci,                 # blocks, n_blocks
+        vp, ci,                 # fluid-cell list or null, its length
         vp, ci,                 # partials, n_partials
         vp, ci,                 # series, t
         vp,                     # g of a field force, or null
@@ -142,7 +142,7 @@ def _declare_halo(lib: ctypes.CDLL) -> None:
         ci, ci, ci,             # nx, ny, nz
         vp, vp,                 # collision int row, float row
         ci, vp, vp, vp, vp,     # n_bc, bc_int, bc_float, valid, phi_star
-        vp, ci,                 # blocks, n_blocks
+        vp, ci,                 # fluid-cell list or null, its length
         vp, ci,                 # partials, n_partials
         vp, ci,                 # series, t
         *halo,
@@ -186,9 +186,12 @@ def _declare_pair(lib: ctypes.CDLL, sfx: str = "") -> None:
     """Declare the fused-pair library's entry points; sfx as in
     _declare."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for name in ("lbm_pair_tile", "lbm_pair_block_size"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = ci
+    lib.lbm_pair_unit.argtypes = [ci]  # axis -> the unit's extent
+    lib.lbm_pair_unit.restype = ci
+    lib.lbm_pair_block_size.argtypes = []
+    lib.lbm_pair_block_size.restype = ci
+    lib.lbm_pair_blocks_per_sm.argtypes = [ci]  # instance key
+    lib.lbm_pair_blocks_per_sm.restype = ci
     lib.lbm_pair_smem_bytes.argtypes = []
     lib.lbm_pair_smem_bytes.restype = ctypes.c_longlong
     lib.lbm_error_string.argtypes = [ci]
@@ -201,7 +204,7 @@ def _declare_pair(lib: ctypes.CDLL, sfx: str = "") -> None:
         vp, vp,                 # collision int row, float row
         ci, vp, vp, vp,         # n_bc, bc_int, bc_float, valid
         vp, vp,                 # phi_star of step t, of step t + 1
-        vp, ci,                 # tiles, n_tiles
+        vp, ci,                 # units, n_units
         vp, ci,                 # partials, n_partials
         vp, ci,                 # series, slot
         vp,                     # stream

@@ -1,5 +1,5 @@
-"""Wrappers for the Hopper collide-stream (K1a + K1b, with K1c's live-block
-list), z-plane fixup (K5 + K6), moments (K3), fused-pair (K2) and
+"""Wrappers for the Hopper collide-stream (K1a + K1b, with K1c's
+fluid-cell list), z-plane fixup (K5 + K6), moments (K3), fused-pair (K2) and
 row-extract (K4) kernels, their plain PyTorch versions, and launch
 counters.
 
@@ -7,7 +7,8 @@ counters.
                      replacing lbm_tpu/kernels/collide_stream.py::_kernel
                      (BGK and the K1b branches: TRT, Guo force, moving
                      walls, LES/rheology closures, MRT; series phases;
-                     live-tile list `tids`), ::_row_fix and the velsum
+                     live-tile list `tids`, here the fluid-cell list),
+                     ::_row_fix and the velsum
   fix_z_plane     -> lbm_fix_z_plane, replacing ::_extract_z_slab,
                      ::_splice_z_plane_inplace and the XLA arithmetic of
                      ::_fix_z_plane_windowed between them
@@ -18,7 +19,8 @@ counters.
   step2           -> lbm_collide_stream2 (kernels/csrc/collide_stream2.cuh):
                      two whole steps of a case whose boundaries all lie on
                      x/y planes, replacing ::_kernel2 (two fused steps per
-                     round trip, with its live-tile list)
+                     round trip, an x-marching (y, z) column, with its
+                     live list of column segments)
   extract_rows    -> lbm_extract_rows, replacing ::_extract_rows: x rows
                      of the state as one contiguous chunk, the unit of
                      unpack_state_lowmem's chunked device-to-host read
@@ -31,7 +33,10 @@ scalar state `g` the step runs its force-field instance ("bgk+field",
 "trt+field": K1e, the `fforce` mode of lbm_tpu's _kernel): the
 Boussinesq force buoyancy (c - c_ref) per fluid cell, c summed from the
 cell's seven pre-step g. A wrapper runs the plain version only for tensors on
-the CPU; for a CUDA tensor it launches the kernel or raises. `launches`
+the CPU; for a CUDA tensor it launches the kernel or raises. The kernels
+store fluid cells only: `out` must already hold f's non-fluid cells (the
+two ping-pong buffers of a run always do), and the plain versions leave
+every non-fluid cell as f has it, so the two agree. `launches`
 counts kernel launches per entry point and instance ("lbm_collide_stream
 [trt+cy]"), one per wrapper call that launched.
 
@@ -72,6 +77,7 @@ from lbm_tpu_torch.core.rheology import closure_constants
 from lbm_tpu_torch.engine.compile import (
     CompiledBC,
     CompiledCase,
+    TILE,
     fuse2_refusal,
     kernel_refusal,
     live_block_ids,
@@ -463,9 +469,10 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
     """One step of f into out (a different buffer) at absolute step t
     with the case's collision branch and x/y-plane boundaries; writes the fluid velsum, sum over
     fluid cells of |u| after their NEE rewrite, into series[slot]
-    (float64). The launch covers the case's live blocks (cc.live_blocks;
-    every block when that is None, or with all_blocks); the blocks left
-    out hold no fluid cell and must be equal in f and out. field, g: the
+    (float64). Only fluid cells are written: out must already hold f's
+    non-fluid cells. The launch takes a thread a fluid cell of the case's
+    list (cc.fluid_cells), or a thread a cell of the box when that is
+    None or with all_blocks. field, g: the
     Boussinesq force field and the pre-step (7, X, Y, Z) scalar state it
     reads (the force-field instance). halo: None, or a shard's (axis, lo,
     hi, mask_lo, mask_hi) (K1d, lbm_collide_stream_halo). Returns out."""
@@ -474,7 +481,7 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
     g_ptr = _check_field(field, g, cc, f)
     if halo is not None:
         _check_halo(halo, cc, f, field)
-    ids = None if all_blocks else cc.live_blocks
+    ids = None if all_blocks else cc.fluid_cells
     if f.device.type == "cpu":
         f_new, vs = collide_stream_plain(f, cc, t, field, g, halo)
         out.copy_(f_new)
@@ -488,7 +495,8 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
     n_cells = nx * ny * nz
     if n_cells >= 2**31:
         raise ValueError(f"{n_cells} cells: the kernel indexes cells in int32")
-    grid = -(-n_cells // lib.lbm_block_size()) if ids is None else ids.numel()
+    n_listed = n_cells if ids is None else ids.numel()
+    grid = max(1, -(-n_listed // lib.lbm_block_size()))
     (ints, floats, valid, phis), partials = _launch_scratch(
         cc, "k1a", cc.kernel_bcs, t, grid)
     with torch.cuda.device(f.device):
@@ -498,7 +506,7 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
             nx, ny, nz, ci.ctypes.data, cf.ctypes.data,
             len(cc.kernel_bcs), ints.ctypes.data, floats.ctypes.data,
             ctypes.addressof(valid), ctypes.addressof(phis),
-            None if ids is None else ids.data_ptr(), grid,
+            None if ids is None else ids.data_ptr(), n_listed,
             partials.data_ptr(), grid, series.data_ptr(), slot, *tail,
             stream)
     check(lib, err, f"lbm_collide_stream[{name}]")
@@ -600,10 +608,11 @@ def step2(f, out, cc: CompiledCase, series, slot: int, t: int,
     """Two steps of f into out (a different buffer) at absolute steps t
     and t + 1, for a case whose NEE boundaries all lie on x/y planes
     (compile.fuse2_refusal; ValueError otherwise): series[slot] and
-    series[slot + 1] get the two steps' fluid velsums. The launch covers
-    the case's live tiles (cc.live_tiles; every tile when that is None,
-    or with all_tiles); the tiles left out hold only DEAD cells, equal in
-    f and out. Returns out."""
+    series[slot + 1] get the two steps' fluid velsums. Only fluid cells
+    are written: out must already hold f's non-fluid cells. The launch
+    covers the case's live units (cc.live_tiles: x segments of (y, z)
+    column tiles, TILE; every unit when that is None, or with
+    all_tiles); the units left out hold only DEAD cells. Returns out."""
     _check_pair(f, out, cc, series, slot + 1)
     reason = fuse2_refusal(cc.spec)
     if reason is not None:
@@ -623,8 +632,11 @@ def step2(f, out, cc: CompiledCase, series, slot: int, t: int,
         raise ValueError(f"{nx * ny * nz} cells: the kernel indexes cells "
                          "in int32")
     ids = None if all_tiles else cc.live_tiles
-    tile = lib.lbm_pair_tile()
-    grid = (-(-nx // tile) * -(-ny // tile) * -(-nz // tile)
+    unit = tuple(lib.lbm_pair_unit(a) for a in range(3))
+    if unit != TILE:
+        raise RuntimeError(f"the pair kernel's unit {unit} is not "
+                           f"compile.TILE {TILE}")
+    grid = (int(np.prod([-(-n // u) for n, u in zip(cc.shape, unit)]))
             if ids is None else ids.numel())
     bcs = cc.kernel_bcs
     (ints, floats, valid, phis), partials = _launch_scratch(

@@ -10,7 +10,8 @@
 // branches (TRT, the Guo body force, Ladd moving walls, the per-cell tau
 // closures of LES and rheology, MRT), ::_row_fix (the in-kernel NEE rows,
 // series phases included), the per-tile velsum and the live-tile list
-// (`tids`, ::live_tile_ids). lbm_fix_z_plane replaces ::_extract_z_slab
+// (`tids`, ::live_tile_ids: here a list of the fluid cells).
+// lbm_fix_z_plane replaces ::_extract_z_slab
 // (K6), ::_splice_z_plane_inplace (K5) and the XLA arithmetic of
 // ::_fix_z_plane_windowed between them, with the same branches.
 // lbm_macro (K3) replaces ::packed_macro, with its F/2 force shift.
@@ -57,8 +58,8 @@
 // :626-646, _row_fix :1083-1094, _fix_z_plane_windowed :2233-2336 and
 // packed_macro's widening reads) is the storage type S = __nv_bfloat16:
 // every load widens to fp32, the step computes in fp32 as above, every
-// store narrows once with round-to-nearest-even, and a non-fluid cell's
-// copy moves its raw 16-bit words, so a bf16 step is "widen, the fp32
+// store narrows once with round-to-nearest-even, and a non-fluid cell
+// keeps its words in both buffers, so a bf16 step is "widen, the fp32
 // step, narrow", bit for bit. The z-plane fixup reads the bf16 pre-step
 // source and narrows on its write, which is that same narrowing. bf16
 // has every instance but the force field's (14 collide-stream and 14
@@ -77,11 +78,16 @@
 // add registers (and spills) before they add time. It is one thread per
 // cell with z the fastest thread index, so the 18 neighbor gathers of a
 // warp are 32 consecutive floats each (shifted by at most one element
-// along z) and coalesce. In a vessel tree most 256-cell blocks are all
-// DEAD (93% at the full-size coronary): the launch then takes a list of
-// the live blocks and never touches the others, whose cells hold the same
-// values in both buffers. Velsum partials are reduced in double and in a
-// fixed order, so the stop rule fires at the same step in every run.
+// along z) and coalesce. Only fluid cells are loaded and stored: the two
+// ping-pong buffers hold equal non-fluid state (every writer of the state
+// writes both), so a wall, DEAD or GHOST cell costs its mask byte and
+// nothing more. In a vessel tree 1.2% of the cells are fluid (the
+// full-size coronary; 93% of its 256-cell blocks hold none): there the
+// launch takes the ascending list of the fluid cells (a thread a listed
+// cell), so warps carry fluid cells densely and consecutive threads still
+// take consecutive z cells of a vessel's rows, at 4 bytes a cell for the
+// list. Velsum partials are reduced in double and in a fixed order, so
+// the stop rule fires at the same step in every run.
 //
 // lbm_fix_z_plane runs after K1a, once per z-plane boundary, over the
 // boundary's static window on its consumer plane: it pulls from the
@@ -109,62 +115,89 @@
 
 namespace {
 
-// Launch block b works on cells blocks[b] * kBlock ... + kBlock - 1, or
-// on block b itself when `blocks` is null. HALO -1: the whole box; 0 or
-// 1: a shard split along x or y, pulling across its faces from `halo`.
+// Thread k of the launch steps the k-th cell of the fluid-cell list
+// `cells` (n_listed ids, ascending), or cell k of the box when `cells` is
+// null. Only fluid cells are loaded and stored: a non-fluid cell holds
+// the same state in both buffers, so the step leaves it. HALO -1: the
+// whole box; 0 or 1: a shard split along x or y, pulling across its
+// faces from `halo`.
+template <int COLL, bool CLOSURE, int FORCE, bool MOVING, typename S,
+          int HALO>
+__device__ __forceinline__ void collide_stream_cells(
+    const S* __restrict__ src, S* __restrict__ dst,
+    const int8_t* __restrict__ mask, int nx, int ny, int nz,
+    const Collision& coll, const BCSet& bcs, const int* __restrict__ cells,
+    int n_listed, double* __restrict__ partials, const Halo& halo) {
+  const long long n_cells = (long long)nx * ny * nz;  // < 2^31 (host check)
+  const long long k = (long long)blockIdx.x * kBlock + threadIdx.x;
+  const long long cell_ll =
+      cells ? (k < n_listed ? (long long)cells[k] : n_cells) : k;
+  float speed = 0.0f;
+  if (cell_ll < n_cells && mask[cell_ll] == kFluid) {
+    const int cell = (int)cell_ll;
+    const int z = cell % nz;
+    const int xy = cell / nz;
+    const int y = xy % ny;
+    const int x = xy / ny;
+    float p[Q];
+    pull19<MOVING, HALO>(src, mask, x, y, z, nx, ny, nz, n_cells, cell,
+                         coll.bb, p, halo);
+#pragma unroll
+    for (int b = 0; b < kMaxBCs; ++b) {
+      if (b >= bcs.n) break;
+      const BCDesc& bc = bcs.bc[b];
+      if ((bc.axis == 0 ? x : y) != bc.coord) continue;
+      const long long lat = (long long)(bc.axis == 0 ? y : x) * nz + z;
+      // the NEE rewrite keeps the static force (none under a field)
+      nee_fix<FORCE == kConstForce>(bc, src, n_cells, cell, lat,
+                                    coll.half_force, p);
+    }
+    float ff[3], fh[3];
+    const float* F = coll.force;
+    const float* half = coll.half_force;
+    if constexpr (FORCE == kFieldForce) {
+      field_force(coll, n_cells, cell, ff, fh);
+      F = ff;
+      half = fh;
+    }
+    speed = sqrtf(collide_store<COLL, CLOSURE, FORCE>(p, coll, F, half, dst,
+                                                       n_cells, cell));
+  }
+  block_sum((double)speed, partials);
+}
+
 template <int COLL, bool CLOSURE, int FORCE, bool MOVING, typename S,
           int HALO = -1>
 __global__ void __launch_bounds__(kBlock)
 collide_stream_kernel(const S* __restrict__ src, S* __restrict__ dst,
                       const int8_t* __restrict__ mask, int nx, int ny,
                       int nz, const __grid_constant__ Collision coll,
-                      BCSet bcs, const int* __restrict__ blocks,
-                      double* __restrict__ partials, const Halo halo) {
-  const long long n_cells = (long long)nx * ny * nz;  // < 2^31 (host check)
-  const long long blk = blocks ? (long long)blocks[blockIdx.x] : blockIdx.x;
-  const long long cell_ll = blk * kBlock + threadIdx.x;
-  float speed = 0.0f;
-  if (cell_ll < n_cells) {
-    const int cell = (int)cell_ll;
-    if (mask[cell] != kFluid) {
-      // non-fluid cells keep their populations (raw words) in both buffers
-#pragma unroll
-      for (int i = 0; i < Q; ++i) {
-        const long long o = (long long)i * n_cells + cell;
-        dst[o] = src[o];
-      }
-    } else {
-      const int z = cell % nz;
-      const int xy = cell / nz;
-      const int y = xy % ny;
-      const int x = xy / ny;
-      float p[Q];
-      pull19<MOVING, HALO>(src, mask, x, y, z, nx, ny, nz, n_cells, cell,
-                           coll.bb, p, halo);
-#pragma unroll
-      for (int b = 0; b < kMaxBCs; ++b) {
-        if (b >= bcs.n) break;
-        const BCDesc& bc = bcs.bc[b];
-        if ((bc.axis == 0 ? x : y) != bc.coord) continue;
-        const long long lat = (long long)(bc.axis == 0 ? y : x) * nz + z;
-        // the NEE rewrite keeps the static force (none under a field)
-        nee_fix<FORCE == kConstForce>(bc, src, n_cells, cell, lat,
-                                      coll.half_force, p);
-      }
-      float ff[3], fh[3];
-      const float* F = coll.force;
-      const float* half = coll.half_force;
-      if constexpr (FORCE == kFieldForce) {
-        field_force(coll, n_cells, cell, ff, fh);
-        F = ff;
-        half = fh;
-      }
-      speed = sqrtf(collide_store<COLL, CLOSURE, FORCE>(p, coll, F, half, dst,
-                                                         n_cells, cell));
-    }
-  }
-  block_sum((double)speed, partials);
+                      BCSet bcs, const int* __restrict__ cells,
+                      int n_listed, double* __restrict__ partials,
+                      const Halo halo) {
+  collide_stream_cells<COLL, CLOSURE, FORCE, MOVING, S, HALO>(
+      src, dst, mask, nx, ny, nz, coll, bcs, cells, n_listed, partials,
+      halo);
 }
+
+namespace bounded {
+// The BGK force-field instances, held to three blocks an SM (80
+// registers), their occupancy before the fluid test moved ahead of every
+// load (91 registers, two blocks, without the bound).
+template <int COLL, bool CLOSURE, int FORCE, bool MOVING, typename S,
+          int HALO = -1>
+__global__ void __launch_bounds__(kBlock, 3)
+collide_stream_kernel(const S* __restrict__ src, S* __restrict__ dst,
+                      const int8_t* __restrict__ mask, int nx, int ny,
+                      int nz, const __grid_constant__ Collision coll,
+                      BCSet bcs, const int* __restrict__ cells,
+                      int n_listed, double* __restrict__ partials,
+                      const Halo halo) {
+  collide_stream_cells<COLL, CLOSURE, FORCE, MOVING, S, HALO>(
+      src, dst, mask, nx, ny, nz, coll, bcs, cells, n_listed, partials,
+      halo);
+}
+}  // namespace bounded
 
 // One z-plane boundary over its window [x0, x0+wx) x [y0, y0+wy) of the
 // consumer plane z = bc.coord: the whole step again for the window's
@@ -239,7 +272,8 @@ struct StepArgs {
   S* dst;
   const int8_t* mask;
   int nx, ny, nz;
-  const int* blocks;
+  const int* cells;
+  int n_listed;
   double* partials;
   unsigned grid;
   cudaStream_t stream;
@@ -262,11 +296,19 @@ struct FixArgs {
 template <typename S, int K, int HALO>
 void launch_step(const StepArgs<S>& a, const Collision& c, const BCSet& b) {
   using I = Inst<K>;
-  collide_stream_kernel<I::kColl, I::kClosure, I::kForce, I::kMovingWall, S,
-                        HALO>
-      <<<a.grid, kBlock, 0, a.stream>>>(a.src, a.dst, a.mask, a.nx, a.ny,
-                                        a.nz, c, b, a.blocks, a.partials,
-                                        a.halo);
+  if constexpr (I::kForce == kFieldForce && I::kColl == kBGK) {
+    bounded::collide_stream_kernel<I::kColl, I::kClosure, I::kForce,
+                                   I::kMovingWall, S, HALO>
+        <<<a.grid, kBlock, 0, a.stream>>>(a.src, a.dst, a.mask, a.nx, a.ny,
+                                          a.nz, c, b, a.cells, a.n_listed,
+                                          a.partials, a.halo);
+  } else {
+    collide_stream_kernel<I::kColl, I::kClosure, I::kForce, I::kMovingWall,
+                          S, HALO>
+        <<<a.grid, kBlock, 0, a.stream>>>(a.src, a.dst, a.mask, a.nx, a.ny,
+                                          a.nz, c, b, a.cells, a.n_listed,
+                                          a.partials, a.halo);
+  }
 }
 
 template <typename S, int K, int HALO>
@@ -330,27 +372,29 @@ constexpr std::array<FixLauncher<S>, kNumKeys> kFixTable =
 // One step from src into dst with the collision branch of the descriptor
 // rows coll_int/coll_float (CInt/CFloat) and the x/y-plane boundaries;
 // series[t] = sum over fluid cells of |u|. gfield: the pre-step scalar
-// state g[7][n_cells] of a field force (CI_force == 2), else null. blocks: null (every block) or
-// a device list of n_blocks block ids to update; the blocks left out must
-// hold no fluid cell and be equal in src and dst. partials holds one
-// double per launched block (n_partials). Boundary rows as parse_bc;
-// phi_ptrs[b] is this step's phase table of a series boundary. Returns
-// cudaGetLastError().
+// state g[7][n_cells] of a field force (CI_force == 2), else null.
+// cells: null (a thread a cell of the box) or a device list of n_listed
+// cell ids, ascending, holding every fluid cell (a non-fluid id is
+// skipped). Only fluid cells are written: dst must already hold src's
+// non-fluid cells. partials holds one double per launched block
+// (n_partials: ceil(n_listed / kBlock), at least 1, with a list).
+// Boundary rows as parse_bc; phi_ptrs[b] is this step's phase table of a
+// series boundary. Returns cudaGetLastError().
 template <typename S, int HALO = -1>
 int collide_stream(const S* src, S* dst, const int8_t* mask, int nx, int ny,
                    int nz, const int* coll_int, const float* coll_float,
                    int n_bc, const int* bc_int, const float* bc_float,
                    const void* const* valid_ptrs, const void* const* phi_ptrs,
-                   const int* blocks, int n_blocks, double* partials,
+                   const int* cells, int n_listed, double* partials,
                    int n_partials, double* series, int t,
                    const float* gfield, void* stream,
                    const Halo& halo = Halo{}) {
   const long long n_cells = (long long)nx * ny * nz;
-  const long long all_blocks = (n_cells + kBlock - 1) / kBlock;
-  const long long grid = blocks ? n_blocks : all_blocks;
+  const long long grid =
+      cells ? (n_listed + kBlock - 1) / kBlock : (n_cells + kBlock - 1) / kBlock;
   if (n_bc < 0 || n_bc > kMaxBCs || n_cells <= 0 ||
-      n_cells > 0x7fffffffLL || grid <= 0 || grid > all_blocks ||
-      grid != n_partials) {
+      n_cells > 0x7fffffffLL || n_listed < 0 || n_listed > n_cells ||
+      (grid > 0 ? grid : 1) != n_partials) {
     return (int)cudaErrorInvalidValue;
   }
   if (HALO >= 0 && !(halo.lo && halo.hi && halo.mask_lo && halo.mask_hi)) {
@@ -371,8 +415,8 @@ int collide_stream(const S* src, S* dst, const int8_t* mask, int nx, int ny,
     }
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const StepArgs<S> args = {src, dst, mask, nx, ny, nz, blocks, partials,
-                            (unsigned)grid, s, halo};
+  const StepArgs<S> args = {src, dst, mask, nx, ny, nz, cells, n_listed,
+                            partials, (unsigned)n_partials, s, halo};
   kStepTable<S, HALO>[key](args, coll, bcs);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -11,23 +11,29 @@ const char* lbm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int lbm_pair_tile() { return kT; }
+int lbm_pair_unit(int axis) { return pair_unit(axis); }
 
-int lbm_pair_block_size() { return kBlock; }
+int lbm_pair_block_size() { return kPairThreads; }
 
-long long lbm_pair_smem_bytes() { return (long long)kSmemBytes; }
+int lbm_pair_blocks_per_sm(int key) {
+  return pair_blocks_per_sm<float>(key);
+}
+
+long long lbm_pair_smem_bytes() {
+  return (long long)kPairSmem;
+}
 
 int lbm_collide_stream2(const float* src, float* dst, const int8_t* mask,
                         int nx, int ny, int nz, const int* coll_int,
                         const float* coll_float, int n_bc, const int* bc_int,
                         const float* bc_float, const void* const* valid_ptrs,
                         const void* const* phi_t, const void* const* phi_t1,
-                        const int* tiles, int n_tiles, double* partials,
+                        const int* units, int n_units, double* partials,
                         int n_partials, double* series, int slot,
                         void* stream) {
   return collide_stream2<float>(src, dst, mask, nx, ny, nz, coll_int,
                                 coll_float, n_bc, bc_int, bc_float,
-                                valid_ptrs, phi_t, phi_t1, tiles, n_tiles,
+                                valid_ptrs, phi_t, phi_t1, units, n_units,
                                 partials, n_partials, series, slot, stream);
 }
 

@@ -24,14 +24,14 @@ int lbm_collide_stream_bf16(const void* src, void* dst, const int8_t* mask,
                             const float* coll_float, int n_bc,
                             const int* bc_int, const float* bc_float,
                             const void* const* valid_ptrs,
-                            const void* const* phi_ptrs, const int* blocks,
-                            int n_blocks, double* partials, int n_partials,
+                            const void* const* phi_ptrs, const int* cells,
+                            int n_listed, double* partials, int n_partials,
                             double* series, int t, const float* gfield,
                             void* stream) {
   return collide_stream<bf16>(
       static_cast<const bf16*>(src), static_cast<bf16*>(dst), mask, nx, ny,
       nz, coll_int, coll_float, n_bc, bc_int, bc_float, valid_ptrs, phi_ptrs,
-      blocks, n_blocks, partials, n_partials, series, t, gfield, stream);
+      cells, n_listed, partials, n_partials, series, t, gfield, stream);
 }
 
 int lbm_fix_z_plane_bf16(const void* src, void* dst, const int8_t* mask,

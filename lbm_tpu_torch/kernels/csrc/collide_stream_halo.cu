@@ -68,8 +68,8 @@ int lbm_collide_stream_halo(const float* src, float* dst, const int8_t* mask,
                             const float* coll_float, int n_bc,
                             const int* bc_int, const float* bc_float,
                             const void* const* valid_ptrs,
-                            const void* const* phi_ptrs, const int* blocks,
-                            int n_blocks, double* partials, int n_partials,
+                            const void* const* phi_ptrs, const int* cells,
+                            int n_listed, double* partials, int n_partials,
                             double* series, int t, int halo_axis,
                             const float* lo, const float* hi,
                             const int8_t* mask_lo, const int8_t* mask_hi,
@@ -77,7 +77,7 @@ int lbm_collide_stream_halo(const float* src, float* dst, const int8_t* mask,
   if (halo_axis != LBM_HALO_AXIS) return (int)cudaErrorInvalidValue;
   return collide_stream<float, LBM_HALO_AXIS>(
       src, dst, mask, nx, ny, nz, coll_int, coll_float, n_bc, bc_int,
-      bc_float, valid_ptrs, phi_ptrs, blocks, n_blocks, partials, n_partials,
+      bc_float, valid_ptrs, phi_ptrs, cells, n_listed, partials, n_partials,
       series, t, nullptr, stream, make_halo(lo, hi, mask_lo, mask_hi));
 }
 

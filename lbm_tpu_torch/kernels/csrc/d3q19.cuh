@@ -10,8 +10,7 @@
 // store of populations: float, or __nv_bfloat16 for bf16 storage. Compute
 // is fp32 either way: a load widens (exactly), a store narrows with
 // round-to-nearest-even (__float2bfloat16_rn, as torch's
-// .to(torch.bfloat16) rounds), and a non-fluid cell's copy moves the raw
-// 16-bit words.
+// .to(torch.bfloat16) rounds), and a non-fluid cell is never stored.
 
 #pragma once
 

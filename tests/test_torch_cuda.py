@@ -31,7 +31,7 @@ def device():
 def test_collide_stream_kernel_matches_plain(device, name, n):
     cc = compile_case(get_case(name, n=n), device)
     f = initial_f(cc)
-    fk, buf = f.clone(), torch.empty_like(f)
+    fk, buf = f.clone(), f.clone()
     vs_k = torch.zeros(4, dtype=torch.float64, device=device)
     vs_p = torch.zeros(4, dtype=torch.float64, device=device)
     K.reset_launches()
@@ -111,18 +111,66 @@ def test_fix_z_plane_kernel_matches_plain(device):
         assert abs(float(s[0]) - float(d)) <= 1e-5 * abs(float(d)) + 1e-12
 
 
-def test_live_block_launch_equals_the_full_launch(device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_live_block_launch_equals_the_full_launch(device, dtype):
+    """The launch over the fluid-cell list against the launch over every
+    cell of the box, each from out = f.clone(): bit-equal, velsums to
+    rounding."""
     cc = compile_case(get_case("coronary", shape=(64, 48, 96), radius=4),
                       device)
-    assert cc.live_blocks is not None
+    assert cc.live_blocks is not None and cc.fluid_cells is not None
     f = initial_f(cc)
     f, _ = K.step_plain(f, cc, 0)
+    f = f.to(dtype)
     s = torch.zeros(2, dtype=torch.float64, device=device)
     live = K.collide_stream(f, f.clone(), cc, s, 0, 1)
     full = K.collide_stream(f, f.clone(), cc, s, 1, 1, all_blocks=True)
     torch.cuda.synchronize()
     assert torch.equal(live, full)
     assert float(s[0]) == pytest.approx(float(s[1]), rel=1e-12)
+
+
+@pytest.mark.parametrize("how", ["fp32", "bf16", "halo y, 2 shards"])
+def test_buffers_keep_equal_non_fluid_cells(device, how):
+    """200 kernel steps of the pulsatile coronary (K1 over its fluid list
+    and the z fixups; with a halo, K1d on 2 shards along y): the two
+    ping-pong buffers' non-fluid cells stay bit-equal to each other and
+    to the initial state, which the kernels never store."""
+    from lbm_tpu_torch.bridge import shard_window
+    from lbm_tpu_torch.engine.compile import compile_shard
+    from lbm_tpu_torch.parallel.halo import ring_planes
+
+    spec = get_case("coronary", shape=(64, 48, 96), radius=4,
+                    pulsatile=(4, 8))
+    cc = compile_case(spec, device)
+    f0 = initial_f(cc).to(torch.bfloat16 if how == "bf16" else
+                          torch.float32)
+    if how.startswith("halo"):
+        ccs = [compile_shard(spec, r, 2, 1, device) for r in range(2)]
+        fs = [shard_window(f0, r, 2, 1) for r in range(2)]
+        bufs = [x.clone() for x in fs]
+        vs = torch.zeros(2, 200, dtype=torch.float64, device=device)
+        for t in range(200):
+            planes = ring_planes(fs, 1)
+            for r, c in enumerate(ccs):
+                K.step(fs[r], bufs[r], c, vs[r], t, t,
+                       halo=c.halo(*planes[r]))
+                fs[r], bufs[r] = bufs[r], fs[r]
+        pairs = [(fs[r], bufs[r], shard_window(f0, r, 2, 1), c)
+                 for r, c in enumerate(ccs)]
+    else:
+        f, buf = f0.clone(), f0.clone()
+        vs = torch.zeros(200, dtype=torch.float64, device=device)
+        for t in range(200):
+            K.step(f, buf, cc, vs, t, t)
+            f, buf = buf, f
+        pairs = [(f, buf, f0, cc)]
+    torch.cuda.synchronize()
+    for a, b, init, c in pairs:
+        keep = ~c.fluid[None].expand(19, *c.shape)
+        assert torch.equal(a[keep], b[keep])
+        assert torch.equal(a[keep], init[keep])
+        assert not torch.equal(a[~keep], init[~keep])
 
 
 CARREAU = {"model": "carreau", "nu0": 0.1, "nu_inf": 0.01, "lam": 100.0,
@@ -480,11 +528,15 @@ def test_pair_kernel_matches_two_single_steps_and_plain(device, branch):
     ("gravity_channel", dict(n=20, nz=3, collision="trt")),   # z of 3 cells
     ("pipe", dict(n=36, curved=False)),                       # 36 = 4.5 tiles
     ("curved_vessel", dict(n=24, nphase=4, period_steps=4)),  # phase a step
+    ("gravity_channel", dict(n=70, nz=45, collision="trt")),  # 2 segments,
+    ("lid_driven_cavity", dict(n=66)),                        # ragged tiles
 ])
 def test_pair_kernel_on_boxes_the_tile_does_not_fit(device, name, kw):
-    """Ceil-div tiles, an axis shorter than the tile, a series inlet
-    whose phase changes between the two steps of a pair: 24 steps, bit
-    for bit against two K1 launches and the plain pair."""
+    """Ceil-div units (an x segment of 64 planes, an 8 x 32 column tile),
+    an axis shorter than the tile, z rows that are not 16-byte aligned
+    (nz 3, 45, 66: the element copies), two segments along x, a series
+    inlet whose phase changes between the two steps of a pair: 24 steps,
+    bit for bit against two K1 launches and the plain pair."""
     cc = compile_case(get_case(name, **kw), device)
     (fp, vp), (fs, vs), (fq, vq) = _pair_run(cc, 24, device)
     assert torch.equal(fp, fs) and torch.equal(fp, fq)

@@ -88,21 +88,23 @@ def test_pair_plain_is_two_single_steps(name, kw):
     assert series.tolist() == [0.0, float(v1), float(v2)]
 
 
-@pytest.mark.parametrize("shape", [(24, 20, 32), (13, 9, 30), (5, 17, 3)])
+@pytest.mark.parametrize("shape", [(24, 20, 32), (13, 9, 30), (5, 17, 3),
+                                   (130, 17, 70)])
 def test_live_tile_ids_match_a_brute_force_count(shape):
-    """The ids of the TILE^3 tiles (ceil-div, z fastest) whose cells
-    inside the box include a non-DEAD one."""
+    """The ids of the pair's units, x segments of TILE[0] planes of
+    TILE[1] x TILE[2] (y, z) column tiles (ceil-div, z fastest), whose
+    cells inside the box include a non-DEAD one."""
     rng = np.random.default_rng(1)
     mask = np.where(rng.random(shape) < 0.02, CellType.FLUID,
                     CellType.DEAD).astype(np.int32)
-    g = [-(-n // TILE) for n in shape]
+    g = [-(-n // t) for n, t in zip(shape, TILE)]
+    sx, sy, sz = TILE
     want = []
     for tx in range(g[0]):
         for ty in range(g[1]):
             for tz in range(g[2]):
-                blk = mask[tx * TILE:(tx + 1) * TILE,
-                           ty * TILE:(ty + 1) * TILE,
-                           tz * TILE:(tz + 1) * TILE]
+                blk = mask[tx * sx:(tx + 1) * sx, ty * sy:(ty + 1) * sy,
+                           tz * sz:(tz + 1) * sz]
                 if (blk != CellType.DEAD).any():
                     want.append((tx * g[1] + ty) * g[2] + tz)
     got = live_tile_ids(mask)
