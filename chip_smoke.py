@@ -8,14 +8,20 @@ no result line):
   1. a CUDA card is present; print its name and power limit, nvcc's
      version and torch's;
   2. build the CUDA kernels from kernels/csrc with nvcc and print the
-     build time and ptxas's registers and spills per kernel instance;
+     build time and ptxas's registers, spills and stack frames per kernel
+     instance: the 36 fp32 collide-stream instances (each branch with and
+     without the z planes' code) as BASE_PTXAS has them, the BGK instance
+     in fp32 and bf16, with and without z planes, at most 80 registers
+     with no spill and no stack frame, three blocks an SM;
   3. hold each kernel against its plain PyTorch version on the card (f
      at rtol 3e-6, atol 1e-7; velsum at 1e-5 relative; macro() after 200
      steps at relative L2 <= 1e-5; K3 at rtol 1e-6, atol 1e-7): the whole
      step and each kernel alone on lid 64^3, poiseuille 32^3, coronary
      (64, 48, 96) r=4 steady and pulsatile=[4, 40] for 200 steps,
      curved_vessel 64^3, then lid 256^3 and the full-size coronary for 2
-     steps; the launch over the fluid-cell list against the launch over
+     steps; each kernel alone, the collide-stream kernel with its z-plane
+     descriptors against step_plain (the x/y pass plus each z window's
+     fixup); the launch over the fluid-cell list against the launch over
      every cell (out a copy of f: the kernels store fluid cells only).
      Then the
      collision branches (K1b), 200 steps each: lid 64^3 with TRT, MRT,
@@ -23,8 +29,8 @@ no result line):
      with BGK and TRT (MRT on the dense backend, the kernel route
      refusing it), pipe n=36 (staircase) with its force, poiseuille 32^3
      with power-law, Carreau (a=2, a=1.5) and Casson, and the pulsatile
-     coronary with TRT + Carreau blood (the z-plane fixup runs the
-     closure): BGK/TRT with and without force, MRT and the moving walls
+     coronary with TRT + Carreau blood (its z planes run the closure
+     in the same launch): BGK/TRT with and without force, MRT and the moving walls
      must be bit-equal, the closures within the tolerance above, K3 with
      the force shift bit-equal; the blood path's instance (TRT + Carreau
      blood at the full coronary's units) and the force path's
@@ -35,22 +41,26 @@ no result line):
      and gravity_channel 256^3 TRT+force, K1 over the fluid list against
      every cell at lid 256^3 and the full coronary, and the card's
      sustained copy rate (dst.copy_(src) of one lid 256^3 fp32 state, a
-     yardstick on no path);
+     yardstick on no path); at the full coronary K1 with its z planes,
+     over every cell, and without its z planes (what they cost inside the
+     launch, beside the plain fixups);
   4. the lid main path: Simulation(lid_driven_cavity n=256).run(1000
      steps, time_save=250) and macro(), launch counters reset just
      before and read just after (K1a 1000 times over the full grid, K3
      at least once), finite, bounded fields;
   5. the vessel path: Simulation(coronary 291x291x372, radius=12,
      pulsatile=[40, 2000]).run(2000 steps, time_save=500) and macro(),
-     counters reset just before and read just after (K1a 2000, the
-     z-plane fixup 6000, K3 at least 4), finite fields with max|u| within
-     3x the inlet speed, both buffers' non-fluid cells still the initial
-     state (so in every vessel path);
+     counters reset just before and read just after (K1a 2000, its three
+     z planes in the same launch, no fixup launch, K3 at least 4), finite
+     fields with max|u| within 3x the inlet speed, both buffers'
+     non-fluid cells still the initial state, and a 200-step profile with
+     one collide-stream launch and one velsum reduction a step (so in
+     every vessel path);
   6. the blood path: the same coronary with collision='trt' and the
      Carreau blood closure (carreau_blood of its units), 2000 steps
      (one pulse period): counters reset just before and read just after
-     (the TRT+Carreau collide-stream instance 2000, its z-plane fixup
-     6000, K3 at least 4), finite fields, max|u| within 3x the inlet
+     (the TRT+Carreau collide-stream instance 2000, no fixup launch, K3
+     at least 4), finite fields, max|u| within 3x the inlet
      speed, tau_eff inside the closure's clip and varying; ms/step, mlups,
      peak memory and a 200-step profile;
   7. the force path: gravity_channel n=256 nz=256 with collision='trt'
@@ -71,15 +81,19 @@ force-field instances of lbm_collide_stream):
      rayleigh_benard_3d 64x64x34 with BGK and TRT and on the periodic
      rayleigh_benard 32x1x18; then K7 and K8 per launch at the full
      coronary over the live list and K7, K8 and K1e at 256^3, in turns
-     with their plain versions, with bounds;
+     with their plain versions, with bounds; K7 and K8 launch over the
+     scalar's cell list (the fluid cells and the footprints' cells), and
+     the record's time a step (with it against without it) beside its
+     bound and plane_means;
   9. the washout path: coronary 291x291x372 r=12 (steady), 2000 flow
      steps, then ScalarTransport with D=0.02 and a 500-step bolus at
      boundary 0 for 4000 steps, every boundary recorded (K7 4000
-     launches): finite, -0.01 <= c <= 1.1, the inlet record above 0.9
+     launches; the profile at most two kernel launches a step, K7 and the
+     record): finite, -0.01 <= c <= 1.1, the inlet record above 0.9
      inside the gate and below it after, total() > 0;
  10. the coupled washout path: the pulsatile full coronary through
-     CoupledTransport, 2000 steps (K1a 2000, the z-plane fixup 6000, K8
-     2000), same checks;
+     CoupledTransport, 2000 steps (K1a 2000, no fixup launch, K8 2000;
+     at most four kernel launches a step), same checks;
  11. the thermal path: heated_cavity_3d n=256, Ra = 1e4, Pr = 0.71, 4 chunks
      of 250 steps with nusselt_profile each (K1e [bgk+field] 1000, K8
      1000, K3 at least 4): finite, temperature within the wall values +-
@@ -121,26 +135,28 @@ lbm_collide_stream2, K4: lbm_extract_rows):
   8b. (inside phase 8) `run --fuse 2` on the 64^3 cavity and `run
      --lowmem --checkpoint-every 1` on the default coronary, each writing
      VTK and CONVERGENCE.log (and the checkpoint).
-bf16 storage of the flow state (the bf16 instances of K1, the z-plane
-fixup, K2, K3 and K4, built from collide_stream_bf16.cu and
+bf16 storage of the flow state (the bf16 instances of K1, its z planes
+included, K2, K3 and K4, built from collide_stream_bf16.cu and
 collide_stream2_bf16.cu):
   2c. (inside phase 2) ptxas registers and spills of every bf16 instance
-     (14 collide-stream, 14 fixup, 14 K2, K3 with and without the force
+     (28 collide-stream, 14 K2, K3 with and without the force
      shift, K4), the build seconds of the five sources side by side, and
      the BGK instance's registers in both storage types;
   3d. (inside phase 3) every bf16 instance against its plain version on
      bf16 state for 200 steps, f bit for bit (the closures, whose fp32
      transcendentals differ in the last bit, within 2e-2 of max |f|,
      lbm_tpu's bf16 tolerance; the values that differ are printed),
-     velsums at 1e-5 relative, K1a, each fixup and K3 alone bit for bit:
+     velsums at 1e-5 relative, K1a (against step_plain) and K3 alone bit
+     for bit:
      lid 64^3 BGK, TRT, MRT, Smagorinsky and the moving lid, poiseuille
      32^3 Carreau, gravity_channel 32^3 TRT+force, pipe n=36 and the
-     pulsatile coronary (64, 48, 96) r=4 with the bf16 z fixup; lid 256^3
+     pulsatile coronary (64, 48, 96) r=4 with its bf16 z planes; lid 256^3
      and the full coronary for 2 steps; K2 bf16 against its plain pair
      (one narrowing a pair) bit for bit on lid 64^3, curved_vessel 64^3
      over its live tiles and lid 256^3, against two bf16 K1 launches
      printed, not gated; then K1a [bgk+bf16], K3 [bf16] and K2
-     [bgk+bf16] at lid 256^3, K1a, the fixup and K3 on the full
+     [bgk+bf16] at lid 256^3, K1a (with and without its z planes) and K3
+     on the full
      coronary, and K1a [trt+cy+bf16] over its live list, in turns with
      their plain versions, with bounds (76 B a fluid cell);
  15. the bf16 paths at full width, counters reset just before and read
@@ -149,7 +165,7 @@ collide_stream2_bf16.cu):
      the bf16 ceiling (76 B a cell at 3.35 TB/s), macro() u against phase
      4's at relative L2; lid 256^3 fuse=2 bf16, 1000 steps (K2
      [bgk+bf16] 500, K1 none); the full pulsatile coronary in bf16, 2000
-     steps (K1a [bgk+bf16] 2000, its z fixup 6000, K3 [bf16] at least 4),
+     steps (K1a [bgk+bf16] 2000, no fixup launch, K3 [bf16] at least 4),
      finite fields, max|u| within 3x the inlet speed; lid 512^3 bf16
      under lowmem, 20 steps, f_standard() through K4 [bf16] chunk by
      chunk against f.narrow().cpu(), device memory up by at most one
@@ -157,16 +173,15 @@ collide_stream2_bf16.cu):
   8c. (inside phase 8) `run --dtype bf16` on the 64^3 cavity and `run
      --dtype bf16 --lowmem --checkpoint-every 1` on the default coronary,
      each writing VTK and CONVERGENCE.log (the checkpoint float32).
-The sharded collide-stream step (K1d: lbm_collide_stream_halo and
-lbm_fix_z_plane_halo, built from collide_stream_halo.cu once per shard
-axis) and Simulation(mesh=) on torch.distributed:
+The sharded collide-stream step (K1d: lbm_collide_stream_halo, its z
+planes in the same launch, built from collide_stream_halo.cu once per
+shard axis) and Simulation(mesh=) on torch.distributed:
   2d. (inside phase 2) the two halo units' build seconds and ptxas's
-     registers and spills of their 28 + 28 instances; the 36 unsharded
-     fp32 instances' registers and spills beside the build of the sources
-     before the sharded step (BASE_PTXAS, commit 0245b70, from
-     probes/ptxas_report.py), which they must equal;
-  3e. (inside phase 3) K1d and its halo z fixup on shards held in one
-     process (no communication library: each shard's planes are its
+     registers and spills of their 56 instances; the 36 unsharded fp32
+     instances' registers and spills, which must equal BASE_PTXAS (from
+     probes/ptxas_report.py);
+  3e. (inside phase 3) K1d (its z planes in the launch) on shards held in
+     one process (no communication library: each shard's planes are its
      neighbours' edge rows), 20 steps of every fp32 branch on x or y on
      4 shards (lid 64^3, the small pulsatile coronary, gravity_channel
      32^3, poiseuille 32^3), then lid 256^3 on x and the full coronary on
@@ -175,8 +190,8 @@ axis) and Simulation(mesh=) on torch.distributed:
      whole-box kernel step, bit for bit (the closures within rtol 3e-6 /
      atol 1e-7), velsums at 1e-5; K1d per launch on a 4-way shard by
      CUDA events in turns against its plain version and against K1a on
-     the same local shape, and by the profiler's device time, the halo z
-     fixup per launch, with bounds (the local step's bytes plus the
+     the same local shape, and by the profiler's device time, with and
+     without its z planes, with bounds (the local step's bytes plus the
      planes);
  16. the sharded paths on the one card: Simulation(mesh=) on 4 gloo ranks
      with CUDA tensors sharing the card (planes staged through pinned
@@ -186,8 +201,8 @@ axis) and Simulation(mesh=) on torch.distributed:
      time_save=100 with the 'velsum' residual, against an unsharded run
      of the same steps: f_standard() bit for bit off the DEAD cells and
      zeros on them, the velsum series within 1e-5, the same stop step on
-     every rank, K1d [bgk+halo] once a step on every rank and the halo z
-     fixup once a step per z window a rank holds; ms/step and the
+     every rank, K1d [bgk+halo] once a step on every rank and no z-plane
+     fixup launch; ms/step and the
      exchange's ms a step of the one-card arrangement;
   8d. (inside phase 8) `run --shard 1` on the 64^3 cavity over NCCL
      writes VTK and CONVERGENCE.log;
@@ -226,49 +241,55 @@ HBM_BYTES_PER_S = 3.35e12   # published H100 SXM peak at 700 W
 # within this share of max |f| of its reference
 BF16_REL = 2e-2
 FULL_CORONARY = dict(shape=[291, 291, 372], radius=12, pulsatile=[40, 2000])
-# The 36 unsharded fp32 collide-stream and fixup instances as the sources
-# before the sharded step (commit 0245b70) build: (registers, spill store
-# bytes, spill load bytes), from probes/ptxas_report.py on that tree's
-# kernels/csrc with kernels/_build.NVCC_FLAGS, on the H100's machine.
-# Phase 2 requires this build's to be the same: K1d leaves them untouched.
+# The 36 unsharded fp32 collide-stream instances as this build gives them
+# (each branch without and with the z planes' code, "+z"; the fixup kernel
+# gone): (registers, spill store bytes, spill load bytes), from
+# probes/ptxas_report.py on kernels/csrc with kernels/_build.NVCC_FLAGS,
+# on the H100's machine. Phase 2 requires the build to equal it, so a
+# change to the kernel's registers or spills shows.
 BASE_PTXAS = {
-    "collide_stream_kernel[bgk+closure+moving]": (80, 0, 0),
+    "collide_stream_kernel[bgk+closure+moving+z]": (77, 0, 0),
+    "collide_stream_kernel[bgk+closure+moving]": (77, 0, 0),
+    "collide_stream_kernel[bgk+closure+z]": (76, 0, 0),
     "collide_stream_kernel[bgk+closure]": (78, 0, 0),
-    "collide_stream_kernel[bgk+field+moving]": (80, 0, 0),
-    "collide_stream_kernel[bgk+field]": (80, 0, 0),
+    "collide_stream_kernel[bgk+field+moving+z]": (80, 0, 0),
+    "collide_stream_kernel[bgk+field+moving]": (79, 0, 0),
+    "collide_stream_kernel[bgk+field+z]": (80, 24, 40),
+    "collide_stream_kernel[bgk+field]": (80, 24, 40),
+    "collide_stream_kernel[bgk+force+moving+z]": (80, 0, 0),
     "collide_stream_kernel[bgk+force+moving]": (80, 0, 0),
+    "collide_stream_kernel[bgk+force+z]": (80, 0, 0),
     "collide_stream_kernel[bgk+force]": (80, 0, 0),
-    "collide_stream_kernel[bgk+moving]": (80, 0, 0),
+    "collide_stream_kernel[bgk+moving+z]": (77, 0, 0),
+    "collide_stream_kernel[bgk+moving]": (77, 0, 0),
+    "collide_stream_kernel[bgk+z]": (76, 0, 0),
     "collide_stream_kernel[bgk]": (78, 0, 0),
-    "collide_stream_kernel[mrt+moving]": (80, 0, 0),
+    "collide_stream_kernel[mrt+moving+z]": (77, 0, 0),
+    "collide_stream_kernel[mrt+moving]": (77, 0, 0),
+    "collide_stream_kernel[mrt+z]": (76, 0, 0),
     "collide_stream_kernel[mrt]": (78, 0, 0),
-    "collide_stream_kernel[trt+closure+moving]": (80, 0, 0),
+    "collide_stream_kernel[trt+closure+moving+z]": (77, 0, 0),
+    "collide_stream_kernel[trt+closure+moving]": (77, 0, 0),
+    "collide_stream_kernel[trt+closure+z]": (76, 0, 0),
     "collide_stream_kernel[trt+closure]": (78, 0, 0),
-    "collide_stream_kernel[trt+field+moving]": (80, 4, 16),
-    "collide_stream_kernel[trt+field]": (87, 0, 0),
+    "collide_stream_kernel[trt+field+moving+z]": (92, 0, 0),
+    "collide_stream_kernel[trt+field+moving]": (92, 0, 0),
+    "collide_stream_kernel[trt+field+z]": (90, 0, 0),
+    "collide_stream_kernel[trt+field]": (90, 0, 0),
+    "collide_stream_kernel[trt+force+moving+z]": (80, 0, 0),
     "collide_stream_kernel[trt+force+moving]": (80, 0, 0),
+    "collide_stream_kernel[trt+force+z]": (80, 0, 0),
     "collide_stream_kernel[trt+force]": (80, 0, 0),
-    "collide_stream_kernel[trt+moving]": (80, 0, 0),
+    "collide_stream_kernel[trt+moving+z]": (75, 0, 0),
+    "collide_stream_kernel[trt+moving]": (77, 0, 0),
+    "collide_stream_kernel[trt+z]": (74, 0, 0),
     "collide_stream_kernel[trt]": (78, 0, 0),
-    "fix_z_plane_kernel[bgk+closure+moving]": (74, 0, 0),
-    "fix_z_plane_kernel[bgk+closure]": (64, 0, 0),
-    "fix_z_plane_kernel[bgk+field+moving]": (80, 0, 0),
-    "fix_z_plane_kernel[bgk+field]": (80, 0, 0),
-    "fix_z_plane_kernel[bgk+force+moving]": (80, 0, 0),
-    "fix_z_plane_kernel[bgk+force]": (80, 0, 0),
-    "fix_z_plane_kernel[bgk+moving]": (71, 0, 0),
-    "fix_z_plane_kernel[bgk]": (64, 0, 0),
-    "fix_z_plane_kernel[mrt+moving]": (64, 16, 16),
-    "fix_z_plane_kernel[mrt]": (64, 0, 0),
-    "fix_z_plane_kernel[trt+closure+moving]": (64, 16, 16),
-    "fix_z_plane_kernel[trt+closure]": (64, 0, 0),
-    "fix_z_plane_kernel[trt+field+moving]": (80, 0, 0),
-    "fix_z_plane_kernel[trt+field]": (80, 0, 0),
-    "fix_z_plane_kernel[trt+force+moving]": (80, 0, 0),
-    "fix_z_plane_kernel[trt+force]": (80, 0, 0),
-    "fix_z_plane_kernel[trt+moving]": (71, 0, 0),
-    "fix_z_plane_kernel[trt]": (64, 0, 0),
 }
+# The card's register file an SM and the threads of a collide-stream
+# block: with a register count from ptxas, the blocks an SM can hold
+# (registers are given out per warp in units of 256).
+SM_REGISTERS = 65536
+K1_THREADS = 256
 T_START = time.perf_counter()
 
 
@@ -388,12 +409,15 @@ def check_close(name, got, ref, rtol, atol) -> float:
 
 def compare_case(case, steps, device, errs, macro_steps=None, spec=None,
                  exact=False, label=None):
-    """Kernel vs plain on one case: the whole step (collide-stream plus
-    z-plane fixups) for `steps` steps, then each kernel alone on the
-    result, the live-block launch against the full one, K3 (with the
-    case's force shift), and optionally macro() after `macro_steps` steps
-    of both backends. exact: every kernel must equal its plain version
-    bit for bit. Returns the max abs errors {"f", "k1a", "z", "k3"}."""
+    """Kernel vs plain on one case: the whole step (one collide-stream
+    launch, its z planes included) for `steps` steps, then each kernel
+    alone on the result (the collide-stream kernel against step_plain,
+    the x/y pass plus each z window's fixup), the fluid-list launch
+    against the full one, K3 (with the case's force shift), and
+    optionally macro() after `macro_steps` steps of both backends. exact:
+    every kernel must equal its plain version bit for bit. Returns the
+    max abs errors {"f", "k1a", "z", "k3"}, "z" K1's on a case with z
+    planes (0 without)."""
     import torch
 
     from lbm_tpu_torch.cases import get_case
@@ -424,21 +448,11 @@ def compare_case(case, steps, device, errs, macro_steps=None, spec=None,
     t = steps
     s = torch.zeros(1, dtype=torch.float64, device=device)
     out_k = K.collide_stream(fk, buf, cc, s, 0, t)
-    out_p, v_p = K.collide_stream_plain(fk, cc, t)
+    out_p, v_p = K.step_plain(fk, cc, t)
     e_k1 = check_close(f"K1a alone {tag}", out_k, out_p, 3e-6, 1e-7)
     require(abs(float(s[0] - v_p)) <= 1e-5 * abs(float(v_p)),
             f"K1a velsum {tag}")
-    e_z = 0.0
-    for bc in cc.z_bcs:
-        zk, zp = out_p.clone(), out_p.clone()
-        s.zero_()
-        K.fix_z_plane(fk, zk, cc, bc, s, 0, t)
-        d_p = K.fix_z_plane_plain(fk, zp, cc, bc, t)
-        e_z = max(e_z, check_close(f"lbm_fix_z_plane z={bc.consumer_coord} "
-                                   f"{tag}", zk, zp, 3e-6, 1e-7))
-        require(abs(float(s[0] - d_p)) <= 1e-5 * max(abs(float(d_p)), 1e-30)
-                + 1e-12, f"lbm_fix_z_plane velsum {tag}: {float(s[0])} vs "
-                f"{float(d_p)}")
+    e_z = e_k1 if cc.z_bcs else 0.0
     if cc.live_blocks is not None:
         all_k = K.collide_stream(fk, torch.empty_like(fk).copy_(fk), cc, s,
                                  0, t, all_blocks=True)
@@ -460,8 +474,8 @@ def compare_case(case, steps, device, errs, macro_steps=None, spec=None,
             "full launch")
     print(f"[3] {tag}: step f max abs err {e_f:.3e} after {steps} steps, "
           f"velsum max rel err {vs_rel:.3e}; K1a alone {e_k1:.3e} ({live}"
-          f"); lbm_fix_z_plane {e_z:.3e} ({len(cc.z_bcs)} z planes); "
-          f"K3 {e_m:.3e}", flush=True)
+          f"; {len(cc.z_bcs)} z planes in its launch); K3 {e_m:.3e}",
+          flush=True)
     if macro_steps:
         sk = Simulation(spec, device=device, backend="kernel")
         sp = Simulation(spec, device=device, backend="dense")
@@ -553,13 +567,13 @@ def time_k1a(spec, device, iters_k, iters_p, label, dtype=None):
         state.reverse()
 
     def k1a_plain():
-        plain_f[0] = K.collide_stream_plain(plain_f[0], cc, 0)[0]
+        plain_f[0] = K.step_plain(plain_f[0], cc, 0)[0]
 
     inst = K.instance(cc) + ("+bf16" if dtype == torch.bfloat16 else "")
     ms, plain_ms = in_turns(f"collide-stream [{inst}] {label}",
                             k1a_plain, k1a, iters_p, iters_k)
     out = {"ms": ms, "plain_ms": plain_ms, "instance": inst,
-           "bound_ms": bound_ms(step_bytes(cc, cc.fluid, cc.kernel_bcs,
+           "bound_ms": bound_ms(step_bytes(cc, cc.fluid, cc.step_bcs,
                                            pop_bytes(dtype)))}
     print(f"[3] bound of [{out['instance']}] {label}: "
           f"{out['bound_ms']:.4f} ms", flush=True)
@@ -598,7 +612,7 @@ def time_lid(n, device, iters_k, iters_p, with_list=False, dtype=None):
         state.reverse()
 
     def k1a_plain():
-        plain_f[0] = K.collide_stream_plain(plain_f[0], cc, 0)[0]
+        plain_f[0] = K.step_plain(plain_f[0], cc, 0)[0]
 
     f = state[0]
     out = {}
@@ -609,7 +623,7 @@ def time_lid(n, device, iters_k, iters_p, with_list=False, dtype=None):
         iters_p, iters_k)
     out["k3_library"] = time_ms(moments_matmul(f.float()), iters_k)
     pop = pop_bytes(dtype)
-    out["k1a_bound"] = bound_ms(step_bytes(cc, cc.fluid, cc.kernel_bcs, pop))
+    out["k1a_bound"] = bound_ms(step_bytes(cc, cc.fluid, cc.step_bcs, pop))
     out["k3_bound"] = bound_ms(n**3 * (19 * pop + 4 * 4))
     if with_list:
         ids = fluid_cell_ids(cc.spec.mask)
@@ -668,9 +682,15 @@ def moments_matmul(f):
 
 def time_vessel(spec, device, dtype=None):
     """Times and bounds at the full-size coronary on a state of `dtype`
-    (float32 when None): K1a over the fluid-cell list and over every cell,
-    lbm_fix_z_plane per launch, K3 and the one-matmul moments that K3's
-    library_ms names (on the widened state for bf16)."""
+    (float32 when None): K1 over the fluid-cell list with its z-plane
+    descriptors against step_plain, over every cell, and over the fluid
+    list without the z planes (the same case with its x/y boundaries
+    only), whose difference is what the z planes (K5 + K6) cost inside
+    the launch; the plain z fixups of the three windows (the z planes'
+    plain version); K3 and the one-matmul moments that K3's library_ms
+    names (on the widened state for bf16)."""
+    import dataclasses
+
     import torch
 
     from lbm_tpu_torch.engine.compile import compile_case
@@ -678,6 +698,7 @@ def time_vessel(spec, device, dtype=None):
     from lbm_tpu_torch.kernels import collide_stream as K
 
     cc = compile_case(spec, device)
+    no_z = dataclasses.replace(cc, bcs=cc.kernel_bcs)
     n_cells = cc.mask.numel()
     dtype = dtype or torch.float32
     pop = pop_bytes(dtype)
@@ -687,44 +708,48 @@ def time_vessel(spec, device, dtype=None):
     series = torch.zeros(1, dtype=torch.float64, device=device)
     out = {}
 
-    def k1a(all_blocks):
+    def k1a(case, all_blocks):
         def go():
-            K.collide_stream(state[0], state[1], cc, series, 0, 0,
+            K.collide_stream(state[0], state[1], case, series, 0, 0,
                              all_blocks)
             state.reverse()
         return go
 
     def k1a_plain():
-        K.collide_stream_plain(state[0], cc, 0)
+        K.step_plain(state[0], cc, 0)
 
     out["k1a_live"], out["k1a_plain"] = in_turns(
-        f"K1a{tag} coronary full, fluid list", k1a_plain, k1a(False), 5,
-        1000)
+        f"K1a{tag} coronary full, fluid list, x/y and z planes", k1a_plain,
+        k1a(cc, False), 5, 1000)
     out["k1a_all"], _ = in_turns(
-        f"K1a{tag} coronary full, every cell", k1a_plain, k1a(True), 1,
+        f"K1a{tag} coronary full, every cell", k1a_plain, k1a(cc, True), 1,
         300)
+    # with and without the z planes on one fixed state (each call steps
+    # the same src into the same dst): the division's time moves with the
+    # state a stepping comparison walks through
+    fixed = [state[0].clone(), state[1].clone()]
+
+    def once(case):
+        return lambda: K.collide_stream(fixed[0], fixed[1], case, series, 0,
+                                        0)
+
+    out["k1a_no_z"], out["k1a_live_again"] = in_turns(
+        f"K1a{tag} coronary full, fluid list, one state, with the z planes "
+        "/ without", once(cc), once(no_z), 2000, 2000,
+        names="with z/without z")
+    del fixed
     n_live = cc.live_blocks.numel()
     # the same work whatever the launch covers: the fluid cells' step
-    out["k1a_bound"] = bound_ms(step_bytes(cc, cc.fluid, cc.kernel_bcs, pop))
+    out["k1a_bound"] = bound_ms(step_bytes(cc, cc.fluid, cc.step_bcs, pop))
     out["live_share"] = n_live / -(-n_cells // 256)
-
-    fz = [state[0], state[1].clone()]
-    kz, pz, bz = [], [], []
-    for bc in cc.z_bcs:
-        x0, x1, y0, y1 = bc.window
-        k_ms, p_ms = in_turns(
-            f"lbm_fix_z_plane{tag} z={bc.consumer_coord} window "
-            f"{x1 - x0}x{y1 - y0}",
-            lambda bc=bc: K.fix_z_plane_plain(fz[0], fz[1], cc, bc, 0),
-            lambda bc=bc: K.fix_z_plane(fz[0], fz[1], cc, bc, series, 0, 0),
-            20, 2000)
-        sel = torch.zeros_like(cc.fluid)
-        sel[x0:x1, y0:y1, bc.consumer_coord] = \
-            cc.fluid[x0:x1, y0:y1, bc.consumer_coord]
-        kz.append(k_ms), pz.append(p_ms)
-        bz.append(bound_ms(step_bytes(cc, sel, [bc], pop)))
-    out["fix"], out["fix_plain"] = sum(kz) / len(kz), sum(pz) / len(pz)
-    out["fix_bound"] = sum(bz) / len(bz)
+    # the z planes inside the launch: its time and bytes beyond the x/y
+    # pass; their plain version, the three windows' fixups
+    out["z_ms"] = out["k1a_live_again"] - out["k1a_no_z"]
+    out["z_bound"] = out["k1a_bound"] - bound_ms(
+        step_bytes(cc, cc.fluid, cc.kernel_bcs, pop))
+    f_out = state[1].clone()
+    out["z_plain"] = time_ms(lambda: [K.fix_z_plane_plain(
+        state[0], f_out, cc, bc, 0) for bc in cc.z_bcs], 5)
 
     f = state[0]
     out["k3"], out["k3_plain"] = in_turns(
@@ -733,10 +758,12 @@ def time_vessel(spec, device, dtype=None):
     out["k3_library"] = time_ms(moments_matmul(f.float()), 200)
     out["k3_bound"] = bound_ms(n_cells * (19 * pop + 4 * 4))
     print(f"[3] coronary full{tag} bounds at 3.35 TB/s (ms): K1a "
-          f"{out['k1a_bound']:.6f} ({int(cc.fluid.sum())} fluid cells); "
-          f"lbm_fix_z_plane {out['fix_bound']:.6f} per launch; K3 "
-          f"{out['k3_bound']:.4f}; torch.matmul moments "
-          f"{out['k3_library']:.4f} ms; live-block share "
+          f"{out['k1a_bound']:.6f} ({int(cc.fluid.sum())} fluid cells, "
+          f"{len(cc.step_bcs)} boundaries, {len(cc.z_bcs)} on z planes); "
+          f"the z planes in the launch {out['z_ms']:.5f} ms beyond the x/y "
+          f"pass (bound {out['z_bound']:.6f}, plain fixups "
+          f"{out['z_plain']:.4f}); K3 {out['k3_bound']:.4f}; torch.matmul "
+          f"moments {out['k3_library']:.4f} ms; live-block share "
           f"{out['live_share']:.4f}", flush=True)
     return out
 
@@ -764,13 +791,23 @@ def free_device():
     torch.cuda.empty_cache()
 
 
-def ptxas_report(log: str, smem: dict | None = None, tag: str = "") -> dict:
+def blocks_per_sm(registers: int, threads: int = K1_THREADS) -> int:
+    """Blocks of `threads` threads an SM holds at `registers` registers a
+    thread, as the register file bounds them (at most 2048 threads)."""
+    per_warp = -(-registers * 32 // 256) * 256
+    warps = SM_REGISTERS // per_warp
+    return min(warps // (threads // 32), 2048 // threads)
+
+
+def ptxas_report(log: str, smem: dict | None = None, tag: str = "",
+                 stack: dict | None = None) -> dict:
     """{"collide_stream_kernel[trt+force]": (registers, spill store bytes,
     spill load bytes), ...} from nvcc's -Xptxas -v output; instance names
     as kernels.collide_stream.instance names them ("closure" standing
     for every closure kind, one instance), with `tag` ("bf16" for the
     bf16 libraries) added inside the brackets. smem: filled with each
-    kernel's static shared memory bytes."""
+    kernel's static shared memory bytes; stack: with its stack frame
+    bytes (a by-value parameter indexed at run time would show here)."""
     import re
 
     def name_of(mangled):
@@ -782,9 +819,10 @@ def ptxas_report(log: str, smem: dict | None = None, tag: str = "") -> dict:
         return f"{name}[{tag}]"
 
     def plain_name(mangled):
-        m = re.search(r"(collide_stream_kernel|fix_z_plane_kernel|"
-                      r"collide_stream2_kernel)"
-                      r"ILi(\d)ELb(\d)ELi(\d)ELb(\d)E", mangled)
+        m = re.search(r"(collide_stream_kernel|collide_stream2_kernel)"
+                      r"ILi(\d)ELb(\d)ELi(\d)ELb(\d)E"
+                      r"(?:(?:f|13__nv_bfloat16)Li(?:n1|\d+)ELb([01])E)?",
+                      mangled)
         if m:
             parts = [("bgk", "trt", "mrt")[int(m.group(2))]]
             if m.group(3) == "1":
@@ -793,6 +831,8 @@ def ptxas_report(log: str, smem: dict | None = None, tag: str = "") -> dict:
                       if w]
             if m.group(5) == "1":
                 parts.append("moving")
+            if m.group(6) == "1":  # the instance with the z planes' code
+                parts.append("z")
             return f"{m.group(1)}[{'+'.join(parts)}]"
         m = re.search(r"(scalar_stream_kernel)ILb(\d)ELb(\d)ELb(\d)ELb(\d)E",
                       mangled)
@@ -824,6 +864,9 @@ def ptxas_report(log: str, smem: dict | None = None, tag: str = "") -> dict:
                       line)
         if m and cur:
             spills[cur] = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"(\d+) bytes stack frame", line)
+            if m and stack is not None:
+                stack[cur] = int(m.group(1))
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             cur = name_of(m.group(1))
@@ -859,11 +902,14 @@ def vessel_path(spec, device, tag, inst, live_share, closure=False,
                 store_dtype=None):
     """A 2000-step run of a full-size coronary through Simulation.run
     (store_dtype as Simulation takes it), counters reset just before and
-    read just after: the collide-stream instance `inst` 2000 times, its
-    z-plane fixup 6000, K3 at least 4; finite fields, max|u| within 3x
-    the inlet speed, and with a closure tau_eff inside its clip. Prints
-    the metrics and a 200-step profile; returns (launch counts, fixup
-    device ms per launch or [])."""
+    read just after: the collide-stream instance `inst` 2000 times (its
+    three z planes in the same launch), no z-plane fixup launch, K3 at
+    least 4; finite fields, max|u| within 3x the inlet speed, and with a
+    closure tau_eff inside its clip. Prints the metrics and a 200-step
+    profile, whose kernel launches a step must be the collide-stream
+    kernel and its velsum reduction (and the residual's few a chunk);
+    returns (launch counts, {"ms": ms/step, "launches_per_step",
+    "device_ms", "busy"}: the step's device time and busy share)."""
     import numpy as np
     import torch
 
@@ -885,9 +931,8 @@ def vessel_path(spec, device, tag, inst, live_share, closure=False,
     require(counts.get(f"lbm_collide_stream[{inst}]") == 2000,
             f"{tag}: collide-stream [{inst}] launches {counts} in a "
             "2000-step run")
-    require(counts.get(f"lbm_fix_z_plane[{inst}]") == 6000,
-            f"{tag}: lbm_fix_z_plane [{inst}] launches {counts} (3 z-plane "
-            "outlets x 2000 steps)")
+    require(not [k for k in counts if "fix_z_plane" in k],
+            f"{tag}: a z-plane fixup was launched: {counts}")
     require(counts.get(k3, 0) >= 4,
             f"{tag}: the usq residual did not launch K3 ({k3})")
     require(res.steps == 2000, f"{tag}: run took {res.steps} steps")
@@ -932,6 +977,12 @@ def vessel_path(spec, device, tag, inst, live_share, closure=False,
           f"{t_setup:.1f} s; peak device memory {peak:.2f} GiB; launches "
           f"{counts}", flush=True)
     del rho, u, fluid
+    # the host clock of these paths spreads from run to run with the same
+    # kernels: a second timed run of the same length
+    res2 = sim.run(max_steps=2000, time_save=500, verbose=False)
+    ms2 = res2.elapsed_s / res2.steps * 1e3
+    print(f"{tag} a second run of 2000 steps: {ms2:.4f} ms/step (host "
+          "clock, synchronized)", flush=True)
     by_name, busy = profile_run(sim, 200)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     # tracing slows the host, so the busy share of the traced window
@@ -943,15 +994,40 @@ def vessel_path(spec, device, tag, inst, live_share, closure=False,
           + f"; device {dev_ms:.5f} ms per step; device busy share "
           f"{busy:.3f} of the traced window, {dev_ms / ms:.3f} of the "
           "untraced step", flush=True)
-    fix_dev = [v[0] / v[1] for k, v in by_name.items()
-               if "fix_z_plane_kernel" in k]
-    if not fix_dev:
-        print(f"{tag} the profiler shows no device time for "
-              "fix_z_plane_kernel; its ms is the CUDA-event time",
-              flush=True)
+    per_step = step_launches(by_name, tag)
     del sim
     free_device()
-    return counts, fix_dev
+    return counts, {"ms": ms, "ms_again": ms2,
+                    "launches_per_step": per_step, "device_ms": dev_ms,
+                    "busy": dev_ms / ms}
+
+
+def step_launches(by_name, tag) -> float | None:
+    """Kernel launches a step in a profile_steps table: the path's
+    collide-stream kernel and its velsum reduction equally often (a
+    z-plane fixup kernel nowhere), plus what the residual and the chunk's
+    read launch once a chunk. The profiler's window can miss a launch or
+    two at its edges (it saw 196-197 of 200 on the H100), so the two
+    counts may differ by that much and the count is taken per
+    collide-stream launch, which the counters show is one a step. Prints
+    and returns the launches a step."""
+    kernels = {k: v for k, v in by_name.items() if "kernel" in k.lower()}
+    if not kernels:
+        print(f"{tag} the profiler saw no kernel: launches a step not "
+              "measured", flush=True)
+        return None
+    k1 = sum(v[1] for k, v in kernels.items()
+             if "collide_stream_kernel" in k)
+    red = sum(v[1] for k, v in kernels.items() if "velsum_reduce" in k)
+    require(k1 >= 0.9 and abs(red - k1) <= 0.02
+            and not [k for k in kernels if "fix_z_plane" in k],
+            f"{tag}: profiled launches a step {kernels}")
+    per_step = sum(v[1] for v in kernels.values()) / k1
+    print(f"{tag} kernel launches a step {per_step:.3f} (the collide-stream "
+          f"kernel and its velsum reduction once each, the rest once a "
+          f"chunk; the profiler saw {k1:.3f} collide-stream launches a "
+          "step)", flush=True)
+    return per_step
 
 
 def force_path(device):
@@ -1037,15 +1113,17 @@ def plain_steps(tr, n):
 
 
 def compare_transport(label, make, steps, device, want_scalar, want_flow=None,
-                      warm=0, need_fix=False):
+                      warm=0, need_z=False):
     """Kernel route against its plain versions on one transport: `make`
     builds it twice; one runs `steps` steps through run() (the kernels),
     the other through plain_steps. f and g must be bit-equal and the
     record series agree to 1e-12. warm: steps the first takes before
     the comparison (kernels), its state then copied into the second, so
-    the compared steps start from a developed flow. Each of the flow's
-    z-plane boundaries must launch its fixup every step; need_fix: the
-    case must have one. Returns {"g", "f", "series"} max abs errors."""
+    the compared steps start from a developed flow. The flow's
+    collide-stream kernel must launch once a step, its z-plane boundaries
+    in the same launch (no fixup launch); need_z: the case must have one.
+    The scalar kernel launches over the case's cell list where it has one
+    (sc.cells). Returns {"g", "f", "series"} max abs errors."""
     import torch
 
     from lbm_tpu_torch.kernels import collide_stream as K
@@ -1072,11 +1150,11 @@ def compare_transport(label, make, steps, device, want_scalar, want_flow=None,
     require(counts.get(f"lbm_scalar_stream[{want_scalar}]") == steps,
             f"{label}: scalar launches {counts}")
     if want_flow is not None:
-        n_fix = sum(bc.window is not None for bc in a.cc.z_bcs)
+        n_z = sum(bc.window is not None for bc in a.cc.z_bcs)
         require(counts.get(f"lbm_collide_stream[{want_flow}]") == steps
-                and counts.get(f"lbm_fix_z_plane[{want_flow}]", 0)
-                == n_fix * steps and (n_fix > 0 or not need_fix),
-                f"{label}: flow launches {counts} ({n_fix} z planes)")
+                and not [k for k in counts if "fix_z_plane" in k]
+                and (n_z > 0 or not need_z),
+                f"{label}: flow launches {counts} ({n_z} z planes)")
     out = {"g": check_close(f"g after {steps} steps, {label}", a.g, b.g,
                             3e-6, 1e-7), "f": 0.0}
     if hasattr(a, "cc"):
@@ -1093,7 +1171,11 @@ def compare_transport(label, make, steps, device, want_scalar, want_flow=None,
           + (f" (from step {warm})" if warm else "")
           + f" max abs err g {out['g']:.3e}, "
           f"f {out['f']:.3e}, record series {out['series']:.3e} "
-          f"({len(rec)} boundaries); launches {counts}; max|c| "
+          f"({len(rec)} boundaries); scalar launch over "
+          + ("every cell" if a.sc.cells is None else
+             f"{a.sc.cells.numel()} listed cells ({int(a.sc.fluid.sum())} "
+             "fluid)")
+          + f"; launches {counts}; max|c| "
           f"{float(c.abs().max()):.4g}", flush=True)
     del a, b, c
     free_device()
@@ -1158,7 +1240,7 @@ def scalar_comparisons(full, device):
         "K8 coronary (64,48,96) r=4 pulsatile [4,40], bolus gate 50",
         lambda: CoupledTransport(puls, D=0.02, device=device,
                                  inlet_c=gate(50)),
-        200, device, "live", "bgk", need_fix=True))
+        200, device, "live", "bgk", need_z=True))
     thermal = (
         ("heated_cavity_3d n=32", tcases.heated_cavity_3d(n=32), True),
         ("rayleigh_benard_3d 64x64x34", tcases.rayleigh_benard_3d(), True),
@@ -1176,8 +1258,8 @@ def scalar_comparisons(full, device):
             note("live+force+dirichlet", e)
             note(f"{coll}+field", e)
 
-    # the force field with z-plane boundaries (the fixup kernel's field
-    # instances) and with moving walls: a buoyant scalar in the small
+    # the force field with z-plane boundaries (the field instances of the
+    # collide-stream kernel with z descriptors) and with moving walls: a buoyant scalar in the small
     # pulsatile tree, then the same tree with the walls of its x < 32 half
     # sliding along z
     rng = np.random.default_rng(0)
@@ -1197,7 +1279,7 @@ def scalar_comparisons(full, device):
                     sp, D=0.02, buoyancy=(0.0, 1e-4, 2e-4), c_ref=0.5,
                     c0=c0_small, inlet_c=gate(50), device=device),
                 200, device, "live+force", f"{coll}+field{sfx}",
-                need_fix=True)
+                need_z=True)
             note("live+force", e)
             note(f"{coll}+field{sfx}", e)
     del c0_small
@@ -1221,7 +1303,7 @@ def scalar_comparisons(full, device):
         "K8 coronary (291,291,372) r=12 pulsatile [40,2000], bolus gate",
         lambda: CoupledTransport(full, D=0.02, c0=c0, inlet_c=gate(500),
                                  device=device),
-        2, device, "live", "bgk", warm=200, need_fix=True)
+        2, device, "live", "bgk", warm=200, need_z=True)
     note("live", e)
     at_full["coupled washout"] = max(e["g"], e["f"], e["series"])
     del c0
@@ -1239,32 +1321,63 @@ def scalar_comparisons(full, device):
     return errs, at_full, u_full
 
 
-def time_scalar(label, tr, device, iters_k, iters_p):
+def time_scalar(label, tr, device, iters_k, iters_p, record=False):
     """One scalar launch of a transport's instance against its plain
     version, in turns: {"ms", "plain_ms", "bound_ms", "instance"}; with a
-    flow state (coupled, thermal) the live instance reads tr.f."""
+    flow state (coupled, thermal) the live instance reads tr.f. record:
+    also the launch with every boundary's record row (the record kernel
+    after the step) in turns with the launch without, their difference
+    the record's time ("record_ms"), its bound ("record_bound_ms": each
+    footprint cell's plane value and lateral index read once, a double
+    written a boundary) and its plain version's time (plane_means)."""
+    import torch
+
+    from lbm_tpu_torch.engine.scalar import plane_means
     from lbm_tpu_torch.kernels import scalar_stream as S
 
     live = hasattr(tr, "cc")
     f = tr.f if live else None
     state = [tr.g, tr._g_spare]
+    n_bc = len(tr.sc.bcs)
+    series = torch.zeros((1, n_bc), dtype=torch.float64, device=device)
 
-    def kernel():
-        S.scalar_stream(state[0], state[1], tr.sc, 0, f=f)
-        state.reverse()
+    def kernel(rows=None):
+        def go():
+            S.scalar_stream(state[0], state[1], tr.sc, 0, f=f, series=rows)
+            state.reverse()
+        return go
 
     def plain():
         S.scalar_stream_plain(state[0], tr.sc, 0, f=f)
 
     inst = S.instance(tr.sc, live)
     ms, plain_ms = in_turns(f"lbm_scalar_stream [{inst}] {label}", plain,
-                            kernel, iters_p, iters_k)
+                            kernel(), iters_p, iters_k)
     out = {"ms": ms, "plain_ms": plain_ms, "instance": inst,
            "bound_ms": bound_ms(scalar_bytes(tr.sc, live)),
-           "fluid_cells": int(tr.sc.fluid.sum())}
+           "fluid_cells": int(tr.sc.fluid.sum()),
+           "listed_cells": (None if tr.sc.cells is None
+                            else tr.sc.cells.numel())}
     print(f"[3] bound of lbm_scalar_stream [{inst}] {label}: "
-          f"{out['bound_ms']:.6f} ms ({out['fluid_cells']} fluid cells)",
+          f"{out['bound_ms']:.6f} ms ({out['fluid_cells']} fluid cells, "
+          f"launched over {out['listed_cells'] or 'every'} cells)",
           flush=True)
+    if record:
+        with_rec, without = in_turns(
+            f"lbm_scalar_stream [{inst}] {label}, without / with the "
+            f"record of its {n_bc} boundaries", kernel(), kernel(series),
+            iters_k, iters_k, names="without/with")
+        c = state[0].sum(0)
+        out["record_ms"] = with_rec - without
+        out["record_plain_ms"] = time_ms(lambda: plane_means(c, tr.sc.bcs),
+                                         20)
+        n_foot = int(tr.sc.foot.numel())
+        out["record_bound_ms"] = bound_ms(n_foot * (4 + 4) + 8 * n_bc)
+        out["footprint_cells"] = n_foot
+        print(f"[3] the record of {label}: {out['record_ms']:.5f} ms a step "
+              f"beyond the launch without it ({n_foot} footprint cells, "
+              f"bound {out['record_bound_ms']:.7f} ms; plain plane_means "
+              f"{out['record_plain_ms']:.4f} ms)", flush=True)
     return out
 
 
@@ -1300,8 +1413,9 @@ def time_field(bt, device, iters_k, iters_p, label):
 
 
 def scalar_timings(full, u_full, device):
-    """K7 and K8 a launch at the full coronary over the live list (K7 on
-    u_full, the tree's own flow field), and K7 (on the lid cavity's
+    """K7 and K8 a launch at the full coronary over the scalar's cell list
+    (K7 on u_full, the tree's own flow field, with its record's time),
+    and K7 (on the lid cavity's
     500-step flow), K8 and K1e (BGK and TRT) at 256^3, each in turns
     with its plain version."""
     import dataclasses
@@ -1317,12 +1431,12 @@ def scalar_timings(full, u_full, device):
     out = {}
     tr = ScalarTransport(full, u_full, D=0.02, inlet_c={0: 1.0},
                          device=device)
-    out["k7_coronary"] = time_scalar("coronary full, live blocks", tr, device,
-                                     1000, 3)
+    out["k7_coronary"] = time_scalar("coronary full, cell list", tr, device,
+                                     1000, 3, record=True)
     del tr
     free_device()
     tr = CoupledTransport(full, D=0.02, inlet_c={0: 1.0}, device=device)
-    out["k8_coronary"] = time_scalar("coronary full, live blocks", tr, device,
+    out["k8_coronary"] = time_scalar("coronary full, cell list", tr, device,
                                      1000, 3)
     del tr
     free_device()
@@ -1421,7 +1535,11 @@ def check_washout(tag, tr, series, gate):
 def washout_path(device):
     """coronary 291x291x372 r=12 (steady): 2000 flow steps, then the
     frozen-field transport, D=0.02, a 500-step bolus at boundary 0, 4000
-    steps, every boundary recorded. Returns the launch counts."""
+    steps, every boundary recorded (K7 over the cell list and the record
+    kernel: at most two launches a transport step). Returns (the launch
+    counts, {"ms", "launches_per_step", "device_ms", "busy",
+    "record_ms"}, the record kernel's device ms a launch by the profiler,
+    None where it saw none)."""
     import torch
 
     from lbm_tpu_torch.cases import get_case
@@ -1465,17 +1583,60 @@ def washout_path(device):
           f"2 x {tr.g.numel() * 4 / 1e9:.2f} GB; peak device memory "
           f"{peak:.2f} GiB; launches {counts}", flush=True)
     check_washout(tag, tr, series, 500)
+    ms2 = timed_again(tag, lambda: tr.run(2000, record=rec), 2000)
     by_name, busy = profile_steps(lambda: tr.run(200, record=rec), 200)
     print_profile(tag, by_name, busy, ms)
     del tr
     free_device()
-    return counts
+    return counts, dict(path_profile(tag, by_name, ms, 2), ms_again=ms2)
+
+
+def timed_again(tag, run, steps) -> float:
+    """ms a step of a second timed run of a path (its host clock spreads
+    from run to run with the same kernels)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    print(f"{tag} a second run of {steps} steps: {ms:.4f} ms/step (host "
+          "clock, synchronized)", flush=True)
+    return ms
+
+
+def path_profile(tag, by_name, ms, at_most):
+    """{"ms", "launches_per_step", "device_ms", "busy", "record_ms"} of a
+    transport path from its profile_steps table: the kernel launches a
+    step, required to be at most `at_most` (the once-a-chunk launches of
+    the series read aside), the device ms a step and its share of the
+    untraced step, and the record kernel's device ms a launch."""
+    kernels = {k: v for k, v in by_name.items() if "kernel" in k.lower()}
+    # a step launches the scalar kernel once; the profiler's window can
+    # miss a launch at its edges, so count per scalar launch
+    unit = sum(v[1] for k, v in kernels.items()
+               if "scalar_stream_kernel" in k)
+    per_step = sum(v[1] for v in kernels.values()) / unit if unit else None
+    require(per_step is None or per_step <= at_most + 0.05,
+            f"{tag}: {per_step} kernel launches a step, more than "
+            f"{at_most}: {kernels}")
+    dev_ms = sum(v[0] for v in by_name.values())
+    rec = [v[0] / v[1] for k, v in kernels.items()
+           if "scalar_record_kernel" in k]
+    print(f"{tag} kernel launches a transport step {per_step}; record "
+          f"kernel {rec[0] if rec else None} ms of device time a launch",
+          flush=True)
+    return {"ms": ms, "launches_per_step": per_step, "device_ms": dev_ms,
+            "busy": dev_ms / ms, "record_ms": rec[0] if rec else None}
 
 
 def coupled_path(full, device):
     """The pulsatile full coronary through CoupledTransport on the kernel
-    route, 2000 steps with a 500-step bolus, every boundary recorded.
-    Returns the launch counts."""
+    route, 2000 steps with a 500-step bolus, every boundary recorded (K1
+    with its z planes, its velsum reduction, K8 over the cell list and
+    the record: at most four launches a step). Returns (the launch
+    counts, path_profile's numbers)."""
     import torch
 
     from lbm_tpu_torch.engine.scalar import CoupledTransport
@@ -1498,7 +1659,7 @@ def coupled_path(full, device):
     peak = torch.cuda.max_memory_allocated(device) / 2**30
     require(counts.get("lbm_scalar_stream[live]") == 2000
             and counts.get("lbm_collide_stream[bgk]") == 2000
-            and counts.get("lbm_fix_z_plane[bgk]") == 6000,
+            and not [k for k in counts if "fix_z_plane" in k],
             f"{tag}: launches {counts}")
     rho, u = tr.macro()
     require(bool(torch.isfinite(rho).all() and torch.isfinite(u).all()),
@@ -1510,11 +1671,12 @@ def coupled_path(full, device):
           f"{counts}", flush=True)
     del rho, u
     check_washout(tag, tr, series, 500)
+    ms2 = timed_again(tag, lambda: tr.run(1000, record=rec), 1000)
     by_name, busy = profile_steps(lambda: tr.run(200, record=rec), 200)
     print_profile(tag, by_name, busy, ms)
     del tr
     free_device()
-    return counts
+    return counts, dict(path_profile(tag, by_name, ms, 4), ms_again=ms2)
 
 
 def thermal_path(device):
@@ -1956,8 +2118,8 @@ def fuse2_path(device, lid1):
 
 def bf16_cases():
     """Phase 3d's bf16 comparisons (label, case, options, bit-equal to the
-    plain version?): the bf16 collide-stream branches and the bf16
-    z-plane fixup on the pulsatile small coronary. The closures
+    plain version?): the bf16 collide-stream branches, and its bf16 z
+    planes on the pulsatile small coronary. The closures
     (Smagorinsky, Carreau) compute transcendentals that round differently
     on the card in fp32, so a narrowing may differ by a bf16 ulp: they are
     held at BF16_REL of max |f|."""
@@ -1979,19 +2141,20 @@ def bf16_cases():
          dict(n=32, nz=32, collision="trt"), True),
         ("pipe n=36 staircase bgk+force", "pipe", dict(n=36, curved=False),
          True),
-        ("coronary (64,48,96) r=4 pulsatile, bf16 z fixup", "coronary",
+        ("coronary (64,48,96) r=4 pulsatile, bf16 z planes", "coronary",
          dict(shape=[64, 48, 96], radius=4, pulsatile=[4, 40]), True),
     ]
 
 
 def compare_bf16(label, spec, steps, device, exact):
     """A bf16 instance against its plain version on bf16 state: the whole
-    step (K1a, then the bf16 z-plane fixups) for `steps` steps, then K1a
-    alone, each fixup alone and K3 (with the case's force shift) on the
-    result. exact: f bit for bit; else within BF16_REL of max |f|. K3
-    bit for bit; velsums at 1e-5 relative. Returns {"f", "k1a", "z",
-    "k3", "n_diff", "instance"} (max abs errors; values of f that differ
-    after `steps` steps)."""
+    step (one K1 launch, its bf16 z planes included) for `steps` steps,
+    then K1 alone (against step_plain) and K3 (with the case's force
+    shift) on the result. exact: f bit for bit; else within BF16_REL of
+    max |f|. K3 bit for bit; velsums at 1e-5 relative. Returns {"f",
+    "k1a", "z", "k3", "n_diff", "instance"} (max abs errors, "z" K1's on
+    a case with z planes; values of f that differ after `steps`
+    steps)."""
     import torch
 
     from lbm_tpu_torch.engine.compile import compile_case
@@ -2024,19 +2187,11 @@ def compare_bf16(label, spec, steps, device, exact):
     require(vs_rel <= 1e-5, f"bf16 step velsum {label}: rel {vs_rel:.3e}")
     t = steps
     s = torch.zeros(1, dtype=torch.float64, device=device)
-    out_p, v_p = K.collide_stream_plain(fk, cc, t)
+    out_p, v_p = K.step_plain(fk, cc, t)
     e_k1 = err(K.collide_stream(fk, buf, cc, s, 0, t), out_p, "K1a alone")
     require(abs(float(s[0] - v_p)) <= 1e-5 * abs(float(v_p)),
             f"bf16 K1a velsum {label}")
-    e_z = 0.0
-    for bc in cc.z_bcs:
-        zk, zp = out_p.clone(), out_p.clone()
-        s.zero_()
-        K.fix_z_plane(fk, zk, cc, bc, s, 0, t)
-        d_p = K.fix_z_plane_plain(fk, zp, cc, bc, t)
-        e_z = max(e_z, err(zk, zp, f"fixup z={bc.consumer_coord}"))
-        require(abs(float(s[0] - d_p)) <= 1e-5 * max(abs(float(d_p)), 1e-30)
-                + 1e-12, f"bf16 fixup velsum {label}")
+    e_z = e_k1 if cc.z_bcs else 0.0
     if cc.live_blocks is not None:
         all_k = K.collide_stream(fk, torch.empty_like(fk).copy_(fk), cc, s,
                                  0, t, all_blocks=True)
@@ -2049,9 +2204,9 @@ def compare_bf16(label, spec, steps, device, exact):
     require(e_m == 0.0, f"bf16 K3 {label}: max abs err {e_m:.3e}")
     print(f"[3d] bf16 [{inst}] {label}: step f max abs err {e_f:.3e} "
           f"({n_diff} of {fk.numel()} values differ) after {steps} steps, "
-          f"velsum max rel err {vs_rel:.3e}; K1a alone {e_k1:.3e}; "
-          f"lbm_fix_z_plane {e_z:.3e} ({len(cc.z_bcs)} z planes); K3 "
-          f"{e_m:.3e}", flush=True)
+          f"velsum max rel err {vs_rel:.3e}; K1a alone {e_k1:.3e} "
+          f"({len(cc.z_bcs)} z planes in its launch); K3 {e_m:.3e}",
+          flush=True)
     del fk, buf, fp, out_p
     free_device()
     return {"f": e_f, "k1a": e_k1, "z": e_z, "k3": e_m, "n_diff": n_diff,
@@ -2419,11 +2574,10 @@ def halo_cases():
 
 
 def compare_halo(label, spec, axis, world, steps, device, exact):
-    """K1d and its z fixup on `world` shards held in one process for
-    `steps` steps from the initial state: each shard's step against the
-    plain halo step, and the stitched shards against the whole-box kernel
-    step (K1a and its fixups); the shards' velsums against the whole
-    box's. exact: both bit for bit (else rtol 3e-6, atol 1e-7). Returns
+    """K1d (its z planes in the launch) on `world` shards held in one
+    process for `steps` steps from the initial state: each shard's step
+    against the plain halo step, and the stitched shards against the
+    whole-box kernel step; the shards' velsums against the whole box's. exact: both bit for bit (else rtol 3e-6, atol 1e-7). Returns
     the max abs error of the two comparisons."""
     import torch
 
@@ -2458,8 +2612,7 @@ def compare_halo(label, spec, axis, world, steps, device, exact):
     n_z = sum(bc.window is not None for c in ccs for bc in c.z_bcs)
     counts = dict(K.launches)
     require(counts.get(f"lbm_collide_stream[{inst}+halo]") == steps * world
-            and counts.get(f"lbm_fix_z_plane[{inst}+halo]", 0)
-            == steps * n_z,
+            and not [k for k in counts if "fix_z_plane" in k],
             f"K1d {label}, {world} shards: launches {counts}")
     tag = f"K1d {label}, {world} shards of {tuple(ccs[0].shape)}"
     e_plain = max(check_close(f"{tag}: shard {r} against its plain version",
@@ -2489,10 +2642,14 @@ def time_halo(spec, axis, world, device, label):
     """K1d on the rank with the most live blocks of `world` shards of spec:
     per launch by CUDA events in turns against its plain version and
     against K1a on the same local shape and live list (the whole-box
-    kernel, wrapping where K1d reads the planes), and the halo z fixup per
-    launch against its plain version. Bounds: the local step's bytes
+    kernel, wrapping where K1d reads the planes), and, where the shard
+    holds z-plane windows, by the profiler's device time with its z
+    planes against without them (what the z planes cost in the launch,
+    beside their plain fixups). Bounds: the local step's bytes
     (step_bytes) plus the two planes and their labels read, over 3.35
     TB/s."""
+    import dataclasses
+
     import torch
 
     from lbm_tpu_torch.engine.compile import compile_shard
@@ -2519,7 +2676,7 @@ def time_halo(spec, axis, world, device, label):
         state.reverse()
 
     def plain():
-        K.collide_stream_plain(state[0], cc, 0, halo=halo)
+        K.step_plain(state[0], cc, 0, halo=halo)
 
     def device_ms(fn, n, kernel):
         # device time a call of the kernels named `kernel`, by the profiler
@@ -2537,49 +2694,39 @@ def time_halo(spec, axis, world, device, label):
                                 k1d, iters, iters, names="K1a/K1d")
     out["device_ms"] = device_ms(k1d, 200, "collide_stream_kernel")
     out["k1a_device_ms"] = device_ms(k1a, 200, "collide_stream_kernel")
-    out["bound_ms"] = bound_ms(step_bytes(cc, cc.fluid, cc.kernel_bcs)
+    out["bound_ms"] = bound_ms(step_bytes(cc, cc.fluid, cc.step_bcs)
                                + planes)
-    kz, pz, bz = [], [], []
-    fz = [state[0], state[1].clone()]
-    for bc in cc.z_bcs:
-        if bc.window is None:
-            continue
-        x0, x1, y0, y1 = bc.window
-        k_ms, p_ms = in_turns(
-            f"lbm_fix_z_plane [bgk+halo] z={bc.consumer_coord} window "
-            f"{x1 - x0}x{y1 - y0}, {tag}",
-            lambda bc=bc: K.fix_z_plane_plain(fz[0], fz[1], cc, bc, 0,
-                                              halo=halo),
-            lambda bc=bc: K.fix_z_plane(fz[0], fz[1], cc, bc, series, 0, 0,
-                                        halo=halo),
-            20, 2000)
-        sel = torch.zeros_like(cc.fluid)
-        sel[x0:x1, y0:y1, bc.consumer_coord] = \
-            cc.fluid[x0:x1, y0:y1, bc.consumer_coord]
-        # the launch is a few µs of device time behind more of host time:
-        # the profiler's device time, the events' where it sees none
-        dev = device_ms(
-            lambda bc=bc: K.fix_z_plane(fz[0], fz[1], cc, bc, series, 0, 0,
-                                        halo=halo), 200, "fix_z_plane_kernel")
-        out["fix_ms_by"] = ("torch.profiler device time" if dev
-                            else "cuda events")
-        kz.append(dev or k_ms)
-        pz.append(p_ms)
-        bz.append(bound_ms(step_bytes(cc, sel, [bc])))
-    if kz:
-        out["fix_ms"], out["fix_plain_ms"] = sum(kz) / len(kz), \
-            sum(pz) / len(pz)
-        out["fix_bound_ms"] = sum(bz) / len(bz)
+    windows = [bc for bc in cc.z_bcs if bc.window is not None]
+    if windows:
+        no_z = dataclasses.replace(cc, bcs=cc.kernel_bcs)
+
+        def k1d_no_z():
+            K.collide_stream(state[0], state[1], no_z, series, 0, 0,
+                             halo=halo)
+            state.reverse()
+
+        out["no_z_device_ms"] = device_ms(k1d_no_z, 200,
+                                          "collide_stream_kernel")
+        out["z_ms"] = out["device_ms"] - out["no_z_device_ms"]
+        f_out = state[1].clone()
+        out["z_plain_ms"] = time_ms(lambda: [K.fix_z_plane_plain(
+            state[0], f_out, cc, bc, 0, halo=halo) for bc in windows], 5)
+        out["z_bound_ms"] = out["bound_ms"] - bound_ms(
+            step_bytes(cc, cc.fluid, cc.kernel_bcs) + planes)
+        out["z_windows"] = len(windows)
+        del f_out
     print(f"[3e] K1d {tag}: {out['ms']:.4f} ms a launch by CUDA events "
           f"(K1a on the same shard {out['k1a_ms']:.4f}, plain "
           f"{out['plain_ms']:.4f}); device time by the profiler "
           f"{out['device_ms']:.4f} (K1a {out['k1a_device_ms']:.4f}); bound "
           f"{out['bound_ms']:.6f} ms ({int(cc.fluid.sum())} fluid cells, "
           f"{planes} bytes of planes)"
-          + (f"; halo z fixup {out['fix_ms']:.5f} ms of device time a "
-             f"launch (plain {out['fix_plain_ms']:.4f}, bound "
-             f"{out['fix_bound_ms']:.6f})" if kz else ""), flush=True)
-    del state, fz, halo
+          + (f"; its {out['z_windows']} z windows {out['z_ms']:.5f} ms of "
+             f"device time in the launch (without them "
+             f"{out['no_z_device_ms']:.4f}; plain fixups "
+             f"{out['z_plain_ms']:.4f}, bound {out['z_bound_ms']:.7f})"
+             if windows else ""), flush=True)
+    del state, halo
     free_device()
     return out
 
@@ -2657,9 +2804,10 @@ def sharded_path(label, case, opts, world, steps, time_save, ref_f, ref_vs,
     (ref_f: its f_standard() as a NumPy file, ref_vs its velsum series,
     ref_steps its step count): f_standard() bit for bit off the DEAD
     cells and zeros on them, the velsum series within 1e-5 relative, the
-    same stop step; every rank launched K1d once a step and the halo z
-    fixup once a step per z window it holds. device_type: the gloo ranks'
-    ('cpu' rehearses the phase without a card). Returns the numbers."""
+    same stop step; every rank launched K1d once a step, its z windows
+    in the same launch, and no z-plane fixup. device_type: the gloo
+    ranks' ('cpu' rehearses the phase without a card). Returns the
+    numbers."""
     import numpy as np
 
     from lbm_tpu_torch.cases import get_case
@@ -2694,16 +2842,14 @@ def sharded_path(label, case, opts, world, steps, time_save, ref_f, ref_vs,
     for r in ranks:
         c = r["counts"]
         require(c.get("lbm_collide_stream[bgk+halo]") == steps
-                and c.get("lbm_fix_z_plane[bgk+halo]", 0)
-                == steps * r["z_windows"],
+                and not [k for k in c if "fix_z_plane" in k],
                 f"{tag}: rank {r['rank']} launched {c} ({r['z_windows']} z "
                 f"windows, {steps} steps)")
     out = {"ms": max(r["ms"] for r in ranks),
            "exchange_ms": max(r["exchange_ms"] for r in ranks),
            "launches": sum(r["counts"].get("lbm_collide_stream[bgk+halo]",
                                            0) for r in ranks),
-           "fix_launches": sum(r["counts"].get("lbm_fix_z_plane[bgk+halo]",
-                                               0) for r in ranks),
+           "z_windows": sum(r["z_windows"] for r in ranks),
            "velsum_rel_err": v_rel, "wall_s": wall_s}
     print(f"{tag} ({ref_steps} steps, chunks of {time_save}), {where}: "
           "ms/step per rank "
@@ -2847,9 +2993,11 @@ def main() -> int:
           f"{bplib.build_seconds:.2f} s, side by side: five nvcc processes, "
           f"the slowest {max(L.build_seconds for L in (lib, slib, plib, blib, bplib)):.2f} s",
           flush=True)
-    smem = {}
-    ptxas = ptxas_report(lib.log + "\n" + slib.log + "\n" + plib.log, smem)
-    ptxas_bf16 = ptxas_report(blib.log + "\n" + bplib.log, smem, "bf16")
+    smem, stack = {}, {}
+    ptxas = ptxas_report(lib.log + "\n" + slib.log + "\n" + plib.log, smem,
+                         stack=stack)
+    ptxas_bf16 = ptxas_report(blib.log + "\n" + bplib.log, smem, "bf16",
+                              stack=stack)
     pair_occ = {**pair_blocks_per_sm(plib.lib, ""),
                 **pair_blocks_per_sm(bplib.lib, "bf16")}
     for name, (regs, spill_st, spill_ld) in sorted(ptxas.items()) + sorted(
@@ -2864,10 +3012,10 @@ def main() -> int:
     n_bf16 = {k: sum(n.startswith(k + "[") for n in ptxas_bf16)
               for k in ("collide_stream_kernel", "fix_z_plane_kernel",
                         "collide_stream2_kernel", "macro_kernel")}
-    require(n_bf16 == {"collide_stream_kernel": 14, "fix_z_plane_kernel": 14,
+    require(n_bf16 == {"collide_stream_kernel": 28, "fix_z_plane_kernel": 0,
                        "collide_stream2_kernel": 14, "macro_kernel": 2}
             and "extract_rows_kernel[bf16]" in ptxas_bf16,
-            f"ptxas reported bf16 instances {n_bf16} (want 14, 14, 14, 2) "
+            f"ptxas reported bf16 instances {n_bf16} (want 28, none, 14, 2) "
             "and K4 bf16 "
             f"{'extract_rows_kernel[bf16]' in ptxas_bf16}")
     k2_ptxas = {k: v for k, v in ptxas.items()
@@ -2877,14 +3025,33 @@ def main() -> int:
         f"ptxas reported {len(k2_ptxas)} K2 instances (want 14) and no K4"
         if len(k2_ptxas) != 14 else "ptxas reported no K4 kernel")
     bgk = ptxas.get("collide_stream_kernel[bgk]")
-    require(bgk is not None, "ptxas reported no BGK collide-stream instance")
-    # the lid main path must not pay for the branches it never takes
-    require(bgk[0] <= 80 and bgk[1] + bgk[2] == 0,
-            f"the BGK collide-stream instance: {bgk[0]} registers, {bgk[1]} "
-            f"+ {bgk[2]} bytes spilled, not at most 80 and 0")
     bgk16 = ptxas_bf16.get("collide_stream_kernel[bgk+bf16]")
-    print(f"[2] the BGK collide-stream instance: fp32 {bgk[0]} registers, "
-          f"bf16 {bgk16[0]} registers, {bgk16[1] + bgk16[2]} bytes spilled",
+    require(bgk is not None and bgk16 is not None,
+            "ptxas reported no BGK collide-stream instance")
+    k1_blocks = {k: blocks_per_sm(v[0]) for k, v in
+                 list(ptxas.items()) + list(ptxas_bf16.items())
+                 if k.startswith("collide_stream_kernel[")}
+    # the lid main path must not pay for the branches it never takes, nor
+    # the vessel paths for their z planes: at most 80 registers, no spill,
+    # no stack frame (the z descriptors' loop indexes a __grid_constant__
+    # parameter, so nothing is copied) and three blocks an SM, in both
+    # storage types, with and without the z planes' code
+    for name in ("collide_stream_kernel[bgk]", "collide_stream_kernel[bgk+z]",
+                 "collide_stream_kernel[bgk+bf16]",
+                 "collide_stream_kernel[bgk+z+bf16]"):
+        regs, st, ld = {**ptxas, **ptxas_bf16}[name]
+        require(regs <= 80 and st + ld == 0 and stack.get(name, 0) == 0
+                and k1_blocks[name] >= 3,
+                f"{name}: {regs} registers, {st} + {ld} bytes spilled, "
+                f"{stack.get(name)} bytes of stack frame, {k1_blocks[name]} "
+                "blocks an SM: not at most 80, 0, 0 and at least 3")
+    print("[2] the BGK collide-stream instance (registers, spill bytes, "
+          "stack frame bytes, blocks of 256 threads an SM): " + "; ".join(
+              f"{n} {v[0]}, {v[1] + v[2]}, {stack.get(n)}, {k1_blocks[n]}"
+              for n, v in sorted({**ptxas, **ptxas_bf16}.items())
+              if n.startswith(("collide_stream_kernel[bgk]",
+                               "collide_stream_kernel[bgk+z",
+                               "collide_stream_kernel[bgk+bf16]"))),
           flush=True)
     # the sharded step (K1d): one unit per shard axis, side by side
     hlibs = [_build.load_halo_library(a) for a in (0, 1)]
@@ -2902,30 +3069,21 @@ def main() -> int:
               f"stores, {spill_ld} bytes spill loads", flush=True)
     n_halo = {k: sum(n.startswith(k + "[") for n in ptxas_halo)
               for k in ("collide_stream_kernel", "fix_z_plane_kernel")}
-    require(n_halo == {"collide_stream_kernel": 28, "fix_z_plane_kernel": 28},
-            f"ptxas reported halo instances {n_halo} (want 28 and 28)")
-    # the unsharded instances beside 0245b70's build: K1 now loads and
-    # stores fluid cells only, so its registers move, but no instance may
-    # spill more than it did
+    require(n_halo == {"collide_stream_kernel": 56, "fix_z_plane_kernel": 0},
+            f"ptxas reported halo instances {n_halo} (want 56 and none)")
+    # the unsharded instances against the table of this build's: any
+    # change to their registers or spills shows
     unsharded = {k: v for k, v in ptxas.items()
                  if k.startswith(("collide_stream_kernel[",
                                   "fix_z_plane_kernel["))}
-    # (but the BGK force-field instances, held to three blocks an SM at 80
-    # registers: what the bound buys, with their spill printed)
-    worse = {k: (v, BASE_PTXAS.get(k)) for k, v in unsharded.items()
-             if k not in BASE_PTXAS
-             or (v[1] + v[2] > BASE_PTXAS[k][1] + BASE_PTXAS[k][2]
-                 and not (k.startswith("collide_stream_kernel[bgk+field")
-                          and v[0] <= 80))}
-    print("[2d] unsharded fp32 instances, registers and spill bytes (this "
-          "build | 0245b70's build): " + "; ".join(
-              f"{k} {v[0]}+{v[1] + v[2]} | {BASE_PTXAS[k][0]}+"
-              f"{BASE_PTXAS[k][1] + BASE_PTXAS[k][2]}"
-              for k, v in sorted(unsharded.items()) if k in BASE_PTXAS),
-          flush=True)
-    require(len(unsharded) == 36 and not worse,
-            f"unsharded instances spilling more than 0245b70's build: "
-            f"{worse}")
+    moved = {k: (v, BASE_PTXAS.get(k)) for k, v in unsharded.items()
+             if BASE_PTXAS.get(k) != v}
+    print("[2d] unsharded fp32 instances, registers + spill bytes, stack "
+          "frame bytes and blocks an SM: " + "; ".join(
+              f"{k} {v[0]}+{v[1] + v[2]}, {stack.get(k)}, {k1_blocks[k]}"
+              for k, v in sorted(unsharded.items())), flush=True)
+    require(len(unsharded) == 36 and not moved,
+            f"unsharded instances not as BASE_PTXAS has them: {moved}")
 
     # -- phase 3: kernels vs plain versions --------------------------------
     from lbm_tpu_torch.cases import get_case
@@ -3237,18 +3395,18 @@ def main() -> int:
 
     # -- phase 5: the vessel path ------------------------------------------
     u_in = 0.1745 / 2.74909090909091
-    counts, fix_dev = vessel_path(full, device, "[5] vessel path", "bgk",
-                                  tv["live_share"])
+    counts, vp = vessel_path(full, device, "[5] vessel path", "bgk",
+                             tv["live_share"])
 
     # -- phase 6: the blood path -------------------------------------------
-    blood_counts, blood_fix_dev = vessel_path(
+    blood_counts, blood_vp = vessel_path(
         blood, device, "[6] blood path (trt + Carreau blood)", "trt+cy",
         tv["live_share"], closure=True)
     del blood
     free_device()
 
     # -- phase 15b: the bf16 vessel path -------------------------------------
-    bf16_counts, bf16_fix_dev = vessel_path(
+    bf16_counts, bf16_vp = vessel_path(
         full, device, "[15] bf16 vessel path", "bgk+bf16", tv["live_share"],
         store_dtype="bf16")
     free_device()
@@ -3259,8 +3417,8 @@ def main() -> int:
     free_device()
 
     # -- phases 9-11: washout, coupled washout, thermal ---------------------
-    washout_counts = washout_path(device)
-    coupled_counts = coupled_path(full, device)
+    washout_counts, washout_vp = washout_path(device)
+    coupled_counts, coupled_vp = coupled_path(full, device)
     thermal_counts, thermal_trt_counts = thermal_path(device)
     mark("9-11")
 
@@ -3357,7 +3515,10 @@ def main() -> int:
          "lid256_ms_every_cell": t256["full"],
          "lid256_ms_fluid_list": t256["list"],
          "card_copy_ms": copy["ms"], "card_copy_gb_per_s": copy["gb_per_s"],
-         "registers": bgk[0], "spill_bytes": bgk[1] + bgk[2]},
+         "registers": bgk[0], "spill_bytes": bgk[1] + bgk[2],
+         "blocks_per_sm": k1_blocks["collide_stream_kernel[bgk]"],
+         "vessel_path": vp, "blood_path": blood_vp,
+         "coupled_washout_path": coupled_vp},
         {"name": "lbm_collide_stream[trt+cy]", "route": "cuda",
          "source": K1A_SOURCE,
          "replaces": "lbm_tpu/kernels/collide_stream.py:1333 (K1b branches)",
@@ -3381,19 +3542,23 @@ def main() -> int:
          "ms": ft["ms"], "plain_ms": ft["plain_ms"],
          "bound_ms": ft["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
-        {"name": "lbm_fix_z_plane", "route": "cuda", "source": K1A_SOURCE,
+        {"name": "lbm_collide_stream[bgk] z planes (K5+K6)", "route": "cuda",
+         "source": K1A_SOURCE,
          "replaces": "lbm_tpu/kernels/collide_stream.py:2695",
          "also_replaces": "lbm_tpu/kernels/collide_stream.py:2770",
-         "launches": counts["lbm_fix_z_plane[bgk]"],
+         "lives_in": "the z-plane descriptors of lbm_collide_stream "
+                     "(collide_stream.cuh collide_stream_cells): the "
+                     "coronary's three z planes in every K1 launch",
+         "launches": counts["lbm_collide_stream[bgk]"],
          "max_abs_err": max(errs["Kz"], k1b_errs["Kz"]),
-         "ms": fix_dev[0] if fix_dev else tv["fix"],
-         "ms_by": ("torch.profiler device time of fix_z_plane_kernel"
-                   if fix_dev else "cuda events"),
-         "ms_host_enqueue_bound": tv["fix"],
-         "plain_ms": tv["fix_plain"], "bound_ms": tv["fix_bound"],
+         "ms": tv["z_ms"],
+         "ms_by": "cuda events: K1 over the fluid list with its z "
+                  "descriptors minus without them",
+         "plain_ms": tv["z_plain"], "bound_ms": tv["z_bound"],
          "bound_by": "bytes", "library_ms": None,
-         "blood_launches": blood_counts["lbm_fix_z_plane[trt+cy]"],
-         "blood_ms": blood_fix_dev[0] if blood_fix_dev else None},
+         "k1_with_z_ms": tv["k1a_live_again"],
+         "k1_without_z_ms": tv["k1a_no_z"],
+         "blood_launches": blood_counts["lbm_collide_stream[trt+cy]"]},
         {"name": "lbm_macro", "route": "cuda", "source": K1A_SOURCE,
          "replaces": "lbm_tpu/kernels/collide_stream.py:2470",
          "launches": counts["lbm_macro"],
@@ -3419,6 +3584,14 @@ def main() -> int:
          "plain_ms": ts["k7_coronary"]["plain_ms"],
          "bound_ms": ts["k7_coronary"]["bound_ms"], "bound_by": "bytes",
          "library_ms": None, "at_256": ts["k7_256"],
+         "listed_cells": ts["k7_coronary"]["listed_cells"],
+         "fluid_cells": ts["k7_coronary"]["fluid_cells"],
+         "record_ms": ts["k7_coronary"]["record_ms"],
+         "record_device_ms": washout_vp["record_ms"],
+         "record_plain_ms": ts["k7_coronary"]["record_plain_ms"],
+         "record_bound_ms": ts["k7_coronary"]["record_bound_ms"],
+         "footprint_cells": ts["k7_coronary"]["footprint_cells"],
+         "washout_path": washout_vp,
          "registers": {k: v[0] for k, v in ptxas.items()
                        if k.startswith("scalar")},
          "build_s": slib.build_seconds},
@@ -3432,7 +3605,9 @@ def main() -> int:
          "ms": ts["k8_coronary"]["ms"],
          "plain_ms": ts["k8_coronary"]["plain_ms"],
          "bound_ms": ts["k8_coronary"]["bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": None,
+         "listed_cells": ts["k8_coronary"]["listed_cells"],
+         "coupled_washout_path": coupled_vp},
         {"name": "lbm_scalar_stream[live+force+dirichlet]", "route": "cuda",
          "source": K7_SOURCE,
          "replaces": "lbm_tpu/kernels/scalar_stream.py:507 (K8 with the "
@@ -3529,20 +3704,23 @@ def main() -> int:
          "registers": {k: v[0] for k, v in ptxas_bf16.items()},
          "spill_bytes": {k: v[1] + v[2] for k, v in ptxas_bf16.items()},
          "build_s": blib.build_seconds},
-        {"name": "lbm_fix_z_plane[bgk+bf16]", "route": "cuda",
-         "source": K1A_BF16_SOURCE,
+        {"name": "lbm_collide_stream[bgk+bf16] z planes (K5+K6)",
+         "route": "cuda", "source": K1A_BF16_SOURCE,
          "replaces": "lbm_tpu/kernels/collide_stream.py:2695 (its bf16 "
                      "write)",
          "also_replaces": "lbm_tpu/kernels/collide_stream.py:2770 (its bf16 "
                           "read)",
-         "launches": bf16_counts["lbm_fix_z_plane[bgk+bf16]"],
+         "lives_in": "the z-plane descriptors of lbm_collide_stream_bf16",
+         "launches": bf16_counts["lbm_collide_stream[bgk+bf16]"],
          "max_abs_err": bf16_z,
-         "ms": bf16_fix_dev[0] if bf16_fix_dev else tv_bf16["fix"],
-         "ms_by": ("torch.profiler device time of fix_z_plane_kernel"
-                   if bf16_fix_dev else "cuda events"),
-         "ms_host_enqueue_bound": tv_bf16["fix"],
-         "plain_ms": tv_bf16["fix_plain"], "bound_ms": tv_bf16["fix_bound"],
-         "bound_by": "bytes", "library_ms": None},
+         "ms": tv_bf16["z_ms"],
+         "ms_by": "cuda events: K1 bf16 over the fluid list with its z "
+                  "descriptors minus without them",
+         "plain_ms": tv_bf16["z_plain"], "bound_ms": tv_bf16["z_bound"],
+         "bound_by": "bytes", "library_ms": None,
+         "k1_with_z_ms": tv_bf16["k1a_live_again"],
+         "k1_without_z_ms": tv_bf16["k1a_no_z"],
+         "vessel_path": bf16_vp},
         {"name": "lbm_macro[bf16]", "route": "cuda", "source": K1A_BF16_SOURCE,
          "replaces": "lbm_tpu/kernels/collide_stream.py:2470 (its bf16 read)",
          "launches": bf16_counts["lbm_macro[bf16]"], "max_abs_err": bf16_k3,
@@ -3615,16 +3793,20 @@ def main() -> int:
          "registers": {k: v[0] for k, v in ptxas_halo.items()},
          "spill_bytes": {k: v[1] + v[2] for k, v in ptxas_halo.items()},
          "build_s": [h.build_seconds for h in hlibs]},
-        {"name": "lbm_fix_z_plane[bgk+halo]", "route": "cuda",
+        {"name": "lbm_collide_stream[bgk+halo] z planes", "route": "cuda",
          "source": K1D_SOURCE,
          "replaces": "lbm_tpu/parallel/pallas_sharded.py:380 (the sharded "
                      "z fixup: K6's slab with its shard-edge rows patched "
                      "from the planes, K5's splice :452-465)",
-         "launches": sh_cor["fix_launches"],
+         "lives_in": "the z-plane descriptors of lbm_collide_stream_halo",
+         "launches": sh_cor["launches"],
+         "z_windows_over_the_ranks": sh_cor["z_windows"],
          "max_abs_err": max(halo_err.values()),
-         "ms": th_cor["fix_ms"], "ms_by": th_cor["fix_ms_by"],
-         "plain_ms": th_cor["fix_plain_ms"],
-         "bound_ms": th_cor["fix_bound_ms"], "bound_by": "bytes",
+         "ms": th_cor.get("z_ms"),
+         "ms_by": "torch.profiler device time of K1d with its z "
+                  "descriptors minus without them, on the shard timed",
+         "plain_ms": th_cor.get("z_plain_ms"),
+         "bound_ms": th_cor.get("z_bound_ms"), "bound_by": "bytes",
          "library_ms": None},
     ]
     print(f"[done] ms at 64^3: K1a {t64['k1a']:.4f} plain "

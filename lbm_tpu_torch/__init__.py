@@ -9,8 +9,8 @@ jax, so it runs on a machine without JAX. It mirrors lbm_tpu's layout:
   engine    — case specs, compiled cases, the dense step, the runner,
               checkpoints, scalar transport (D3Q7) and Boussinesq
               thermal flow
-  kernels   — the CUDA collide-stream (whole box and shard), z-plane
-              fixup, moments and D3Q7 scalar kernels, their plain
+  kernels   — the CUDA collide-stream (whole box and shard, z planes
+              included), moments and D3Q7 scalar kernels, their plain
               PyTorch versions and the nvcc/ctypes build
   parallel  — the box split over the ranks of a torch.distributed group:
               the mesh, the ring exchange of the shards' edge planes, the

@@ -14,9 +14,10 @@ then moved to the device once:
     (t // series_stride) % T at step t), with D the directions the plane
     prescribes and (A, B) its lateral extent;
   - per z-plane boundary, the static (x0, x1, y0, y1) window around its
-    valid consumer cells (lbm_tpu's `_valid_bbox`): the fixup kernel
-    recomputes the step there after the collide-stream kernel, which
-    takes the x/y boundaries only;
+    valid consumer cells (lbm_tpu's `_valid_bbox`, whose windowed fixup
+    runs after its kernel): the collide-stream kernel applies z planes in
+    its own pass, and the window checks that this is the dense step's
+    order (`check_z_windows`) and bounds the plain fixup's recompute;
   - `live_blocks`: ids of the 256-cell blocks that hold a non-DEAD cell
     (lbm_tpu's `live_tile_ids`), or None when skipping would not pay
     (SKIP_BELOW, measured on the H100): the scalar kernel's launch list;
@@ -63,10 +64,13 @@ from lbm_tpu_torch.geometry.mask import CellType
 _W64 = np.array([1.0 / 3.0] + [1.0 / 18.0] * 6 + [1.0 / 36.0] * 12,
                 dtype=np.float64)
 
-# Most x/y-plane boundaries the collide-stream kernel takes in one launch
-# (a fixed-size array of descriptors passed by value). z-plane boundaries
-# go to the fixup kernel, one launch each, and do not count.
+# Most x/y-plane and z-plane boundaries the collide-stream kernel takes in
+# one launch (kMaxBCs in kernels/csrc/d3q19.cuh and kMaxZBCs in
+# collide_stream.cuh: two fixed-size descriptor arrays passed by value,
+# the z planes' walked by a loop of their own). The fused pair takes x/y
+# planes only, MAX_BCS.
 MAX_BCS = 4
+MAX_Z_BCS = 8
 # Cells per block of the collide-stream and scalar kernels (kBlock in
 # kernels/csrc/d3q19.cuh): the unit of the live-block list.
 BLOCK = 256
@@ -232,15 +236,22 @@ class CompiledCase:
 
     @property
     def kernel_bcs(self) -> list[CompiledBC]:
-        """The x/y-plane boundaries, which the collide-stream kernel
-        applies in its own launch."""
+        """The x/y-plane boundaries (those lbm_tpu's kernel rewrites in
+        its rows, and the fused pair's)."""
         return [bc for bc in self.bcs if bc.axis != 2]
 
     @property
     def z_bcs(self) -> list[CompiledBC]:
-        """The z-plane boundaries, one fixup launch each after the
-        collide-stream kernel, in boundary order."""
+        """The z-plane boundaries, in boundary order."""
         return [bc for bc in self.bcs if bc.axis == 2]
+
+    @property
+    def step_bcs(self) -> list[CompiledBC]:
+        """The boundaries the collide-stream kernel applies, in boundary
+        order: every x/y plane and every z plane with a window (one
+        without has no valid consumer cell and rewrites nothing)."""
+        return [bc for bc in self.bcs
+                if bc.axis != 2 or bc.window is not None]
 
     @functools.cached_property
     def live_tiles(self) -> Optional[torch.Tensor]:
@@ -269,11 +280,12 @@ def check_supported(spec: CaseSpec) -> None:
             _refuse("windkessel outlets (PlaneBC.windkessel)",
                     "Queue 1 item 8")
     n_xy = sum(bc.axis != 2 for bc in spec.boundaries)
-    if n_xy > MAX_BCS:
+    n_z = len(spec.boundaries) - n_xy
+    if n_xy > MAX_BCS or n_z > MAX_Z_BCS:
         raise NotImplementedError(
-            f"{n_xy} NEE boundaries on x/y planes: the collide-stream "
-            f"kernel takes at most {MAX_BCS} (z-plane boundaries do not "
-            "count)")
+            f"{n_xy} NEE boundaries on x/y planes and {n_z} on z planes: "
+            f"the collide-stream kernel takes at most {MAX_BCS} on x/y "
+            f"planes and {MAX_Z_BCS} on z planes")
     for a, n in enumerate(spec.shape):
         if n < 1:  # one cell is a thin periodic slab: the pull wraps
             raise ValueError(f"axis {a} has {n} cells")
@@ -354,12 +366,13 @@ def _consumers_on_z_plane(bc: CompiledBC, z: int, shape) -> np.ndarray:
 
 
 def check_z_windows(bcs: list[CompiledBC], shape) -> None:
-    """The kernel path applies the x/y boundaries inside the
-    collide-stream kernel and then recomputes each z-plane boundary's
-    window from the pre-step state with that boundary alone. That equals
-    the dense step, which applies every boundary in order, only if the
-    window covers the boundary's consumer cells and holds no cell that
-    another boundary rewrites."""
+    """The collide-stream kernel rewrites a cell with its x/y boundaries
+    first and its z-plane boundaries after them, and the plain fixup
+    recomputes each z-plane boundary's window from the pre-step state
+    with that boundary alone. Both equal the dense step, which applies
+    every boundary in order, only if the window covers the boundary's
+    consumer cells and holds no cell that another boundary rewrites
+    (lbm_tpu refuses the same cases)."""
     for k, bc in enumerate(bcs):
         if bc.axis != 2 or bc.window is None:
             continue
@@ -679,4 +692,5 @@ __all__ = ["CompiledBC", "CompiledCase", "ShardCase", "compile_case",
            "fluid_cell_ids", "fuse2_refusal", "kernel_refusal",
            "live_block_ids",
            "live_tile_ids", "mrt_of", "neighbor_wall", "tau_minus_of",
-           "valid_bbox", "BLOCK", "MAX_BCS", "SKIP_BELOW", "TILE"]
+           "valid_bbox", "BLOCK", "MAX_BCS", "MAX_Z_BCS", "SKIP_BELOW",
+           "TILE"]

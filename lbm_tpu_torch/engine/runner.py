@@ -13,8 +13,9 @@ chunked stepping, convergence policy, throughput metering.
   - MLUPS in three site conventions (RunResult).
 
 backend='kernel' (default) steps with the CUDA kernels on a CUDA device
-and their plain versions on the CPU: the collide-stream kernel over the
-case's live blocks, then one fixup launch per z-plane boundary. It
+and their plain versions on the CPU: one collide-stream launch a step
+over the case's fluid cells, its z-plane boundaries included, and the
+reduction of its velsum partials. It
 refuses, with NotImplementedError, the two compositions the kernel lacks
 (compile.kernel_refusal: MRT + force, closure + force) and never moves
 to another backend by itself. backend='dense' runs the dense PyTorch

@@ -290,7 +290,9 @@ class ScalarCase:
     mask: torch.Tensor               # (X, Y, Z) int8 labels
     fluid: torch.Tensor              # (X, Y, Z) bool
     bcs: list[ScalarBC]
-    live_blocks: Optional[torch.Tensor] = None  # (n,) int32 block ids
+    foot: torch.Tensor               # (n,) int32 footprints' lateral ids
+    foot_off: np.ndarray             # (n_bc + 1,) int32 offsets into foot
+    cells: Optional[torch.Tensor] = None   # (n,) int32 launch list
     u: Optional[torch.Tensor] = None       # frozen projected u (3, X, Y, Z)
     comp: Optional[torch.Tensor] = None    # div_fix field (X, Y, Z)
     wall_c: Optional[torch.Tensor] = None  # Dirichlet values, NaN elsewhere
@@ -340,20 +342,51 @@ class ScalarCase:
                            torch.zeros((), device=self.device)).contiguous()
 
 
+def footprint_lists(planes) -> tuple[np.ndarray, np.ndarray]:
+    """(foot, offsets) of the boundaries' (A, B) footprints: foot the
+    ascending flat lateral indices (a * B + b) of each footprint's cells,
+    boundary after boundary, int32; boundary k's at foot[offsets[k] :
+    offsets[k + 1]]. The record sums the plane buffers over these."""
+    lists = [np.flatnonzero(np.asarray(p).reshape(-1)).astype(np.int32)
+             for p in planes]
+    offsets = np.zeros(len(lists) + 1, np.int32)
+    offsets[1:] = np.cumsum([len(a) for a in lists])
+    foot = np.concatenate(lists) if lists else np.zeros(0, np.int32)
+    return foot.astype(np.int32), offsets
+
+
+def scalar_cell_ids(mask: np.ndarray, geo) -> np.ndarray:
+    """int32 ids, ascending, of the cells one scalar step touches: the
+    FLUID cells and every cell under a boundary's footprint on its
+    consumer plane (whose post-stream c the record reads, fluid or not).
+    geo: bc_geometry's rows. The scalar kernel's launch list, a thread a
+    cell (z fastest, as the flow kernel's fluid list)."""
+    mask = np.asarray(mask)
+    touched = mask == CellType.FLUID
+    for _, axis, _, coord, plane in geo:
+        sl = [slice(None)] * 3
+        sl[axis] = coord
+        touched[tuple(sl)] |= plane
+    return np.flatnonzero(touched.reshape(-1)).astype(np.int32)
+
+
 def compile_scalar(spec: CaseSpec, device, D=None, tau_g=None, inlet_c=None,
-                   source: float = 0.0, wall_c=None, mask=None, fluid=None,
-                   live_blocks=None) -> ScalarCase:
+                   source: float = 0.0, wall_c=None, mask=None,
+                   fluid=None) -> ScalarCase:
     """The ScalarCase of a flow case: relaxation constants, boundary
     planes with their prescribed concentrations (inlet_c: {boundary
-    index: float or callable(step)}, the others zero gradient), Dirichlet
-    wall values. mask, fluid, live_blocks: a CompiledCase's tensors to
-    share, else built here."""
+    index: float or callable(step)}, the others zero gradient), their
+    footprint lists, Dirichlet wall values and the launch list
+    (scalar_cell_ids, under the flow's SKIP_BELOW rule of the live
+    blocks; None, every cell, where it would not pay). mask, fluid: a
+    CompiledCase's tensors to share, else built here."""
     device = canonical_device(device)
     tau_g = _tau_g(D, tau_g)
     mask_np = np.asarray(spec.mask)
     inlet_c = dict(inlet_c or {})
+    geo = bc_geometry(spec)
     bcs = []
-    for k, (d, axis, sign, coord, plane) in enumerate(bc_geometry(spec)):
+    for k, (d, axis, sign, coord, plane) in enumerate(geo):
         if not 0 <= coord < spec.shape[axis]:
             raise ValueError(f"boundary {k}: consumer plane {coord} outside "
                              f"axis {axis}")
@@ -366,9 +399,12 @@ def compile_scalar(spec: CaseSpec, device, D=None, tau_g=None, inlet_c=None,
     if mask is None:
         mask = torch.from_numpy(mask_np.astype(np.int8)).to(device)
         fluid = torch.from_numpy(mask_np == CellType.FLUID).to(device)
-        ids = live_block_ids(mask_np)
-        if len(ids) < SKIP_BELOW * -(-mask_np.size // BLOCK):
-            live_blocks = torch.from_numpy(ids).to(device)
+    cells = None
+    if len(live_block_ids(mask_np)) < SKIP_BELOW * -(-mask_np.size // BLOCK):
+        ids = scalar_cell_ids(mask_np, geo)
+        cells = torch.from_numpy(ids if len(ids) else np.zeros(1, np.int32)
+                                 ).to(device)
+    foot, foot_off = footprint_lists([p for *_, p in geo])
     wc = None
     if wall_c is not None:
         wc_np = np.ascontiguousarray(wall_c, dtype=np.float32)
@@ -380,7 +416,8 @@ def compile_scalar(spec: CaseSpec, device, D=None, tau_g=None, inlet_c=None,
         spec=spec, shape=tuple(int(s) for s in spec.shape), device=device,
         tau_g=tau_g, inv_tau=float(_F32(1.0 / tau_g)),
         omega=float(_F32(1.0 - 1.0 / tau_g)), source=float(source),
-        mask=mask, fluid=fluid, bcs=bcs, live_blocks=live_blocks, wall_c=wc)
+        mask=mask, fluid=fluid, bcs=bcs, foot=torch.from_numpy(foot).to(device),
+        foot_off=foot_off, cells=cells, wall_c=wc)
 
 
 def _as_float_tensor(a) -> torch.Tensor:
@@ -524,7 +561,7 @@ class CoupledTransport(_ScalarState):
     a frozen field is wrong (the counterpart of lbm_tpu's
     CoupledTransport, and with backend='kernel' of its
     CoupledTransportPallas). Per step the flow step runs first (with its
-    z-plane fixups), then the scalar step reads the new flow state and
+    z planes), then the scalar step reads the new flow state and
     the pre-step g.
 
     div_fix: dense route only (default on there); the kernel route has no
@@ -558,8 +595,7 @@ class CoupledTransport(_ScalarState):
             K.collision_descriptor(self.cc, field)  # refuses what it lacks
         cc = self.cc
         self.sc = compile_scalar(spec, cc.device, D, tau_g, inlet_c, source,
-                                 wall_c, mask=cc.mask, fluid=cc.fluid,
-                                 live_blocks=cc.live_blocks)
+                                 wall_c, mask=cc.mask, fluid=cc.fluid)
         base = (0.0, 0.0, 0.0) if cc.force is None else cc.force
         if field is not None:
             self.sc.force = (field.buoyancy, field.c_ref, base)
@@ -661,6 +697,7 @@ class CoupledTransport(_ScalarState):
 
 
 __all__ = ["ScalarTransport", "CoupledTransport", "ScalarCase", "ScalarBC",
-           "compile_scalar", "phi7", "project", "tau_g_of", "bc_geometry",
+           "compile_scalar", "footprint_lists", "scalar_cell_ids", "phi7",
+           "project", "tau_g_of", "bc_geometry",
            "blocking_tables", "dirichlet_walls", "defect", "transport_pass",
            "live_velocity", "plane_means", "Q7", "E7", "OPP7", "W7"]

@@ -3,14 +3,14 @@ with ctypes.
 
 Six sources in seven translation units, each its own shared object,
 compiled side by side (one nvcc process each, started together):
-kernels/csrc/collide_stream.cu (the collide-stream, z-plane fixup and
-moments kernels on fp32 state, each collide-stream and fixup kernel in
-its 18 collision-branch instances), kernels/csrc/collide_stream_bf16.cu
-(the same on bf16 state: 14 instances each, no force field),
+kernels/csrc/collide_stream.cu (the collide-stream kernel in its 18
+collision-branch instances, each with and without the z planes' code,
+and the moments kernel on fp32 state), kernels/csrc/collide_stream_bf16.cu
+(the same on bf16 state: 14 branches, no force field),
 kernels/csrc/collide_stream2.cu and collide_stream2_bf16.cu (the fused
 pair of steps, an x-marching column, in its 14 instances and the chunked
 state read, on fp32 and on bf16 state), kernels/csrc/collide_stream_halo.cu (the sharded
-collide-stream step and z-plane fixup, 14 instances each, built twice:
+collide-stream step, 14 branches with and without z planes, built twice:
 with -DLBM_HALO_AXIS=0 for shards of a box split along x, =1 along y)
 and kernels/csrc/scalar_stream.cu (the D3Q7 scalar kernel in its 8
 instances and its record reduction), for sm_90a with a
@@ -96,8 +96,8 @@ def _declare(lib: ctypes.CDLL, sfx: str = "") -> None:
     lib.lbm_block_size.restype = ci
     lib.lbm_error_string.argtypes = [ci]
     lib.lbm_error_string.restype = ctypes.c_char_p
-    step, fix, macro = (getattr(lib, f"lbm_{n}{sfx}") for n in (
-        "collide_stream", "fix_z_plane", "macro"))
+    step, macro = (getattr(lib, f"lbm_{n}{sfx}") for n in (
+        "collide_stream", "macro"))
     step.argtypes = [
         vp, vp, vp,             # src, dst, mask
         ci, ci, ci,             # nx, ny, nz
@@ -110,27 +110,14 @@ def _declare(lib: ctypes.CDLL, sfx: str = "") -> None:
         vp,                     # stream
     ]
     step.restype = ci
-    fix.argtypes = [
-        vp, vp, vp,             # src, dst, mask
-        ci, ci, ci,             # nx, ny, nz
-        vp, vp,                 # collision int row, float row
-        vp, vp, vp, vp,         # bc_int, bc_float, valid, phi_star
-        ci, ci, ci, ci,         # x0, x1, y0, y1
-        vp, ci,                 # partials, n_partials
-        vp, ci,                 # series, t
-        vp,                     # g of a field force, or null
-        vp,                     # stream
-    ]
-    fix.restype = ci
     # f, rho, u, n_cells, half_force (host 3 floats or null), stream
     macro.argtypes = [vp, vp, vp, ctypes.c_longlong, vp, vp]
     macro.restype = ci
 
 
 def _declare_halo(lib: ctypes.CDLL) -> None:
-    """Declare the sharded step's entry points: lbm_collide_stream's and
-    lbm_fix_z_plane's arguments without the field force, plus the halo
-    axis and planes."""
+    """Declare the sharded step's entry point: lbm_collide_stream's
+    arguments without the field force, plus the halo axis and planes."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.lbm_block_size.argtypes = []
     lib.lbm_block_size.restype = ci
@@ -149,18 +136,6 @@ def _declare_halo(lib: ctypes.CDLL) -> None:
         vp,                     # stream
     ]
     lib.lbm_collide_stream_halo.restype = ci
-    lib.lbm_fix_z_plane_halo.argtypes = [
-        vp, vp, vp,             # src, dst, mask
-        ci, ci, ci,             # nx, ny, nz
-        vp, vp,                 # collision int row, float row
-        vp, vp, vp, vp,         # bc_int, bc_float, valid, phi_star
-        ci, ci, ci, ci,         # x0, x1, y0, y1
-        vp, ci,                 # partials, n_partials
-        vp, ci,                 # series, t
-        *halo,
-        vp,                     # stream
-    ]
-    lib.lbm_fix_z_plane_halo.restype = ci
 
 
 def _declare_scalar(lib: ctypes.CDLL) -> None:
@@ -175,7 +150,8 @@ def _declare_scalar(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp,         # u, f, comp, wall_c
         vp, vp,                 # parameter int row, float row
         ci, vp, vp, vp, vp,     # n_bc, bc_int, bc_float, valid, cplane
-        vp, ci,                 # blocks, n_blocks
+        vp, vp,                 # footprint list, its offsets (host)
+        vp, ci,                 # cell list or null, its length
         vp,                     # record row, or null
         vp,                     # stream
     ]

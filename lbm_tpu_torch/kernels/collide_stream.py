@@ -1,21 +1,24 @@
 """Wrappers for the Hopper collide-stream (K1a + K1b, with K1c's
-fluid-cell list), z-plane fixup (K5 + K6), moments (K3), fused-pair (K2) and
-row-extract (K4) kernels, their plain PyTorch versions, and launch
-counters.
+fluid-cell list and the z planes of K5 + K6), moments (K3), fused-pair
+(K2) and row-extract (K4) kernels, their plain PyTorch versions, and
+launch counters.
 
-  collide_stream  -> lbm_collide_stream (kernels/csrc/collide_stream.cuh),
-                     replacing lbm_tpu/kernels/collide_stream.py::_kernel
-                     (BGK and the K1b branches: TRT, Guo force, moving
-                     walls, LES/rheology closures, MRT; series phases;
-                     live-tile list `tids`, here the fluid-cell list),
-                     ::_row_fix and the velsum
-  fix_z_plane     -> lbm_fix_z_plane, replacing ::_extract_z_slab,
+  collide_stream  -> lbm_collide_stream (kernels/csrc/collide_stream.cuh):
+  (alias step)       one whole step in one launch, replacing
+                     lbm_tpu/kernels/collide_stream.py::_kernel (BGK and
+                     the K1b branches: TRT, Guo force, moving walls,
+                     LES/rheology closures, MRT; series phases; live-tile
+                     list `tids`, here the fluid-cell list), ::_row_fix and
+                     the velsum, and the z-plane boundaries that lbm_tpu
+                     fixes after its kernel (::_extract_z_slab,
                      ::_splice_z_plane_inplace and the XLA arithmetic of
-                     ::_fix_z_plane_windowed between them
+                     ::_fix_z_plane_windowed between them): each z plane is
+                     one more descriptor of the same pass. Its plain
+                     version is step_plain: collide_stream_plain (the x/y
+                     planes) and fix_z_plane_plain (each z plane's window
+                     again, with its rewrite)
   macro           -> lbm_macro, replacing ::packed_macro (with its F/2
                      shift when the case has a force)
-  step            -> one whole step: collide_stream, then fix_z_plane for
-                     each z-plane boundary in boundary order
   step2           -> lbm_collide_stream2 (kernels/csrc/collide_stream2.cuh):
                      two whole steps of a case whose boundaries all lie on
                      x/y planes, replacing ::_kernel2 (two fused steps per
@@ -25,8 +28,8 @@ counters.
                      of the state as one contiguous chunk, the unit of
                      unpack_state_lowmem's chunked device-to-host read
 
-The collide-stream and fixup kernels are templates over the collision
-branch; `instance(cc)` names the one a case runs ("bgk", "trt+cy",
+The collide-stream kernel is a template over the collision branch;
+`instance(cc)` names the one a case runs ("bgk", "trt+cy",
 "bgk+force", "mrt+moving", ...) and `collision_tables` builds its
 by-value operands. With `field=ForceField(buoyancy, c_ref)` and the
 scalar state `g` the step runs its force-field instance ("bgk+field",
@@ -40,12 +43,11 @@ every non-fluid cell as f has it, so the two agree. `launches`
 counts kernel launches per entry point and instance ("lbm_collide_stream
 [trt+cy]"), one per wrapper call that launched.
 
-With halo=(axis, lo, hi, mask_lo, mask_hi) collide_stream, fix_z_plane
-and step take one shard of a box split along x (axis 0) or y (axis 1)
-(engine/compile.ShardCase): lbm_collide_stream_halo and
-lbm_fix_z_plane_halo (kernels/csrc/collide_stream_halo.cu, one library
-an axis; K1d: lbm_tpu's
-_kernel with halo_axis, and its sharded z fixup) pull across the shard's
+With halo=(axis, lo, hi, mask_lo, mask_hi) collide_stream takes one
+shard of a box split along x (axis 0) or y (axis 1)
+(engine/compile.ShardCase): lbm_collide_stream_halo
+(kernels/csrc/collide_stream_halo.cu, one library an axis; K1d: lbm_tpu's
+_kernel with halo_axis, and its sharded z fixup) pulls across the shard's
 faces from lo and hi, the (5, A, B) planes its ring neighbours sent,
 testing walls against mask_lo and mask_hi, their rows' (A, B) labels
 (the ShardCase's own: cc.halo(lo, hi) builds the tuple). Their plain
@@ -56,8 +58,8 @@ force field, as lbm_tpu's sharded path.
 The state is float32 or bfloat16 (bf16 storage, lbm_tpu's pack_state
 dtype=bfloat16): the bf16 kernels and plain versions widen every load to
 fp32, compute as in fp32 and narrow once with round-to-nearest-even when
-they store, once a step for collide_stream and the z-plane fixup (whose
-narrowing of the same cells is that step's) and once a pair for step2,
+they store, once a step for collide_stream (the plain z-plane fixup's
+narrowing of its cells is that step's) and once a pair for step2,
 whose mid state stays fp32 as lbm_tpu's does. The bf16 kernels are
 separate instances (counted as "lbm_collide_stream[trt+bf16]",
 "lbm_macro[bf16]", "lbm_extract_rows[bf16]"); the force field has none.
@@ -233,12 +235,13 @@ def _field_tensor(cc: CompiledCase, field, g):
 def collide_stream_plain(f, cc: CompiledCase, t: int, field=None, g=None,
                          halo=None):
     """The dense step at absolute step t with the x/y-plane boundaries
-    only (those the kernel applies) plus the fluid velsum: (f',
-    sum_fluid |u|) with the sum a float64 0-dim tensor and f' in f's
-    dtype (a bf16 f widened, stepped in fp32, narrowed once). field, g:
-    the force field and the pre-step scalar state it is built from.
-    halo: a shard's (axis, lo, hi, mask_lo, mask_hi), K1d's plain
-    version."""
+    only (those lbm_tpu's kernel rewrites in its rows; step_plain adds
+    the z planes) plus the fluid velsum: (f', sum_fluid |u|) with the sum
+    a float64 0-dim tensor and f' in f's dtype (a bf16 f widened, stepped
+    in fp32, narrowed once). field, g: the force field and the pre-step
+    scalar state it is built from. halo: a shard's (axis, lo, hi,
+    mask_lo, mask_hi). On a case without z planes it is the plain
+    version of collide_stream, and of the fused pair's single step."""
     f32 = _widen(f)
     pulled = pulled_state(cc, f32, t, cc.kernel_bcs, halo)
     f_new, _, u = step_tail(cc, f32, pulled, _field_tensor(cc, field, g))
@@ -311,8 +314,8 @@ def fix_z_plane_plain(f_src, f_out, cc: CompiledCase, bc: CompiledBC,
 
 
 def step_plain(f, cc: CompiledCase, t: int, field=None, g=None, halo=None):
-    """The plain version of `step`: (f', velsum) with the velsum a
-    float64 0-dim tensor and f' in f's dtype."""
+    """The plain version of `collide_stream` (and `step`): (f', velsum)
+    with the velsum a float64 0-dim tensor and f' in f's dtype."""
     f_new, vs = collide_stream_plain(f, cc, t, field, g, halo)
     for bc in cc.z_bcs:
         if bc.window is not None:
@@ -466,16 +469,18 @@ def _check_halo(halo, cc: CompiledCase, f, field) -> None:
 def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
                    all_blocks: bool = False, field: ForceField | None = None,
                    g=None, halo=None):
-    """One step of f into out (a different buffer) at absolute step t
-    with the case's collision branch and x/y-plane boundaries; writes the fluid velsum, sum over
-    fluid cells of |u| after their NEE rewrite, into series[slot]
-    (float64). Only fluid cells are written: out must already hold f's
-    non-fluid cells. The launch takes a thread a fluid cell of the case's
-    list (cc.fluid_cells), or a thread a cell of the box when that is
-    None or with all_blocks. field, g: the
-    Boussinesq force field and the pre-step (7, X, Y, Z) scalar state it
-    reads (the force-field instance). halo: None, or a shard's (axis, lo,
-    hi, mask_lo, mask_hi) (K1d, lbm_collide_stream_halo). Returns out."""
+    """One whole step of f into out (a different buffer) at absolute step
+    t, in one launch, with the case's collision branch and its boundaries
+    (cc.step_bcs: the x/y planes and the z planes); writes the fluid
+    velsum, sum over fluid cells of |u| after their NEE rewrite, into
+    series[slot] (float64). Only fluid cells are written: out must
+    already hold f's non-fluid cells. The launch takes a thread a fluid
+    cell of the case's list (cc.fluid_cells), or a thread a cell of the
+    box when that is None or with all_blocks. field, g: the Boussinesq
+    force field and the pre-step (7, X, Y, Z) scalar state it reads (the
+    force-field instance). halo: None, or a shard's (axis, lo, hi,
+    mask_lo, mask_hi) (K1d, lbm_collide_stream_halo). On the CPU it runs
+    step_plain. Returns out."""
     _check_pair(f, out, cc, series, slot)
     name, ci, cf = collision_descriptor(cc, field)
     g_ptr = _check_field(field, g, cc, f)
@@ -483,28 +488,29 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
         _check_halo(halo, cc, f, field)
     ids = None if all_blocks else cc.fluid_cells
     if f.device.type == "cpu":
-        f_new, vs = collide_stream_plain(f, cc, t, field, g, halo)
+        f_new, vs = step_plain(f, cc, t, field, g, halo)
         out.copy_(f_new)
         series[slot] = vs
         return out
     from lbm_tpu_torch.kernels._build import check
 
     lib = _library(f, halo)
-    launch, tail, name = _entry(lib, "collide_stream", name, f, g_ptr, halo)
+    launch, tail, name = _entry(lib, name, f, g_ptr, halo)
     nx, ny, nz = cc.shape
     n_cells = nx * ny * nz
     if n_cells >= 2**31:
         raise ValueError(f"{n_cells} cells: the kernel indexes cells in int32")
     n_listed = n_cells if ids is None else ids.numel()
     grid = max(1, -(-n_listed // lib.lbm_block_size()))
+    bcs = cc.step_bcs
     (ints, floats, valid, phis), partials = _launch_scratch(
-        cc, "k1a", cc.kernel_bcs, t, grid)
+        cc, "k1", bcs, t, grid)
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
         err = launch(
             f.data_ptr(), out.data_ptr(), cc.mask.data_ptr(),
             nx, ny, nz, ci.ctypes.data, cf.ctypes.data,
-            len(cc.kernel_bcs), ints.ctypes.data, floats.ctypes.data,
+            len(bcs), ints.ctypes.data, floats.ctypes.data,
             ctypes.addressof(valid), ctypes.addressof(phis),
             None if ids is None else ids.data_ptr(), n_listed,
             partials.data_ptr(), grid, series.data_ptr(), slot, *tail,
@@ -523,73 +529,23 @@ def _library(f, halo):
             else load_halo_library(halo[0])).lib
 
 
-def _entry(lib, kernel: str, name: str, f, g_ptr, halo):
-    """(the C entry of `kernel` for f's storage or a shard's halo, the
+def _entry(lib, name: str, f, g_ptr, halo):
+    """(the collide-stream C entry for f's storage or a shard's halo, the
     arguments after the series slot but the stream, the counter's
     instance name)."""
     if halo is None:
         sfx = "_bf16" if _bf16(f) else ""
-        return getattr(lib, f"lbm_{kernel}{sfx}"), (g_ptr,), _tagged(name, f)
+        return (getattr(lib, f"lbm_collide_stream{sfx}"), (g_ptr,),
+                _tagged(name, f))
     axis, lo, hi, mask_lo, mask_hi = halo
-    return (getattr(lib, f"lbm_{kernel}_halo"),
+    return (getattr(lib, "lbm_collide_stream_halo"),
             (axis, lo.data_ptr(), hi.data_ptr(), mask_lo.data_ptr(),
              mask_hi.data_ptr()), f"{name}+halo")
 
 
-def fix_z_plane(f_src, f_out, cc: CompiledCase, bc: CompiledBC, series,
-                slot: int, t: int, field: ForceField | None = None, g=None,
-                halo=None):
-    """The z-plane boundary `bc`'s fixup at absolute step t: f_src is the
-    pre-step state, f_out the collide-stream output, rewritten in place
-    over the boundary's window; adds the velsum correction to
-    series[slot]. field, g, halo as in collide_stream (with a halo,
-    lbm_fix_z_plane_halo). Returns f_out."""
-    _check_pair(f_src, f_out, cc, series, slot)
-    name, ci, cf = collision_descriptor(cc, field)
-    g_ptr = _check_field(field, g, cc, f_src)
-    if halo is not None:
-        _check_halo(halo, cc, f_src, field)
-    if not any(b is bc for b in cc.z_bcs) or bc.window is None:
-        raise ValueError("bc must be one of the case's z-plane boundaries "
-                         "with a window")
-    if f_src.device.type == "cpu":
-        series[slot] += fix_z_plane_plain(f_src, f_out, cc, bc, t, field, g,
-                                          halo)
-        return f_out
-    from lbm_tpu_torch.kernels._build import check
-
-    lib = _library(f_src, halo)
-    launch, tail, name = _entry(lib, "fix_z_plane", name, f_src, g_ptr, halo)
-    nx, ny, nz = cc.shape
-    x0, x1, y0, y1 = bc.window
-    grid = -(-((x1 - x0) * (y1 - y0)) // lib.lbm_block_size())
-    (ints, floats, valid, phis), partials = _launch_scratch(
-        cc, "z", [bc], t, grid)
-    with torch.cuda.device(f_src.device):
-        stream = torch.cuda.current_stream(f_src.device).cuda_stream
-        err = launch(
-            f_src.data_ptr(), f_out.data_ptr(), cc.mask.data_ptr(),
-            nx, ny, nz, ci.ctypes.data, cf.ctypes.data,
-            ints.ctypes.data, floats.ctypes.data,
-            valid[0], phis[0], x0, x1, y0, y1,
-            partials.data_ptr(), grid, series.data_ptr(), slot, *tail,
-            stream)
-    check(lib, err, f"lbm_fix_z_plane[{name}]")
-    _count(f"lbm_fix_z_plane[{name}]")
-    return f_out
-
-
-def step(f, out, cc: CompiledCase, series, slot: int, t: int,
-         field: ForceField | None = None, g=None, halo=None):
-    """One whole step of f into out at absolute step t: the
-    collide-stream kernel, then the fixup of each z-plane boundary in
-    boundary order; series[slot] gets the step's fluid velsum. field, g,
-    halo as in collide_stream."""
-    collide_stream(f, out, cc, series, slot, t, field=field, g=g, halo=halo)
-    for bc in cc.z_bcs:
-        if bc.window is not None:
-            fix_z_plane(f, out, cc, bc, series, slot, t, field, g, halo)
-    return out
+# one whole step: the name the runner, the transports and the sharded step
+# call it by
+step = collide_stream
 
 
 def collide_stream2_plain(f, cc: CompiledCase, t: int):
@@ -787,8 +743,7 @@ def macro(f, force=None):
     return rho, u
 
 
-__all__ = ["collide_stream", "collide_stream_plain", "fix_z_plane",
-           "fix_z_plane_plain", "step", "step_plain", "step2",
+__all__ = ["collide_stream", "collide_stream_plain", "fix_z_plane_plain", "step", "step_plain", "step2",
            "collide_stream2_plain", "extract_rows", "extract_rows_plain",
            "unpack_state_lowmem", "chunk_rows", "CHUNK_BYTES",
            "live_block_ids", "macro", "macro_plain", "launches",

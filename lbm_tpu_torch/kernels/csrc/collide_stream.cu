@@ -1,5 +1,5 @@
-// The collide-stream (K1a + K1b + K1c, K1e), z-plane fixup (K5 + K6) and
-// moments (K3) kernels on fp32 state: the C entries of collide_stream.cuh
+// The collide-stream (K1a + K1b + K1c, K1e, with the z planes of K5 + K6)
+// and moments (K3) kernels on fp32 state: the C entries of collide_stream.cuh
 // with S = float. Every pointer and the stream cross as void*-sized
 // ctypes values (kernels/_build.py); each entry returns cudaGetLastError()
 // or cudaErrorInvalidValue for a malformed call.
@@ -26,18 +26,6 @@ int lbm_collide_stream(const float* src, float* dst, const int8_t* mask,
                                coll_float, n_bc, bc_int, bc_float, valid_ptrs,
                                phi_ptrs, cells, n_listed, partials,
                                n_partials, series, t, gfield, stream);
-}
-
-int lbm_fix_z_plane(const float* src, float* dst, const int8_t* mask,
-                    int nx, int ny, int nz, const int* coll_int,
-                    const float* coll_float, const int* bc_int,
-                    const float* bc_float, const void* valid,
-                    const void* phi, int x0, int x1, int y0, int y1,
-                    double* partials, int n_partials, double* series, int t,
-                    const float* gfield, void* stream) {
-  return fix_z_plane<float>(src, dst, mask, nx, ny, nz, coll_int, coll_float,
-                            bc_int, bc_float, valid, phi, x0, x1, y0, y1,
-                            partials, n_partials, series, t, gfield, stream);
 }
 
 int lbm_macro(const float* f, float* rho, float* u, long long n_cells,

@@ -1,6 +1,6 @@
-// D3Q19 collide-stream, z-plane fixup and moments kernels for NVIDIA
-// Hopper (sm_90a): the kernels and their host entries, templated on the
-// state's storage type. collide_stream.cu instantiates them for float
+// D3Q19 collide-stream and moments kernels for NVIDIA Hopper (sm_90a):
+// the kernels and their host entries, templated on the state's storage
+// type. collide_stream.cu instantiates them for float
 // storage and collide_stream_bf16.cu for bf16 storage, each its own
 // translation unit and shared object (kernels/_build.py compiles the two
 // side by side).
@@ -10,10 +10,10 @@
 // branches (TRT, the Guo body force, Ladd moving walls, the per-cell tau
 // closures of LES and rheology, MRT), ::_row_fix (the in-kernel NEE rows,
 // series phases included), the per-tile velsum and the live-tile list
-// (`tids`, ::live_tile_ids: here a list of the fluid cells).
-// lbm_fix_z_plane replaces ::_extract_z_slab
-// (K6), ::_splice_z_plane_inplace (K5) and the XLA arithmetic of
-// ::_fix_z_plane_windowed between them, with the same branches.
+// (`tids`, ::live_tile_ids: here a list of the fluid cells). The same
+// launch applies the z-plane boundaries, which lbm_tpu runs after its
+// kernel as ::_extract_z_slab (K6), the XLA arithmetic of
+// ::_fix_z_plane_windowed and ::_splice_z_plane_inplace (K5).
 // lbm_macro (K3) replaces ::packed_macro, with its F/2 force shift.
 // The force-field instances (K1e) replace the same _kernel's `fforce`
 // mode: the Boussinesq force F = buoy (c - c_ref) per fluid cell, c the
@@ -44,7 +44,8 @@
 // by value and are read from the constant bank, not registers.
 //
 // The collision branch is a template: <collision, closure?, force (none,
-// constant, field), moving>, 18 valid instances per kernel (a closure
+// constant, field), moving>, 18 valid instances per kernel, each built
+// with and without the z planes' code (ZPLANES) (a closure
 // needs BGK or TRT; a force excludes MRT and closures, as lbm_tpu's
 // kernel does). The
 // closure's kind (Smagorinsky, power law, Carreau(-Yasuda), Casson) is a
@@ -60,10 +61,9 @@
 // every load widens to fp32, the step computes in fp32 as above, every
 // store narrows once with round-to-nearest-even, and a non-fluid cell
 // keeps its words in both buffers, so a bf16 step is "widen, the fp32
-// step, narrow", bit for bit. The z-plane fixup reads the bf16 pre-step
-// source and narrows on its write, which is that same narrowing. bf16
-// has every instance but the force field's (14 collide-stream and 14
-// fixup instances, K3 with and without the force shift): lbm_tpu's
+// step, narrow", bit for bit, the z planes' rewrite included. bf16
+// has every instance but the force field's (14 collide-stream branches,
+// K3 with and without the force shift): lbm_tpu's
 // transports keep fp32 state. Its loads are 64 B a warp a direction, half
 // a 128-byte line; pairing them (__nv_bfloat162, 16-byte vectors) is later
 // work.
@@ -89,20 +89,31 @@
 // list. Velsum partials are reduced in double and in a fixed order, so
 // the stop rule fires at the same step in every run.
 //
-// lbm_fix_z_plane runs after K1a, once per z-plane boundary, over the
-// boundary's static window on its consumer plane: it pulls from the
-// intact source buffer (the slab copy K6 made on the TPU is this read),
-// applies the NEE rewrite with the same device function as K1a, collides
-// and writes the plane's fluid cells into the destination (K5's splice).
-// A window is a few thousand cells, so it is bound by launch latency.
-// It adds sum |u_fixed| - |u_pre-NEE| over the cells it rewrote to the
-// step's velsum, since K1a counted those cells before the rewrite.
+// The z planes. On the TPU, z is the lane axis of lbm_tpu's rows, so its
+// in-kernel rewrite (_row_fix) takes x/y planes only, and each z-plane
+// boundary is a slab copy (K6), a dense recompute of the window and a
+// splice (K5) after the kernel. Here the source buffer stays intact and
+// the NEE rewrite reads only the consumer cell's own pre-step
+// populations, so a z plane is one more descriptor of the same pass: the
+// test is z == coord, the lateral index x * ny + y, the rewrite NEE's.
+// Its descriptors (ZBC, at most kMaxZBCs) are a set of their own, and
+// compact: a z plane's directions are the five with e_z = sign, in
+// direction order, so they are constants of the code. A consumer cell of
+// a z plane is no other boundary's (engine/compile.check_z_windows), so a
+// cell has at most one z plane to apply, and applying it after the x/y
+// planes is the dense step's order: a loop that is not unrolled finds it
+// by its valid bytes, and one inlined nee_fix_z rewrites the cell. (On
+// the H100's toolchain, nee_fix inside that loop took every instance to
+// 128 registers, and nee_fix on the found descriptor, whose 18 direction
+// slots it reads at a run-time index, to 94-96; BGK takes 76 this way.)
+// The velsum counts |u| after every rewrite. A case without z planes
+// launches each branch's instance built without this code.
 //
 // The device functions (pull, NEE rewrite, collision branches, velsum
 // reduction) and the descriptor parsers live in d3q19.cuh, which the
 // fused pair (collide_stream2.cuh) includes too.
 //
-// Both kernels take the halo axis as a last template parameter HALO:
+// The kernel takes the halo axis as a last template parameter HALO:
 // -1 for a whole box (every instance of collide_stream.cu and
 // collide_stream_bf16.cu, whose code, registers and spills it leaves as
 // they were), 0 or 1 for one shard of a box split along x or y (K1d,
@@ -115,19 +126,104 @@
 
 namespace {
 
+constexpr int kMaxZBCs = 8;  // z-plane boundaries a launch takes
+
+// One z-plane boundary on its consumer plane z = coord, lateral index
+// x * ny + y: its directions are the five with e_z = sign, in direction
+// order (the host checks the descriptor row's), so they are constants of
+// the code and the descriptor holds only scalars.
+struct ZBC {
+  int coord;
+  int sign;
+  int rho_is_fixed;
+  int u_extrap;
+  float rho_fixed;
+  float omega;
+  long long plane;         // nx * ny
+  const uint8_t* valid;    // (5, nx, ny) bytes
+  const float* phi_star;   // (5, nx, ny) fp32 of this step's phase, or null
+};
+
+struct ZBCSet {
+  int n;
+  ZBC bc[kMaxZBCs];
+};
+
+// The rank of direction i among the five with its e_z, in direction
+// order: its row in a z plane's tables.
+__host__ __device__ constexpr int z_rank(int i) {
+  int r = 0;
+  for (int j = 1; j < i; ++j) r += EZ(j) == EZ(i);
+  return r;
+}
+
+// nee_fix for a z-plane boundary: the same rewrite, in the same
+// operation order, with the directions known to the code.
+template <bool FORCE, typename S>
+__device__ __forceinline__ void nee_fix_z(const ZBC& bc,
+                                          const S* __restrict__ src,
+                                          long long n_cells, int cell,
+                                          long long lat,
+                                          const float* half_force, float* p) {
+  float own[Q];
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    own[i] = widen(src[(long long)i * n_cells + cell]);
+  }
+  float rp, uxp, uyp, uzp;
+  moments19<FORCE>(own, half_force, rp, uxp, uyp, uzp);
+  const float usqp = uxp * uxp + uyp * uyp + uzp * uzp;
+  const float rho_star = bc.rho_is_fixed ? bc.rho_fixed : rp;
+#pragma unroll
+  for (int i = 1; i < Q; ++i) {
+    if (EZ(i) == 0 || EZ(i) != bc.sign) continue;
+    const long long at = z_rank(i) * bc.plane + lat;
+    if (!bc.valid[at]) continue;
+    const float phi_nbr = phi_i(i, uxp, uyp, uzp, usqp);
+    const float phi_star = bc.u_extrap ? phi_nbr : bc.phi_star[at];
+    const float feq_nbr = rp * phi_nbr;
+    p[i] = rho_star * phi_star + (own[i] - feq_nbr) * bc.omega;
+  }
+}
+
+// The z-plane descriptor of a parsed axis-2 row; false unless its
+// directions are the five with one sign of e_z, in direction order.
+bool to_zbc(const BCDesc& d, ZBC& z) {
+  if (d.axis != 2) return false;
+  z.sign = 0;
+  for (int i = 1; i < Q && z.sign == 0; ++i) {
+    if (d.slot[i] >= 0) z.sign = EZ(i);
+  }
+  for (int i = 1; i < Q; ++i) {
+    const int want = EZ(i) != 0 && EZ(i) == z.sign ? z_rank(i) : -1;
+    if (d.slot[i] != want) return false;
+  }
+  z.coord = d.coord;
+  z.rho_is_fixed = d.rho_is_fixed;
+  z.u_extrap = d.u_extrap;
+  z.rho_fixed = d.rho_fixed;
+  z.omega = d.omega;
+  z.plane = d.plane;
+  z.valid = d.valid;
+  z.phi_star = d.phi_star;
+  return z.sign != 0;
+}
+
 // Thread k of the launch steps the k-th cell of the fluid-cell list
 // `cells` (n_listed ids, ascending), or cell k of the box when `cells` is
 // null. Only fluid cells are loaded and stored: a non-fluid cell holds
 // the same state in both buffers, so the step leaves it. HALO -1: the
 // whole box; 0 or 1: a shard split along x or y, pulling across its
-// faces from `halo`.
+// faces from `halo`. ZPLANES: the instance applies z-plane descriptors
+// (a case without them launches the instance without their code).
 template <int COLL, bool CLOSURE, int FORCE, bool MOVING, typename S,
-          int HALO>
+          int HALO, bool ZPLANES>
 __device__ __forceinline__ void collide_stream_cells(
     const S* __restrict__ src, S* __restrict__ dst,
     const int8_t* __restrict__ mask, int nx, int ny, int nz,
-    const Collision& coll, const BCSet& bcs, const int* __restrict__ cells,
-    int n_listed, double* __restrict__ partials, const Halo& halo) {
+    const Collision& coll, const BCSet& bcs, const ZBCSet& zbcs,
+    const int* __restrict__ cells, int n_listed,
+    double* __restrict__ partials, const Halo& halo) {
   const long long n_cells = (long long)nx * ny * nz;  // < 2^31 (host check)
   const long long k = (long long)blockIdx.x * kBlock + threadIdx.x;
   const long long cell_ll =
@@ -152,6 +248,26 @@ __device__ __forceinline__ void collide_stream_cells(
       nee_fix<FORCE == kConstForce>(bc, src, n_cells, cell, lat,
                                     coll.half_force, p);
     }
+    if constexpr (ZPLANES) {
+      // the z plane that rewrites this cell, if one does: the one whose
+      // valid table holds it (a consumer cell of a z-plane boundary is no
+      // other boundary's); found by a light loop, then rewritten once
+      const long long zlat = (long long)x * ny + y;
+      int zb = -1;
+#pragma unroll 1
+      for (int b = 0; b < zbcs.n; ++b) {
+        const ZBC& bc = zbcs.bc[b];
+        if (z != bc.coord) continue;
+#pragma unroll
+        for (int d = 0; d < 5; ++d) {
+          if (bc.valid[d * bc.plane + zlat]) zb = b;
+        }
+      }
+      if (zb >= 0) {
+        nee_fix_z<FORCE == kConstForce>(zbcs.bc[zb], src, n_cells, cell,
+                                        zlat, coll.half_force, p);
+      }
+    }
     float ff[3], fh[3];
     const float* F = coll.force;
     const float* half = coll.half_force;
@@ -167,85 +283,39 @@ __device__ __forceinline__ void collide_stream_cells(
 }
 
 template <int COLL, bool CLOSURE, int FORCE, bool MOVING, typename S,
-          int HALO = -1>
+          int HALO = -1, bool ZPLANES = false>
 __global__ void __launch_bounds__(kBlock)
 collide_stream_kernel(const S* __restrict__ src, S* __restrict__ dst,
                       const int8_t* __restrict__ mask, int nx, int ny,
                       int nz, const __grid_constant__ Collision coll,
-                      BCSet bcs, const int* __restrict__ cells,
-                      int n_listed, double* __restrict__ partials,
-                      const Halo halo) {
-  collide_stream_cells<COLL, CLOSURE, FORCE, MOVING, S, HALO>(
-      src, dst, mask, nx, ny, nz, coll, bcs, cells, n_listed, partials,
+                      BCSet bcs, const __grid_constant__ ZBCSet zbcs,
+                      const int* __restrict__ cells, int n_listed,
+                      double* __restrict__ partials, const Halo halo) {
+  collide_stream_cells<COLL, CLOSURE, FORCE, MOVING, S, HALO, ZPLANES>(
+      src, dst, mask, nx, ny, nz, coll, bcs, zbcs, cells, n_listed, partials,
       halo);
 }
 
 namespace bounded {
-// The BGK force-field instances, held to three blocks an SM (80
-// registers), their occupancy before the fluid test moved ahead of every
-// load (91 registers, two blocks, without the bound).
+// The BGK force-field instances and the TRT constant-force one with the z
+// planes' code, held to three blocks an SM (80 registers). Without the
+// bound the first take 91 registers, two blocks, and the second 89, two
+// blocks, at which it ran 25% slower at gravity_channel 256^3 on the H100
+// (probes/path_ab.py).
 template <int COLL, bool CLOSURE, int FORCE, bool MOVING, typename S,
-          int HALO = -1>
+          int HALO = -1, bool ZPLANES = false>
 __global__ void __launch_bounds__(kBlock, 3)
 collide_stream_kernel(const S* __restrict__ src, S* __restrict__ dst,
                       const int8_t* __restrict__ mask, int nx, int ny,
                       int nz, const __grid_constant__ Collision coll,
-                      BCSet bcs, const int* __restrict__ cells,
-                      int n_listed, double* __restrict__ partials,
-                      const Halo halo) {
-  collide_stream_cells<COLL, CLOSURE, FORCE, MOVING, S, HALO>(
-      src, dst, mask, nx, ny, nz, coll, bcs, cells, n_listed, partials,
+                      BCSet bcs, const __grid_constant__ ZBCSet zbcs,
+                      const int* __restrict__ cells, int n_listed,
+                      double* __restrict__ partials, const Halo halo) {
+  collide_stream_cells<COLL, CLOSURE, FORCE, MOVING, S, HALO, ZPLANES>(
+      src, dst, mask, nx, ny, nz, coll, bcs, zbcs, cells, n_listed, partials,
       halo);
 }
 }  // namespace bounded
-
-// One z-plane boundary over its window [x0, x0+wx) x [y0, y0+wy) of the
-// consumer plane z = bc.coord: the whole step again for the window's
-// fluid cells, now with the NEE rewrite. partials[block] gets the sum of
-// |u_fixed| - |u_pre-NEE| over its cells. HALO as in
-// collide_stream_kernel: a shard's window rows on its faces pull from the
-// exchanged planes (lbm_tpu's halo patch of the pre-step slab).
-template <int COLL, bool CLOSURE, int FORCE, bool MOVING, typename S,
-          int HALO = -1>
-__global__ void __launch_bounds__(kBlock)
-fix_z_plane_kernel(const S* __restrict__ src, S* __restrict__ dst,
-                   const int8_t* __restrict__ mask, int nx, int ny, int nz,
-                   const __grid_constant__ Collision coll, BCDesc bc, int x0,
-                   int wx, int y0, int wy, double* __restrict__ partials,
-                   const Halo halo) {
-  const long long n_cells = (long long)nx * ny * nz;
-  const int k = blockIdx.x * kBlock + threadIdx.x;
-  double delta = 0.0;
-  if (k < wx * wy) {
-    const int x = x0 + k / wy;
-    const int y = y0 + k % wy;
-    const int z = bc.coord;
-    const int cell = (x * ny + y) * nz + z;
-    if (mask[cell] == kFluid) {
-      float p[Q];
-      pull19<MOVING, HALO>(src, mask, x, y, z, nx, ny, nz, n_cells, cell,
-                           coll.bb, p, halo);
-      float ff[3], fh[3];
-      const float* F = coll.force;
-      const float* half = coll.half_force;
-      if constexpr (FORCE == kFieldForce) {
-        field_force(coll, n_cells, cell, ff, fh);
-        F = ff;
-        half = fh;
-      }
-      float rho, ux, uy, uz;
-      moments19<FORCE != kNoForce>(p, half, rho, ux, uy, uz);
-      const float before = sqrtf(ux * ux + uy * uy + uz * uz);
-      nee_fix<FORCE == kConstForce>(bc, src, n_cells, cell,
-                                    (long long)x * ny + y, coll.half_force,
-                                    p);
-      const float after = sqrtf(collide_store<COLL, CLOSURE, FORCE>(
-          p, coll, F, half, dst, n_cells, cell));
-      delta = (double)after - (double)before;
-    }
-  }
-  block_sum(delta, partials);
-}
 
 template <bool FORCE, typename S>
 __global__ void __launch_bounds__(kBlock)
@@ -280,53 +350,43 @@ struct StepArgs {
   Halo halo;
 };
 
-template <typename S>
-struct FixArgs {
-  const S* src;
-  S* dst;
-  const int8_t* mask;
-  int nx, ny, nz;
-  int x0, wx, y0, wy;
-  double* partials;
-  unsigned grid;
-  cudaStream_t stream;
-  Halo halo;
-};
-
-template <typename S, int K, int HALO>
-void launch_step(const StepArgs<S>& a, const Collision& c, const BCSet& b) {
+template <typename S, int K, int HALO, bool ZPLANES>
+void launch_kernel(const StepArgs<S>& a, const Collision& c, const BCSet& b,
+                   const ZBCSet& z) {
   using I = Inst<K>;
-  if constexpr (I::kForce == kFieldForce && I::kColl == kBGK) {
+  if constexpr ((I::kForce == kFieldForce && I::kColl == kBGK) ||
+                (I::kForce == kConstForce && I::kColl == kTRT && ZPLANES)) {
     bounded::collide_stream_kernel<I::kColl, I::kClosure, I::kForce,
-                                   I::kMovingWall, S, HALO>
+                                   I::kMovingWall, S, HALO, ZPLANES>
         <<<a.grid, kBlock, 0, a.stream>>>(a.src, a.dst, a.mask, a.nx, a.ny,
-                                          a.nz, c, b, a.cells, a.n_listed,
+                                          a.nz, c, b, z, a.cells, a.n_listed,
                                           a.partials, a.halo);
   } else {
     collide_stream_kernel<I::kColl, I::kClosure, I::kForce, I::kMovingWall,
-                          S, HALO>
+                          S, HALO, ZPLANES>
         <<<a.grid, kBlock, 0, a.stream>>>(a.src, a.dst, a.mask, a.nx, a.ny,
-                                          a.nz, c, b, a.cells, a.n_listed,
+                                          a.nz, c, b, z, a.cells, a.n_listed,
                                           a.partials, a.halo);
   }
 }
 
+// A case with z-plane boundaries launches the instance with their code; a
+// case without launches the one without it, whose code is the kernel's
+// before the z planes joined it (at lid 256^3 [bgk] the z code cost 0.9%
+// and at gravity_channel 256^3 [trt+force] 3%: probes/path_ab.py).
 template <typename S, int K, int HALO>
-void launch_fix(const FixArgs<S>& a, const Collision& c, const BCDesc& b) {
-  using I = Inst<K>;
-  fix_z_plane_kernel<I::kColl, I::kClosure, I::kForce, I::kMovingWall, S,
-                     HALO>
-      <<<a.grid, kBlock, 0, a.stream>>>(a.src, a.dst, a.mask, a.nx, a.ny,
-                                        a.nz, c, b, a.x0, a.wx, a.y0, a.wy,
-                                        a.partials, a.halo);
+void launch_step(const StepArgs<S>& a, const Collision& c, const BCSet& b,
+                 const ZBCSet& z) {
+  if (z.n > 0) {
+    launch_kernel<S, K, HALO, true>(a, c, b, z);
+  } else {
+    launch_kernel<S, K, HALO, false>(a, c, b, z);
+  }
 }
 
 template <typename S>
 using StepLauncher = void (*)(const StepArgs<S>&, const Collision&,
-                              const BCSet&);
-template <typename S>
-using FixLauncher = void (*)(const FixArgs<S>&, const Collision&,
-                             const BCDesc&);
+                              const BCSet&, const ZBCSet&);
 
 template <typename S, int K, int HALO>
 constexpr StepLauncher<S> step_entry() {
@@ -336,42 +396,27 @@ constexpr StepLauncher<S> step_entry() {
     return nullptr;
   }
 }
-template <typename S, int K, int HALO>
-constexpr FixLauncher<S> fix_entry() {
-  if constexpr (has_instance<S, K, HALO>()) {
-    return &launch_fix<S, K, HALO>;
-  } else {
-    return nullptr;
-  }
-}
 template <typename S, int HALO, int... K>
 constexpr std::array<StepLauncher<S>, kNumKeys> step_table(
     std::integer_sequence<int, K...>) {
   return {step_entry<S, K, HALO>()...};
-}
-template <typename S, int HALO, int... K>
-constexpr std::array<FixLauncher<S>, kNumKeys> fix_table(
-    std::integer_sequence<int, K...>) {
-  return {fix_entry<S, K, HALO>()...};
 }
 // one table per storage type and halo axis; a translation unit
 // instantiates only the tables its entries use
 template <typename S, int HALO>
 constexpr std::array<StepLauncher<S>, kNumKeys> kStepTable =
     step_table<S, HALO>(std::make_integer_sequence<int, kNumKeys>{});
-template <typename S, int HALO>
-constexpr std::array<FixLauncher<S>, kNumKeys> kFixTable =
-    fix_table<S, HALO>(std::make_integer_sequence<int, kNumKeys>{});
 
 // The host entries, exported under their C names by collide_stream.cu
 // (S = float) and collide_stream_bf16.cu (S = __nv_bfloat16, names
 // ending in _bf16), with HALO = -1; collide_stream_halo.cu exports the
-// shard entries (S = float, HALO 0 and 1), whose `halo` planes must all
+// shard entry (S = float, HALO 0 and 1), whose `halo` planes must all
 // be set.
 
 // One step from src into dst with the collision branch of the descriptor
-// rows coll_int/coll_float (CInt/CFloat) and the x/y-plane boundaries;
-// series[t] = sum over fluid cells of |u|. gfield: the pre-step scalar
+// rows coll_int/coll_float (CInt/CFloat) and the boundaries: at most
+// kMaxBCs on x/y planes and kMaxZBCs on z planes, each in the order of
+// its rows; series[t] = sum over fluid cells of |u| after the rewrites. gfield: the pre-step scalar
 // state g[7][n_cells] of a field force (CI_force == 2), else null.
 // cells: null (a thread a cell of the box) or a device list of n_listed
 // cell ids, ascending, holding every fluid cell (a non-fluid id is
@@ -392,7 +437,7 @@ int collide_stream(const S* src, S* dst, const int8_t* mask, int nx, int ny,
   const long long n_cells = (long long)nx * ny * nz;
   const long long grid =
       cells ? (n_listed + kBlock - 1) / kBlock : (n_cells + kBlock - 1) / kBlock;
-  if (n_bc < 0 || n_bc > kMaxBCs || n_cells <= 0 ||
+  if (n_bc < 0 || n_bc > kMaxBCs + kMaxZBCs || n_cells <= 0 ||
       n_cells > 0x7fffffffLL || n_listed < 0 || n_listed > n_cells ||
       (grid > 0 ? grid : 1) != n_partials) {
     return (int)cudaErrorInvalidValue;
@@ -406,68 +451,28 @@ int collide_stream(const S* src, S* dst, const int8_t* mask, int nx, int ny,
     return (int)cudaErrorInvalidValue;
   }
   BCSet bcs = {};
-  bcs.n = n_bc;
+  ZBCSet zbcs = {};
   for (int b = 0; b < n_bc; ++b) {
+    BCDesc d = {};
     if (!parse_bc(bc_int + b * kBCInts, bc_float + 2 * b, valid_ptrs[b],
-                  phi_ptrs[b], nx, ny, nz, bcs.bc[b]) ||
-        bcs.bc[b].axis == 2) {
+                  phi_ptrs[b], nx, ny, nz, d) ||
+        (d.axis == 2 ? zbcs.n == kMaxZBCs : bcs.n == kMaxBCs)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    if (d.axis != 2) {
+      bcs.bc[bcs.n++] = d;
+    } else if (!to_zbc(d, zbcs.bc[zbcs.n++])) {
       return (int)cudaErrorInvalidValue;
     }
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const StepArgs<S> args = {src, dst, mask, nx, ny, nz, cells, n_listed,
                             partials, (unsigned)n_partials, s, halo};
-  kStepTable<S, HALO>[key](args, coll, bcs);
+  kStepTable<S, HALO>[key](args, coll, bcs, zbcs);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   velsum_reduce_kernel<<<1, kReduceBlock, 0, s>>>(partials, n_partials,
                                                    series, t, 0);
-  return (int)cudaGetLastError();
-}
-
-// The z-plane NEE fixup of one boundary (descriptor row as parse_bc,
-// axis 2) with the collision branch of coll_int/coll_float, over the
-// window [x0, x1) x [y0, y1) of its consumer plane: src is the pre-step
-// state, dst the collide-stream kernel's output; series[t] += sum
-// |u_fixed| - |u_pre-NEE| over the rewritten cells. gfield as in
-// lbm_collide_stream. partials holds
-// ceil((x1-x0)*(y1-y0) / lbm_block_size()) doubles. Returns
-// cudaGetLastError(). halo as in collide_stream.
-template <typename S, int HALO = -1>
-int fix_z_plane(const S* src, S* dst, const int8_t* mask, int nx, int ny,
-                int nz, const int* coll_int, const float* coll_float,
-                const int* bc_int, const float* bc_float, const void* valid,
-                const void* phi, int x0, int x1, int y0, int y1,
-                double* partials, int n_partials, double* series, int t,
-                const float* gfield, void* stream,
-                const Halo& halo = Halo{}) {
-  const long long n_cells = (long long)nx * ny * nz;
-  const int wx = x1 - x0, wy = y1 - y0;
-  BCDesc bc = {};
-  if (n_cells <= 0 || n_cells > 0x7fffffffLL || x0 < 0 || y0 < 0 ||
-      wx <= 0 || wy <= 0 || x1 > nx || y1 > ny ||
-      !parse_bc(bc_int, bc_float, valid, phi, nx, ny, nz, bc) ||
-      bc.axis != 2) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (HALO >= 0 && !(halo.lo && halo.hi && halo.mask_lo && halo.mask_hi)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  Collision coll = {};
-  const int key = parse_collision(coll_int, coll_float, gfield, coll);
-  if (key < 0 || kFixTable<S, HALO>[key] == nullptr) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const long long grid = ((long long)wx * wy + kBlock - 1) / kBlock;
-  if (grid != n_partials) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const FixArgs<S> args = {src, dst, mask, nx, ny, nz, x0, wx, y0, wy,
-                           partials, (unsigned)grid, s, halo};
-  kFixTable<S, HALO>[key](args, coll, bc);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  velsum_reduce_kernel<<<1, kReduceBlock, 0, s>>>(partials, n_partials,
-                                                   series, t, 1);
   return (int)cudaGetLastError();
 }
 

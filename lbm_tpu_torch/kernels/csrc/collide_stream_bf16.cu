@@ -1,4 +1,4 @@
-// The collide-stream (K1a + K1b + K1c), z-plane fixup (K5 + K6) and
+// The collide-stream (K1a + K1b + K1c, with the z planes of K5 + K6) and
 // moments (K3) kernels on bf16 state: the C entries of
 // collide_stream.cuh with S = __nv_bfloat16, under the fp32 entries'
 // names with _bf16 appended and the same arguments, the state pointers
@@ -32,20 +32,6 @@ int lbm_collide_stream_bf16(const void* src, void* dst, const int8_t* mask,
       static_cast<const bf16*>(src), static_cast<bf16*>(dst), mask, nx, ny,
       nz, coll_int, coll_float, n_bc, bc_int, bc_float, valid_ptrs, phi_ptrs,
       cells, n_listed, partials, n_partials, series, t, gfield, stream);
-}
-
-int lbm_fix_z_plane_bf16(const void* src, void* dst, const int8_t* mask,
-                         int nx, int ny, int nz, const int* coll_int,
-                         const float* coll_float, const int* bc_int,
-                         const float* bc_float, const void* valid,
-                         const void* phi, int x0, int x1, int y0, int y1,
-                         double* partials, int n_partials, double* series,
-                         int t, const float* gfield, void* stream) {
-  return fix_z_plane<bf16>(static_cast<const bf16*>(src),
-                           static_cast<bf16*>(dst), mask, nx, ny, nz,
-                           coll_int, coll_float, bc_int, bc_float, valid, phi,
-                           x0, x1, y0, y1, partials, n_partials, series, t,
-                           gfield, stream);
 }
 
 int lbm_macro_bf16(const void* f, float* rho, float* u, long long n_cells,

@@ -1,5 +1,5 @@
-// The sharded collide-stream step (K1d) and its z-plane fixup on fp32
-// state: the kernels of collide_stream.cuh with HALO = LBM_HALO_AXIS, 0
+// The sharded collide-stream step (K1d, with its z planes) on fp32 state:
+// the kernel of collide_stream.cuh with HALO = LBM_HALO_AXIS, 0
 // for a shard of a box split along x and 1 for one split along y, each in
 // the 14 collision-branch instances lbm_tpu's sharded path takes (every
 // fp32 branch but the force field's). kernels/_build.py compiles this
@@ -21,10 +21,11 @@
 // kernel copies the ring rows into its VMEM tile by DMA from the shard or
 // the plane, whichever a per-tile predicate picks; here the pull of a
 // face cell reads the plane directly (two compares a shard-axis
-// direction, folded away for the other nine). lbm_fix_z_plane_halo
-// replaces the sharded z fixup (pallas_sharded.py:380-465: the pre-step
-// slab, its shard-edge rows patched from the planes, and the splice): its
-// pull reads the planes the same way.
+// direction, folded away for the other nine). The same launch replaces
+// the sharded z fixup (pallas_sharded.py:380-465: the pre-step slab, its
+// shard-edge rows patched from the planes, and the splice): a z plane's
+// consumer cells on the shard's faces pull from the planes like any
+// other cell.
 //
 // What bounds it: bytes, as the whole-box kernel: the local step's bytes
 // plus the two 5-population planes and their labels, which are 5/19 of
@@ -79,25 +80,6 @@ int lbm_collide_stream_halo(const float* src, float* dst, const int8_t* mask,
       src, dst, mask, nx, ny, nz, coll_int, coll_float, n_bc, bc_int,
       bc_float, valid_ptrs, phi_ptrs, cells, n_listed, partials, n_partials,
       series, t, nullptr, stream, make_halo(lo, hi, mask_lo, mask_hi));
-}
-
-// lbm_fix_z_plane's arguments (no force field) plus the shard axis and
-// halo planes as in lbm_collide_stream_halo; the window is in local
-// coordinates.
-int lbm_fix_z_plane_halo(const float* src, float* dst, const int8_t* mask,
-                         int nx, int ny, int nz, const int* coll_int,
-                         const float* coll_float, const int* bc_int,
-                         const float* bc_float, const void* valid,
-                         const void* phi, int x0, int x1, int y0, int y1,
-                         double* partials, int n_partials, double* series,
-                         int t, int halo_axis, const float* lo,
-                         const float* hi, const int8_t* mask_lo,
-                         const int8_t* mask_hi, void* stream) {
-  if (halo_axis != LBM_HALO_AXIS) return (int)cudaErrorInvalidValue;
-  return fix_z_plane<float, LBM_HALO_AXIS>(
-      src, dst, mask, nx, ny, nz, coll_int, coll_float, bc_int, bc_float,
-      valid, phi, x0, x1, y0, y1, partials, n_partials, series, t, nullptr,
-      stream, make_halo(lo, hi, mask_lo, mask_hi));
 }
 
 }  // extern "C"

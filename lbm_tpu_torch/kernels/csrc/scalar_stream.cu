@@ -27,7 +27,7 @@
 // written for fluid cells only. State layout: g[7][nx][ny][nz] fp32, z
 // contiguous, two ping-pong buffers. Non-fluid cells are never written:
 // both buffers hold the same values there from set-up on (zeros), as the
-// flow state's skipped blocks do. Because the source buffer stays
+// flow state's non-fluid cells do. Because the source buffer stays
 // intact, every rewrite above is local to the consumer cell, so no slab
 // copy and no second pass are needed. Semantics and operation order are
 // those of the plain pass (lbm_tpu_torch/engine/scalar.transport_pass):
@@ -43,15 +43,21 @@
 //
 // The record: a cell on a boundary's consumer plane under its footprint
 // stores its post-stream c into that boundary's plane buffer; a second
-// small kernel sums each buffer over the footprint in double, in a
-// fixed order, divides by the footprint's size and writes one row of
-// the (steps, boundaries) series. No atomics, no host read per step.
+// small kernel sums each buffer over the footprint's list of lateral
+// indices (built once on the host) in double, in a fixed order, divides
+// by the footprint's size and writes one row of the (steps, boundaries)
+// series. No atomics, no host read per step. The footprint of a vessel's
+// outlet is a few hundred cells of a plane of up to 10^5.
 //
 // What bounds it: bytes. A fluid cell reads 7 floats of g, 3 of u and
 // one of comp (K7) or 19 of f' (K8), six mask bytes, and writes 7
 // floats; the ~40 flops are far below the card's ratio. One thread per
-// cell, z fastest, so a warp's pulls are 32 consecutive floats; vessel
-// trees launch over the flow kernel's list of live 256-cell blocks.
+// cell, z fastest, so a warp's pulls are 32 consecutive floats. Vessel
+// trees launch over an ascending list of the cells the step touches: the
+// fluid cells and the cells under a footprint on its consumer plane,
+// whose c the record reads (engine/scalar.compile_scalar), so warps
+// carry those cells densely (17% of the lanes of the coronary's live
+// 256-cell blocks hold a fluid cell).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -62,7 +68,7 @@ namespace {
 constexpr int Q7 = 7;
 constexpr int Q19 = 19;
 constexpr int kBlock = 256;
-constexpr int kReduceBlock = 1024;
+constexpr int kRecordBlock = 256;
 constexpr int kMaxBCs = 8;
 constexpr int kBCInts = 4;    // axis, consumer coord, direction, c* given
 constexpr int kBCFloats = 2;  // c*, footprint size
@@ -131,7 +137,7 @@ struct SBC {
   int fixed;      // 1: c* = c_star; 0: zero gradient, c* = c_prev
   float c_star;
   double count;   // cells of the footprint
-  long long plane;         // cells of the plane
+  int foot_lo, foot_hi;    // the footprint's lateral indices in the list
   const uint8_t* valid;    // (A, B) bytes, the footprint
   float* cplane;           // (A, B) post-stream c of the footprint cells
 };
@@ -157,19 +163,23 @@ __device__ __forceinline__ long long plane_lat(const SBC& bc, int x, int y,
   return bc.valid[lat] ? lat : -1;
 }
 
-// Launch block b works on cells blocks[b] * kBlock ... + kBlock - 1, or
-// on block b itself when `blocks` is null.
+// Thread k of the launch steps the k-th cell of the list `cells`
+// (n_listed ids, ascending), or cell k of the box when `cells` is null.
+// The boundary set is a __grid_constant__ parameter: the loops over it
+// index the parameter bank and copy nothing.
 template <bool LIVE, bool COMP, bool FORCE, bool DIRICHLET>
 __global__ void __launch_bounds__(kBlock)
 scalar_stream_kernel(const float* __restrict__ src, float* __restrict__ dst,
                      const int8_t* __restrict__ mask, int nx, int ny, int nz,
                      const float* __restrict__ u, const float* __restrict__ f,
                      const float* __restrict__ comp,
-                     const float* __restrict__ wall_c, SParams p, SBCSet bcs,
-                     const int* __restrict__ blocks) {
+                     const float* __restrict__ wall_c, SParams p,
+                     const __grid_constant__ SBCSet bcs,
+                     const int* __restrict__ cells, int n_listed) {
   const long long n_cells = (long long)nx * ny * nz;  // < 2^31 (host check)
-  const long long blk = blocks ? (long long)blocks[blockIdx.x] : blockIdx.x;
-  const long long cell_ll = blk * kBlock + threadIdx.x;
+  const long long k = (long long)blockIdx.x * kBlock + threadIdx.x;
+  const long long cell_ll =
+      cells ? (k < n_listed ? (long long)cells[k] : n_cells) : k;
   if (cell_ll >= n_cells) return;
   const int cell = (int)cell_ll;
   const bool fluid = mask[cell] == kFluid;
@@ -293,20 +303,22 @@ scalar_stream_kernel(const float* __restrict__ src, float* __restrict__ dst,
   }
 }
 
-// row[b] = the mean of boundary b's plane buffer over its footprint:
-// one block a boundary, a fixed-order sum in double.
-__global__ void __launch_bounds__(kReduceBlock)
-scalar_record_kernel(SBCSet bcs, double* __restrict__ row) {
-  __shared__ double red[kReduceBlock];
+// row[b] = the mean of boundary b's plane buffer over its footprint: one
+// block a boundary, a fixed-order sum in double over the footprint's
+// lateral indices foot[bc.foot_lo ... bc.foot_hi - 1].
+__global__ void __launch_bounds__(kRecordBlock)
+scalar_record_kernel(const __grid_constant__ SBCSet bcs,
+                     const int* __restrict__ foot, double* __restrict__ row) {
+  __shared__ double red[kRecordBlock];
   const SBC& bc = bcs.bc[blockIdx.x];
   double acc = 0.0;
-  for (long long k = threadIdx.x; k < bc.plane; k += kReduceBlock) {
-    if (bc.valid[k]) acc += (double)bc.cplane[k];
+  for (int k = bc.foot_lo + threadIdx.x; k < bc.foot_hi; k += kRecordBlock) {
+    acc += (double)bc.cplane[foot[k]];
   }
   red[threadIdx.x] = acc;
   __syncthreads();
 #pragma unroll
-  for (unsigned s = kReduceBlock / 2; s > 0; s >>= 1) {
+  for (unsigned s = kRecordBlock / 2; s > 0; s >>= 1) {
     if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
     __syncthreads();
   }
@@ -322,7 +334,8 @@ struct SArgs {
   const float* f;
   const float* comp;
   const float* wall_c;
-  const int* blocks;
+  const int* cells;
+  int n_listed;
   unsigned grid;
   cudaStream_t stream;
 };
@@ -332,7 +345,7 @@ void launch(const SArgs& a, const SParams& p, const SBCSet& b) {
   scalar_stream_kernel<LIVE, COMP, FORCE, DIRICHLET>
       <<<a.grid, kBlock, 0, a.stream>>>(a.src, a.dst, a.mask, a.nx, a.ny,
                                         a.nz, a.u, a.f, a.comp, a.wall_c, p,
-                                        b, a.blocks);
+                                        b, a.cells, a.n_listed);
 }
 
 template <bool LIVE, bool X>
@@ -363,26 +376,32 @@ const char* lbm_error_string(int err) {
 // (n_cells, NaN = adiabatic) under SI_dirichlet. Boundary rows: bc_int
 // (axis, consumer coord, direction, c* given), bc_float (c*, footprint
 // size), valid_ptrs[b] the footprint bytes, cplane_ptrs[b] the plane
-// buffer. blocks: null (every block) or a device list of n_blocks block
-// ids; the blocks left out must hold no fluid cell. record_row: null, or
-// n_bc doubles that get each boundary's mean post-stream concentration.
-// Returns cudaGetLastError().
+// buffer; foot: a device list of every boundary's footprint, the
+// ascending lateral indices of its valid cells, boundary b's at
+// foot[foot_off[b] ... foot_off[b + 1] - 1] (foot_off: n_bc + 1 host
+// ints). cells: null (every cell) or a device list of n_listed cell
+// ids, ascending, holding every fluid cell and every cell under a
+// footprint on its consumer plane (the others are left as they are).
+// record_row: null, or n_bc doubles that get each boundary's mean
+// post-stream concentration. Returns cudaGetLastError().
 int lbm_scalar_stream(const float* src, float* dst, const int8_t* mask,
                       int nx, int ny, int nz, const float* u, const float* f,
                       const float* comp, const float* wall_c,
                       const int* s_int, const float* s_float, int n_bc,
                       const int* bc_int, const float* bc_float,
                       const void* const* valid_ptrs,
-                      void* const* cplane_ptrs, const int* blocks,
-                      int n_blocks, double* record_row, void* stream) {
+                      void* const* cplane_ptrs, const int* foot,
+                      const int* foot_off, const int* cells, int n_listed,
+                      double* record_row, void* stream) {
   const long long n_cells = (long long)nx * ny * nz;
-  const long long all_blocks = (n_cells + kBlock - 1) / kBlock;
-  const long long grid = blocks ? n_blocks : all_blocks;
+  const long long grid = ((cells ? n_listed : n_cells) + kBlock - 1) / kBlock;
   const bool live = s_int[SI_live] != 0, has_comp = s_int[SI_comp] != 0;
   const bool force = s_int[SI_force] != 0;
   const bool dirichlet = s_int[SI_dirichlet] != 0;
   if (n_bc < 0 || n_bc > kMaxBCs || n_cells <= 0 ||
-      n_cells > 0x7fffffffLL || grid <= 0 || grid > all_blocks ||
+      n_cells > 0x7fffffffLL || (cells && (n_listed <= 0 ||
+                                           n_listed > n_cells)) ||
+      (n_bc > 0 && (foot == nullptr || foot_off == nullptr)) ||
       src == dst || (live ? f == nullptr : u == nullptr) ||
       (live && has_comp) || (!live && force) ||
       (has_comp && comp == nullptr) || (dirichlet && wall_c == nullptr)) {
@@ -411,18 +430,21 @@ int lbm_scalar_stream(const float* src, float* dst, const int8_t* mask,
     if (d.axis < 0 || d.axis > 2 || d.coord < 0 ||
         d.coord >= extent[d.axis] || d.dir < 1 || d.dir >= Q7 ||
         (d.dir - 1) / 2 != d.axis || valid_ptrs[b] == nullptr ||
-        cplane_ptrs[b] == nullptr) {
+        cplane_ptrs[b] == nullptr || foot_off[b] < 0 ||
+        foot_off[b + 1] < foot_off[b] ||
+        foot_off[b + 1] - foot_off[b] > n_cells / extent[d.axis]) {
       return (int)cudaErrorInvalidValue;
     }
     d.c_star = bc_float[b * kBCFloats];
     d.count = (double)bc_float[b * kBCFloats + 1];
-    d.plane = n_cells / extent[d.axis];
+    d.foot_lo = foot_off[b];
+    d.foot_hi = foot_off[b + 1];
     d.valid = static_cast<const uint8_t*>(valid_ptrs[b]);
     d.cplane = static_cast<float*>(cplane_ptrs[b]);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const SArgs args = {src, dst, mask, nx, ny, nz, u, f, comp, wall_c,
-                      blocks, (unsigned)grid, s};
+                      cells, n_listed, (unsigned)grid, s};
   if (live) {
     if (force) {
       launch_dirichlet<true, true>(dirichlet, args, p, bcs);
@@ -438,7 +460,7 @@ int lbm_scalar_stream(const float* src, float* dst, const int8_t* mask,
   if (err != cudaSuccess || record_row == nullptr || n_bc == 0) {
     return (int)err;
   }
-  scalar_record_kernel<<<n_bc, kReduceBlock, 0, s>>>(bcs, record_row);
+  scalar_record_kernel<<<n_bc, kRecordBlock, 0, s>>>(bcs, foot, record_row);
   return (int)cudaGetLastError();
 }
 

@@ -128,29 +128,74 @@ def coupled_step_plain(f, g, cc, sc: ScalarCase, t: int, field=None):
     return f_new, g_new, rec, vs
 
 
-# The wrapper's scratch per case, dropped with the case: descriptor rows
-# and the boundaries' plane buffers.
+# The wrapper's scratch per case, dropped with the case: one _Launch per
+# mode (frozen or live velocity).
 _scratch: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
-def _launch_scratch(sc: ScalarCase, live: bool):
+class _Launch:
+    """What a case's launches share, built once: the C entry, the counter
+    name, the parameter and boundary rows, the ctypes pointer arrays, the
+    plane buffers and every argument that does not change with the step.
+    Per step only the state pointers, the record row and the c* of
+    boundaries whose c* is a function of the step move."""
+
+    def __init__(self, sc: ScalarCase, live: bool):
+        from lbm_tpu_torch.kernels._build import load_scalar_library
+
+        self.lib = load_scalar_library().lib
+        self.entry = self.lib.lbm_scalar_stream
+        self.name = f"lbm_scalar_stream[{instance(sc, live)}]"
+        self.si, self.sf = param_rows(sc, live)
+        n = max(len(sc.bcs), 1)
+        self.ints = np.zeros((n, BC_INTS), np.int32)
+        self.floats = np.zeros((n, BC_FLOATS), np.float32)
+        self.valid = (ctypes.c_void_p * n)()
+        self.cplane = (ctypes.c_void_p * n)()
+        self.planes = []
+        for b, bc in enumerate(sc.bcs):
+            self.ints[b, :3] = (bc.axis, bc.coord, bc.dir)
+            self.floats[b, 1] = bc.count
+            self.planes.append(torch.zeros(bc.valid.shape,
+                                           dtype=torch.float32,
+                                           device=sc.device))
+            self.valid[b] = bc.valid.data_ptr()
+            self.cplane[b] = self.planes[b].data_ptr()
+            self._set_c_star(b, bc.c_star_at(0))
+        # the boundaries whose c* moves with the step
+        self.moving = [(b, bc) for b, bc in enumerate(sc.bcs)
+                       if callable(bc.c_fn)]
+        self.foot_off = np.ascontiguousarray(sc.foot_off, np.int32)
+        nx, ny, nz = sc.shape
+        ids = sc.cells
+        self.head = (sc.mask.data_ptr(), nx, ny, nz,
+                     None if live else sc.u.data_ptr())
+        self.tail = (
+            None if live or sc.comp is None else sc.comp.data_ptr(),
+            None if sc.wall_c is None else sc.wall_c.data_ptr(),
+            self.si.ctypes.data, self.sf.ctypes.data, len(sc.bcs),
+            self.ints.ctypes.data, self.floats.ctypes.data,
+            ctypes.addressof(self.valid), ctypes.addressof(self.cplane),
+            sc.foot.data_ptr(), self.foot_off.ctypes.data,
+            None if ids is None else ids.data_ptr(),
+            nx * ny * nz if ids is None else ids.numel())
+
+    def _set_c_star(self, b: int, c_star) -> None:
+        self.ints[b, 3] = c_star is not None
+        self.floats[b, 0] = 0.0 if c_star is None else c_star
+
+    def __call__(self, g, out, f, t: int, row, stream) -> int:
+        for b, bc in self.moving:
+            self._set_c_star(b, bc.c_star_at(t))
+        return self.entry(g.data_ptr(), out.data_ptr(), *self.head,
+                          None if f is None else f.data_ptr(), *self.tail,
+                          row, stream)
+
+
+def _launch(sc: ScalarCase, live: bool) -> _Launch:
     per_case = _scratch.setdefault(sc, {})
     if live not in per_case:
-        n = max(len(sc.bcs), 1)
-        ints = np.zeros((n, BC_INTS), np.int32)
-        floats = np.zeros((n, BC_FLOATS), np.float32)
-        valid = (ctypes.c_void_p * n)()
-        cplane = (ctypes.c_void_p * n)()
-        planes = []
-        for b, bc in enumerate(sc.bcs):
-            ints[b, :3] = (bc.axis, bc.coord, bc.dir)
-            floats[b, 1] = bc.count
-            planes.append(torch.zeros(bc.valid.shape, dtype=torch.float32,
-                                      device=sc.device))
-            valid[b] = bc.valid.data_ptr()
-            cplane[b] = planes[b].data_ptr()
-        per_case[live] = (instance(sc, live), *param_rows(sc, live), ints,
-                          floats, valid, cplane, planes)
+        per_case[live] = _Launch(sc, live)
     return per_case[live]
 
 
@@ -171,8 +216,9 @@ def scalar_stream(g, out, sc: ScalarCase, t: int, f=None,
     post-collision (19, X, Y, Z) state, for the live velocity (K8);
     without it the frozen sc.u advects (K7). series: a (steps, n_bc)
     float64 tensor whose row `slot` gets each boundary's record, or
-    None. The launch covers the case's live blocks (every block when
-    there is no list). Returns out."""
+    None. The launch takes a thread a cell of the case's list (sc.cells:
+    the fluid cells and those under a footprint on its consumer plane),
+    or of the box when there is no list. Returns out."""
     _check_g(g, sc, "g")
     _check_g(out, sc, "out")
     if g.device.type not in ("cpu", "cuda"):
@@ -206,39 +252,20 @@ def scalar_stream(g, out, sc: ScalarCase, t: int, f=None,
         if series is not None:
             series[slot] = rec
         return out
-    from lbm_tpu_torch.kernels._build import check, load_scalar_library
+    from lbm_tpu_torch.kernels._build import check
 
-    lib = load_scalar_library().lib
-    nx, ny, nz = sc.shape
-    n_cells = nx * ny * nz
+    n_cells = sc.shape[0] * sc.shape[1] * sc.shape[2]
     if n_cells >= 2**31:
         raise ValueError(f"{n_cells} cells: the kernel indexes cells in int32")
-    ids = sc.live_blocks
-    grid = (-(-n_cells // lib.lbm_scalar_block_size()) if ids is None
-            else ids.numel())
-    name, si, sf, ints, floats, valid, cplane, _ = _launch_scratch(sc, live)
-    for b, bc in enumerate(sc.bcs):
-        c_star = bc.c_star_at(t)
-        ints[b, 3] = c_star is not None
-        floats[b, 0] = 0.0 if c_star is None else c_star
+    launch = _launch(sc, live)
     row = None
     if series is not None and n_bc:
         row = series.data_ptr() + slot * n_bc * 8
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = lib.lbm_scalar_stream(
-            g.data_ptr(), out.data_ptr(), sc.mask.data_ptr(), nx, ny, nz,
-            None if live else sc.u.data_ptr(),
-            f.data_ptr() if live else None,
-            None if live or sc.comp is None else sc.comp.data_ptr(),
-            None if sc.wall_c is None else sc.wall_c.data_ptr(),
-            si.ctypes.data, sf.ctypes.data, n_bc, ints.ctypes.data,
-            floats.ctypes.data, ctypes.addressof(valid),
-            ctypes.addressof(cplane),
-            None if ids is None else ids.data_ptr(), grid, row, stream)
-    check(lib, err, f"lbm_scalar_stream[{name}]")
-    launches[f"lbm_scalar_stream[{name}]"] = \
-        launches.get(f"lbm_scalar_stream[{name}]", 0) + 1
+        err = launch(g, out, f, t, row, stream)
+    check(launch.lib, err, launch.name)
+    launches[launch.name] = launches.get(launch.name, 0) + 1
     return out
 
 

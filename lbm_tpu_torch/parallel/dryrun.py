@@ -6,7 +6,7 @@ paths 1-3 of lbm_tpu's __graft_entry__.dryrun_multichip):
   2. the kernel route (parallel/sharded.make_sharded_step: K1d's plain
      version on the CPU) on the lid cavity, split along x;
   3. the kernel route on the coronary tree split along y, with its
-     z-plane sub-outlets' halo fixups.
+     z-plane sub-outlets.
 
 lbm_tpu's path 4 (windkessel outlets under a mesh, ROADMAP item 8) and
 path 5 (the sharded scalar kernel, ScalarTransportPallas(mesh=)) belong

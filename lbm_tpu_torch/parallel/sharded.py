@@ -2,21 +2,20 @@
 lbm_tpu/parallel/pallas_sharded.py).
 
 Each rank steps its own window (engine/compile.compile_shard) with the
-K1d kernels, in four parts a step:
+K1d kernel, in three parts a step:
   1. pack its edge planes (parallel/halo.edge_planes) and send them
      around the ring,
   2. receive its neighbours' planes (one batch_isend_irecv),
-  3. launch lbm_collide_stream_halo over its live blocks: its faces'
-     pulls read the received planes,
-  4. launch lbm_fix_z_plane_halo once per z-plane boundary whose window
-     meets its rows (the window in local coordinates; the rows on its
-     faces pull from the planes, lbm_tpu's halo patch of the slab).
+  3. launch lbm_collide_stream_halo over its fluid cells, its x/y and
+     z-plane boundaries in the one launch: its faces' pulls read the
+     received planes (for a z plane's consumer cells too, lbm_tpu's halo
+     patch of its z fixup's slab).
 
 The kernels read the pre-step state from the ping-pong source, which
 stays intact, so lbm_tpu's TPU-capacity machinery has no counterpart:
 the in-place output, the seam rows, the optimization barrier and the
 dead-tile filler of shard_tile_lists. A rank launches its own grid over
-its own live-block list, so no list is padded to a common length. The
+its own fluid-cell list, so no list is padded to a common length. The
 velsum stays per rank; the runner sums the ranks' series once a chunk
 (engine/runner.py).
 """

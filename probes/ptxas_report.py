@@ -12,7 +12,8 @@ archive) to put that tree's registers beside this one's.
 
 Prints one JSON object per directory: {"csrc": dir, "build_s": {unit:
 seconds}, "ptxas": {instance: [registers, spill store bytes, spill load
-bytes, static shared memory bytes]}, "pair": {instance: [dynamic shared
+bytes, static shared memory bytes, stack frame bytes]}, "pair":
+{instance: [dynamic shared
 memory bytes, threads, blocks an SM]}}, instance names as
 chip_smoke.ptxas_report gives them (a halo unit's tagged "halo_x" /
 "halo_y", a bf16 unit's "bf16").
@@ -71,9 +72,11 @@ def report(csrc: str) -> dict:
         out = {"csrc": csrc, "build_s": {}, "ptxas": {}, "pair": {}}
         for (name, _, _, tag), (seconds, log, so) in zip(jobs, done):
             out["build_s"][name] = round(seconds, 2)
-            smem = {}
-            for k, v in chip_smoke.ptxas_report(log, smem, tag=tag).items():
-                out["ptxas"][k] = list(v) + [smem.get(k, 0)]
+            smem, stack = {}, {}
+            for k, v in chip_smoke.ptxas_report(log, smem, tag=tag,
+                                                stack=stack).items():
+                out["ptxas"][k] = list(v) + [smem.get(k, 0),
+                                             stack.get(k, 0)]
             if name.startswith("collide_stream2") and _card():
                 lib = ctypes.CDLL(so)
                 if hasattr(lib, "lbm_pair_blocks_per_sm"):

@@ -74,8 +74,8 @@ VESSELS = [("coronary", dict(shape=(64, 48, 96), radius=4)),
 
 @pytest.mark.parametrize("name,kw", VESSELS)
 def test_vessel_step_matches_plain(device, name, kw):
-    """The whole kernel step (collide-stream over the live blocks, then
-    lbm_fix_z_plane per z-plane outlet) against step_plain, 12 steps
+    """The whole kernel step (one collide-stream launch over the fluid
+    cells, the z-plane outlets included) against step_plain, 12 steps
     across 6 series phases."""
     cc = compile_case(get_case(name, **kw), device)
     f = initial_f(cc)
@@ -88,27 +88,64 @@ def test_vessel_step_matches_plain(device, name, kw):
         fk, buf = buf, fk
         f, vs_p[t] = K.step_plain(f, cc, t)
     torch.cuda.synchronize()
-    assert K.launches["lbm_collide_stream[bgk]"] == 12
-    assert K.launches.get("lbm_fix_z_plane[bgk]", 0) == \
-        12 * len(cc.z_bcs)
+    assert K.launches == {"lbm_collide_stream[bgk]": 12}
     torch.testing.assert_close(fk, f, rtol=3e-6, atol=1e-7)
     torch.testing.assert_close(vs_k, vs_p, rtol=1e-5, atol=0.0)
 
 
-def test_fix_z_plane_kernel_matches_plain(device):
-    cc = compile_case(get_case("coronary", shape=(64, 48, 96), radius=4),
-                      device)
+@pytest.mark.parametrize("inst", ["bgk", "trt+cy", "bgk+bf16", "bgk+halo"])
+def test_fix_z_plane_kernel_matches_plain(device, inst):
+    """The collide-stream kernel with the z-plane descriptors (the three
+    sub-outlets of the small pulsatile coronary, which lbm_fix_z_plane
+    fixed in launches of their own) against step_plain (the x/y pass
+    plus each z window's fixup), one launch a step from a developed
+    state, 8 steps: f bit for bit, velsum at 1e-5 relative; [trt+cy]
+    (Carreau blood), bf16 storage and 2 shards along y (K1d) too."""
+    from lbm_tpu_torch.bridge import shard_window
+    from lbm_tpu_torch.engine.compile import compile_shard
+    from lbm_tpu_torch.parallel.halo import ring_planes
+
+    kw = dict(shape=(64, 48, 96), radius=4, pulsatile=(4, 8))
+    if inst == "trt+cy":
+        units = get_case("coronary", **kw).units
+        kw.update(collision="trt", rheology=carreau_blood(units))
+    spec = get_case("coronary", **kw)
+    cc = compile_case(spec, device)
+    assert len(cc.z_bcs) == 3 and len(cc.step_bcs) == 5
     f0 = initial_f(cc)
-    f1, _ = K.step_plain(f0, cc, 0)
-    xy, _ = K.collide_stream_plain(f1, cc, 1)
-    for bc in cc.z_bcs:
-        a, b = xy.clone(), xy.clone()
-        s = torch.zeros(1, dtype=torch.float64, device=device)
-        K.fix_z_plane(f1, a, cc, bc, s, 0, 1)
-        d = K.fix_z_plane_plain(f1, b, cc, bc, 1)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(a, b, rtol=3e-6, atol=1e-7)
-        assert abs(float(s[0]) - float(d)) <= 1e-5 * abs(float(d)) + 1e-12
+    for t in range(20):
+        f0, _ = K.step_plain(f0, cc, t)
+    if inst == "bgk+bf16":
+        f0 = f0.to(torch.bfloat16)
+    if inst == "bgk+halo":
+        ccs = [compile_shard(spec, r, 2, 1, device) for r in range(2)]
+        assert any(bc.window for c in ccs for bc in c.z_bcs)
+        fk = [shard_window(f0, r, 2, 1) for r in range(2)]
+    else:
+        ccs, fk = [cc], [f0]
+    bufs = [x.clone() for x in fk]
+    fp = [x.clone() for x in fk]
+    vk = torch.zeros(len(ccs), 8, dtype=torch.float64, device=device)
+    vp = torch.zeros(len(ccs), 8, dtype=torch.float64, device=device)
+    K.reset_launches()
+    for t in range(20, 28):
+        halo_k = halo_p = [None] * len(ccs)
+        if inst == "bgk+halo":
+            halo_k = [c.halo(*p) for c, p in zip(ccs, ring_planes(fk, 1))]
+            halo_p = [c.halo(*p) for c, p in zip(ccs, ring_planes(fp, 1))]
+        for r, c in enumerate(ccs):
+            K.collide_stream(fk[r], bufs[r], c, vk[r], t - 20, t,
+                             halo=halo_k[r])
+            fk[r], bufs[r] = bufs[r], fk[r]
+            fp[r], vp[r, t - 20] = K.step_plain(fp[r], c, t, halo=halo_p[r])
+    torch.cuda.synchronize()
+    assert K.launches == {f"lbm_collide_stream[{inst}]": 8 * len(ccs)}
+    for a, b in zip(fk, fp):
+        if inst == "trt+cy":
+            torch.testing.assert_close(a, b, rtol=3e-6, atol=1e-7)
+        else:
+            assert torch.equal(a, b)
+    torch.testing.assert_close(vk, vp, rtol=1e-5, atol=0.0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -229,8 +266,9 @@ def test_branch_kernel_matches_plain(device, branch):
 
 
 def test_blood_closure_in_the_z_plane_fixup(device):
-    """TRT + the Carreau blood closure on the pulsatile coronary: the
-    z-plane fixup runs the same branch as the collide-stream kernel."""
+    """TRT + the Carreau blood closure on the pulsatile coronary: its
+    z-plane outlets are rewritten in the collide-stream launch, with the
+    same branch."""
     spec = get_case("coronary", shape=(64, 48, 96), radius=4,
                     pulsatile=(4, 8))
     spec = get_case("coronary", shape=(64, 48, 96), radius=4,
@@ -247,7 +285,7 @@ def test_blood_closure_in_the_z_plane_fixup(device):
         fk, buf = buf, fk
         f, vs_p[t] = K.step_plain(f, cc, t)
     torch.cuda.synchronize()
-    assert K.launches["lbm_fix_z_plane[trt+cy]"] == 12 * len(cc.z_bcs)
+    assert K.launches == {"lbm_collide_stream[trt+cy]": 12}
     torch.testing.assert_close(fk, f, rtol=3e-6, atol=1e-7)
     torch.testing.assert_close(vs_k, vs_p, rtol=1e-5, atol=0.0)
 
@@ -369,6 +407,68 @@ def test_scalar_kernel_coupled_matches_plain(device):
     assert abs(sa - sb).max() <= 1e-12
 
 
+@pytest.mark.parametrize("live", [False, True])
+def test_scalar_kernel_over_the_cell_list(device, live):
+    """K7 (frozen u) and K8 (the flow's post-collision state) launched
+    over the scalar's cell list (the fluid cells and the footprints' cells
+    on their consumer planes) on the small pulsatile coronary, a bolus at
+    the inlet and every plane recorded, 20 steps from a random g: against
+    the plain pass and against the launch over every cell of the box, g
+    bit for bit and the records within 1e-12 (the record sums the
+    footprints' lists of lateral indices)."""
+    import dataclasses
+
+    import numpy as np
+
+    import lbm_tpu_torch.kernels.scalar_stream as S
+    from lbm_tpu_torch.engine.scalar import (
+        CoupledTransport,
+        ScalarTransport,
+    )
+
+    spec = get_case("coronary", shape=(64, 48, 96), radius=4,
+                    pulsatile=(4, 8))
+    c0 = np.random.default_rng(1).random(tuple(spec.shape), dtype=np.float32)
+    inlet = {0: lambda t: 1.0 if t < 10 else 0.0}
+    if live:
+        tr = CoupledTransport(spec, D=0.02, inlet_c=inlet, c0=c0,
+                              device=device)
+        for t in range(20):
+            tr.f, _ = K.step_plain(tr.f, tr.cc, t)
+        f = tr.f
+    else:
+        sim = Simulation(spec, device=device)
+        sim.run(max_steps=40, time_save=40, verbose=False)
+        tr = ScalarTransport(spec, sim.macro()[1], D=0.02, inlet_c=inlet,
+                             c0=c0, device=device)
+        f = None
+    sc = tr.sc
+    assert sc.cells is not None and sc.cells.numel() >= int(sc.fluid.sum())
+    full = dataclasses.replace(sc, cells=None)
+    n_bc = len(sc.bcs)
+    g = {"list": tr.g.clone(), "full": tr.g.clone()}
+    buf = {k: v.clone() for k, v in g.items()}
+    series = {k: torch.zeros((20, n_bc), dtype=torch.float64,
+                             device=device) for k in g}
+    gp, want = tr.g.clone(), []
+    S.reset_launches()
+    for t in range(20):
+        for key, case in (("list", sc), ("full", full)):
+            S.scalar_stream(g[key], buf[key], case, t, f=f,
+                            series=series[key], slot=t)
+            g[key], buf[key] = buf[key], g[key]
+        gp, rec = S.scalar_stream_plain(gp, sc, t, f=f)
+        want.append(rec)
+    torch.cuda.synchronize()
+    assert S.launches == {
+        f"lbm_scalar_stream[{S.instance(sc, live)}]": 40}
+    assert torch.equal(g["list"], gp) and torch.equal(g["full"], gp)
+    want = torch.stack(want)
+    assert float((series["list"] - want).abs().max()) <= 1e-12
+    assert float((series["full"] - want).abs().max()) <= 1e-12
+    assert float(want[:, 0].max()) > 0
+
+
 THERMAL = {
     "cavity3d": ("heated_cavity_3d", dict(n=24), {}),
     "cavity3d trt": ("heated_cavity_3d", dict(n=24), dict(collision="trt")),
@@ -408,10 +508,10 @@ def test_thermal_kernels_match_plain(device, label):
 @pytest.mark.parametrize("coll", ["bgk", "trt"])
 @pytest.mark.parametrize("sliding", [False, True])
 def test_force_field_with_z_planes_and_moving_walls(device, coll, sliding):
-    """The force-field instances of the fixup kernel, and the +moving
-    ones of both flow kernels: a buoyant scalar in the small pulsatile
-    tree (three z-plane boundaries), the walls of its x < 32 half sliding
-    along z or not; 40 steps, bit for bit in f and g."""
+    """The force-field instances of the collide-stream kernel with z-plane
+    descriptors, and their +moving ones: a buoyant scalar in the small
+    pulsatile tree (three z-plane boundaries), the walls of its x < 32
+    half sliding along z or not; 40 steps, bit for bit in f and g."""
     import dataclasses
 
     import numpy as np
@@ -437,8 +537,7 @@ def test_force_field_with_z_planes_and_moving_walls(device, coll, sliding):
     _run_plain(b, 40, [])
     torch.cuda.synchronize()
     inst = f"{coll}+field" + ("+moving" if sliding else "")
-    assert K.launches == {f"lbm_collide_stream[{inst}]": 40,
-                          f"lbm_fix_z_plane[{inst}]": 120}
+    assert K.launches == {f"lbm_collide_stream[{inst}]": 40}
     assert S.launches == {"lbm_scalar_stream[live+force]": 40}
     assert torch.equal(a.f, b.f) and torch.equal(a.g, b.g)
     assert float(a.concentration().abs().max()) > 0
@@ -635,9 +734,9 @@ def test_bf16_branch_kernel_matches_plain(device, branch):
 
 @pytest.mark.parametrize("name,kw", VESSELS)
 def test_bf16_vessel_step_matches_plain(device, name, kw):
-    """The bf16 step on the vessels (live blocks, the bf16 z-plane fixup
-    after it, series phases), 12 steps, bit for bit against step_plain
-    on bf16 state."""
+    """The bf16 step on the vessels (the fluid list, the z planes in the
+    same launch, series phases), 12 steps, bit for bit against
+    step_plain on bf16 state."""
     cc = compile_case(get_case(name, **kw), device)
     f = initial_f(cc).to(torch.bfloat16)
     fk, buf = f.clone(), f.clone()
@@ -649,9 +748,7 @@ def test_bf16_vessel_step_matches_plain(device, name, kw):
         fk, buf = buf, fk
         f, vs_p[t] = K.step_plain(f, cc, t)
     torch.cuda.synchronize()
-    assert K.launches["lbm_collide_stream[bgk+bf16]"] == 12
-    assert K.launches.get("lbm_fix_z_plane[bgk+bf16]", 0) == \
-        12 * len(cc.z_bcs)
+    assert K.launches == {"lbm_collide_stream[bgk+bf16]": 12}
     assert torch.equal(fk, f)
     torch.testing.assert_close(vs_k, vs_p, rtol=1e-5, atol=0.0)
 
@@ -731,8 +828,8 @@ HALO_BRANCHES = {
 @pytest.mark.parametrize("world", [2, 4])
 @pytest.mark.parametrize("branch", sorted(HALO_BRANCHES))
 def test_halo_kernels_match_plain_and_the_whole_box(device, branch, world):
-    """The sharded collide-stream kernel and its z fixup (K1d) on `world`
-    shards held in one process, 20 steps: each shard against the plain
+    """The sharded collide-stream kernel (K1d, its z planes in the same
+    launch) on `world` shards held in one process, 20 steps: each shard against the plain
     halo step (bit for bit but for the closures, rtol 3e-6 / atol 1e-7),
     and the stitched shards against the whole-box kernel step, bit for
     bit where the plain versions are."""
@@ -767,9 +864,8 @@ def test_halo_kernels_match_plain_and_the_whole_box(device, branch, world):
                                                halo=c.halo(*planes_p[r]))
         torch.cuda.synchronize()
         inst = K.instance(cc)
-        n_z = sum(bc.window is not None for c in ccs for bc in c.z_bcs)
-        assert K.launches[f"lbm_collide_stream[{inst}+halo]"] == 20 * world
-        assert K.launches.get(f"lbm_fix_z_plane[{inst}+halo]", 0) == 20 * n_z
+        assert K.launches == {f"lbm_collide_stream[{inst}]": 20,
+                              f"lbm_collide_stream[{inst}+halo]": 20 * world}
         stitched = gather_windows(fk, axis, spec.shape[axis])
         for r in range(world):
             if exact:
@@ -790,7 +886,7 @@ def test_sharded_simulation_on_one_card(device):
     """Simulation(mesh=) on 2 gloo ranks sharing the card (the planes
     staged through host memory), the coronary split along y: its
     gathered state equals the whole-box run's bit for bit off the DEAD
-    cells, zeros on them; K1d and its z fixup launched every step."""
+    cells, zeros on them; K1d, the z planes in its launch, every step."""
     from lbm_tpu_torch.parallel.launch import run_case, spawn
 
     opts = dict(shape=(64, 48, 96), radius=4, pulsatile=(4, 8))
@@ -803,4 +899,4 @@ def test_sharded_simulation_on_one_card(device):
     assert (out["f"][:, live] == f[:, live]).all()
     assert (out["f"][:, ~live] == 0).all()
     assert out["launches"]["lbm_collide_stream[bgk+halo]"] == 12
-    assert out["launches"]["lbm_fix_z_plane[bgk+halo]"] >= 12
+    assert not [k for k in out["launches"] if "fix_z_plane" in k]

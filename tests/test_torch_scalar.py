@@ -172,7 +172,7 @@ def test_coronary_mean_age_matches_lbm_tpu():
                                      source=1.0)
     port = ScalarTransport(spec, u, D=0.02, inlet_c={0: 0.0}, source=1.0,
                            device="cpu")
-    assert port.sc.live_blocks is not None
+    assert port.sc.cells is not None
     sr = ref.run(25, record=outlets)
     sp = port.run(25, record=outlets)
     np.testing.assert_allclose(sp, sr, atol=5e-5)
