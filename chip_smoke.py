@@ -211,6 +211,34 @@ shard axis) and Simulation(mesh=) on torch.distributed:
      against an unsharded run, then `run --shard N` on the 64^3 cavity
      writing VTK and CONVERGENCE.log; with one card a line saying the
      NCCL path for several cards was not run.
+Windkessel (RCR) outlets and the clinical outputs (lbm_windkessel_flux,
+built from windkessel.cu, and the windkessel x/y and z planes of K1,
+whose descriptors read rho* from the device):
+  2e. (inside phase 2) the flux kernel's unit, its build seconds and
+     ptxas's registers of its four instances (with and without a force,
+     fp32 and bf16);
+ 18. the clinical path: the kernel route of windkessel cases against its
+     plain versions on the card (each step the flux kernel alone against
+     windkessel_flux_plain, then the flux kernel, K1 and the reduction
+     against windkessel_flux_plain and step_plain; f at rtol 3e-6, atol
+     1e-7, a bf16 state within 2e-2 of max |f|, P_c within 1e-6 of its
+     largest value, the velsum within 1e-5): the pulsatile coronary (64,
+     48, 96) r=4 with four RCR outlets for 200 steps, then for 50 steps
+     in bf16, with TRT + Carreau blood, and poiseuille 32^3 with its y
+     outlet; the full coronary 291x291x372 r=12 pulsatile [40, 2000] with
+     tools/demo_clinical_washout.py's RCR values for 2 steps; then its
+     clinical run through Simulation.run, 2000 steps (counters reset just
+     before and read just after: the flux kernel and K1 [bgk+wk] 2000
+     each, K3 at least 4), finite fields and P_c, max|u| within 3x the
+     inlet speed, P_c in mmHg and the FFR between the inlet and the main
+     outlet, 2000 more steps timed, a 200-step profile (at most three
+     kernel launches a step and the chunk's few); the flux kernel and the
+     whole step in turns with their plain versions, with bounds; wss()
+     and one WSSAccumulator sample at full size, their ms and device
+     memory rise; then CoupledTransport on it (tau_g 0.6, a 500-step
+     bolus, every boundary recorded), 2000 steps (the flux kernel, K1
+     [bgk+wk] and K8 2000 each; at most five kernel launches a step),
+     the washout checks of phase 9.
 Before the last line it prints one JSON object describing each kernel;
 the last line is {"ok": true, "device": {...}}.
 
@@ -236,6 +264,10 @@ K2_SOURCE = "lbm_tpu_torch/kernels/csrc/collide_stream2.cu"
 K1A_BF16_SOURCE = "lbm_tpu_torch/kernels/csrc/collide_stream_bf16.cu"
 K2_BF16_SOURCE = "lbm_tpu_torch/kernels/csrc/collide_stream2_bf16.cu"
 K1D_SOURCE = "lbm_tpu_torch/kernels/csrc/collide_stream_halo.cu"
+WK_SOURCE = "lbm_tpu_torch/kernels/csrc/windkessel.cu"
+# the clinical run's RCR terminations (lattice Rp, C, Rd: the main outlet,
+# then sub-outlets 5, 6 and 7), tools/demo_clinical_washout.py's
+CLINICAL_WK = [(2e-4, 2e4, 1e-3)] + [(2e-4, 2e4, 3e-3)] * 3
 HBM_BYTES_PER_S = 3.35e12   # published H100 SXM peak at 700 W
 # lbm_tpu's bf16 tolerance (tests/test_pallas_kernel.py): a bf16 state
 # within this share of max |f| of its reference
@@ -849,6 +881,12 @@ def ptxas_report(log: str, smem: dict | None = None, tag: str = "",
             elem = {"6float4": "float4", "f": "f",
                     "13__nv_bfloat16": "bf16"}[m.group(1)]
             return f"extract_rows_kernel[{elem}]"
+        m = re.search(r"(windkessel_flux_kernel)ILb(\d)E(f|13__nv_bfloat16)E",
+                      mangled)
+        if m:
+            kind = "force" if m.group(2) == "1" else "plain"
+            store = "+bf16" if m.group(3) != "f" else ""
+            return f"{m.group(1)}[{kind}{store}]"
         m = re.search(r"(macro_kernel)ILb(\d)E", mangled)
         if m:
             return f"macro_kernel[{'force' if m.group(2) == '1' else 'plain'}]"
@@ -1677,6 +1715,305 @@ def coupled_path(full, device):
     del tr
     free_device()
     return counts, dict(path_profile(tag, by_name, ms, 4), ms_again=ms2)
+
+
+def compare_wk(label, spec, steps, device, dtype=None):
+    """A windkessel case's kernel route against its plain versions on the
+    card for `steps` steps, one state of `dtype` (float32 when None):
+    each step the flux kernel alone against windkessel_flux_plain (P_c'
+    and rho*), then the step (the flux kernel, K1 with its windkessel x/y
+    and z planes reading rho* from the device, the reduction) against
+    windkessel_flux_plain and step_plain. Requires f within rtol 3e-6,
+    atol 1e-7 (a bf16 state within lbm_tpu's bf16 share of max |f|), P_c
+    within 1e-6 of its largest value and the velsum within 1e-5
+    relative. Returns the errors and whether f and P_c are bit-equal."""
+    import torch
+
+    from lbm_tpu_torch.engine.compile import compile_case, wk_init
+    from lbm_tpu_torch.engine.step import initial_f
+    from lbm_tpu_torch.kernels import collide_stream as K
+
+    cc = compile_case(spec, device)
+    dtype = dtype or torch.float32
+    f = initial_f(cc).to(dtype)
+    fk, buf = f.clone(), f.clone()
+    wk_k = torch.from_numpy(wk_init(cc.bcs)).to(device)
+    wk_p, rho_k = wk_k.clone(), torch.zeros_like(wk_k)
+    vs_k = torch.zeros(steps, dtype=torch.float64, device=device)
+    vs_p = torch.zeros_like(vs_k)
+    rho_err = 0.0
+    for t in range(steps):
+        w, r = K.windkessel_flux_plain(fk, cc, wk_k)
+        K.windkessel_flux(fk, cc, wk_k.clone(), rho_k)
+        rho_err = max(rho_err, float((rho_k - r).abs().max()))
+        K.collide_stream(fk, buf, cc, vs_k, t, t, wk=wk_k)
+        fk, buf = buf, fk
+        wk_p, rho_p = K.windkessel_flux_plain(f, cc, wk_p)
+        f, vs_p[t] = K.step_plain(f, cc, t, rho_wk=rho_p)
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        err = float((fk.float() - f.float()).abs().max())
+        require(err <= BF16_REL * float(f.float().abs().max()),
+                f"{label}: bf16 f max abs err {err:.3e}")
+    else:
+        err = check_close(f"{label} f", fk, f, 3e-6, 1e-7)
+    pc_err = float((wk_k - wk_p).abs().max()) / max(
+        float(wk_p.abs().max()), 1e-30)
+    vs_err = float(((vs_k - vs_p).abs() / vs_p.abs()).max())
+    require(pc_err <= 1e-6 and vs_err <= 1e-5
+            and bool(torch.isfinite(wk_k).all()),
+            f"{label}: P_c rel err {pc_err:.3e}, velsum {vs_err:.3e}, "
+            f"P_c {wk_k.tolist()}")
+    bit = bool(torch.equal(fk, f) and torch.equal(wk_k, wk_p))
+    print(f"[18] {label}: {steps} steps, kernel route against its plain "
+          f"versions: f max abs err {err:.3e}, P_c rel err {pc_err:.3e}, "
+          f"rho* (flux kernel alone) max abs err {rho_err:.3e}, velsum rel "
+          f"err {vs_err:.3e}, bit-equal {bit}; P_c {wk_k.tolist()}",
+          flush=True)
+    return {"f": err, "pc": pc_err, "rho": rho_err, "vs": vs_err,
+            "bit_equal": bit}
+
+
+def wk_flux_bytes(cc, pop: int = 4) -> int:
+    """The least bytes the flux kernel moves: each footprint cell's 19
+    pre-step populations, its id and weight, read once; each outlet's P_c
+    read and written, its rho* written."""
+    from lbm_tpu_torch.kernels import collide_stream as K
+
+    lists = K.wk_lists(cc)
+    n = int(lists.cells.numel())
+    return n * (19 * pop + 4 + 4) + len(lists.rows) * 12
+
+
+def clinical_path(device):
+    """The clinical coronary (phase 18): the windkessel kernels against
+    their plain versions on small cases for 200 steps (the pulsatile
+    coronary with four RCR outlets, fp32 and bf16, with TRT + Carreau
+    blood, and poiseuille's x/y outlet alone) and on the full coronary
+    with the clinical RCR values for 2 steps; then the full coronary's
+    clinical run through Simulation.run, 2000 steps and 2000 more, timed
+    (counters reset just before and read just after the first: the flux
+    kernel and K1 [bgk+wk] 2000 each), P_c in mmHg and the FFR between the
+    inlet and the main outlet; the flux kernel and the whole step timed
+    against their plain versions; WSS and one WSSAccumulator sample at
+    full size; then the coupled washout with the windkessel outlets and a
+    gated bolus. Returns the numbers of the kernels line. (The bf16,
+    blood and poiseuille cases run 50 steps, to keep the run's time.)"""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.cases import get_case
+    from lbm_tpu_torch.core.rheology import carreau_blood
+    from lbm_tpu_torch.engine.diagnostics import MMHG_PER_PA, ffr
+    from lbm_tpu_torch.engine.runner import Simulation
+    from lbm_tpu_torch.kernels import collide_stream as K
+
+    tag = "[18] clinical path"
+    out = {"errs": {}}
+    small = dict(shape=[64, 48, 96], radius=4, windkessel=CLINICAL_WK)
+    small_spec = get_case("coronary", **small, pulsatile=[4, 40])
+    for label, spec, dtype, steps in (
+            ("coronary (64, 48, 96) r=4 pulsatile [4, 40], 4 RCR outlets",
+             small_spec, None, 200),
+            ("coronary (64, 48, 96) r=4 pulsatile, 4 RCR outlets, bf16",
+             small_spec, torch.bfloat16, 50),
+            ("coronary (64, 48, 96) r=4, 4 RCR outlets, trt+carreau blood",
+             get_case("coronary", **small, collision="trt",
+                      rheology=carreau_blood(small_spec.units)), None, 50),
+            ("poiseuille 32^3, an RCR outlet on its y plane",
+             get_case("poiseuille", n=32, windkessel=(5e-4, 24000.0, 2.5e-3)),
+             None, 50)):
+        out["errs"][label] = compare_wk(label, spec, steps, device, dtype)
+    full = get_case("coronary", **FULL_CORONARY, windkessel=CLINICAL_WK)
+    out["errs"]["coronary full clinical"] = compare_wk(
+        "coronary full (291, 291, 372) r=12 pulsatile [40, 2000], the "
+        "clinical RCR outlets", full, 2, device)
+    free_device()
+
+    t0 = time.perf_counter()
+    sim = Simulation(full, device=device)
+    t_setup = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(device)
+    K.reset_launches()
+    res = sim.run(max_steps=2000, time_save=500, verbose=False)
+    rho, u = sim.macro()
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    require(counts.get("lbm_windkessel_flux") == 2000
+            and counts.get("lbm_collide_stream[bgk+wk]") == 2000
+            and counts.get("lbm_macro", 0) >= 4 and res.steps == 2000,
+            f"{tag}: launches {counts} in a {res.steps}-step run")
+    require(sim.wk.device == device and bool(torch.isfinite(sim.wk).all())
+            and bool(torch.isfinite(rho).all() and torch.isfinite(u).all()),
+            f"{tag}: non-finite fields or P_c {sim.wk}")
+    u_in = 0.1745 / 2.74909090909091
+    fluid = sim.cc.fluid
+    u_max = float(u.norm(dim=0)[fluid].max())
+    require(u_max <= 3.0 * u_in,
+            f"{tag}: max|u| {u_max:.4g} above 3x the inlet speed")
+    ms = res.elapsed_s / res.steps * 1e3
+    pc_mmhg = (sim.wk.cpu().numpy() * full.units.C_pre
+               * MMHG_PER_PA).tolist()
+    f_ffr, dp = ffr(full, rho, 0, 1)
+    require(np.isfinite(f_ffr) and np.isfinite(dp), f"{tag}: ffr {f_ffr}")
+    print(f"{tag} coronary (291, 291, 372) r=12 pulsatile [40, 2000], RCR "
+          f"{CLINICAL_WK}: {res.steps} steps in {res.elapsed_s:.3f} s = "
+          f"{ms:.4f} ms/step (host clock, synchronized), mlups "
+          f"{res.mlups:.1f}; max|u| {u_max:.4g}; P_c (mmHg gauge) "
+          f"{[float(f'{v:.6g}') for v in pc_mmhg]}; FFR inlet -> main outlet "
+          f"{f_ffr:.6f} (trans-tree drop {dp:.6f} mmHg); set-up "
+          f"{t_setup:.1f} s; peak device memory {peak:.2f} GiB; launches "
+          f"{counts}", flush=True)
+    del rho, u, fluid
+    ms2 = timed_again(tag, lambda: sim.run(max_steps=2000, time_save=500,
+                                           verbose=False), 2000)
+    by_name, busy = profile_run(sim, 200)
+    print_profile(tag, by_name, busy, ms)
+    kern = {k: v for k, v in by_name.items() if "kernel" in k.lower()}
+
+    def calls(name):
+        return sum(v[1] for k, v in kern.items() if name in k)
+
+    k1 = calls("collide_stream_kernel")
+    per_step = sum(v[1] for v in kern.values()) / k1 if k1 else None
+    dev = {name: [v[0] / v[1] for k, v in kern.items() if name in k]
+           for name in ("windkessel_flux_kernel", "collide_stream_kernel")}
+    # the flux kernel, K1 and the reduction once a step (the profiler's
+    # window may miss a launch at its edges), the usq residual's few once
+    # a chunk (0.066 a step over 200 steps on the prescribed-outlet path)
+    require(per_step is None or (
+        k1 >= 0.9 and abs(calls("windkessel_flux_kernel") - k1) <= 0.02
+        and abs(calls("velsum_reduce") - k1) <= 0.02 and per_step <= 3.1),
+            f"{tag}: {per_step} kernel launches a step: {kern}")
+    print(f"{tag} kernel launches a step {per_step} (the flux kernel, K1 "
+          f"and its reduction; the chunk's few once a chunk); device ms a "
+          f"launch: {dev}", flush=True)
+    dev_ms = sum(v[0] for v in by_name.values())
+    out["path"] = {"ms": ms, "ms_again": ms2, "launches_per_step": per_step,
+                   "device_ms": dev_ms, "busy": dev_ms / ms,
+                   "pc_mmhg": pc_mmhg, "ffr": f_ffr, "dp_mmhg": dp,
+                   "peak_gib": peak}
+    out["counts"] = counts
+    out["flux_device_ms"] = dev["windkessel_flux_kernel"][0] if \
+        dev["windkessel_flux_kernel"] else None
+    out["k1_device_ms"] = dev["collide_stream_kernel"][0] if \
+        dev["collide_stream_kernel"] else None
+
+    # the flux kernel and the whole step against their plain versions
+    cc = sim.cc
+    state = [sim.f, sim._spare.clone()]
+    wk_t, rho_t = sim.wk.clone(), torch.zeros_like(sim.wk)
+    series = torch.zeros(1, dtype=torch.float64, device=device)
+    out["flux_ms"], out["flux_plain_ms"] = in_turns(
+        "lbm_windkessel_flux coronary full clinical",
+        lambda: K.windkessel_flux_plain(state[0], cc, wk_t),
+        lambda: K.windkessel_flux(state[0], cc, wk_t, rho_t), 20, 2000)
+    out["flux_bound_ms"] = bound_ms(wk_flux_bytes(cc))
+
+    def step_plain():
+        w, r = K.windkessel_flux_plain(state[0], cc, wk_t)
+        K.step_plain(state[0], cc, 0, rho_wk=r)
+
+    out["step_ms"], out["step_plain_ms"] = in_turns(
+        "flux + K1 [bgk+wk] + reduction, coronary full clinical, one state",
+        step_plain, lambda: K.collide_stream(state[0], state[1], cc, series,
+                                             0, 0, wk=wk_t), 3, 1000)
+    out["k1_bound_ms"] = bound_ms(step_bytes(cc, cc.fluid, cc.step_bcs))
+    print(f"{tag} bounds at 3.35 TB/s (ms): the flux kernel "
+          f"{out['flux_bound_ms']:.7f} ({int(K.wk_lists(cc).cells.numel())} "
+          f"footprint cells); K1 with the windkessel planes "
+          f"{out['k1_bound_ms']:.6f}", flush=True)
+    del state
+
+    # the wall outputs at full size
+    free_device()
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    w = sim.wss()
+    torch.cuda.synchronize()
+    wss_ms = (time.perf_counter() - t0) * 1e3
+    wss_rise = (torch.cuda.max_memory_allocated(device) - before) / 2**30
+    require(bool(torch.isfinite(w).all()) and float(w.max()) > 0,
+            f"{tag}: WSS not finite or zero")
+    w_pa = float(w.max()) * full.units.C_pre
+    t0 = time.perf_counter()
+    w = sim.wss()
+    torch.cuda.synchronize()
+    wss_ms2 = (time.perf_counter() - t0) * 1e3
+    del w
+    free_device()
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    acc = sim.wss_accumulator()
+    acc.sample_sim(sim)
+    torch.cuda.synchronize()
+    acc_ms = (time.perf_counter() - t0) * 1e3
+    acc_rise = (torch.cuda.max_memory_allocated(device) - before) / 2**30
+    tawss = acc.tawss_field()
+    require(bool(torch.isfinite(tawss).all()) and acc.n_samples == 1,
+            f"{tag}: TAWSS not finite")
+    print(f"{tag} WSS at full size: sim.wss() {wss_ms:.1f} ms (first call, "
+          f"the wall normals built), {wss_ms2:.1f} ms again, device memory "
+          f"rise {wss_rise:.2f} GiB, max WSS {w_pa:.4g} Pa; a WSSAccumulator "
+          f"and one sample {acc_ms:.1f} ms, rise {acc_rise:.2f} GiB",
+          flush=True)
+    out["wss"] = {"ms_first": wss_ms, "ms": wss_ms2, "rise_gib": wss_rise,
+                  "max_pa": w_pa, "accumulator_ms": acc_ms,
+                  "accumulator_rise_gib": acc_rise}
+    del acc, tawss, sim
+    free_device()
+    mark("18a (the clinical run)")
+    out["coupled_counts"], out["coupled"] = clinical_coupled_path(full,
+                                                                  device)
+    return out
+
+
+def clinical_coupled_path(full, device):
+    """The clinical coronary through CoupledTransport on the kernel route
+    (tools/demo_clinical_washout.py's tau_g 0.6), 2000 steps with a
+    500-step bolus, every boundary recorded: the flux kernel, K1 with its
+    windkessel planes, its reduction, K8 and the record (at most five
+    launches a step)."""
+    import torch
+
+    from lbm_tpu_torch.engine.scalar import CoupledTransport
+    from lbm_tpu_torch.kernels import collide_stream as K
+    from lbm_tpu_torch.kernels import scalar_stream as S
+
+    tag = "[18] clinical coupled washout"
+    rec = list(range(len(full.boundaries)))
+    torch.cuda.reset_peak_memory_stats(device)
+    K.reset_launches()
+    S.reset_launches()
+    tr = CoupledTransport(full, tau_g=0.6, device=device,
+                          inlet_c={0: lambda t: 1.0 if t < 500 else 0.0})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    series = tr.run(2000, record=rec)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = {**K.launches, **S.launches}
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    require(counts.get("lbm_scalar_stream[live]") == 2000
+            and counts.get("lbm_collide_stream[bgk+wk]") == 2000
+            and counts.get("lbm_windkessel_flux") == 2000,
+            f"{tag}: launches {counts}")
+    require(bool(torch.isfinite(tr.wk).all()), f"{tag}: P_c {tr.wk}")
+    ms = elapsed / 2000 * 1e3
+    print(f"{tag} coronary (291, 291, 372) r=12 pulsatile [40, 2000], 4 RCR "
+          f"outlets: 2000 steps in {elapsed:.3f} s = {ms:.4f} ms/step (host "
+          f"clock, synchronized); P_c {tr.wk.tolist()}; peak device memory "
+          f"{peak:.2f} GiB; launches {counts}", flush=True)
+    check_washout(tag, tr, series, 500)
+    ms2 = timed_again(tag, lambda: tr.run(1000, record=rec), 1000)
+    by_name, busy = profile_steps(lambda: tr.run(200, record=rec), 200)
+    print_profile(tag, by_name, busy, ms)
+    del tr
+    free_device()
+    return counts, dict(path_profile(tag, by_name, ms, 5), ms_again=ms2)
 
 
 def thermal_path(device):
@@ -3053,6 +3390,20 @@ def main() -> int:
                                "collide_stream_kernel[bgk+z",
                                "collide_stream_kernel[bgk+bf16]"))),
           flush=True)
+    # the windkessel outlets' flux kernel: its own unit, fp32 and bf16
+    wlib = _build.load_wk_library()
+    ptxas_wk = {k: v for k, v in ptxas_report(wlib.log).items()
+                if k.startswith("windkessel_flux_kernel")}
+    for name, (regs, spill_st, spill_ld) in sorted(ptxas_wk.items()):
+        print(f"[2] ptxas {name}: {regs} registers, {spill_st} bytes spill "
+              f"stores, {spill_ld} bytes spill loads", flush=True)
+    require(set(ptxas_wk) == {
+        f"windkessel_flux_kernel[{k}]" for k in
+        ("force", "force+bf16", "plain", "plain+bf16")},
+        f"ptxas reported flux kernels {sorted(ptxas_wk)}")
+    print(f"[2] windkessel flux kernel built at "
+          f"{os.path.relpath(wlib.path, ROOT)} in {wlib.build_seconds:.2f} s",
+          flush=True)
     # the sharded step (K1d): one unit per shard axis, side by side
     hlibs = [_build.load_halo_library(a) for a in (0, 1)]
     ptxas_halo = {}
@@ -3061,8 +3412,8 @@ def main() -> int:
     print(f"[2d] sharded-step kernels (K1d) built at "
           f"{[os.path.relpath(h.path, ROOT) for h in hlibs]} in "
           f"{[round(h.build_seconds, 2) for h in hlibs]} s, side by side "
-          f"with the others (seven nvcc processes, the slowest "
-          f"{max(L.build_seconds for L in (lib, slib, plib, blib, bplib, *hlibs)):.2f} s)",
+          f"with the others (eight nvcc processes, the slowest "
+          f"{max(L.build_seconds for L in (lib, slib, plib, blib, bplib, wlib, *hlibs)):.2f} s)",
           flush=True)
     for name, (regs, spill_st, spill_ld) in sorted(ptxas_halo.items()):
         print(f"[2d] ptxas {name}: {regs} registers, {spill_st} bytes spill "
@@ -3422,6 +3773,10 @@ def main() -> int:
     thermal_counts, thermal_trt_counts = thermal_path(device)
     mark("9-11")
 
+    # -- phase 18: the clinical coronary (windkessel outlets) -------------
+    clin = clinical_path(device)
+    mark("18")
+
     # -- phase 14: the lowmem path -----------------------------------------
     k4 = lowmem_path(device)
     mark("14")
@@ -3559,6 +3914,44 @@ def main() -> int:
          "k1_with_z_ms": tv["k1a_live_again"],
          "k1_without_z_ms": tv["k1a_no_z"],
          "blood_launches": blood_counts["lbm_collide_stream[trt+cy]"]},
+        {"name": "lbm_windkessel_flux", "route": "cuda",
+         "source": WK_SOURCE,
+         "replaces": "lbm_tpu/engine/step.py:138 (the windkessel flux and "
+                     "P_c update of the fixups lbm_tpu runs after its "
+                     "kernel, lbm_tpu/kernels/collide_stream.py:3198)",
+         "launches": clin["counts"]["lbm_windkessel_flux"],
+         "max_abs_err": max(e["rho"] for e in clin["errs"].values()),
+         "max_rel_err_pc": max(e["pc"] for e in clin["errs"].values()),
+         "ms": clin["flux_ms"], "device_ms": clin["flux_device_ms"],
+         "plain_ms": clin["flux_plain_ms"],
+         "bound_ms": clin["flux_bound_ms"], "bound_by": "bytes",
+         "library_ms": None,
+         "registers": {k: v[0] for k, v in ptxas_wk.items()},
+         "build_s": wlib.build_seconds,
+         "coupled_launches": clin["coupled_counts"]["lbm_windkessel_flux"]},
+        {"name": "lbm_collide_stream[bgk+wk] windkessel planes (K5+K6 "
+                 "windkessel branch)", "route": "cuda",
+         "source": K1A_SOURCE,
+         "replaces": "lbm_tpu/kernels/collide_stream.py:2742",
+         "also_replaces": "lbm_tpu/kernels/collide_stream.py:2793 and "
+                          "::_fix_xy_plane_windowed :2342",
+         "lives_in": "the x/y and z descriptors of lbm_collide_stream, "
+                     "their rho* read from the device (rho_dyn)",
+         "launches": clin["counts"]["lbm_collide_stream[bgk+wk]"],
+         "max_abs_err": max(e["f"] for e in clin["errs"].values()),
+         "max_abs_err_by_case": {k: e["f"] for k, e in clin["errs"].items()},
+         "bit_equal_by_case": {k: e["bit_equal"]
+                               for k, e in clin["errs"].items()},
+         "ms": clin["k1_device_ms"],
+         "ms_by": "torch.profiler device time a launch on the clinical path",
+         "step_ms": clin["step_ms"], "step_plain_ms": clin["step_plain_ms"],
+         "plain_ms": clin["step_plain_ms"],
+         "bound_ms": clin["k1_bound_ms"], "bound_by": "bytes",
+         "library_ms": None,
+         "clinical_path": clin["path"], "wss": clin["wss"],
+         "clinical_coupled_path": clin["coupled"],
+         "coupled_launches": clin["coupled_counts"][
+             "lbm_collide_stream[bgk+wk]"]},
         {"name": "lbm_macro", "route": "cuda", "source": K1A_SOURCE,
          "replaces": "lbm_tpu/kernels/collide_stream.py:2470",
          "launches": counts["lbm_macro"],

@@ -138,10 +138,12 @@ def gather_windows(windows, axis: int, n: int, lead: int = 1):
 
 
 def transport_state_from_reference(tr) -> dict:
-    """{"g", "f", "t"} of a lbm_tpu transport as NumPy arrays in the
-    port's layouts: g (7, X, Y, Z) from the dense classes' (7, X, Y, Z)
-    or the Pallas classes' packed g; f (19, X, Y, Z) from `f` or the
-    packed `p` (None for the frozen classes); t the step count."""
+    """{"g", "f", "t", "wk"} of a lbm_tpu transport as NumPy arrays in
+    the port's layouts: g (7, X, Y, Z) from the dense classes' (7, X, Y,
+    Z) or the Pallas classes' packed g; f (19, X, Y, Z) from `f` or the
+    packed `p` (None for the frozen classes); t the step count; wk the
+    (n_wk,) float32 windkessel P_c of a coupled one (None without
+    windkessel outlets)."""
     shape = tuple(int(v) for v in tr.spec.shape)
     g = np.asarray(tr.g)
     g = (np.ascontiguousarray(g, dtype=np.float32) if g.shape[0] == 7
@@ -151,7 +153,10 @@ def transport_state_from_reference(tr) -> dict:
         f = unpack_lattice(tr.p, shape, 19)
     elif hasattr(tr, "f"):
         f = np.ascontiguousarray(np.asarray(tr.f), dtype=np.float32)
-    return {"g": g, "f": f, "t": int(tr.t)}
+    wk = getattr(tr, "wk", None)
+    wk = (None if wk is None or np.asarray(wk).size == 0
+          else np.asarray(wk, np.float32).copy())
+    return {"g": g, "f": f, "t": int(tr.t), "wk": wk}
 
 
 def load_transport_state(transport, state: dict) -> None:
@@ -160,6 +165,9 @@ def load_transport_state(transport, state: dict) -> None:
     transport.set_g(state["g"])
     if state.get("f") is not None:
         transport.set_f(state["f"])
+    if state.get("wk") is not None:
+        transport.wk = torch.as_tensor(
+            np.asarray(state["wk"], np.float32)).to(transport.cc.device)
     transport.t = int(state["t"])
 
 

@@ -160,8 +160,7 @@ def _boundaries(inlet_x, outlet_x, sub_planes, sub_labels,
                 shape=None, inlet_scale: float = 1.0) -> list[PlaneBC]:
     """The reference's prescribed-velocity outlets, or with `windkessel`
     (four (Rp, C, Rd) lattice tuples: main outlet, sub-outlets 5, 6, 7)
-    pressure outlets coupled to RCR terminations, which compile_case
-    refuses until windkessel outlets are ported."""
+    pressure outlets coupled to RCR terminations."""
     u_in = inlet_scale * 0.1745 / C_U
     if pulsatile is not None:
         # the steady plug inlet scaled by the periodic pulse waveform

@@ -45,8 +45,7 @@ def build(
     windkessel_p0: float = 0.0,
 ) -> CaseSpec:
     """windkessel: optional (Rp, C, Rd) in lattice units on the pressure
-    outlet, which compile_case refuses until windkessel outlets are
-    ported."""
+    outlet."""
     units = UnitSystem(CH=CH, C_U=C_U, C_rho=1060.0)
     u_max = u_max_phys / C_U
     pipe_radius = n / 5.0

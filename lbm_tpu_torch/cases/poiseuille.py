@@ -36,8 +36,7 @@ def build(
     windkessel_p0: float = 0.0,
 ) -> CaseSpec:
     """windkessel: optional (Rp, C, Rd) in lattice units — a pressure
-    outlet coupled to an RCR model, which compile_case refuses until the
-    windkessel outlets are ported."""
+    outlet coupled to an RCR model."""
     units = UnitSystem(CH=CH, C_U=C_U, C_rho=1060.0)
     u_max = u_max_phys / C_U
     mask = pipe_mask(n, n, n)

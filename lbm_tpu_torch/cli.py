@@ -7,6 +7,9 @@
     python -m lbm_tpu_torch run --case coronary \
         --opt shape=[291,291,372] radius=12 pulsatile=[40,2000]
     python -m lbm_tpu_torch run --case gravity_channel --opt collision=trt
+    python -m lbm_tpu_torch run --case coronary --wss --wss-stats \
+        --opt shape=[291,291,372] radius=12 pulsatile=[40,2000] \
+        'windkessel=[[2e-4,2e4,1e-3],[2e-4,2e4,3e-3],[2e-4,2e4,3e-3],[2e-4,2e4,3e-3]]'
     python -m lbm_tpu_torch run --case coronary --opt collision=trt \
         'rheology={"model": "carreau", "nu0": 0.3145, "nu_inf": 0.01937, "lam": 149036, "n": 0.3568}'
     python -m lbm_tpu_torch run --case gravity_channel --backend dense \
@@ -39,6 +42,12 @@ torch.distributed group): with --device cuda one card a rank over NCCL
 (N above the machine's card count is refused), with --device cpu over
 gloo. Rank 0 alone prints and writes the VTK files, CONVERGENCE.log and
 checkpoints.
+
+A run with windkessel (RCR) outlets (--opt windkessel=..., one (Rp, C,
+Rd) lattice triple an outlet) prints their P_c in mmHg at the end. --wss
+adds the wall shear stress (Pa) to every VTK file; --wss-stats samples
+the wall traction at every save and writes TAWSS (Pa) and OSI into the
+final one (engine/stress.py).
 
 --opt values are read as JSON where they parse (lists, numbers, dicts)
 and as strings otherwise; the rheology dict above is
@@ -194,6 +203,13 @@ def main(argv=None) -> int:
     runp.add_argument("--vtk-final", action="store_true",
                       help="write VTK only once, after the run finishes")
     runp.add_argument("--binary-vtk", action="store_true")
+    runp.add_argument("--wss", action="store_true",
+                      help="add the wall shear stress field (Pa) to the VTK "
+                      "outputs (engine/stress.py)")
+    runp.add_argument("--wss-stats", action="store_true",
+                      help="accumulate TAWSS (Pa) and OSI over the run, "
+                      "sampled at every save (for pulsatile cases make "
+                      "--time-save divide the period), into the final VTK")
     runp.add_argument("--opt", nargs="*", metavar="KEY=VAL",
                       help="case options (e.g. n=128 tau=0.55)")
     runp.add_argument("--fuse", type=int, default=1, choices=[1, 2],
@@ -327,19 +343,27 @@ def _run(mesh, args) -> int:
         log = ConvergenceLog(args.out)
     t0 = time.perf_counter()
     save_count = 0
+    wss_acc = None
 
-    def vtk(k):
+    def vtk(k, extra=None):
         if lead:
             case_vtk(sim, args.out, k, include_density=spec.vtk_density,
-                     binary=args.binary_vtk)
+                     binary=args.binary_vtk, include_wss=args.wss,
+                     extra_fields=extra)
         else:
             sim.macro()  # the gather every rank takes part in
+            if args.wss:
+                sim.wss()
 
     def on_save(sim, k, residual):
-        nonlocal save_count
+        nonlocal save_count, wss_acc
         save_count += 1
         if lead:
             log.residual(residual)
+        if args.wss_stats:
+            if wss_acc is None:
+                wss_acc = sim.wss_accumulator()
+            wss_acc.sample_sim(sim)
         if not args.no_vtk and not args.vtk_final:
             vtk(k)
         if args.checkpoint_every and save_count % args.checkpoint_every == 0:
@@ -359,9 +383,20 @@ def _run(mesh, args) -> int:
             f"#LATTICE {nlattice}  {result.mlups:.1f} MLUPS ({sim.device})"
         )
         print(f"Residual is {result.residual:g}")
+        if sim.wk is not None:
+            from lbm_tpu_torch.engine.diagnostics import MMHG_PER_PA
+
+            pc = sim.wk.cpu().numpy() * spec.units.C_pre * MMHG_PER_PA
+            print("Windkessel P_c (mmHg gauge): "
+                  + " ".join(f"{v:.4f}" for v in pc))
         log.finish(elapsed_ms, nlattice, result.residual)
     if not args.no_vtk:
-        vtk(sim.t)
+        extra = None
+        if wss_acc is not None and wss_acc.n_samples:
+            extra = {"TAWSS": wss_acc.tawss_field().cpu().numpy()
+                     * spec.units.C_pre,
+                     "OSI": wss_acc.osi_field().cpu().numpy()}
+        vtk(sim.t, extra)
     return 0
 
 

@@ -20,6 +20,9 @@ Under a mesh every rank calls save_sim and restore: rank 0 writes the
 gathered whole box (zeros at DEAD cells) and the others wait for it,
 and every rank reads the file and keeps its own window, so a file
 saved by a run of N ranks restores into a run of M ranks or none.
+A run with windkessel outlets writes their carried P_c as meta["wk"], as
+lbm_tpu does, and restore reads it back into sim.wk from the port's files
+and from lbm_tpu's.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import json
 import os
 
 import numpy as np
+import torch
 
 from lbm_tpu_torch.bridge import unpack_lattice
 
@@ -56,6 +60,9 @@ def save_sim(path: str, sim, meta: dict | None = None) -> None:
         "last_velsum": sim._last_velsum,
         "last_usq": sim._last_usq,
     }
+    if getattr(sim, "wk", None) is not None:
+        # the windkessel outlets' carried P_c (one host read, at save)
+        m["wk"] = [float(v) for v in sim.wk.cpu().numpy()]
     f = sim.f_standard()
     if sim.mesh is None or sim.mesh.rank == 0:
         save(path, f.cpu().numpy(), sim.t, sim.spec.name, m,
@@ -80,10 +87,13 @@ def restore(sim, path: str) -> None:
         raise ValueError(
             f"checkpoint is for case {case!r}, simulation is {sim.spec.name!r}"
         )
-    if meta.get("wk") is not None:
-        raise NotImplementedError(
-            "checkpoint carries windkessel state; windkessel outlets are "
-            "not ported yet (ROADMAP.md Queue 1 item 8)")
+    wk = meta.get("wk")
+    if wk is not None and getattr(sim, "wk", None) is None:
+        raise ValueError("checkpoint carries windkessel state but the "
+                         "target case has no windkessel outlets")
+    if wk is not None and len(wk) != sim.wk.numel():
+        raise ValueError(f"checkpoint carries {len(wk)} windkessel states, "
+                         f"the case has {sim.wk.numel()} outlets")
     lay = meta.get("layout") or {}
     if lay.get("packed"):
         if lay.get("dtype") not in ("float32", "bfloat16"):
@@ -100,6 +110,8 @@ def restore(sim, path: str) -> None:
     conv = meta.get("conv", {})
     sim._last_velsum = conv.get("last_velsum")
     sim._last_usq = conv.get("last_usq")
+    if wk is not None:
+        sim.wk = torch.tensor(wk, dtype=torch.float32, device=sim.device)
 
 
 __all__ = ["save", "save_sim", "load", "restore"]

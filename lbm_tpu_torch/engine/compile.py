@@ -33,7 +33,17 @@ then moved to the device once:
     `force`, the MOVING walls' `wall_velocity` and, built at first use
     for the dense step, `nbr_moving`.
 
-What the port does not carry (Bouzidi walls, windkessel outlets) raises
+A windkessel (RCR) outlet (PlaneBC.windkessel) keeps its (Rp, C, Rd),
+its initial P_c, the (A, B) fp32 `flow_weight` footprint of its label on
+its plane and `flow_sign` = -normal (lbm_tpu's flux Q = flow_sign *
+sum(flow_weight * u_prev[axis]) over the consumer plane), its index in
+the carried P_c vector (`wk_index`, `wk_init`'s order). On a z plane
+its window holds its footprint too (lbm_tpu's `_valid_bbox`); on an x/y
+plane it may share no consumer cell with another boundary
+(`check_z_windows`), so the collide-stream kernel may apply it in its own
+pass, in boundary order.
+
+What the port does not carry (Bouzidi walls) raises
 NotImplementedError naming the ROADMAP item that ports it; the two
 compositions the collide-stream kernel refuses are named by
 `kernel_refusal`, and the cases the fused pair of steps refuses by
@@ -122,6 +132,13 @@ class CompiledBC:
     phi_star_series: Optional[torch.Tensor] = None  # (T, D, A, B) f32
     series_stride: int = 1           # steps per series phase
     window: Optional[tuple[int, int, int, int]] = None  # z planes: x0 x1 y0 y1
+    # Windkessel (RCR) coupling: the rewrite's rho* = rho_fixed + 3 (Q Rp
+    # + P_c') with P_c the carried state (engine/step.windkessel_update)
+    windkessel: Optional[tuple[float, float, float]] = None  # (Rp, C, Rd)
+    wk_p0: float = 0.0               # initial P_c
+    flow_weight: Optional[torch.Tensor] = None  # (A, B) f32 footprint
+    flow_sign: float = 0.0           # -normal (outward flux positive)
+    wk_index: Optional[int] = None   # slot in the carried P_c vector
 
     def phi_star_at(self, t: int) -> Optional[torch.Tensor]:
         """The (D, A, B) phi* table in force at step t (None for
@@ -265,6 +282,17 @@ class CompiledCase:
         return torch.from_numpy(ids).to(self.device)
 
 
+def wk_init(bcs) -> Optional[np.ndarray]:
+    """(n_wk,) f32 initial windkessel P_c states in boundary order, or
+    None without a windkessel outlet (lbm_tpu's wk_init)."""
+    p0 = [float(b.wk_p0) for b in bcs if b.windkessel is not None]
+    return np.asarray(p0, np.float32) if p0 else None
+
+
+def has_windkessel(bcs) -> bool:
+    return any(b.windkessel is not None for b in bcs)
+
+
 def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(
         f"{what} is not ported to lbm_tpu_torch yet (ROADMAP.md {item})")
@@ -275,10 +303,6 @@ def check_supported(spec: CaseSpec) -> None:
     if spec.wall_sdf is not None:
         _refuse("Bouzidi curved walls (CaseSpec.wall_sdf)",
                 "Queue 1 item 8")
-    for bc in spec.boundaries:
-        if bc.windkessel is not None:
-            _refuse("windkessel outlets (PlaneBC.windkessel)",
-                    "Queue 1 item 8")
     n_xy = sum(bc.axis != 2 for bc in spec.boundaries)
     n_z = len(spec.boundaries) - n_xy
     if n_xy > MAX_BCS or n_z > MAX_Z_BCS:
@@ -292,7 +316,7 @@ def check_supported(spec: CaseSpec) -> None:
 
 
 def compile_bc(bc: PlaneBC, mask: np.ndarray, tau: float,
-               device) -> CompiledBC:
+               device, wk_index: Optional[int] = None) -> CompiledBC:
     dirs = D3Q19.dirs_into(bc.axis, bc.normal)
     lat = _lat_axes(bc.axis)
     plane_mask = np.take(mask, bc.coord, axis=bc.axis) == bc.mask_value
@@ -319,6 +343,8 @@ def compile_bc(bc: PlaneBC, mask: np.ndarray, tau: float,
         return None if a is None else torch.from_numpy(
             np.ascontiguousarray(a)).to(device)
 
+    weight = (plane_mask.astype(np.float32) if bc.windkessel is not None
+              else None)
     return CompiledBC(
         axis=bc.axis,
         consumer_coord=bc.coord + bc.normal,
@@ -331,16 +357,38 @@ def compile_bc(bc: PlaneBC, mask: np.ndarray, tau: float,
         omega=float(np.float32(1.0) - np.float32(1.0) / np.float32(tau)),
         phi_star_series=dev(phi_series),
         series_stride=int(bc.u_series_stride),
-        window=(valid_bbox(valid, plane_mask.shape) if bc.axis == 2
-                else None),
+        window=(valid_bbox(valid, plane_mask.shape, footprint=weight)
+                if bc.axis == 2 else None),
+        windkessel=(None if bc.windkessel is None
+                    else tuple(float(v) for v in bc.windkessel)),
+        wk_p0=float(bc.windkessel_p0),
+        flow_weight=dev(weight),
+        flow_sign=float(-bc.normal),
+        wk_index=wk_index if bc.windkessel is not None else None,
     )
 
 
-def valid_bbox(valid: np.ndarray, shape_xy, margin: int = 2):
+def compile_bcs(spec: CaseSpec, mask: np.ndarray, device) -> list:
+    """Every boundary of the spec, in order, windkessel outlets numbered
+    in that order (the carried P_c vector's)."""
+    out, k = [], 0
+    for bc in spec.boundaries:
+        out.append(compile_bc(bc, mask, spec.tau, device, wk_index=k))
+        k += bc.windkessel is not None
+    return out
+
+
+def valid_bbox(valid: np.ndarray, shape_xy, margin: int = 2,
+               footprint: Optional[np.ndarray] = None):
     """Static (x0, x1, y0, y1) window around a z-plane boundary's valid
     consumer cells, `margin` cells wider on each side and clipped to the
-    plane (lbm_tpu's `_valid_bbox`); None when no cell is valid."""
-    xs, ys = np.nonzero(np.asarray(valid).any(axis=0))
+    plane (lbm_tpu's `_valid_bbox`); None when no cell is valid. A
+    windkessel outlet's flux footprint (its (A, B) flow_weight) joins the
+    valid cells, as lbm_tpu unions it in."""
+    v = np.asarray(valid).any(axis=0)
+    if footprint is not None:
+        v = v | (np.asarray(footprint) != 0)
+    xs, ys = np.nonzero(v)
     if xs.size == 0:
         return None
     return (max(int(xs.min()) - margin, 0),
@@ -349,48 +397,67 @@ def valid_bbox(valid: np.ndarray, shape_xy, margin: int = 2):
             min(int(ys.max()) + 1 + margin, shape_xy[1]))
 
 
-def _consumers_on_z_plane(bc: CompiledBC, z: int, shape) -> np.ndarray:
-    """(X, Y) bool: the cells of plane z at which `bc` rewrites a
-    population."""
-    nx, ny, _ = shape
+def _consumers_on_plane(bc: CompiledBC, axis: int, coord: int,
+                        shape) -> np.ndarray:
+    """(A, B) bool over the lateral axes of `axis`: the cells of the plane
+    `coord` along `axis` at which `bc` rewrites a population."""
+    lat = _lat_axes(axis)
+    out = np.zeros((shape[lat[0]], shape[lat[1]]), bool)
     v = bc.valid.cpu().numpy().any(axis=0)
-    out = np.zeros((nx, ny), bool)
-    if bc.axis == 2:
-        if bc.consumer_coord == z:
+    if bc.axis == axis:
+        if bc.consumer_coord == coord:
             out |= v
-    elif bc.axis == 0:
-        out[bc.consumer_coord, :] = v[:, z]
-    else:
-        out[:, bc.consumer_coord] = v[:, z]
+        return out
+    # the two planes meet on a line along the third axis
+    line = np.take(v, coord, axis=_lat_axes(bc.axis).index(axis))
+    idx = [slice(None), slice(None)]
+    idx[lat.index(bc.axis)] = bc.consumer_coord
+    out[tuple(idx)] = line
     return out
 
 
 def check_z_windows(bcs: list[CompiledBC], shape) -> None:
     """The collide-stream kernel rewrites a cell with its x/y boundaries
-    first and its z-plane boundaries after them, and the plain fixup
-    recomputes each z-plane boundary's window from the pre-step state
-    with that boundary alone. Both equal the dense step, which applies
-    every boundary in order, only if the window covers the boundary's
-    consumer cells and holds no cell that another boundary rewrites
-    (lbm_tpu refuses the same cases)."""
+    first, in boundary order, and its z-plane boundaries after them, and
+    the plain fixup recomputes each z-plane boundary's window from the
+    pre-step state with that boundary alone. Both equal the dense step,
+    which applies every boundary in boundary order, only if the window
+    covers the boundary's consumer cells and holds no cell that another
+    boundary rewrites (lbm_tpu refuses the same cases). lbm_tpu fixes a
+    windkessel outlet after its kernel, after the static x/y planes, so
+    a windkessel plane on x or y may share no consumer cell with another
+    boundary: then its place in the kernel's order changes nothing."""
     for k, bc in enumerate(bcs):
-        if bc.axis != 2 or bc.window is None:
+        c = bc.consumer_coord
+        if bc.axis != 2:
+            if bc.windkessel is None:
+                continue
+            own = _consumers_on_plane(bc, bc.axis, c, shape)
+            for j, other in enumerate(bcs):
+                if j != k and (own & _consumers_on_plane(
+                        other, bc.axis, c, shape)).any():
+                    raise ValueError(
+                        f"boundary {j} rewrites consumer cells of windkessel "
+                        f"boundary {k} on {'xy'[bc.axis]}={c}; lbm_tpu "
+                        "fixes the windkessel plane after the others, the "
+                        "kernel's pass in boundary order")
+            continue
+        if bc.window is None:
             continue
         x0, x1, y0, y1 = bc.window
-        own = _consumers_on_z_plane(bc, bc.consumer_coord, shape)
+        own = _consumers_on_plane(bc, 2, c, shape)
         if own.sum() != own[x0:x1, y0:y1].sum():
             raise AssertionError(f"z window {bc.window} misses consumer "
                                  f"cells of boundary {k}")
         for j, other in enumerate(bcs):
             if j == k:
                 continue
-            cells = _consumers_on_z_plane(other, bc.consumer_coord, shape)
+            cells = _consumers_on_plane(other, 2, c, shape)
             if cells[x0:x1, y0:y1].any():
                 raise ValueError(
                     f"boundary {j} rewrites cells inside the window "
-                    f"{bc.window} of z-plane boundary {k} on z="
-                    f"{bc.consumer_coord}; the z-plane fixup would "
-                    "overwrite them")
+                    f"{bc.window} of z-plane boundary {k} on z={c}; the "
+                    "z-plane fixup would overwrite them")
 
 
 def live_block_ids(mask: np.ndarray, block: int = BLOCK) -> np.ndarray:
@@ -581,7 +648,7 @@ def compile_shard(spec: CaseSpec, rank: int, world: int, shard_axis: int,
     sl = [slice(None)] * 3
     sl[a] = slice(0, own_rows)
     own[tuple(sl)] = True
-    bcs = [compile_bc(bc, mask, spec.tau, "cpu") for bc in spec.boundaries]
+    bcs = compile_bcs(spec, mask, "cpu")
     check_z_windows(bcs, shape)
     bcs = [_window_bc(bc, a, idx, n, local_shape, device) for bc in bcs]
 
@@ -667,7 +734,7 @@ def compile_case(spec: CaseSpec, device="cpu") -> CompiledCase:
     u0 = np.asarray(spec.u0, np.float32)
     rho0 = np.asarray(spec.rho0, np.float32)
     shape = tuple(int(s) for s in spec.shape)
-    bcs = [compile_bc(bc, mask, spec.tau, device) for bc in spec.boundaries]
+    bcs = compile_bcs(spec, mask, device)
     check_z_windows(bcs, shape)
     return CompiledCase(
         name=spec.name,
@@ -687,7 +754,8 @@ def compile_case(spec: CaseSpec, device="cpu") -> CompiledCase:
 
 
 __all__ = ["CompiledBC", "CompiledCase", "ShardCase", "compile_case",
-           "compile_shard", "compile_bc", "shard_rows",
+           "compile_shard", "compile_bc", "compile_bcs", "shard_rows",
+           "has_windkessel", "wk_init",
            "canonical_device", "check_supported", "check_z_windows",
            "fluid_cell_ids", "fuse2_refusal", "kernel_refusal",
            "live_block_ids",

@@ -32,6 +32,14 @@ lbm_tpu's per-device threshold) makes f_standard() read the state to host
 memory in x-row chunks (kernels.unpack_state_lowmem) and checkpoints go
 uncompressed.
 
+Windkessel (RCR) outlets (PlaneBC.windkessel) carry their P_c in
+`Simulation.wk`, an (n_wk,) float32 tensor on the run's device, set at
+reset() from the outlets' windkessel_p0 and stepped on the device: by the
+flux kernel before each collide-stream launch (kernels.windkessel_flux)
+or by the dense step (make_step_wk); a chunk reads nothing of it to the
+host. Checkpoints carry it (engine/checkpoint.py), and stress(), wss()
+and wss_accumulator() re-apply the outlets with it.
+
 store_dtype='bf16' (kernel backend) stores the state in bfloat16 at half
 the bytes; the kernels compute in fp32, widening every load and
 narrowing every store once (lbm_tpu's bf16 storage, bit for bit). The
@@ -50,7 +58,9 @@ same stop decision; f_standard() and macro() gather the whole box on
 every rank, f_standard() with zeros at DEAD cells (lbm_tpu's sharded
 unblock contract). Refused under a mesh, in lbm_tpu's words: bf16
 storage, fuse=2, the kernel backend on z, a boundary on the shard axis,
-and lowmem (its chunked read is single-device).
+lowmem (its chunked read is single-device) and windkessel outlets (the
+kernel backend in lbm_tpu's words; lbm_tpu's GSPMD windkessel route waits
+for ROADMAP Queue 1 item 1 on the dense backend).
 """
 
 from __future__ import annotations
@@ -67,6 +77,8 @@ from lbm_tpu_torch.engine.compile import (
     compile_case,
     compile_shard,
     fuse2_refusal,
+    has_windkessel,
+    wk_init,
 )
 from lbm_tpu_torch.engine.spec import CaseSpec
 from lbm_tpu_torch.engine.step import (
@@ -75,6 +87,7 @@ from lbm_tpu_torch.engine.step import (
     initial_f,
     macro_fields,
     make_step,
+    make_step_wk,
 )
 from lbm_tpu_torch.geometry.mask import CellType
 from lbm_tpu_torch.kernels import collide_stream as kernels
@@ -119,9 +132,14 @@ def _interior_region(shape):
 
 
 def mesh_refusal(backend: str, fuse: int, lowmem, store_dtype: torch.dtype,
-                 shard_axis: int):
+                 shard_axis: int, windkessel: bool = False):
     """Why a run under a mesh cannot take these options (ValueError), in
     lbm_tpu's words, or None."""
+    if windkessel and backend == "kernel":
+        return ("the sharded kernel path does not thread the windkessel "
+                "P_c carry yet — use backend='dense' with mesh= once "
+                "lbm_tpu's GSPMD windkessel route is ported, or a "
+                "single-device kernel run")
     if store_dtype == torch.bfloat16:
         return ("store_dtype='bf16' is single-chip for now (the sharded "
                 "z-fixup path computes in the storage dtype)")
@@ -190,9 +208,16 @@ class Simulation:
             self.shard_axis = (free_axis(spec) if shard_axis is None
                                else shard_axis)
             reason = mesh_refusal(backend, fuse, lowmem, self.store_dtype,
-                                  self.shard_axis)
+                                  self.shard_axis,
+                                  has_windkessel(spec.boundaries))
             if reason is not None:
                 raise ValueError(reason)
+            if has_windkessel(spec.boundaries):
+                raise NotImplementedError(
+                    "windkessel outlets under a mesh on the dense backend "
+                    "(lbm_tpu's GSPMD windkessel route, dryrun path 4) are "
+                    "not ported to lbm_tpu_torch yet (ROADMAP.md Queue 1 "
+                    "item 1)")
             if resolve_device(device).type != mesh.device.type:
                 raise ValueError(f"device={device!r}, but the mesh's ranks "
                                  f"run on {mesh.device.type}")
@@ -225,7 +250,10 @@ class Simulation:
         """The step the backend and mesh call for: None for the
         whole-box kernel route (kernels.step)."""
         if self.mesh is None:
-            return make_step(self.cc) if self.backend == "dense" else None
+            if self.backend != "dense":
+                return None
+            return (make_step_wk(self.cc) if has_windkessel(self.cc.bcs)
+                    else make_step(self.cc))
         if self.backend == "dense":
             from lbm_tpu_torch.parallel.halo import make_halo_step
 
@@ -248,6 +276,10 @@ class Simulation:
         self.f = initial_f(self.cc).to(self.store_dtype)
         self._spare = self.f.clone() if self.backend == "kernel" else None
         self.t = 0
+        # the windkessel outlets' carried P_c, in boundary order
+        w0 = wk_init(self.cc.bcs)
+        self.wk = (None if w0 is None
+                   else torch.from_numpy(w0).to(self.device))
         self._last_velsum: Optional[float] = None
         self._last_usq: Optional[float] = None
 
@@ -291,6 +323,52 @@ class Simulation:
             return rho, u
         return self._gather(rho, 0), self._gather(u, 1)
 
+    # -- wall outputs (engine/stress.py) ----------------------------------
+    def _dense_cc_f(self):
+        """(compiled whole box, its fp32 state) for the stress outputs: the
+        run's own case and state, or under a mesh the whole box compiled
+        once on this rank's device and the gathered state."""
+        if self.mesh is None:
+            return self.cc, self.f.float()
+        if getattr(self, "_stress_cc", None) is None:
+            self._stress_cc = compile_case(self.spec, self.device)
+        return self._stress_cc, self.f_standard()
+
+    def _normals(self, cc):
+        if getattr(self, "_wss_normals", None) is None:
+            from lbm_tpu_torch.engine.stress import wall_normals
+
+            self._wss_normals = torch.from_numpy(wall_normals(
+                self.spec.mask, self.spec.wall_sdf)).to(cc.device)
+        return self._wss_normals
+
+    def stress(self):
+        """(sigma6, rho, u) deviatoric-stress outputs of the current state
+        (engine/stress.stress_fields, lattice units) on the run's device,
+        from the dense pre-collision pull with sim.wk: an output-rate
+        operation (about five (19, X, Y, Z) fp32 arrays at once)."""
+        from lbm_tpu_torch.engine.stress import stress_fields
+
+        cc, f = self._dense_cc_f()
+        return stress_fields(cc, f, self.t, wk=self.wk)
+
+    def wss(self):
+        """(X, Y, Z) wall shear stress magnitude (lattice units; times
+        units.C_pre for Pa), nonzero at wall-adjacent fluid cells (the
+        wall normals are built once)."""
+        from lbm_tpu_torch.engine.stress import wss_field
+
+        cc, f = self._dense_cc_f()
+        return wss_field(cc, f, self.t, self._normals(cc), wk=self.wk)
+
+    def wss_accumulator(self):
+        """A WSSAccumulator (TAWSS and OSI) bound to this run's case; call
+        acc.sample_sim(self) at each sampling time."""
+        from lbm_tpu_torch.engine.stress import WSSAccumulator
+
+        cc, _ = self._dense_cc_f()
+        return WSSAccumulator(cc, self._normals(cc))
+
     def _window_macro(self):
         """macro() of the state this process holds (its window under a
         mesh)."""
@@ -309,12 +387,16 @@ class Simulation:
             self.f, self._spare = self._spare, self.f
         for k in range(2 * pairs, n):
             if self.backend == "dense":
-                self.f, _, u = self._step(self.f, self.t + k)
+                if self.wk is None:
+                    self.f, _, u = self._step(self.f, self.t + k)
+                else:
+                    self.f, _, u, self.wk = self._step(self.f, self.t + k,
+                                                       self.wk)
                 series[k] = fluid_speed_sum(self.cc, u)
                 continue
             if self.mesh is None:
                 kernels.step(self.f, self._spare, self.cc, series, k,
-                             self.t + k)
+                             self.t + k, wk=self.wk)
             else:
                 self._step(self.f, self._spare, series, k, self.t + k)
             self.f, self._spare = self._spare, self.f

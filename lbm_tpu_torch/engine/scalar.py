@@ -565,9 +565,14 @@ class CoupledTransport(_ScalarState):
     the pre-step g.
 
     div_fix: dense route only (default on there); the kernel route has no
-    divergence compensation, as lbm_tpu's. f0: optional initial flow
-    state. Windkessel outlets are not ported (compile_case names the
-    ROADMAP item).
+    divergence compensation, as lbm_tpu's. f0, wk0: optional initial flow
+    state and windkessel P_c (e.g. a Simulation's f_standard() and wk).
+    With windkessel outlets the carried P_c (`wk`, on the device) steps
+    with the flow: on the kernel route each step is the flux kernel, the
+    collide-stream launch and its reduction, then the scalar kernel and
+    its record; the dense route steps make_step_wk. A force field does not
+    compose with windkessel outlets (lbm_tpu's runtime-force step refuses
+    them).
     """
 
     def __init__(self, spec: CaseSpec, D: Optional[float] = None,
@@ -575,8 +580,8 @@ class CoupledTransport(_ScalarState):
                  inlet_c: Optional[dict] = None, source: float = 0.0,
                  c0=None, div_fix: Optional[bool] = None, wall_c=None,
                  f0=None, device="cuda", backend: str = "kernel",
-                 field=None):
-        from lbm_tpu_torch.engine.compile import compile_case
+                 field=None, wk0=None):
+        from lbm_tpu_torch.engine.compile import compile_case, wk_init
         from lbm_tpu_torch.engine.runner import resolve_device
         from lbm_tpu_torch.engine.step import initial_f
         from lbm_tpu_torch.kernels import collide_stream as K
@@ -594,6 +599,18 @@ class CoupledTransport(_ScalarState):
         if backend == "kernel":
             K.collision_descriptor(self.cc, field)  # refuses what it lacks
         cc = self.cc
+        w0 = wk_init(cc.bcs)
+        if w0 is not None and field is not None:
+            raise ValueError("windkessel outlets are not wired for the "
+                             "runtime-force step")
+        self.wk = None
+        if w0 is not None:
+            self.wk = torch.as_tensor(
+                np.asarray(w0 if wk0 is None else wk0, np.float32)
+            ).to(cc.device).contiguous()
+        elif wk0 is not None:
+            raise ValueError("wk0 was given for a case without windkessel "
+                             "outlets")
         self.sc = compile_scalar(spec, cc.device, D, tau_g, inlet_c, source,
                                  wall_c, mask=cc.mask, fluid=cc.fluid)
         base = (0.0, 0.0, 0.0) if cc.force is None else cc.force
@@ -628,10 +645,16 @@ class CoupledTransport(_ScalarState):
     def _dense_step(self, t: int):
         """(c, u): one dense coupled step; the scalar advects in the flow
         step's in-step velocity."""
-        from lbm_tpu_torch.engine.step import make_step, make_step_force
+        from lbm_tpu_torch.engine.step import (
+            make_step,
+            make_step_force,
+            make_step_wk,
+        )
 
         sc = self.sc
-        if self.field is None:
+        if self.wk is not None:
+            self.f, _, u, self.wk = make_step_wk(self.cc)(self.f, t, self.wk)
+        elif self.field is None:
             self.f, _, u = make_step(self.cc)(self.f, t)
         else:
             self.f, _, u = make_step_force(self.cc)(self.f, t,
@@ -661,7 +684,8 @@ class CoupledTransport(_ScalarState):
                 # kernel writes the spare one
                 K.step(self.f, self._f_spare, self.cc, vs, k, t,
                        field=self.field,
-                       g=None if self.field is None else self.g)
+                       g=None if self.field is None else self.g,
+                       wk=self.wk)
                 S.scalar_stream(self.g, self._g_spare, self.sc, t,
                                 f=self._f_spare, series=series, slot=k)
                 self.f, self._f_spare = self._f_spare, self.f

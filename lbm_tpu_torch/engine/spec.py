@@ -2,9 +2,9 @@
 lbm_tpu/engine/spec.py, so a spec carries across as a field copy
 (bridge.case_from_reference).
 
-The fields this port does not run yet (Bouzidi curved walls, windkessel
-boundaries) are kept so specs stay interchangeable;
-engine/compile.compile_case refuses them by name.
+The field this port does not run yet (Bouzidi curved walls) is kept so
+specs stay interchangeable; engine/compile.compile_case refuses it by
+name.
 """
 
 from __future__ import annotations

@@ -24,6 +24,12 @@ row); every other source wraps as above (lbm_tpu's parallel/halo.py
 _pull_ext), and the arithmetic is unchanged, so the shards of a box
 stepped this way are the box's step bit for bit.
 
+A windkessel (RCR) outlet's rewrite takes rho* = rho_fixed + 3 (Q Rp +
+P_c') from its carried P_c (make_step_wk, pulled_state_wk): Q is the
+outward flux of the pre-step consumer-plane velocity u_prev over the
+outlet's footprint, and P_c steps by backward Euler (windkessel_update),
+both in fp32 in lbm_tpu's operation order.
+
 F is the constant CaseSpec.force or, through make_step_force, a per-cell
 (3, X, Y, Z) field (the Boussinesq buoyancy of engine/thermal.py: e_i.F
 and u.F per cell; the NEE rewrite keeps the constant force).
@@ -49,7 +55,11 @@ import torch
 
 from lbm_tpu_torch.core.lattice import D3Q19, _signed_sum, momentum, phi
 from lbm_tpu_torch.core.rheology import tau_eff_from_p
-from lbm_tpu_torch.engine.compile import CompiledBC, CompiledCase
+from lbm_tpu_torch.engine.compile import (
+    CompiledBC,
+    CompiledCase,
+    has_windkessel,
+)
 
 _E = D3Q19.E
 _OPP = D3Q19.OPP
@@ -153,11 +163,45 @@ def streamed(f, nbr_wall, nbr_moving=None, bb=None, halo=None):
     return torch.stack(pulled)
 
 
-def apply_bc_fixup(pulled, f_src, bc: CompiledBC, t: int, force=None):
+def windkessel_update(p_c, q, wk):
+    """One backward-Euler step (dt = 1 step) of the 3-element windkessel
+    C dP_c/dt = Q - P_c / Rd, P_in = Q Rp + P_c: (P_c', P_in) as fp32
+    0-dim tensors, in lbm_tpu's operation order, (P_c + Q / C) / (1 +
+    1 / (Rd C)) with the denominator composed in fp32 (lbm_tpu folds it
+    at trace time). wk: the (Rp, C, Rd) triple."""
+    rp, cap, rd = (_F32(v) for v in wk)
+    denom = _F32(1.0) + _F32(1.0) / (rd * cap)
+    p_new = (p_c + q / _c(cap, q)) / _c(denom, q)
+    return p_new, q * _c(rp, q) + p_new
+
+
+def windkessel_rho(bc: CompiledBC, p_in):
+    """The rewrite's rho* = rho_fixed + 3 P_in of a windkessel outlet."""
+    return _c(_F32(bc.rho_fixed), p_in) + 3.0 * p_in
+
+
+def windkessel_flux(u_axis, bc: CompiledBC):
+    """The outward flux Q = flow_sign * sum(flow_weight * u[axis]) of a
+    windkessel outlet over its (A, B) consumer plane (u_axis: u_prev's
+    component along the boundary's axis there), masked where the weight
+    is 0, as lbm_tpu masks it (fp32; the sum in torch's order)."""
+    w = bc.flow_weight
+    terms = torch.where(w != 0, w * u_axis, torch.zeros_like(u_axis))
+    return float(_F32(bc.flow_sign)) * terms.sum()
+
+
+def apply_bc_fixup(pulled, f_src, bc: CompiledBC, t: int, force=None,
+                   wk_p=None, rho_star=None):
     """Overwrite the pulled populations on one NEE boundary's consumer
     plane, in place, at absolute step t. Reads the pre-step f_src of the
     plane's own cells; u_prev carries the same F/2 shift as the
-    collide's u."""
+    collide's u.
+
+    A windkessel outlet (bc.windkessel set) takes its rho* from the
+    device: either `rho_star` (a 0-dim fp32 tensor, the flux kernel's or
+    its plain version's), or from its carried P_c `wk_p`, the outward
+    flux Q of this plane's u_prev and windkessel_update; with wk_p the
+    call returns (pulled, P_c')."""
     src_pl = f_src.select(bc.axis + 1, bc.consumer_coord)   # (19, A, B)
     rho_prev, mom = momentum(src_pl)
     u_prev = velocity(rho_prev, mom, force)
@@ -165,13 +209,25 @@ def apply_bc_fixup(pulled, f_src, bc: CompiledBC, t: int, force=None):
     feq_nbr = rho_prev[None] * phi_nbr
     phi_star = (phi_nbr if bc.u_mode == "extrapolate"
                 else bc.phi_star_at(t))
-    rho_star = rho_prev[None] if bc.rho_fixed is None else bc.rho_fixed
+    p_new = None
+    if bc.windkessel is not None:
+        if wk_p is not None:
+            q = windkessel_flux(u_prev[bc.axis], bc)
+            p_new, p_in = windkessel_update(wk_p, q, bc.windkessel)
+            rho_star = windkessel_rho(bc, p_in)
+        elif rho_star is None:
+            raise ValueError("a windkessel outlet needs its carried P_c "
+                             "(make_step_wk / pulled_state_wk) or its rho*")
+    elif bc.rho_fixed is None:
+        rho_star = rho_prev[None]
+    else:
+        rho_star = bc.rho_fixed
     src_dirs = src_pl[list(bc.dirs)]
     val = rho_star * phi_star + (src_dirs - feq_nbr) * bc.omega
     for d, i in enumerate(bc.dirs):
         plane = pulled[i].select(bc.axis, bc.consumer_coord)
         plane.copy_(torch.where(bc.valid[d], val[d], plane))
-    return pulled
+    return pulled if wk_p is None else (pulled, p_new)
 
 
 def halo_mask_ext(mask, axis: int, mask_lo, mask_hi):
@@ -181,20 +237,49 @@ def halo_mask_ext(mask, axis: int, mask_lo, mask_hi):
                       mask_hi.unsqueeze(axis)], dim=axis)
 
 
-def pulled_state(cc: CompiledCase, f, t: int, bcs=None, halo=None):
+def _streamed_case(cc: CompiledCase, f, halo=None):
+    bb = (None if cc.wall_velocity is None
+          else moving_bb_terms(cc.wall_velocity))
+    return streamed(f, cc.nbr_wall, cc.nbr_moving, bb,
+                    None if halo is None else halo[:3])
+
+
+def pulled_state(cc: CompiledCase, f, t: int, bcs=None, halo=None,
+                 rho_wk=None):
     """The pre-collision state at step t: pull-stream with bounce-back
     and moving walls plus the NEE fixups of `bcs` (default every
     boundary), in order. halo: None, or a shard's (axis, lo, hi, ...)
     (ShardCase.halo), the planes its neighbours sent; the shard's
     neighbour tables (ShardCase.nbr_wall) already hold their rows'
-    labels."""
-    bb = (None if cc.wall_velocity is None
-          else moving_bb_terms(cc.wall_velocity))
-    pulled = streamed(f, cc.nbr_wall, cc.nbr_moving, bb,
-                      None if halo is None else halo[:3])
+    labels. rho_wk: the (n_wk,) rho* of the windkessel outlets this step
+    (the flux kernel's); a case with windkessel outlets otherwise steps
+    through pulled_state_wk."""
+    pulled = _streamed_case(cc, f, halo)
     for bc in cc.bcs if bcs is None else bcs:
-        pulled = apply_bc_fixup(pulled, f, bc, t, cc.force)
+        rho = None
+        if bc.windkessel is not None:
+            if rho_wk is None:
+                raise ValueError("the case has windkessel outlets; use "
+                                 "pulled_state_wk with the carried state")
+            rho = rho_wk[bc.wk_index]
+        pulled = apply_bc_fixup(pulled, f, bc, t, cc.force, rho_star=rho)
     return pulled
+
+
+def pulled_state_wk(cc: CompiledCase, f, t: int, wk):
+    """pulled_state of a case with windkessel outlets: wk is the (n_wk,)
+    fp32 carried P_c (compile.wk_init's order); returns (pulled, wk')
+    with every boundary applied in boundary order, as lbm_tpu's."""
+    pulled = _streamed_case(cc, f)
+    wk_new = []
+    for bc in cc.bcs:
+        if bc.windkessel is not None:
+            pulled, p = apply_bc_fixup(pulled, f, bc, t, cc.force,
+                                       wk_p=wk[bc.wk_index])
+            wk_new.append(p)
+        else:
+            pulled = apply_bc_fixup(pulled, f, bc, t, cc.force)
+    return pulled, torch.stack(wk_new)
 
 
 def _matvec(mat: np.ndarray, vecs):
@@ -389,10 +474,27 @@ def step_tail(cc: CompiledCase, f, pulled, force=_UNSET):
 def make_step(cc: CompiledCase) -> Callable:
     """The dense step: (f, t) -> (f', rho, u), t the absolute step (it
     sets the phase of series boundaries). rho/u are this step's moments,
-    valid at fluid cells (macro_fields gives the persistent fields)."""
+    valid at fluid cells (macro_fields gives the persistent fields). A
+    case with windkessel outlets steps with make_step_wk."""
+    if has_windkessel(cc.bcs):
+        raise ValueError("the case has windkessel outlets; build the step "
+                         "with make_step_wk")
 
     def step(f, t):
         return step_tail(cc, f, pulled_state(cc, f, t))
+
+    return step
+
+
+def make_step_wk(cc: CompiledCase) -> Callable:
+    """The dense step of a case with windkessel (RCR) outlets: (f, t,
+    wk) -> (f', rho, u, wk') with wk the (n_wk,) fp32 carried P_c
+    (compile.wk_init)."""
+
+    def step(f, t, wk):
+        pulled, wk_new = pulled_state_wk(cc, f, t, wk)
+        f_new, rho, u = step_tail(cc, f, pulled)
+        return f_new, rho, u, wk_new
 
     return step
 
@@ -421,6 +523,9 @@ def make_step_force(cc: CompiledCase) -> Callable:
     plane-boundary NEE rewrites keep the static cc.force in their
     previous-moment half shift, as lbm_tpu's make_step_force does (closed
     thermal boxes have no plane boundary)."""
+    if has_windkessel(cc.bcs):
+        raise ValueError("windkessel outlets are not wired for the "
+                         "runtime-force step")
 
     def step(f, t, force):
         return step_tail(cc, f, pulled_state(cc, f, t), force)
@@ -428,12 +533,14 @@ def make_step_force(cc: CompiledCase) -> Callable:
     return step
 
 
-def tau_eff_field(cc: CompiledCase, f, t: int):
+def tau_eff_field(cc: CompiledCase, f, t: int, wk=None):
     """(X, Y, Z) per-cell tau_eff of the closure over step t's
-    pre-collision state (meaningful at fluid cells)."""
+    pre-collision state (meaningful at fluid cells); wk: the carried P_c
+    of a case with windkessel outlets."""
     if cc.closure is None:
         raise ValueError("the case has no tau closure")
-    pulled = pulled_state(cc, f, t)
+    pulled = (pulled_state_wk(cc, f, t, wk)[0] if wk is not None
+              else pulled_state(cc, f, t))
     rho, mom = momentum(pulled)
     u = velocity(rho, mom, cc.force)
     return tau_eff(pulled - rho[None] * phi(u), rho, cc.tau, cc.closure)
@@ -465,7 +572,9 @@ def init_override(cc: CompiledCase, rho, u):
             torch.where(cc.fluid[None], u, cc.u0))
 
 
-__all__ = ["make_step", "make_step_force", "boussinesq_force", "is_force_field", "guo_rates",
+__all__ = ["make_step", "make_step_wk", "make_step_force",
+           "pulled_state_wk", "windkessel_update", "windkessel_flux",
+           "windkessel_rho", "boussinesq_force", "is_force_field", "guo_rates",
            "initial_f", "macro_fields", "init_override",
            "streamed", "pull_one", "inbound_dirs", "halo_ext",
            "halo_mask_ext", "collide",

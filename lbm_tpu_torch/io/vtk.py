@@ -1,5 +1,5 @@
 """VTK STRUCTURED_POINTS writers compatible with the reference's output
-(a jax-free copy of lbm_tpu/io/vtk.py without the wall-shear field).
+(a jax-free copy of lbm_tpu/io/vtk.py).
 
 Conventions: point order z outer, y middle, x inner; per-axis interior
 crops; physical units (velocity * C_U, density * C_rho, pressure
@@ -68,9 +68,13 @@ def case_vtk(
     step: int,
     include_density: bool = False,
     binary: bool = False,
+    include_wss: bool = False,
+    extra_fields: dict | None = None,
 ) -> str:
     """Write the per-save VTK snapshot of a Simulation, in physical units
-    with dead cells zeroed."""
+    with dead cells zeroed; include_wss adds the wall shear stress WSS in
+    Pa (Simulation.wss), extra_fields more named fields as they are
+    (TAWSS and OSI)."""
     spec = sim.spec
     units = spec.units
     rho, u = sim.macro()
@@ -87,6 +91,10 @@ def case_vtk(
         fields["DENSITY"] = np.where(live, rho, 0.0) * units.C_rho
         fields["PRESSURE"] = np.where(live, rho, 0.0) * units.C_pre / 3.0
     fields["VELOCITY"] = u
+    if include_wss:
+        fields["WSS"] = sim.wss().cpu().numpy() * units.C_pre
+    for name, arr in (extra_fields or {}).items():
+        fields[name] = np.asarray(arr)
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, f"{spec.name}_{step}.vtk")
     write_structured_points(

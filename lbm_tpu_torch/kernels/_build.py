@@ -1,7 +1,7 @@
 """Build the CUDA kernel libraries with nvcc at first use and load them
 with ctypes.
 
-Six sources in seven translation units, each its own shared object,
+Seven sources in eight translation units, each its own shared object,
 compiled side by side (one nvcc process each, started together):
 kernels/csrc/collide_stream.cu (the collide-stream kernel in its 18
 collision-branch instances, each with and without the z planes' code,
@@ -12,8 +12,10 @@ pair of steps, an x-marching column, in its 14 instances and the chunked
 state read, on fp32 and on bf16 state), kernels/csrc/collide_stream_halo.cu (the sharded
 collide-stream step, 14 branches with and without z planes, built twice:
 with -DLBM_HALO_AXIS=0 for shards of a box split along x, =1 along y)
-and kernels/csrc/scalar_stream.cu (the D3Q7 scalar kernel in its 8
-instances and its record reduction), for sm_90a with a
+kernels/csrc/scalar_stream.cu (the D3Q7 scalar kernel in its 8
+instances and its record reduction) and kernels/csrc/windkessel.cu (the
+windkessel outlets' flux and P_c update, on fp32 and bf16 state), for
+sm_90a with a
 plain C interface (no PyTorch headers, so nvcc takes seconds). A source
 and its bf16 twin instantiate one body header (collide_stream.cuh,
 collide_stream2.cuh) with the storage type; the bodies share the device
@@ -50,6 +52,7 @@ SCALAR_SOURCE = CSRC / "scalar_stream.cu"
 PAIR_SOURCE = CSRC / "collide_stream2.cu"
 PAIR_BF16_SOURCE = CSRC / "collide_stream2_bf16.cu"
 HALO_SOURCE = CSRC / "collide_stream_halo.cu"
+WK_SOURCE = CSRC / "windkessel.cu"
 # the D3Q19 device functions, descriptors and their enums, shared by the
 # single-step and the fused-pair sources
 HEADER = CSRC / "d3q19.cuh"
@@ -103,6 +106,7 @@ def _declare(lib: ctypes.CDLL, sfx: str = "") -> None:
         ci, ci, ci,             # nx, ny, nz
         vp, vp,                 # collision int row, float row
         ci, vp, vp, vp, vp,     # n_bc, bc_int, bc_float, valid, phi_star
+        vp,                     # windkessel rho* pointers, or null
         vp, ci,                 # fluid-cell list or null, its length
         vp, ci,                 # partials, n_partials
         vp, ci,                 # series, t
@@ -158,6 +162,27 @@ def _declare_scalar(lib: ctypes.CDLL) -> None:
     lib.lbm_scalar_stream.restype = ci
 
 
+def _declare_wk(lib: ctypes.CDLL) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.lbm_windkessel_block_size.argtypes = []
+    lib.lbm_windkessel_block_size.restype = ci
+    lib.lbm_windkessel_max.argtypes = []
+    lib.lbm_windkessel_max.restype = ci
+    lib.lbm_error_string.argtypes = [ci]
+    lib.lbm_error_string.restype = ctypes.c_char_p
+    for name in ("lbm_windkessel_flux", "lbm_windkessel_flux_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [
+            vp, ctypes.c_longlong,  # src, n_cells
+            ci, vp, vp,             # n_wk, int rows, float rows (host)
+            vp,                     # half force (host 3 floats) or null
+            vp, vp,                 # footprint cells, weights
+            vp, vp,                 # wk (in place), rho_star
+            vp,                     # stream
+        ]
+        fn.restype = ci
+
+
 def _declare_pair(lib: ctypes.CDLL, sfx: str = "") -> None:
     """Declare the fused-pair library's entry points; sfx as in
     _declare."""
@@ -205,6 +230,7 @@ _SOURCES = {
     "collide_stream_halo_y": (HALO_SOURCE, _declare_halo,
                               ("-DLBM_HALO_AXIS=1",)),
     "scalar_stream": (SCALAR_SOURCE, _declare_scalar, ()),
+    "windkessel": (WK_SOURCE, _declare_wk, ()),
 }
 
 
@@ -313,6 +339,11 @@ def load_scalar_library() -> Library:
     return _load_all()["scalar_stream"]
 
 
+def load_wk_library() -> Library:
+    """The windkessel flux library (built with the others if needed)."""
+    return _load_all()["windkessel"]
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
@@ -321,7 +352,9 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 __all__ = ["Library", "load_library", "load_pair_library",
-           "load_halo_library", "load_scalar_library", "check", "nvcc_path",
+           "load_halo_library", "load_scalar_library", "load_wk_library",
+           "check", "nvcc_path",
            "SOURCE", "BF16_SOURCE", "PAIR_SOURCE", "PAIR_BF16_SOURCE",
-           "HALO_SOURCE", "SCALAR_SOURCE", "HEADER", "BUILD_DIR",
+           "HALO_SOURCE", "SCALAR_SOURCE", "WK_SOURCE", "HEADER",
+           "BUILD_DIR",
            "NVCC_FLAGS"]

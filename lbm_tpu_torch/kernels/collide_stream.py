@@ -17,6 +17,17 @@ launch counters.
                      version is step_plain: collide_stream_plain (the x/y
                      planes) and fix_z_plane_plain (each z plane's window
                      again, with its rewrite)
+  windkessel_flux -> lbm_windkessel_flux (kernels/csrc/windkessel.cu): the
+                     windkessel outlets' outward flux from the pre-step
+                     state and the RCR update of their carried P_c, which
+                     lbm_tpu computes in its fixups (engine/step.py
+                     apply_bc_fixup, run by ::_fix_xy_plane_windowed and
+                     ::_fix_z_plane_windowed after its kernel): one block
+                     an outlet, sums in a fixed order, writing wk and
+                     each outlet's rho* on the device. collide_stream
+                     launches it first and its descriptors read that rho*
+                     (counted "lbm_collide_stream[bgk+wk]"); its plain
+                     version is windkessel_flux_plain
   macro           -> lbm_macro, replacing ::packed_macro (with its F/2
                      shift when the case has a force)
   step2           -> lbm_collide_stream2 (kernels/csrc/collide_stream2.cuh):
@@ -81,6 +92,7 @@ from lbm_tpu_torch.engine.compile import (
     CompiledCase,
     TILE,
     fuse2_refusal,
+    has_windkessel,
     kernel_refusal,
     live_block_ids,
 )
@@ -98,6 +110,8 @@ from lbm_tpu_torch.engine.step import (
     pulled_state,
     step_tail,
     velocity,
+    windkessel_rho,
+    windkessel_update,
 )
 from lbm_tpu_torch.geometry.mask import CellType
 
@@ -233,17 +247,19 @@ def _field_tensor(cc: CompiledCase, field, g):
 
 
 def collide_stream_plain(f, cc: CompiledCase, t: int, field=None, g=None,
-                         halo=None):
+                         halo=None, rho_wk=None):
     """The dense step at absolute step t with the x/y-plane boundaries
     only (those lbm_tpu's kernel rewrites in its rows; step_plain adds
     the z planes) plus the fluid velsum: (f', sum_fluid |u|) with the sum
     a float64 0-dim tensor and f' in f's dtype (a bf16 f widened, stepped
     in fp32, narrowed once). field, g: the force field and the pre-step
     scalar state it is built from. halo: a shard's (axis, lo, hi,
-    mask_lo, mask_hi). On a case without z planes it is the plain
-    version of collide_stream, and of the fused pair's single step."""
+    mask_lo, mask_hi). rho_wk: the (n_wk,) rho* of the windkessel
+    outlets (windkessel_flux_plain's). On a case without z planes it is
+    the plain version of collide_stream, and of the fused pair's single
+    step."""
     f32 = _widen(f)
-    pulled = pulled_state(cc, f32, t, cc.kernel_bcs, halo)
+    pulled = pulled_state(cc, f32, t, cc.kernel_bcs, halo, rho_wk)
     f_new, _, u = step_tail(cc, f32, pulled, _field_tensor(cc, field, g))
     return f_new.to(f.dtype), fluid_speed_sum(cc, u)
 
@@ -253,14 +269,15 @@ def _speed(u):
 
 
 def fix_z_plane_plain(f_src, f_out, cc: CompiledCase, bc: CompiledBC,
-                      t: int, field=None, g=None, halo=None):
+                      t: int, field=None, g=None, halo=None, rho_wk=None):
     """One z-plane boundary's fixup over its window: the step of the
     window's consumer-plane cells again, from the pre-step f_src, with
     this boundary's NEE rewrite; writes their fluid cells into f_out in
     place (narrowed to f_out's dtype). Returns sum |u_fixed| - sum
     |u_pre-NEE| over those cells (float64 0-dim), the velsum correction.
     halo: a shard's, as collide_stream_plain takes it (the window's rows
-    on the shard's faces pull from its planes)."""
+    on the shard's faces pull from its planes). rho_wk: the windkessel
+    outlets' rho*, as collide_stream_plain takes it."""
     f_src = _widen(f_src)
     x0, x1, y0, y1 = bc.window
     c = bc.consumer_coord
@@ -302,7 +319,8 @@ def fix_z_plane_plain(f_src, f_out, cc: CompiledCase, bc: CompiledBC,
         phi_star_series=(None if bc.phi_star_series is None
                          else bc.phi_star_series[:, :, x0:x1, y0:y1]))
     apply_bc_fixup(pulled, f_src[:, x0:x1, y0:y1, c:c + 1], window, t,
-                   cc.force)
+                   cc.force, rho_star=(None if bc.windkessel is None
+                                       else rho_wk[bc.wk_index]))
     post, _, u = collide_cells(cc, pulled, force)
     post = post[..., 0]
     fluid = cc.fluid[x0:x1, y0:y1, c]
@@ -313,14 +331,162 @@ def fix_z_plane_plain(f_src, f_out, cc: CompiledCase, bc: CompiledBC,
                        torch.zeros_like(diff)).sum(dtype=torch.float64)
 
 
-def step_plain(f, cc: CompiledCase, t: int, field=None, g=None, halo=None):
-    """The plain version of `collide_stream` (and `step`): (f', velsum)
-    with the velsum a float64 0-dim tensor and f' in f's dtype."""
-    f_new, vs = collide_stream_plain(f, cc, t, field, g, halo)
+def step_plain(f, cc: CompiledCase, t: int, field=None, g=None, halo=None,
+               rho_wk=None):
+    """The plain version of the collide-stream launch: (f', velsum) with
+    the velsum a float64 0-dim tensor and f' in f's dtype. rho_wk: the
+    windkessel outlets' rho* this step (windkessel_flux_plain's)."""
+    f_new, vs = collide_stream_plain(f, cc, t, field, g, halo, rho_wk)
     for bc in cc.z_bcs:
         if bc.window is not None:
-            vs = vs + fix_z_plane_plain(f, f_new, cc, bc, t, field, g, halo)
+            vs = vs + fix_z_plane_plain(f, f_new, cc, bc, t, field, g, halo,
+                                        rho_wk)
     return f_new, vs
+
+
+# the flux kernel's block (kWKBlock in csrc/windkessel.cu): the plain
+# version sums in its order
+WK_BLOCK = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class WKLists:
+    """The windkessel outlets' footprints as the flux kernel takes them,
+    in the carried vector's order: outlet k's cells are cells[begin:end]
+    (ascending cell ids of its consumer-plane footprint) with their fp32
+    weights, rows[k] = (axis, begin, end), and floats[k] = (flow_sign,
+    Rp, C, 1 + 1/(Rd C), rho_fixed), the last three composed in fp32."""
+
+    cells: torch.Tensor
+    weights: torch.Tensor
+    rows: np.ndarray
+    floats: np.ndarray
+
+
+def _wk_bcs(cc: CompiledCase) -> list:
+    """The windkessel outlets in boundary order, the carried vector's."""
+    return [bc for bc in cc.bcs if bc.windkessel is not None]
+
+
+def wk_lists(cc: CompiledCase) -> WKLists:
+    """The case's WKLists, built once (the whole footprint of each
+    outlet, whatever its valid window)."""
+    per_case = _scratch.setdefault(cc, {})
+    if "wk" not in per_case:
+        bcs = _wk_bcs(cc)
+        nx, ny, nz = cc.shape
+        cells, weights, rows, floats = [], [], [], []
+        for bc in bcs:
+            w = bc.flow_weight.cpu().numpy()
+            a, b = np.nonzero(w)
+            xyz = [None, None, None]
+            xyz[bc.axis] = np.full(a.shape, bc.consumer_coord)
+            lat = [x for x in range(3) if x != bc.axis]
+            xyz[lat[0]], xyz[lat[1]] = a, b
+            ids = (xyz[0] * ny + xyz[1]) * nz + xyz[2]
+            begin = sum(len(c) for c in cells)
+            cells.append(ids.astype(np.int32))
+            weights.append(w[a, b].astype(np.float32))
+            rows.append((bc.axis, begin, begin + len(ids)))
+            rp, cap, rd = (np.float32(v) for v in bc.windkessel)
+            floats.append((bc.flow_sign, rp, cap,
+                           np.float32(1.0) + np.float32(1.0) / (rd * cap),
+                           np.float32(bc.rho_fixed)))
+        per_case["wk"] = WKLists(
+            cells=torch.from_numpy(np.concatenate(cells)).to(cc.device),
+            weights=torch.from_numpy(np.concatenate(weights)).to(cc.device),
+            rows=np.asarray(rows, np.int32),
+            floats=np.asarray(floats, np.float32))
+    return per_case["wk"]
+
+
+def windkessel_flux_plain(f, cc: CompiledCase, wk):
+    """The plain version of `windkessel_flux`: (wk', rho*), each (n_wk,)
+    fp32, from the pre-step f (a bf16 f widened). Outlet k's flux sums
+    flow_weight * u_prev[axis] over its footprint in the kernel's order
+    (WK_BLOCK strided partials, each summed from 0 in list order, then a
+    halving tree), and P_c steps as engine/step.windkessel_update."""
+    lists = wk_lists(cc)
+    f32 = _widen(f).reshape(19, -1)
+    p_out, rho_out = [], []
+    for k, bc in enumerate(_wk_bcs(cc)):
+        axis, begin, end = (int(v) for v in lists.rows[k])
+        ids = lists.cells[begin:end].long()
+        rho, mom = momentum(f32[:, ids])
+        u = velocity(rho, mom, cc.force)
+        v = lists.weights[begin:end] * u[axis]
+        pad = (-v.numel()) % WK_BLOCK
+        v = torch.cat([v, v.new_zeros(pad)]).reshape(-1, WK_BLOCK)
+        acc = v.new_zeros(WK_BLOCK)
+        for row in v:
+            acc = acc + row
+        s = WK_BLOCK // 2
+        while s > 0:
+            acc = torch.cat([acc[:s] + acc[s:2 * s], acc[s:]])
+            s //= 2
+        q = float(lists.floats[k][0]) * acc[0]
+        p_new, p_in = windkessel_update(wk[k], q, bc.windkessel)
+        p_out.append(p_new)
+        rho_out.append(windkessel_rho(bc, p_in))
+    return torch.stack(p_out), torch.stack(rho_out)
+
+
+def _check_wk(wk, cc: CompiledCase, name: str = "wk, their carried P_c"):
+    n = len(_wk_bcs(cc))
+    if wk is None or not torch.is_tensor(wk) or wk.dtype != torch.float32 \
+            or tuple(wk.shape) != (n,) or not wk.is_contiguous() \
+            or wk.device != cc.device:
+        raise ValueError(f"the case's {n} windkessel outlets need {name}: "
+                         f"a contiguous float32 ({n},) tensor on "
+                         f"{cc.device}")
+
+
+def windkessel_flux(f, cc: CompiledCase, wk, rho_star):
+    """The windkessel outlets' step before the collide-stream launch:
+    from the pre-step state f (float32 or bfloat16), each outlet's
+    outward flux Q over its footprint, P_c' by backward Euler written
+    into wk in place, and rho* = rho_fixed + 3 (Q Rp + P_c') into
+    rho_star (both (n_wk,) float32 on f's device). One launch of
+    lbm_windkessel_flux on a CUDA tensor, its plain version on the CPU.
+    Returns (wk, rho_star)."""
+    _check_state(f, cc, "f")
+    _check_wk(wk, cc)
+    _check_wk(rho_star, cc, "rho_star")
+    if f.device.type == "cpu":
+        p, r = windkessel_flux_plain(f, cc, wk)
+        wk.copy_(p)
+        rho_star.copy_(r)
+        return wk, rho_star
+    from lbm_tpu_torch.kernels._build import check, load_wk_library
+
+    lib = load_wk_library().lib
+    lists = wk_lists(cc)
+    half = (None if cc.force is None
+            else np.asarray(half_force(cc.force), np.float32))
+    name = _tagged("lbm_windkessel_flux", f).replace("+bf16", "[bf16]")
+    launch = (lib.lbm_windkessel_flux_bf16 if _bf16(f)
+              else lib.lbm_windkessel_flux)
+    with torch.cuda.device(f.device):
+        stream = torch.cuda.current_stream(f.device).cuda_stream
+        err = launch(f.data_ptr(), f[0].numel(), wk.numel(),
+                     lists.rows.ctypes.data, lists.floats.ctypes.data,
+                     None if half is None else half.ctypes.data,
+                     lists.cells.data_ptr(), lists.weights.data_ptr(),
+                     wk.data_ptr(), rho_star.data_ptr(), stream)
+    check(lib, err, name)
+    _count(name)
+    return wk, rho_star
+
+
+def _rho_scratch(cc: CompiledCase):
+    """The case's (n_wk,) float32 rho* buffer on its device, which the
+    flux kernel writes and the collide-stream descriptors point at."""
+    per_case = _scratch.setdefault(cc, {})
+    if "rho_wk" not in per_case:
+        per_case["rho_wk"] = torch.zeros(len(_wk_bcs(cc)),
+                                         dtype=torch.float32,
+                                         device=cc.device)
+    return per_case["rho_wk"]
 
 
 def macro_plain(f, force=None):
@@ -376,6 +542,22 @@ def _bc_tables(cc: CompiledCase, bcs=None, t: int = 0):
         valid[b] = bc.valid.data_ptr()
         phis[b] = None if extrap else bc.phi_star_at(t).data_ptr()
     return ints, floats, valid, phis
+
+
+def _rho_ptrs(cc: CompiledCase, bcs, rho_wk):
+    """A row's pointer into rho_wk (the case's windkessel rho* buffer) for
+    each windkessel outlet of `bcs`, null for the others; built once per
+    case and boundary list."""
+    per_case = _scratch.setdefault(cc, {})
+    key = ("rho_ptrs",) + tuple(id(bc) for bc in bcs)
+    if key not in per_case:
+        rhos = (ctypes.c_void_p * max(len(bcs), 1))()
+        for b, bc in enumerate(bcs):
+            if bc.windkessel is not None:
+                rhos[b] = (rho_wk.data_ptr()
+                           + rho_wk.element_size() * bc.wk_index)
+        per_case[key] = (list(bcs), rhos)
+    return per_case[key][1]
 
 
 # The wrappers' scratch per case, dropped with the case: {(kernel, bc
@@ -468,7 +650,7 @@ def _check_halo(halo, cc: CompiledCase, f, field) -> None:
 
 def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
                    all_blocks: bool = False, field: ForceField | None = None,
-                   g=None, halo=None):
+                   g=None, halo=None, wk=None):
     """One whole step of f into out (a different buffer) at absolute step
     t, in one launch, with the case's collision branch and its boundaries
     (cc.step_bcs: the x/y planes and the z planes); writes the fluid
@@ -479,16 +661,30 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
     box when that is None or with all_blocks. field, g: the Boussinesq
     force field and the pre-step (7, X, Y, Z) scalar state it reads (the
     force-field instance). halo: None, or a shard's (axis, lo, hi,
-    mask_lo, mask_hi) (K1d, lbm_collide_stream_halo). On the CPU it runs
-    step_plain. Returns out."""
+    mask_lo, mask_hi) (K1d, lbm_collide_stream_halo). wk: the carried
+    (n_wk,) float32 P_c of a case with windkessel outlets, updated in
+    place by the flux kernel (windkessel_flux), which runs first on the
+    stream; the launch's windkessel planes then read their rho* from the
+    device. On the CPU it runs the plain versions. Returns out."""
     _check_pair(f, out, cc, series, slot)
     name, ci, cf = collision_descriptor(cc, field)
     g_ptr = _check_field(field, g, cc, f)
     if halo is not None:
         _check_halo(halo, cc, f, field)
+    rho_wk = None
+    if has_windkessel(cc.bcs):
+        if halo is not None or field is not None:
+            raise ValueError("windkessel outlets step whole boxes without a "
+                             "force field")
+        rho_wk = _rho_scratch(cc)
+        windkessel_flux(f, cc, wk, rho_wk)
+        name = f"{name}+wk"
+    elif wk is not None:
+        raise ValueError("wk was given for a case without windkessel "
+                         "outlets")
     ids = None if all_blocks else cc.fluid_cells
     if f.device.type == "cpu":
-        f_new, vs = step_plain(f, cc, t, field, g, halo)
+        f_new, vs = step_plain(f, cc, t, field, g, halo, rho_wk)
         out.copy_(f_new)
         series[slot] = vs
         return out
@@ -505,6 +701,7 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
     bcs = cc.step_bcs
     (ints, floats, valid, phis), partials = _launch_scratch(
         cc, "k1", bcs, t, grid)
+    rhos = None if rho_wk is None else _rho_ptrs(cc, bcs, rho_wk)
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
         err = launch(
@@ -512,6 +709,8 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
             nx, ny, nz, ci.ctypes.data, cf.ctypes.data,
             len(bcs), ints.ctypes.data, floats.ctypes.data,
             ctypes.addressof(valid), ctypes.addressof(phis),
+            *(() if halo is not None
+              else (None if rhos is None else ctypes.addressof(rhos),)),
             None if ids is None else ids.data_ptr(), n_listed,
             partials.data_ptr(), grid, series.data_ptr(), slot, *tail,
             stream)
@@ -743,7 +942,9 @@ def macro(f, force=None):
     return rho, u
 
 
-__all__ = ["collide_stream", "collide_stream_plain", "fix_z_plane_plain", "step", "step_plain", "step2",
+__all__ = ["collide_stream", "collide_stream_plain", "fix_z_plane_plain",
+           "step", "step_plain", "step2", "windkessel_flux",
+           "windkessel_flux_plain", "wk_lists", "WKLists", "WK_BLOCK",
            "collide_stream2_plain", "extract_rows", "extract_rows_plain",
            "unpack_state_lowmem", "chunk_rows", "CHUNK_BYTES",
            "live_block_ids", "macro", "macro_plain", "launches",

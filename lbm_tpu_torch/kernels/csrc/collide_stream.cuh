@@ -109,6 +109,20 @@
 // The velsum counts |u| after every rewrite. A case without z planes
 // launches each branch's instance built without this code.
 //
+// Windkessel (RCR) outlets. lbm_tpu fixes a windkessel plane on any axis
+// after its kernel (::_fix_xy_plane_windowed, and K6 + K5 on z through
+// ::_fix_z_plane_windowed), since its rho* = rho_fixed + 3 (Q Rp + P_c)
+// changes every step. Here such a plane is one more descriptor of the
+// pass whose rho_dyn points at its rho* on the device, written earlier on
+// the same stream by lbm_windkessel_flux (windkessel.cu) from the
+// pre-step state, so the launch needs no host value. Its order among the
+// planes is free: no cell of a windkessel plane is another boundary's
+// consumer cell (engine/compile.check_z_windows). Only the instance with
+// the z planes' code reads rho_dyn (kDyn: whole boxes without a force
+// field; the port refuses windkessel outlets beside a force field, as
+// lbm_tpu's dense runtime-force step does), so every other instance keeps
+// its code, registers and spills (probes/ptxas_report.py).
+//
 // The device functions (pull, NEE rewrite, collision branches, velsum
 // reduction) and the descriptor parsers live in d3q19.cuh, which the
 // fused pair (collide_stream2.cuh) includes too.
@@ -142,6 +156,7 @@ struct ZBC {
   long long plane;         // nx * ny
   const uint8_t* valid;    // (5, nx, ny) bytes
   const float* phi_star;   // (5, nx, ny) fp32 of this step's phase, or null
+  const float* rho_dyn;    // a windkessel outlet's device rho*, or null
 };
 
 struct ZBCSet {
@@ -158,8 +173,9 @@ __host__ __device__ constexpr int z_rank(int i) {
 }
 
 // nee_fix for a z-plane boundary: the same rewrite, in the same
-// operation order, with the directions known to the code.
-template <bool FORCE, typename S>
+// operation order, with the directions known to the code (DYN as
+// nee_fix's).
+template <bool FORCE, typename S, bool DYN = false>
 __device__ __forceinline__ void nee_fix_z(const ZBC& bc,
                                           const S* __restrict__ src,
                                           long long n_cells, int cell,
@@ -173,7 +189,10 @@ __device__ __forceinline__ void nee_fix_z(const ZBC& bc,
   float rp, uxp, uyp, uzp;
   moments19<FORCE>(own, half_force, rp, uxp, uyp, uzp);
   const float usqp = uxp * uxp + uyp * uyp + uzp * uzp;
-  const float rho_star = bc.rho_is_fixed ? bc.rho_fixed : rp;
+  float rho_star = bc.rho_is_fixed ? bc.rho_fixed : rp;
+  if constexpr (DYN) {
+    if (bc.rho_dyn) rho_star = *bc.rho_dyn;
+  }
 #pragma unroll
   for (int i = 1; i < Q; ++i) {
     if (EZ(i) == 0 || EZ(i) != bc.sign) continue;
@@ -206,6 +225,7 @@ bool to_zbc(const BCDesc& d, ZBC& z) {
   z.plane = d.plane;
   z.valid = d.valid;
   z.phi_star = d.phi_star;
+  z.rho_dyn = d.rho_dyn;
   return z.sign != 0;
 }
 
@@ -225,6 +245,10 @@ __device__ __forceinline__ void collide_stream_cells(
     const int* __restrict__ cells, int n_listed,
     double* __restrict__ partials, const Halo& halo) {
   const long long n_cells = (long long)nx * ny * nz;  // < 2^31 (host check)
+  // the windkessel outlets' device rho*: whole boxes without a force
+  // field only (the host refuses the others), in the instance with the z
+  // planes' code
+  constexpr bool kDyn = ZPLANES && HALO < 0 && FORCE != kFieldForce;
   const long long k = (long long)blockIdx.x * kBlock + threadIdx.x;
   const long long cell_ll =
       cells ? (k < n_listed ? (long long)cells[k] : n_cells) : k;
@@ -244,9 +268,10 @@ __device__ __forceinline__ void collide_stream_cells(
       const BCDesc& bc = bcs.bc[b];
       if ((bc.axis == 0 ? x : y) != bc.coord) continue;
       const long long lat = (long long)(bc.axis == 0 ? y : x) * nz + z;
-      // the NEE rewrite keeps the static force (none under a field)
-      nee_fix<FORCE == kConstForce>(bc, src, n_cells, cell, lat,
-                                    coll.half_force, p);
+      // the NEE rewrite keeps the static force (none under a field); the
+      // instance with the z planes' code reads a windkessel outlet's rho*
+      nee_fix<FORCE == kConstForce, S, kDyn>(bc, src, n_cells, cell, lat,
+                                             coll.half_force, p);
     }
     if constexpr (ZPLANES) {
       // the z plane that rewrites this cell, if one does: the one whose
@@ -264,8 +289,9 @@ __device__ __forceinline__ void collide_stream_cells(
         }
       }
       if (zb >= 0) {
-        nee_fix_z<FORCE == kConstForce>(zbcs.bc[zb], src, n_cells, cell,
-                                        zlat, coll.half_force, p);
+        nee_fix_z<FORCE == kConstForce, S, kDyn>(zbcs.bc[zb], src, n_cells,
+                                                 cell, zlat, coll.half_force,
+                                                 p);
       }
     }
     float ff[3], fh[3];
@@ -370,14 +396,18 @@ void launch_kernel(const StepArgs<S>& a, const Collision& c, const BCSet& b,
   }
 }
 
-// A case with z-plane boundaries launches the instance with their code; a
-// case without launches the one without it, whose code is the kernel's
-// before the z planes joined it (at lid 256^3 [bgk] the z code cost 0.9%
-// and at gravity_channel 256^3 [trt+force] 3%: probes/path_ab.py).
+// A case with z-plane boundaries or a windkessel outlet launches the
+// instance with their code (the z planes' loop and the device rho* of a
+// windkessel plane); a case without launches the one without it, whose
+// code is the kernel's before the z planes joined it (at lid 256^3 [bgk]
+// the z code cost 0.9% and at gravity_channel 256^3 [trt+force] 3%:
+// probes/path_ab.py).
 template <typename S, int K, int HALO>
 void launch_step(const StepArgs<S>& a, const Collision& c, const BCSet& b,
                  const ZBCSet& z) {
-  if (z.n > 0) {
+  bool dyn = false;
+  for (int k = 0; k < b.n; ++k) dyn = dyn || b.bc[k].rho_dyn != nullptr;
+  if (z.n > 0 || dyn) {
     launch_kernel<S, K, HALO, true>(a, c, b, z);
   } else {
     launch_kernel<S, K, HALO, false>(a, c, b, z);
@@ -424,12 +454,16 @@ constexpr std::array<StepLauncher<S>, kNumKeys> kStepTable =
 // non-fluid cells. partials holds one double per launched block
 // (n_partials: ceil(n_listed / kBlock), at least 1, with a list).
 // Boundary rows as parse_bc; phi_ptrs[b] is this step's phase table of a
-// series boundary. Returns cudaGetLastError().
+// series boundary; rho_ptrs, null or one pointer a row: a windkessel
+// outlet's rho* on the device (written before this launch on the same
+// stream by lbm_windkessel_flux), null for the others. Returns
+// cudaGetLastError().
 template <typename S, int HALO = -1>
 int collide_stream(const S* src, S* dst, const int8_t* mask, int nx, int ny,
                    int nz, const int* coll_int, const float* coll_float,
                    int n_bc, const int* bc_int, const float* bc_float,
                    const void* const* valid_ptrs, const void* const* phi_ptrs,
+                   const void* const* rho_ptrs,
                    const int* cells, int n_listed, double* partials,
                    int n_partials, double* series, int t,
                    const float* gfield, void* stream,
@@ -458,6 +492,10 @@ int collide_stream(const S* src, S* dst, const int8_t* mask, int nx, int ny,
                   phi_ptrs[b], nx, ny, nz, d) ||
         (d.axis == 2 ? zbcs.n == kMaxZBCs : bcs.n == kMaxBCs)) {
       return (int)cudaErrorInvalidValue;
+    }
+    d.rho_dyn = rho_ptrs ? static_cast<const float*>(rho_ptrs[b]) : nullptr;
+    if (d.rho_dyn && (HALO >= 0 || gfield)) {
+      return (int)cudaErrorInvalidValue;  // no instance reads it there
     }
     if (d.axis != 2) {
       bcs.bc[bcs.n++] = d;

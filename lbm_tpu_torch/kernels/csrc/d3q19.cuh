@@ -119,6 +119,9 @@ struct BCDesc {
   const uint8_t* valid;   // (D, A, B) bytes
   const float* phi_star;  // (D, A, B) fp32 of this step's phase, or null
                           // when u_extrap
+  const float* rho_dyn;   // a windkessel outlet's rho* on the device
+                          // (this step's, written by the flux kernel
+                          // before the launch), or null
 };
 
 struct BCSet {
@@ -297,8 +300,10 @@ __device__ __forceinline__ void pull19(const S* __restrict__ src,
 // Rewrite the pulled populations of one consumer-plane cell with the
 // NEE formula: p_i = rho* phi*_i + (f_i(x) - rho_prev phi_i(u_prev)) omega
 // for each prescribed direction whose lateral cell is valid (u_prev with
-// the F/2 shift under FORCE).
-template <bool FORCE, typename S>
+// the F/2 shift under FORCE). DYN: the instance reads a windkessel
+// outlet's rho* from the device (bc.rho_dyn, where set); without it the
+// code is the static rewrite's alone.
+template <bool FORCE, typename S, bool DYN = false>
 __device__ __forceinline__ void nee_fix(const BCDesc& bc,
                                         const S* __restrict__ src,
                                         long long n_cells, int cell,
@@ -312,7 +317,10 @@ __device__ __forceinline__ void nee_fix(const BCDesc& bc,
   float rp, uxp, uyp, uzp;
   moments19<FORCE>(own, half_force, rp, uxp, uyp, uzp);
   const float usqp = uxp * uxp + uyp * uyp + uzp * uzp;
-  const float rho_star = bc.rho_is_fixed ? bc.rho_fixed : rp;
+  float rho_star = bc.rho_is_fixed ? bc.rho_fixed : rp;
+  if constexpr (DYN) {
+    if (bc.rho_dyn) rho_star = *bc.rho_dyn;
+  }
 #pragma unroll
   for (int i = 1; i < Q; ++i) {
     const int d = bc.slot[i];

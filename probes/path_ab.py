@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""The lid main path, the force path and the vessel path of one tree of
-the port, timed through Simulation.run on the card: run it for two trees
-in turns (parent, change, change, parent) in one call to compare them on
-one card.
+"""The lid main path, the force path, the fuse2 path, the vessel path,
+the coupled washout and the thermal path of one tree of the port, timed
+through Simulation.run (CoupledTransport.run, BuoyantTransport.run) on
+the card, and the clinical path (the coronary with windkessel outlets)
+where the tree has them: run it for two trees in turns (parent, change,
+change, parent) in one call to compare them on one card.
 
     python3 probes/path_ab.py [ROOT]   # ROOT: a checkout of the repo
                                        # (default: this one); needs a card
@@ -34,6 +36,7 @@ def main() -> int:
         return 1
     from lbm_tpu_torch.cases import get_case
     from lbm_tpu_torch.engine.runner import Simulation
+    from lbm_tpu_torch.engine.scalar import CoupledTransport
     from lbm_tpu_torch.kernels import collide_stream as K
 
     device = torch.device("cuda", 0)
@@ -43,8 +46,8 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     out = {"card": smi, "root": root}
 
-    def chunks(spec, steps, time_save):
-        sim = Simulation(spec, device=device)
+    def chunks(spec, steps, time_save, fuse=1, sim=None):
+        sim = sim or Simulation(spec, device=device, fuse=fuse)
         marks = []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -53,6 +56,19 @@ def main() -> int:
         per = [(b - a) / time_save * 1e3
                for a, b in zip([t0] + marks, marks)]
         return sim, per
+
+    def transport_chunks(make, steps, chunk):
+        tr = make()
+        per = []
+        for _ in range(steps // chunk):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.run(chunk)
+            torch.cuda.synchronize()
+            per.append((time.perf_counter() - t0) / chunk * 1e3)
+        del tr
+        torch.cuda.empty_cache()
+        return per
 
     def kernel_ms(sim, iters=500):
         f, spare = sim.f, sim._spare.clone()
@@ -79,10 +95,34 @@ def main() -> int:
     out["force_k1_ms"] = kernel_ms(sim)
     del sim
     torch.cuda.empty_cache()
-    sim, out["vessel_ms_per_step"] = chunks(
-        get_case("coronary", shape=[291, 291, 372], radius=12,
-                 pulsatile=[40, 2000]), 2000, 500)
+    sim, out["fuse2_ms_per_step"] = chunks(
+        get_case("lid_driven_cavity", n=256), 1000, 250, fuse=2)
     del sim
+    torch.cuda.empty_cache()
+    full = dict(shape=[291, 291, 372], radius=12, pulsatile=[40, 2000])
+    sim, out["vessel_ms_per_step"] = chunks(get_case("coronary", **full),
+                                            2000, 500)
+    del sim
+    torch.cuda.empty_cache()
+    out["coupled_ms_per_step"] = transport_chunks(
+        lambda: CoupledTransport(get_case("coronary", **full), D=0.02,
+                                 device=device), 2000, 500)
+    from lbm_tpu_torch.cases import thermal as tcases
+    from lbm_tpu_torch.engine.thermal import BuoyantTransport
+
+    spec, kw, _ = tcases.heated_cavity_3d(n=256, ra=1e4, pr=0.71)
+    out["thermal_ms_per_step"] = transport_chunks(
+        lambda: BuoyantTransport(spec, device=device, **kw), 1000, 250)
+    torch.cuda.empty_cache()
+    try:  # the windkessel outlets, in trees that have them
+        clin = get_case("coronary", **full, windkessel=[
+            (2e-4, 2e4, 1e-3)] + [(2e-4, 2e4, 3e-3)] * 3)
+        sim = Simulation(clin, device=device)
+    except NotImplementedError:
+        out["clinical_ms_per_step"] = None
+    else:
+        sim, out["clinical_ms_per_step"] = chunks(clin, 2000, 500, sim=sim)
+        del sim
     print(json.dumps(out), flush=True)
     return 0
 

@@ -900,3 +900,79 @@ def test_sharded_simulation_on_one_card(device):
     assert (out["f"][:, ~live] == 0).all()
     assert out["launches"]["lbm_collide_stream[bgk+halo]"] == 12
     assert not [k for k in out["launches"] if "fix_z_plane" in k]
+
+
+WK4 = [(1e-4, 5e3, 2e-3), (1e-4, 5e3, 1e-3), (1e-4, 5e3, 4e-3),
+       (1e-4, 5e3, 8e-3)]
+WK_CASES = {
+    "coronary": ("coronary", dict(shape=(48, 24, 40), radius=5,
+                                  windkessel=WK4, pulsatile=(4, 8))),
+    "coronary+trt+cy": ("coronary", dict(
+        shape=(48, 24, 40), radius=5, windkessel=WK4, collision="trt",
+        rheology={"model": "carreau", "nu0": 0.05, "nu_inf": 0.005,
+                  "lam": 10.0, "n": 0.5})),
+    "poiseuille": ("poiseuille", dict(n=16,
+                                      windkessel=(5e-4, 24000.0, 2.5e-3))),
+}
+
+
+@pytest.mark.parametrize("label", sorted(WK_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windkessel_flux_and_planes_match_plain(device, label, dtype):
+    """lbm_windkessel_flux's wk and rho* equal windkessel_flux_plain's (the
+    same fixed summation order), and K1 with its windkessel x/y and z
+    planes reading rho* from the device equals step_plain, over 20 steps
+    of each storage type."""
+    import numpy as np
+
+    from lbm_tpu_torch.engine.compile import wk_init
+
+    name, kw = WK_CASES[label]
+    cc = compile_case(get_case(name, **kw), device)
+    f = initial_f(cc).to(dtype)
+    fk, buf = f.clone(), f.clone()
+    wk_k = torch.from_numpy(wk_init(cc.bcs)).to(device)
+    wk_p = wk_k.clone()
+    rho_k = torch.zeros_like(wk_k)
+    vs_k = torch.zeros(20, dtype=torch.float64, device=device)
+    vs_p = torch.zeros(20, dtype=torch.float64, device=device)
+    K.reset_launches()
+    for t in range(20):
+        w, r = K.windkessel_flux_plain(fk, cc, wk_k.clone())
+        K.windkessel_flux(fk, cc, wk_k.clone(), rho_k)
+        assert torch.equal(rho_k, r)
+        K.collide_stream(fk, buf, cc, vs_k, t, t, wk=wk_k)
+        assert torch.equal(wk_k, w)
+        fk, buf = buf, fk
+        wk_p, rho_p = K.windkessel_flux_plain(f, cc, wk_p)
+        f, vs_p[t] = K.step_plain(f, cc, t, rho_wk=rho_p)
+    torch.cuda.synchronize()
+    tag = "+bf16" if dtype == torch.bfloat16 else ""
+    inst = K.instance(cc)
+    assert K.launches[f"lbm_collide_stream[{inst}+wk{tag}]"] == 20
+    assert K.launches["lbm_windkessel_flux" + ("[bf16]" if tag else "")] \
+        == 40
+    torch.testing.assert_close(fk.float(), f.float(), rtol=3e-6, atol=1e-7)
+    torch.testing.assert_close(wk_k, wk_p, rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(vs_k, vs_p, rtol=1e-5, atol=0.0)
+    assert np.isfinite(fk.float().cpu().numpy()).all()
+
+
+def test_windkessel_simulation_on_the_card(device):
+    """Simulation runs a windkessel case on the card with sim.wk on the
+    device through its chunks, equal to the same run on the CPU's plain
+    versions; stress, WSS and the accumulator run there."""
+    name, kw = WK_CASES["coronary"]
+    spec = get_case(name, **kw)
+    a = Simulation(spec, device=device)
+    b = Simulation(spec, device="cpu")
+    for s in (a, b):
+        s.run(max_steps=30, time_save=10, verbose=False)
+    assert a.wk.device == device
+    torch.testing.assert_close(a.f.cpu(), b.f, rtol=3e-6, atol=1e-7)
+    torch.testing.assert_close(a.wk.cpu(), b.wk, rtol=1e-6, atol=1e-12)
+    w = a.wss()
+    assert w.device == device and float(w.max()) > 0
+    acc = a.wss_accumulator()
+    acc.sample_sim(a)
+    assert torch.isfinite(acc.tawss_field()).all()

@@ -203,13 +203,14 @@ _PLAW = {"model": "power_law", "K": 0.05, "n": 0.7}
      "backend='dense'"),
     ("pipe", dict(n=16, nz=4, curved=True), "ROADMAP.md Queue 1 item 8"),
     ("coronary", dict(shape=(24, 20, 32), radius=4,
-                      windkessel=[(1.0, 1.0, 1.0)] * 4),
+                      windkessel=[(1.0, 1.0, 1.0)] * 4, curved=True),
      "ROADMAP.md Queue 1 item 8"),
 ])
 def test_refuses_unported_features(name, kwargs, match):
     """What the port does not run raises by name: the two compositions
     the collide-stream kernel lacks (on backend='kernel', pointing at
-    'dense'), Bouzidi walls and windkessel outlets (ROADMAP)."""
+    'dense') and Bouzidi walls (ROADMAP), with windkessel outlets too
+    (those run; tests/test_torch_windkessel.py)."""
     if name == "lid_driven_cavity":
         kwargs = dict(kwargs, n=8)
     with pytest.raises(NotImplementedError, match=match):
@@ -217,9 +218,9 @@ def test_refuses_unported_features(name, kwargs, match):
 
 
 def test_refuses_unported_boundaries():
+    # windkessel outlets compile (ported); the outlet keeps its triple
     spec = get_case("poiseuille", n=8, windkessel=(1.0, 1.0, 1.0))
-    with pytest.raises(NotImplementedError, match="windkessel"):
-        compile_case(spec)
+    assert compile_case(spec).bcs[1].windkessel == (1.0, 1.0, 1.0)
     spec = get_case("poiseuille", n=8)
     spec.wall_sdf = np.ones(spec.shape, np.float32)
     with pytest.raises(NotImplementedError, match="Bouzidi"):

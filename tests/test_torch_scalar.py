@@ -264,11 +264,17 @@ def test_arguments_are_checked():
 
 
 def test_coupled_refuses_windkessel_outlets():
-    """Windkessel outlets wait for their own slice: the refusal names it."""
+    """Windkessel outlets run in CoupledTransport
+    (tests/test_torch_windkessel.py) but not beside a force field: the
+    refusal is lbm_tpu's runtime-force step's."""
+    from lbm_tpu_torch.kernels.collide_stream import ForceField
+
     wk = [(1e-4, 5e3, 2e-3)] * 4
     spec = get_case("coronary", shape=(48, 24, 40), radius=5, windkessel=wk)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        CoupledTransport(spec, D=0.02, device="cpu")
+    for backend in ("kernel", "dense"):
+        with pytest.raises(ValueError, match="runtime-force step"):
+            CoupledTransport(spec, D=0.02, device="cpu", backend=backend,
+                             field=ForceField((0.0, 0.0, 1e-5)))
 
 
 @pytest.mark.parametrize("backend", ["kernel", "dense"])

@@ -301,7 +301,15 @@ def test_geo_and_bc_files_round_trip(tmp_path, order):
     dict(windkessel=[(1.0, 1.0, 1.0)] * 4),
 ])
 def test_refuses_bouzidi_and_windkessel_by_name(kwargs):
+    """Bouzidi walls are not ported (the refusal names the ROADMAP item);
+    windkessel outlets are, and what refuses them names itself: the
+    fused pair of steps."""
     spec = get_case("coronary", **CORONARY, **kwargs)
+    if "windkessel" in kwargs:
+        compile_case(spec)
+        with pytest.raises(ValueError, match="fuse=2 requires"):
+            Simulation(spec, device="cpu", fuse=2)
+        return
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         compile_case(spec)
 
