@@ -98,7 +98,8 @@ force-field instances of lbm_collide_stream):
      of 250 steps with nusselt_profile each (K1e [bgk+field] 1000, K8
      1000, K3 at least 4): finite, temperature within the wall values +-
      1e-2, kinetic energy above zero and growing; then 250 steps with
-     collision='trt' ([trt+field] 250);
+     collision='trt' ([trt+field] 250, its four instances at three blocks
+     an SM in phase 2);
  12. the CLI: `transport` on the default coronary with a bolus and --vtk
      writes the washout CSV and the concentration VTK; `thermal` at its
      defaults (cavity3d n=32, 4 x 5000 steps) ends with 1.8 < Nu < 2.3
@@ -211,34 +212,43 @@ shard axis) and Simulation(mesh=) on torch.distributed:
      against an unsharded run, then `run --shard N` on the 64^3 cavity
      writing VTK and CONVERGENCE.log; with one card a line saying the
      NCCL path for several cards was not run.
-Windkessel (RCR) outlets and the clinical outputs (lbm_windkessel_flux,
-built from windkessel.cu, and the windkessel x/y and z planes of K1,
-whose descriptors read rho* from the device):
-  2e. (inside phase 2) the flux kernel's unit, its build seconds and
-     ptxas's registers of its four instances (with and without a force,
-     fp32 and bf16);
- 18. the clinical path: the kernel route of windkessel cases against its
-     plain versions on the card (each step the flux kernel alone against
-     windkessel_flux_plain, then the flux kernel, K1 and the reduction
-     against windkessel_flux_plain and step_plain; f at rtol 3e-6, atol
-     1e-7, a bf16 state within 2e-2 of max |f|, P_c within 1e-6 of its
-     largest value, the velsum within 1e-5): the pulsatile coronary (64,
-     48, 96) r=4 with four RCR outlets for 200 steps, then for 50 steps
-     in bf16, with TRT + Carreau blood, and poiseuille 32^3 with its y
-     outlet; the full coronary 291x291x372 r=12 pulsatile [40, 2000] with
-     tools/demo_clinical_washout.py's RCR values for 2 steps; then its
-     clinical run through Simulation.run, 2000 steps (counters reset just
-     before and read just after: the flux kernel and K1 [bgk+wk] 2000
-     each, K3 at least 4), finite fields and P_c, max|u| within 3x the
-     inlet speed, P_c in mmHg and the FFR between the inlet and the main
-     outlet, 2000 more steps timed, a 200-step profile (at most three
-     kernel launches a step and the chunk's few); the flux kernel and the
-     whole step in turns with their plain versions, with bounds; wss()
-     and one WSSAccumulator sample at full size, their ms and device
-     memory rise; then CoupledTransport on it (tau_g 0.6, a 500-step
-     bolus, every boundary recorded), 2000 steps (the flux kernel, K1
-     [bgk+wk] and K8 2000 each; at most five kernel launches a step),
-     the washout checks of phase 9.
+Windkessel (RCR) outlets and the clinical outputs (the fold: K1 with the
+outlets' flux folded in, collide_stream_wk_kernel, and its reduction,
+velsum_reduce_wk_kernel, built from windkessel.cu and windkessel_bf16.cu;
+lbm_windkessel_flux, its prime, from windkessel.cu):
+  2e. (inside phase 2) the windkessel units' build seconds and ptxas's
+     registers, spills, stack frames and blocks an SM of the fold's 14
+     instances in each storage type, its reduction and the flux kernel's
+     four instances (with and without a force, fp32 and bf16);
+ 18. the clinical path: the fold of windkessel cases against its plain
+     versions on the card (the prime alone against wk_terms_plain and,
+     committed, windkessel_flux_plain; then each step the fold launch and
+     its reduction against step_wk_plain, and the plain fold against
+     lbm_tpu's order, a flux from each pre-step state then step_plain:
+     f, P_c, the staged Q and the terms bit-equal, but for the closure
+     case, f at rtol 3e-6, atol 1e-7, a bf16 state within 2e-2 of max |f|,
+     P_c within 1e-6 of its largest value, the velsum within 1e-5): the
+     pulsatile coronary (64, 48, 96) r=4 with four RCR outlets for 200
+     steps, then from that developed state for 50 steps in fp32 and
+     narrowed to bf16 (Q != 0 at every outlet, printed), for 50 steps in
+     bf16 from rest, with TRT + Carreau blood, and poiseuille 32^3 with
+     its y outlet; the full coronary 291x291x372 r=12 pulsatile [40,
+     2000] with tools/demo_clinical_washout.py's RCR values for 2 steps;
+     then its clinical run through Simulation.run, 2000 steps (counters
+     reset just before and read just after: K1 [bgk+wk] 2000, the prime
+     4, once a chunk, K3 at least 4), finite fields and P_c, max|u|
+     within 3x the inlet speed, P_c in mmHg and the FFR between the inlet
+     and the main outlet, 2000 more steps timed, a 200-step profile (at
+     most 2.1 kernel launches a step: the fold and its reduction, the
+     chunk's few); the prime and the fold step in turns with their plain
+     versions, with bounds; one more period (2000 steps, untimed) with
+     each outlet's Q and P_c logged every step and P_c held to the RCR
+     recurrence of that Q in float64 at rtol 1e-4, each outlet's mean Q,
+     mean Q Rd and end P_c printed; wss() and one WSSAccumulator sample
+     at full size, their ms and device memory rise; then CoupledTransport
+     on it (tau_g 0.6, a 500-step bolus, every boundary recorded), 2000
+     steps (K1 [bgk+wk] and K8 2000 each, the prime once; at most four
+     kernel launches a step), the washout checks of phase 9.
 Before the last line it prints one JSON object describing each kernel;
 the last line is {"ok": true, "device": {...}}.
 
@@ -265,6 +275,7 @@ K1A_BF16_SOURCE = "lbm_tpu_torch/kernels/csrc/collide_stream_bf16.cu"
 K2_BF16_SOURCE = "lbm_tpu_torch/kernels/csrc/collide_stream2_bf16.cu"
 K1D_SOURCE = "lbm_tpu_torch/kernels/csrc/collide_stream_halo.cu"
 WK_SOURCE = "lbm_tpu_torch/kernels/csrc/windkessel.cu"
+WK_BF16_SOURCE = "lbm_tpu_torch/kernels/csrc/windkessel_bf16.cu"
 # the clinical run's RCR terminations (lattice Rp, C, Rd: the main outlet,
 # then sub-outlets 5, 6 and 7), tools/demo_clinical_washout.py's
 CLINICAL_WK = [(2e-4, 2e4, 1e-3)] + [(2e-4, 2e4, 3e-3)] * 3
@@ -278,7 +289,9 @@ FULL_CORONARY = dict(shape=[291, 291, 372], radius=12, pulsatile=[40, 2000])
 # gone): (registers, spill store bytes, spill load bytes), from
 # probes/ptxas_report.py on kernels/csrc with kernels/_build.NVCC_FLAGS,
 # on the H100's machine. Phase 2 requires the build to equal it, so a
-# change to the kernel's registers or spills shows.
+# change to the kernel's registers or spills shows. The [trt+field*]
+# instances took 90-92 registers, two blocks an SM, before their
+# per-direction loop and launch bound.
 BASE_PTXAS = {
     "collide_stream_kernel[bgk+closure+moving+z]": (77, 0, 0),
     "collide_stream_kernel[bgk+closure+moving]": (77, 0, 0),
@@ -304,10 +317,10 @@ BASE_PTXAS = {
     "collide_stream_kernel[trt+closure+moving]": (77, 0, 0),
     "collide_stream_kernel[trt+closure+z]": (76, 0, 0),
     "collide_stream_kernel[trt+closure]": (78, 0, 0),
-    "collide_stream_kernel[trt+field+moving+z]": (92, 0, 0),
-    "collide_stream_kernel[trt+field+moving]": (92, 0, 0),
-    "collide_stream_kernel[trt+field+z]": (90, 0, 0),
-    "collide_stream_kernel[trt+field]": (90, 0, 0),
+    "collide_stream_kernel[trt+field+moving+z]": (80, 0, 0),
+    "collide_stream_kernel[trt+field+moving]": (80, 0, 0),
+    "collide_stream_kernel[trt+field+z]": (80, 8, 8),
+    "collide_stream_kernel[trt+field]": (80, 0, 0),
     "collide_stream_kernel[trt+force+moving+z]": (80, 0, 0),
     "collide_stream_kernel[trt+force+moving]": (80, 0, 0),
     "collide_stream_kernel[trt+force+z]": (80, 0, 0),
@@ -851,11 +864,15 @@ def ptxas_report(log: str, smem: dict | None = None, tag: str = "",
         return f"{name}[{tag}]"
 
     def plain_name(mangled):
-        m = re.search(r"(collide_stream_kernel|collide_stream2_kernel)"
+        m = re.search(r"(collide_stream_kernel|collide_stream2_kernel|"
+                      r"collide_stream_wk_kernel)"
                       r"ILi(\d)ELb(\d)ELi(\d)ELb(\d)E"
                       r"(?:(?:f|13__nv_bfloat16)Li(?:n1|\d+)ELb([01])E)?",
                       mangled)
         if m:
+            kernel = m.group(1)
+            if kernel == "collide_stream_wk_kernel":  # the windkessel fold
+                kernel = "collide_stream_kernel"
             parts = [("bgk", "trt", "mrt")[int(m.group(2))]]
             if m.group(3) == "1":
                 parts.append("closure")
@@ -865,7 +882,9 @@ def ptxas_report(log: str, smem: dict | None = None, tag: str = "",
                 parts.append("moving")
             if m.group(6) == "1":  # the instance with the z planes' code
                 parts.append("z")
-            return f"{m.group(1)}[{'+'.join(parts)}]"
+            if m.group(1) == "collide_stream_wk_kernel":
+                parts.append("wk")
+            return f"{kernel}[{'+'.join(parts)}]"
         m = re.search(r"(scalar_stream_kernel)ILb(\d)ELb(\d)ELb(\d)ELb(\d)E",
                       mangled)
         if m:
@@ -890,7 +909,8 @@ def ptxas_report(log: str, smem: dict | None = None, tag: str = "",
         m = re.search(r"(macro_kernel)ILb(\d)E", mangled)
         if m:
             return f"macro_kernel[{'force' if m.group(2) == '1' else 'plain'}]"
-        m = re.search(r"(velsum_reduce_kernel)", mangled)
+        m = re.search(r"(velsum_reduce_kernel|velsum_reduce_wk_kernel)",
+                      mangled)
         return m.group(1) if m else None
 
     out, spills, cur = {}, {}, None
@@ -1516,6 +1536,9 @@ def profile_steps(run, steps):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # let the tracer settle before the window opens (one run's trace
+        # held only 0.815 of a path's launches a step)
+        time.sleep(0.2)
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1717,16 +1740,22 @@ def coupled_path(full, device):
     return counts, dict(path_profile(tag, by_name, ms, 4), ms_again=ms2)
 
 
-def compare_wk(label, spec, steps, device, dtype=None):
+def compare_wk(label, spec, steps, device, dtype=None, start=None,
+               exact=True):
     """A windkessel case's kernel route against its plain versions on the
-    card for `steps` steps, one state of `dtype` (float32 when None):
-    each step the flux kernel alone against windkessel_flux_plain (P_c'
-    and rho*), then the step (the flux kernel, K1 with its windkessel x/y
-    and z planes reading rho* from the device, the reduction) against
-    windkessel_flux_plain and step_plain. Requires f within rtol 3e-6,
-    atol 1e-7 (a bf16 state within lbm_tpu's bf16 share of max |f|), P_c
-    within 1e-6 of its largest value and the velsum within 1e-5
-    relative. Returns the errors and whether f and P_c are bit-equal."""
+    card for `steps` steps, one state of `dtype` (float32 when None) from
+    rest or from `start` = (f, P_c) (f narrowed to dtype): first the flux
+    kernel's prime alone against wk_terms_plain (terms and Q) and, through
+    the commit, windkessel_flux_plain (P_c' and rho*); then each step the
+    fold launch (K1 with its windkessel x/y and z planes deriving rho*,
+    the footprint's terms, the reduction committing P_c and staging Q)
+    against step_wk_plain, and the plain fold against lbm_tpu's order (a
+    flux from each pre-step state, then step_plain). exact: f, P_c, the
+    staged Q and the terms bit-equal, and the plain fold bit-equal to
+    lbm_tpu's order; else f within rtol 3e-6, atol 1e-7 (a bf16 state
+    within lbm_tpu's bf16 share of max |f|), P_c within 1e-6 of its
+    largest value. The velsum within 1e-5 relative either way. Returns the
+    errors, the starting Q and whether everything was bit-equal."""
     import torch
 
     from lbm_tpu_torch.engine.compile import compile_case, wk_init
@@ -1735,21 +1764,38 @@ def compare_wk(label, spec, steps, device, dtype=None):
 
     cc = compile_case(spec, device)
     dtype = dtype or torch.float32
-    f = initial_f(cc).to(dtype)
+    if start is None:
+        f = initial_f(cc).to(dtype)
+        wk0 = torch.from_numpy(wk_init(cc.bcs)).to(device)
+    else:
+        f, wk0 = start[0].to(dtype), start[1].clone()
     fk, buf = f.clone(), f.clone()
-    wk_k = torch.from_numpy(wk_init(cc.bcs)).to(device)
-    wk_p, rho_k = wk_k.clone(), torch.zeros_like(wk_k)
+    wk_k, wk_p = wk0.clone(), wk0.clone()
+    # the prime alone
+    terms_p, q_p = K.wk_terms_plain(f, cc)
+    stage = K.windkessel_prime(fk, cc)
+    w_flux, rho_flux = K.windkessel_flux_plain(f, cc, wk0)
+    w_fold, rho_fold = K.wk_commit_plain(cc, wk0, stage.q)
+    torch.cuda.synchronize()
+    prime_bit = bool(torch.equal(stage.q, q_p)
+                     and torch.equal(stage.terms, terms_p)
+                     and torch.equal(w_fold, w_flux)
+                     and torch.equal(rho_fold, rho_flux))
+    rho_err = float((rho_fold - rho_flux).abs().max())
+    q0 = stage.q.tolist()
     vs_k = torch.zeros(steps, dtype=torch.float64, device=device)
     vs_p = torch.zeros_like(vs_k)
-    rho_err = 0.0
+    g, wk_g = f.clone(), wk0.clone()
+    order_bit = True
     for t in range(steps):
-        w, r = K.windkessel_flux_plain(fk, cc, wk_k)
-        K.windkessel_flux(fk, cc, wk_k.clone(), rho_k)
-        rho_err = max(rho_err, float((rho_k - r).abs().max()))
         K.collide_stream(fk, buf, cc, vs_k, t, t, wk=wk_k)
         fk, buf = buf, fk
-        wk_p, rho_p = K.windkessel_flux_plain(f, cc, wk_p)
-        f, vs_p[t] = K.step_plain(f, cc, t, rho_wk=rho_p)
+        f, vs_p[t], wk_p, terms_p, q_p = K.step_wk_plain(f, cc, t, wk_p, q_p)
+        if exact:  # lbm_tpu's order: a flux from each pre-step state
+            wk_g, rho = K.windkessel_flux_plain(g, cc, wk_g)
+            g, _ = K.step_plain(g, cc, t, rho_wk=rho)
+            order_bit = order_bit and bool(torch.equal(g, f)
+                                           and torch.equal(wk_g, wk_p))
     torch.cuda.synchronize()
     if dtype == torch.bfloat16:
         err = float((fk.float() - f.float()).abs().max())
@@ -1764,41 +1810,129 @@ def compare_wk(label, spec, steps, device, dtype=None):
             and bool(torch.isfinite(wk_k).all()),
             f"{label}: P_c rel err {pc_err:.3e}, velsum {vs_err:.3e}, "
             f"P_c {wk_k.tolist()}")
-    bit = bool(torch.equal(fk, f) and torch.equal(wk_k, wk_p))
-    print(f"[18] {label}: {steps} steps, kernel route against its plain "
-          f"versions: f max abs err {err:.3e}, P_c rel err {pc_err:.3e}, "
-          f"rho* (flux kernel alone) max abs err {rho_err:.3e}, velsum rel "
-          f"err {vs_err:.3e}, bit-equal {bit}; P_c {wk_k.tolist()}",
-          flush=True)
+    bit = bool(prime_bit and torch.equal(fk, f) and torch.equal(wk_k, wk_p)
+               and torch.equal(stage.q, q_p)
+               and torch.equal(stage.terms, terms_p))
+    require(bit and order_bit or not exact,
+            f"{label}: not bit-equal (the prime {prime_bit}, the fold "
+            f"against step_wk_plain {bit}, the plain fold against lbm_tpu's "
+            f"order {order_bit})")
+    print(f"[18] {label}: {steps} steps from "
+          f"{'rest' if start is None else 'a developed state'}, the fold "
+          f"against its plain versions: f max abs err {err:.3e}, P_c rel err "
+          f"{pc_err:.3e}, rho* (the prime, committed) max abs err "
+          f"{rho_err:.3e}, velsum rel err {vs_err:.3e}, bit-equal {bit} (the "
+          f"prime {prime_bit}; the plain fold against lbm_tpu's order "
+          f"{order_bit if exact else 'not run'}); Q at the start {q0}; P_c "
+          f"{wk_k.tolist()}", flush=True)
     return {"f": err, "pc": pc_err, "rho": rho_err, "vs": vs_err,
-            "bit_equal": bit}
+            "bit_equal": bit, "prime_bit_equal": prime_bit, "q0": q0,
+            "state": (fk, wk_k)}
 
 
 def wk_flux_bytes(cc, pop: int = 4) -> int:
-    """The least bytes the flux kernel moves: each footprint cell's 19
-    pre-step populations, its id and weight, read once; each outlet's P_c
-    read and written, its rho* written."""
+    """The least bytes the flux kernel (the prime) moves: each footprint
+    cell's 19 populations, its id and weight read once, its term written;
+    each outlet's Q written."""
     from lbm_tpu_torch.kernels import collide_stream as K
 
     lists = K.wk_lists(cc)
     n = int(lists.cells.numel())
-    return n * (19 * pop + 4 + 4) + len(lists.rows) * 12
+    return n * (19 * pop + 4 + 4 + 4) + len(lists.rows) * 4
+
+
+def pc_recurrence(sim, steps, tag):
+    """One period of the clinical run through the fold, untimed: `steps`
+    direct calls of the step on sim's state and P_c, each outlet's staged
+    Q and P_c read after every step. The host recomputes P_c from the
+    logged Q by the backward-Euler recurrence in float64, P(n + 1) = (P(n)
+    + Q(n) / C) / (1 + 1 / (Rd C)) from the card's P(0), and the card's P_c
+    must meet it at rtol 1e-4 (with an atol of 1e-4 of the outlet's
+    largest |P|, for a P that crosses zero). Every 50 steps the plane flux
+    of every boundary (engine/diagnostics.plane_flux on macro()'s u), so
+    the outlets' Q stands beside the inlet's. Returns each outlet's mean
+    Q, mean Q Rd, end P_c (lattice units and mmHg), the boundaries' mean
+    plane flux and the largest error."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.engine.diagnostics import MMHG_PER_PA, plane_flux
+    from lbm_tpu_torch.kernels import collide_stream as K
+
+    cc, device = sim.cc, sim.device
+    stage = K.windkessel_prime(sim.f, cc)
+    n_wk = sim.wk.numel()
+    q_log = torch.empty(steps + 1, n_wk, device=device)
+    pc_log = torch.empty(steps + 1, n_wk, device=device)
+    q_log[0], pc_log[0] = stage.q, sim.wk
+    series = torch.empty(steps, dtype=torch.float64, device=device)
+    n_bcs = len(sim.spec.boundaries)
+    fluxes = []
+    for n in range(steps):
+        if n % 50 == 0:
+            u = sim.macro()[1]
+            fluxes.append([plane_flux(sim.spec, u, b) for b in range(n_bcs)])
+            del u
+        K.step(sim.f, sim._spare, cc, series, n, sim.t, wk=sim.wk)
+        sim.f, sim._spare = sim._spare, sim.f
+        sim.t += 1
+        q_log[n + 1], pc_log[n + 1] = stage.q, sim.wk
+    q, pc = q_log.cpu().double().numpy(), pc_log.cpu().double().numpy()
+    rcr = [bc.windkessel for bc in cc.bcs if bc.windkessel is not None]
+    cap = np.array([c for _, c, _ in rcr])
+    rd = np.array([r for _, _, r in rcr])
+    host = np.empty_like(pc)
+    host[0] = pc[0]
+    for n in range(steps):
+        host[n + 1] = (host[n] + q[n] / cap) / (1.0 + 1.0 / (rd * cap))
+    err = np.abs(pc - host)
+    scale = np.abs(host).max(axis=0)
+    require(bool((err <= 1e-4 * np.abs(host) + 1e-4 * scale).all()),
+            f"{tag}: P_c off the RCR recurrence of its logged Q: max abs err "
+            f"{err.max(axis=0).tolist()} against max |P| {scale.tolist()}")
+    big = np.abs(host) > 1e-2 * scale
+    rel = float((err[big] / np.abs(host[big])).max())
+    to_mmhg = sim.spec.units.C_pre * MMHG_PER_PA
+    mean_flux = np.mean(fluxes, axis=0).tolist()
+    out = {"steps": steps, "mean_q": q[:-1].mean(axis=0).tolist(),
+           "mean_plane_flux_by_boundary": mean_flux,
+           "mean_q_rd": (q[:-1].mean(axis=0) * rd).tolist(),
+           "mean_q_rd_mmhg": (q[:-1].mean(axis=0) * rd * to_mmhg).tolist(),
+           "min_q": q[:-1].min(axis=0).tolist(),
+           "max_q": q[:-1].max(axis=0).tolist(),
+           "end_pc": pc[-1].tolist(), "end_pc_mmhg": (pc[-1] * to_mmhg).tolist(),
+           "mean_pc_mmhg": (pc[1:].mean(axis=0) * to_mmhg).tolist(),
+           "max_abs_err": err.max(axis=0).tolist(),
+           "max_rel_err_above_1pct": rel}
+    print(f"{tag} P_c against the RCR recurrence of the logged Q, {steps} "
+          f"steps (float64 on the host): max abs err "
+          f"{out['max_abs_err']}, max rel err {rel:.3e} where |P| > 1% of "
+          f"its largest; per outlet mean Q {out['mean_q']} (min "
+          f"{out['min_q']}, max {out['max_q']}), mean Q Rd "
+          f"{out['mean_q_rd']} = {out['mean_q_rd_mmhg']} mmHg; each "
+          f"boundary's mean outward plane flux (every 50 steps, the inlet "
+          f"first) {mean_flux}; mean P_c "
+          f"{out['mean_pc_mmhg']} mmHg, end P_c {out['end_pc']} = "
+          f"{out['end_pc_mmhg']} mmHg", flush=True)
+    return out
 
 
 def clinical_path(device):
-    """The clinical coronary (phase 18): the windkessel kernels against
-    their plain versions on small cases for 200 steps (the pulsatile
-    coronary with four RCR outlets, fp32 and bf16, with TRT + Carreau
-    blood, and poiseuille's x/y outlet alone) and on the full coronary
-    with the clinical RCR values for 2 steps; then the full coronary's
-    clinical run through Simulation.run, 2000 steps and 2000 more, timed
-    (counters reset just before and read just after the first: the flux
-    kernel and K1 [bgk+wk] 2000 each), P_c in mmHg and the FFR between the
-    inlet and the main outlet; the flux kernel and the whole step timed
-    against their plain versions; WSS and one WSSAccumulator sample at
-    full size; then the coupled washout with the windkessel outlets and a
-    gated bolus. Returns the numbers of the kernels line. (The bf16,
-    blood and poiseuille cases run 50 steps, to keep the run's time.)"""
+    """The clinical coronary (phase 18): the windkessel kernels (the fold
+    and its prime) against their plain versions on small cases (the
+    pulsatile coronary with four RCR outlets for 200 steps, then from its
+    developed state in fp32 and narrowed to bf16, Q != 0 at every outlet,
+    and from rest in bf16, with TRT + Carreau blood, and poiseuille's x/y
+    outlet alone, 50 steps each) and on the full coronary with the
+    clinical RCR values for 2 steps; then the full coronary's clinical
+    run through Simulation.run, 2000 steps and 2000 more, timed (counters
+    reset just before and read just after the first: K1 [bgk+wk] 2000,
+    the prime once a chunk), P_c in mmHg and the FFR between the inlet and
+    the main outlet; the prime and the fold step timed against their plain
+    versions; one more period untimed with P_c held against the RCR
+    recurrence of the logged Q; WSS and one WSSAccumulator sample at full
+    size; then the coupled washout with the windkessel outlets and a gated
+    bolus. Returns the numbers of the kernels line."""
     import numpy as np
     import torch
 
@@ -1812,22 +1946,36 @@ def clinical_path(device):
     out = {"errs": {}}
     small = dict(shape=[64, 48, 96], radius=4, windkessel=CLINICAL_WK)
     small_spec = get_case("coronary", **small, pulsatile=[4, 40])
-    for label, spec, dtype, steps in (
-            ("coronary (64, 48, 96) r=4 pulsatile [4, 40], 4 RCR outlets",
-             small_spec, None, 200),
+    label = "coronary (64, 48, 96) r=4 pulsatile [4, 40], 4 RCR outlets"
+    out["errs"][label] = compare_wk(label, small_spec, 200, device)
+    developed = out["errs"][label].pop("state")
+    for sfx, dtype in (("", None), (", narrowed to bf16", torch.bfloat16)):
+        label = ("coronary (64, 48, 96) r=4 pulsatile, 4 RCR outlets, from "
+                 f"the 200-step state{sfx}")
+        e = compare_wk(label, small_spec, 50, device, dtype,
+                       start=developed)
+        require(all(q != 0.0 for q in e["q0"]),
+                f"{label}: Q {e['q0']} is 0 at an outlet")
+        out["errs"][label] = e
+    del developed
+    for label, spec, dtype, steps, exact in (
             ("coronary (64, 48, 96) r=4 pulsatile, 4 RCR outlets, bf16",
-             small_spec, torch.bfloat16, 50),
+             small_spec, torch.bfloat16, 50, True),
             ("coronary (64, 48, 96) r=4, 4 RCR outlets, trt+carreau blood",
              get_case("coronary", **small, collision="trt",
-                      rheology=carreau_blood(small_spec.units)), None, 50),
+                      rheology=carreau_blood(small_spec.units)), None, 50,
+             False),
             ("poiseuille 32^3, an RCR outlet on its y plane",
              get_case("poiseuille", n=32, windkessel=(5e-4, 24000.0, 2.5e-3)),
-             None, 50)):
-        out["errs"][label] = compare_wk(label, spec, steps, device, dtype)
+             None, 50, True)):
+        out["errs"][label] = compare_wk(label, spec, steps, device, dtype,
+                                        exact=exact)
     full = get_case("coronary", **FULL_CORONARY, windkessel=CLINICAL_WK)
     out["errs"]["coronary full clinical"] = compare_wk(
         "coronary full (291, 291, 372) r=12 pulsatile [40, 2000], the "
         "clinical RCR outlets", full, 2, device)
+    for e in out["errs"].values():
+        e.pop("state", None)
     free_device()
 
     t0 = time.perf_counter()
@@ -1840,7 +1988,8 @@ def clinical_path(device):
     torch.cuda.synchronize()
     counts = dict(K.launches)
     peak = torch.cuda.max_memory_allocated(device) / 2**30
-    require(counts.get("lbm_windkessel_flux") == 2000
+    # the fold every step, its prime once a chunk
+    require(counts.get("lbm_windkessel_flux") == 4
             and counts.get("lbm_collide_stream[bgk+wk]") == 2000
             and counts.get("lbm_macro", 0) >= 4 and res.steps == 2000,
             f"{tag}: launches {counts} in a {res.steps}-step run")
@@ -1875,20 +2024,23 @@ def clinical_path(device):
     def calls(name):
         return sum(v[1] for k, v in kern.items() if name in k)
 
-    k1 = calls("collide_stream_kernel")
+    k1 = calls("collide_stream_wk_kernel")
     per_step = sum(v[1] for v in kern.values()) / k1 if k1 else None
     dev = {name: [v[0] / v[1] for k, v in kern.items() if name in k]
-           for name in ("windkessel_flux_kernel", "collide_stream_kernel")}
-    # the flux kernel, K1 and the reduction once a step (the profiler's
-    # window may miss a launch at its edges), the usq residual's few once
-    # a chunk (0.066 a step over 200 steps on the prescribed-outlet path)
+           for name in ("windkessel_flux_kernel", "collide_stream_wk_kernel",
+                        "velsum_reduce_wk_kernel")}
+    # the fold and its reduction once a step (the profiler's window may
+    # miss a launch at its edges); the prime and the usq residual's few
+    # once a chunk (0.061 a step over 200 steps on the prescribed-outlet
+    # path)
     require(per_step is None or (
-        k1 >= 0.9 and abs(calls("windkessel_flux_kernel") - k1) <= 0.02
-        and abs(calls("velsum_reduce") - k1) <= 0.02 and per_step <= 3.1),
+        k1 >= 0.9 and calls("windkessel_flux_kernel") <= 0.011
+        and abs(calls("velsum_reduce_wk_kernel") - k1) <= 0.02
+        and per_step <= 2.1),
             f"{tag}: {per_step} kernel launches a step: {kern}")
-    print(f"{tag} kernel launches a step {per_step} (the flux kernel, K1 "
-          f"and its reduction; the chunk's few once a chunk); device ms a "
-          f"launch: {dev}", flush=True)
+    print(f"{tag} kernel launches a step {per_step} (the fold's K1 and its "
+          f"reduction; the prime and the chunk's few once a chunk); device "
+          f"ms a launch: {dev}", flush=True)
     dev_ms = sum(v[0] for v in by_name.values())
     out["path"] = {"ms": ms, "ms_again": ms2, "launches_per_step": per_step,
                    "device_ms": dev_ms, "busy": dev_ms / ms,
@@ -1897,34 +2049,40 @@ def clinical_path(device):
     out["counts"] = counts
     out["flux_device_ms"] = dev["windkessel_flux_kernel"][0] if \
         dev["windkessel_flux_kernel"] else None
-    out["k1_device_ms"] = dev["collide_stream_kernel"][0] if \
-        dev["collide_stream_kernel"] else None
+    out["k1_device_ms"] = dev["collide_stream_wk_kernel"][0] if \
+        dev["collide_stream_wk_kernel"] else None
+    out["reduce_device_ms"] = dev["velsum_reduce_wk_kernel"][0] if \
+        dev["velsum_reduce_wk_kernel"] else None
 
-    # the flux kernel and the whole step against their plain versions
+    # the prime and the fold step against their plain versions (the fold
+    # on two copies of the state in turn, so no call primes)
     cc = sim.cc
-    state = [sim.f, sim._spare.clone()]
-    wk_t, rho_t = sim.wk.clone(), torch.zeros_like(sim.wk)
+    state = [sim.f.clone(), sim._spare.clone()]
+    wk_t = sim.wk.clone()
     series = torch.zeros(1, dtype=torch.float64, device=device)
     out["flux_ms"], out["flux_plain_ms"] = in_turns(
-        "lbm_windkessel_flux coronary full clinical",
-        lambda: K.windkessel_flux_plain(state[0], cc, wk_t),
-        lambda: K.windkessel_flux(state[0], cc, wk_t, rho_t), 20, 2000)
+        "lbm_windkessel_flux (the prime) coronary full clinical",
+        lambda: K.wk_terms_plain(state[0], cc),
+        lambda: K.windkessel_prime(state[0], cc), 20, 2000)
     out["flux_bound_ms"] = bound_ms(wk_flux_bytes(cc))
+    q_t = K.wk_stage(cc).q.clone()
 
-    def step_plain():
-        w, r = K.windkessel_flux_plain(state[0], cc, wk_t)
-        K.step_plain(state[0], cc, 0, rho_wk=r)
+    def fold_step():
+        K.collide_stream(state[0], state[1], cc, series, 0, 0, wk=wk_t)
+        state.reverse()
 
     out["step_ms"], out["step_plain_ms"] = in_turns(
-        "flux + K1 [bgk+wk] + reduction, coronary full clinical, one state",
-        step_plain, lambda: K.collide_stream(state[0], state[1], cc, series,
-                                             0, 0, wk=wk_t), 3, 1000)
-    out["k1_bound_ms"] = bound_ms(step_bytes(cc, cc.fluid, cc.step_bcs))
-    print(f"{tag} bounds at 3.35 TB/s (ms): the flux kernel "
+        "K1 [bgk+wk] + its reduction (the fold), coronary full clinical",
+        lambda: K.step_wk_plain(state[0], cc, 0, wk_t.clone(), q_t),
+        fold_step, 3, 1000)
+    out["k1_bound_ms"] = bound_ms(step_bytes(cc, cc.fluid, cc.step_bcs)
+                                  + 12 * K.wk_lists(cc).foot.numel())
+    print(f"{tag} bounds at 3.35 TB/s (ms): the prime "
           f"{out['flux_bound_ms']:.7f} ({int(K.wk_lists(cc).cells.numel())} "
-          f"footprint cells); K1 with the windkessel planes "
-          f"{out['k1_bound_ms']:.6f}", flush=True)
+          f"footprint cells); K1 with the windkessel planes and the "
+          f"footprint's terms {out['k1_bound_ms']:.6f}", flush=True)
     del state
+    out["pc_recurrence"] = pc_recurrence(sim, 2000, tag)
 
     # the wall outputs at full size
     free_device()
@@ -1974,9 +2132,9 @@ def clinical_path(device):
 def clinical_coupled_path(full, device):
     """The clinical coronary through CoupledTransport on the kernel route
     (tools/demo_clinical_washout.py's tau_g 0.6), 2000 steps with a
-    500-step bolus, every boundary recorded: the flux kernel, K1 with its
-    windkessel planes, its reduction, K8 and the record (at most five
-    launches a step)."""
+    500-step bolus, every boundary recorded: the fold's K1 and its
+    reduction, K8 and the record (at most four launches a step; the prime
+    once a run() call)."""
     import torch
 
     from lbm_tpu_torch.engine.scalar import CoupledTransport
@@ -1999,7 +2157,7 @@ def clinical_coupled_path(full, device):
     peak = torch.cuda.max_memory_allocated(device) / 2**30
     require(counts.get("lbm_scalar_stream[live]") == 2000
             and counts.get("lbm_collide_stream[bgk+wk]") == 2000
-            and counts.get("lbm_windkessel_flux") == 2000,
+            and counts.get("lbm_windkessel_flux") == 1,
             f"{tag}: launches {counts}")
     require(bool(torch.isfinite(tr.wk).all()), f"{tag}: P_c {tr.wk}")
     ms = elapsed / 2000 * 1e3
@@ -2013,7 +2171,7 @@ def clinical_coupled_path(full, device):
     print_profile(tag, by_name, busy, ms)
     del tr
     free_device()
-    return counts, dict(path_profile(tag, by_name, ms, 5), ms_again=ms2)
+    return counts, dict(path_profile(tag, by_name, ms, 4), ms_again=ms2)
 
 
 def thermal_path(device):
@@ -3390,20 +3548,40 @@ def main() -> int:
                                "collide_stream_kernel[bgk+z",
                                "collide_stream_kernel[bgk+bf16]"))),
           flush=True)
-    # the windkessel outlets' flux kernel: its own unit, fp32 and bf16
+    # the windkessel units: the fold's 14 instances in each storage type
+    # and its reduction; the flux kernel that primes the fold, fp32 and
+    # bf16
     wlib = _build.load_wk_library()
-    ptxas_wk = {k: v for k, v in ptxas_report(wlib.log).items()
-                if k.startswith("windkessel_flux_kernel")}
+    wlib16 = _build.load_wk_library(bf16=True)
+    ptxas_wk = {**ptxas_report(wlib.log, stack=stack),
+                **ptxas_report(wlib16.log, tag="bf16", stack=stack)}
+    fold_blocks = {k: blocks_per_sm(v[0]) for k, v in ptxas_wk.items()
+                   if k.startswith("collide_stream_kernel[")}
     for name, (regs, spill_st, spill_ld) in sorted(ptxas_wk.items()):
+        extra = (f", {stack.get(name)} bytes of stack frame, "
+                 f"{fold_blocks[name]} blocks an SM"
+                 if name in fold_blocks else "")
         print(f"[2] ptxas {name}: {regs} registers, {spill_st} bytes spill "
-              f"stores, {spill_ld} bytes spill loads", flush=True)
-    require(set(ptxas_wk) == {
+              f"stores, {spill_ld} bytes spill loads{extra}", flush=True)
+    flux_insts = {k for k in ptxas_wk
+                  if k.startswith("windkessel_flux_kernel")}
+    require(flux_insts == {
         f"windkessel_flux_kernel[{k}]" for k in
-        ("force", "force+bf16", "plain", "plain+bf16")},
-        f"ptxas reported flux kernels {sorted(ptxas_wk)}")
-    print(f"[2] windkessel flux kernel built at "
-          f"{os.path.relpath(wlib.path, ROOT)} in {wlib.build_seconds:.2f} s",
-          flush=True)
+        ("force", "force+bf16", "plain", "plain+bf16")}
+        and len(fold_blocks) == 28
+        and all("+wk" in k for k in fold_blocks)
+        and {"velsum_reduce_wk_kernel",
+             "velsum_reduce_wk_kernel[bf16]"} <= set(ptxas_wk),
+        f"ptxas reported windkessel kernels {sorted(ptxas_wk)} (want 4 flux "
+        "kernels, 28 fold instances and the fold's reduction in each "
+        "storage type)")
+    print(f"[2] windkessel units built at {os.path.relpath(wlib.path, ROOT)} "
+          f"in {wlib.build_seconds:.2f} s and "
+          f"{os.path.relpath(wlib16.path, ROOT)} in "
+          f"{wlib16.build_seconds:.2f} s; the fold [bgk+wk] "
+          f"{ptxas_wk['collide_stream_kernel[bgk+wk]']} against [bgk+z] "
+          f"{ptxas['collide_stream_kernel[bgk+z]']} (registers, spill "
+          "bytes)", flush=True)
     # the sharded step (K1d): one unit per shard axis, side by side
     hlibs = [_build.load_halo_library(a) for a in (0, 1)]
     ptxas_halo = {}
@@ -3412,8 +3590,8 @@ def main() -> int:
     print(f"[2d] sharded-step kernels (K1d) built at "
           f"{[os.path.relpath(h.path, ROOT) for h in hlibs]} in "
           f"{[round(h.build_seconds, 2) for h in hlibs]} s, side by side "
-          f"with the others (eight nvcc processes, the slowest "
-          f"{max(L.build_seconds for L in (lib, slib, plib, blib, bplib, wlib, *hlibs)):.2f} s)",
+          f"with the others (nine nvcc processes, the slowest "
+          f"{max(L.build_seconds for L in (lib, slib, plib, blib, bplib, wlib, wlib16, *hlibs)):.2f} s)",
           flush=True)
     for name, (regs, spill_st, spill_ld) in sorted(ptxas_halo.items()):
         print(f"[2d] ptxas {name}: {regs} registers, {spill_st} bytes spill "
@@ -3435,6 +3613,17 @@ def main() -> int:
               for k, v in sorted(unsharded.items())), flush=True)
     require(len(unsharded) == 36 and not moved,
             f"unsharded instances not as BASE_PTXAS has them: {moved}")
+    # K1e [trt+field] and its z and moving variants: three blocks an SM
+    # (the per-direction loop and the launch bound)
+    trt_field = {k: v for k, v in unsharded.items()
+                 if k.startswith("collide_stream_kernel[trt+field")}
+    require(len(trt_field) == 4 and all(
+        v[0] <= 80 and k1_blocks[k] >= 3 for k, v in trt_field.items()),
+        f"K1e [trt+field*] not at three blocks an SM: {trt_field}")
+    print("[2] K1e [trt+field*] (registers, spill store + load bytes, stack "
+          "frame bytes, blocks an SM): " + "; ".join(
+              f"{k} {v[0]}, {v[1] + v[2]}, {stack.get(k)}, {k1_blocks[k]}"
+              for k, v in sorted(trt_field.items())), flush=True)
 
     # -- phase 3: kernels vs plain versions --------------------------------
     from lbm_tpu_torch.cases import get_case
@@ -3916,40 +4105,54 @@ def main() -> int:
          "blood_launches": blood_counts["lbm_collide_stream[trt+cy]"]},
         {"name": "lbm_windkessel_flux", "route": "cuda",
          "source": WK_SOURCE,
-         "replaces": "lbm_tpu/engine/step.py:138 (the windkessel flux and "
-                     "P_c update of the fixups lbm_tpu runs after its "
-                     "kernel, lbm_tpu/kernels/collide_stream.py:3198)",
+         "replaces": "lbm_tpu/engine/step.py:138 (the windkessel flux of "
+                     "the fixups lbm_tpu runs after its kernel, "
+                     "lbm_tpu/kernels/collide_stream.py:3198): here the "
+                     "prime of the fold, once a chunk",
          "launches": clin["counts"]["lbm_windkessel_flux"],
          "max_abs_err": max(e["rho"] for e in clin["errs"].values()),
-         "max_rel_err_pc": max(e["pc"] for e in clin["errs"].values()),
+         "bit_equal_by_case": {k: e["prime_bit_equal"]
+                               for k, e in clin["errs"].items()},
          "ms": clin["flux_ms"], "device_ms": clin["flux_device_ms"],
          "plain_ms": clin["flux_plain_ms"],
          "bound_ms": clin["flux_bound_ms"], "bound_by": "bytes",
          "library_ms": None,
-         "registers": {k: v[0] for k, v in ptxas_wk.items()},
+         "registers": {k: v[0] for k, v in ptxas_wk.items()
+                       if k.startswith("windkessel_flux_kernel")},
          "build_s": wlib.build_seconds,
          "coupled_launches": clin["coupled_counts"]["lbm_windkessel_flux"]},
-        {"name": "lbm_collide_stream[bgk+wk] windkessel planes (K5+K6 "
-                 "windkessel branch)", "route": "cuda",
-         "source": K1A_SOURCE,
+        {"name": "lbm_collide_stream[bgk+wk] (the windkessel fold: K5+K6 "
+                 "windkessel branch and the flux)", "route": "cuda",
+         "source": WK_SOURCE,
          "replaces": "lbm_tpu/kernels/collide_stream.py:2742",
-         "also_replaces": "lbm_tpu/kernels/collide_stream.py:2793 and "
-                          "::_fix_xy_plane_windowed :2342",
-         "lives_in": "the x/y and z descriptors of lbm_collide_stream, "
-                     "their rho* read from the device (rho_dyn)",
+         "also_replaces": "lbm_tpu/kernels/collide_stream.py:2793, "
+                          "::_fix_xy_plane_windowed :2342 and the flux of "
+                          "lbm_tpu/engine/step.py:138",
+         "bf16_source": WK_BF16_SOURCE,
+         "lives_in": "collide_stream_wk_kernel (windkessel.cuh over "
+                     "collide_stream.cuh) and velsum_reduce_wk_kernel",
          "launches": clin["counts"]["lbm_collide_stream[bgk+wk]"],
          "max_abs_err": max(e["f"] for e in clin["errs"].values()),
          "max_abs_err_by_case": {k: e["f"] for k, e in clin["errs"].items()},
+         "max_rel_err_pc": max(e["pc"] for e in clin["errs"].values()),
          "bit_equal_by_case": {k: e["bit_equal"]
                                for k, e in clin["errs"].items()},
+         "q_at_start_by_case": {k: e["q0"] for k, e in clin["errs"].items()},
          "ms": clin["k1_device_ms"],
          "ms_by": "torch.profiler device time a launch on the clinical path",
+         "reduce_device_ms": clin["reduce_device_ms"],
          "step_ms": clin["step_ms"], "step_plain_ms": clin["step_plain_ms"],
          "plain_ms": clin["step_plain_ms"],
          "bound_ms": clin["k1_bound_ms"], "bound_by": "bytes",
          "library_ms": None,
-         "clinical_path": clin["path"], "wss": clin["wss"],
-         "clinical_coupled_path": clin["coupled"],
+         "registers": {k: v[0] for k, v in ptxas_wk.items()
+                       if k.startswith("collide_stream_kernel[")},
+         "spill_bytes": {k: v[1] + v[2] for k, v in ptxas_wk.items()
+                         if k.startswith("collide_stream_kernel[")},
+         "blocks_per_sm": fold_blocks,
+         "build_s": [wlib.build_seconds, wlib16.build_seconds],
+         "clinical_path": clin["path"], "pc_recurrence": clin["pc_recurrence"],
+         "wss": clin["wss"], "clinical_coupled_path": clin["coupled"],
          "coupled_launches": clin["coupled_counts"][
              "lbm_collide_stream[bgk+wk]"]},
         {"name": "lbm_macro", "route": "cuda", "source": K1A_SOURCE,
@@ -4036,7 +4239,10 @@ def main() -> int:
          "ms": ts["k1e_trt_256"]["ms"],
          "plain_ms": ts["k1e_trt_256"]["plain_ms"],
          "bound_ms": ts["k1e_trt_256"]["bound_ms"],
-         "bound_by": "bytes", "library_ms": None},
+         "bound_by": "bytes", "library_ms": None,
+         "registers": {k: v[0] for k, v in trt_field.items()},
+         "spill_bytes": {k: v[1] + v[2] for k, v in trt_field.items()},
+         "blocks_per_sm": {k: k1_blocks[k] for k in trt_field}},
         {"name": "lbm_collide_stream2[bgk]", "route": "cuda",
          "source": K2_SOURCE,
          "replaces": "lbm_tpu/kernels/collide_stream.py:1727 (K2, "

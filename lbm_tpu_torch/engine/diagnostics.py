@@ -24,11 +24,12 @@ import numpy as np
 MMHG_PER_PA = 1.0 / 133.322
 
 
-def _host(a) -> np.ndarray:
-    """A field as a NumPy array (a torch tensor read to the host)."""
+def _plane(a, axis: int, c: int) -> np.ndarray:
+    """Plane c of a field along axis as a NumPy array (of a torch tensor,
+    only that plane is read to the host)."""
     if hasattr(a, "detach"):
-        a = a.detach().cpu().numpy()
-    return np.asarray(a)
+        return a.detach().select(axis, c).cpu().numpy()
+    return np.take(np.asarray(a), c, axis=axis)
 
 
 def _consumer_plane(spec, bc_index: int):
@@ -45,7 +46,7 @@ def plane_flux(spec, u, bc_index: int) -> float:
     windkessel coupling integrates (engine/step.apply_bc_fixup), on a
     macro() velocity field."""
     foot, axis, c, sign = _consumer_plane(spec, bc_index)
-    un = np.take(_host(u[axis]), c, axis=axis)
+    un = _plane(u[axis], axis, c)
     return sign * float(np.sum(un[foot], dtype=np.float64))
 
 
@@ -55,7 +56,7 @@ def plane_pressure(spec, rho, bc_index: int, gauge: float = 1.0) -> float:
     density field. Multiply by units.C_pre for Pa (equals
     units.to_physical_pressure(rho) - to_physical_pressure(gauge))."""
     foot, axis, c, _ = _consumer_plane(spec, bc_index)
-    pl = np.take(_host(rho), c, axis=axis)
+    pl = _plane(rho, axis, c)
     return float((pl[foot].mean(dtype=np.float64) - gauge) / 3.0)
 
 

@@ -35,8 +35,10 @@ uncompressed.
 Windkessel (RCR) outlets (PlaneBC.windkessel) carry their P_c in
 `Simulation.wk`, an (n_wk,) float32 tensor on the run's device, set at
 reset() from the outlets' windkessel_p0 and stepped on the device: by the
-flux kernel before each collide-stream launch (kernels.windkessel_flux)
-or by the dense step (make_step_wk); a chunk reads nothing of it to the
+collide-stream launch with the outlets' flux folded in (its reduction
+commits P_c and stages the next step's flux; the flux kernel,
+kernels.windkessel_prime, primes it once at the start of each chunk) or
+by the dense step (make_step_wk); a chunk reads nothing of it to the
 host. Checkpoints carry it (engine/checkpoint.py), and stress(), wss()
 and wss_accumulator() re-apply the outlets with it.
 
@@ -395,8 +397,10 @@ class Simulation:
                 series[k] = fluid_speed_sum(self.cc, u)
                 continue
             if self.mesh is None:
+                # a chunk primes the windkessel fold once, whatever
+                # happened to the state between chunks
                 kernels.step(self.f, self._spare, self.cc, series, k,
-                             self.t + k, wk=self.wk)
+                             self.t + k, wk=self.wk, prime=k == 0)
             else:
                 self._step(self.f, self._spare, series, k, self.t + k)
             self.f, self._spare = self._spare, self.f

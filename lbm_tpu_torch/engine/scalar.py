@@ -568,8 +568,9 @@ class CoupledTransport(_ScalarState):
     divergence compensation, as lbm_tpu's. f0, wk0: optional initial flow
     state and windkessel P_c (e.g. a Simulation's f_standard() and wk).
     With windkessel outlets the carried P_c (`wk`, on the device) steps
-    with the flow: on the kernel route each step is the flux kernel, the
-    collide-stream launch and its reduction, then the scalar kernel and
+    with the flow: on the kernel route each step is the collide-stream
+    launch with the outlets' flux folded in and its reduction (the flux
+    kernel primes the fold once a run() call), then the scalar kernel and
     its record; the dense route steps make_step_wk. A force field does not
     compose with windkessel outlets (lbm_tpu's runtime-force step refuses
     them).
@@ -685,7 +686,7 @@ class CoupledTransport(_ScalarState):
                 K.step(self.f, self._f_spare, self.cc, vs, k, t,
                        field=self.field,
                        g=None if self.field is None else self.g,
-                       wk=self.wk)
+                       wk=self.wk, prime=k == 0)
                 S.scalar_stream(self.g, self._g_spare, self.sc, t,
                                 f=self._f_spare, series=series, slot=k)
                 self.f, self._f_spare = self._f_spare, self.f

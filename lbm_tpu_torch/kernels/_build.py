@@ -1,7 +1,7 @@
 """Build the CUDA kernel libraries with nvcc at first use and load them
 with ctypes.
 
-Seven sources in eight translation units, each its own shared object,
+Eight sources in nine translation units, each its own shared object,
 compiled side by side (one nvcc process each, started together):
 kernels/csrc/collide_stream.cu (the collide-stream kernel in its 18
 collision-branch instances, each with and without the z planes' code,
@@ -13,12 +13,14 @@ state read, on fp32 and on bf16 state), kernels/csrc/collide_stream_halo.cu (the
 collide-stream step, 14 branches with and without z planes, built twice:
 with -DLBM_HALO_AXIS=0 for shards of a box split along x, =1 along y)
 kernels/csrc/scalar_stream.cu (the D3Q7 scalar kernel in its 8
-instances and its record reduction) and kernels/csrc/windkessel.cu (the
-windkessel outlets' flux and P_c update, on fp32 and bf16 state), for
-sm_90a with a
+instances and its record reduction), kernels/csrc/windkessel.cu (the
+collide-stream step with the windkessel outlets' flux folded in, its 14
+instances and its reduction on fp32 state, and the flux kernel that
+primes the fold on fp32 and bf16 state) and windkessel_bf16.cu (the
+fold's 14 instances on bf16 state), for sm_90a with a
 plain C interface (no PyTorch headers, so nvcc takes seconds). A source
 and its bf16 twin instantiate one body header (collide_stream.cuh,
-collide_stream2.cuh) with the storage type; the bodies share the device
+collide_stream2.cuh, windkessel.cuh) with the storage type; the bodies share the device
 functions of kernels/csrc/d3q19.cuh. The bf16 entry points carry the
 fp32 ones' names with _bf16 appended. The objects land in
 kernels/_build/ under names that carry a hash of the source, the headers
@@ -53,6 +55,7 @@ PAIR_SOURCE = CSRC / "collide_stream2.cu"
 PAIR_BF16_SOURCE = CSRC / "collide_stream2_bf16.cu"
 HALO_SOURCE = CSRC / "collide_stream_halo.cu"
 WK_SOURCE = CSRC / "windkessel.cu"
+WK_BF16_SOURCE = CSRC / "windkessel_bf16.cu"
 # the D3Q19 device functions, descriptors and their enums, shared by the
 # single-step and the fused-pair sources
 HEADER = CSRC / "d3q19.cuh"
@@ -106,7 +109,6 @@ def _declare(lib: ctypes.CDLL, sfx: str = "") -> None:
         ci, ci, ci,             # nx, ny, nz
         vp, vp,                 # collision int row, float row
         ci, vp, vp, vp, vp,     # n_bc, bc_int, bc_float, valid, phi_star
-        vp,                     # windkessel rho* pointers, or null
         vp, ci,                 # fluid-cell list or null, its length
         vp, ci,                 # partials, n_partials
         vp, ci,                 # series, t
@@ -162,14 +164,37 @@ def _declare_scalar(lib: ctypes.CDLL) -> None:
     lib.lbm_scalar_stream.restype = ci
 
 
-def _declare_wk(lib: ctypes.CDLL) -> None:
+def _declare_wk(lib: ctypes.CDLL, sfx: str = "") -> None:
+    """Declare a windkessel library's entry points: the fold step (sfx
+    "_bf16" for the bf16 library's) and, in the fp32 library, the flux
+    kernel that primes it on either storage."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.lbm_block_size.argtypes = []
+    lib.lbm_block_size.restype = ci
+    lib.lbm_error_string.argtypes = [ci]
+    lib.lbm_error_string.restype = ctypes.c_char_p
+    fold = getattr(lib, f"lbm_collide_stream_wk{sfx}")
+    fold.argtypes = [
+        vp, vp, vp,             # src, dst, mask
+        ci, ci, ci,             # nx, ny, nz
+        vp, vp,                 # collision int row, float row
+        ci, vp, vp, vp, vp,     # n_bc, bc_int, bc_float, valid, phi_star
+        vp,                     # each row's outlet or -1 (host ints)
+        vp, ci,                 # fluid-cell list, its length
+        vp, ci,                 # partials, n_partials
+        vp, ci,                 # series, t
+        ci, vp, vp,             # n_wk, int rows, float rows (host)
+        vp, vp, ci,             # footprint weights, codes, n_foot
+        vp, vp, vp,             # terms, Q staged, P_c (in place)
+        vp,                     # stream
+    ]
+    fold.restype = ci
+    if sfx:
+        return
     lib.lbm_windkessel_block_size.argtypes = []
     lib.lbm_windkessel_block_size.restype = ci
     lib.lbm_windkessel_max.argtypes = []
     lib.lbm_windkessel_max.restype = ci
-    lib.lbm_error_string.argtypes = [ci]
-    lib.lbm_error_string.restype = ctypes.c_char_p
     for name in ("lbm_windkessel_flux", "lbm_windkessel_flux_bf16"):
         fn = getattr(lib, name)
         fn.argtypes = [
@@ -177,7 +202,7 @@ def _declare_wk(lib: ctypes.CDLL) -> None:
             ci, vp, vp,             # n_wk, int rows, float rows (host)
             vp,                     # half force (host 3 floats) or null
             vp, vp,                 # footprint cells, weights
-            vp, vp,                 # wk (in place), rho_star
+            vp, vp,                 # terms, Q staged
             vp,                     # stream
         ]
         fn.restype = ci
@@ -231,6 +256,8 @@ _SOURCES = {
                               ("-DLBM_HALO_AXIS=1",)),
     "scalar_stream": (SCALAR_SOURCE, _declare_scalar, ()),
     "windkessel": (WK_SOURCE, _declare_wk, ()),
+    "windkessel_bf16": (WK_BF16_SOURCE,
+                        functools.partial(_declare_wk, sfx="_bf16"), ()),
 }
 
 
@@ -339,9 +366,10 @@ def load_scalar_library() -> Library:
     return _load_all()["scalar_stream"]
 
 
-def load_wk_library() -> Library:
-    """The windkessel flux library (built with the others if needed)."""
-    return _load_all()["windkessel"]
+def load_wk_library(bf16: bool = False) -> Library:
+    """The windkessel library (the fold step and the flux kernel), of the
+    fold on bf16 state with bf16 (built with the others if needed)."""
+    return _load_all()["windkessel_bf16" if bf16 else "windkessel"]
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
@@ -355,6 +383,7 @@ __all__ = ["Library", "load_library", "load_pair_library",
            "load_halo_library", "load_scalar_library", "load_wk_library",
            "check", "nvcc_path",
            "SOURCE", "BF16_SOURCE", "PAIR_SOURCE", "PAIR_BF16_SOURCE",
-           "HALO_SOURCE", "SCALAR_SOURCE", "WK_SOURCE", "HEADER",
+           "HALO_SOURCE", "SCALAR_SOURCE", "WK_SOURCE", "WK_BF16_SOURCE",
+           "HEADER",
            "BUILD_DIR",
            "NVCC_FLAGS"]

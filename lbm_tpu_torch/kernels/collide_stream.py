@@ -17,17 +17,26 @@ launch counters.
                      version is step_plain: collide_stream_plain (the x/y
                      planes) and fix_z_plane_plain (each z plane's window
                      again, with its rewrite)
-  windkessel_flux -> lbm_windkessel_flux (kernels/csrc/windkessel.cu): the
-                     windkessel outlets' outward flux from the pre-step
-                     state and the RCR update of their carried P_c, which
-                     lbm_tpu computes in its fixups (engine/step.py
-                     apply_bc_fixup, run by ::_fix_xy_plane_windowed and
-                     ::_fix_z_plane_windowed after its kernel): one block
-                     an outlet, sums in a fixed order, writing wk and
-                     each outlet's rho* on the device. collide_stream
-                     launches it first and its descriptors read that rho*
-                     (counted "lbm_collide_stream[bgk+wk]"); its plain
-                     version is windkessel_flux_plain
+  collide_stream  -> lbm_collide_stream_wk (kernels/csrc/windkessel.cuh,
+  with wk=           built from windkessel.cu and windkessel_bf16.cu): the
+                     same step with the windkessel (RCR) outlets' flux
+                     folded in, replacing the outward flux and RCR update
+                     of their carried P_c that lbm_tpu computes in its
+                     fixups (engine/step.py apply_bc_fixup, run by
+                     ::_fix_xy_plane_windowed and ::_fix_z_plane_windowed
+                     after its kernel): each outlet's descriptor derives
+                     rho* from P_c and the flux staged from the pre-step
+                     state, the footprint's cells write their flux terms
+                     of the post-step state, and the launch's one-block
+                     reduction commits P_c and stages the next flux, in a
+                     fixed order (counted "lbm_collide_stream[bgk+wk]").
+                     Its plain version is step_wk_plain
+  windkessel_prime -> lbm_windkessel_flux (the same sources): the flux
+                     terms and Q of a state the fold did not write, one
+                     block an outlet (P_c untouched); collide_stream
+                     launches it when needed. Its plain version is
+                     wk_terms_plain; windkessel_flux_plain is lbm_tpu's
+                     step of the outlets from a pre-step state
   macro           -> lbm_macro, replacing ::packed_macro (with its F/2
                      shift when the case has a force)
   step2           -> lbm_collide_stream2 (kernels/csrc/collide_stream2.cuh):
@@ -95,6 +104,7 @@ from lbm_tpu_torch.engine.compile import (
     has_windkessel,
     kernel_refusal,
     live_block_ids,
+    wk_footprint,
 )
 from lbm_tpu_torch.engine.step import (
     apply_bc_fixup,
@@ -335,7 +345,8 @@ def step_plain(f, cc: CompiledCase, t: int, field=None, g=None, halo=None,
                rho_wk=None):
     """The plain version of the collide-stream launch: (f', velsum) with
     the velsum a float64 0-dim tensor and f' in f's dtype. rho_wk: the
-    windkessel outlets' rho* this step (windkessel_flux_plain's)."""
+    windkessel outlets' rho* this step (windkessel_flux_plain's or
+    wk_commit_plain's)."""
     f_new, vs = collide_stream_plain(f, cc, t, field, g, halo, rho_wk)
     for bc in cc.z_bcs:
         if bc.window is not None:
@@ -344,23 +355,30 @@ def step_plain(f, cc: CompiledCase, t: int, field=None, g=None, halo=None,
     return f_new, vs
 
 
-# the flux kernel's block (kWKBlock in csrc/windkessel.cu): the plain
-# version sums in its order
+# the windkessel kernels' block (kWKBlock in csrc/d3q19.cuh): the plain
+# versions sum in their order
 WK_BLOCK = 256
 
 
 @dataclasses.dataclass(frozen=True)
 class WKLists:
-    """The windkessel outlets' footprints as the flux kernel takes them,
-    in the carried vector's order: outlet k's cells are cells[begin:end]
-    (ascending cell ids of its consumer-plane footprint) with their fp32
-    weights, rows[k] = (axis, begin, end), and floats[k] = (flow_sign,
-    Rp, C, 1 + 1/(Rd C), rho_fixed), the last three composed in fp32."""
+    """The windkessel outlets' footprints as the kernels take them, in the
+    carried vector's order: outlet k's cells are cells[begin:end]
+    (ascending cell ids of its consumer-plane footprint, compile
+    .wk_footprint) with their fp32 weights, rows[k] = (axis, begin, end),
+    and floats[k] = (flow_sign, Rp, C, 1 + 1/(Rd C), rho_fixed), the last
+    three composed in fp32. foot[k] = row * 3 + axis of the footprint's
+    k-th fluid cell in that order: the cell the fold's launch list
+    (cc.fluid_cells) holds at its k-th place. bc_rows: each of
+    cc.step_bcs' outlet index (wk_index) or -1, as the fold's launch
+    takes its descriptor rows."""
 
     cells: torch.Tensor
     weights: torch.Tensor
     rows: np.ndarray
     floats: np.ndarray
+    foot: torch.Tensor
+    bc_rows: np.ndarray
 
 
 def _wk_bcs(cc: CompiledCase) -> list:
@@ -373,66 +391,107 @@ def wk_lists(cc: CompiledCase) -> WKLists:
     outlet, whatever its valid window)."""
     per_case = _scratch.setdefault(cc, {})
     if "wk" not in per_case:
-        bcs = _wk_bcs(cc)
-        nx, ny, nz = cc.shape
-        cells, weights, rows, floats = [], [], [], []
-        for bc in bcs:
-            w = bc.flow_weight.cpu().numpy()
-            a, b = np.nonzero(w)
-            xyz = [None, None, None]
-            xyz[bc.axis] = np.full(a.shape, bc.consumer_coord)
-            lat = [x for x in range(3) if x != bc.axis]
-            xyz[lat[0]], xyz[lat[1]] = a, b
-            ids = (xyz[0] * ny + xyz[1]) * nz + xyz[2]
-            begin = sum(len(c) for c in cells)
-            cells.append(ids.astype(np.int32))
-            weights.append(w[a, b].astype(np.float32))
+        cells, weights, rows, floats, foot = [], [], [], [], []
+        fluid = cc.fluid.reshape(-1).cpu().numpy()
+        begin = 0
+        for bc in _wk_bcs(cc):
+            ids, w = wk_footprint(bc, cc.shape)
+            cells.append(ids)
+            weights.append(w)
             rows.append((bc.axis, begin, begin + len(ids)))
+            foot.append((begin + np.flatnonzero(fluid[ids])) * 3 + bc.axis)
+            begin += len(ids)
             rp, cap, rd = (np.float32(v) for v in bc.windkessel)
             floats.append((bc.flow_sign, rp, cap,
                            np.float32(1.0) + np.float32(1.0) / (rd * cap),
                            np.float32(bc.rho_fixed)))
+        cells, foot = np.concatenate(cells), np.concatenate(foot)
+        listed = cc.fluid_cells
+        if listed is None or not np.array_equal(
+                listed[:len(foot)].cpu().numpy(), cells[foot // 3]):
+            raise ValueError("the case's launch list does not start with "
+                             "its windkessel footprint's fluid cells "
+                             "(compile.fold_cell_ids)")
         per_case["wk"] = WKLists(
-            cells=torch.from_numpy(np.concatenate(cells)).to(cc.device),
+            cells=torch.from_numpy(cells).to(cc.device),
             weights=torch.from_numpy(np.concatenate(weights)).to(cc.device),
             rows=np.asarray(rows, np.int32),
-            floats=np.asarray(floats, np.float32))
+            floats=np.asarray(floats, np.float32),
+            foot=torch.from_numpy(foot.astype(np.int32)).to(cc.device),
+            bc_rows=np.asarray([-1 if bc.wk_index is None else bc.wk_index
+                                for bc in cc.step_bcs], np.int32))
     return per_case["wk"]
 
 
-def windkessel_flux_plain(f, cc: CompiledCase, wk):
-    """The plain version of `windkessel_flux`: (wk', rho*), each (n_wk,)
-    fp32, from the pre-step f (a bf16 f widened). Outlet k's flux sums
-    flow_weight * u_prev[axis] over its footprint in the kernel's order
-    (WK_BLOCK strided partials, each summed from 0 in list order, then a
-    halving tree), and P_c steps as engine/step.windkessel_update."""
+def _ordered_sum(v):
+    """The windkessel kernels' fixed-order fp32 sum of a 1-D tensor:
+    WK_BLOCK strided partials, each summed from 0 in order, then a
+    halving tree."""
+    pad = (-v.numel()) % WK_BLOCK
+    v = torch.cat([v, v.new_zeros(pad)]).reshape(-1, WK_BLOCK)
+    acc = v.new_zeros(WK_BLOCK)
+    for row in v:
+        acc = acc + row
+    s = WK_BLOCK // 2
+    while s > 0:
+        acc = torch.cat([acc[:s] + acc[s:2 * s], acc[s:]])
+        s //= 2
+    return acc[0]
+
+
+def wk_terms_plain(f, cc: CompiledCase):
+    """The plain version of `windkessel_prime` (the fold's stage): (terms,
+    Q), fp32, from the state f (a bf16 f widened): each footprint row's
+    term flow_weight * u[axis] (u the moments with the F/2 shift) and each
+    outlet's Q = flow_sign * the sum of its terms in the kernels' order."""
     lists = wk_lists(cc)
-    f32 = _widen(f).reshape(19, -1)
+    rho, mom = momentum(_widen(f).reshape(19, -1)[:, lists.cells.long()])
+    u = velocity(rho, mom, cc.force)
+    terms = torch.empty_like(lists.weights)
+    q = []
+    for (axis, begin, end), fl in zip(lists.rows.tolist(), lists.floats):
+        terms[begin:end] = lists.weights[begin:end] * u[axis, begin:end]
+        q.append(float(fl[0]) * _ordered_sum(terms[begin:end]))
+    return terms, torch.stack(q)
+
+
+def wk_commit_plain(cc: CompiledCase, wk, q):
+    """(P_c', rho*), each (n_wk,) fp32: one backward-Euler step of each
+    outlet's carried P_c (wk) with the flux q, as engine/step
+    .windkessel_update, and its rewrite's rho*."""
     p_out, rho_out = [], []
     for k, bc in enumerate(_wk_bcs(cc)):
-        axis, begin, end = (int(v) for v in lists.rows[k])
-        ids = lists.cells[begin:end].long()
-        rho, mom = momentum(f32[:, ids])
-        u = velocity(rho, mom, cc.force)
-        v = lists.weights[begin:end] * u[axis]
-        pad = (-v.numel()) % WK_BLOCK
-        v = torch.cat([v, v.new_zeros(pad)]).reshape(-1, WK_BLOCK)
-        acc = v.new_zeros(WK_BLOCK)
-        for row in v:
-            acc = acc + row
-        s = WK_BLOCK // 2
-        while s > 0:
-            acc = torch.cat([acc[:s] + acc[s:2 * s], acc[s:]])
-            s //= 2
-        q = float(lists.floats[k][0]) * acc[0]
-        p_new, p_in = windkessel_update(wk[k], q, bc.windkessel)
+        p_new, p_in = windkessel_update(wk[k], q[k], bc.windkessel)
         p_out.append(p_new)
         rho_out.append(windkessel_rho(bc, p_in))
     return torch.stack(p_out), torch.stack(rho_out)
 
 
+def windkessel_flux_plain(f, cc: CompiledCase, wk):
+    """The windkessel outlets' step from the pre-step f, as lbm_tpu's
+    fixups take it: (wk', rho*), each (n_wk,) fp32, with Q summed in the
+    kernels' order (wk_terms_plain) and P_c stepped as
+    engine/step.windkessel_update. The fold (step_wk_plain) gives the
+    same values from the Q it staged."""
+    return wk_commit_plain(cc, wk, wk_terms_plain(f, cc)[1])
+
+
+def step_wk_plain(f, cc: CompiledCase, t: int, wk, q):
+    """The plain version of the fold launch and its reduction at absolute
+    step t: (f', velsum, P_c', terms', Q'). wk: the carried P_c; q: the
+    staged Q, the flux of f (wk_terms_plain(f)). rho* and P_c' are
+    windkessel_flux_plain's with that Q, f' and the velsum step_plain's
+    with that rho*, and (terms', Q') the stage of f' that the next launch
+    reads (the kernel writes the terms of the footprint's fluid cells; a
+    non-fluid cell's term is its state's, which no step changes)."""
+    p_new, rho = wk_commit_plain(cc, wk, q)
+    f_new, vs = step_plain(f, cc, t, rho_wk=rho)
+    terms, q_new = wk_terms_plain(f_new, cc)
+    return f_new, vs, p_new, terms, q_new
+
+
 def _check_wk(wk, cc: CompiledCase, name: str = "wk, their carried P_c"):
-    n = len(_wk_bcs(cc))
+    n = len(wk_lists(cc).rows)
     if wk is None or not torch.is_tensor(wk) or wk.dtype != torch.float32 \
             or tuple(wk.shape) != (n,) or not wk.is_contiguous() \
             or wk.device != cc.device:
@@ -441,52 +500,70 @@ def _check_wk(wk, cc: CompiledCase, name: str = "wk, their carried P_c"):
                          f"{cc.device}")
 
 
-def windkessel_flux(f, cc: CompiledCase, wk, rho_star):
-    """The windkessel outlets' step before the collide-stream launch:
-    from the pre-step state f (float32 or bfloat16), each outlet's
-    outward flux Q over its footprint, P_c' by backward Euler written
-    into wk in place, and rho* = rho_fixed + 3 (Q Rp + P_c') into
-    rho_star (both (n_wk,) float32 on f's device). One launch of
-    lbm_windkessel_flux on a CUDA tensor, its plain version on the CPU.
-    Returns (wk, rho_star)."""
+@dataclasses.dataclass
+class WKStage:
+    """The fold's stage of a case, on its device: the footprint's terms
+    and each outlet's Q (fp32), and `of`, the key (_state_key) of the
+    state they were staged from, or None."""
+
+    terms: torch.Tensor
+    q: torch.Tensor
+    of: tuple | None = None
+
+
+def _state_key(f) -> tuple:
+    """A state's identity for the stage: its storage and torch's version
+    counter of it (bumped by every in-place write torch makes; a kernel's
+    write is not one)."""
+    return f.data_ptr(), f._version
+
+
+def wk_stage(cc: CompiledCase) -> WKStage:
+    """The case's WKStage, made at first use (nothing staged)."""
+    per_case = _scratch.setdefault(cc, {})
+    if "wk_stage" not in per_case:
+        lists = wk_lists(cc)
+        per_case["wk_stage"] = WKStage(
+            terms=torch.zeros_like(lists.weights),
+            q=torch.zeros(len(lists.rows), dtype=torch.float32,
+                          device=cc.device))
+    return per_case["wk_stage"]
+
+
+def windkessel_prime(f, cc: CompiledCase) -> WKStage:
+    """Prime the fold from the state f (float32 or bfloat16): every
+    footprint term and each outlet's Q into the case's stage (wk_stage),
+    P_c untouched. One launch of lbm_windkessel_flux on a CUDA tensor,
+    its plain version (wk_terms_plain) on the CPU. collide_stream calls it
+    when the state it is given is not the last fold launch's output."""
     _check_state(f, cc, "f")
-    _check_wk(wk, cc)
-    _check_wk(rho_star, cc, "rho_star")
+    stage = wk_stage(cc)
     if f.device.type == "cpu":
-        p, r = windkessel_flux_plain(f, cc, wk)
-        wk.copy_(p)
-        rho_star.copy_(r)
-        return wk, rho_star
+        terms, q = wk_terms_plain(f, cc)
+        stage.terms.copy_(terms)
+        stage.q.copy_(q)
+        stage.of = _state_key(f)
+        return stage
     from lbm_tpu_torch.kernels._build import check, load_wk_library
 
     lib = load_wk_library().lib
     lists = wk_lists(cc)
     half = (None if cc.force is None
             else np.asarray(half_force(cc.force), np.float32))
-    name = _tagged("lbm_windkessel_flux", f).replace("+bf16", "[bf16]")
+    name = "lbm_windkessel_flux[bf16]" if _bf16(f) else "lbm_windkessel_flux"
     launch = (lib.lbm_windkessel_flux_bf16 if _bf16(f)
               else lib.lbm_windkessel_flux)
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
-        err = launch(f.data_ptr(), f[0].numel(), wk.numel(),
+        err = launch(f.data_ptr(), f[0].numel(), len(lists.rows),
                      lists.rows.ctypes.data, lists.floats.ctypes.data,
                      None if half is None else half.ctypes.data,
                      lists.cells.data_ptr(), lists.weights.data_ptr(),
-                     wk.data_ptr(), rho_star.data_ptr(), stream)
+                     stage.terms.data_ptr(), stage.q.data_ptr(), stream)
     check(lib, err, name)
     _count(name)
-    return wk, rho_star
-
-
-def _rho_scratch(cc: CompiledCase):
-    """The case's (n_wk,) float32 rho* buffer on its device, which the
-    flux kernel writes and the collide-stream descriptors point at."""
-    per_case = _scratch.setdefault(cc, {})
-    if "rho_wk" not in per_case:
-        per_case["rho_wk"] = torch.zeros(len(_wk_bcs(cc)),
-                                         dtype=torch.float32,
-                                         device=cc.device)
-    return per_case["rho_wk"]
+    stage.of = _state_key(f)
+    return stage
 
 
 def macro_plain(f, force=None):
@@ -542,22 +619,6 @@ def _bc_tables(cc: CompiledCase, bcs=None, t: int = 0):
         valid[b] = bc.valid.data_ptr()
         phis[b] = None if extrap else bc.phi_star_at(t).data_ptr()
     return ints, floats, valid, phis
-
-
-def _rho_ptrs(cc: CompiledCase, bcs, rho_wk):
-    """A row's pointer into rho_wk (the case's windkessel rho* buffer) for
-    each windkessel outlet of `bcs`, null for the others; built once per
-    case and boundary list."""
-    per_case = _scratch.setdefault(cc, {})
-    key = ("rho_ptrs",) + tuple(id(bc) for bc in bcs)
-    if key not in per_case:
-        rhos = (ctypes.c_void_p * max(len(bcs), 1))()
-        for b, bc in enumerate(bcs):
-            if bc.windkessel is not None:
-                rhos[b] = (rho_wk.data_ptr()
-                           + rho_wk.element_size() * bc.wk_index)
-        per_case[key] = (list(bcs), rhos)
-    return per_case[key][1]
 
 
 # The wrappers' scratch per case, dropped with the case: {(kernel, bc
@@ -650,7 +711,7 @@ def _check_halo(halo, cc: CompiledCase, f, field) -> None:
 
 def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
                    all_blocks: bool = False, field: ForceField | None = None,
-                   g=None, halo=None, wk=None):
+                   g=None, halo=None, wk=None, prime: bool = False):
     """One whole step of f into out (a different buffer) at absolute step
     t, in one launch, with the case's collision branch and its boundaries
     (cc.step_bcs: the x/y planes and the z planes); writes the fluid
@@ -662,29 +723,41 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
     force field and the pre-step (7, X, Y, Z) scalar state it reads (the
     force-field instance). halo: None, or a shard's (axis, lo, hi,
     mask_lo, mask_hi) (K1d, lbm_collide_stream_halo). wk: the carried
-    (n_wk,) float32 P_c of a case with windkessel outlets, updated in
-    place by the flux kernel (windkessel_flux), which runs first on the
-    stream; the launch's windkessel planes then read their rho* from the
-    device. On the CPU it runs the plain versions. Returns out."""
+    (n_wk,) float32 P_c of a case with windkessel outlets, stepped in
+    place: the launch is the fold's (lbm_collide_stream_wk), which derives
+    each outlet's rho* from P_c and the flux staged from f, writes the
+    flux terms of out, and whose reduction commits P_c and stages out's
+    flux (wk_stage). The flux kernel primes the stage first (windkessel
+    _prime) when f is not the last fold launch's out, or with prime. On
+    the CPU it runs the plain versions (step_wk_plain for the fold).
+    Returns out."""
     _check_pair(f, out, cc, series, slot)
     name, ci, cf = collision_descriptor(cc, field)
     g_ptr = _check_field(field, g, cc, f)
     if halo is not None:
         _check_halo(halo, cc, f, field)
-    rho_wk = None
     if has_windkessel(cc.bcs):
         if halo is not None or field is not None:
             raise ValueError("windkessel outlets step whole boxes without a "
                              "force field")
-        rho_wk = _rho_scratch(cc)
-        windkessel_flux(f, cc, wk, rho_wk)
-        name = f"{name}+wk"
-    elif wk is not None:
+        if all_blocks:
+            raise ValueError("a case with windkessel outlets launches over "
+                             "its fluid-cell list, the outlets' footprint "
+                             "cells last (compile.fold_cell_ids)")
+        _check_wk(wk, cc)
+        stage = wk_stage(cc)
+        if prime or stage.of != _state_key(f):
+            windkessel_prime(f, cc)
+        _collide_stream_wk(f, out, cc, series, slot, t, wk, stage, ci, cf,
+                           f"{name}+wk")
+        stage.of = _state_key(out)
+        return out
+    if wk is not None:
         raise ValueError("wk was given for a case without windkessel "
                          "outlets")
     ids = None if all_blocks else cc.fluid_cells
     if f.device.type == "cpu":
-        f_new, vs = step_plain(f, cc, t, field, g, halo, rho_wk)
+        f_new, vs = step_plain(f, cc, t, field, g, halo)
         out.copy_(f_new)
         series[slot] = vs
         return out
@@ -701,7 +774,6 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
     bcs = cc.step_bcs
     (ints, floats, valid, phis), partials = _launch_scratch(
         cc, "k1", bcs, t, grid)
-    rhos = None if rho_wk is None else _rho_ptrs(cc, bcs, rho_wk)
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
         err = launch(
@@ -709,14 +781,59 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
             nx, ny, nz, ci.ctypes.data, cf.ctypes.data,
             len(bcs), ints.ctypes.data, floats.ctypes.data,
             ctypes.addressof(valid), ctypes.addressof(phis),
-            *(() if halo is not None
-              else (None if rhos is None else ctypes.addressof(rhos),)),
             None if ids is None else ids.data_ptr(), n_listed,
             partials.data_ptr(), grid, series.data_ptr(), slot, *tail,
             stream)
     check(lib, err, f"lbm_collide_stream[{name}]")
     _count(f"lbm_collide_stream[{name}]")
     return out
+
+
+def _collide_stream_wk(f, out, cc: CompiledCase, series, slot: int, t: int,
+                       wk, stage: WKStage, ci, cf, name: str) -> None:
+    """The fold's step of collide_stream: one launch of
+    lbm_collide_stream_wk (its bf16 twin on bf16 state) and its
+    reduction, or step_wk_plain on the CPU; P_c, the stage's terms and Q
+    updated in place."""
+    if f.device.type == "cpu":
+        f_new, vs, p_new, terms, q = step_wk_plain(f, cc, t, wk, stage.q)
+        out.copy_(f_new)
+        series[slot] = vs
+        wk.copy_(p_new)
+        stage.terms.copy_(terms)
+        stage.q.copy_(q)
+        return
+    from lbm_tpu_torch.kernels._build import check, load_wk_library
+
+    lib = load_wk_library(_bf16(f)).lib
+    name = _tagged(name, f)
+    launch = (lib.lbm_collide_stream_wk_bf16 if _bf16(f)
+              else lib.lbm_collide_stream_wk)
+    nx, ny, nz = cc.shape
+    if nx * ny * nz >= 2**31:
+        raise ValueError(f"{nx * ny * nz} cells: the kernel indexes cells "
+                         "in int32")
+    ids, lists = cc.fluid_cells, wk_lists(cc)
+    grid = max(1, -(-ids.numel() // lib.lbm_block_size()))
+    bcs = cc.step_bcs
+    (ints, floats, valid, phis), partials = _launch_scratch(
+        cc, "k1", bcs, t, grid)
+    with torch.cuda.device(f.device):
+        stream = torch.cuda.current_stream(f.device).cuda_stream
+        err = launch(
+            f.data_ptr(), out.data_ptr(), cc.mask.data_ptr(),
+            nx, ny, nz, ci.ctypes.data, cf.ctypes.data,
+            len(bcs), ints.ctypes.data, floats.ctypes.data,
+            ctypes.addressof(valid), ctypes.addressof(phis),
+            lists.bc_rows.ctypes.data, ids.data_ptr(), ids.numel(),
+            partials.data_ptr(), grid, series.data_ptr(), slot,
+            len(lists.rows), lists.rows.ctypes.data,
+            lists.floats.ctypes.data, lists.weights.data_ptr(),
+            lists.foot.data_ptr() if lists.foot.numel() else None,
+            lists.foot.numel(), stage.terms.data_ptr(), stage.q.data_ptr(),
+            wk.data_ptr(), stream)
+    check(lib, err, f"lbm_collide_stream[{name}]")
+    _count(f"lbm_collide_stream[{name}]")
 
 
 def _library(f, halo):
@@ -943,8 +1060,10 @@ def macro(f, force=None):
 
 
 __all__ = ["collide_stream", "collide_stream_plain", "fix_z_plane_plain",
-           "step", "step_plain", "step2", "windkessel_flux",
-           "windkessel_flux_plain", "wk_lists", "WKLists", "WK_BLOCK",
+           "step", "step_plain", "step2", "windkessel_prime",
+           "windkessel_flux_plain", "wk_terms_plain", "wk_commit_plain",
+           "step_wk_plain", "wk_stage", "WKStage", "wk_lists", "WKLists",
+           "WK_BLOCK",
            "collide_stream2_plain", "extract_rows", "extract_rows_plain",
            "unpack_state_lowmem", "chunk_rows", "CHUNK_BYTES",
            "live_block_ids", "macro", "macro_plain", "launches",

@@ -18,14 +18,13 @@ int lbm_collide_stream(const float* src, float* dst, const int8_t* mask,
                        int nx, int ny, int nz, const int* coll_int,
                        const float* coll_float, int n_bc, const int* bc_int,
                        const float* bc_float, const void* const* valid_ptrs,
-                       const void* const* phi_ptrs,
-                       const void* const* rho_ptrs, const int* cells,
+                       const void* const* phi_ptrs, const int* cells,
                        int n_listed, double* partials, int n_partials,
                        double* series, int t, const float* gfield,
                        void* stream) {
   return collide_stream<float>(src, dst, mask, nx, ny, nz, coll_int,
                                coll_float, n_bc, bc_int, bc_float, valid_ptrs,
-                               phi_ptrs, rho_ptrs, cells, n_listed, partials,
+                               phi_ptrs, cells, n_listed, partials,
                                n_partials, series, t, gfield, stream);
 }
 

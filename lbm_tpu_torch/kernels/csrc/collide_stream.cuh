@@ -112,16 +112,24 @@
 // Windkessel (RCR) outlets. lbm_tpu fixes a windkessel plane on any axis
 // after its kernel (::_fix_xy_plane_windowed, and K6 + K5 on z through
 // ::_fix_z_plane_windowed), since its rho* = rho_fixed + 3 (Q Rp + P_c)
-// changes every step. Here such a plane is one more descriptor of the
-// pass whose rho_dyn points at its rho* on the device, written earlier on
-// the same stream by lbm_windkessel_flux (windkessel.cu) from the
-// pre-step state, so the launch needs no host value. Its order among the
-// planes is free: no cell of a windkessel plane is another boundary's
-// consumer cell (engine/compile.check_z_windows). Only the instance with
-// the z planes' code reads rho_dyn (kDyn: whole boxes without a force
-// field; the port refuses windkessel outlets beside a force field, as
-// lbm_tpu's dense runtime-force step does), so every other instance keeps
-// its code, registers and spills (probes/ptxas_report.py).
+// changes every step, Q the outlet's flux over the pre-step state. Here
+// such a plane is one more descriptor of the pass (bc.wk), and the flux is
+// folded into the launch (the WK instances, built only into the
+// windkessel units, windkessel.cu and windkessel_bf16.cu): the pre-step
+// state of a step is the post-step state of the one before, which the
+// launch holds, so a thread of a footprint cell (the listed cells' first
+// n_foot, in footprint order) writes its term weight * u[axis] of the
+// state it just stored, and the launch's one-block reduction commits P_c
+// with the Q this launch used and stages the next Q from those terms
+// (windkessel.cuh). Every thread that meets an outlet's descriptor
+// derives rho* from P_c and the staged Q; no block writes P_c during the
+// launch. Its order among the planes is free: no cell of a windkessel
+// plane is another boundary's consumer cell (engine/compile
+// .check_z_windows). The port refuses windkessel outlets beside a force
+// field (as lbm_tpu's dense runtime-force step does) and on shards, so
+// only whole-box instances without a field have a WK twin, and every
+// other instance keeps its code, registers and spills
+// (probes/ptxas_report.py).
 //
 // The device functions (pull, NEE rewrite, collision branches, velsum
 // reduction) and the descriptor parsers live in d3q19.cuh, which the
@@ -156,7 +164,7 @@ struct ZBC {
   long long plane;         // nx * ny
   const uint8_t* valid;    // (5, nx, ny) bytes
   const float* phi_star;   // (5, nx, ny) fp32 of this step's phase, or null
-  const float* rho_dyn;    // a windkessel outlet's device rho*, or null
+  int wk;                  // a windkessel outlet's index in the WKFold, or -1
 };
 
 struct ZBCSet {
@@ -173,14 +181,15 @@ __host__ __device__ constexpr int z_rank(int i) {
 }
 
 // nee_fix for a z-plane boundary: the same rewrite, in the same
-// operation order, with the directions known to the code (DYN as
+// operation order, with the directions known to the code (WKF as
 // nee_fix's).
-template <bool FORCE, typename S, bool DYN = false>
+template <bool FORCE, typename S, bool WKF = false>
 __device__ __forceinline__ void nee_fix_z(const ZBC& bc,
                                           const S* __restrict__ src,
                                           long long n_cells, int cell,
                                           long long lat,
-                                          const float* half_force, float* p) {
+                                          const float* half_force, float* p,
+                                          const WKFold* fold = nullptr) {
   float own[Q];
 #pragma unroll
   for (int i = 0; i < Q; ++i) {
@@ -190,8 +199,8 @@ __device__ __forceinline__ void nee_fix_z(const ZBC& bc,
   moments19<FORCE>(own, half_force, rp, uxp, uyp, uzp);
   const float usqp = uxp * uxp + uyp * uyp + uzp * uzp;
   float rho_star = bc.rho_is_fixed ? bc.rho_fixed : rp;
-  if constexpr (DYN) {
-    if (bc.rho_dyn) rho_star = *bc.rho_dyn;
+  if constexpr (WKF) {
+    if (bc.wk >= 0) rho_star = wk_rho_star(*fold, bc.wk);
   }
 #pragma unroll
   for (int i = 1; i < Q; ++i) {
@@ -225,7 +234,7 @@ bool to_zbc(const BCDesc& d, ZBC& z) {
   z.plane = d.plane;
   z.valid = d.valid;
   z.phi_star = d.phi_star;
-  z.rho_dyn = d.rho_dyn;
+  z.wk = d.wk;
   return z.sign != 0;
 }
 
@@ -235,20 +244,22 @@ bool to_zbc(const BCDesc& d, ZBC& z) {
 // the same state in both buffers, so the step leaves it. HALO -1: the
 // whole box; 0 or 1: a shard split along x or y, pulling across its
 // faces from `halo`. ZPLANES: the instance applies z-plane descriptors
-// (a case without them launches the instance without their code).
+// (a case without them launches the instance without their code). WK:
+// the windkessel fold (`fold`; the list's first fold->n_foot cells are
+// the outlets' footprint cells, the rest ascending).
 template <int COLL, bool CLOSURE, int FORCE, bool MOVING, typename S,
-          int HALO, bool ZPLANES>
+          int HALO, bool ZPLANES, bool WK = false>
 __device__ __forceinline__ void collide_stream_cells(
     const S* __restrict__ src, S* __restrict__ dst,
     const int8_t* __restrict__ mask, int nx, int ny, int nz,
     const Collision& coll, const BCSet& bcs, const ZBCSet& zbcs,
     const int* __restrict__ cells, int n_listed,
-    double* __restrict__ partials, const Halo& halo) {
+    double* __restrict__ partials, const Halo& halo,
+    const WKFold* fold = nullptr) {
   const long long n_cells = (long long)nx * ny * nz;  // < 2^31 (host check)
-  // the windkessel outlets' device rho*: whole boxes without a force
-  // field only (the host refuses the others), in the instance with the z
-  // planes' code
-  constexpr bool kDyn = ZPLANES && HALO < 0 && FORCE != kFieldForce;
+  // TRT under a field force reads its cell's seven g before the pull, so
+  // their loads overlap the pull's and only c - c_ref stays live
+  constexpr bool kEarlyField = COLL == kTRT && FORCE == kFieldForce;
   const long long k = (long long)blockIdx.x * kBlock + threadIdx.x;
   const long long cell_ll =
       cells ? (k < n_listed ? (long long)cells[k] : n_cells) : k;
@@ -259,6 +270,8 @@ __device__ __forceinline__ void collide_stream_cells(
     const int xy = cell / nz;
     const int y = xy % ny;
     const int x = xy / ny;
+    float dc = 0.0f;
+    if constexpr (kEarlyField) dc = field_dc(coll, n_cells, cell);
     float p[Q];
     pull19<MOVING, HALO>(src, mask, x, y, z, nx, ny, nz, n_cells, cell,
                          coll.bb, p, halo);
@@ -269,9 +282,9 @@ __device__ __forceinline__ void collide_stream_cells(
       if ((bc.axis == 0 ? x : y) != bc.coord) continue;
       const long long lat = (long long)(bc.axis == 0 ? y : x) * nz + z;
       // the NEE rewrite keeps the static force (none under a field); the
-      // instance with the z planes' code reads a windkessel outlet's rho*
-      nee_fix<FORCE == kConstForce, S, kDyn>(bc, src, n_cells, cell, lat,
-                                             coll.half_force, p);
+      // fold's instance derives a windkessel outlet's rho*
+      nee_fix<FORCE == kConstForce, S, WK>(bc, src, n_cells, cell, lat,
+                                           coll.half_force, p, fold);
     }
     if constexpr (ZPLANES) {
       // the z plane that rewrites this cell, if one does: the one whose
@@ -289,21 +302,42 @@ __device__ __forceinline__ void collide_stream_cells(
         }
       }
       if (zb >= 0) {
-        nee_fix_z<FORCE == kConstForce, S, kDyn>(zbcs.bc[zb], src, n_cells,
-                                                 cell, zlat, coll.half_force,
-                                                 p);
+        nee_fix_z<FORCE == kConstForce, S, WK>(zbcs.bc[zb], src, n_cells,
+                                               cell, zlat, coll.half_force,
+                                               p, fold);
       }
     }
     float ff[3], fh[3];
     const float* F = coll.force;
     const float* half = coll.half_force;
     if constexpr (FORCE == kFieldForce) {
-      field_force(coll, n_cells, cell, ff, fh);
+      if constexpr (kEarlyField) {
+        field_from(coll, dc, ff, fh);
+      } else {
+        field_force(coll, n_cells, cell, ff, fh);
+      }
       F = ff;
       half = fh;
     }
     speed = sqrtf(collide_store<COLL, CLOSURE, FORCE>(p, coll, F, half, dst,
                                                        n_cells, cell));
+    if constexpr (WK) {
+      // a footprint cell: its term of the outlet's flux, from the state
+      // as stored (a bf16 store widened back), as the flux kernel
+      // computes it from a pre-step state
+      if (k < fold->n_foot) {
+        const int code = fold->foot[k];
+#pragma unroll
+        for (int i = 0; i < Q; ++i) {
+          p[i] = widen(dst[(long long)i * n_cells + cell]);
+        }
+        float rho, ux, uy, uz;
+        moments19<FORCE == kConstForce>(p, coll.half_force, rho, ux, uy, uz);
+        const int axis = code % 3;
+        const float ua = axis == 0 ? ux : (axis == 1 ? uy : uz);
+        fold->terms[code / 3] = fold->weights[code / 3] * ua;
+      }
+    }
   }
   block_sum((double)speed, partials);
 }
@@ -322,12 +356,29 @@ collide_stream_kernel(const S* __restrict__ src, S* __restrict__ dst,
       halo);
 }
 
+// The windkessel fold's instance: a whole box with the z planes' code
+// (a windkessel outlet may lie on any axis).
+template <int COLL, bool CLOSURE, int FORCE, bool MOVING, typename S>
+__global__ void __launch_bounds__(kBlock)
+collide_stream_wk_kernel(const S* __restrict__ src, S* __restrict__ dst,
+                         const int8_t* __restrict__ mask, int nx, int ny,
+                         int nz, const __grid_constant__ Collision coll,
+                         BCSet bcs, const __grid_constant__ ZBCSet zbcs,
+                         const int* __restrict__ cells, int n_listed,
+                         double* __restrict__ partials,
+                         const __grid_constant__ WKFold fold) {
+  collide_stream_cells<COLL, CLOSURE, FORCE, MOVING, S, -1, true, true>(
+      src, dst, mask, nx, ny, nz, coll, bcs, zbcs, cells, n_listed, partials,
+      Halo{}, &fold);
+}
+
 namespace bounded {
-// The BGK force-field instances and the TRT constant-force one with the z
+// The force-field instances and the TRT constant-force ones with the z
 // planes' code, held to three blocks an SM (80 registers). Without the
-// bound the first take 91 registers, two blocks, and the second 89, two
-// blocks, at which it ran 25% slower at gravity_channel 256^3 on the H100
-// (probes/path_ab.py).
+// bound [bgk+field] takes 91 registers, two blocks, and [trt+force+z] 89,
+// two blocks, at which it ran 25% slower at gravity_channel 256^3 on the
+// H100 (probes/path_ab.py); [trt+field] took 90, two blocks, before its
+// per-direction loop (d3q19.cuh collide_store).
 template <int COLL, bool CLOSURE, int FORCE, bool MOVING, typename S,
           int HALO = -1, bool ZPLANES = false>
 __global__ void __launch_bounds__(kBlock, 3)
@@ -341,7 +392,28 @@ collide_stream_kernel(const S* __restrict__ src, S* __restrict__ dst,
       src, dst, mask, nx, ny, nz, coll, bcs, zbcs, cells, n_listed, partials,
       halo);
 }
+
+template <int COLL, bool CLOSURE, int FORCE, bool MOVING, typename S>
+__global__ void __launch_bounds__(kBlock, 3)
+collide_stream_wk_kernel(const S* __restrict__ src, S* __restrict__ dst,
+                         const int8_t* __restrict__ mask, int nx, int ny,
+                         int nz, const __grid_constant__ Collision coll,
+                         BCSet bcs, const __grid_constant__ ZBCSet zbcs,
+                         const int* __restrict__ cells, int n_listed,
+                         double* __restrict__ partials,
+                         const __grid_constant__ WKFold fold) {
+  collide_stream_cells<COLL, CLOSURE, FORCE, MOVING, S, -1, true, true>(
+      src, dst, mask, nx, ny, nz, coll, bcs, zbcs, cells, n_listed, partials,
+      Halo{}, &fold);
+}
 }  // namespace bounded
+
+// Whether instance K (with or without the z planes' code) launches the
+// bounded kernel.
+template <int K, bool ZPLANES>
+constexpr bool kBounded =
+    Inst<K>::kForce == kFieldForce ||
+    (Inst<K>::kForce == kConstForce && Inst<K>::kColl == kTRT && ZPLANES);
 
 template <bool FORCE, typename S>
 __global__ void __launch_bounds__(kBlock)
@@ -380,8 +452,7 @@ template <typename S, int K, int HALO, bool ZPLANES>
 void launch_kernel(const StepArgs<S>& a, const Collision& c, const BCSet& b,
                    const ZBCSet& z) {
   using I = Inst<K>;
-  if constexpr ((I::kForce == kFieldForce && I::kColl == kBGK) ||
-                (I::kForce == kConstForce && I::kColl == kTRT && ZPLANES)) {
+  if constexpr (kBounded<K, ZPLANES>) {
     bounded::collide_stream_kernel<I::kColl, I::kClosure, I::kForce,
                                    I::kMovingWall, S, HALO, ZPLANES>
         <<<a.grid, kBlock, 0, a.stream>>>(a.src, a.dst, a.mask, a.nx, a.ny,
@@ -396,18 +467,14 @@ void launch_kernel(const StepArgs<S>& a, const Collision& c, const BCSet& b,
   }
 }
 
-// A case with z-plane boundaries or a windkessel outlet launches the
-// instance with their code (the z planes' loop and the device rho* of a
-// windkessel plane); a case without launches the one without it, whose
-// code is the kernel's before the z planes joined it (at lid 256^3 [bgk]
-// the z code cost 0.9% and at gravity_channel 256^3 [trt+force] 3%:
-// probes/path_ab.py).
+// A case with z-plane boundaries launches the instance with their code; a
+// case without launches the one without it, whose code is the kernel's
+// before the z planes joined it (at lid 256^3 [bgk] the z code cost 0.9%
+// and at gravity_channel 256^3 [trt+force] 3%: probes/path_ab.py).
 template <typename S, int K, int HALO>
 void launch_step(const StepArgs<S>& a, const Collision& c, const BCSet& b,
                  const ZBCSet& z) {
-  bool dyn = false;
-  for (int k = 0; k < b.n; ++k) dyn = dyn || b.bc[k].rho_dyn != nullptr;
-  if (z.n > 0 || dyn) {
+  if (z.n > 0) {
     launch_kernel<S, K, HALO, true>(a, c, b, z);
   } else {
     launch_kernel<S, K, HALO, false>(a, c, b, z);
@@ -437,80 +504,95 @@ template <typename S, int HALO>
 constexpr std::array<StepLauncher<S>, kNumKeys> kStepTable =
     step_table<S, HALO>(std::make_integer_sequence<int, kNumKeys>{});
 
-// The host entries, exported under their C names by collide_stream.cu
-// (S = float) and collide_stream_bf16.cu (S = __nv_bfloat16, names
-// ending in _bf16), with HALO = -1; collide_stream_halo.cu exports the
-// shard entry (S = float, HALO 0 and 1), whose `halo` planes must all
-// be set.
-
-// One step from src into dst with the collision branch of the descriptor
-// rows coll_int/coll_float (CInt/CFloat) and the boundaries: at most
-// kMaxBCs on x/y planes and kMaxZBCs on z planes, each in the order of
-// its rows; series[t] = sum over fluid cells of |u| after the rewrites. gfield: the pre-step scalar
-// state g[7][n_cells] of a field force (CI_force == 2), else null.
-// cells: null (a thread a cell of the box) or a device list of n_listed
-// cell ids, ascending, holding every fluid cell (a non-fluid id is
-// skipped). Only fluid cells are written: dst must already hold src's
-// non-fluid cells. partials holds one double per launched block
-// (n_partials: ceil(n_listed / kBlock), at least 1, with a list).
-// Boundary rows as parse_bc; phi_ptrs[b] is this step's phase table of a
-// series boundary; rho_ptrs, null or one pointer a row: a windkessel
-// outlet's rho* on the device (written before this launch on the same
-// stream by lbm_windkessel_flux), null for the others. Returns
-// cudaGetLastError().
-template <typename S, int HALO = -1>
-int collide_stream(const S* src, S* dst, const int8_t* mask, int nx, int ny,
-                   int nz, const int* coll_int, const float* coll_float,
-                   int n_bc, const int* bc_int, const float* bc_float,
-                   const void* const* valid_ptrs, const void* const* phi_ptrs,
-                   const void* const* rho_ptrs,
-                   const int* cells, int n_listed, double* partials,
-                   int n_partials, double* series, int t,
-                   const float* gfield, void* stream,
-                   const Halo& halo = Halo{}) {
+// The descriptors and launch arguments of one step (the host entries'
+// shared checks): the collision rows coll_int/coll_float (CInt/CFloat);
+// at most kMaxBCs boundaries on x/y planes and kMaxZBCs on z planes,
+// each in the order of its rows (parse_bc; phi_ptrs[b] is this step's
+// phase table of a series boundary); bc_wk: null, or one int a row, a
+// windkessel outlet's index among n_wk (the fold's) or -1; gfield: the
+// pre-step scalar state g[7][n_cells] of a field force (CI_force == 2),
+// else null; cells: null (a thread a cell of the box) or a device list of
+// n_listed cell ids holding every fluid cell (a non-fluid id is
+// skipped); partials: one double per launched block (n_partials:
+// ceil(n_listed / kBlock), at least 1, with a list). Returns the instance
+// key, or -cudaErrorInvalidValue on a malformed call.
+template <typename S, int HALO>
+int prepare_step(const S* src, S* dst, const int8_t* mask, int nx, int ny,
+                 int nz, const int* coll_int, const float* coll_float,
+                 int n_bc, const int* bc_int, const float* bc_float,
+                 const void* const* valid_ptrs, const void* const* phi_ptrs,
+                 const int* bc_wk, int n_wk, const int* cells, int n_listed,
+                 double* partials, int n_partials, const float* gfield,
+                 void* stream, const Halo& halo, StepArgs<S>& args,
+                 Collision& coll, BCSet& bcs, ZBCSet& zbcs) {
+  const int bad = -(int)cudaErrorInvalidValue;
   const long long n_cells = (long long)nx * ny * nz;
   const long long grid =
       cells ? (n_listed + kBlock - 1) / kBlock : (n_cells + kBlock - 1) / kBlock;
   if (n_bc < 0 || n_bc > kMaxBCs + kMaxZBCs || n_cells <= 0 ||
       n_cells > 0x7fffffffLL || n_listed < 0 || n_listed > n_cells ||
       (grid > 0 ? grid : 1) != n_partials) {
-    return (int)cudaErrorInvalidValue;
+    return bad;
   }
   if (HALO >= 0 && !(halo.lo && halo.hi && halo.mask_lo && halo.mask_hi)) {
-    return (int)cudaErrorInvalidValue;
+    return bad;
   }
-  Collision coll = {};
   const int key = parse_collision(coll_int, coll_float, gfield, coll);
-  if (key < 0 || kStepTable<S, HALO>[key] == nullptr) {
-    return (int)cudaErrorInvalidValue;
-  }
-  BCSet bcs = {};
-  ZBCSet zbcs = {};
+  if (key < 0) return bad;
   for (int b = 0; b < n_bc; ++b) {
     BCDesc d = {};
     if (!parse_bc(bc_int + b * kBCInts, bc_float + 2 * b, valid_ptrs[b],
                   phi_ptrs[b], nx, ny, nz, d) ||
         (d.axis == 2 ? zbcs.n == kMaxZBCs : bcs.n == kMaxBCs)) {
-      return (int)cudaErrorInvalidValue;
+      return bad;
     }
-    d.rho_dyn = rho_ptrs ? static_cast<const float*>(rho_ptrs[b]) : nullptr;
-    if (d.rho_dyn && (HALO >= 0 || gfield)) {
-      return (int)cudaErrorInvalidValue;  // no instance reads it there
-    }
+    d.wk = bc_wk ? bc_wk[b] : -1;
+    if (d.wk >= n_wk) return bad;
     if (d.axis != 2) {
       bcs.bc[bcs.n++] = d;
     } else if (!to_zbc(d, zbcs.bc[zbcs.n++])) {
-      return (int)cudaErrorInvalidValue;
+      return bad;
     }
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const StepArgs<S> args = {src, dst, mask, nx, ny, nz, cells, n_listed,
-                            partials, (unsigned)n_partials, s, halo};
+  args = {src, dst, mask, nx, ny, nz, cells, n_listed, partials,
+          (unsigned)n_partials, static_cast<cudaStream_t>(stream), halo};
+  return key;
+}
+
+// The host entries, exported under their C names by collide_stream.cu
+// (S = float) and collide_stream_bf16.cu (S = __nv_bfloat16, names
+// ending in _bf16), with HALO = -1; collide_stream_halo.cu exports the
+// shard entry (S = float, HALO 0 and 1), whose `halo` planes must all
+// be set; windkessel.cuh the fold's.
+
+// One step from src into dst with the collision branch and boundaries of
+// the descriptor rows (prepare_step); series[t] = sum over fluid cells of
+// |u| after the rewrites. Only fluid cells are written: dst must already
+// hold src's non-fluid cells. Returns cudaGetLastError().
+template <typename S, int HALO = -1>
+int collide_stream(const S* src, S* dst, const int8_t* mask, int nx, int ny,
+                   int nz, const int* coll_int, const float* coll_float,
+                   int n_bc, const int* bc_int, const float* bc_float,
+                   const void* const* valid_ptrs, const void* const* phi_ptrs,
+                   const int* cells, int n_listed, double* partials,
+                   int n_partials, double* series, int t,
+                   const float* gfield, void* stream,
+                   const Halo& halo = Halo{}) {
+  StepArgs<S> args;
+  Collision coll = {};
+  BCSet bcs = {};
+  ZBCSet zbcs = {};
+  const int key = prepare_step<S, HALO>(
+      src, dst, mask, nx, ny, nz, coll_int, coll_float, n_bc, bc_int,
+      bc_float, valid_ptrs, phi_ptrs, nullptr, 0, cells, n_listed, partials,
+      n_partials, gfield, stream, halo, args, coll, bcs, zbcs);
+  if (key < 0) return -key;
+  if (kStepTable<S, HALO>[key] == nullptr) return (int)cudaErrorInvalidValue;
   kStepTable<S, HALO>[key](args, coll, bcs, zbcs);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  velsum_reduce_kernel<<<1, kReduceBlock, 0, s>>>(partials, n_partials,
-                                                   series, t, 0);
+  velsum_reduce_kernel<<<1, kReduceBlock, 0, args.stream>>>(
+      partials, n_partials, series, t, 0);
   return (int)cudaGetLastError();
 }
 

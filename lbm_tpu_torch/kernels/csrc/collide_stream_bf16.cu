@@ -24,15 +24,14 @@ int lbm_collide_stream_bf16(const void* src, void* dst, const int8_t* mask,
                             const float* coll_float, int n_bc,
                             const int* bc_int, const float* bc_float,
                             const void* const* valid_ptrs,
-                            const void* const* phi_ptrs,
-                            const void* const* rho_ptrs, const int* cells,
+                            const void* const* phi_ptrs, const int* cells,
                             int n_listed, double* partials, int n_partials,
                             double* series, int t, const float* gfield,
                             void* stream) {
   return collide_stream<bf16>(
       static_cast<const bf16*>(src), static_cast<bf16*>(dst), mask, nx, ny,
       nz, coll_int, coll_float, n_bc, bc_int, bc_float, valid_ptrs, phi_ptrs,
-      rho_ptrs, cells, n_listed, partials, n_partials, series, t, gfield, stream);
+      cells, n_listed, partials, n_partials, series, t, gfield, stream);
 }
 
 int lbm_macro_bf16(const void* f, float* rho, float* u, long long n_cells,

@@ -78,7 +78,7 @@ int lbm_collide_stream_halo(const float* src, float* dst, const int8_t* mask,
   if (halo_axis != LBM_HALO_AXIS) return (int)cudaErrorInvalidValue;
   return collide_stream<float, LBM_HALO_AXIS>(
       src, dst, mask, nx, ny, nz, coll_int, coll_float, n_bc, bc_int,
-      bc_float, valid_ptrs, phi_ptrs, nullptr, cells, n_listed, partials, n_partials,
+      bc_float, valid_ptrs, phi_ptrs, cells, n_listed, partials, n_partials,
       series, t, nullptr, stream, make_halo(lo, hi, mask_lo, mask_hi));
 }
 

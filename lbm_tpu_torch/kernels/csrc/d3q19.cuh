@@ -119,15 +119,97 @@ struct BCDesc {
   const uint8_t* valid;   // (D, A, B) bytes
   const float* phi_star;  // (D, A, B) fp32 of this step's phase, or null
                           // when u_extrap
-  const float* rho_dyn;   // a windkessel outlet's rho* on the device
-                          // (this step's, written by the flux kernel
-                          // before the launch), or null
+  int wk;                 // a windkessel outlet's index in the launch's
+                          // WKFold (its rho* derived there), or -1
 };
 
 struct BCSet {
   int n;
   BCDesc bc[kMaxBCs];
 };
+
+// Windkessel (RCR) outlets. Each outlet's flux footprint is a run of
+// cells [begin, end) of a host-built list with fp32 weights; its flux Q
+// = sign * the sum of weight * u[axis] over the run, summed in a fixed
+// order (kWKBlock strided partials, each from 0 in list order, then a
+// halving tree), and one backward-Euler step of the RCR model
+//   P_c' = (P_c + Q / C) / (1 + 1 / (Rd C)),   P_in = Q Rp + P_c',
+// gives the outlet's rho* = rho_fixed + 3 P_in (lbm_tpu/engine/step.py
+// apply_bc_fixup, in its fp32 operation order; 1 + 1/(Rd C) comes
+// composed in fp32 from the host, as lbm_tpu folds it at trace time).
+constexpr int kMaxWK = 12;     // the collide-stream kernel's 4 + 8 planes
+constexpr int kWKBlock = 256;
+constexpr int kWKInts = 3;     // axis, begin, end
+constexpr int kWKFloats = 5;   // sign, Rp, C, 1 + 1/(Rd C), rho_fixed
+
+struct WK {
+  int axis;        // the velocity component of the flux
+  int begin, end;  // the footprint's rows of the cell and weight lists
+  float sign;      // flow_sign = -normal
+  float rp, cap, denom;
+  float rho_fixed;
+};
+
+struct WKSet {
+  int n;
+  WK wk[kMaxWK];
+  float half_force[3];
+};
+
+// The fold of the outlets into the collide-stream launch (collide_stream
+// .cuh's WK instances): P_c (pc) and the flux Q staged from the state the
+// launch reads (q), each (n,) fp32 on the device; the footprint's terms
+// weight * u[axis] (terms, one a footprint row) and weights; foot[k] =
+// row * 3 + axis of the footprint cell that the launch's k-th listed cell
+// is, for k < n_foot.
+struct WKFold {
+  WKSet set;
+  float* pc;
+  float* q;
+  float* terms;
+  const float* weights;
+  const int* foot;
+  int n_foot;
+};
+
+// An outlet's rho* this step, from its committed P_c and staged Q, in the
+// operation order above (every thread computes the same value).
+__device__ __forceinline__ float wk_rho_star(const WKFold& fold, int b) {
+  const WK& d = fold.set.wk[b];
+  const float q = fold.q[b];
+  const float p_new = (fold.pc[b] + q / d.cap) / d.denom;
+  const float p_in = q * d.rp + p_new;
+  return d.rho_fixed + 3.0f * p_in;
+}
+
+// Fill a WKSet from its host rows: wk_int (axis, begin, end) and wk_float
+// (sign, Rp, C, 1 + 1/(Rd C), rho_fixed), one an outlet; half_force: null
+// or the host F/2 3-vector. False on a malformed row.
+bool parse_wk(int n_wk, const int* wk_int, const float* wk_float,
+              const float* half_force, WKSet& set) {
+  if (n_wk <= 0 || n_wk > kMaxWK) return false;
+  set.n = n_wk;
+  for (int b = 0; b < n_wk; ++b) {
+    const int* r = wk_int + b * kWKInts;
+    const float* f = wk_float + b * kWKFloats;
+    WK& d = set.wk[b];
+    d.axis = r[0];
+    d.begin = r[1];
+    d.end = r[2];
+    if (d.axis < 0 || d.axis > 2 || d.begin < 0 || d.end < d.begin) {
+      return false;
+    }
+    d.sign = f[0];
+    d.rp = f[1];
+    d.cap = f[2];
+    d.denom = f[3];
+    d.rho_fixed = f[4];
+  }
+  for (int a = 0; a < 3; ++a) {
+    set.half_force[a] = half_force ? half_force[a] : 0.0f;
+  }
+  return true;
+}
 
 // A population as fp32, from either storage type.
 __device__ __forceinline__ float widen(float v) { return v; }
@@ -300,15 +382,16 @@ __device__ __forceinline__ void pull19(const S* __restrict__ src,
 // Rewrite the pulled populations of one consumer-plane cell with the
 // NEE formula: p_i = rho* phi*_i + (f_i(x) - rho_prev phi_i(u_prev)) omega
 // for each prescribed direction whose lateral cell is valid (u_prev with
-// the F/2 shift under FORCE). DYN: the instance reads a windkessel
-// outlet's rho* from the device (bc.rho_dyn, where set); without it the
-// code is the static rewrite's alone.
-template <bool FORCE, typename S, bool DYN = false>
+// the F/2 shift under FORCE). WKF: the instance derives a windkessel
+// outlet's rho* from the fold (bc.wk, where set); without it the code is
+// the static rewrite's alone.
+template <bool FORCE, typename S, bool WKF = false>
 __device__ __forceinline__ void nee_fix(const BCDesc& bc,
                                         const S* __restrict__ src,
                                         long long n_cells, int cell,
                                         long long lat,
-                                        const float* half_force, float* p) {
+                                        const float* half_force, float* p,
+                                        const WKFold* fold = nullptr) {
   float own[Q];
 #pragma unroll
   for (int i = 0; i < Q; ++i) {
@@ -318,8 +401,8 @@ __device__ __forceinline__ void nee_fix(const BCDesc& bc,
   moments19<FORCE>(own, half_force, rp, uxp, uyp, uzp);
   const float usqp = uxp * uxp + uyp * uyp + uzp * uzp;
   float rho_star = bc.rho_is_fixed ? bc.rho_fixed : rp;
-  if constexpr (DYN) {
-    if (bc.rho_dyn) rho_star = *bc.rho_dyn;
+  if constexpr (WKF) {
+    if (bc.wk >= 0) rho_star = wk_rho_star(*fold, bc.wk);
   }
 #pragma unroll
   for (int i = 1; i < Q; ++i) {
@@ -400,18 +483,26 @@ __device__ __forceinline__ float tau_eff(float P, float inv_rho,
 // The field force of one fluid cell and its half, F/2, from the cell's
 // pre-step scalar: c = sum of g's seven channels in order, F = buoy (c -
 // c_ref).
-__device__ __forceinline__ void field_force(const Collision& c,
-                                            long long n_cells, int cell,
-                                            float* F, float* half) {
+// field_dc is c - c_ref, field_from the force and its half from it.
+__device__ __forceinline__ float field_dc(const Collision& c,
+                                          long long n_cells, int cell) {
   float cs = c.gfield[cell];
 #pragma unroll
   for (int i = 1; i < 7; ++i) cs += c.gfield[(long long)i * n_cells + cell];
-  const float dc = cs - c.c_ref;
+  return cs - c.c_ref;
+}
+__device__ __forceinline__ void field_from(const Collision& c, float dc,
+                                           float* F, float* half) {
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     F[a] = c.buoy[a] * dc;
     half[a] = 0.5f * F[a];
   }
+}
+__device__ __forceinline__ void field_force(const Collision& c,
+                                            long long n_cells, int cell,
+                                            float* F, float* half) {
+  field_from(c, field_dc(c, n_cells, cell), F, half);
 }
 
 // F and half: the cell's force and F/2, read under FORCE (the
@@ -432,6 +523,28 @@ __device__ __forceinline__ float collide_store(const float* p,
       const float feq = rho * phi_i(i, ux, uy, uz, usq);
       dst[(long long)i * n_cells + cell] =
           narrow<S>(p[i] - (p[i] - feq) / c.tau);
+    }
+  } else if constexpr (COLL == kTRT && FORCE == kFieldForce) {
+    // TRT with the field force, a direction at a time: its own and its
+    // opposite's feq on the spot (the same value each time), its update,
+    // its Guo source, its store, in the operations and order of the
+    // branch below. With feq[], post[] and p live at once the instance
+    // took 90 registers, two blocks an SM.
+    const float uf = ux * F[0] + uy * F[1] + uz * F[2];
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+      const int o = OPP(i);
+      const float fi = rho * phi_i(i, ux, uy, uz, usq);
+      const float fo = rho * phi_i(o, ux, uy, uz, usq);
+      const float s = (p[i] + p[o]) - (fi + fo);
+      const float d = (p[i] - p[o]) - (fi - fo);
+      const float post = p[i] - s / c.two_tau - d / c.two_tau_m;
+      const float eu = e_dot(i, ux, uy, uz);
+      const float e_f = e_dot(i, F[0], F[1], F[2]);
+      const float g_even = WGT(i) * (9.0f * eu * e_f - 3.0f * uf);
+      const float g_odd = (3.0f * WGT(i)) * e_f;
+      dst[(long long)i * n_cells + cell] =
+          narrow<S>(post + (c.cp * g_even + c.cm * g_odd));
     }
   } else {
     float feq[Q], post[Q];
@@ -520,10 +633,10 @@ __device__ __forceinline__ void block_sum(double v,
 }
 
 // series[t] = (or +=, when accumulate) the sum of the block partials, in
-// a fixed order.
-__global__ void __launch_bounds__(kReduceBlock)
-velsum_reduce_kernel(const double* __restrict__ partials, int n,
-                     double* __restrict__ series, int t, int accumulate) {
+// a fixed order, by one block of kReduceBlock threads.
+__device__ __forceinline__ void velsum_reduce(
+    const double* __restrict__ partials, int n, double* __restrict__ series,
+    int t, int accumulate) {
   __shared__ double red[kReduceBlock];
   double acc = 0.0;
   for (int k = threadIdx.x; k < n; k += kReduceBlock) acc += partials[k];
@@ -535,6 +648,12 @@ velsum_reduce_kernel(const double* __restrict__ partials, int n,
     __syncthreads();
   }
   if (threadIdx.x == 0) series[t] = accumulate ? series[t] + red[0] : red[0];
+}
+
+__global__ void __launch_bounds__(kReduceBlock)
+velsum_reduce_kernel(const double* __restrict__ partials, int n,
+                     double* __restrict__ series, int t, int accumulate) {
+  velsum_reduce(partials, n, series, t, accumulate);
 }
 
 // Fill a BCDesc from its descriptor row. bc_int row: axis, coord,

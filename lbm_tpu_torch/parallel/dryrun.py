@@ -8,9 +8,9 @@ paths 1-3 of lbm_tpu's __graft_entry__.dryrun_multichip):
   3. the kernel route on the coronary tree split along y, with its
      z-plane sub-outlets.
 
-lbm_tpu's path 4 (windkessel outlets under a mesh, ROADMAP item 8) and
-path 5 (the sharded scalar kernel, ScalarTransportPallas(mesh=)) belong
-to later slices of the port.
+lbm_tpu's path 4 (windkessel outlets under a mesh on the dense backend,
+ROADMAP.md Queue 1 item 1) and path 5 (the sharded scalar kernel,
+ScalarTransportPallas(mesh=)) belong to later slices of the port.
 
     python -c "from lbm_tpu_torch.parallel.dryrun import dryrun_multichip; dryrun_multichip(4)"
 """

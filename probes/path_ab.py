@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """The lid main path, the force path, the fuse2 path, the vessel path,
-the coupled washout and the thermal path of one tree of the port, timed
-through Simulation.run (CoupledTransport.run, BuoyantTransport.run) on
-the card, and the clinical path (the coronary with windkessel outlets)
-where the tree has them: run it for two trees in turns (parent, change,
-change, parent) in one call to compare them on one card.
+the coupled washout and the thermal path (BGK, then TRT) of one tree of
+the port, timed through Simulation.run (CoupledTransport.run,
+BuoyantTransport.run) on the card, and the clinical path and clinical
+coupled washout (the coronary with windkessel outlets) where the tree has
+them: run it for two trees in turns (parent, change, change, parent) in
+one call to compare them on one card.
 
     python3 probes/path_ab.py [ROOT]   # ROOT: a checkout of the repo
                                        # (default: this one); needs a card
@@ -15,9 +16,12 @@ power limit, ROOT, and for each path its ms/step over each chunk (host
 clock around chunks that end in a device read), and the collide-stream
 kernel's ms a launch on one fixed state (CUDA events over 500 launches
 after a warm-up) at lid 256^3 [bgk] and gravity_channel 256^3
-[trt+force].
+[trt+force], and of the force-field instances at heated_cavity_3d 256^3
+([bgk+field], [trt+field]; 300 launches on the state the run left, the
+two buffers in turn).
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -110,10 +114,42 @@ def main() -> int:
     from lbm_tpu_torch.cases import thermal as tcases
     from lbm_tpu_torch.engine.thermal import BuoyantTransport
 
+    def field_ms(bt, iters=300):
+        state = [bt.f, bt._f_spare]
+        series = torch.zeros(1, dtype=torch.float64, device=device)
+
+        def launch():
+            K.collide_stream(state[0], state[1], bt.cc, series, 0, 0,
+                             field=bt.field, g=bt.g)
+            state.reverse()
+
+        for _ in range(50):
+            launch()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            launch()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
     spec, kw, _ = tcases.heated_cavity_3d(n=256, ra=1e4, pr=0.71)
-    out["thermal_ms_per_step"] = transport_chunks(
-        lambda: BuoyantTransport(spec, device=device, **kw), 1000, 250)
-    torch.cuda.empty_cache()
+    for coll, steps, key in (("bgk", 1000, "thermal"),
+                             ("trt", 500, "thermal_trt")):
+        made = []
+
+        def make(coll=coll):
+            made.append(BuoyantTransport(
+                dataclasses.replace(spec, collision=coll), device=device,
+                **kw))
+            return made[-1]
+
+        out[f"{key}_ms_per_step"] = transport_chunks(make, steps, 250)
+        out[f"{key}_k1e_ms"] = field_ms(made[-1])
+        del made
+        torch.cuda.empty_cache()
     try:  # the windkessel outlets, in trees that have them
         clin = get_case("coronary", **full, windkessel=[
             (2e-4, 2e4, 1e-3)] + [(2e-4, 2e4, 3e-3)] * 3)
@@ -123,6 +159,10 @@ def main() -> int:
     else:
         sim, out["clinical_ms_per_step"] = chunks(clin, 2000, 500, sim=sim)
         del sim
+        torch.cuda.empty_cache()
+        out["clinical_coupled_ms_per_step"] = transport_chunks(
+            lambda: CoupledTransport(clin, tau_g=0.6, device=device), 2000,
+            500)
     print(json.dumps(out), flush=True)
     return 0
 

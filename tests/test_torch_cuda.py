@@ -919,43 +919,93 @@ WK_CASES = {
 @pytest.mark.parametrize("label", sorted(WK_CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_windkessel_flux_and_planes_match_plain(device, label, dtype):
-    """lbm_windkessel_flux's wk and rho* equal windkessel_flux_plain's (the
-    same fixed summation order), and K1 with its windkessel x/y and z
-    planes reading rho* from the device equals step_plain, over 20 steps
-    of each storage type."""
-    import numpy as np
-
+    """From a developed state (80 float32 steps of the case on the card,
+    then stored in `dtype`; Q != 0 at every outlet of the coronaries):
+    the flux kernel's prime (terms and Q) equals wk_terms_plain, and the
+    fold launch with its reduction equals step_wk_plain over 20 steps,
+    f, P_c, the staged Q and the terms, and stays lbm_tpu's order (a flux
+    from each pre-step state, then the step)."""
     from lbm_tpu_torch.engine.compile import wk_init
 
     name, kw = WK_CASES[label]
-    cc = compile_case(get_case(name, **kw), device)
-    f = initial_f(cc).to(dtype)
+    spec = get_case(name, **kw)
+    dev = Simulation(spec, device=device)
+    dev.run(max_steps=80, time_save=80, verbose=False)
+    cc = dev.cc
+    f = dev.f.to(dtype)
+    wk0 = dev.wk.clone()
+    assert not torch.equal(wk0, torch.from_numpy(wk_init(cc.bcs)).to(device))
     fk, buf = f.clone(), f.clone()
-    wk_k = torch.from_numpy(wk_init(cc.bcs)).to(device)
-    wk_p = wk_k.clone()
-    rho_k = torch.zeros_like(wk_k)
+    wk_k, wk_p = wk0.clone(), wk0.clone()
+    terms_p, q_p = K.wk_terms_plain(f, cc)
+    if name == "coronary":
+        assert (q_p != 0).all()
+    K.reset_launches()
+    stage = K.windkessel_prime(fk, cc)
+    assert torch.equal(stage.terms, terms_p) and torch.equal(stage.q, q_p)
     vs_k = torch.zeros(20, dtype=torch.float64, device=device)
     vs_p = torch.zeros(20, dtype=torch.float64, device=device)
-    K.reset_launches()
+    g, wk_g = f.clone(), wk0.clone()
     for t in range(20):
-        w, r = K.windkessel_flux_plain(fk, cc, wk_k.clone())
-        K.windkessel_flux(fk, cc, wk_k.clone(), rho_k)
-        assert torch.equal(rho_k, r)
         K.collide_stream(fk, buf, cc, vs_k, t, t, wk=wk_k)
-        assert torch.equal(wk_k, w)
         fk, buf = buf, fk
-        wk_p, rho_p = K.windkessel_flux_plain(f, cc, wk_p)
-        f, vs_p[t] = K.step_plain(f, cc, t, rho_wk=rho_p)
+        f, vs_p[t], wk_p, terms_p, q_p = K.step_wk_plain(f, cc, t, wk_p, q_p)
+        w, rho = K.windkessel_flux_plain(g, cc, wk_g)
+        g, _ = K.step_plain(g, cc, t, rho_wk=rho)
+        wk_g = w
     torch.cuda.synchronize()
     tag = "+bf16" if dtype == torch.bfloat16 else ""
     inst = K.instance(cc)
-    assert K.launches[f"lbm_collide_stream[{inst}+wk{tag}]"] == 20
-    assert K.launches["lbm_windkessel_flux" + ("[bf16]" if tag else "")] \
-        == 40
+    assert K.launches == {
+        f"lbm_collide_stream[{inst}+wk{tag}]": 20,
+        "lbm_windkessel_flux" + ("[bf16]" if tag else ""): 1}
     torch.testing.assert_close(fk.float(), f.float(), rtol=3e-6, atol=1e-7)
     torch.testing.assert_close(wk_k, wk_p, rtol=1e-6, atol=0.0)
     torch.testing.assert_close(vs_k, vs_p, rtol=1e-5, atol=0.0)
-    assert np.isfinite(fk.float().cpu().numpy()).all()
+    if cc.closure is None:
+        assert torch.equal(fk, f) and torch.equal(wk_k, wk_p)
+        assert torch.equal(stage.q, q_p) and torch.equal(stage.terms, terms_p)
+        assert torch.equal(f, g) and torch.equal(wk_p, wk_g)
+
+
+@pytest.mark.parametrize("how", ["set_f_standard", "direct"])
+def test_windkessel_fold_primes_on_the_card(device, how):
+    """The fold primes from a state it did not write: a run whose state
+    is loaded mid-way equals an uninterrupted one, and two states stepped
+    call by call through one case each equal their own plain sequence."""
+    name, kw = WK_CASES["coronary"]
+    spec = get_case(name, **kw)
+    if how == "set_f_standard":
+        fresh = Simulation(spec, device=device)
+        fresh.run(max_steps=16, time_save=8, verbose=False)
+        a = Simulation(spec, device=device)
+        a.run(max_steps=8, time_save=8, verbose=False)
+        b = Simulation(spec, device=device)
+        b.run(max_steps=3, time_save=3, verbose=False)
+        b.set_f_standard(a.f_standard())
+        b.wk, b.t = a.wk.clone(), a.t
+        b.run(max_steps=8, time_save=8, verbose=False)
+        assert torch.equal(b.f, fresh.f) and torch.equal(b.wk, fresh.wk)
+        return
+    from lbm_tpu_torch.engine.compile import wk_init
+
+    cc = compile_case(spec, device)
+    w0 = torch.from_numpy(wk_init(cc.bcs)).to(device)
+    starts = [initial_f(cc), initial_f(cc) * 1.001]
+    runs = [[s.clone(), s.clone(), w0.clone()] for s in starts]
+    series = torch.zeros(1, dtype=torch.float64, device=device)
+    K.reset_launches()
+    for t in range(6):
+        for r in runs:
+            K.collide_stream(r[0], r[1], cc, series, 0, t, wk=r[2])
+            r[0], r[1] = r[1], r[0]
+    assert K.launches["lbm_windkessel_flux"] == 12
+    for r, g in zip(runs, starts):
+        wk = w0.clone()
+        for t in range(6):
+            wk, rho = K.windkessel_flux_plain(g, cc, wk)
+            g, _ = K.step_plain(g, cc, t, rho_wk=rho)
+        assert torch.equal(r[0], g) and torch.equal(r[2], wk)
 
 
 def test_windkessel_simulation_on_the_card(device):

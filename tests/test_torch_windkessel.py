@@ -1,10 +1,12 @@
 """Windkessel (RCR) outlets in lbm_tpu_torch on the CPU, held against
 lbm_tpu: the update and the compiled outlet fields exactly; the dense
 route against lbm_tpu's 'xla' backend and the kernel route's plain
-versions (the flux kernel's and the collide-stream launch's) against
-lbm_tpu's Pallas step in interpret mode, both at lbm_tpu's own
-kernel-against-dense tolerance for windkessel (f and P_c at rtol 3e-5,
-atol 1e-8, tests/test_windkessel.py); checkpoints both ways; the coupled
+versions (the collide-stream launch with the outlets' flux folded in, and
+the flux kernel that primes it) against lbm_tpu's Pallas step in
+interpret mode, both at lbm_tpu's own kernel-against-dense tolerance for
+windkessel (f and P_c at rtol 3e-5, atol 1e-8, tests/test_windkessel.py);
+the fold's plain sequence bit for bit against a flux from each pre-step
+state, its launch list, its primes; checkpoints both ways; the coupled
 transport; the flux's fixed summation order; bf16 storage; the
 refusals."""
 
@@ -32,7 +34,13 @@ from lbm_tpu.kernels.collide_stream import (
 from lbm_tpu_torch.cases import get_case
 from lbm_tpu_torch.core.lattice import D3Q19
 from lbm_tpu_torch.engine import checkpoint as ckpt
-from lbm_tpu_torch.engine.compile import check_z_windows, compile_case, wk_init
+from lbm_tpu_torch.engine.compile import (
+    check_z_windows,
+    compile_case,
+    fluid_cell_ids,
+    wk_footprint,
+    wk_init,
+)
 from lbm_tpu_torch.engine.runner import Simulation
 from lbm_tpu_torch.engine.scalar import CoupledTransport
 from lbm_tpu_torch.engine.step import (
@@ -172,11 +180,22 @@ def test_kernel_route_matches_pallas_f(pallas_coronary):
 
 
 def test_kernel_route_matches_pallas_wk_and_velsum(pallas_coronary):
+    """The fold's route, direct calls and through the runner's chunks
+    (each primed once), against lbm_tpu's Pallas route."""
     f, wk, series = _kernel_route(compile_case(get_case("coronary", **COR)),
                                   PALLAS_STEPS)
     _close(wk, pallas_coronary[1])
     np.testing.assert_allclose(series.numpy(), pallas_coronary[2],
                                rtol=1e-4)
+    sim = Simulation(dataclasses.replace(get_case("coronary", **COR),
+                                         residual_flavor="velsum"),
+                     device="cpu")
+    res = sim.run(max_steps=PALLAS_STEPS, time_save=PALLAS_STEPS // 3,
+                  verbose=False)
+    _close(sim.wk, pallas_coronary[1])
+    _close(sim.f, pallas_coronary[0])
+    np.testing.assert_allclose(res.velsum_series - sim.cc.velsum_offset,
+                               pallas_coronary[2], rtol=1e-4)
 
 
 def test_kernel_route_equals_its_plain_versions():
@@ -194,6 +213,131 @@ def test_kernel_route_equals_its_plain_versions():
     sim = Simulation(get_case("coronary", **COR), device="cpu")
     sim.run(max_steps=6, time_save=4, verbose=False)
     assert torch.equal(sim.f, f) and torch.equal(sim.wk, wk)
+
+
+def _flux_then_step(cc, f, w, steps, t0=0):
+    """lbm_tpu's order: each step the outlets' flux from the pre-step
+    state (windkessel_flux_plain), then the step with the rho* it
+    gives."""
+    for t in range(t0, t0 + steps):
+        w, rho = K.windkessel_flux_plain(f, cc, w)
+        f, _ = K.step_plain(f, cc, t, rho_wk=rho)
+    return f, w
+
+
+@pytest.fixture(scope="module")
+def developed_coronary():
+    """The pulsatile 4-outlet coronary after 80 float32 steps (flux, then
+    step): a state whose every outlet has Q != 0 in both storages (a bf16
+    state rounds the small flow of the first 60 steps at three outlets
+    away), with its P_c."""
+    cc = compile_case(get_case("coronary", **COR))
+    f, w = _flux_then_step(cc, initial_f(cc),
+                           torch.from_numpy(wk_init(cc.bcs)), 80)
+    return cc, f, w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fold_plain_equals_flux_then_step(developed_coronary, dtype):
+    """The fold's plain sequence (prime, then each step's launch with the
+    staged flux, committing P_c and staging the next) is bit for bit a
+    flux from each pre-step state and the step, over 40 steps of the
+    pulsatile 4-outlet coronary from a developed state; so is the kernel
+    route's CPU twin."""
+    cc, f_dev, w0 = developed_coronary
+    f0 = f_dev.to(dtype)
+    f, w = f0, w0.clone()
+    _, q = K.wk_terms_plain(f, cc)
+    assert (q != 0).all()
+    for t in range(40):
+        f, _, w, _, q = K.step_wk_plain(f, cc, t, w, q)
+    g, v = _flux_then_step(cc, f0, w0.clone(), 40)
+    assert torch.equal(f, g) and torch.equal(w, v) and (v != w0).all()
+    h, out, u = f0.clone(), f0.clone(), w0.clone()
+    series = torch.zeros(40, dtype=torch.float64)
+    for t in range(40):
+        K.step(h, out, cc, series, t, t, wk=u)
+        h, out = out, h
+    assert torch.equal(h, g) and torch.equal(u, v)
+
+
+@pytest.mark.parametrize("how", ["set_f_standard", "restore"])
+def test_pc_after_reload_equals_a_fresh_run(tmp_path, how):
+    """A run whose state is loaded mid-way (set_f_standard with its P_c,
+    or a checkpoint restore) primes the fold from the loaded state: its
+    f and P_c after 8 more steps equal an uninterrupted run's."""
+    spec = get_case("coronary", **COR)
+    fresh = Simulation(spec, device="cpu")
+    fresh.run(max_steps=16, time_save=8, verbose=False)
+    a = Simulation(spec, device="cpu")
+    a.run(max_steps=8, time_save=8, verbose=False)
+    b = Simulation(spec, device="cpu")
+    if how == "restore":
+        path = str(tmp_path / "mid.npz")
+        ckpt.save_sim(path, a)
+        ckpt.restore(b, path)
+    else:
+        b.run(max_steps=3, time_save=3, verbose=False)  # a staged state
+        b.set_f_standard(a.f_standard())
+        b.wk, b.t = a.wk.clone(), a.t
+    b.run(max_steps=8, time_save=8, verbose=False)
+    assert torch.equal(b.f, fresh.f) and torch.equal(b.wk, fresh.wk)
+
+
+def test_direct_calls_prime_on_another_state():
+    """A direct call whose f is not the last fold launch's out (another
+    state, or the same one written in place) primes the fold from f: two
+    runs of one case interleaved call by call, and a state scaled in
+    place between calls, each equal to its own plain sequence."""
+    cc = compile_case(get_case("coronary", **COR))
+    w0 = torch.from_numpy(wk_init(cc.bcs))
+    f0 = initial_f(cc)
+    f1 = f0 * 1.001
+    runs = [[f0.clone(), f0.clone(), w0.clone()],
+            [f1.clone(), f1.clone(), w0.clone()]]
+    series = torch.zeros(1, dtype=torch.float64)
+    for t in range(6):
+        for r in runs:
+            K.step(r[0], r[1], cc, series, 0, t, wk=r[2])
+            r[0], r[1] = r[1], r[0]
+    for r, start in zip(runs, (f0, f1)):
+        g, v = _flux_then_step(cc, start, w0.clone(), 6)
+        assert torch.equal(r[0], g) and torch.equal(r[2], v)
+    h, out, u = runs[0]
+    h.mul_(1.0005)  # in place: torch bumps its version
+    w_before, h_before = u.clone(), h.clone()
+    K.step(h, out, cc, series, 0, 6, wk=u)
+    w, rho = K.windkessel_flux_plain(h_before, cc, w_before)
+    g, _ = K.step_plain(h_before, cc, 6, rho_wk=rho)
+    assert torch.equal(out, g) and torch.equal(u, w)
+
+
+@pytest.mark.parametrize("name,kw", [("coronary", COR),
+                                     ("poiseuille", POIS)])
+def test_fold_list_holds_the_fluid_cells_footprint_first(name, kw):
+    """The launch list of a case with windkessel outlets holds the same
+    cells as fluid_cell_ids, the outlets' fluid footprint cells first in
+    footprint order (the rest ascending), even where a case without
+    outlets would launch over every cell; WKLists.foot names their
+    footprint rows and axes."""
+    cc = compile_case(get_case(name, **kw))
+    mask = np.asarray(cc.spec.mask)
+    ids = cc.fluid_cells.numpy()
+    assert sorted(ids.tolist()) == fluid_cell_ids(mask).tolist()
+    fluid = mask.reshape(-1) == 4
+    wk = [bc for bc in cc.bcs if bc.windkessel is not None]
+    foot = np.concatenate([wk_footprint(bc, cc.shape)[0] for bc in wk])
+    head = foot[fluid[foot]]
+    assert 0 < len(head) < len(ids)
+    assert ids[:len(head)].tolist() == head.tolist()
+    rest = ids[len(head):]
+    assert (np.diff(rest) > 0).all() and not np.isin(rest, head).any()
+    lists = K.wk_lists(cc)
+    codes = lists.foot.numpy()
+    assert lists.cells.numpy()[codes // 3].tolist() == head.tolist()
+    axes = np.repeat([bc.axis for bc in wk], np.diff(lists.rows[:, 1:],
+                                                     axis=1)[:, 0])
+    assert (codes % 3 == axes[codes // 3]).all()
 
 
 def _kernel_order_sum(v: np.ndarray, block: int = K.WK_BLOCK) -> np.float32:
