@@ -249,6 +249,32 @@ lbm_windkessel_flux, its prime, from windkessel.cu):
      on it (tau_g 0.6, a 500-step bolus, every boundary recorded), 2000
      steps (K1 [bgk+wk] and K8 2000 each, the prime once; at most four
      kernel launches a step), the washout checks of phase 9.
+ 19. curved walls and the live-cell (sparse) backend: the full curved
+     coronary (coronary curved=True, pulsatile=[40, 2000], 291x291x372
+     r=12) on backend='sparse' (2000 steps) and 'dense' (200), f at the
+     fluid cells of the two at rtol 3e-6 / atol 1e-7 and their velsum at
+     1e-5 relative after 200 steps, ms/step and peak device memory of
+     each, a 20-step profile of the sparse step; the straight full
+     coronary on 'sparse' against the kernel backend, 200 steps (counters
+     reset just before and read just after: K1 [bgk] 200), at the same
+     tolerance; the kernel backend's wss() on the full coronary through
+     the live-cell route (5 * 19 * 4 * cells > 6e9): ms, device memory
+     rise, max difference against the dense pull (rtol 1e-5), and both
+     routes' ms and rise, first call and later, on the default coronary
+     (128x64x96 r=10, below the line); through the CLI (in this
+     process) run --case pipe --backend dense and --backend sparse, run
+     --case coronary --opt curved=true --backend sparse --snapshots
+     --profile DIR (the three snapshot files and a trace with events).
+     While the kernels build (phase 2), the parts that need no kernel:
+     the pipe n=36 nz=4 R=13.7 after 4000 dense steps, curved and
+     staircase, its Hagen-Poiseuille error under 0.008 and under 0.35x
+     the staircase's, and, in a process of its own, python -m
+     lbm_tpu_torch run --case pipe on the kernel backend, which must
+     exit non-zero with lbm_tpu's refusal. Its results are printed as
+     one JSON object {"phase19": ...}.
+The CLI's runs (phases 8, 12 and 19) call lbm_tpu_torch.cli.main in this
+process, as `python -m lbm_tpu_torch` does (cli_run), but for run
+--shard, which spawns its ranks.
 Before the last line it prints one JSON object describing each kernel;
 the last line is {"ok": true, "device": {...}}.
 
@@ -259,7 +285,10 @@ runs phase 17 alone on every card of the machine (two or more).
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import gc
+import io
 import json
 import os
 import subprocess
@@ -834,6 +863,28 @@ def free_device():
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+
+def cli_run(args: list) -> subprocess.CompletedProcess:
+    """`python -m lbm_tpu_torch *args` in this process: lbm_tpu_torch.cli.
+    main, which the package's __main__ calls, with its standard output
+    captured. Its return code, or 1 and the traceback as stderr where it
+    raises, as the interpreter would exit; the state it left is freed."""
+    import traceback
+
+    from lbm_tpu_torch.cli import main as cli_main
+
+    buf, err = io.StringIO(), ""
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(list(args))
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else 1
+    except Exception:
+        rc, err = 1, traceback.format_exc()
+    free_device()
+    return subprocess.CompletedProcess(["lbm_tpu_torch", *args], rc,
+                                       buf.getvalue(), err)
 
 
 def blocks_per_sm(registers: int, threads: int = K1_THREADS) -> int:
@@ -2264,11 +2315,9 @@ def cli_transport_and_thermal():
 
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "lbm_tpu_torch", "transport", "--case",
-             "coronary", "--flow-steps", "500", "--steps", "1000", "--bolus",
-             "200", "--vtk", "--out", tmp],
-            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        proc = cli_run(["transport", "--case", "coronary", "--flow-steps",
+                        "500", "--steps", "1000", "--bolus", "200", "--vtk",
+                        "--out", tmp])
         require(proc.returncode == 0,
                 f"CLI transport failed ({proc.returncode}):\n{proc.stdout}\n"
                 f"{proc.stderr}")
@@ -2286,10 +2335,7 @@ def cli_transport_and_thermal():
               flush=True)
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "lbm_tpu_torch", "thermal", "--vtk",
-             "--out", tmp],
-            cwd=ROOT, capture_output=True, text=True, timeout=900)
+        proc = cli_run(["thermal", "--vtk", "--out", tmp])
         require(proc.returncode == 0,
                 f"CLI thermal failed ({proc.returncode}):\n{proc.stdout}\n"
                 f"{proc.stderr}")
@@ -3406,6 +3452,368 @@ def nccl_path(world, full):
               flush=True)
 
 
+def pipe_error(curved: bool, device) -> tuple:
+    """(relative L2 error of u_z against Hagen-Poiseuille, ms/step) of the
+    off-centre pipe n=36, nz=4, R=13.7 after 4000 dense steps, curved or
+    staircase (the configuration of tests/test_bouzidi.py)."""
+    import numpy as np
+
+    from lbm_tpu_torch.cases import get_case
+    from lbm_tpu_torch.cases.pipe import pipe_sdf
+    from lbm_tpu_torch.engine.runner import Simulation
+
+    n, radius = 36, 13.7
+    spec = get_case("pipe", n=n, nz=4, curved=curved, radius=radius)
+    sim = Simulation(spec, device=device, backend="dense")
+    res = sim.run(max_steps=4000, tol=-1.0, verbose=False)
+    require(res.steps == 4000, f"pipe ran {res.steps} steps, not 4000")
+    uz = sim.macro()[1][2][..., 2].cpu().numpy().astype(np.float64)
+    c = ((n - 1) / 2 + 0.23, (n - 1) / 2 + 0.38)
+    r = radius - pipe_sdf(n, radius, c)
+    nu = (spec.tau - 0.5) / 3
+    ua = spec.force[2] / (4 * nu) * (radius ** 2 - r ** 2)
+    fl = np.asarray(spec.mask[..., 2]) == 4
+    err = float(np.sqrt(np.sum((uz[fl] - ua[fl]) ** 2)
+                        / np.sum(ua[fl] ** 2)))
+    return err, res.elapsed_s / res.steps * 1e3
+
+
+def total_line(stdout: str) -> str:
+    return next((ln for ln in stdout.splitlines()
+                 if "TOTAL RUNNING TIME" in ln), "no TOTAL RUNNING TIME line")
+
+
+def curved_during_build(device) -> dict:
+    """Phase 19's parts that need no kernel, run while the kernels build:
+    the pipe's Hagen-Poiseuille error, curved and staircase, on 'dense'
+    (its ms/step shares the host with nvcc), and python -m lbm_tpu_torch
+    run --case pipe on the kernel backend, in a process of its own, which
+    must exit non-zero with lbm_tpu's refusal."""
+    from lbm_tpu_torch.engine.compile import CURVED_REFUSAL
+
+    tag = "[19]"
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        t0 = time.perf_counter()
+        refusal = subprocess.Popen(
+            [sys.executable, "-m", "lbm_tpu_torch", "run", "--case", "pipe",
+             "--steps", "10", "--out", os.path.join(tmp, "k")], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            eb, ms_b = pipe_error(True, device)
+            es, ms_s = pipe_error(False, device)
+            _, err = refusal.communicate(timeout=600)
+        finally:
+            refusal.kill()
+            refusal.wait()
+    require(eb < 0.008 and eb < 0.35 * es,
+            f"{tag} pipe error curved {eb:.4f}, staircase {es:.4f}: not "
+            "under 0.008 and 0.35x the staircase's")
+    print(f"{tag} pipe n=36 R=13.7, 4000 dense steps (while the kernels "
+          f"build): Hagen-Poiseuille error curved {eb:.5f} ({ms_b:.4f} "
+          f"ms/step), staircase {es:.5f} ({ms_s:.4f} ms/step), ratio "
+          f"{eb / es:.3f}", flush=True)
+    require(refusal.returncode != 0 and CURVED_REFUSAL in err,
+            f"CLI pipe on the kernel backend: exit {refusal.returncode}, "
+            f"stderr {err[-400:]}")
+    print(f"{tag} python -m lbm_tpu_torch run --case pipe (kernel backend) "
+          f"exits {refusal.returncode}: {err.strip().splitlines()[-1]}",
+          flush=True)
+    free_device()
+    mark("19c")
+    return {"curved_err": eb, "staircase_err": es, "curved_ms": ms_b,
+            "staircase_ms": ms_s, "refusal_exit": refusal.returncode,
+            "wall_s": time.perf_counter() - t0}
+
+
+def curved_path(device, full) -> dict:
+    """Phase 19: Bouzidi curved walls and the live-cell (sparse) backend.
+    The full curved coronary on 'sparse' (2000 steps) against 'dense'
+    (200) at 200 steps; the straight full coronary on 'sparse' against the
+    kernel backend (K1 [bgk] over the fluid list, counters reset just
+    before and read just after) for 200 steps; the kernel backend's wss()
+    on the full coronary through the live-cell route against its dense
+    pull, and both routes on the default coronary, below lbm_tpu's line
+    (first call and a later one); run --case pipe on 'dense' and 'sparse'
+    and the curved coronary with --snapshots and --profile through the
+    CLI (curved_during_build has the pipe's error and the refusal)."""
+    import dataclasses
+
+    import torch
+
+    from lbm_tpu_torch.cases import get_case
+    from lbm_tpu_torch.engine.runner import Simulation
+    from lbm_tpu_torch.engine.sparse import gather_live, scatter_dense
+    from lbm_tpu_torch.engine.stress import wss_field, wss_sparse
+    from lbm_tpu_torch.kernels import collide_stream as K
+
+    tag = "[19]"
+    out = {}
+    u_in = 0.1745 / 2.74909090909091
+
+    def peak_gib(base):
+        return (torch.cuda.max_memory_allocated(device) - base) / 2**30
+
+    def start():
+        free_device()
+        torch.cuda.reset_peak_memory_stats(device)
+        return torch.cuda.memory_allocated(device)
+
+    def velsum_rel(a, b):
+        return float(abs(a - b).max() / abs(b).min())
+
+    # (a) the full curved coronary, sparse against dense
+    t0 = time.perf_counter()
+    cspec = dataclasses.replace(
+        get_case("coronary", **FULL_CORONARY, curved=True),
+        residual_flavor="velsum")
+    spec_s = time.perf_counter() - t0
+    base = start()
+    t0 = time.perf_counter()
+    sp = Simulation(cspec, device=device, backend="sparse")
+    sc = sp.sc
+    compile_sp = time.perf_counter() - t0
+    marks = []
+    t0 = time.perf_counter()
+    rs = sp.run(max_steps=200, time_save=100, tol=-1.0, verbose=False,
+                on_save=chunk_clock(marks))
+    require(rs.steps == 200, f"{tag} sparse ran {rs.steps} steps")
+    f_sp = sp.f[:, sc.fluid].clone()
+    sp_peak = peak_gib(base)
+    n_links = 0 if sc.links is None else int(sc.links[0].numel())
+    print(f"{tag} curved coronary {tuple(cspec.shape)}: spec {spec_s:.1f} s; "
+          f"sparse: {sc.n_live} live cells ({int(sc.fluid.sum())} fluid, "
+          f"{n_links} Bouzidi links), compile {compile_sp:.1f} s, 200 steps "
+          f"{rs.elapsed_s / 200 * 1e3:.4f} ms/step (chunks of 100: "
+          f"{chunk_ms(t0, marks, 100)}), peak device memory {sp_peak:.2f} "
+          "GiB above what was held", flush=True)
+    base = start()
+    t0 = time.perf_counter()
+    de = Simulation(cspec, device=device, backend="dense")
+    de.cc.bouzidi  # the links, built at first use
+    compile_de = time.perf_counter() - t0
+    marks = []
+    t0 = time.perf_counter()
+    rd = de.run(max_steps=200, time_save=100, tol=-1.0, verbose=False,
+                on_save=chunk_clock(marks))
+    de_peak = peak_gib(base)
+    f_de = gather_live(sc, de.f)[:, sc.fluid]
+    err = check_close(f"{tag} curved coronary sparse vs dense, 200 steps",
+                      f_sp, f_de, 3e-6, 1e-7)
+    vrel = velsum_rel(rs.velsum_series, rd.velsum_series)
+    require(vrel <= 1e-5, f"{tag} curved coronary velsum sparse vs dense "
+            f"{vrel:.3e} > 1e-5")
+    out["curved"] = {
+        "live_cells": sc.n_live, "fluid_cells": int(sc.fluid.sum()),
+        "links": n_links, "sparse_ms": rs.elapsed_s / 200 * 1e3,
+        "dense_ms": rd.elapsed_s / 200 * 1e3, "sparse_peak_gib": sp_peak,
+        "dense_peak_gib": de_peak, "max_abs_err": err,
+        "bit_equal": bool(torch.equal(f_sp, f_de)), "velsum_rel": vrel,
+        "compile_s": {"sparse": compile_sp, "dense": compile_de}}
+    print(f"{tag} curved coronary dense: compile {compile_de:.1f} s, 200 "
+          f"steps {out['curved']['dense_ms']:.4f} ms/step (chunks of 100: "
+          f"{chunk_ms(t0, marks, 100)}), peak device memory {de_peak:.2f} "
+          f"GiB above what was held; f at fluid cells sparse vs dense max "
+          f"abs err {err:.3e} (bit-equal {out['curved']['bit_equal']}), "
+          f"velsum max rel diff {vrel:.3e}", flush=True)
+    del de, f_de, f_sp
+    free_device()
+    marks = []
+    t0 = time.perf_counter()
+    rs2 = sp.run(max_steps=1800, time_save=600, tol=-1.0, verbose=False,
+                 on_save=chunk_clock(marks))
+    by_name, busy = profile_run(sp, 20)
+    rho, u = sp.macro()
+    u_max = float(u.abs().max())
+    require(bool(torch.isfinite(u).all()) and bool(torch.isfinite(rho).all())
+            and u_max <= 3 * u_in,
+            f"{tag} curved coronary sparse fields: max|u| {u_max:.4g}")
+    out["curved"].update(sparse_ms_2000=(rs.elapsed_s + rs2.elapsed_s)
+                         / 2000 * 1e3, sparse_busy=busy,
+                         sparse_launches_per_step=sum(
+                             v[1] for v in by_name.values()),
+                         sparse_device_ms=sum(v[0] for v in by_name.values()))
+    print(f"{tag} curved coronary sparse, steps 200-2000: "
+          f"{rs2.elapsed_s / 1800 * 1e3:.4f} ms/step (chunks of 600: "
+          f"{chunk_ms(t0, marks, 600)}); 2000 steps at "
+          f"{out['curved']['sparse_ms_2000']:.4f} ms/step; max|u| "
+          f"{u_max:.4g} (inlet {u_in:.4g})", flush=True)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:4]
+    print(f"{tag} curved coronary sparse, a 20-step profile: device "
+          f"{out['curved']['sparse_device_ms']:.4f} ms a step in "
+          f"{out['curved']['sparse_launches_per_step']:.1f} launches, busy "
+          f"{busy:.3f} of the traced window; "
+          + "; ".join(f"{short_name(k)} {v[0]:.4f} x{v[1]:.1f}"
+                      for k, v in top), flush=True)
+    del sp, rho, u, sc
+    free_device()
+    mark("19a")
+
+    # (b) the straight full coronary, sparse against the kernel backend
+    vfull = dataclasses.replace(full, residual_flavor="velsum")
+    kern = Simulation(vfull, device=device)
+    K.reset_launches()
+    marks = []
+    t0 = time.perf_counter()
+    rk = kern.run(max_steps=200, time_save=100, tol=-1.0, verbose=False,
+                  on_save=chunk_clock(marks))
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    require(counts.get("lbm_collide_stream[bgk]") == 200,
+            f"{tag} kernel backend launches: {counts}")
+    k_chunks = chunk_ms(t0, marks, 100)
+    base = start()
+    t0 = time.perf_counter()
+    spr = Simulation(vfull, device=device, backend="sparse")
+    compile_sp = time.perf_counter() - t0
+    marks = []
+    t0 = time.perf_counter()
+    rs = spr.run(max_steps=200, time_save=100, tol=-1.0, verbose=False,
+                 on_save=chunk_clock(marks))
+    sp_peak = peak_gib(base)
+    sc = spr.sc
+    err = check_close(f"{tag} straight coronary sparse vs kernel, 200 steps",
+                      spr.f[:, sc.fluid], gather_live(sc, kern.f)[:, sc.fluid],
+                      3e-6, 1e-7)
+    vrel = velsum_rel(rs.velsum_series, rk.velsum_series)
+    require(vrel <= 1e-5, f"{tag} straight coronary velsum sparse vs "
+            f"kernel {vrel:.3e} > 1e-5")
+    out["straight"] = {
+        "live_cells": sc.n_live, "sparse_ms": rs.elapsed_s / 200 * 1e3,
+        "kernel_ms": rk.elapsed_s / 200 * 1e3, "max_abs_err": err,
+        "velsum_rel": vrel, "sparse_peak_gib": sp_peak,
+        "kernel_launches": counts["lbm_collide_stream[bgk]"]}
+    print(f"{tag} straight coronary: sparse ({sc.n_live} live cells, compile "
+          f"{compile_sp:.1f} s) {out['straight']['sparse_ms']:.4f} ms/step "
+          f"(chunks {chunk_ms(t0, marks, 100)}), peak {sp_peak:.2f} GiB; "
+          f"kernel backend {out['straight']['kernel_ms']:.4f} ms/step "
+          f"(chunks {k_chunks}), launches {counts}; f at fluid cells max "
+          f"abs err {err:.3e}, velsum max rel diff {vrel:.3e}", flush=True)
+    del spr, sc
+    mark("19b")
+
+    # (d) the kernel backend's wss() through the live-cell route
+    require(kern._wss_via_sparse(), f"{tag} the full coronary's wss() does "
+            "not take the live-cell route")
+    base = start()
+    t0 = time.perf_counter()
+    w = kern.wss()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    first_rise = peak_gib(base)
+    base = start()
+    t0 = time.perf_counter()
+    w = kern.wss()
+    torch.cuda.synchronize()
+    wss_ms = (time.perf_counter() - t0) * 1e3
+    rise = peak_gib(base)
+    base = start()
+    t0 = time.perf_counter()
+    cc, f32 = kern._dense_cc_f()
+    w_dense = wss_field(cc, f32, kern.t, kern._normals(cc), wk=kern.wk)
+    torch.cuda.synchronize()
+    dense_ms = (time.perf_counter() - t0) * 1e3
+    dense_rise = peak_gib(base)
+    require(float(w.max()) > 0, f"{tag} WSS is zero")
+    wss_err = check_close(f"{tag} live-cell WSS vs the dense pull", w,
+                          w_dense, 1e-5, 1e-12)
+    out["wss"] = {"ms_first": first_ms, "ms": wss_ms, "rise_gib": rise,
+                  "rise_first_gib": first_rise, "dense_ms": dense_ms,
+                  "dense_rise_gib": dense_rise, "max_abs_diff": wss_err,
+                  "bit_equal": bool(torch.equal(w, w_dense)),
+                  "max_pa": float(w.max()) * full.units.C_pre}
+    print(f"{tag} kernel backend wss() on the full coronary, live-cell "
+          f"route: {first_ms:.1f} ms first (the live-cell tables and "
+          f"normals built; rise {first_rise:.2f} GiB), {wss_ms:.1f} ms "
+          f"again, device memory rise {rise:.2f} GiB; the dense pull here "
+          f"{dense_ms:.1f} ms, rise "
+          f"{dense_rise:.2f} GiB; max abs diff {wss_err:.3e} (bit-equal "
+          f"{out['wss']['bit_equal']}), max WSS {out['wss']['max_pa']:.4g} "
+          "Pa", flush=True)
+    del kern, w, w_dense, cc, f32
+    free_device()
+
+    # the two routes below lbm_tpu's line: the default coronary on the
+    # kernel backend, each route's first call and a later one
+    small = Simulation(get_case("coronary"), device=device)
+    require(not small._wss_via_sparse(), f"{tag} the default coronary's "
+            "wss() takes the live-cell route")
+    small.run(max_steps=200, time_save=100, tol=-1.0, verbose=False)
+
+    def live():
+        sc, f_s = small._sparse_cc_f()
+        return scatter_dense(sc, wss_sparse(
+            sc, f_s, small.t, small._normals_sparse(sc), wk=small.wk))
+
+    below = {}
+    for route, fn in (("dense", small.wss), ("live", live)):
+        for call in ("first", "again"):
+            base = start()
+            t0 = time.perf_counter()
+            below[route] = fn()
+            torch.cuda.synchronize()
+            out["wss"][f"below_{route}_{call}_ms"] = \
+                (time.perf_counter() - t0) * 1e3
+            out["wss"][f"below_{route}_{call}_rise_gib"] = peak_gib(base)
+    out["wss"]["below_max_abs_diff"] = check_close(
+        f"{tag} default coronary live-cell WSS vs the dense pull",
+        below["live"], below["dense"], 1e-5, 1e-12)
+    ws = out["wss"]
+    print(f"{tag} kernel backend wss() on the default coronary "
+          f"{tuple(small.spec.shape)}, below the line: " + "; ".join(
+              f"{r} route {ws[f'below_{r}_first_ms']:.1f} ms first (rise "
+              f"{ws[f'below_{r}_first_rise_gib']:.3f} GiB), "
+              f"{ws[f'below_{r}_again_ms']:.1f} ms again (rise "
+              f"{ws[f'below_{r}_again_rise_gib']:.3f} GiB)"
+              for r in ("dense", "live"))
+          + f"; max abs diff {ws['below_max_abs_diff']:.3e}", flush=True)
+    del small, below
+    free_device()
+    mark("19d")
+
+    # (e) the CLI, in this process
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
+        for backend in ("dense", "sparse"):
+            d = os.path.join(tmp, "pipe_" + backend)
+            t0 = time.perf_counter()
+            proc = cli_run(["run", "--case", "pipe", "--backend", backend,
+                            "--steps", "200", "--time-save", "100", "--out",
+                            d])
+            require(proc.returncode == 0 and os.path.exists(
+                os.path.join(d, "pipe_200.vtk")),
+                f"CLI pipe --backend {backend} failed ({proc.returncode}):"
+                f"\n{proc.stdout}\n{proc.stderr}")
+            print(f"{tag} CLI run --case pipe --backend {backend} in "
+                  f"{time.perf_counter() - t0:.1f} s: "
+                  f"{total_line(proc.stdout)}", flush=True)
+        prof = os.path.join(tmp, "prof")
+        cdir = os.path.join(tmp, "cor")
+        t0 = time.perf_counter()
+        proc = cli_run(["run", "--case", "coronary", "--backend", "sparse",
+                        "--snapshots", "--profile", prof, "--no-vtk",
+                        "--steps", "10", "--time-save", "5", "--out", cdir,
+                        "--opt", "curved=true"])
+        s = time.perf_counter() - t0
+        files = sorted(os.listdir(cdir)) if os.path.isdir(cdir) else []
+        trace_mb = (os.path.getsize(os.path.join(prof, "trace.json")) / 1e6
+                    if os.path.exists(os.path.join(prof, "trace.json"))
+                    else 0.0)
+        require(proc.returncode == 0 and all(
+            f in files for f in ("meas1.txt", "s1_out.txt", "vel.csv"))
+            and trace_mb > 0.001,
+            f"CLI coronary curved --backend sparse --snapshots --profile "
+            f"failed ({proc.returncode}; files {files}, trace {trace_mb} "
+            f"MB):\n{proc.stdout}\n{proc.stderr}")
+        with open(os.path.join(prof, "trace.json")) as fh:
+            head = fh.read(1 << 20)
+        require('"traceEvents"' in head, "the profile holds no trace events")
+        sizes = {f: os.path.getsize(os.path.join(cdir, f)) for f in files}
+        print(f"{tag} CLI run --case coronary --opt curved=true --backend "
+              f"sparse --snapshots --profile in {s:.1f} s: {sizes}, trace "
+              f"{trace_mb:.1f} MB; {total_line(proc.stdout)}", flush=True)
+    mark("19e")
+    return out
+
+
 def nccl_main() -> int:
     """`chip_smoke.py --nccl`: phase 17 alone on every card (two or
     more), the card's name and power limit first."""
@@ -3461,8 +3869,11 @@ def main() -> int:
           f"{torch.version.cuda}); python {sys.version.split()[0]}",
           flush=True)
 
-    # -- phase 2: build ----------------------------------------------------
-    lib = _build.load_library()
+    # -- phase 2: build, phase 19's kernel-free checks meanwhile ----------
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        building = pool.submit(_build.load_library)
+        pipe = curved_during_build(device)
+        lib = building.result()
     print(f"[2] kernels {'built' if lib.built else 'found'} at "
           f"{os.path.relpath(lib.path, ROOT)} in {lib.build_seconds:.2f} s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})", flush=True)
@@ -3966,6 +4377,11 @@ def main() -> int:
     clin = clinical_path(device)
     mark("18")
 
+    # -- phase 19: curved walls and the live-cell backend ------------------
+    curved = dict(curved_path(device, full), pipe=pipe)
+    free_device()
+    mark("19")
+
     # -- phase 14: the lowmem path -----------------------------------------
     k4 = lowmem_path(device)
     mark("14")
@@ -4000,12 +4416,15 @@ def main() -> int:
             t0 = time.perf_counter()
             kv = [a for a in opts if "=" in a]
             args = [a for a in opts if a not in kv]
-            proc = subprocess.run(
-                [sys.executable, "-m", "lbm_tpu_torch", "run", "--case",
-                 case, "--steps", steps, "--time-save", "100", "--out", tmp,
-                 *args] + (["--opt", *kv] if kv else []),
-                cwd=ROOT, capture_output=True, text=True, timeout=600,
-            )
+            argv = ["run", "--case", case, "--steps", steps, "--time-save",
+                    "100", "--out", tmp, *args] + (["--opt", *kv] if kv
+                                                    else [])
+            # --shard spawns its ranks: a process of its own; the other
+            # runs in this one
+            proc = (subprocess.run(
+                [sys.executable, "-m", "lbm_tpu_torch", *argv], cwd=ROOT,
+                capture_output=True, text=True, timeout=600)
+                if "--shard" in args else cli_run(argv))
             require(proc.returncode == 0,
                     f"CLI run of {case} failed ({proc.returncode}):\n"
                     f"{proc.stdout}\n{proc.stderr}")
@@ -4062,7 +4481,8 @@ def main() -> int:
          "registers": bgk[0], "spill_bytes": bgk[1] + bgk[2],
          "blocks_per_sm": k1_blocks["collide_stream_kernel[bgk]"],
          "vessel_path": vp, "blood_path": blood_vp,
-         "coupled_washout_path": coupled_vp},
+         "coupled_washout_path": coupled_vp,
+         "phase19_launches": curved["straight"]["kernel_launches"]},
         {"name": "lbm_collide_stream[trt+cy]", "route": "cuda",
          "source": K1A_SOURCE,
          "replaces": "lbm_tpu/kernels/collide_stream.py:1333 (K1b branches)",
@@ -4412,6 +4832,7 @@ def main() -> int:
           f"{t64['k1a_plain']:.4f}, K3 {t64['k3']:.4f} plain "
           f"{t64['k3_plain']:.4f}; total "
           f"{time.perf_counter() - t_all:.1f} s", flush=True)
+    print(json.dumps({"phase19": curved}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

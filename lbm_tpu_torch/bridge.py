@@ -13,6 +13,8 @@ for bit on the way in (`as_float32`). A state split along one axis
 over `world` ranks crosses as each rank's window (`shard_window`: the
 rank's ceil(n / world) rows, the rows past the box filled) and comes
 back whole (`gather_windows`).
+A sparse state crosses as lbm_tpu's compacted (19, n_pad) array without
+its lane padding (`sparse_state_from_reference`, and back).
 Nothing here imports lbm_tpu: a reference object is read by attribute.
 """
 
@@ -84,6 +86,30 @@ def state_to_numpy(f) -> np.ndarray:
     """The port's state as a (19, nx, ny, nz) float32 NumPy array (a bf16
     state widened)."""
     return f.detach().cpu().float().numpy()
+
+
+def sparse_state_from_reference(sc, f_s, device="cpu") -> torch.Tensor:
+    """lbm_tpu's compacted (19, n_pad) sparse state (its SparseCase `sc`,
+    read by attribute) as the port's (19, n_live) float32 state: the lane
+    padding dropped; both packages compact in the same order."""
+    f = np.asarray(f_s, np.float32)
+    if f.ndim != 2 or f.shape[0] != 19 or f.shape[1] != int(sc.n_pad):
+        raise ValueError(f"sparse state must be (19, {sc.n_pad}), got "
+                         f"{f.shape}")
+    return torch.from_numpy(np.ascontiguousarray(f[:, :int(sc.n_live)])).to(
+        device)
+
+
+def sparse_state_to_reference(sc, f_s) -> np.ndarray:
+    """The port's (19, n_live) sparse state as lbm_tpu's (19, n_pad) for
+    its SparseCase `sc`, the pad zeros."""
+    f = f_s.detach().cpu().float().numpy()
+    if f.shape != (19, int(sc.n_live)):
+        raise ValueError(f"sparse state must be (19, {sc.n_live}), got "
+                         f"{f.shape}")
+    out = np.zeros((19, int(sc.n_pad)), np.float32)
+    out[:, :f.shape[1]] = f
+    return out
 
 
 def unpack_lattice(packed, shape, channels: int, ring: int = 1):

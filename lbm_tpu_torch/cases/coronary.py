@@ -242,8 +242,9 @@ def build(
 ) -> CaseSpec:
     """geo_path: the reference's geo.txt ('yxz' order, REAL_SHAPE);
     without it the synthetic tree of `shape` and `radius` is built.
-    curved: Bouzidi walls on the synthetic tree's SDF (refused by
-    compile_case until ported). windkessel: see _boundaries.
+    curved: Bouzidi walls on the synthetic tree's SDF (the dense and
+    sparse backends; the kernel backend refuses them). windkessel: see
+    _boundaries.
     pulsatile: (nphase, period_steps) series inlet. inlet_scale: lattice
     inlet speed multiplier. hyperemia: physical flow multiplier at fixed
     lattice speed (C_U *= h, tau -> 1/2 + (tau - 1/2)/h). stenosis:

@@ -3,8 +3,8 @@ lbm_tpu/cases/pipe.py (fully periodic in z, no boundary planes). The
 steady state is Hagen-Poiseuille flow u_z(r) = F/(4 rho nu) (R^2 - r^2).
 
 curved=True carries the exact signed distance R - r for Bouzidi
-interpolated bounce-back, which the port does not run yet (compile_case
-refuses it by name, ROADMAP Queue 1 item 8); curved=False runs the same
+interpolated bounce-back (core/bouzidi.py), which the dense and sparse
+backends run and the kernel backend refuses; curved=False runs the same
 geometry with staircase bounce-back.
 """
 

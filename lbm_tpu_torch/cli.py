@@ -20,6 +20,9 @@
     python -m lbm_tpu_torch run --case lid_driven_cavity --shard 4
     python -m lbm_tpu_torch run --device cpu --case coronary --shard 2 \
         --opt shape=[48,32,40] radius=5
+    python -m lbm_tpu_torch run --case pipe --backend dense
+    python -m lbm_tpu_torch run --case coronary --opt curved=true \
+        --backend sparse --snapshots --profile out/trace
     python -m lbm_tpu_torch list
     python -m lbm_tpu_torch transport --case coronary --bolus 500 --vtk \
         --opt shape=[291,291,372] radius=12
@@ -49,6 +52,14 @@ adds the wall shear stress (Pa) to every VTK file; --wss-stats samples
 the wall traction at every save and writes TAWSS (Pa) and OSI into the
 final one (engine/stress.py).
 
+--backend sparse steps the live cells only (engine/sparse.py, lbm_tpu's
+'sparse'); it and --backend dense run Bouzidi curved walls (pipe, and
+coronary with curved=true), which the kernel backend
+refuses in lbm_tpu's words. --snapshots writes the reference's
+auxiliary files after the run (meas1.txt, s1_out.txt, vel.csv;
+io/snapshots.py); --profile DIR traces sim.run with torch.profiler into
+DIR/trace.json (utils/profiling.trace; rank 0 alone under --shard).
+
 --opt values are read as JSON where they parse (lists, numbers, dicts)
 and as strings otherwise; the rheology dict above is
 core/rheology.carreau_blood at the coronary's units. --backend dense runs the dense PyTorch step,
@@ -59,6 +70,7 @@ with a body force).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -178,13 +190,15 @@ def _cmd_thermal(args) -> int:
     return 0
 
 
-def _add_device_args(p) -> None:
+def _add_device_args(p, backends=("kernel", "dense")) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda runs the CUDA kernels, cpu "
                    "their plain PyTorch versions")
-    p.add_argument("--backend", default="kernel", choices=("kernel", "dense"),
+    p.add_argument("--backend", default="kernel", choices=backends,
                    help="kernel: the CUDA kernels (their plain versions on "
-                   "the CPU); dense: the dense PyTorch route")
+                   "the CPU); dense: the dense PyTorch route"
+                   + ("; sparse: the live-cell PyTorch route"
+                      if "sparse" in backends else ""))
 
 
 def main(argv=None) -> int:
@@ -225,7 +239,13 @@ def main(argv=None) -> int:
     runp.add_argument("--shard", type=int, default=0,
                       help="split the lattice over N ranks (0: one device; "
                       "cuda: one card a rank over NCCL, cpu: gloo)")
-    _add_device_args(runp)
+    runp.add_argument("--snapshots", action="store_true",
+                      help="write the reference's midplane/boundary snapshot "
+                      "files (meas1.txt, s1_out.txt, vel.csv) after the run")
+    runp.add_argument("--profile", default=None, metavar="DIR",
+                      help="trace sim.run with torch.profiler into "
+                      "DIR/trace.json")
+    _add_device_args(runp, ("kernel", "dense", "sparse"))
 
     sub.add_parser("list", help="list available cases")
 
@@ -371,10 +391,18 @@ def _run(mesh, args) -> int:
                 os.path.join(args.out, f"{spec.name}.ckpt.npz"), sim
             )
 
-    result = sim.run(
-        max_steps=args.steps, time_save=args.time_save, on_save=on_save,
-        verbose=lead,
-    )
+    tracing = contextlib.nullcontext()
+    if args.profile and lead:
+        from lbm_tpu_torch.utils.profiling import trace
+
+        tracing = trace(args.profile)
+    with tracing:
+        result = sim.run(
+            max_steps=args.steps, time_save=args.time_save, on_save=on_save,
+            verbose=lead,
+        )
+    if args.profile and lead:
+        print(f"profile -> {os.path.join(args.profile, 'trace.json')}")
     elapsed_ms = (time.perf_counter() - t0) * 1e3
     nlattice = int((np.asarray(spec.mask) != 0).sum())
     if lead:
@@ -397,6 +425,20 @@ def _run(mesh, args) -> int:
                      * spec.units.C_pre,
                      "OSI": wss_acc.osi_field().cpu().numpy()}
         vtk(sim.t, extra)
+    if args.snapshots:
+        from lbm_tpu_torch.io.snapshots import (
+            write_bc_csv,
+            write_midplane,
+            write_midplane_fluid,
+        )
+
+        u = sim.macro()[1]  # every rank takes part in the gather
+        if lead:
+            u = u.cpu().numpy()
+            write_midplane(os.path.join(args.out, "meas1.txt"), u)
+            write_midplane_fluid(os.path.join(args.out, "s1_out.txt"), u,
+                                 spec.mask)
+            write_bc_csv(os.path.join(args.out, "vel.csv"), u, spec.mask)
     return 0
 
 

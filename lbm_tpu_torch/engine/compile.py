@@ -46,11 +46,16 @@ plane it may share no consumer cell with another boundary
 (`check_z_windows`), so the collide-stream kernel may apply it in its own
 pass, in boundary order.
 
-What the port does not carry (Bouzidi walls) raises
-NotImplementedError naming the ROADMAP item that ports it; the two
-compositions the collide-stream kernel refuses are named by
-`kernel_refusal`, and the cases the fused pair of steps refuses by
-`fuse2_refusal`. Nothing falls back silently.
+Bouzidi curved walls (CaseSpec.wall_sdf): `bouzidi`, what the dense step
+reads in place of lbm_tpu's (19, X, Y, Z) CompiledCase.link_q: the links
+(fluid cells whose pull source is a wall) as flat ids into the (19, X, Y,
+Z) state and their three fp32 coefficients, computed once from the links'
+q (core/bouzidi.link_q) as lbm_tpu's step computes them
+(core/bouzidi.flat_links), built at first use on the case's device. The
+collide-stream kernels carry no q planes: `kernel_refusal` names them,
+with the two compositions the kernel lacks, and the cases the fused pair
+of steps refuses are named by `fuse2_refusal`. Nothing falls back
+silently.
 
 `compile_shard` compiles one rank's window of a case split along one
 lattice axis into `world` shards (the counterpart of lbm_tpu's
@@ -68,6 +73,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from lbm_tpu_torch.core.bouzidi import flat_links, link_q, link_table
 from lbm_tpu_torch.core.lattice import D3Q19
 from lbm_tpu_torch.core.mrt import mrt_matrices
 from lbm_tpu_torch.core.rheology import normalize_closure
@@ -172,26 +178,35 @@ def mrt_of(spec: CaseSpec):
     return k.astype(np.float32), kf.astype(np.float32)
 
 
+CURVED_REFUSAL = ("backend='kernel' does not support wall_sdf (Bouzidi "
+                  "curved walls) — use backend='dense' or 'sparse'")
+
+
 def kernel_refusal(spec: CaseSpec, field: bool = False) -> Optional[str]:
-    """Why the collide-stream kernel refuses this composition, or None.
-    Its MRT has no moment-space source KF and its closures no
-    variable-rate Guo prefactor; the dense step runs both (lbm_tpu's
-    kernel refuses the same two). field: the step also takes a per-cell
-    Boussinesq force (the thermal route), which the kernel composes with
-    BGK and TRT only and not with a CaseSpec.force, as lbm_tpu's."""
+    """Why the collide-stream kernel refuses this case, or None: Bouzidi
+    curved walls (no q planes; lbm_tpu's Pallas kernel refuses them in
+    these words, with its backend names), and two compositions: its MRT
+    has no moment-space source KF and its closures no variable-rate Guo
+    prefactor; the dense step runs both (lbm_tpu's kernel refuses the
+    same two). field: the step also takes a per-cell Boussinesq force
+    (the thermal route), which the kernel composes with BGK and TRT only
+    and not with a CaseSpec.force, as lbm_tpu's."""
+    if spec.wall_sdf is not None:
+        return CURVED_REFUSAL
+    dense = "; run this case with backend='dense'"
     if field and spec.force is not None:
         return ("the force-field kernel carries no constant base force "
-                "beside the Boussinesq field (CaseSpec.force)")
+                "beside the Boussinesq field (CaseSpec.force)" + dense)
     if spec.force is None and not field:
         return None
     what = "the Boussinesq force field" if field else "a body force"
     if spec.collision == "mrt":
         return (f"MRT + {what} needs the moment-space Guo source (KF) "
-                "that the collide-stream kernel does not carry")
+                "that the collide-stream kernel does not carry" + dense)
     if spec.smagorinsky_cs is not None or spec.rheology is not None:
         return (f"a per-cell tau closure (LES / rheology) + {what} "
                 "needs the variable-rate Guo prefactor that the "
-                "collide-stream kernel lacks")
+                "collide-stream kernel lacks" + dense)
     return None
 
 
@@ -254,6 +269,21 @@ class CompiledCase:
                                               CellType.MOVING)
                                 ).to(self.device)
 
+    @functools.cached_property
+    def _link_table(self):
+        return link_table(np.asarray(self.spec.mask), self.spec.wall_sdf)
+
+    @functools.cached_property
+    def bouzidi(self) -> Optional[tuple]:
+        """What the dense step's Bouzidi branch reads, built at first use:
+        core/bouzidi.flat_links of the links (fluid cells whose source x -
+        e_i is a wall) over the flattened (19, X, Y, Z) state; None
+        without CaseSpec.wall_sdf (or without a link)."""
+        if self.spec.wall_sdf is None:
+            return None
+        return flat_links(self._link_table, int(np.prod(self.shape)),
+                          self.device)
+
     @property
     def kernel_bcs(self) -> list[CompiledBC]:
         """The x/y-plane boundaries (those lbm_tpu's kernel rewrites in
@@ -296,16 +326,9 @@ def has_windkessel(bcs) -> bool:
     return any(b.windkessel is not None for b in bcs)
 
 
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(
-        f"{what} is not ported to lbm_tpu_torch yet (ROADMAP.md {item})")
-
-
 def check_supported(spec: CaseSpec) -> None:
-    """Raise NotImplementedError for every spec feature the port lacks."""
-    if spec.wall_sdf is not None:
-        _refuse("Bouzidi curved walls (CaseSpec.wall_sdf)",
-                "Queue 1 item 8")
+    """Raise NotImplementedError for a case beyond the collide-stream
+    kernel's descriptor capacity, ValueError for an empty axis."""
     n_xy = sum(bc.axis != 2 for bc in spec.boundaries)
     n_z = len(spec.boundaries) - n_xy
     if n_xy > MAX_BCS or n_z > MAX_Z_BCS:
@@ -591,6 +614,28 @@ class ShardCase(CompiledCase):
         table = neighbor_wall(ext, label).take(range(1, n + 1), axis=1 + a)
         return torch.from_numpy(table).to(self.device)
 
+    @functools.cached_property
+    def bouzidi(self) -> Optional[tuple]:
+        """The window's links: fluid cells whose source, across the shard's
+        faces too (nbr_wall), is a wall, with the whole box's q (1/2 in
+        the pad rows)."""
+        spec = self.spec
+        if spec.wall_sdf is None:
+            return None
+        rows = self.shape[self.shard_axis]
+        q = _take_rows(link_q(np.asarray(spec.mask), spec.wall_sdf,
+                              table=self._link_table),
+                       1 + self.shard_axis,
+                       np.arange(self.rank * rows, (self.rank + 1) * rows),
+                       spec.shape[self.shard_axis], 0.5)
+        nbr = self.nbr_wall.cpu().numpy()
+        fluid = self.fluid.cpu().numpy()
+        table = [(np.zeros(0, np.int64), None)]
+        for i in range(1, D3Q19.Q):
+            ids = np.flatnonzero(nbr[i] & fluid)
+            table.append((ids, q[i].ravel()[ids]))
+        return flat_links(table, int(np.prod(self.shape)), self.device)
+
     @property
     def live_tiles(self):
         raise ValueError("fuse=2 requires a single-chip run with all NEE "
@@ -803,6 +848,7 @@ __all__ = ["CompiledBC", "CompiledCase", "ShardCase", "compile_case",
            "compile_shard", "compile_bc", "compile_bcs", "shard_rows",
            "has_windkessel", "wk_init",
            "canonical_device", "check_supported", "check_z_windows",
+           "CURVED_REFUSAL",
            "fluid_cell_ids", "fold_cell_ids", "fuse2_refusal",
            "kernel_refusal", "wk_footprint",
            "live_block_ids",

@@ -20,8 +20,17 @@ refuses, with NotImplementedError, the two compositions the kernel lacks
 (compile.kernel_refusal: MRT + force, closure + force) and never moves
 to another backend by itself. backend='dense' runs the dense PyTorch
 step (engine/step.py), the counterpart of lbm_tpu's 'xla', for every
-composition. Every step gets its absolute index, so a
-series boundary's phase continues across chunks and resumed runs.
+composition. backend='sparse' runs the live-cell step (engine/sparse.py,
+lbm_tpu's 'sparse'): the state is (19, n_live) over the non-DEAD cells
+in compaction order; f_standard() scatters it (zeros at DEAD cells),
+set_f_standard() gathers the live cells of a dense state, macro()
+scatters the live cells' moments (rho 1, u 0 at DEAD cells). It refuses
+what lbm_tpu's refuses, in lbm_tpu's words: a mesh, bf16 storage, and
+the kernel backend's fuse=2 and lowmem. Bouzidi curved walls
+(CaseSpec.wall_sdf) run on 'dense' and 'sparse'; the kernel backend
+refuses them in lbm_tpu's words (compile.kernel_refusal). Every step gets
+its absolute index, so a series boundary's phase continues across chunks
+and resumed runs.
 
 fuse=2 (kernel backend) advances a chunk of n steps as n // 2 launches of
 the fused pair (two steps per read and write of the state) and one
@@ -30,7 +39,8 @@ ValueError in lbm_tpu's words, a case with a z-plane boundary, lowmem and
 the dense backend. lowmem (auto above LOWMEM_BYTES of one state buffer,
 lbm_tpu's per-device threshold) makes f_standard() read the state to host
 memory in x-row chunks (kernels.unpack_state_lowmem) and checkpoints go
-uncompressed.
+uncompressed. A checkpoint written on any backend restores on any other
+(the portable dense layout).
 
 Windkessel (RCR) outlets (PlaneBC.windkessel) carry their P_c in
 `Simulation.wk`, an (n_wk,) float32 tensor on the run's device, set at
@@ -38,9 +48,17 @@ reset() from the outlets' windkessel_p0 and stepped on the device: by the
 collide-stream launch with the outlets' flux folded in (its reduction
 commits P_c and stages the next step's flux; the flux kernel,
 kernels.windkessel_prime, primes it once at the start of each chunk) or
-by the dense step (make_step_wk); a chunk reads nothing of it to the
-host. Checkpoints carry it (engine/checkpoint.py), and stress(), wss()
-and wss_accumulator() re-apply the outlets with it.
+by the dense or sparse step (make_step_wk, make_sparse_step_wk); a chunk
+reads nothing of it to the host. Checkpoints carry it
+(engine/checkpoint.py), and stress(), wss() and wss_accumulator()
+re-apply the outlets with it.
+
+wss() and wss_accumulator() take lbm_tpu's route: the live-cell stress
+(engine/stress.wss_sparse) on the sparse backend always, and on the
+kernel backend once the dense pull's five (19, X, Y, Z) fp32 arrays
+would pass 6e9 bytes (5 * 19 * 4 * cells > 6e9, the full coronary and
+up), the live cells' populations gathered straight out of the state
+(`_sparse_cc_f`); otherwise, and for stress(), the dense pull.
 
 store_dtype='bf16' (kernel backend) stores the state in bfloat16 at half
 the bytes; the kernels compute in fp32, widening every load and
@@ -80,6 +98,7 @@ from lbm_tpu_torch.engine.compile import (
     compile_shard,
     fuse2_refusal,
     has_windkessel,
+    kernel_refusal,
     wk_init,
 )
 from lbm_tpu_torch.engine.spec import CaseSpec
@@ -190,8 +209,9 @@ class Simulation:
     def __init__(self, spec: CaseSpec, device="cuda", backend: str = "kernel",
                  fuse: int = 1, lowmem: Optional[bool] = None,
                  store_dtype=None, mesh=None, shard_axis: Optional[int] = None):
-        if backend not in ("kernel", "dense"):
-            raise ValueError(f"backend must be 'kernel' or 'dense': {backend!r}")
+        if backend not in ("kernel", "dense", "sparse"):
+            raise ValueError("backend must be 'kernel', 'dense' or 'sparse': "
+                             f"{backend!r}")
         self.store_dtype = store_dtype_of(store_dtype)
         if self.store_dtype == torch.bfloat16 and backend != "kernel":
             raise ValueError(
@@ -201,7 +221,21 @@ class Simulation:
             raise ValueError(f"fuse must be 1 or 2: {fuse!r}")
         if fuse == 2 and backend != "kernel":
             raise ValueError("fuse=2 runs the kernel backend's fused pair of "
-                             "steps; backend='dense' has none")
+                             f"steps; backend={backend!r} has none")
+        if backend == "sparse" and mesh is not None:
+            raise ValueError(
+                "backend='sparse' is single-device: the gather/scatter index "
+                "space has no spatial shard decomposition. Use "
+                "backend='dense' or backend='kernel' (mesh=) for multi-chip "
+                "runs.")
+        if backend == "sparse" and lowmem:
+            raise ValueError("lowmem is the kernel backend's chunked read of "
+                             "the dense state; backend='sparse' holds the "
+                             "live cells only")
+        if backend == "kernel":
+            reason = kernel_refusal(spec)
+            if reason is not None:  # before compiling (link_q, lists)
+                raise NotImplementedError(reason)
         self.mesh = mesh
         self.shard_axis = None
         if mesh is not None:
@@ -226,7 +260,8 @@ class Simulation:
             lowmem = False
         elif shard_axis is not None:
             raise ValueError("shard_axis= needs mesh=")
-        self.lowmem = (19 * 4 * int(np.prod(spec.shape)) > LOWMEM_BYTES
+        self.lowmem = (backend == "kernel"
+                       and 19 * 4 * int(np.prod(spec.shape)) > LOWMEM_BYTES
                        if lowmem is None else bool(lowmem))
         if fuse == 2:
             reason = fuse2_refusal(spec, self.lowmem)
@@ -235,7 +270,14 @@ class Simulation:
         self.fuse = fuse
         self.backend = backend
         self.spec = spec
-        if mesh is None:
+        self.sc = None
+        if backend == "sparse":
+            from lbm_tpu_torch.engine.sparse import compile_sparse
+
+            self.device = resolve_device(device)
+            self.sc = compile_sparse(spec, self.device)
+            self.cc = None
+        elif mesh is None:
             self.device = resolve_device(device)
             self.cc = compile_case(spec, self.device)
         else:
@@ -251,6 +293,15 @@ class Simulation:
     def _make_step(self):
         """The step the backend and mesh call for: None for the
         whole-box kernel route (kernels.step)."""
+        if self.backend == "sparse":
+            from lbm_tpu_torch.engine.sparse import (
+                make_sparse_step,
+                make_sparse_step_wk,
+            )
+
+            return (make_sparse_step_wk(self.sc)
+                    if has_windkessel(self.sc.bcs)
+                    else make_sparse_step(self.sc))
         if self.mesh is None:
             if self.backend != "dense":
                 return None
@@ -271,15 +322,27 @@ class Simulation:
         return whole.narrow(lead + self.shard_axis, 0,
                             self.spec.shape[self.shard_axis])
 
+    @property
+    def case(self):
+        """The compiled case the state is stepped on: the SparseCase on the
+        sparse backend, the CompiledCase (a ShardCase under a mesh)
+        otherwise."""
+        return self.sc if self.sc is not None else self.cc
+
     # -- state ------------------------------------------------------------
     def reset(self):
-        # fp32 feq, then narrowed (lbm_tpu's pack_state dtype=): non-fluid
-        # cells hold the rounded feq for good
-        self.f = initial_f(self.cc).to(self.store_dtype)
+        if self.sc is not None:
+            from lbm_tpu_torch.engine.sparse import initial_f_sparse
+
+            self.f = initial_f_sparse(self.sc)
+        else:
+            # fp32 feq, then narrowed (lbm_tpu's pack_state dtype=):
+            # non-fluid cells hold the rounded feq for good
+            self.f = initial_f(self.cc).to(self.store_dtype)
         self._spare = self.f.clone() if self.backend == "kernel" else None
         self.t = 0
         # the windkessel outlets' carried P_c, in boundary order
-        w0 = wk_init(self.cc.bcs)
+        w0 = wk_init(self.case.bcs)
         self.wk = (None if w0 is None
                    else torch.from_numpy(w0).to(self.device))
         self._last_velsum: Optional[float] = None
@@ -289,9 +352,14 @@ class Simulation:
         """f in the portable (19, nx, ny, nz) float32 layout: the state
         itself (a bf16 state widened), or under lowmem a copy in host
         memory read in x-row chunks. Under a mesh the whole box gathered
-        on every rank, zeros at DEAD cells."""
+        on every rank, zeros at DEAD cells; on the sparse backend the live
+        cells scattered, zeros at DEAD cells."""
         if self.lowmem:
             return kernels.unpack_state_lowmem(self.f)
+        if self.sc is not None:
+            from lbm_tpu_torch.engine.sparse import scatter_dense
+
+            return scatter_dense(self.sc, self.f)
         if self.mesh is not None:
             dead = (self.cc.mask == CellType.DEAD)[None]
             return self._gather(torch.where(dead, 0.0, self.f), 1)
@@ -301,11 +369,17 @@ class Simulation:
         """Load a (19, nx, ny, nz) state (array or tensor) into both
         buffers, narrowed to the storage dtype; the simulation keeps its
         own copies, since stepping writes into them. Both, since the
-        kernels never write a non-fluid cell."""
+        kernels never write a non-fluid cell. The sparse backend keeps the
+        live cells, in compaction order."""
         f = torch.as_tensor(f, dtype=torch.float32)
         if tuple(f.shape) != (19,) + tuple(self.spec.shape):
             raise ValueError(f"state shape {tuple(f.shape)} != "
                              f"(19, *{tuple(self.spec.shape)})")
+        if self.sc is not None:
+            from lbm_tpu_torch.engine.sparse import gather_live
+
+            self.f = gather_live(self.sc, f).to(self.device).contiguous()
+            return
         if self.mesh is not None:
             from lbm_tpu_torch.bridge import shard_window
 
@@ -328,13 +402,52 @@ class Simulation:
     # -- wall outputs (engine/stress.py) ----------------------------------
     def _dense_cc_f(self):
         """(compiled whole box, its fp32 state) for the stress outputs: the
-        run's own case and state, or under a mesh the whole box compiled
-        once on this rank's device and the gathered state."""
-        if self.mesh is None:
+        run's own case and state, or under a mesh (or on the sparse
+        backend) the whole box compiled once on this device and the
+        gathered (scattered) state."""
+        if self.mesh is None and self.cc is not None:
             return self.cc, self.f.float()
         if getattr(self, "_stress_cc", None) is None:
             self._stress_cc = compile_case(self.spec, self.device)
         return self._stress_cc, self.f_standard()
+
+    def _wss_via_sparse(self) -> bool:
+        """lbm_tpu's wss() route: the live-cell stress on the sparse backend,
+        and on the kernel backend once the dense pull (about five (19, X,
+        Y, Z) fp32 arrays) would pass 6e9 bytes."""
+        if self.backend == "sparse":
+            return True
+        if self.backend != "kernel":
+            return False
+        return 5 * 19 * 4 * int(np.prod(self.spec.shape)) > 6e9
+
+    def _sparse_cc_f(self):
+        """(SparseCase, its fp32 (19, n_live) state) for the live-cell
+        stress: the run's own, or on the kernel backend a SparseCase
+        compiled once and the live cells' populations gathered straight
+        out of the (19, X, Y, Z) state (one index_select, widened to fp32
+        after the gather; under a mesh out of the gathered box): no dense
+        pull is built."""
+        if self.sc is not None:
+            return self.sc, self.f
+        if self.backend != "kernel":
+            raise ValueError("the live-cell stress route is the sparse and "
+                             "kernel backends'")
+        from lbm_tpu_torch.engine.sparse import compile_sparse, gather_live
+
+        if getattr(self, "_stress_sc", None) is None:
+            self._stress_sc = compile_sparse(self.spec, self.device)
+        sc = self._stress_sc
+        f = self.f if self.mesh is None else self.f_standard()
+        return sc, gather_live(sc, f).float()
+
+    def _normals_sparse(self, sc):
+        if getattr(self, "_wss_normals_sparse", None) is None:
+            from lbm_tpu_torch.engine.stress import compact_normals, wall_normals
+
+            self._wss_normals_sparse = compact_normals(
+                sc, wall_normals(self.spec.mask, self.spec.wall_sdf))
+        return self._wss_normals_sparse
 
     def _normals(self, cc):
         if getattr(self, "_wss_normals", None) is None:
@@ -357,23 +470,48 @@ class Simulation:
     def wss(self):
         """(X, Y, Z) wall shear stress magnitude (lattice units; times
         units.C_pre for Pa), nonzero at wall-adjacent fluid cells (the
-        wall normals are built once)."""
+        wall normals are built once); through the live-cell stress where
+        _wss_via_sparse says, where only this field goes dense."""
         from lbm_tpu_torch.engine.stress import wss_field
 
+        if self._wss_via_sparse():
+            from lbm_tpu_torch.engine.sparse import scatter_dense
+            from lbm_tpu_torch.engine.stress import wss_sparse
+
+            sc, f_s = self._sparse_cc_f()
+            return scatter_dense(sc, wss_sparse(
+                sc, f_s, self.t, self._normals_sparse(sc), wk=self.wk))
         cc, f = self._dense_cc_f()
         return wss_field(cc, f, self.t, self._normals(cc), wk=self.wk)
 
     def wss_accumulator(self):
-        """A WSSAccumulator (TAWSS and OSI) bound to this run's case; call
-        acc.sample_sim(self) at each sampling time."""
-        from lbm_tpu_torch.engine.stress import WSSAccumulator
+        """A WSSAccumulator (TAWSS and OSI) bound to this run's case, or a
+        SparseWSSAccumulator where wss() takes the live-cell route; call
+        acc.sample_sim(self) at each sampling time (tawss_field() and
+        osi_field() are (X, Y, Z) either way)."""
+        from lbm_tpu_torch.engine.stress import (
+            SparseWSSAccumulator,
+            WSSAccumulator,
+        )
 
+        if self._wss_via_sparse():
+            sc, _ = self._sparse_cc_f()
+            return SparseWSSAccumulator(sc, self._normals_sparse(sc))
         cc, _ = self._dense_cc_f()
         return WSSAccumulator(cc, self._normals(cc))
 
     def _window_macro(self):
         """macro() of the state this process holds (its window under a
         mesh)."""
+        if self.sc is not None:
+            from lbm_tpu_torch.engine.sparse import (
+                macro_fields_sparse,
+                scatter_dense,
+            )
+
+            rho, u = macro_fields_sparse(self.sc, self.f)
+            return (scatter_dense(self.sc, rho, fill=1.0),
+                    scatter_dense(self.sc, u))
         if self.backend == "dense":
             return macro_fields(self.cc, self.f)
         return init_override(self.cc, *kernels.macro(self.f, self.cc.force))
@@ -388,13 +526,13 @@ class Simulation:
             kernels.step2(self.f, self._spare, self.cc, series, k, self.t + k)
             self.f, self._spare = self._spare, self.f
         for k in range(2 * pairs, n):
-            if self.backend == "dense":
+            if self.backend != "kernel":
                 if self.wk is None:
                     self.f, _, u = self._step(self.f, self.t + k)
                 else:
                     self.f, _, u, self.wk = self._step(self.f, self.t + k,
                                                        self.wk)
-                series[k] = fluid_speed_sum(self.cc, u)
+                series[k] = fluid_speed_sum(self.case, u)
                 continue
             if self.mesh is None:
                 # a chunk primes the windkessel fold once, whatever
@@ -405,7 +543,7 @@ class Simulation:
                 self._step(self.f, self._spare, series, k, self.t + k)
             self.f, self._spare = self._spare, self.f
         self.t += n
-        samples = series.cpu().numpy() + self.cc.velsum_offset
+        samples = series.cpu().numpy() + self.case.velsum_offset
         if self.mesh is not None:
             return self.mesh.sum_in_rank_order(samples)
         return samples

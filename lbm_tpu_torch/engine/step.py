@@ -1,5 +1,5 @@
 """The dense D3Q19 step in plain PyTorch: pull-stream + half-way
-bounce-back (plain or moving walls) + NEE + collide (BGK, TRT, MRT or a
+bounce-back (plain or moving walls, or Bouzidi curved walls) + NEE + collide (BGK, TRT, MRT or a
 per-cell tau closure) + Guo body force over the whole lattice (torch
 port of lbm_tpu/engine/step.py).
 
@@ -11,6 +11,10 @@ against (kernels/collide_stream.collide_stream_plain):
                 = f[opp(i)][x]                 if n is a wall (half-way BB)
                 = f[opp(i)][x] + 6 w_i (e_i . u_w)
                                                if n is a MOVING wall (Ladd)
+                = a f[opp(i)][x] + b_up f[opp(i)][x + e_i] + b_loc f[i][x]
+                                               if n is a wall and the case
+                                               has curved walls (Bouzidi;
+                                               core/bouzidi.py)
                 = rho* phi*_i + (f[i][x] - rho_prev phi_i(u_prev)) omega
                                                on an NEE consumer plane
   rho = sum pulled, u = (sum e_i pulled_i + F/2) / rho   (F/2: Guo force)
@@ -53,6 +57,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from lbm_tpu_torch.core.bouzidi import apply_links
 from lbm_tpu_torch.core.lattice import D3Q19, _signed_sum, momentum, phi
 from lbm_tpu_torch.core.rheology import tau_eff_from_p
 from lbm_tpu_torch.engine.compile import (
@@ -139,11 +144,15 @@ def halo_ext(f, axis: int, lo, hi):
     return torch.cat([rows[0], f, rows[1]], dim=1 + axis)
 
 
-def streamed(f, nbr_wall, nbr_moving=None, bb=None, halo=None):
+def streamed(f, nbr_wall, nbr_moving=None, bb=None, halo=None,
+             bouzidi=None):
     """Pull-stream all 19 directions with fused half-way bounce-back;
     MOVING sources (nbr_moving) add the Ladd term bb[i]. halo: None, or
     (axis, lo, hi) of a shard, whose sources beyond its rows on that axis
-    are the planes'."""
+    are the planes'. bouzidi: None, or a case's links (CompiledCase.
+    bouzidi), where the wall branch becomes a f[opp] + b_up up + b_loc
+    f[i], up direction opp(i)'s own direct pull (lbm_tpu's order), applied
+    to all links at once after the pull (core/bouzidi.apply_links)."""
     if halo is None:
         def pull(i):
             return pull_one(f[i], _E[i])
@@ -160,7 +169,10 @@ def streamed(f, nbr_wall, nbr_moving=None, bb=None, halo=None):
         if nbr_moving is not None:
             v = torch.where(nbr_moving[i], f[_OPP[i]] + float(bb[i]), v)
         pulled.append(v)
-    return torch.stack(pulled)
+    pulled = torch.stack(pulled)
+    if bouzidi is not None:
+        apply_links(pulled, f, bouzidi)
+    return pulled
 
 
 def windkessel_update(p_c, q, wk):
@@ -241,7 +253,7 @@ def _streamed_case(cc: CompiledCase, f, halo=None):
     bb = (None if cc.wall_velocity is None
           else moving_bb_terms(cc.wall_velocity))
     return streamed(f, cc.nbr_wall, cc.nbr_moving, bb,
-                    None if halo is None else halo[:3])
+                    None if halo is None else halo[:3], cc.bouzidi)
 
 
 def pulled_state(cc: CompiledCase, f, t: int, bcs=None, halo=None,

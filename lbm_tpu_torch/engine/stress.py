@@ -1,6 +1,6 @@
 """Deviatoric (viscous) stress and wall shear stress (WSS) on the dense
-layout (torch port of lbm_tpu/engine/stress.py; its sparse route waits
-for the port's sparse backend).
+and the compacted live-cell layouts (torch port of
+lbm_tpu/engine/stress.py).
 
 From the non-equilibrium second moment of the PRE-collision state,
 
@@ -22,7 +22,11 @@ OSI = 1/2 (1 - |<t>| / <|t|>).
 These are plain torch operations on the run's device: lbm_tpu computes
 them outside any Pallas kernel, at output rate. The dense pull holds
 about five (19, X, Y, Z) fp32 arrays at once (some 12 GB at the
-291 x 291 x 372 coronary).
+291 x 291 x 372 coronary). The live-cell route (stress_fields_sparse,
+wss_sparse, SparseWSSAccumulator) does the same arithmetic per cell on
+the (19, n_live) state of engine/sparse.py, pulled by pulled_sparse:
+only the output field is ever dense (Simulation.wss routes through it on
+the sparse backend, and on the kernel backend past lbm_tpu's size rule).
 """
 
 from __future__ import annotations
@@ -53,6 +57,19 @@ def stress_fields(cc: CompiledCase, f, t: int = 0, wk=None):
     pulled = (pulled_state_wk(cc, f, t, wk)[0] if wk is not None
               else pulled_state(cc, f, t))
     return _sigma_from_pulled(pulled, cc)
+
+
+def stress_fields_sparse(sc, f_s, t: int = 0, wk=None):
+    """(sigma6, rho, u) on the compacted (19, n_live) layout of a
+    SparseCase: the pull of engine/sparse.pulled_sparse (pulled_sparse_wk
+    with the carried P_c) and stress_fields' arithmetic; scatter with
+    engine/sparse.scatter_dense."""
+    from lbm_tpu_torch.engine.sparse import pulled_sparse, pulled_sparse_wk
+
+    f_s = f_s.float()
+    pulled = (pulled_sparse_wk(sc, f_s, t, wk)[0] if wk is not None
+              else pulled_sparse(sc, f_s, t))
+    return _sigma_from_pulled(pulled, sc)
 
 
 def _sigma_from_pulled(pulled, cc: CompiledCase):
@@ -113,6 +130,15 @@ def wall_normals(mask, sdf=None) -> np.ndarray:
     return n
 
 
+def compact_normals(sc, normals_dense) -> torch.Tensor:
+    """(3, n_live) fp32 live-cell compaction of a dense wall_normals
+    field, on the case's device."""
+    from lbm_tpu_torch.engine.sparse import gather_live
+
+    n = torch.as_tensor(np.asarray(normals_dense, np.float32))
+    return gather_live(sc, n).to(sc.device)
+
+
 def _normals_on(cc: CompiledCase, normals):
     if normals is None:
         normals = wall_normals(cc.spec.mask, cc.spec.wall_sdf)
@@ -150,6 +176,18 @@ def wss_field(cc: CompiledCase, f, t: int = 0, normals=None, wk=None):
     n = _normals_on(cc, normals)
     w = tangential_traction(cc, f, t, n, wk=wk)
     return torch.where((n != 0).any(dim=0), _magnitude(w),
+                       torch.zeros((), device=w.device))
+
+
+def wss_sparse(sc, f_s, t: int = 0, normals=None, wk=None):
+    """(n_live,) wall shear stress magnitude on the compacted layout
+    (stress_fields_sparse); normals: a compact_normals field to reuse."""
+    if normals is None:
+        normals = compact_normals(sc, wall_normals(sc.spec.mask,
+                                                   sc.spec.wall_sdf))
+    sigma, _, _ = stress_fields_sparse(sc, f_s, t, wk=wk)
+    w = _tangential(sigma, normals)
+    return torch.where((normals != 0).any(dim=0), _magnitude(w),
                        torch.zeros((), device=w.device))
 
 
@@ -199,5 +237,55 @@ class WSSAccumulator:
                            torch.zeros_like(safe))
 
 
-__all__ = ["stress_fields", "wall_normals", "tangential_traction",
-           "wss_field", "WSSAccumulator"]
+class SparseWSSAccumulator(WSSAccumulator):
+    """WSSAccumulator on the compacted layout of a SparseCase: tawss() and
+    osi() are (n_live,), tawss_field() and osi_field() scattered to (X,
+    Y, Z)."""
+
+    def __init__(self, sc, normals=None):
+        self.sc = sc
+        self.normals = (compact_normals(sc, wall_normals(sc.spec.mask,
+                                                         sc.spec.wall_sdf))
+                        if normals is None else normals)
+        self._vec = torch.zeros((3, sc.n_live), dtype=torch.float32,
+                                device=sc.device)
+        self._mag = torch.zeros(sc.n_live, dtype=torch.float32,
+                                device=sc.device)
+        self.n_samples = 0
+
+    def sample(self, f_s, t: int = 0, wk=None):
+        sigma, _, _ = stress_fields_sparse(self.sc, f_s, t, wk=wk)
+        w = _tangential(sigma, self.normals)
+        self._vec = self._vec + w
+        self._mag = self._mag + _magnitude(w)
+        self.n_samples += 1
+
+    def sample_sim(self, sim):
+        """Sample a Simulation's current state on its live-cell route."""
+        sc, f_s = sim._sparse_cc_f()
+        if sc is not self.sc:
+            raise ValueError("the accumulator is bound to a different case")
+        self.sample(f_s, sim.t, wk=sim.wk)
+
+    def tawss(self):
+        """(n_live,) time-averaged WSS (lattice units)."""
+        return WSSAccumulator.tawss_field(self)
+
+    def osi(self):
+        """(n_live,) oscillatory shear index."""
+        return WSSAccumulator.osi_field(self)
+
+    def tawss_field(self):
+        from lbm_tpu_torch.engine.sparse import scatter_dense
+
+        return scatter_dense(self.sc, self.tawss())
+
+    def osi_field(self):
+        from lbm_tpu_torch.engine.sparse import scatter_dense
+
+        return scatter_dense(self.sc, self.osi())
+
+
+__all__ = ["stress_fields", "stress_fields_sparse", "wall_normals",
+           "compact_normals", "tangential_traction", "wss_field",
+           "wss_sparse", "WSSAccumulator", "SparseWSSAccumulator"]

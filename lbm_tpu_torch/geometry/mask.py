@@ -103,4 +103,16 @@ def ghost_dilate(geo: np.ndarray, source_labels=(CellType.WALL,)) -> np.ndarray:
     return geo
 
 
-__all__ = ["CellType", "erode_label", "end_plane_min_label", "ghost_dilate"]
+def compact_index(geo: np.ndarray) -> tuple[np.ndarray, int]:
+    """Live-cell compaction (lbm_tpu's compact_index): (index, n_live) with
+    index[cell] the compact id of each non-DEAD cell in z-major, x-fastest
+    order (z outer, y, x inner) and -1 at DEAD cells."""
+    live_t = np.ascontiguousarray(np.transpose(geo, (2, 1, 0))) != CellType.DEAD
+    flat = live_t.ravel()
+    ids = np.cumsum(flat, dtype=np.int64) - 1
+    idx_t = np.where(flat, ids, np.int64(-1)).reshape(live_t.shape)
+    return np.transpose(idx_t, (2, 1, 0)), int(flat.sum())
+
+
+__all__ = ["CellType", "compact_index", "erode_label", "end_plane_min_label",
+           "ghost_dilate"]

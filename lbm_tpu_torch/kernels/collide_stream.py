@@ -652,15 +652,14 @@ def _launch_scratch(cc: CompiledCase, kernel: str, bcs, t: int, n: int):
 def collision_descriptor(cc: CompiledCase, field: ForceField | None = None):
     """(instance name, int row, float row) of the case (with a force
     field: of its force-field instance), built once. Raises
-    NotImplementedError, naming backend='dense', for a composition the
-    kernels lack (compile.kernel_refusal), on every call."""
+    NotImplementedError, naming the backend that runs it, for a case the
+    kernels refuse (compile.kernel_refusal), on every call."""
     per_case = _scratch.setdefault(cc, {})
     key = ("collision", field)
     if key not in per_case:
         reason = kernel_refusal(cc.spec, field is not None)
         if reason is not None:
-            raise NotImplementedError(
-                f"{reason}; run this case with backend='dense'")
+            raise NotImplementedError(reason)
         per_case[key] = (instance(cc, field),) + collision_tables(cc, field)
     return per_case[key]
 

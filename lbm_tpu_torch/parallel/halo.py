@@ -17,10 +17,11 @@ oneself did deliver on the H100, but a copy needs no group).
 make_halo_step is the dense twin under a mesh: engine/step.py's dense
 step on the rank's window (engine/compile.compile_shard) with the
 shard-axis pull spliced from the received planes (lbm_tpu's _pull_ext).
-Like lbm_tpu's GSPMD dense path it may shard z (the curved vessel). It
-refuses what lbm_tpu's halo step refuses: curved-wall links and
-windkessel outlets (compile.check_supported) and a boundary on the shard
-axis (compile_shard).
+Like lbm_tpu's GSPMD dense path it may shard z (the curved vessel) and
+carries Bouzidi curved walls (each shard's links take the whole box's q,
+and opp(i)'s pull across a face reads the received planes, so the shards
+stay the whole box's step bit for bit). It refuses windkessel outlets
+(runner.py) and a boundary on the shard axis (compile_shard).
 """
 
 from __future__ import annotations

@@ -1026,3 +1026,64 @@ def test_windkessel_simulation_on_the_card(device):
     acc = a.wss_accumulator()
     acc.sample_sim(a)
     assert torch.isfinite(acc.tawss_field()).all()
+
+
+def test_sparse_backend_matches_the_kernel_backend(device):
+    """The live-cell backend (torch ops on the card) against the kernel
+    backend on the small coronary, 60 steps across the series phases: f
+    at fluid cells at rtol 3e-6 / atol 1e-7, velsum at 1e-5 relative,
+    macro() alike."""
+    spec = get_case("coronary", shape=(64, 48, 96), radius=4,
+                    pulsatile=(4, 8))
+    a = Simulation(spec, device=device, backend="sparse")
+    b = Simulation(spec, device=device)
+    vs_a = [a._advance(20) for _ in range(3)]
+    vs_b = [b._advance(20) for _ in range(3)]
+    fl = b.cc.fluid
+    torch.testing.assert_close(a.f_standard()[:, fl], b.f[:, fl],
+                               rtol=3e-6, atol=1e-7)
+    for x, y in zip(vs_a, vs_b):
+        assert abs(x - y).max() <= 1e-5 * abs(y).min()
+    torch.testing.assert_close(a.macro()[1][:, fl], b.macro()[1][:, fl],
+                               rtol=3e-5, atol=5e-7)
+
+
+def test_dense_bouzidi_on_the_card_matches_the_cpu(device):
+    """The dense step with curved walls (and RCR outlets) on the card
+    against the same run on the CPU, 30 steps; the sparse backend on the
+    card too."""
+    spec = get_case("coronary", shape=(48, 24, 40), radius=5, curved=True,
+                    pulsatile=(4, 8),
+                    windkessel=[(1e-4, 5e3, 2e-3)] * 4)
+    runs = [Simulation(spec, device=d, backend=be)
+            for d, be in ((device, "dense"), ("cpu", "dense"),
+                          (device, "sparse"))]
+    for s in runs:
+        s.run(max_steps=30, time_save=10, verbose=False)
+    ref = runs[1]
+    fl = ref.cc.fluid
+    for s in (runs[0], runs[2]):
+        torch.testing.assert_close(s.f_standard().cpu()[:, fl],
+                                   ref.f[:, fl], rtol=3e-6, atol=1e-7)
+        torch.testing.assert_close(s.wk.cpu(), ref.wk, rtol=3e-5,
+                                   atol=1e-8)
+
+
+def test_live_cell_wss_route_matches_the_dense_route(device, monkeypatch):
+    """The kernel backend's live-cell WSS route (the live cells gathered
+    out of the card's state) against its dense pull, on the small
+    coronary with RCR outlets 40 steps in; the same per-cell arithmetic,
+    so equal, and the accumulator with it."""
+    spec = get_case("coronary", shape=(64, 48, 96), radius=4,
+                    pulsatile=(4, 8), windkessel=[(1e-4, 5e3, 2e-3)] * 4)
+    sim = Simulation(spec, device=device)
+    sim.run(max_steps=40, time_save=20, verbose=False)
+    dense = sim.wss()
+    monkeypatch.setattr(Simulation, "_wss_via_sparse", lambda self: True)
+    live = sim.wss()
+    assert live.device == device and float(live.max()) > 0
+    torch.testing.assert_close(live, dense, rtol=1e-6, atol=1e-12)
+    acc = sim.wss_accumulator()
+    acc.sample_sim(sim)
+    torch.testing.assert_close(acc.tawss_field(), dense, rtol=1e-6,
+                               atol=1e-12)

@@ -4,6 +4,7 @@ JAX."""
 
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -17,8 +18,9 @@ from lbm_tpu.engine import checkpoint as ref_ckpt
 from lbm_tpu.engine.runner import Simulation as RefSimulation
 from lbm_tpu_torch import bridge
 from lbm_tpu_torch.cases import get_case
+from lbm_tpu_torch.core.bouzidi import link_q
 from lbm_tpu_torch.engine import checkpoint as ckpt
-from lbm_tpu_torch.engine.compile import compile_case
+from lbm_tpu_torch.engine.compile import CURVED_REFUSAL, compile_case
 from lbm_tpu_torch.engine.runner import Simulation
 from lbm_tpu_torch.engine.step import initial_f, make_step
 
@@ -201,30 +203,45 @@ _PLAW = {"model": "power_law", "K": 0.05, "n": 0.7}
     ("lid_driven_cavity", dict(rheology=_PLAW, **_FORCE), "backend='dense'"),
     ("gravity_channel", dict(n=8, nz=8, collision="trt", rheology=_PLAW),
      "backend='dense'"),
-    ("pipe", dict(n=16, nz=4, curved=True), "ROADMAP.md Queue 1 item 8"),
-    ("coronary", dict(shape=(24, 20, 32), radius=4,
-                      windkessel=[(1.0, 1.0, 1.0)] * 4, curved=True),
-     "ROADMAP.md Queue 1 item 8"),
+    # Bouzidi walls: the kernel backend refuses them in lbm_tpu's words
+    # (the ids kept from when the refusal named the ROADMAP item)
+    pytest.param("pipe", dict(n=16, nz=4, curved=True), CURVED_REFUSAL,
+                 id="pipe-kwargs4-ROADMAP.md Queue 1 item 8"),
+    pytest.param("coronary", dict(shape=(24, 20, 32), radius=4,
+                                  windkessel=[(1.0, 1.0, 1.0)] * 4,
+                                  curved=True), CURVED_REFUSAL,
+                 id="coronary-kwargs5-ROADMAP.md Queue 1 item 8"),
 ])
 def test_refuses_unported_features(name, kwargs, match):
-    """What the port does not run raises by name: the two compositions
-    the collide-stream kernel lacks (on backend='kernel', pointing at
-    'dense') and Bouzidi walls (ROADMAP), with windkessel outlets too
-    (those run; tests/test_torch_windkessel.py)."""
+    """What the kernel backend does not run raises by name: the two
+    compositions the collide-stream kernel lacks (pointing at 'dense')
+    and Bouzidi curved walls (in lbm_tpu's words, pointing at 'dense' and
+    'sparse'), with windkessel outlets too; compile_case takes the curved
+    specs (the dense and sparse backends run them)."""
     if name == "lid_driven_cavity":
         kwargs = dict(kwargs, n=8)
-    with pytest.raises(NotImplementedError, match=match):
-        Simulation(get_case(name, **kwargs), device="cpu")
+    spec = get_case(name, **kwargs)
+    with pytest.raises(NotImplementedError, match=re.escape(match)):
+        Simulation(spec, device="cpu")
+    if spec.wall_sdf is not None:
+        assert compile_case(spec).bouzidi is not None
+        assert (link_q(np.asarray(spec.mask), spec.wall_sdf) != 0.5).any()
 
 
 def test_refuses_unported_boundaries():
     # windkessel outlets compile (ported); the outlet keeps its triple
     spec = get_case("poiseuille", n=8, windkessel=(1.0, 1.0, 1.0))
     assert compile_case(spec).bcs[1].windkessel == (1.0, 1.0, 1.0)
+    # a wall_sdf compiles (Bouzidi links; a flat sdf folds every q to
+    # 1/2: plain bounce-back, a = 1, b_up = b_loc = 0) and the kernel
+    # backend refuses it by name
     spec = get_case("poiseuille", n=8)
     spec.wall_sdf = np.ones(spec.shape, np.float32)
+    assert bool((link_q(np.asarray(spec.mask), spec.wall_sdf) == 0.5).all())
+    _, _, a, b_up, b_loc = compile_case(spec).bouzidi
+    assert bool((a == 1).all() and (b_up == 0).all() and (b_loc == 0).all())
     with pytest.raises(NotImplementedError, match="Bouzidi"):
-        compile_case(spec)
+        Simulation(spec, device="cpu")
     # five x/y-plane boundaries: one more than the kernel's descriptor
     # array; z-plane boundaries do not count (coronary has three)
     spec = get_case("poiseuille", n=8)

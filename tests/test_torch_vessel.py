@@ -7,6 +7,7 @@ the refusals."""
 
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -33,6 +34,7 @@ from lbm_tpu_torch.cases import get_case
 from lbm_tpu_torch.engine import checkpoint as ckpt
 from lbm_tpu_torch.engine.compile import (
     BLOCK,
+    CURVED_REFUSAL,
     SKIP_BELOW,
     check_z_windows,
     compile_case,
@@ -301,17 +303,19 @@ def test_geo_and_bc_files_round_trip(tmp_path, order):
     dict(windkessel=[(1.0, 1.0, 1.0)] * 4),
 ])
 def test_refuses_bouzidi_and_windkessel_by_name(kwargs):
-    """Bouzidi walls are not ported (the refusal names the ROADMAP item);
-    windkessel outlets are, and what refuses them names itself: the
-    fused pair of steps."""
+    """Both compile; what refuses them names itself: Bouzidi walls the
+    kernel backend, in lbm_tpu's words (the dense and sparse backends run
+    them), windkessel outlets the fused pair of steps."""
     spec = get_case("coronary", **CORONARY, **kwargs)
+    compile_case(spec)
     if "windkessel" in kwargs:
-        compile_case(spec)
         with pytest.raises(ValueError, match="fuse=2 requires"):
             Simulation(spec, device="cpu", fuse=2)
         return
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        compile_case(spec)
+    with pytest.raises(NotImplementedError,
+                       match=re.escape(CURVED_REFUSAL)):
+        Simulation(spec, device="cpu")
+    assert compile_case(spec).bouzidi is not None
 
 
 def test_cli_runs_pulsatile_coronary(tmp_path):

@@ -243,10 +243,7 @@ def test_every_case_fits_the_descriptor_capacity(name):
         spec = get_case(name, **kw)
         n_xy, n_z = _counts(spec.boundaries)
         assert n_xy <= MAX_BCS and n_z <= MAX_Z_BCS
-        try:
-            check_supported(spec)
-        except NotImplementedError as e:   # pipe's default Bouzidi walls
-            assert "z planes" not in str(e) and "Bouzidi" in str(e)
+        check_supported(spec)
         if name == "coronary":
             assert (n_xy, n_z) == (2, 3)
     if name == "coronary":
