@@ -272,9 +272,34 @@ lbm_windkessel_flux, its prime, from windkessel.cu):
      lbm_tpu_torch run --case pipe on the kernel backend, which must
      exit non-zero with lbm_tpu's refusal. Its results are printed as
      one JSON object {"phase19": ...}.
+Every mesh= path of lbm_tpu on torch.distributed (K7 on halo-row blocks,
+the dense transports' and windkessel outlets' halo steps):
+ 20. the sharded transports and the windkessel route on the one card, 4
+     gloo ranks sharing it in phase 16b's spawn (parallel/launch.
+     run_many): (a) ScalarTransport(mesh=, backend='kernel') on the steady
+     full coronary split along y (blocks of 73 rows and a halo row on each
+     side), u from phase 9's flow, D=0.02, a 50-step bolus at boundary 0,
+     every boundary recorded, 200 steps: K7 [frozen+comp] 200 times on
+     every rank (counters reset just before and read just after), the
+     gathered g bit for bit against an unsharded K7 run of the same steps,
+     the records within rtol 2e-6 / atol 1e-8, finite, -0.01 <= c <= 1.1;
+     ms/step and the halo rows' exchange alone; K7 a launch on rank 1's
+     block against its plain version (bit-equal) and by CUDA events in
+     turns with K7 on the same shape unsharded and the plain version, with
+     bounds; (b) the clinical coronary on the dense backend (lbm_tpu's
+     GSPMD windkessel route), 100 steps: every rank's P_c bit-equal and
+     within 1e-6 of the largest of the unsharded dense run's, f within
+     rtol 3e-6 / atol 1e-7 off the DEAD cells, ms/step and peak device
+     memory per rank; (c) CoupledTransport with those outlets on the small
+     clinical coronary (64, 48, 96) r=4, 100 steps, and BuoyantTransport
+     on rayleigh_benard_3d 64x64x34 split along x, 200 steps with
+     record_energy, each against its unsharded dense run (the buoyant f
+     and g bit for bit, its energy within rtol 3e-6 / atol 1e-9). With
+     two or more cards phase 17 runs (a) over NCCL too.
 The CLI's runs (phases 8, 12 and 19) call lbm_tpu_torch.cli.main in this
 process, as `python -m lbm_tpu_torch` does (cli_run), but for run
---shard, which spawns its ranks.
+--shard, which spawns its ranks. Each phase's seconds are printed
+("[t] phase ... took ... s").
 Before the last line it prints one JSON object describing each kernel;
 the last line is {"ok": true, "device": {...}}.
 
@@ -313,6 +338,18 @@ HBM_BYTES_PER_S = 3.35e12   # published H100 SXM peak at 700 W
 # within this share of max |f| of its reference
 BF16_REL = 2e-2
 FULL_CORONARY = dict(shape=[291, 291, 372], radius=12, pulsatile=[40, 2000])
+STEADY_CORONARY = dict(shape=[291, 291, 372], radius=12)
+# phase 20: the sharded K7 washout's steps, the dense windkessel runs' and
+# the small buoyant run's; its small cases (parallel/launch.transport_setup)
+PHASE20_STEPS = 200
+PHASE20_WK_STEPS = 100
+PHASE20_RB_STEPS = 200
+SMALL_TRANSPORTS = {
+    "coupled": ("case", "coronary", dict(shape=[64, 48, 96], radius=4,
+                                         pulsatile=[4, 40],
+                                         windkessel=CLINICAL_WK)),
+    "buoyant": ("thermal", "rayleigh_benard_3d", dict(nx=64, ny=64, nz=34)),
+}
 # The 36 unsharded fp32 collide-stream instances as this build gives them
 # (each branch without and with the z planes' code, "+z"; the fixup kernel
 # gone): (registers, spill store bytes, spill load bytes), from
@@ -376,9 +413,16 @@ def require(cond, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+_LAST_MARK = [0.0]
+
+
 def mark(phase: str) -> None:
-    print(f"[t] phase {phase} done at {time.perf_counter() - T_START:.1f} s",
-          flush=True)
+    """Print the script's clock at a phase's end and the phase's seconds
+    (since the previous mark)."""
+    now = time.perf_counter() - T_START
+    print(f"[t] phase {phase} done at {now:.1f} s, took "
+          f"{now - _LAST_MARK[0]:.1f} s", flush=True)
+    _LAST_MARK[0] = now
 
 
 def time_ms(fn, iters: int) -> float:
@@ -1644,12 +1688,13 @@ def check_washout(tag, tr, series, gate):
           f"{total:.6g}; {peaks}", flush=True)
 
 
-def washout_path(device):
+def washout_path(device, u_path=None):
     """coronary 291x291x372 r=12 (steady): 2000 flow steps, then the
     frozen-field transport, D=0.02, a 500-step bolus at boundary 0, 4000
     steps, every boundary recorded (K7 over the cell list and the record
-    kernel: at most two launches a transport step). Returns (the launch
-    counts, {"ms", "launches_per_step", "device_ms", "busy",
+    kernel: at most two launches a transport step). u_path: where the
+    flow's macro() u is saved as .npy (phase 20's frozen field). Returns
+    (the launch counts, {"ms", "launches_per_step", "device_ms", "busy",
     "record_ms"}, the record kernel's device ms a launch by the profiler,
     None where it saw none)."""
     import torch
@@ -1670,6 +1715,10 @@ def washout_path(device):
     flow = sim.run(max_steps=2000, time_save=1000, verbose=False)
     u = sim.macro()[1]
     del sim
+    if u_path is not None:
+        import numpy as np
+
+        np.save(u_path, u.cpu().numpy())
     t0 = time.perf_counter()
     tr = ScalarTransport(spec, u, D=0.02, device=device,
                          inlet_c={0: lambda t: 1.0 if t < 500 else 0.0})
@@ -3337,7 +3386,8 @@ def sharded_rank(mesh, case, opts, steps, time_save, out_dir):
 
 
 def sharded_path(label, case, opts, world, steps, time_save, ref_f, ref_vs,
-                 ref_steps, device_type="cuda", backend="gloo"):
+                 ref_steps, device_type="cuda", backend="gloo",
+                 extra_calls=()):
     """Phase 16: Simulation(mesh=) of `case` on `world` gloo ranks that
     share the card (their planes staged through pinned host memory), or
     with backend 'nccl' (phase 17) on `world` cards, one rank each; the
@@ -3347,12 +3397,14 @@ def sharded_path(label, case, opts, world, steps, time_save, ref_f, ref_vs,
     cells and zeros on them, the velsum series within 1e-5 relative, the
     same stop step; every rank launched K1d once a step, its z windows
     in the same launch, and no z-plane fixup. device_type: the gloo
-    ranks' ('cpu' rehearses the phase without a card). Returns the
-    numbers."""
+    ranks' ('cpu' rehearses the phase without a card). extra_calls:
+    (fn, args) pairs each rank runs after the path in the same spawn
+    (phase 20; parallel/launch.run_many), their results in rank order
+    under "extra". Returns the numbers."""
     import numpy as np
 
     from lbm_tpu_torch.cases import get_case
-    from lbm_tpu_torch.parallel.launch import spawn
+    from lbm_tpu_torch.parallel.launch import run_many, spawn
 
     tag = (f"[16] {label}, {world} gloo ranks on one card"
            if backend == "gloo" else
@@ -3361,10 +3413,12 @@ def sharded_path(label, case, opts, world, steps, time_save, ref_f, ref_vs,
              if backend == "gloo" else f"on {world} cards")
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
         t0 = time.perf_counter()
-        ranks = spawn(sharded_rank, world,
-                      (case, opts, steps, time_save, tmp), backend=backend,
-                      device=device_type, timeout=600)
+        calls = [(sharded_rank, (case, opts, steps, time_save, tmp)),
+                 *extra_calls]
+        results = spawn(run_many, world, (calls,), backend=backend,
+                        device=device_type, timeout=900)
         wall_s = time.perf_counter() - t0
+        ranks = [r[0] for r in results]
         got = np.load(os.path.join(tmp, "f.npy"))
     want = np.load(ref_f)
     live = np.asarray(get_case(case, **opts).mask) != 0
@@ -3391,7 +3445,9 @@ def sharded_path(label, case, opts, world, steps, time_save, ref_f, ref_vs,
            "launches": sum(r["counts"].get("lbm_collide_stream[bgk+halo]",
                                            0) for r in ranks),
            "z_windows": sum(r["z_windows"] for r in ranks),
-           "velsum_rel_err": v_rel, "wall_s": wall_s}
+           "velsum_rel_err": v_rel, "wall_s": wall_s,
+           "extra": [[r[j] for r in results]
+                     for j in range(1, len(calls))]}
     print(f"{tag} ({ref_steps} steps, chunks of {time_save}), {where}: "
           "ms/step per rank "
           f"{[round(r['ms'], 4) for r in ranks]} (host clock, "
@@ -3412,10 +3468,12 @@ def sharded_path(label, case, opts, world, steps, time_save, ref_f, ref_vs,
     return out
 
 
-def nccl_path(world, full):
+def nccl_path(world, full, p20_dir=None):
     """Phase 17: the full coronary `full` (its spec) on y over `world`
     NCCL ranks, one card each, against an unsharded run of the same 200
-    steps on card 0 (sharded_path's checks), then `run --shard world` on
+    steps on card 0 (sharded_path's checks), in the same spawn phase
+    20(a), the sharded K7 washout, against phase 20's unsharded run (its
+    files in p20_dir; not run without them), then `run --shard world` on
     the 64^3 cavity, which must write VTK and CONVERGENCE.log."""
     import dataclasses
 
@@ -3432,8 +3490,14 @@ def nccl_path(world, full):
         ref_vs, ref_steps = res.velsum_series, res.steps
         del sim, res
         free_device()
-        sharded_path("coronary full on y", "coronary", FULL_CORONARY, world,
-                     200, 100, ref, ref_vs, ref_steps, backend="nccl")
+        extra = ([] if p20_dir is None
+                 else [(sharded_washout_rank, (p20_dir,))])
+        out = sharded_path("coronary full on y", "coronary", FULL_CORONARY,
+                           world, 200, 100, ref, ref_vs, ref_steps,
+                           backend="nccl", extra_calls=extra)
+    if p20_dir is not None:
+        check_sharded_washout(f"[17] sharded K7 washout, {world} nccl ranks, "
+                              "one card each", out["extra"][0], world)
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
         t0 = time.perf_counter()
         proc = subprocess.run(
@@ -3450,6 +3514,437 @@ def nccl_path(world, full):
               f"{time.perf_counter() - t0:.1f} s wrote {files}; "
               f"{' | '.join(proc.stdout.strip().splitlines()[-2:])}",
               flush=True)
+
+
+def _rank_sync(mesh):
+    import torch
+
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+
+
+def _peak_gib(mesh) -> float:
+    import torch
+
+    if mesh.device.type != "cuda":
+        return 0.0
+    return torch.cuda.max_memory_allocated(mesh.device) / 2**30
+
+
+def _reset_peak(mesh) -> None:
+    import torch
+
+    if mesh.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+
+
+def time_k7_block(tr, turns_k: int = 400, turns_p: int = 10) -> dict:
+    """K7 a launch on this rank's halo-row block (the sharded route's
+    ScalarShard and state), in turns block/same shape unsharded/plain/
+    plain/same shape unsharded/block by CUDA events: the same shape as a
+    box of its own (its mask rows, the block's frozen u and comp, every
+    touched cell listed) through compile_scalar, and the plain version on
+    the block. Bounds: scalar_bytes over each case's fluid cells. First
+    one launch on the block into a copy of its state against the plain
+    version on the same inputs: the largest difference, g and the record
+    row ("max_abs_err")."""
+    import types
+
+    import torch
+
+    from lbm_tpu_torch.engine.scalar import compile_scalar
+    from lbm_tpu_torch.kernels import scalar_stream as S
+
+    sc = tr.sc
+    box = types.SimpleNamespace(name=tr.spec.name, shape=sc.shape,
+                                mask=sc.mask.cpu().numpy(),
+                                boundaries=tr.spec.boundaries)
+    whole = compile_scalar(box, sc.device, tau_g=sc.tau_g,
+                           inlet_c={0: 1.0})
+    whole.u, whole.comp = sc.u, sc.comp
+    state = [tr._g, tr._g_spare]
+    other = [tr._g.clone(), tr._g.clone()]
+    n_bc = len(sc.bcs)
+    row = torch.zeros((1, n_bc), dtype=torch.float64, device=sc.device)
+    out_k = state[0].clone()
+    S.scalar_stream(state[0], out_k, sc, 0, series=row)
+    g_p, rec_p = S.scalar_stream_plain(state[0], sc, 0)
+    err = max(float((out_k - g_p).abs().max()),
+              float((row[0] - rec_p).abs().max()) if n_bc else 0.0)
+    del out_k, g_p
+
+    def block():
+        S.scalar_stream(state[0], state[1], sc, 0)
+        state.reverse()
+
+    def unsharded():
+        S.scalar_stream(other[0], other[1], whole, 0)
+        other.reverse()
+
+    def plain():
+        S.scalar_stream_plain(state[0], sc, 0)
+
+    b1, u1, p1 = (time_ms(block, turns_k), time_ms(unsharded, turns_k),
+                  time_ms(plain, turns_p))
+    p2, u2, b2 = (time_ms(plain, turns_p), time_ms(unsharded, turns_k),
+                  time_ms(block, turns_k))
+    return {"max_abs_err": err,
+            "ms": (b1 + b2) / 2, "unsharded_ms": (u1 + u2) / 2,
+            "plain_ms": (p1 + p2) / 2, "turns": [b1, u1, p1, p2, u2, b2],
+            "bound_ms": bound_ms(scalar_bytes(sc, False)),
+            "unsharded_bound_ms": bound_ms(scalar_bytes(whole, False)),
+            "shape": list(sc.shape), "listed_cells": int(sc.cells.numel()),
+            "unsharded_listed_cells": (None if whole.cells is None
+                                       else int(whole.cells.numel())),
+            "fluid_cells": int(sc.fluid.sum())}
+
+
+def sharded_washout_rank(mesh, tmp):
+    """One rank of phase 20(a) (and of phase 17's): the steady full
+    coronary's frozen-field transport, ScalarTransport(mesh=,
+    backend='kernel') split along y (K7 on the rank's halo-row block), u
+    from phase 9's flow (tmp/u.npy), D=0.02, a 50-step bolus at boundary
+    0, every boundary recorded, PHASE20_STEPS steps, the scalar counters
+    reset just before and read just after; then 100 rounds of the halo
+    rows' exchange alone, and the gathered g and c, which rank 0 holds
+    against the unsharded K7 run's (tmp/g.npy, tmp/series.npy). Then
+    rank 1 (rank 0 alone in a world of one) times K7 on its block while
+    the others wait (time_k7_block). Returns this rank's numbers."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.cases import get_case
+    from lbm_tpu_torch.engine.scalar import ScalarTransport
+    from lbm_tpu_torch.kernels import scalar_stream as S
+    from lbm_tpu_torch.parallel.launch import Gate
+
+    t_start = time.perf_counter()
+    spec = get_case("coronary", **STEADY_CORONARY)
+    rec = list(range(len(spec.boundaries)))
+    tr = ScalarTransport(spec, np.load(os.path.join(tmp, "u.npy")), D=0.02,
+                         inlet_c={0: Gate(50)}, device=mesh.device.type,
+                         mesh=mesh, shard_axis=1)
+    _rank_sync(mesh)
+    setup_s = time.perf_counter() - t_start
+    _reset_peak(mesh)
+    mesh.barrier()
+    S.reset_launches()
+    _rank_sync(mesh)
+    t0 = time.perf_counter()
+    series = tr.run(PHASE20_STEPS, record=rec)
+    _rank_sync(mesh)
+    ms = (time.perf_counter() - t0) / PHASE20_STEPS * 1e3
+    counts = dict(S.launches)
+    peak = _peak_gib(mesh)
+    mesh.barrier()
+    _rank_sync(mesh)
+    t0 = time.perf_counter()
+    for _ in range(100):
+        tr._fill_halo_rows()
+    _rank_sync(mesh)
+    exchange_ms = (time.perf_counter() - t0) / 100 * 1e3
+    g = tr.g.cpu().numpy()
+    c = tr.concentration()
+    fluid = tr.fluid
+    out = {"rank": mesh.rank, "counts": counts, "ms": ms,
+           "exchange_ms": exchange_ms, "setup_s": setup_s,
+           "peak_gib": peak, "block": list(tr.sc.shape),
+           "listed_cells": int(tr.sc.cells.numel()),
+           "finite": bool(np.isfinite(g).all()),
+           "c_lo": float(c[fluid].min()), "c_hi": float(c[fluid].max()),
+           "total": tr.total(), "series_rows": series.shape[0]}
+    del c, fluid
+    if mesh.rank == 0:
+        ref = np.load(os.path.join(tmp, "g.npy"), mmap_mode="r")
+        out["g_diff"] = int(sum(int((g[i] != ref[i]).sum())
+                                for i in range(g.shape[0])))
+        ref_series = np.load(os.path.join(tmp, "series.npy"))
+        out["series_ok"] = bool(np.allclose(series, ref_series, rtol=2e-6,
+                                            atol=1e-8))
+        out["series_max_abs_err"] = float(np.abs(series - ref_series).max())
+        out["series_peaks"] = [float(v) for v in series.max(axis=0)]
+    del g
+    timer = 1 if mesh.world > 1 else 0
+    mesh.barrier()
+    if mesh.rank == timer and mesh.device.type == "cuda":
+        out["timing"] = time_k7_block(tr)
+    mesh.barrier()
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def sharded_clinical_rank(mesh, tmp):
+    """One rank of phase 20(b): the clinical coronary (phase 18's tree
+    and RCR values) on the dense backend, Simulation(mesh=,
+    backend='dense') split along y, PHASE20_WK_STEPS steps in chunks of
+    half: lbm_tpu's GSPMD windkessel route. Its own rows of f against the
+    unsharded dense run's (tmp/f_wk.npy) off the DEAD cells, at rtol
+    3e-6 / atol 1e-7: the count of values outside and the largest
+    difference; its P_c. Returns this rank's numbers."""
+    import numpy as np
+
+    from lbm_tpu_torch.cases import get_case
+    from lbm_tpu_torch.engine.runner import Simulation
+    from lbm_tpu_torch.geometry.mask import CellType
+
+    t_start = time.perf_counter()
+    spec = get_case("coronary", **FULL_CORONARY, windkessel=CLINICAL_WK)
+    sim = Simulation(spec, device=mesh.device.type, backend="dense",
+                     mesh=mesh)
+    _rank_sync(mesh)
+    setup_s = time.perf_counter() - t_start
+    _reset_peak(mesh)
+    mesh.barrier()
+    _rank_sync(mesh)
+    t0 = time.perf_counter()
+    res = sim.run(max_steps=PHASE20_WK_STEPS,
+                  time_save=PHASE20_WK_STEPS // 2, verbose=False)
+    _rank_sync(mesh)
+    ms = (time.perf_counter() - t0) / res.steps * 1e3
+    peak = _peak_gib(mesh)
+    rows = sim.cc.shape[1]
+    lo = mesh.rank * rows
+    hi = min(lo + rows, spec.shape[1])
+    ref = np.load(os.path.join(tmp, "f_wk.npy"), mmap_mode="r")
+    live = np.asarray(spec.mask)[:, lo:hi] != CellType.DEAD
+    viol, worst = 0, 0.0
+    for i in range(19):
+        got = sim.f[i, :, :hi - lo].cpu().numpy()[live]
+        want = np.asarray(ref[i, :, lo:hi])[live]
+        diff = np.abs(got - want)
+        viol += int((diff > 1e-7 + 3e-6 * np.abs(want)).sum()
+                    + (~np.isfinite(got)).sum())
+        worst = max(worst, float(diff.max()) if diff.size else 0.0)
+    return {"rank": mesh.rank, "wk": sim.wk.cpu().numpy(), "ms": ms,
+            "steps": res.steps, "peak_gib": peak, "setup_s": setup_s,
+            "violations": viol, "max_abs_err": worst, "rows": [lo, hi],
+            "seconds": time.perf_counter() - t_start}
+
+
+def sharded_transports_path(device, tmp):
+    """Phase 20's references (the unsharded runs the ranks are held to)
+    and its calls for the spawn of phase 16b (sharded_path's
+    extra_calls): (a) the unsharded K7 washout of tmp/u.npy, its g and
+    series written to tmp; (b) the unsharded dense clinical run, its f
+    written to tmp (P_c kept); (c) the small dense CoupledTransport and
+    BuoyantTransport unsharded (kept). Returns (calls, references)."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.cases import get_case
+    from lbm_tpu_torch.engine.runner import Simulation
+    from lbm_tpu_torch.engine.scalar import CoupledTransport, ScalarTransport
+    from lbm_tpu_torch.engine.thermal import BuoyantTransport
+    from lbm_tpu_torch.kernels import scalar_stream as S
+    from lbm_tpu_torch.parallel.launch import (
+        Gate,
+        run_transport,
+        transport_setup,
+    )
+
+    tag = "[20] references"
+    t0 = time.perf_counter()
+    spec = get_case("coronary", **STEADY_CORONARY)
+    rec = list(range(len(spec.boundaries)))
+    tr = ScalarTransport(spec, np.load(os.path.join(tmp, "u.npy")), D=0.02,
+                         inlet_c={0: Gate(50)}, device=device)
+    S.reset_launches()
+    series = tr.run(PHASE20_STEPS, record=rec)
+    require(S.launches.get("lbm_scalar_stream[frozen+comp]")
+            == PHASE20_STEPS, f"{tag}: unsharded K7 launches {S.launches}")
+    np.save(os.path.join(tmp, "g.npy"), tr.g.cpu().numpy())
+    np.save(os.path.join(tmp, "series.npy"), series)
+    del tr
+    free_device()
+    t_a = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    clin = get_case("coronary", **FULL_CORONARY, windkessel=CLINICAL_WK)
+    sim = Simulation(clin, device=device, backend="dense")
+    torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = sim.run(max_steps=PHASE20_WK_STEPS,
+                  time_save=PHASE20_WK_STEPS // 2, verbose=False)
+    torch.cuda.synchronize()
+    ref = {"series": series, "wk": sim.wk.cpu().numpy(),
+           "wk_ms": (time.perf_counter() - t1) / res.steps * 1e3,
+           "wk_peak_gib": torch.cuda.max_memory_allocated(device) / 2**30}
+    np.save(os.path.join(tmp, "f_wk.npy"), sim.f_standard().cpu().numpy())
+    del sim
+    free_device()
+    t_b = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cor_kw = dict(tau_g=0.6, inlet_c={0: Gate(50)}, backend="dense")
+    small = SMALL_TRANSPORTS
+    cspec, _ = transport_setup(small["coupled"])
+    ct = CoupledTransport(cspec, device=device, **cor_kw)
+    ref["coupled"] = {"series": ct.run(PHASE20_WK_STEPS, record=list(
+        range(len(cspec.boundaries)))), "f": ct.f.cpu().numpy(),
+        "g": ct.g.cpu().numpy(), "wk": ct.wk.cpu().numpy()}
+    del ct
+    bspec, bkw = transport_setup(small["buoyant"])
+    bt = BuoyantTransport(bspec, device=device, backend="dense", **bkw)
+    ref["buoyant"] = {"energy": bt.run(PHASE20_RB_STEPS, record_energy=True),
+                      "f": bt.f.cpu().numpy(), "g": bt.g.cpu().numpy()}
+    del bt
+    free_device()
+    t_c = time.perf_counter() - t0
+    ref["seconds"] = {"a": t_a, "b": t_b, "c": t_c}
+    print(f"{tag}: the unsharded K7 washout ({PHASE20_STEPS} steps) and its "
+          f"files {t_a:.1f} s; the unsharded dense clinical run "
+          f"({PHASE20_WK_STEPS} steps at {ref['wk_ms']:.4f} ms/step, peak "
+          f"{ref['wk_peak_gib']:.2f} GiB) and its file {t_b:.1f} s; the "
+          f"small coupled and buoyant runs {t_c:.1f} s", flush=True)
+    calls = [(sharded_washout_rank, (tmp,)),
+             (sharded_clinical_rank, (tmp,)),
+             (run_transport, (small["coupled"], "coupled",
+                              dict(cor_kw, shard_axis=1), PHASE20_WK_STEPS,
+                              list(range(len(cspec.boundaries))))),
+             (run_transport, (small["buoyant"], "buoyant",
+                              dict(backend="dense", shard_axis=0),
+                              PHASE20_RB_STEPS, None, None, True))]
+    return calls, ref
+
+
+def check_sharded_washout(tag, ranks, world) -> dict:
+    """Phase 20(a)'s checks on the ranks' numbers (sharded_washout_rank):
+    K7 [frozen+comp] PHASE20_STEPS times on every rank and nothing else,
+    the gathered g bit for bit, the series within rtol 2e-6 / atol 1e-8,
+    finite, -0.01 <= c <= 1.1. Returns the numbers for the kernels line."""
+    r0 = ranks[0]
+    name = "lbm_scalar_stream[frozen+comp]"
+    for r in ranks:
+        require(r["counts"] == {name: PHASE20_STEPS},
+                f"{tag}: rank {r['rank']} launched {r['counts']}")
+        require(r["finite"] and -0.01 <= r["c_lo"] and r["c_hi"] <= 1.1,
+                f"{tag}: rank {r['rank']}: finite {r['finite']}, c "
+                f"{r['c_lo']:.4g}..{r['c_hi']:.4g}")
+    require(r0["g_diff"] == 0,
+            f"{tag}: the gathered g differs from the unsharded K7 run's at "
+            f"{r0['g_diff']} values")
+    require(r0["series_ok"], f"{tag}: the records differ from the "
+            f"unsharded run's by {r0['series_max_abs_err']:.3e}")
+    timing = [r["timing"] for r in ranks if "timing" in r]
+    require(len(timing) == 1 and timing[0]["max_abs_err"] == 0.0,
+            f"{tag}: K7 on the block against its plain version: "
+            f"{[t['max_abs_err'] for t in timing]}")
+    out = {"ms": max(r["ms"] for r in ranks),
+           "exchange_ms": max(r["exchange_ms"] for r in ranks),
+           "launches_per_rank": [r["counts"][name] for r in ranks],
+           "peak_gib": max(r["peak_gib"] for r in ranks),
+           "series_max_abs_err": r0["series_max_abs_err"],
+           "seconds": max(r["seconds"] for r in ranks),
+           "timing": timing[0] if timing else None}
+    t = out["timing"]
+    print(f"{tag} steady coronary (291, 291, 372) r=12 on y, {world} ranks, "
+          f"blocks {[r['block'] for r in ranks]} (the rank's rows and a halo "
+          f"row each side), {[r['listed_cells'] for r in ranks]} listed "
+          f"cells: {PHASE20_STEPS} steps at ms/step per rank "
+          f"{[round(r['ms'], 4) for r in ranks]} (host clock, synchronized), "
+          "the halo rows' exchange alone "
+          f"{[round(r['exchange_ms'], 4) for r in ranks]} ms a step; set-up "
+          f"{max(r['setup_s'] for r in ranks):.1f} s; peak device memory per "
+          f"rank {out['peak_gib']:.2f} GiB; the gathered g bit-equal to the "
+          f"unsharded K7 run; record max abs err "
+          f"{out['series_max_abs_err']:.3e}; record peaks "
+          f"{[round(v, 5) for v in r0['series_peaks']]}; c "
+          f"{min(r['c_lo'] for r in ranks):.4g}..{max(r['c_hi'] for r in ranks):.4g}"
+          f", total() {r0['total']:.6g}; launches per rank "
+          f"{[r['counts'] for r in ranks]}; {out['seconds']:.1f} s on the "
+          "ranks", flush=True)
+    if t is not None:
+        print(f"{tag} K7 [frozen+comp] a launch on rank 1's block "
+              f"{t['shape']} ({t['listed_cells']} listed cells, "
+              f"{t['fluid_cells']} fluid): {t['ms']:.5f} ms (bound "
+              f"{t['bound_ms']:.5f}); the same shape unsharded "
+              f"({t['unsharded_listed_cells']} listed) {t['unsharded_ms']:.5f}"
+              f" ms (bound {t['unsharded_bound_ms']:.5f}); plain "
+              f"{t['plain_ms']:.4f} ms (CUDA events, turns block/unsharded/"
+              f"plain/plain/unsharded/block: "
+              f"{[round(v, 5) for v in t['turns']]})", flush=True)
+    return out
+
+
+def check_sharded_transports(extra, ref, world) -> dict:
+    """Phase 20's checks, (a) to (c), on the results of its calls in the
+    spawn of phase 16b. Returns its numbers."""
+    import numpy as np
+
+    from lbm_tpu_torch.geometry.mask import CellType
+    from lbm_tpu_torch.parallel.launch import transport_setup
+
+    out = {"washout": check_sharded_washout(
+        f"[20a] sharded K7 washout, {world} gloo ranks on one card",
+        extra[0], world)}
+    tag = f"[20b] clinical coronary on the dense backend, {world} gloo ranks"
+    ranks = extra[1]
+    wk = ranks[0]["wk"]
+    require(all(np.array_equal(r["wk"].view(np.int32), wk.view(np.int32))
+                for r in ranks), f"{tag}: the ranks' P_c differ: "
+            f"{[r['wk'].tolist() for r in ranks]}")
+    pc_err = float(np.abs(wk - ref["wk"]).max())
+    require(pc_err <= 1e-6 * float(np.abs(ref["wk"]).max()),
+            f"{tag}: P_c {wk.tolist()} against the unsharded "
+            f"{ref['wk'].tolist()}")
+    require(all(r["violations"] == 0 for r in ranks),
+            f"{tag}: f outside rtol 3e-6 / atol 1e-7 of the unsharded run "
+            f"at {[r['violations'] for r in ranks]} values (max abs err "
+            f"{[r['max_abs_err'] for r in ranks]})")
+    out["clinical"] = {"ms": max(r["ms"] for r in ranks),
+                       "peak_gib": max(r["peak_gib"] for r in ranks),
+                       "unsharded_ms": ref["wk_ms"],
+                       "unsharded_peak_gib": ref["wk_peak_gib"],
+                       "pc_max_abs_err": pc_err,
+                       "f_max_abs_err": max(r["max_abs_err"] for r in ranks),
+                       "seconds": max(r["seconds"] for r in ranks)}
+    print(f"{tag}: {ranks[0]['steps']} steps at ms/step per rank "
+          f"{[round(r['ms'], 4) for r in ranks]} (host clock, synchronized; "
+          f"unsharded {ref['wk_ms']:.4f}); peak device memory per rank "
+          f"{[round(r['peak_gib'], 2) for r in ranks]} GiB (unsharded "
+          f"{ref['wk_peak_gib']:.2f}); every rank's P_c bit-equal, "
+          f"{wk.tolist()}, max abs err against the unsharded run "
+          f"{pc_err:.3e}; f max abs err "
+          f"{out['clinical']['f_max_abs_err']:.3e} off the DEAD cells; set-up "
+          f"{max(r['setup_s'] for r in ranks):.1f} s, "
+          f"{out['clinical']['seconds']:.1f} s on the ranks", flush=True)
+    tag = f"[20c] small dense transports, {world} gloo ranks"
+    cor, rb = extra[2], extra[3]
+    want = ref["coupled"]
+    cspec, _ = transport_setup(SMALL_TRANSPORTS["coupled"])
+    live = np.asarray(cspec.mask) != CellType.DEAD
+    require(all(np.array_equal(r["wk"].view(np.int32),
+                               cor[0]["wk"].view(np.int32)) for r in cor),
+            f"{tag}: the coupled ranks' P_c differ")
+    checks = [
+        ("coupled f", cor[0]["f"][:, live], want["f"][:, live], 3e-6, 1e-7),
+        ("coupled g", cor[0]["g"], want["g"], 3e-6, 1e-7),
+        ("coupled records", cor[0]["series"], want["series"], 2e-6, 1e-8)]
+    for name, got, exp, rtol, atol in checks:
+        require(np.allclose(got, exp, rtol=rtol, atol=atol),
+                f"{tag}: {name} max abs err {np.abs(got - exp).max():.3e}")
+    pc = float(np.abs(cor[0]["wk"] - want["wk"]).max())
+    require(pc <= 1e-6 * float(np.abs(want["wk"]).max()),
+            f"{tag}: coupled P_c {cor[0]['wk']} against {want['wk']}")
+    want = ref["buoyant"]
+    require(np.array_equal(rb[0]["f"], want["f"])
+            and np.array_equal(rb[0]["g"], want["g"]),
+            f"{tag}: the buoyant f or g differ from the unsharded run's")
+    require(np.allclose(rb[0]["energy"], want["energy"], rtol=3e-6,
+                        atol=1e-9),
+            f"{tag}: energy max rel err "
+            f"{np.abs(rb[0]['energy'] / want['energy'] - 1).max():.3e}")
+    out["small"] = {"coupled_ms": max(r["ms"] for r in cor),
+                    "buoyant_ms": max(r["ms"] for r in rb),
+                    "coupled_pc_max_abs_err": pc}
+    print(f"{tag}: CoupledTransport, the small clinical coronary (64, 48, "
+          f"96) r=4 with its 4 RCR outlets, on y, {PHASE20_WK_STEPS} steps "
+          f"at {out['small']['coupled_ms']:.4f} ms/step: f, g and the records"
+          f" within tolerance of the unsharded run, every rank's P_c "
+          f"bit-equal, {pc:.3e} from the unsharded; BuoyantTransport, "
+          f"rayleigh_benard_3d 64x64x34 on x, {PHASE20_RB_STEPS} steps at "
+          f"{out['small']['buoyant_ms']:.4f} ms/step: f and g bit-equal, "
+          "the energy series within rtol 3e-6", flush=True)
+    return out
 
 
 def pipe_error(curved: bool, device) -> tuple:
@@ -4035,6 +4530,7 @@ def main() -> int:
           "frame bytes, blocks an SM): " + "; ".join(
               f"{k} {v[0]}, {v[1] + v[2]}, {stack.get(k)}, {k1_blocks[k]}"
               for k, v in sorted(trt_field.items())), flush=True)
+    mark("1, 2")
 
     # -- phase 3: kernels vs plain versions --------------------------------
     from lbm_tpu_torch.cases import get_case
@@ -4325,7 +4821,45 @@ def main() -> int:
     free_device()
     mark("15a, 15c")
 
-    # -- phase 16b: the sharded coronary path on the one card --------------
+    # -- phase 5: the vessel path ------------------------------------------
+    u_in = 0.1745 / 2.74909090909091
+    counts, vp = vessel_path(full, device, "[5] vessel path", "bgk",
+                             tv["live_share"])
+    mark("5")
+
+    # -- phase 6: the blood path -------------------------------------------
+    blood_counts, blood_vp = vessel_path(
+        blood, device, "[6] blood path (trt + Carreau blood)", "trt+cy",
+        tv["live_share"], closure=True)
+    del blood
+    free_device()
+    mark("6")
+
+    # -- phase 15b: the bf16 vessel path -------------------------------------
+    bf16_counts, bf16_vp = vessel_path(
+        full, device, "[15] bf16 vessel path", "bgk+bf16", tv["live_share"],
+        store_dtype="bf16")
+    free_device()
+    mark("15b")
+
+    # -- phase 7: the force path -------------------------------------------
+    force_counts = force_path(device)
+    free_device()
+    mark("7")
+
+    # -- phase 9: the washout path (its flow's u kept for phase 20) --------
+    # phase 20's files live until phase 17, which runs its (a) over NCCL
+    p20_dir = tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_")
+    washout_counts, washout_vp = washout_path(
+        device, os.path.join(p20_dir.name, "u.npy"))
+    mark("9")
+
+    # -- phases 16b and 20: the sharded coronary path and the sharded -----
+    # transports and windkessel route, in one spawn of 4 gloo ranks on the
+    # one card
+    t20 = time.perf_counter()
+    p20_calls, p20_ref = sharded_transports_path(device, p20_dir.name)
+    t20 = time.perf_counter() - t20
     vspec = dataclasses.replace(full, residual_flavor="velsum")
     sim = Simulation(vspec, device=device)
     res = sim.run(max_steps=200, time_save=100, verbose=False)
@@ -4340,38 +4874,22 @@ def main() -> int:
         free_device()
         sh_cor = sharded_path("coronary full on y", "coronary",
                               FULL_CORONARY, 4, 200, 100, ref, ref_vs,
-                              ref_steps)
+                              ref_steps, extra_calls=p20_calls)
     free_device()
-    mark("16b")
+    t_check = time.perf_counter()
+    p20 = check_sharded_transports(sh_cor.pop("extra"), p20_ref, 4)
+    os.remove(os.path.join(p20_dir.name, "f_wk.npy"))
+    t20 += time.perf_counter() - t_check
+    on_ranks = sum(p20[k]["seconds"] for k in ("washout", "clinical"))
+    print(f"[t] phase 20 took {t20 + on_ranks:.1f} s: the references and "
+          f"checks {t20:.1f} s, its (a) and (b) on the ranks {on_ranks:.1f} s "
+          "(its small (c) and phase 16b share the spawn)", flush=True)
+    mark("16b, 20")
 
-    # -- phase 5: the vessel path ------------------------------------------
-    u_in = 0.1745 / 2.74909090909091
-    counts, vp = vessel_path(full, device, "[5] vessel path", "bgk",
-                             tv["live_share"])
-
-    # -- phase 6: the blood path -------------------------------------------
-    blood_counts, blood_vp = vessel_path(
-        blood, device, "[6] blood path (trt + Carreau blood)", "trt+cy",
-        tv["live_share"], closure=True)
-    del blood
-    free_device()
-
-    # -- phase 15b: the bf16 vessel path -------------------------------------
-    bf16_counts, bf16_vp = vessel_path(
-        full, device, "[15] bf16 vessel path", "bgk+bf16", tv["live_share"],
-        store_dtype="bf16")
-    free_device()
-    mark("15b")
-
-    # -- phase 7: the force path -------------------------------------------
-    force_counts = force_path(device)
-    free_device()
-
-    # -- phases 9-11: washout, coupled washout, thermal ---------------------
-    washout_counts, washout_vp = washout_path(device)
+    # -- phases 10, 11: coupled washout, thermal ----------------------------
     coupled_counts, coupled_vp = coupled_path(full, device)
     thermal_counts, thermal_trt_counts = thermal_path(device)
-    mark("9-11")
+    mark("10, 11")
 
     # -- phase 18: the clinical coronary (windkessel outlets) -------------
     clin = clinical_path(device)
@@ -4455,7 +4973,7 @@ def main() -> int:
     # -- phase 17: several cards over NCCL --------------------------------
     n_cards = torch.cuda.device_count()
     if n_cards >= 2:
-        nccl_path(min(n_cards, 4), full)
+        nccl_path(min(n_cards, 4), full, p20_dir.name)
         mark("17")
     else:
         print(f"[17] the NCCL path for several cards was not run on this "
@@ -4611,6 +5129,30 @@ def main() -> int:
          "registers": {k: v[0] for k, v in ptxas.items()
                        if k.startswith("scalar")},
          "build_s": slib.build_seconds},
+        {"name": "lbm_scalar_stream[frozen+comp] on a halo-row block "
+                 "(sharded)", "route": "cuda",
+         "source": K7_SOURCE,
+         "replaces": "lbm_tpu/kernels/scalar_stream.py:507 (K7 under "
+                     "ScalarTransportPallas(mesh=): _build_sharded :730, "
+                     "_sharded_step :900)",
+         "launches": sum(p20["washout"]["launches_per_rank"]),
+         "launches_per_rank": p20["washout"]["launches_per_rank"],
+         "max_abs_err": p20["washout"]["timing"]["max_abs_err"],
+         "ms": p20["washout"]["timing"]["ms"],
+         "plain_ms": p20["washout"]["timing"]["plain_ms"],
+         "bound_ms": p20["washout"]["timing"]["bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "block_shape": p20["washout"]["timing"]["shape"],
+         "listed_cells": p20["washout"]["timing"]["listed_cells"],
+         "unsharded_same_shape_ms": p20["washout"]["timing"]["unsharded_ms"],
+         "unsharded_same_shape_bound_ms":
+             p20["washout"]["timing"]["unsharded_bound_ms"],
+         "path_ms_per_step_one_card": p20["washout"]["ms"],
+         "path_exchange_ms_one_card": p20["washout"]["exchange_ms"],
+         "path_record_max_abs_err": p20["washout"]["series_max_abs_err"],
+         "path_peak_gib_per_rank": p20["washout"]["peak_gib"],
+         "clinical_dense_route": p20["clinical"],
+         "small_dense_transports": p20["small"]},
         {"name": "lbm_scalar_stream[live]", "route": "cuda",
          "source": K7_SOURCE,
          "replaces": "lbm_tpu/kernels/scalar_stream.py:507 (K8, _subtile7f "

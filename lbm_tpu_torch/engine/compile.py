@@ -623,7 +623,7 @@ class ShardCase(CompiledCase):
         if spec.wall_sdf is None:
             return None
         rows = self.shape[self.shard_axis]
-        q = _take_rows(link_q(np.asarray(spec.mask), spec.wall_sdf,
+        q = take_rows(link_q(np.asarray(spec.mask), spec.wall_sdf,
                               table=self._link_table),
                        1 + self.shard_axis,
                        np.arange(self.rank * rows, (self.rank + 1) * rows),
@@ -649,10 +649,22 @@ def shard_rows(n: int, world: int) -> int:
     return -(-n // world)
 
 
-def _take_rows(arr: np.ndarray, axis: int, idx: np.ndarray, n: int, fill):
-    """Rows idx (padded-extent indices) of arr along `axis`; rows at or
-    past n are padding, filled with `fill`."""
-    out = np.take(arr, np.minimum(idx, n - 1), axis=axis)
+def take_rows(arr, axis: int, idx: np.ndarray, n: int, fill):
+    """Rows idx (padded-extent indices) of an array or tensor along
+    `axis`, a copy of its kind; rows at or past n are padding, filled
+    with `fill`."""
+    if torch.is_tensor(arr):
+        sel = torch.from_numpy(np.minimum(idx, n - 1)).to(arr.device)
+        out = arr.index_select(axis, sel)
+        pad = torch.from_numpy(idx >= n).to(arr.device)
+        if bool(pad.any()):
+            shape = [1] * out.dim()
+            shape[axis] = len(idx)
+            out = torch.where(pad.reshape(shape),
+                              torch.full((), fill, dtype=out.dtype,
+                                         device=out.device), out)
+        return out.contiguous()
+    out = np.take(np.asarray(arr), np.minimum(idx, n - 1), axis=axis)
     pad = idx >= n
     if pad.any():
         sl = [slice(None)] * out.ndim
@@ -664,23 +676,28 @@ def _take_rows(arr: np.ndarray, axis: int, idx: np.ndarray, n: int, fill):
 def _window_bc(bc: CompiledBC, shard_axis: int, idx: np.ndarray, n: int,
                local_shape, device) -> CompiledBC:
     """A whole-box boundary's tables windowed to rows idx of the shard
-    axis (one of its lateral axes); a z boundary's window in local
+    axis (one of its lateral axes): a windkessel outlet's flux footprint
+    to the rank's part of it; a z boundary's window in local
     coordinates."""
     dim = _lat_axes(bc.axis).index(shard_axis)
 
     def win(t, lead):
         if t is None:
             return None
-        a = _take_rows(t.cpu().numpy(), lead + dim, idx, n, 0)
+        a = take_rows(t.cpu().numpy(), lead + dim, idx, n, 0)
         return torch.from_numpy(a).to(device)
 
     valid = win(bc.valid, 1)
+    weight = win(bc.flow_weight, 0)
     window = None
     if bc.axis == 2:
-        window = valid_bbox(valid.cpu().numpy(), local_shape[:2])
+        window = valid_bbox(valid.cpu().numpy(), local_shape[:2],
+                            footprint=(None if weight is None
+                                       else weight.cpu().numpy()))
     return dataclasses.replace(
         bc, valid=valid, phi_star=win(bc.phi_star, 1),
-        phi_star_series=win(bc.phi_star_series, 2), window=window)
+        phi_star_series=win(bc.phi_star_series, 2), window=window,
+        flow_weight=weight)
 
 
 def compile_shard(spec: CaseSpec, rank: int, world: int, shard_axis: int,
@@ -723,10 +740,10 @@ def compile_shard(spec: CaseSpec, rank: int, world: int, shard_axis: int,
     local_shape[shard_axis] = rows
     local_shape = tuple(local_shape)
     a = shard_axis
-    mask_loc = _take_rows(mask, a, idx, n, CellType.DEAD).astype(np.int8)
-    mask_ext = _take_rows(mask, a, ext, n, CellType.DEAD).astype(np.int8)
-    rho0 = _take_rows(np.asarray(spec.rho0, np.float32), a, idx, n, 1.0)
-    u0 = _take_rows(np.asarray(spec.u0, np.float32), a + 1, idx, n, 0.0)
+    mask_loc = take_rows(mask, a, idx, n, CellType.DEAD).astype(np.int8)
+    mask_ext = take_rows(mask, a, ext, n, CellType.DEAD).astype(np.int8)
+    rho0 = take_rows(np.asarray(spec.rho0, np.float32), a, idx, n, 1.0)
+    u0 = take_rows(np.asarray(spec.u0, np.float32), a + 1, idx, n, 0.0)
     fluid = mask_loc == CellType.FLUID
     own_rows = max(0, min(n - rank * rows, rows))
     own = np.zeros(local_shape, bool)
@@ -846,6 +863,7 @@ def compile_case(spec: CaseSpec, device="cpu") -> CompiledCase:
 
 __all__ = ["CompiledBC", "CompiledCase", "ShardCase", "compile_case",
            "compile_shard", "compile_bc", "compile_bcs", "shard_rows",
+           "take_rows",
            "has_windkessel", "wk_init",
            "canonical_device", "check_supported", "check_z_windows",
            "CURVED_REFUSAL",

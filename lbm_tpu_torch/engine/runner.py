@@ -76,11 +76,14 @@ with the halo step (parallel/halo.py). run() sums the ranks' velsum
 series once a chunk, in rank order on the host, so every rank takes the
 same stop decision; f_standard() and macro() gather the whole box on
 every rank, f_standard() with zeros at DEAD cells (lbm_tpu's sharded
-unblock contract). Refused under a mesh, in lbm_tpu's words: bf16
-storage, fuse=2, the kernel backend on z, a boundary on the shard axis,
-lowmem (its chunked read is single-device) and windkessel outlets (the
-kernel backend in lbm_tpu's words; lbm_tpu's GSPMD windkessel route waits
-for ROADMAP Queue 1 item 1 on the dense backend).
+unblock contract). Windkessel outlets run under a mesh on the dense
+backend, lbm_tpu's GSPMD windkessel route (parallel/halo.make_halo_step's
+windkessel form): the outlets' flux partials add across ranks in rank
+order once a step, every rank carries the same P_c, and run() checks at
+the end of each chunk that every rank's wk is equal bit for bit. Refused
+under a mesh, in lbm_tpu's words: bf16 storage, fuse=2, the kernel
+backend on z, a boundary on the shard axis, lowmem (its chunked read is
+single-device) and windkessel outlets on the kernel backend.
 """
 
 from __future__ import annotations
@@ -158,9 +161,9 @@ def mesh_refusal(backend: str, fuse: int, lowmem, store_dtype: torch.dtype,
     lbm_tpu's words, or None."""
     if windkessel and backend == "kernel":
         return ("the sharded kernel path does not thread the windkessel "
-                "P_c carry yet — use backend='dense' with mesh= once "
-                "lbm_tpu's GSPMD windkessel route is ported, or a "
-                "single-device kernel run")
+                "P_c carry yet — use backend='dense' with mesh= (GSPMD "
+                "windkessel is supported there), or a single-chip kernel "
+                "run")
     if store_dtype == torch.bfloat16:
         return ("store_dtype='bf16' is single-chip for now (the sharded "
                 "z-fixup path computes in the storage dtype)")
@@ -248,12 +251,6 @@ class Simulation:
                                   has_windkessel(spec.boundaries))
             if reason is not None:
                 raise ValueError(reason)
-            if has_windkessel(spec.boundaries):
-                raise NotImplementedError(
-                    "windkessel outlets under a mesh on the dense backend "
-                    "(lbm_tpu's GSPMD windkessel route, dryrun path 4) are "
-                    "not ported to lbm_tpu_torch yet (ROADMAP.md Queue 1 "
-                    "item 1)")
             if resolve_device(device).type != mesh.device.type:
                 raise ValueError(f"device={device!r}, but the mesh's ranks "
                                  f"run on {mesh.device.type}")
@@ -545,6 +542,12 @@ class Simulation:
         self.t += n
         samples = series.cpu().numpy() + self.case.velsum_offset
         if self.mesh is not None:
+            if self.wk is not None and not self.mesh.same_on_every_rank(
+                    self.wk):
+                raise RuntimeError(
+                    f"rank {self.mesh.rank}: the ranks' windkessel P_c "
+                    f"differ at step {self.t} (this rank's "
+                    f"{self.wk.tolist()}): the replicated carry drifted")
             return self.mesh.sum_in_rank_order(samples)
         return samples
 

@@ -278,20 +278,41 @@ def pulled_state(cc: CompiledCase, f, t: int, bcs=None, halo=None,
     return pulled
 
 
-def pulled_state_wk(cc: CompiledCase, f, t: int, wk):
-    """pulled_state of a case with windkessel outlets: wk is the (n_wk,)
-    fp32 carried P_c (compile.wk_init's order); returns (pulled, wk')
-    with every boundary applied in boundary order, as lbm_tpu's."""
-    pulled = _streamed_case(cc, f)
-    wk_new = []
+def windkessel_fluxes(cc: CompiledCase, f):
+    """(n_wk,) fp32: each windkessel outlet's outward flux Q over its
+    consumer plane of the pre-step state f (its u_prev, with the F/2
+    shift of cc.force), in wk_index order. On a shard: the sum over its
+    rows of the footprint."""
+    qs = []
     for bc in cc.bcs:
         if bc.windkessel is not None:
-            pulled, p = apply_bc_fixup(pulled, f, bc, t, cc.force,
-                                       wk_p=wk[bc.wk_index])
-            wk_new.append(p)
-        else:
-            pulled = apply_bc_fixup(pulled, f, bc, t, cc.force)
-    return pulled, torch.stack(wk_new)
+            rho_prev, mom = momentum(f.select(bc.axis + 1,
+                                              bc.consumer_coord))
+            u_prev = velocity(rho_prev, mom, cc.force)
+            qs.append(windkessel_flux(u_prev[bc.axis], bc))
+    return torch.stack(qs)
+
+
+def pulled_state_wk(cc: CompiledCase, f, t: int, wk, halo=None,
+                    reduce=None):
+    """pulled_state of a case with windkessel outlets: wk is the (n_wk,)
+    fp32 carried P_c (compile.wk_init's order); returns (pulled, wk')
+    with every boundary applied in boundary order, as lbm_tpu's (each
+    outlet's rho* from its Q of the pre-step state). halo: a shard's, as
+    in pulled_state; reduce: what turns the (n_wk,) flux partials into
+    the whole footprints' sums (a mesh's add_in_rank_order)."""
+    q = windkessel_fluxes(cc, f)
+    if reduce is not None:
+        q = reduce(q)
+    rho, wk_new = [], []
+    for bc in cc.bcs:
+        if bc.windkessel is not None:
+            k = bc.wk_index
+            p_new, p_in = windkessel_update(wk[k], q[k], bc.windkessel)
+            rho.append(windkessel_rho(bc, p_in))
+            wk_new.append(p_new)
+    return (pulled_state(cc, f, t, halo=halo, rho_wk=torch.stack(rho)),
+            torch.stack(wk_new))
 
 
 def _matvec(mat: np.ndarray, vecs):
@@ -586,6 +607,7 @@ def init_override(cc: CompiledCase, rho, u):
 
 __all__ = ["make_step", "make_step_wk", "make_step_force",
            "pulled_state_wk", "windkessel_update", "windkessel_flux",
+           "windkessel_fluxes",
            "windkessel_rho", "boussinesq_force", "is_force_field", "guo_rates",
            "initial_f", "macro_fields", "init_override",
            "streamed", "pull_one", "inbound_dirs", "halo_ext",

@@ -62,6 +62,13 @@ class BuoyantTransport(CoupledTransport):
     inlet_c / source / c0: as in ScalarTransport.
     div_fix: dense route only, default off.
     f0: optional initial flow state.
+    mesh, shard_axis: the dense route under a mesh, lbm_tpu's GSPMD
+       mesh= (engine/scalar.py): the buoyancy is elementwise in the
+       rank's c and needs nothing more; the energy series is the ranks'
+       float64 partials added in rank order once a run() call; macro(),
+       nusselt_profile, save and restore work on the gathered whole box,
+       so a checkpoint restores at any world size. The kernel route
+       refuses mesh= in lbm_tpu's words.
     """
 
     def __init__(self, spec: CaseSpec, D: Optional[float] = None,
@@ -69,7 +76,8 @@ class BuoyantTransport(CoupledTransport):
                  buoyancy=(0.0, 0.0, 0.0), c_ref: float = 0.0,
                  wall_c=None, inlet_c: Optional[dict] = None,
                  source: float = 0.0, c0=None, div_fix: bool = False,
-                 f0=None, device="cuda", backend: str = "kernel"):
+                 f0=None, device="cuda", backend: str = "kernel", mesh=None,
+                 shard_axis: Optional[int] = None):
         buoy = tuple(float(np.float32(v)) for v in buoyancy)
         if len(buoy) != 3:
             raise ValueError(f"buoyancy must be a 3-vector: {buoyancy!r}")
@@ -83,7 +91,8 @@ class BuoyantTransport(CoupledTransport):
                          source=source, c0=c0, div_fix=div_fix,
                          wall_c=wall_c, f0=f0, device=device,
                          backend=backend,
-                         field=ForceField(buoy, float(np.float32(c_ref))))
+                         field=ForceField(buoy, float(np.float32(c_ref))),
+                         mesh=mesh, shard_axis=shard_axis)
         self.buoyancy = np.asarray(buoy, np.float32)
         self.c_ref = np.float32(c_ref)
 
@@ -91,7 +100,8 @@ class BuoyantTransport(CoupledTransport):
         """Advance flow and temperature n_steps. record_energy (dense
         route): sample the kinetic energy sum(u^2 over fluid cells) of
         every step's in-step velocity and return the (n_steps,) float64
-        series (the Rayleigh-Benard onset diagnostic), else None."""
+        series (the Rayleigh-Benard onset diagnostic; under a mesh the
+        ranks' partials added in rank order), else None."""
         energy = None
         if record_energy:
             if self.backend != "dense":
@@ -100,20 +110,26 @@ class BuoyantTransport(CoupledTransport):
             energy = torch.zeros(n_steps, dtype=torch.float64,
                                  device=self.cc.device)
         self._advance(n_steps, None, energy)
-        return None if energy is None else energy.cpu().numpy()
+        if energy is None:
+            return None
+        energy = energy.cpu().numpy()
+        if self.mesh is not None:
+            energy = self.mesh.sum_in_rank_order(energy)
+        return energy
 
-    def macro(self):
+    def _window_macro(self):
         """(rho, u) with the CURRENT buoyant force's half shift, u = (m +
-        F/2) / rho: moments at fluid cells, the init values elsewhere."""
+        F/2) / rho, of the rows this process holds: moments at fluid
+        cells, the init values elsewhere."""
         from lbm_tpu_torch.kernels import collide_stream as K
 
         force = self._force_field()
         if self.backend == "dense":
-            rho, mom = momentum(self.f)
+            rho, mom = momentum(self._f)
             u = velocity(rho, mom, force)
         else:
             # K3 gives m / rho; the per-cell shift is added to it
-            rho, u = K.macro(self.f)
+            rho, u = K.macro(self._f)
             safe = torch.where(rho == 0, torch.ones_like(rho), rho)
             u = u + 0.5 * force / safe[None]
         return init_override(self.cc, rho, u)
@@ -121,12 +137,17 @@ class BuoyantTransport(CoupledTransport):
     # -- checkpoint / resume ----------------------------------------------
     def save(self, path: str) -> None:
         """Atomic npz checkpoint of the coupled state (f, g, t): written
-        to a temporary name and renamed."""
-        tmp = path + ".tmp"
-        np.savez_compressed(
-            tmp, f=self.f.cpu().numpy(), g=self.g.cpu().numpy(),
-            t=np.int64(self.t), case=np.bytes_(self.spec.name.encode()))
-        os.replace(tmp if tmp.endswith(".npz") else tmp + ".npz", path)
+        to a temporary name and renamed. Under a mesh every rank calls it
+        and rank 0 writes the gathered whole box."""
+        f, g = self.f.cpu().numpy(), self.g.cpu().numpy()
+        if self.mesh is None or self.mesh.rank == 0:
+            tmp = path + ".tmp"
+            np.savez_compressed(
+                tmp, f=f, g=g, t=np.int64(self.t),
+                case=np.bytes_(self.spec.name.encode()))
+            os.replace(tmp if tmp.endswith(".npz") else tmp + ".npz", path)
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def restore(self, path: str) -> None:
         """Restore a checkpoint written by save (here or by lbm_tpu),
@@ -156,10 +177,11 @@ class BuoyantTransport(CoupledTransport):
         normalized by the conduction flux kappa dT / H per cell of wall
         area. At steady state the profile is the same on every plane; its
         mean is the cavity's Nusselt number. Summed in float64 on the
-        device. Returns (planes, Nu per plane) as NumPy arrays."""
+        device (the gathered whole box under a mesh). Returns (planes, Nu
+        per plane) as NumPy arrays."""
         c = self.concentration().double().movedim(hot_axis, 0)
         ua = self.macro()[1][hot_axis].double().movedim(hot_axis, 0)
-        fluid = self.sc.fluid.movedim(hot_axis, 0)[2:-2]
+        fluid = self.fluid.movedim(hot_axis, 0)[2:-2]
         zero = torch.zeros((), dtype=torch.float64, device=c.device)
         flux = ua[2:-2] * c[2:-2] - kappa * 0.5 * (c[3:-1] - c[1:-3])
         total = torch.where(fluid, flux, zero).sum(dim=(1, 2))

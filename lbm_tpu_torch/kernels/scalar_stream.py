@@ -24,7 +24,11 @@ tensors on the CPU; for a CUDA tensor it launches the kernel or raises.
 The classes that drive it are engine/scalar.ScalarTransport and
 CoupledTransport and engine/thermal.BuoyantTransport with
 backend='kernel': the counterparts of lbm_tpu's ScalarTransportPallas,
-CoupledTransportPallas and BuoyantTransportPallas.
+CoupledTransportPallas and BuoyantTransportPallas. Under a mesh
+ScalarTransport launches the same kernel on each rank's halo-row block
+(engine/scalar.ScalarShard, lbm_tpu's ScalarTransportPallas(mesh=)):
+its cell and footprint lists hold the rank's own rows, each boundary
+counts its whole footprint, so the record row is the rank's share.
 """
 
 from __future__ import annotations

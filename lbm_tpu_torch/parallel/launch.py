@@ -14,11 +14,14 @@ leaves the others hanging in an exchange.
 run_case is such an fn: one case through Simulation(mesh=), optionally
 resumed from or saved to a checkpoint, with rank 0 returning what a
 caller compares (the gathered state, the velsum series, the residuals,
-the launch counters).
+the launch counters). run_transport is another: one ScalarTransport,
+CoupledTransport or BuoyantTransport under the mesh (Gate is a bolus
+that crosses by pickle).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import multiprocessing
 import os
 import queue
@@ -119,8 +122,8 @@ def run_case(mesh, case: str, opts: dict, backend: str = "kernel",
     restored from the checkpoint `resume` first and saved to `save`
     after, when given. Rank 0 returns {"f": f_standard() as NumPy,
     "velsum": the velsum series (None for 'usq' cases), "residuals",
-    "steps", "t", "launches": the kernel counters of the run}; the
-    others None."""
+    "steps", "t", "launches": the kernel counters of the run, "wk": the
+    windkessel P_c (None without outlets)}; the others {"wk": theirs}."""
     from lbm_tpu_torch.cases import get_case
     from lbm_tpu_torch.engine import checkpoint
     from lbm_tpu_torch.engine.runner import Simulation
@@ -136,11 +139,121 @@ def run_case(mesh, case: str, opts: dict, backend: str = "kernel",
     if save is not None:
         checkpoint.save_sim(save, sim)
     f = sim.f_standard().cpu().numpy()
+    wk = None if sim.wk is None else sim.wk.cpu().numpy()
     if mesh.rank != 0:
-        return None
+        return {"wk": wk}
     return {"f": f, "velsum": res.velsum_series,
             "residuals": res.residual_history, "steps": res.steps,
-            "t": sim.t, "launches": launches}
+            "t": sim.t, "launches": launches, "wk": wk}
 
 
-__all__ = ["spawn", "run_case"]
+def run_many(mesh, calls: list) -> list:
+    """fn(mesh, *args) for each (fn, args) of `calls` in turn on this
+    rank, their results in order: several runs in one spawn (a spawn's
+    processes take seconds to start)."""
+    return [fn(mesh, *args) for fn, args in calls]
+
+
+@dataclasses.dataclass(frozen=True)
+class Gate:
+    """A bolus gate an inlet_c takes, picklable: c* = value for steps t <
+    until, 0 after."""
+
+    until: int
+    value: float = 1.0
+
+    def __call__(self, t: int) -> float:
+        return self.value if t < self.until else 0.0
+
+
+def transport_setup(setup: tuple):
+    """(spec, keywords) of setup = ("case", name, opts): get_case(name,
+    **opts) and no keywords, or ("thermal", name, opts): the thermal case
+    function cases.thermal.<name>(**opts)'s spec and keywords."""
+    kind, name, opts = setup
+    if kind == "thermal":
+        from lbm_tpu_torch.cases import thermal
+
+        spec, kw, _ = getattr(thermal, name)(**opts)
+        return spec, kw
+    if kind != "case":
+        raise ValueError(f"setup kind must be 'case' or 'thermal': {kind!r}")
+    from lbm_tpu_torch.cases import get_case
+
+    return get_case(name, **opts), {}
+
+
+def run_transport(mesh, setup: tuple, transport: str, kw: dict, steps: int,
+                  record: Optional[list] = None, u=None,
+                  record_energy: bool = False, save: Optional[str] = None,
+                  nusselt: Optional[dict] = None) -> dict:
+    """transport ('scalar', 'coupled' or 'buoyant': ScalarTransport,
+    CoupledTransport, BuoyantTransport) of transport_setup(setup) with
+    keywords kw on this rank of `mesh` (on the mesh's device type),
+    `steps` steps with the scalar kernel's counters reset just before and
+    read just after. u: the frozen velocity of 'scalar', an array or the
+    path of a .npy file. Every rank returns {"wk": its P_c or None,
+    "launches", "ms": its ms a step (host clock, synchronized)}; rank 0
+    adds the gathered "g", "c" (concentration()), "total", "series" (the
+    records, None without `record`), "energy" (None without
+    record_energy) and, coupled, "f" and "u" (macro()), as NumPy. A
+    BuoyantTransport also saves a checkpoint to `save` and returns
+    nusselt_profile(**nusselt) as "nusselt", when given."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.engine.scalar import CoupledTransport, ScalarTransport
+    from lbm_tpu_torch.engine.thermal import BuoyantTransport
+    from lbm_tpu_torch.kernels import scalar_stream as S
+
+    spec, base = transport_setup(setup)
+    kw = {**base, **kw}
+    where = dict(device=mesh.device.type, mesh=mesh)
+    if transport == "scalar":
+        if isinstance(u, str):
+            u = np.load(u)
+        tr = ScalarTransport(spec, u, **kw, **where)
+    elif transport == "coupled":
+        tr = CoupledTransport(spec, **kw, **where)
+    elif transport == "buoyant":
+        tr = BuoyantTransport(spec, **kw, **where)
+    else:
+        raise ValueError(f"unknown transport {transport!r}")
+
+    def sync():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+
+    mesh.barrier()
+    S.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    if transport == "buoyant":
+        energy = tr.run(steps, record_energy=record_energy)
+        series = None
+    else:
+        series = tr.run(steps, record=record)
+        energy = None
+    sync()
+    ms = (time.perf_counter() - t0) / max(steps, 1) * 1e3
+    out = {"wk": None if getattr(tr, "wk", None) is None
+           else tr.wk.cpu().numpy(),
+           "launches": dict(S.launches), "ms": ms}
+    g, c, total = tr.g.cpu().numpy(), tr.concentration().cpu().numpy(), \
+        tr.total()
+    flow = nu = None
+    if transport != "scalar":
+        flow = (tr.f.cpu().numpy(), tr.macro()[1].cpu().numpy())
+    if save is not None:
+        tr.save(save)
+    if nusselt is not None:
+        nu = tr.nusselt_profile(**nusselt)
+    if mesh.rank == 0:
+        out.update(g=g, c=c, total=total, series=series, energy=energy,
+                   nusselt=nu)
+        if flow is not None:
+            out.update(f=flow[0], u=flow[1])
+    return out
+
+
+__all__ = ["spawn", "run_case", "run_many", "run_transport", "transport_setup", "Gate"]

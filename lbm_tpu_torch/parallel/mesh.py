@@ -83,14 +83,38 @@ class LatticeMesh:
         return torch.cat(parts, dim=dim).to(t.device)
 
     def sum_in_rank_order(self, values: np.ndarray) -> np.ndarray:
-        """The sum over ranks of each rank's float64 values, added in rank
-        order on the host: the same bits on every rank, so every rank
-        takes the same stop decision."""
+        """The sum over ranks of each rank's float64 values (any shape, one
+        on all ranks), added in rank order on the host: the same bits on
+        every rank, so every rank takes the same stop decision. One
+        gather: a run's per-step partials (records, energy) cross once,
+        at its end."""
         values = np.asarray(values, np.float64)
         if self.world == 1:
             return values
-        rows = self.all_gather(torch.from_numpy(values).reshape(1, -1))
-        return np.sum(rows.numpy(), axis=0)
+        rows = self.all_gather(torch.from_numpy(
+            np.ascontiguousarray(values)).reshape(1, -1))
+        return np.sum(rows.numpy(), axis=0).reshape(values.shape)
+
+    def add_in_rank_order(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over ranks of each rank's t (one shape and dtype on all
+        ranks), added in rank order in t's dtype on t's device: the same
+        bits on every rank (the windkessel outlets' flux, once a step)."""
+        if self.world == 1:
+            return t
+        rows = self.all_gather(t.reshape(1, -1))
+        total = rows[0]
+        for r in range(1, self.world):
+            total = total + rows[r]
+        return total.reshape(t.shape)
+
+    def same_on_every_rank(self, t: torch.Tensor) -> bool:
+        """Whether every rank holds t bit for bit (the replicated P_c)."""
+        if self.world == 1:
+            return True
+        rows = self.all_gather(t.reshape(1, -1)).cpu()
+        ints = rows.view(torch.int32) if rows.dtype == torch.float32 \
+            else rows
+        return bool((ints == ints[0]).all())
 
 
 def mesh_device(backend: str, rank: int, device=None) -> torch.device:

@@ -902,6 +902,38 @@ def test_sharded_simulation_on_one_card(device):
     assert not [k for k in out["launches"] if "fix_z_plane" in k]
 
 
+def test_sharded_scalar_kernel_on_one_card(device):
+    """ScalarTransport(mesh=, backend='kernel') on 2 gloo ranks sharing the
+    card, the steady coronary (64, 48, 96) r=4 split along y with a bolus:
+    K7 on each rank's halo-row block (its crossing channel staged through
+    host memory into the halo rows), the gathered g bit for bit against
+    the plain pass of the whole box on the card (the dense route), the
+    records at rtol 2e-6 / atol 1e-8; K7 [frozen+comp] once a step on
+    every rank."""
+    import numpy as np
+
+    from lbm_tpu_torch.engine.scalar import ScalarTransport
+    from lbm_tpu_torch.parallel.launch import Gate, run_transport, spawn
+
+    opts = dict(shape=(64, 48, 96), radius=4)
+    spec = get_case("coronary", **opts)
+    sim = Simulation(spec, device=device)
+    sim.run(max_steps=100, time_save=100, verbose=False)
+    u = sim.macro()[1].cpu().numpy()
+    kw = dict(D=0.02, inlet_c={0: Gate(20)})
+    outs = spawn(run_transport, 2, (("case", "coronary", opts), "scalar",
+                                    dict(kw, backend="kernel", shard_axis=1),
+                                    40, [0, 1, 2], u),
+                 backend="gloo", device="cuda", timeout=120)
+    plain = ScalarTransport(spec, u, device=device, backend="dense", **kw)
+    series = plain.run(40, record=[0, 1, 2])
+    assert (outs[0]["g"] == plain.g.cpu().numpy()).all()
+    np.testing.assert_allclose(outs[0]["series"], series, rtol=2e-6,
+                               atol=1e-8)
+    for out in outs:
+        assert out["launches"] == {"lbm_scalar_stream[frozen+comp]": 40}
+
+
 WK4 = [(1e-4, 5e3, 2e-3), (1e-4, 5e3, 1e-3), (1e-4, 5e3, 4e-3),
        (1e-4, 5e3, 8e-3)]
 WK_CASES = {

@@ -214,7 +214,9 @@ def test_checkpoint_restores_across_world_sizes(tmp_path):
 def test_dryrun_multichip_on_four_ranks():
     assert dryrun_multichip(4, timeout=DEADLINE) == [
         "dense halo step, lid", "kernel route, lid",
-        "kernel route, coronary on y"]
+        "kernel route, coronary on y",
+        "dense halo step with a windkessel outlet, poiseuille",
+        "sharded scalar kernel route, lid"]
 
 
 def test_a_failing_or_hung_rank_fails_the_run(tmp_path):

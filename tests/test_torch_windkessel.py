@@ -51,6 +51,7 @@ from lbm_tpu_torch.engine.step import (
     pulled_state_wk,
     windkessel_update,
 )
+from lbm_tpu_torch.geometry.mask import CellType
 from lbm_tpu_torch.kernels import collide_stream as K
 from lbm_tpu_torch.parallel.mesh import LatticeMesh
 
@@ -492,8 +493,16 @@ def test_refusals():
                        device=torch.device("cpu"), backend="gloo")
     with pytest.raises(ValueError, match="does not thread the windkessel"):
         Simulation(spec, device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        Simulation(spec, device="cpu", backend="dense", mesh=mesh)
+    # the dense backend's GSPMD windkessel route: a ring of one is the
+    # unsharded run, bit for bit off the DEAD cells, P_c too
+    runs = [Simulation(spec, device="cpu", backend="dense", mesh=m)
+            for m in (mesh, None)]
+    for sim in runs:
+        sim.run(max_steps=6, time_save=3, verbose=False)
+    live = np.asarray(spec.mask) != CellType.DEAD
+    assert torch.equal(runs[0].f_standard()[:, live],
+                       runs[1].f_standard()[:, live])
+    assert torch.equal(runs[0].wk, runs[1].wk)
     cc = compile_case(spec)
     with pytest.raises(ValueError, match="make_step_wk"):
         make_step(cc)
