@@ -138,21 +138,28 @@ lbm_collide_stream2, K4: lbm_extract_rows):
      VTK and CONVERGENCE.log (and the checkpoint).
 bf16 storage of the flow state (the bf16 instances of K1, its z planes
 included, K2, K3 and K4, built from collide_stream_bf16.cu and
-collide_stream2_bf16.cu):
+collide_stream2_bf16.cu; K1 on bf16 is the paired kernel, a thread a pair
+of z-neighbour cells):
   2c. (inside phase 2) ptxas registers and spills of every bf16 instance
-     (28 collide-stream, 14 K2, K3 with and without the force
+     (28 paired collide-stream, 14 K2, K3 with and without the force
      shift, K4), the build seconds of the five sources side by side, and
-     the BGK instance's registers in both storage types;
+     the BGK instance's registers in both storage types (the paired
+     kernel at most 80, three blocks an SM);
   3d. (inside phase 3) every bf16 instance against its plain version on
      bf16 state for 200 steps, f bit for bit (the closures, whose fp32
      transcendentals differ in the last bit, within 2e-2 of max |f|,
      lbm_tpu's bf16 tolerance; the values that differ are printed),
      velsums at 1e-5 relative, K1a (against step_plain) and K3 alone bit
-     for bit:
+     for bit, and the pair list's launch bit for bit the box's:
      lid 64^3 BGK, TRT, MRT, Smagorinsky and the moving lid, poiseuille
-     32^3 Carreau, gravity_channel 32^3 TRT+force, pipe n=36 and the
-     pulsatile coronary (64, 48, 96) r=4 with its bf16 z planes; lid 256^3
-     and the full coronary for 2 steps; K2 bf16 against its plain pair
+     32^3 Carreau, gravity_channel 32^3 TRT+force, pipe n=36, the
+     pulsatile coronary (64, 48, 96) r=4 with its bf16 z planes, the same
+     at nz 95 (an odd nz) and gravity_channel 23x23x25 TRT+force (an odd
+     cell count); lid 256^3 and the full coronary for 2 steps; the
+     paired kernel's division (div_exact) against IEEE a / b over all
+     2^32 fp32 dividends for each launch divisor of those cases and
+     0.99999994, 1.9999999, 0.49999997 and 1.0, 0 mismatches each; K2
+     bf16 against its plain pair
      (one narrowing a pair) bit for bit on lid 64^3, curved_vessel 64^3
      over its live tiles and lid 256^3, against two bf16 K1 launches
      printed, not gated; then K1a [bgk+bf16], K3 [bf16] and K2
@@ -164,10 +171,12 @@ collide_stream2_bf16.cu):
      just after each: lid 256^3 bf16, 1000 steps at time_save=250 (K1a
      [bgk+bf16] 1000), ms/step beside phase 4's fp32 run, MLUPS against
      the bf16 ceiling (76 B a cell at 3.35 TB/s), macro() u against phase
-     4's at relative L2; lid 256^3 fuse=2 bf16, 1000 steps (K2
+     4's at relative L2, over the whole box, the driven rows below the
+     lid and the resting bulk; lid 256^3 fuse=2 bf16, 1000 steps (K2
      [bgk+bf16] 500, K1 none); the full pulsatile coronary in bf16, 2000
      steps (K1a [bgk+bf16] 2000, no fixup launch, K3 [bf16] at least 4),
-     finite fields, max|u| within 3x the inlet speed; lid 512^3 bf16
+     finite fields, max|u| within 3x the inlet speed, then one K1 launch
+     from the developed state bit for bit step_plain's; lid 512^3 bf16
      under lowmem, 20 steps, f_standard() through K4 [bf16] chunk by
      chunk against f.narrow().cpu(), device memory up by at most one
      chunk, its seconds beside phase 14's fp32 read;
@@ -509,6 +518,18 @@ def rel_l2(a, b) -> float:
     a, b = a.double(), b.double()
     return float(torch.linalg.vector_norm(a - b)
                  / torch.linalg.vector_norm(b))
+
+
+def lid_drift_split(u, ref, fluid) -> tuple[float, float]:
+    """(driven, bulk): u's relative L2 against ref on a lid cavity of n
+    cells a side over its driven rows, the fluid cells within n // 8 rows
+    below the lid plane y = n - 2, and over the resting bulk beneath
+    them. u, ref: (3, n, n, n); fluid: (n, n, n) bool."""
+    n = fluid.shape[1]
+    near = fluid.clone()
+    near[:, : n - 2 - n // 8, :] = False
+    return (rel_l2(u[:, near], ref[:, near]),
+            rel_l2(u[:, fluid & ~near], ref[:, fluid & ~near]))
 
 
 def check_close(name, got, ref, rtol, atol) -> float:
@@ -960,10 +981,10 @@ def ptxas_report(log: str, smem: dict | None = None, tag: str = "",
 
     def plain_name(mangled):
         m = re.search(r"(collide_stream_kernel|collide_stream2_kernel|"
-                      r"collide_stream_wk_kernel)"
+                      r"collide_stream_wk_kernel|collide_stream_pair_kernel)"
                       r"ILi(\d)ELb(\d)ELi(\d)ELb(\d)E"
-                      r"(?:(?:f|13__nv_bfloat16)Li(?:n1|\d+)ELb([01])E)?",
-                      mangled)
+                      r"(?:(?:f|13__nv_bfloat16)Li(?:n1|\d+)ELb([01])E"
+                      r"|Lb([01])E)?", mangled)
         if m:
             kernel = m.group(1)
             if kernel == "collide_stream_wk_kernel":  # the windkessel fold
@@ -975,7 +996,7 @@ def ptxas_report(log: str, smem: dict | None = None, tag: str = "",
                       if w]
             if m.group(5) == "1":
                 parts.append("moving")
-            if m.group(6) == "1":  # the instance with the z planes' code
+            if "1" in (m.group(6), m.group(7)):  # with the z planes' code
                 parts.append("z")
             if m.group(1) == "collide_stream_wk_kernel":
                 parts.append("wk")
@@ -1100,6 +1121,23 @@ def vessel_path(spec, device, tag, inst, live_share, closure=False,
                for i in range(19))
     require(same, f"{tag}: the two buffers' non-fluid cells moved")
     del keep, f0
+    if store_dtype == "bf16":
+        # the paired kernel on the developed state: one launch against
+        # step_plain, bit for bit, velsum at 1e-5
+        s = torch.zeros(1, dtype=torch.float64, device=device)
+        got = K.collide_stream(sim.f, sim.f.clone(), sim.cc, s, 0, sim.t)
+        want, vs = K.step_plain(sim.f, sim.cc, sim.t)
+        torch.cuda.synchronize()
+        vs_rel = abs(float(s[0]) - float(vs)) / abs(float(vs))
+        require(torch.equal(got, want) and vs_rel <= 1e-5,
+                f"{tag}: the step from the {sim.t}-step state differs from "
+                f"step_plain (max abs "
+                f"{float((got.float() - want.float()).abs().max()):.3e}, "
+                f"velsum rel {vs_rel:.3e})")
+        print(f"{tag} one [{inst}] step from the {sim.t}-step state against "
+              f"step_plain: bit-equal, velsum rel err {vs_rel:.3e}",
+              flush=True)
+        del got, want
     u_in = 0.1745 / 2.74909090909091
     fluid = sim.cc.fluid
     u_max = float(u.norm(dim=0)[fluid].max())
@@ -1170,7 +1208,8 @@ def step_launches(by_name, tag) -> float | None:
               "measured", flush=True)
         return None
     k1 = sum(v[1] for k, v in kernels.items()
-             if "collide_stream_kernel" in k)
+             if "collide_stream_kernel" in k
+             or "collide_stream_pair_kernel" in k)
     red = sum(v[1] for k, v in kernels.items() if "velsum_reduce" in k)
     require(k1 >= 0.9 and abs(red - k1) <= 0.02
             and not [k for k in kernels if "fix_z_plane" in k],
@@ -2733,6 +2772,14 @@ def bf16_cases():
          True),
         ("coronary (64,48,96) r=4 pulsatile, bf16 z planes", "coronary",
          dict(shape=[64, 48, 96], radius=4, pulsatile=[4, 40]), True),
+        # the paired kernel's edges: an odd nz (a last z cell alone, rows
+        # starting at odd elements) with z planes on even halves of their
+        # pairs; an odd cell count (every direction at the other parity)
+        ("coronary (64,48,95) r=4 pulsatile, odd nz", "coronary",
+         dict(shape=[64, 48, 95], radius=4, pulsatile=[4, 40]), True),
+        ("gravity_channel 23x23x25 trt+force, odd cell count",
+         "gravity_channel", dict(n=23, nz=25, fz=1e-4, collision="trt"),
+         True),
     ]
 
 
@@ -2782,11 +2829,11 @@ def compare_bf16(label, spec, steps, device, exact):
     require(abs(float(s[0] - v_p)) <= 1e-5 * abs(float(v_p)),
             f"bf16 K1a velsum {label}")
     e_z = e_k1 if cc.z_bcs else 0.0
-    if cc.live_blocks is not None:
-        all_k = K.collide_stream(fk, torch.empty_like(fk).copy_(fk), cc, s,
-                                 0, t, all_blocks=True)
-        require(torch.equal(all_k, buf),
-                f"bf16 live-block launch differs from the full one, {label}")
+    # the pair list's launch (interior pairs first) against the box's
+    all_k = K.collide_stream(fk, torch.empty_like(fk).copy_(fk), cc, s, 0,
+                             t, all_blocks=True)
+    require(torch.equal(all_k, buf),
+            f"bf16 pair-list launch differs from the box's, {label}")
     rho_k, u_k = K.macro(fk, cc.force)
     rho_p, u_p = K.macro_plain(fk, cc.force)
     e_m = max(float((rho_k - rho_p).abs().max()),
@@ -2797,10 +2844,37 @@ def compare_bf16(label, spec, steps, device, exact):
           f"velsum max rel err {vs_rel:.3e}; K1a alone {e_k1:.3e} "
           f"({len(cc.z_bcs)} z planes in its launch); K3 {e_m:.3e}",
           flush=True)
+    _, _, cf = K.collision_descriptor(cc)
+    divisors = {float(cf[K.CFLOAT[k]]) for k in ("tau", "two_tau",
+                                                 "two_tau_m")}
     del fk, buf, fp, out_p
     free_device()
     return {"f": e_f, "k1a": e_k1, "z": e_z, "k3": e_m, "n_diff": n_diff,
-            "instance": inst}
+            "instance": inst, "divisors": divisors - {0.0}}
+
+
+def div_exact_sweeps(divisors, device) -> dict:
+    """The paired bf16 kernel's division against IEEE a / b over all 2^32
+    fp32 dividends for each divisor (K.div_exact_check): every quotient
+    bit for bit (NaN matching NaN) and the host's reciprocal equal to
+    __frcp_rn. Returns {divisor: mismatches}, all 0."""
+    import numpy as np
+
+    from lbm_tpu_torch.kernels import collide_stream as K
+
+    t0 = time.perf_counter()
+    bad = {}
+    for b in divisors:
+        n_bad, rcp_equal = K.div_exact_check(b, device)
+        bad[float(np.float32(b))] = n_bad
+        require(n_bad == 0 and rcp_equal,
+                f"div_exact by {b!r}: {n_bad} of 2^32 quotients differ "
+                f"from a / b, reciprocal equal {rcp_equal}")
+    print(f"[3d] div_exact against IEEE a / b over all 2^32 fp32 dividends "
+          f"(NaN matched as NaN), mismatches per divisor: "
+          + "; ".join(f"{b!r} {n}" for b, n in bad.items())
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return bad
 
 
 def compare_pair_bf16(label, spec, launches, device, exact=True):
@@ -2963,6 +3037,7 @@ def bf16_lid_path(device, lid1, fuse):
     ms = res.elapsed_s / res.steps * 1e3
     ceiling = HBM_BYTES_PER_S / 76 / 1e6
     e_u, e_rho = rel_l2(u, lid1["u"]), rel_l2(rho, lid1["rho"])
+    e_driven, e_bulk = lid_drift_split(u, lid1["u"], fluid)
     vs = res.velsum_series
     v_rel = float(abs(vs - lid1["velsum"]).max() / abs(lid1["velsum"]).min())
     print(f"{tag} lid 256^3 bf16 fuse={fuse}: 1000 steps in "
@@ -2971,12 +3046,15 @@ def bf16_lid_path(device, lid1, fuse):
           f"phase 4's fp32 {lid1['ms']:.4f} ({lid1['chunks']}); mlups_box "
           f"{res.mlups_box:.1f} against the bf16 ceiling {ceiling:.1f} (76 B "
           f"a cell at 3.35 TB/s; fp32 {lid1['mlups_box']:.1f}); macro() "
-          f"against phase 4's fp32 run: rel L2 u {e_u:.3e}, rho {e_rho:.3e}; "
+          f"against phase 4's fp32 run: rel L2 u {e_u:.3e} (the driven rows "
+          f"within 32 of the lid {e_driven:.3e}, the resting bulk "
+          f"{e_bulk:.3e}), rho {e_rho:.3e}; "
           f"velsum series max rel diff {v_rel:.3e}; max|u| {u_max:.4g}; "
           f"peak device memory {peak:.2f} GiB against fp32's "
           f"{lid1['peak']:.2f}; launches {counts}", flush=True)
     out = {"counts": counts, "ms": ms, "mlups_box": res.mlups_box,
-           "rel_l2_u": e_u, "peak": peak, "velsum": vs, "u": u}
+           "rel_l2_u": e_u, "rel_l2_u_driven": e_driven,
+           "rel_l2_u_bulk": e_bulk, "peak": peak, "velsum": vs, "u": u}
     if fuse == 2:
         out["k2_developed_ms"], out["two_k1_developed_ms"] = \
             time_pair_developed(sim.f, sim.cc, "K2 [bgk+bf16] lid 256^3 "
@@ -4411,13 +4489,15 @@ def main() -> int:
     require(len(pair_occ) == 28 and all(n >= 1 for n in pair_occ.values()),
             f"K2 blocks an SM: {pair_occ}")
     n_bf16 = {k: sum(n.startswith(k + "[") for n in ptxas_bf16)
-              for k in ("collide_stream_kernel", "fix_z_plane_kernel",
-                        "collide_stream2_kernel", "macro_kernel")}
-    require(n_bf16 == {"collide_stream_kernel": 28, "fix_z_plane_kernel": 0,
+              for k in ("collide_stream_pair_kernel", "collide_stream_kernel",
+                        "fix_z_plane_kernel", "collide_stream2_kernel",
+                        "macro_kernel")}
+    require(n_bf16 == {"collide_stream_pair_kernel": 28,
+                       "collide_stream_kernel": 0, "fix_z_plane_kernel": 0,
                        "collide_stream2_kernel": 14, "macro_kernel": 2}
             and "extract_rows_kernel[bf16]" in ptxas_bf16,
-            f"ptxas reported bf16 instances {n_bf16} (want 28, none, 14, 2) "
-            "and K4 bf16 "
+            f"ptxas reported bf16 instances {n_bf16} (want 28 paired, no "
+            "per-cell, none, 14, 2) and K4 bf16 "
             f"{'extract_rows_kernel[bf16]' in ptxas_bf16}")
     k2_ptxas = {k: v for k, v in ptxas.items()
                 if k.startswith("collide_stream2_kernel")}
@@ -4426,33 +4506,40 @@ def main() -> int:
         f"ptxas reported {len(k2_ptxas)} K2 instances (want 14) and no K4"
         if len(k2_ptxas) != 14 else "ptxas reported no K4 kernel")
     bgk = ptxas.get("collide_stream_kernel[bgk]")
-    bgk16 = ptxas_bf16.get("collide_stream_kernel[bgk+bf16]")
+    bgk16 = ptxas_bf16.get("collide_stream_pair_kernel[bgk+bf16]")
     require(bgk is not None and bgk16 is not None,
             "ptxas reported no BGK collide-stream instance")
     k1_blocks = {k: blocks_per_sm(v[0]) for k, v in
                  list(ptxas.items()) + list(ptxas_bf16.items())
-                 if k.startswith("collide_stream_kernel[")}
+                 if k.startswith(("collide_stream_kernel[",
+                                  "collide_stream_pair_kernel["))}
     # the lid main path must not pay for the branches it never takes, nor
     # the vessel paths for their z planes: at most 80 registers, no spill,
     # no stack frame (the z descriptors' loop indexes a __grid_constant__
-    # parameter, so nothing is copied) and three blocks an SM, in both
-    # storage types, with and without the z planes' code
+    # parameter, so nothing is copied) and three blocks an SM, with and
+    # without the z planes' code; the paired bf16 kernel is built for
+    # three blocks an SM (80 registers: at 128 and two blocks its first
+    # form ran 23% slower on the lid, probes/bf16_k1_ab.py), its few
+    # spilled words printed
     for name in ("collide_stream_kernel[bgk]", "collide_stream_kernel[bgk+z]",
-                 "collide_stream_kernel[bgk+bf16]",
-                 "collide_stream_kernel[bgk+z+bf16]"):
+                 "collide_stream_pair_kernel[bgk+bf16]",
+                 "collide_stream_pair_kernel[bgk+z+bf16]"):
         regs, st, ld = {**ptxas, **ptxas_bf16}[name]
-        require(regs <= 80 and st + ld == 0 and stack.get(name, 0) == 0
+        paired = "pair" in name
+        require(regs <= 80 and (paired or st + ld == 0 and
+                                stack.get(name, 0) == 0)
                 and k1_blocks[name] >= 3,
                 f"{name}: {regs} registers, {st} + {ld} bytes spilled, "
                 f"{stack.get(name)} bytes of stack frame, {k1_blocks[name]} "
-                "blocks an SM: not at most 80, 0, 0 and at least 3")
+                "blocks an SM: not at most 80, 0, 0 (the paired kernel: any) "
+                "and at least 3")
     print("[2] the BGK collide-stream instance (registers, spill bytes, "
           "stack frame bytes, blocks of 256 threads an SM): " + "; ".join(
               f"{n} {v[0]}, {v[1] + v[2]}, {stack.get(n)}, {k1_blocks[n]}"
               for n, v in sorted({**ptxas, **ptxas_bf16}.items())
               if n.startswith(("collide_stream_kernel[bgk]",
                                "collide_stream_kernel[bgk+z",
-                               "collide_stream_kernel[bgk+bf16]"))),
+                               "collide_stream_pair_kernel[bgk+"))),
           flush=True)
     # the windkessel units: the fold's 14 instances in each storage type
     # and its reduction; the flux kernel that primes the fold, fp32 and
@@ -4663,17 +4750,23 @@ def main() -> int:
     # for 200 steps, K2 bf16 against its plain pair and two bf16 K1
     # launches, K3 and K4 bf16, the paths' shapes for 2 steps; timings
     bf16_err, bf16_diff, bf16_z, bf16_k3 = {}, {}, 0.0, 0.0
+    # div_exact's hard divisors (significands of all ones) and 1, then
+    # every launch divisor of the bf16 cases
+    divisors = {0.99999994, 1.9999999, 0.49999997, 1.0}
     for label, name, kw, exact in bf16_cases():
         e = compare_bf16(label, get_case(name, **kw), 200, device, exact)
         bf16_err[label] = max(e["f"], e["k1a"], e["z"])
         bf16_diff[label] = e["n_diff"]
         bf16_z, bf16_k3 = max(bf16_z, e["z"]), max(bf16_k3, e["k3"])
+        divisors |= e["divisors"]
     for label, spec, exact in (
             ("lid 256^3 bgk", get_case("lid_driven_cavity", n=256), True),
             ("coronary full bgk", full, True)):
         e = compare_bf16(label, spec, 2, device, exact)
         bf16_err[label] = max(e["f"], e["k1a"], e["z"])
         bf16_z, bf16_k3 = max(bf16_z, e["z"]), max(bf16_k3, e["k3"])
+        divisors |= e["divisors"]
+    div_bad = div_exact_sweeps(sorted(divisors), device)
     k2_bf16 = {}
     for label, spec, launches in (
             ("lid 64^3 bgk", get_case("lid_driven_cavity", n=64), 100),
@@ -5255,7 +5348,10 @@ def main() -> int:
          "path_ms_per_step": lid16["ms"],
          "path_mlups_box": lid16["mlups_box"],
          "path_rel_l2_u_vs_fp32": lid16["rel_l2_u"],
+         "path_rel_l2_u_vs_fp32_driven_rows": lid16["rel_l2_u_driven"],
+         "path_rel_l2_u_vs_fp32_resting_bulk": lid16["rel_l2_u_bulk"],
          "path_busy_share": lid16["busy"],
+         "div_exact_mismatches_of_2pow32": div_bad,
          "vessel_launches": bf16_counts["lbm_collide_stream[bgk+bf16]"],
          "coronary_ms_live": tv_bf16["k1a_live"],
          "coronary_plain_ms": tv_bf16["k1a_plain"],

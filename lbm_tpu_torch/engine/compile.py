@@ -24,7 +24,12 @@ then moved to the device once:
     `fluid_cells`, the ascending ids of the fluid cells, beside it (None
     with it): the collide-stream kernel's launch list, a thread a fluid
     cell (a case with windkessel outlets always has one, its outlets'
-    footprint cells first: `fold_cell_ids`); `live_tiles`, built at first
+    footprint cells first: `fold_cell_ids`); `fluid_pairs`, built at
+    first use for every case, the ascending ids of the aligned z pairs
+    that hold a fluid cell (`fluid_pair_ids`), and `pair_launch`, the
+    bf16 kernel's list: the interior pairs (`pair_interior_bits`) first,
+    a thread a pair, then the other pairs' fluid cells, a thread a cell;
+    `live_tiles`, built at first
     use, the ids of the fused pair's
     units (an x segment of a (y, z) column tile, TILE) under the same
     rule;
@@ -268,6 +273,50 @@ class CompiledCase:
         return torch.from_numpy(neighbor_wall(np.asarray(self.spec.mask),
                                               CellType.MOVING)
                                 ).to(self.device)
+
+    @functools.cached_property
+    def pair_interior(self) -> torch.Tensor:
+        """The bf16 kernel's interior-pair bits (pair_interior_bits of
+        the mask and every boundary's consumer plane), int32 words on the
+        device, built at first use."""
+        return pair_interior_bits(
+            self.mask, [(bc.axis, bc.consumer_coord) for bc in self.bcs])
+
+    @functools.cached_property
+    def fluid_pairs(self) -> torch.Tensor:
+        """fluid_pair_ids of the mask on the device, built at first use."""
+        ids = fluid_pair_ids(np.asarray(self.spec.mask))
+        return torch.from_numpy(ids).to(self.device)
+
+    def pair_launch(self, streamed: bool) -> tuple[torch.Tensor, int]:
+        """The bf16 kernel's launch list and how many entries at its head
+        are pairs, built at first use for each form. streamed (a BGK or
+        TRT instance without a closure): the interior pairs' ids
+        (fluid_pairs whose pair_interior bit is set), ascending, then the
+        fluid cells of every other pair, ascending; else (those instances
+        collide a cell from all 19 of its populations at once) every
+        fluid cell and 0. A thread takes one entry, so a warp holds one
+        form: the lid 256^3 [bgk+bf16] launch over the box, a thread a
+        pair whichever its form, took 0.92 ms against its interior pairs'
+        0.60 alone on the H100, for every z row there starts and ends with
+        a pair beside a wall; this form took 0.87 (probes/quad_cells.py,
+        probes/bf16_k1_ab.py). A list without an entry holds cell 0, which
+        the kernel skips unless it is fluid."""
+        lists = self.__dict__.setdefault("_pair_launch", {})
+        if streamed not in lists:
+            fluid = self.mask.reshape(-1) == CellType.FLUID
+            cells = torch.nonzero(fluid).reshape(-1).to(torch.int32)
+            inner = cells[:0]
+            if streamed:
+                nz = self.shape[2]
+                pair = (cells // nz) * -(-nz // 2) + (cells % nz) // 2
+                cells = cells[~pair_bits_of(self.pair_interior, pair)]
+                inner = self.fluid_pairs[pair_bits_of(self.pair_interior,
+                                                      self.fluid_pairs)]
+            if not len(inner) + len(cells):
+                cells = cells.new_zeros(1)
+            lists[streamed] = (torch.cat([inner, cells]), len(inner))
+        return lists[streamed]
 
     @functools.cached_property
     def _link_table(self):
@@ -515,6 +564,63 @@ def fluid_cell_ids(mask: np.ndarray) -> np.ndarray:
     fastest, ascending: the collide-stream kernel's launch list."""
     return np.flatnonzero(np.asarray(mask).reshape(-1) == CellType.FLUID
                           ).astype(np.int32)
+
+
+def fluid_pair_ids(mask: np.ndarray) -> np.ndarray:
+    """int32 ids of the aligned z pairs (x, y, 2j) and (x, y, 2j + 1) of
+    the (x, y, z) lattice that hold a FLUID cell, ascending: the pairs the
+    bf16 collide-stream kernel steps a thread a pair, the interior ones
+    (CompiledCase.pair_launch). A pair's id is (x * Y + y) * ceil(Z / 2)
+    + j; with an odd Z the last z cell is a pair of its own."""
+    fluid = np.asarray(mask) == CellType.FLUID
+    nx, ny, nz = fluid.shape
+    fluid = np.pad(fluid.reshape(nx * ny, nz), ((0, 0), (0, nz % 2)))
+    return np.flatnonzero(fluid.reshape(nx * ny, -1, 2).any(axis=2)
+                          ).astype(np.int32)
+
+
+def pair_interior_bits(mask: torch.Tensor, planes) -> torch.Tensor:
+    """The bf16 kernel's interior pairs as int32 words on mask's device,
+    one bit a z pair of the box (the pair of id k, fluid_pair_ids's
+    numbering, at bit k % 32 of word k // 32): set when nz is even and
+    neither cell of the pair asks anything but the plain pull and
+    collision of the bulk: both cells FLUID, no source x - e_i of either
+    (wrapped on x and y) a WALL or MOVING cell, no z source across the
+    box's z ends (the pair is not the first or last of its row), and
+    neither cell on a consumer plane of `planes`, the (axis, consumer
+    coordinate) of each boundary. With an odd nz no pair is (its pairs'
+    words would straddle the 4-byte alignment). mask: the (X, Y, Z) int8
+    labels (on the card, 18 rolls of the full box take milliseconds)."""
+    nx, ny, nz = mask.shape
+    nzp = -(-nz // 2)
+    inner = torch.zeros((nx, ny, nzp), dtype=torch.bool, device=mask.device)
+    if nz % 2 == 0 and nz >= 4:
+        stop = (mask == CellType.WALL) | (mask == CellType.MOVING)
+        ok = mask == CellType.FLUID
+        for i in range(1, D3Q19.Q):
+            ok &= ~torch.roll(stop, tuple(int(v) for v in D3Q19.E[i]),
+                              (0, 1, 2))
+        inner = ok[..., 0::2] & ok[..., 1::2]
+        inner[..., 0] = False
+        inner[..., -1] = False
+        for axis, coord in planes:
+            if axis == 2:
+                inner[..., coord // 2] = False
+            else:
+                inner.select(axis, coord).fill_(False)
+    flat = inner.reshape(-1)
+    flat = torch.cat([flat, flat.new_zeros(-len(flat) % 32)])
+    weights = torch.tensor([1 << b for b in range(32)], dtype=torch.int64,
+                           device=mask.device)
+    words = (flat.view(-1, 32).to(torch.int64) * weights).sum(1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def pair_bits_of(bits: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Bool per pair id of `ids`: its bit in `bits`
+    (pair_interior_bits)."""
+    word = bits[(ids // 32).long()].to(torch.int64) & 0xFFFFFFFF
+    return ((word >> (ids % 32).to(torch.int64)) & 1).bool()
 
 
 def wk_footprint(bc: CompiledBC, shape) -> tuple[np.ndarray, np.ndarray]:
@@ -867,7 +973,9 @@ __all__ = ["CompiledBC", "CompiledCase", "ShardCase", "compile_case",
            "has_windkessel", "wk_init",
            "canonical_device", "check_supported", "check_z_windows",
            "CURVED_REFUSAL",
-           "fluid_cell_ids", "fold_cell_ids", "fuse2_refusal",
+           "fluid_cell_ids", "fluid_pair_ids", "pair_interior_bits",
+           "pair_bits_of", "fold_cell_ids",
+           "fuse2_refusal",
            "kernel_refusal", "wk_footprint",
            "live_block_ids",
            "live_tile_ids", "mrt_of", "neighbor_wall", "tau_minus_of",

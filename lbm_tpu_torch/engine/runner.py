@@ -283,6 +283,10 @@ class Simulation:
                                     self.shard_axis, self.device)
         if backend == "kernel":
             kernels.collision_descriptor(self.cc)  # refuses what it lacks
+            if (self.store_dtype == torch.bfloat16
+                    and self.device.type == "cuda"
+                    and not has_windkessel(self.cc.bcs)):
+                kernels.pair_launch(self.cc)  # the bf16 launch list: set-up
         self._step = self._make_step()
         self._usq_fn: Optional[Callable] = None
         self.reset()

@@ -6,7 +6,8 @@ compiled side by side (one nvcc process each, started together):
 kernels/csrc/collide_stream.cu (the collide-stream kernel in its 18
 collision-branch instances, each with and without the z planes' code,
 and the moments kernel on fp32 state), kernels/csrc/collide_stream_bf16.cu
-(the same on bf16 state: 14 branches, no force field),
+(the same on bf16 state as the paired kernel, a thread a pair of z
+neighbours: 14 branches, no force field),
 kernels/csrc/collide_stream2.cu and collide_stream2_bf16.cu (the fused
 pair of steps, an x-marching column, in its 14 instances and the chunked
 state read, on fp32 and on bf16 state), kernels/csrc/collide_stream_halo.cu (the sharded
@@ -109,7 +110,10 @@ def _declare(lib: ctypes.CDLL, sfx: str = "") -> None:
         ci, ci, ci,             # nx, ny, nz
         vp, vp,                 # collision int row, float row
         ci, vp, vp, vp, vp,     # n_bc, bc_int, bc_float, valid, phi_star
-        vp, ci,                 # fluid-cell list or null, its length
+        vp, ci,                 # fluid-cell list or null (bf16: the
+                                # launch list), its length
+        *([ci, vp, ci] if sfx else []),  # bf16: the list's pairs, the
+                                         # box's interior bits, box form
         vp, ci,                 # partials, n_partials
         vp, ci,                 # series, t
         vp,                     # g of a field force, or null
@@ -119,6 +123,10 @@ def _declare(lib: ctypes.CDLL, sfx: str = "") -> None:
     # f, rho, u, n_cells, half_force (host 3 floats or null), stream
     macro.argtypes = [vp, vp, vp, ctypes.c_longlong, vp, vp]
     macro.restype = ci
+    if sfx == "_bf16":
+        # b, (2,) uint64 counts on the device, stream
+        lib.lbm_div_exact_check.argtypes = [ctypes.c_float, vp, vp]
+        lib.lbm_div_exact_check.restype = ci
 
 
 def _declare_halo(lib: ctypes.CDLL) -> None:

@@ -83,6 +83,12 @@ narrowing of its cells is that step's) and once a pair for step2,
 whose mid state stays fp32 as lbm_tpu's does. The bf16 kernels are
 separate instances (counted as "lbm_collide_stream[trt+bf16]",
 "lbm_macro[bf16]", "lbm_extract_rows[bf16]"); the force field has none.
+The bf16 step is the paired kernel (collide_stream_pair_kernel): a thread
+an interior pair of z-neighbour cells (packed bf16 loads and stores, both
+cells collided at once) or a cell, over pair_launch's list or the box,
+its divisions exact without the IEEE slow path (div_exact); bit for bit
+the same step. div_exact_check runs that division against IEEE a / b
+over all 2^32 dividends of one divisor on the card.
 """
 
 from __future__ import annotations
@@ -718,7 +724,11 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
     series[slot] (float64). Only fluid cells are written: out must
     already hold f's non-fluid cells. The launch takes a thread a fluid
     cell of the case's list (cc.fluid_cells), or a thread a cell of the
-    box when that is None or with all_blocks. field, g: the Boussinesq
+    box when that is None or with all_blocks; on bf16 state (the paired
+    kernel) a thread an entry of cc.pair_launch: an interior pair of
+    z-neighbour cells, or a cell (the interior pairs from the box, their
+    bits in cc.pair_interior, when the case has no fluid-cell list or
+    with all_blocks). field, g: the Boussinesq
     force field and the pre-step (7, X, Y, Z) scalar state it reads (the
     force-field instance). halo: None, or a shard's (axis, lo, hi,
     mask_lo, mask_hi) (K1d, lbm_collide_stream_halo). wk: the carried
@@ -754,7 +764,6 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
     if wk is not None:
         raise ValueError("wk was given for a case without windkessel "
                          "outlets")
-    ids = None if all_blocks else cc.fluid_cells
     if f.device.type == "cpu":
         f_new, vs = step_plain(f, cc, t, field, g, halo)
         out.copy_(f_new)
@@ -768,8 +777,17 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
     n_cells = nx * ny * nz
     if n_cells >= 2**31:
         raise ValueError(f"{n_cells} cells: the kernel indexes cells in int32")
-    n_listed = n_cells if ids is None else ids.numel()
-    grid = max(1, -(-n_listed // lib.lbm_block_size()))
+    if _bf16(f):
+        streamed, ids, n_inner = pair_launch(cc)
+        box = streamed and (all_blocks or cc.fluid_cells is None)
+        n_listed, grid = ids.numel(), _pair_grid(cc.shape, ids, n_inner,
+                                                 box, f, out)
+        interior = (n_inner, cc.pair_interior.data_ptr(), int(box))
+    else:
+        ids = None if all_blocks else cc.fluid_cells
+        n_listed = n_cells if ids is None else ids.numel()
+        grid = max(1, -(-n_listed // lib.lbm_block_size()))
+        interior = ()
     bcs = cc.step_bcs
     (ints, floats, valid, phis), partials = _launch_scratch(
         cc, "k1", bcs, t, grid)
@@ -780,7 +798,7 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
             nx, ny, nz, ci.ctypes.data, cf.ctypes.data,
             len(bcs), ints.ctypes.data, floats.ctypes.data,
             ctypes.addressof(valid), ctypes.addressof(phis),
-            None if ids is None else ids.data_ptr(), n_listed,
+            None if ids is None else ids.data_ptr(), n_listed, *interior,
             partials.data_ptr(), grid, series.data_ptr(), slot, *tail,
             stream)
     check(lib, err, f"lbm_collide_stream[{name}]")
@@ -835,6 +853,49 @@ def _collide_stream_wk(f, out, cc: CompiledCase, series, slot: int, t: int,
     _count(f"lbm_collide_stream[{name}]")
 
 
+def pair_launch(cc: CompiledCase) -> tuple[bool, torch.Tensor, int]:
+    """(streamed, launch list, its pair count) of the paired bf16 kernel
+    on the case: cc.pair_launch of its instance's form (streamed: BGK or
+    TRT without a closure, which collide interior pairs at once) and the
+    box's interior bits, built at first use (Simulation builds them with
+    the case, so a run's first chunk does not)."""
+    name = collision_descriptor(cc)[0]
+    streamed = name.split("+")[0] in ("bgk", "trt") and cc.closure is None
+    ids, n_inner = cc.pair_launch(streamed)
+    _ = cc.pair_interior  # built here, read at launch
+    return streamed, ids, n_inner
+
+
+# The paired bf16 kernel's box form: a block of PAIR_LANES z pairs by
+# PAIR_ROWS y rows (kPairLanes, kPairRows in csrc/collide_stream.cuh; the
+# C entry refuses a partial count that does not match its grid).
+PAIR_LANES, PAIR_ROWS = 32, 8
+
+
+def _pair_grid(shape, ids, n_inner: int, box: bool, f, out) -> int:
+    """The blocks of a bf16 step by the paired kernel over its launch list
+    ids (cc.pair_launch: n_inner interior pairs, then cells), or with box
+    over the box's interior pairs and the list's cells. Raises for a state
+    the kernel does not take: its 2-byte populations are read and written
+    as 4-byte words, and it indexes the state's elements in uint32."""
+    nx, ny, nz = shape
+    if 19 * nx * ny * nz >= 2**32:
+        raise ValueError(f"{nx * ny * nz} cells: the bf16 kernel indexes the "
+                         "state's 19 populations a cell in uint32")
+    if nx > 65535:
+        raise ValueError(f"nx = {nx}: the bf16 kernel's box grid takes x "
+                         "rows on its third axis (at most 65535)")
+    if f.data_ptr() % 4 or out.data_ptr() % 4:
+        raise ValueError("the bf16 kernel reads and writes 4-byte words: f "
+                         "and out must start 4-byte aligned")
+    block = PAIR_LANES * PAIR_ROWS
+    if not box:
+        return max(1, -(-ids.numel() // block))
+    n_pairs_z = -(-nz // 2)
+    per_x = -(-n_pairs_z // PAIR_LANES) * -(-ny // PAIR_ROWS)
+    return per_x * (nx + -(-(ids.numel() - n_inner) // (per_x * block)))
+
+
 def _library(f, halo):
     """The library whose kernels step f: its storage type's, or a shard's
     of its axis."""
@@ -861,6 +922,29 @@ def _entry(lib, name: str, f, g_ptr, halo):
 # one whole step: the name the runner, the transports and the sharded step
 # call it by
 step = collide_stream
+
+
+def div_exact_check(b: float, device) -> tuple[int, bool]:
+    """(mismatches, reciprocal equal) of the paired bf16 kernel's division
+    by b on the card: how many of the 2^32 fp32 dividends a give
+    div_exact(a, b, __frcp_rn(b)) other bits than IEEE a / b (a NaN
+    matching a NaN), and whether the host's 1.0f / b, the kernel's
+    reciprocal of a launch divisor, equals __frcp_rn(b). Needs a card:
+    the division exists on the device only."""
+    from lbm_tpu_torch.kernels._build import check, load_library
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError("div_exact_check runs on the card")
+    lib = load_library(bf16=True).lib
+    out = torch.zeros(2, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        err = lib.lbm_div_exact_check(
+            ctypes.c_float(b), out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    check(lib, err, "lbm_div_exact_check")
+    bad, rcp = out.tolist()
+    return int(bad), rcp == 0
 
 
 def collide_stream2_plain(f, cc: CompiledCase, t: int):
@@ -1067,4 +1151,5 @@ __all__ = ["collide_stream", "collide_stream_plain", "fix_z_plane_plain",
            "unpack_state_lowmem", "chunk_rows", "CHUNK_BYTES",
            "live_block_ids", "macro", "macro_plain", "launches",
            "reset_launches", "instance", "collision_tables",
-           "collision_descriptor", "CINT", "CFLOAT", "ForceField"]
+           "collision_descriptor", "CINT", "CFLOAT", "ForceField",
+           "div_exact_check", "pair_launch", "PAIR_LANES", "PAIR_ROWS"]

@@ -63,17 +63,33 @@
 // keeps its words in both buffers, so a bf16 step is "widen, the fp32
 // step, narrow", bit for bit, the z planes' rewrite included. bf16
 // has every instance but the force field's (14 collide-stream branches,
-// K3 with and without the force shift): lbm_tpu's
-// transports keep fp32 state. Its loads are 64 B a warp a direction, half
-// a 128-byte line; pairing them (__nv_bfloat162, 16-byte vectors) is later
-// work.
+// K3 with and without the force shift): lbm_tpu's transports keep fp32
+// state. Its step is the paired kernel (collide_stream_pair_kernel,
+// collide_stream_bf16.cu), built for this card: per-cell bf16 loads were
+// 64 B a warp a direction, and the per-cell kernel took 1.10 ms at lid
+// 256^3, 30% of its bytes' bound, held back by instructions, not bytes
+// (cell-index div/mod, 19 load instructions for 38 bytes, 22 IEEE
+// divisions whose slow path zero dividends take: 1.40 ms at rest). A
+// thread takes an interior pair of z-neighbour cells (x, y, 2j) and
+// (x, y, 2j + 1): both fluid, no wall or moving source, on no boundary's
+// plane (engine/compile.pair_interior_bits; 97% of the lid's fluid
+// cells). It loads each direction as one aligned 4-byte word, or two
+// joined with __byte_perm when the pair is shifted in z, collides both
+// cells at once straight from the packed words, a direction at a time,
+// and stores each direction as one word; (x, y) come from the grid of
+// the box form (32 pairs by 8 y rows a block, which the L1 shares) or
+// from the pair's id. Every other fluid cell takes a thread of its own,
+// the per-cell body (step_cell). Its divisions are exact without the
+// slow path: div_exact by reciprocals taken once a divisor (d3q19.cuh),
+// and, for the pairs, div_core under one range test a pair. The launch
+// bound holds it to 80 registers, three blocks an SM.
 //
 // What bounds K1a: bytes first. A fluid cell reads 19 populations and
-// writes 19 (152 B in fp32, 76 B in bf16), plus 18 one-byte neighbor mask reads that mostly hit
-// L1/L2; the ~250 flops of BGK are below the card's ratio, but the
-// instruction count (22 IEEE divisions, cell-index div/mod, 18 wraps) and
-// 78 registers a thread keep this first version short of the bandwidth
-// roofline. The K1b branches move the same bytes; a closure adds a few
+// writes 19 (152 B in fp32, 76 B in bf16), plus 18 one-byte neighbor mask
+// reads that mostly hit L1/L2; the ~250 flops of BGK are below the card's
+// ratio, but the instruction count (22 IEEE divisions, cell-index
+// div/mod, 18 wraps) and 78 registers a thread keep this first version
+// short of the bandwidth roofline. The K1b branches move the same bytes; a closure adds a few
 // dozen transcendental calls a fluid cell and MRT ~720 flops, so they
 // add registers (and spills) before they add time. It is one thread per
 // cell with z the fastest thread index, so the 18 neighbor gathers of a
@@ -144,6 +160,8 @@
 
 #pragma once
 
+#include <string.h>
+
 #include "d3q19.cuh"
 
 namespace {
@@ -181,9 +199,9 @@ __host__ __device__ constexpr int z_rank(int i) {
 }
 
 // nee_fix for a z-plane boundary: the same rewrite, in the same
-// operation order, with the directions known to the code (WKF as
-// nee_fix's).
-template <bool FORCE, typename S, bool WKF = false>
+// operation order, with the directions known to the code (WKF and DIVX
+// as nee_fix's).
+template <bool FORCE, typename S, bool WKF = false, bool DIVX = false>
 __device__ __forceinline__ void nee_fix_z(const ZBC& bc,
                                           const S* __restrict__ src,
                                           long long n_cells, int cell,
@@ -196,7 +214,7 @@ __device__ __forceinline__ void nee_fix_z(const ZBC& bc,
     own[i] = widen(src[(long long)i * n_cells + cell]);
   }
   float rp, uxp, uyp, uzp;
-  moments19<FORCE>(own, half_force, rp, uxp, uyp, uzp);
+  moments19<FORCE, DIVX>(own, half_force, rp, uxp, uyp, uzp);
   const float usqp = uxp * uxp + uyp * uyp + uzp * uzp;
   float rho_star = bc.rho_is_fixed ? bc.rho_fixed : rp;
   if constexpr (WKF) {
@@ -415,6 +433,307 @@ constexpr bool kBounded =
     Inst<K>::kForce == kFieldForce ||
     (Inst<K>::kForce == kConstForce && Inst<K>::kColl == kTRT && ZPLANES);
 
+// K1 on bf16 storage (the header's "bf16 storage"): a thread an interior
+// pair of z-neighbour cells (x, y, 2j) and (x, y, 2j + 1), or a cell.
+// kPairLanes pairs along z by kPairRows rows along y make a block of the
+// box form, so a warp's loads of a direction span 64 z cells, 128 bytes
+// of bf16.
+constexpr int kPairLanes = 32;
+constexpr int kPairRows = kBlock / kPairLanes;
+// Blocks an SM the kernel is built for (its launch bound): 3 holds it to
+// 80 registers. At lid 256^3 on the H100 its forms ran 1.11 ms with 128
+// registers and two blocks against 0.90 with 80 and a few spilled words,
+// and 1.41 with 64 and four blocks (spilling hundreds of bytes;
+// probes/bf16_k1_ab.py, PERF.md).
+constexpr int kPairMinBlocks = 3;
+
+// RN(1/tau), RN(1/(2 tau)), RN(1/(2 tau_minus)): the launch's divisors'
+// reciprocals for div_exact, rounded once by the host entry; in_range:
+// the divisors the collision divides by (BGK tau, TRT 2 tau and 2
+// tau_minus) inside div_exact's range (else no pair takes the streaming
+// collision).
+struct PairRcp {
+  float y[3];
+  int in_range;
+};
+
+// A cell's population i from the pair's packed word: the half h (0: the
+// even z cell), widened.
+__device__ __forceinline__ float half_of(uint32_t w, int h) {
+  return __uint_as_float(h ? (w & 0xffff0000u) : (w << 16));
+}
+
+// The same value by __byte_perm: the collision's loop widens its
+// populations again this way, an expression the compiler does not merge
+// with half_of's, so that it recomputes them rather than keeping the
+// moments' 38 widened values live (not timed against the merged form).
+__device__ __forceinline__ float half_again(uint32_t w, int h) {
+  return __uint_as_float(__byte_perm(w, 0u, h ? 0x3244u : 0x1044u));
+}
+
+// The collision of an interior pair (both cells fluid, no rewrite, no
+// moving source: the pulled words are the populations), both cells at
+// once a direction (or, TRT, a direction and its opposite) at a time,
+// straight from the packed words, each direction stored as one 4-byte
+// word: moments19's, collide_store's and its Guo source's arithmetic in
+// their order, BGK or TRT with no force or the constant one, every
+// division div_core by the reciprocals collide_store's DIVX form takes.
+// Its dividends' range is tested once for the pair (DivRange) and rho's
+// for each cell: false (nothing to keep; the stores are rewritten) when
+// one lies outside div_exact's range, and the caller steps the pair cell
+// by cell. speed: the two cells' |u|, summed in z order.
+template <int COLL, int FORCE>
+__device__ __forceinline__ bool collide_pair_stream(
+    const uint32_t* pk, const Collision& c, const PairRcp& r,
+    uint32_t* __restrict__ w, unsigned n, unsigned c0, double& speed) {
+  static_assert((COLL == kBGK || COLL == kTRT) && FORCE != kFieldForce,
+                "BGK or TRT, without a force field");
+  DivRange range;
+  bool rho_in = true;
+  float rho[2], ux[2], uy[2], uz[2], usq[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float rh = half_of(pk[0], h);
+#pragma unroll
+    for (int i = 1; i < Q; ++i) rh += half_of(pk[i], h);
+    float mx = 0.0f, my = 0.0f, mz = 0.0f;
+#pragma unroll
+    for (int i = 1; i < Q; ++i) {
+      const float v = half_of(pk[i], h);
+      if (EX(i) > 0) mx += v;
+      if (EX(i) < 0) mx -= v;
+      if (EY(i) > 0) my += v;
+      if (EY(i) < 0) my -= v;
+      if (EZ(i) > 0) mz += v;
+      if (EZ(i) < 0) mz -= v;
+    }
+    if constexpr (FORCE == kConstForce) {
+      mx = mx + c.half_force[0];
+      my = my + c.half_force[1];
+      mz = mz + c.half_force[2];
+    }
+    const float safe = rh == 0.0f ? 1.0f : rh;
+    rho_in = rho_in && div_b_in_range(__float_as_uint(safe));
+    const float y = __frcp_rn(safe);
+    range.add(mx);
+    range.add(my);
+    range.add(mz);
+    rho[h] = rh;
+    ux[h] = div_core(mx, safe, y);
+    uy[h] = div_core(my, safe, y);
+    uz[h] = div_core(mz, safe, y);
+    usq[h] = ux[h] * ux[h] + uy[h] * uy[h] + uz[h] * uz[h];
+  }
+  // the post-collision population i of half h from its relaxed value:
+  // the Guo source added under a force
+  auto source = [&](int i, int h, float post) {
+    if constexpr (FORCE == kConstForce) {
+      const float uf =
+          ux[h] * c.force[0] + uy[h] * c.force[1] + uz[h] * c.force[2];
+      const float eu = e_dot(i, ux[h], uy[h], uz[h]);
+      const float g_even = WGT(i) * (9.0f * eu * c.e_f[i] - 3.0f * uf);
+      return post + (c.cp * g_even + c.cm_odd[i]);
+    } else {
+      return post;
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    const int o = OPP(i);
+    if (COLL == kTRT && o < i) continue;  // stored with its opposite
+    unsigned bits_i = 0u, bits_o = 0u;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float p = half_again(pk[i], h);
+      const float fi = rho[h] * phi_i(i, ux[h], uy[h], uz[h], usq[h]);
+      if constexpr (COLL == kBGK) {
+        const float a = p - fi;
+        range.add(a);
+        bits_i |= bf16_bits(source(i, h, p - div_core(a, c.tau, r.y[0])))
+                  << (16 * h);
+      } else {
+        // TRT: direction o's s is i's (a sum), its d is -d, so its
+        // quotients are i's, the second negated
+        const float po = half_again(pk[o], h);
+        const float fo = rho[h] * phi_i(o, ux[h], uy[h], uz[h], usq[h]);
+        const float sum = (p + po) - (fi + fo);
+        const float dif = (p - po) - (fi - fo);
+        range.add(sum);
+        range.add(dif);
+        const float qs = div_core(sum, c.two_tau, r.y[1]);
+        const float qd = div_core(dif, c.two_tau_m, r.y[2]);
+        bits_i |= bf16_bits(source(i, h, p - qs - qd)) << (16 * h);
+        if (o != i) {
+          bits_o |= bf16_bits(source(o, h, po - qs + qd)) << (16 * h);
+        }
+      }
+    }
+    w[(i * n + c0) >> 1] = bits_i;
+    if (COLL == kTRT && o != i) w[(o * n + c0) >> 1] = bits_o;
+  }
+  speed = (double)sqrtf(usq[0]);
+  speed += (double)sqrtf(usq[1]);
+  return range.in() && rho_in;
+}
+
+// One fluid cell's step, collide_stream_cells' (pull19, the NEE
+// rewrites, the z plane, collide_store) with collide_store's DIVX
+// division; returns its |u|.
+template <int COLL, bool CLOSURE, int FORCE, bool MOVING, bool ZPLANES>
+__device__ __forceinline__ float step_cell(
+    const __nv_bfloat16* __restrict__ src, __nv_bfloat16* __restrict__ dst,
+    const int8_t* __restrict__ mask, int x, int y, int z, int nx, int ny,
+    int nz, int cell, const Collision& coll, const PairRcp& rcp,
+    const BCSet& bcs, const ZBCSet& zbcs) {
+  using bf16 = __nv_bfloat16;
+  const long long n_cells = (long long)nx * ny * nz;
+  float p[Q];
+  pull19<MOVING>(src, mask, x, y, z, nx, ny, nz, n_cells, cell, coll.bb, p);
+#pragma unroll
+  for (int b = 0; b < kMaxBCs; ++b) {
+    if (b >= bcs.n) break;
+    const BCDesc& bc = bcs.bc[b];
+    if ((bc.axis == 0 ? x : y) != bc.coord) continue;
+    const long long lat = (long long)(bc.axis == 0 ? y : x) * nz + z;
+    nee_fix<FORCE == kConstForce, bf16, false, true>(
+        bc, src, n_cells, cell, lat, coll.half_force, p);
+  }
+  if constexpr (ZPLANES) {
+    const long long zlat = (long long)x * ny + y;
+    int zb = -1;
+#pragma unroll 1
+    for (int b = 0; b < zbcs.n; ++b) {
+      const ZBC& bc = zbcs.bc[b];
+      if (z != bc.coord) continue;
+#pragma unroll
+      for (int d = 0; d < 5; ++d) {
+        if (bc.valid[d * bc.plane + zlat]) zb = b;
+      }
+    }
+    if (zb >= 0) {
+      nee_fix_z<FORCE == kConstForce, bf16, false, true>(
+          zbcs.bc[zb], src, n_cells, cell, zlat, coll.half_force, p);
+    }
+  }
+  return sqrtf(collide_store<COLL, CLOSURE, FORCE, bf16, true>(
+      p, coll, coll.force, coll.half_force, dst, n_cells, cell, rcp.y));
+}
+
+// Whether an instance collides its interior pairs at once.
+template <int COLL, bool CLOSURE>
+constexpr bool kStreamed = (COLL == kBGK || COLL == kTRT) && !CLOSURE;
+
+// One interior pair's step (both cells fluid, no source a wall or a
+// moving wall, no z wrap, on no boundary's consumer plane;
+// engine/compile.pair_interior_bits) in an instance that streams: each
+// direction's two populations as one aligned 4-byte word (e_z = 0) or
+// two joined with __byte_perm (e_z = +-1), both cells collided at once
+// (collide_pair_stream). False when a dividend leaves div_exact's range
+// (the caller then steps the two cells one after the other); speed: the
+// two cells' |u| in z order.
+template <int COLL, int FORCE>
+__device__ __forceinline__ bool stream_pair(
+    const __nv_bfloat16* __restrict__ src, __nv_bfloat16* __restrict__ dst,
+    int x, int y, int z0, int nx, int ny, int nz, const Collision& coll,
+    const PairRcp& rcp, double& speed) {
+  const unsigned n = (unsigned)nx * ny * nz;  // 19 n < 2^32 (host check)
+  const unsigned c0 = ((unsigned)x * ny + y) * nz + z0;
+  const uint32_t* sw = reinterpret_cast<const uint32_t*>(src);
+  uint32_t pk[Q];
+  pk[0] = sw[c0 >> 1];
+#pragma unroll
+  for (int i = 1; i < Q; ++i) {
+    const int xs = wrap(x - EX(i), nx);
+    const int ys = wrap(y - EY(i), ny);
+    const unsigned e = i * n + ((unsigned)xs * ny + ys) * nz + z0;
+    const uint32_t* q = sw + (e >> 1);
+    // e_z = +1: (z0 - 1, z0); e_z = -1: (z0 + 1, z0 + 2)
+    pk[i] = EZ(i) == 0  ? q[0]
+            : EZ(i) > 0 ? __byte_perm(q[-1], q[0], 0x5432u)
+                        : __byte_perm(q[0], q[1], 0x5432u);
+  }
+  return rcp.in_range &&
+         collide_pair_stream<COLL, FORCE>(
+             pk, coll, rcp, reinterpret_cast<uint32_t*>(dst), n, c0, speed);
+}
+
+// The launch takes a list `entries` (engine/compile.CompiledCase
+// .pair_launch): its first n_inner entries interior pair ids (x * ny +
+// y) * ceil(nz / 2) + j, a thread a pair, the rest fluid cell ids, a
+// thread a cell (the fluid cells of every other pair). With box (the
+// box form), the grid's first nx z-slices take the interior pairs from
+// the box instead, the pair (blockIdx.x * kPairLanes + lane, blockIdx.y *
+// kPairRows + row) in (j, y) of x row blockIdx.z, stepped when its bit in
+// `interior` is set (engine/compile.pair_interior_bits; the grid gives
+// (x, y) with no division and a block 8 y rows for the L1 to share), and
+// the slices after them take the list's cells. Each block's velsum goes
+// to its partial, in the grid's block order.
+template <int COLL, bool CLOSURE, int FORCE, bool MOVING, bool ZPLANES>
+__global__ void __launch_bounds__(kBlock, kPairMinBlocks)
+collide_stream_pair_kernel(const __nv_bfloat16* __restrict__ src,
+                           __nv_bfloat16* __restrict__ dst,
+                           const int8_t* __restrict__ mask, int nx, int ny,
+                           int nz, const __grid_constant__ Collision coll,
+                           const PairRcp rcp, BCSet bcs,
+                           const __grid_constant__ ZBCSet zbcs,
+                           const int* __restrict__ entries, int n_listed,
+                           int n_inner, const uint32_t* __restrict__ interior,
+                           int box, double* __restrict__ partials) {
+  constexpr bool kPairs = kStreamed<COLL, CLOSURE>;  // else cells only
+  const unsigned slot =
+      (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  const int nzp = (nz + 1) >> 1;
+  // this thread's pair (x, y, z, two cells) or cell (one), or none
+  int x = 0, y = 0, z = 0, cells = 0;
+  bool pair = false;
+  if (kPairs && box && (int)blockIdx.z < nx) {
+    const int j = blockIdx.x * kPairLanes + threadIdx.x % kPairLanes;
+    y = blockIdx.y * kPairRows + threadIdx.x / kPairLanes;
+    x = blockIdx.z;
+    z = 2 * j;
+    const unsigned id = (x * ny + y) * nzp + j;
+    pair = j < nzp && y < ny && (interior[id >> 5] >> (id & 31u)) & 1u;
+  } else {
+    const unsigned block =
+        slot - (box ? (unsigned)nx * gridDim.x * gridDim.y : 0u);
+    const long long k =
+        (box ? n_inner : 0) + (long long)block * kBlock + threadIdx.x;
+    if (k < n_listed) {
+      const int id = entries[k];
+      if (kPairs && k < n_inner) {
+        const int row = id / nzp;
+        x = row / ny;
+        y = row - x * ny;
+        z = 2 * (id - row * nzp);
+        pair = true;
+      } else if (mask[id] == kFluid) {
+        const int xy = id / nz;
+        x = xy / ny;
+        y = xy - x * ny;
+        z = id - xy * nz;
+        cells = 1;
+      }
+    }
+  }
+  double speed = 0.0;
+  if constexpr (kPairs) {
+    // an interior pair whose dividends leave div_exact's range is stepped
+    // again, cell by cell (its stores rewritten)
+    if (pair && !stream_pair<COLL, FORCE>(src, dst, x, y, z, nx, ny, nz,
+                                          coll, rcp, speed)) {
+      speed = 0.0;
+      cells = 2;
+    }
+  }
+#pragma unroll 1
+  for (int c = 0; c < cells; ++c) {
+    speed += (double)step_cell<COLL, CLOSURE, FORCE, MOVING, ZPLANES>(
+        src, dst, mask, x, y, z + c, nx, ny, nz, (x * ny + y) * nz + z + c,
+        coll, rcp, bcs, zbcs);
+  }
+  block_sum_to(speed, partials + slot);
+}
+
 template <bool FORCE, typename S>
 __global__ void __launch_bounds__(kBlock)
 macro_kernel(const S* __restrict__ f, float* __restrict__ rho_out,
@@ -514,7 +833,8 @@ constexpr std::array<StepLauncher<S>, kNumKeys> kStepTable =
 // else null; cells: null (a thread a cell of the box) or a device list of
 // n_listed cell ids holding every fluid cell (a non-fluid id is
 // skipped); partials: one double per launched block (n_partials:
-// ceil(n_listed / kBlock), at least 1, with a list). Returns the instance
+// ceil(n_listed / kBlock), at least 1, with a list; n_blocks instead
+// where it is given: the paired kernel's grid). Returns the instance
 // key, or -cudaErrorInvalidValue on a malformed call.
 template <typename S, int HALO>
 int prepare_step(const S* src, S* dst, const int8_t* mask, int nx, int ny,
@@ -524,11 +844,14 @@ int prepare_step(const S* src, S* dst, const int8_t* mask, int nx, int ny,
                  const int* bc_wk, int n_wk, const int* cells, int n_listed,
                  double* partials, int n_partials, const float* gfield,
                  void* stream, const Halo& halo, StepArgs<S>& args,
-                 Collision& coll, BCSet& bcs, ZBCSet& zbcs) {
+                 Collision& coll, BCSet& bcs, ZBCSet& zbcs,
+                 long long n_blocks = -1) {
   const int bad = -(int)cudaErrorInvalidValue;
   const long long n_cells = (long long)nx * ny * nz;
   const long long grid =
-      cells ? (n_listed + kBlock - 1) / kBlock : (n_cells + kBlock - 1) / kBlock;
+      n_blocks >= 0 ? n_blocks
+      : cells       ? (n_listed + kBlock - 1) / kBlock
+                    : (n_cells + kBlock - 1) / kBlock;
   if (n_bc < 0 || n_bc > kMaxBCs + kMaxZBCs || n_cells <= 0 ||
       n_cells > 0x7fffffffLL || n_listed < 0 || n_listed > n_cells ||
       (grid > 0 ? grid : 1) != n_partials) {
@@ -589,6 +912,127 @@ int collide_stream(const S* src, S* dst, const int8_t* mask, int nx, int ny,
   if (key < 0) return -key;
   if (kStepTable<S, HALO>[key] == nullptr) return (int)cudaErrorInvalidValue;
   kStepTable<S, HALO>[key](args, coll, bcs, zbcs);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  velsum_reduce_kernel<<<1, kReduceBlock, 0, args.stream>>>(
+      partials, n_partials, series, t, 0);
+  return (int)cudaGetLastError();
+}
+
+// The paired bf16 kernel's instances: with the z planes' code for a case
+// with z-plane boundaries, without it for one without.
+using PairLauncher = void (*)(const StepArgs<__nv_bfloat16>&, dim3,
+                              const Collision&, const PairRcp&, const BCSet&,
+                              const ZBCSet&, int, const uint32_t*, int);
+
+template <int K>
+void launch_pair(const StepArgs<__nv_bfloat16>& a, dim3 grid,
+                 const Collision& c, const PairRcp& r, const BCSet& b,
+                 const ZBCSet& z, int n_inner, const uint32_t* interior,
+                 int box) {
+  using I = Inst<K>;
+  if (z.n > 0) {
+    collide_stream_pair_kernel<I::kColl, I::kClosure, I::kForce,
+                               I::kMovingWall, true>
+        <<<grid, kBlock, 0, a.stream>>>(a.src, a.dst, a.mask, a.nx, a.ny,
+                                        a.nz, c, r, b, z, a.cells,
+                                        a.n_listed, n_inner, interior, box,
+                                        a.partials);
+  } else {
+    collide_stream_pair_kernel<I::kColl, I::kClosure, I::kForce,
+                               I::kMovingWall, false>
+        <<<grid, kBlock, 0, a.stream>>>(a.src, a.dst, a.mask, a.nx, a.ny,
+                                        a.nz, c, r, b, z, a.cells,
+                                        a.n_listed, n_inner, interior, box,
+                                        a.partials);
+  }
+}
+
+template <int K>
+constexpr PairLauncher pair_entry() {
+  if constexpr (has_instance<__nv_bfloat16, K>()) {
+    return &launch_pair<K>;
+  } else {
+    return nullptr;
+  }
+}
+template <int... K>
+constexpr std::array<PairLauncher, kNumKeys> pair_table(
+    std::integer_sequence<int, K...>) {
+  return {pair_entry<K>()...};
+}
+// a variable template, instantiated only by the unit whose entry uses it
+template <typename S>
+constexpr std::array<PairLauncher, kNumKeys> kPairTable =
+    pair_table(std::make_integer_sequence<int, kNumKeys>{});
+
+// One step of bf16 state from src into dst by the paired kernel, with
+// collide_stream's descriptor rows, series slot and contract (only fluid
+// cells written), over `entries` (n_listed of them: n_inner interior pair
+// ids, then cell ids; engine/compile.CompiledCase.pair_launch) with box
+// 0, or with box 1 over the box's interior pairs (their bits in
+// `interior`, engine/compile.pair_interior_bits) and the list's cells: a
+// (ceil(ceil(nz / 2) / kPairLanes), ceil(ny / kPairRows), nx + the cells'
+// slices) grid. partials: one double a block (n_partials: the grid's
+// blocks). src and dst 4-byte aligned, 19 n_cells < 2^32. Returns
+// cudaGetLastError().
+template <typename S>
+int collide_stream_pairs(const S* src, S* dst, const int8_t* mask, int nx,
+                         int ny, int nz, const int* coll_int,
+                         const float* coll_float, int n_bc,
+                         const int* bc_int, const float* bc_float,
+                         const void* const* valid_ptrs,
+                         const void* const* phi_ptrs, const int* entries,
+                         int n_listed, int n_inner,
+                         const uint32_t* interior, int box, double* partials,
+                         int n_partials, double* series, int t,
+                         const float* gfield, void* stream) {
+  static_assert(std::is_same<S, __nv_bfloat16>::value, "bf16 storage");
+  const long long n_cells = (long long)nx * ny * nz;
+  if (nx <= 0 || ny <= 0 || nz <= 0 || Q * n_cells >= (1LL << 32) ||
+      nx > 65535 || !entries || !interior || n_inner < 0 ||
+      n_inner > n_listed || (box != 0 && box != 1) ||
+      (reinterpret_cast<uintptr_t>(src) & 3) ||
+      (reinterpret_cast<uintptr_t>(dst) & 3)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long nzp = (nz + 1) / 2;
+  dim3 grid;
+  if (box) {
+    grid.x = (unsigned)((nzp + kPairLanes - 1) / kPairLanes);
+    grid.y = (unsigned)((ny + kPairRows - 1) / kPairRows);
+    const long long slice = (long long)grid.x * grid.y * kBlock;
+    grid.z = (unsigned)(nx + (n_listed - n_inner + slice - 1) / slice);
+  } else {
+    const long long blocks = (n_listed + kBlock - 1LL) / kBlock;
+    grid.x = (unsigned)(blocks > 0 ? blocks : 1);
+  }
+  if (grid.z > 65535) return (int)cudaErrorInvalidValue;
+  StepArgs<S> args;
+  Collision coll = {};
+  BCSet bcs = {};
+  ZBCSet zbcs = {};
+  const int key = prepare_step<S, -1>(
+      src, dst, mask, nx, ny, nz, coll_int, coll_float, n_bc, bc_int,
+      bc_float, valid_ptrs, phi_ptrs, nullptr, 0, entries, n_listed,
+      partials, n_partials, gfield, stream, Halo{}, args, coll, bcs, zbcs,
+      (long long)grid.x * grid.y * grid.z);
+  if (key < 0) return -key;
+  if (kPairTable<S>[key] == nullptr) return (int)cudaErrorInvalidValue;
+  // RN(1/b) of each launch divisor: host float division rounds to nearest
+  auto bits = [](float v) {
+    uint32_t u;
+    memcpy(&u, &v, sizeof u);
+    return u;
+  };
+  const bool trt = coll_int[CI_coll] == kTRT;
+  const PairRcp rcp = {{1.0f / coll.tau, 1.0f / coll.two_tau,
+                        1.0f / coll.two_tau_m},
+                       trt ? div_b_in_range(bits(coll.two_tau)) &&
+                                 div_b_in_range(bits(coll.two_tau_m))
+                           : div_b_in_range(bits(coll.tau))};
+  kPairTable<S>[key](args, grid, coll, rcp, bcs, zbcs, n_inner, interior,
+                     box);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   velsum_reduce_kernel<<<1, kReduceBlock, 0, args.stream>>>(

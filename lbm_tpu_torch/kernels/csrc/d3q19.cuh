@@ -251,9 +251,77 @@ __device__ __forceinline__ float phi_i(int i, float ux, float uy, float uz,
   return WGT(i) * (1.0f + 3.0f * cu + 4.5f * cu * cu - 1.5f * usq);
 }
 
+// a / b, correctly rounded (IEEE division), from y = RN(1/b) (__frcp_rn,
+// taken once a divisor), without the division's slow path: q = a y and
+// two corrections q += (a - q b) y, each residual an FMA. One correction
+// is not enough: with y = RN(1/b) it misses at power-of-two dividends
+// when b's significand is all ones (0.99999994, 1.9999999, 0.49999997);
+// the second makes it exact (chip_smoke.py holds it against a / b over
+// all 2^32 dividends for each divisor the bf16 cases use and those).
+// The guard keeps the operands where every intermediate is a normal
+// number far from overflow, so each residual is exact: b positive in
+// [2^-23, 2^24), so y is normal in (2^-24, 2^23]; a zero or |a| in
+// [2^-87, 2^88), so |q| lies in (2^-112, 2^112) and the residual's last
+// bit, 2^(e_q + e_b - 46) >= 2^(e_a - 47) >= 2^-134, lies above the
+// subnormal range. A zero a gives a y, the IEEE signed zero (the
+// residuals are +0 and the negated form keeps q's sign). Anything else (a
+// subnormal or a larger a, a b out of range or not positive, inf, NaN)
+// takes the plain a / b. The IEEE division's own fast path is the same
+// sequence from a refined approximate reciprocal; its range check sends
+// zero and subnormal dividends to the slow path, 2.7x the cost of a
+// normal one on the H100, and at rest 99.6% of the bf16 lid's BGK
+// dividends p - feq are zero (probes/div_path.py).
+constexpr unsigned kDivALo = 40u << 23;   // 2^-87: exponent field 40
+constexpr unsigned kDivAHi = 215u << 23;  // 2^88
+constexpr unsigned kDivBLo = 104u << 23;  // 2^-23
+constexpr unsigned kDivBHi = 151u << 23;  // 2^24
+
+// div_exact's arithmetic alone, for operands inside its range.
+__device__ __forceinline__ float div_core(float a, float b, float y) {
+  const float q0 = __fmul_rn(a, y);
+  const float r0 = __fmaf_rn(q0, b, -a);
+  const float q1 = __fmaf_rn(-r0, y, q0);
+  const float r1 = __fmaf_rn(q1, b, -a);
+  return __fmaf_rn(-r1, y, q1);
+}
+
+// Whether b is a divisor inside div_exact's range.
+__host__ __device__ constexpr bool div_b_in_range(unsigned b_bits) {
+  return b_bits - kDivBLo < kDivBHi - kDivBLo;
+}
+
+__device__ __forceinline__ float div_exact(float a, float b, float y) {
+  const unsigned ma = __float_as_uint(a) & 0x7fffffffu;
+  if ((ma - kDivALo >= kDivAHi - kDivALo && ma != 0u) ||
+      !div_b_in_range(__float_as_uint(b))) {  // a sign bit fails the range
+    return a / b;
+  }
+  return div_core(a, b, y);
+}
+
+// The range test of div_exact's dividends, a whole pair's at a time (the
+// paired kernel's collision without rewrites): each dividend a adds to two
+// accumulators, low = min over a of (bits(a) << 1) - 2 (a zero wraps to
+// the top, a subnormal or small normal stays below 2 kDivALo - 2) and
+// high = max over a of |a| (inf lands at or above 2^88; a NaN dividend
+// gives a NaN quotient either way); in() is true when every dividend was
+// zero or inside [2^-87, 2^88).
+struct DivRange {
+  unsigned low = 0xffffffffu;
+  float high = 0.0f;
+  __device__ __forceinline__ void add(float a) {
+    low = min(low, (__float_as_uint(a) << 1) - 2u);
+    high = fmaxf(high, fabsf(a));
+  }
+  __device__ __forceinline__ bool in() const {
+    return low >= 2u * kDivALo - 2u && high < 0x1p88f;
+  }
+};
+
 // rho and u = (m + F/2) / rho (rho == 0 read as 1; F/2 only with FORCE)
-// of 19 populations.
-template <bool FORCE>
+// of 19 populations. DIVX: the paired bf16 kernel's form, whose three
+// divisions are div_exact by one reciprocal of rho (the same values).
+template <bool FORCE, bool DIVX = false>
 __device__ __forceinline__ void moments19(const float* p,
                                           const float* half_force,
                                           float& rho, float& ux, float& uy,
@@ -277,9 +345,16 @@ __device__ __forceinline__ void moments19(const float* p,
     mz = mz + half_force[2];
   }
   const float safe = rho == 0.0f ? 1.0f : rho;
-  ux = mx / safe;
-  uy = my / safe;
-  uz = mz / safe;
+  if constexpr (DIVX) {
+    const float y = __frcp_rn(safe);
+    ux = div_exact(mx, safe, y);
+    uy = div_exact(my, safe, y);
+    uz = div_exact(mz, safe, y);
+  } else {
+    ux = mx / safe;
+    uy = my / safe;
+    uz = mz / safe;
+  }
 }
 
 // The planes a shard of a domain split along x or y receives from its
@@ -384,8 +459,8 @@ __device__ __forceinline__ void pull19(const S* __restrict__ src,
 // for each prescribed direction whose lateral cell is valid (u_prev with
 // the F/2 shift under FORCE). WKF: the instance derives a windkessel
 // outlet's rho* from the fold (bc.wk, where set); without it the code is
-// the static rewrite's alone.
-template <bool FORCE, typename S, bool WKF = false>
+// the static rewrite's alone. DIVX: moments19's exact-division form.
+template <bool FORCE, typename S, bool WKF = false, bool DIVX = false>
 __device__ __forceinline__ void nee_fix(const BCDesc& bc,
                                         const S* __restrict__ src,
                                         long long n_cells, int cell,
@@ -398,7 +473,7 @@ __device__ __forceinline__ void nee_fix(const BCDesc& bc,
     own[i] = widen(src[(long long)i * n_cells + cell]);
   }
   float rp, uxp, uyp, uzp;
-  moments19<FORCE>(own, half_force, rp, uxp, uyp, uzp);
+  moments19<FORCE, DIVX>(own, half_force, rp, uxp, uyp, uzp);
   const float usqp = uxp * uxp + uyp * uyp + uzp * uzp;
   float rho_star = bc.rho_is_fixed ? bc.rho_fixed : rp;
   if constexpr (WKF) {
@@ -505,24 +580,55 @@ __device__ __forceinline__ void field_force(const Collision& c,
   field_from(c, field_dc(c, n_cells, cell), F, half);
 }
 
+// The bf16 bits of v rounded to nearest even.
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// TRT's relaxation of direction i and its opposite o from their shared
+// sum s and difference d (o's d is -d exactly, its s is s), as the
+// per-direction form computes each: post[i] = p[i] - s / b - d / bm and
+// post[o] = p[o] - s / b - (-d) / bm, with div_exact by (b, y) and (bm,
+// ym) once for both.
+__device__ __forceinline__ void trt_pair(const float* p, float s, float d,
+                                         int i, float b, float y, float bm,
+                                         float ym, float* post) {
+  const int o = OPP(i);
+  const float qs = div_exact(s, b, y);
+  const float qd = div_exact(d, bm, ym);
+  post[i] = p[i] - qs - qd;
+  if (o != i) post[o] = p[o] - qs + qd;
+}
+
 // F and half: the cell's force and F/2, read under FORCE (the
-// descriptor's constants, or field_force's).
-template <int COLL, bool CLOSURE, int FORCE, typename S>
+// descriptor's constants, or field_force's). DIVX: the paired bf16
+// kernel's form: the same arithmetic with every division by tau, 2 tau,
+// 2 tau_minus, rho and a closure's tau_eff, 2 tau_eff and 2 tau_minus_eff
+// a div_exact (the same values); rcp: RN(1/tau), RN(1/(2 tau)),
+// RN(1/(2 tau_minus)).
+template <int COLL, bool CLOSURE, int FORCE, typename S, bool DIVX = false>
 __device__ __forceinline__ float collide_store(const float* p,
                                                const Collision& c,
                                                const float* F,
                                                const float* half,
                                                S* __restrict__ dst,
-                                               long long n_cells, int cell) {
+                                               long long n_cells, int cell,
+                                               const float* rcp = nullptr) {
+  static_assert(!DIVX || FORCE != kFieldForce, "bf16 has no force field");
   float rho, ux, uy, uz;
-  moments19<FORCE != kNoForce>(p, half, rho, ux, uy, uz);
+  moments19<FORCE != kNoForce, DIVX>(p, half, rho, ux, uy, uz);
   const float usq = ux * ux + uy * uy + uz * uz;
   if constexpr (COLL == kBGK && !CLOSURE && FORCE == kNoForce) {
 #pragma unroll
     for (int i = 0; i < Q; ++i) {
       const float feq = rho * phi_i(i, ux, uy, uz, usq);
-      dst[(long long)i * n_cells + cell] =
-          narrow<S>(p[i] - (p[i] - feq) / c.tau);
+      if constexpr (DIVX) {
+        dst[(long long)i * n_cells + cell] =
+            narrow<S>(p[i] - div_exact(p[i] - feq, c.tau, rcp[0]));
+      } else {
+        dst[(long long)i * n_cells + cell] =
+            narrow<S>(p[i] - (p[i] - feq) / c.tau);
+      }
     }
   } else if constexpr (COLL == kTRT && FORCE == kFieldForce) {
     // TRT with the field force, a direction at a time: its own and its
@@ -559,26 +665,62 @@ __device__ __forceinline__ float collide_store(const float* p,
       if constexpr (COLL == kTRT) {
         // constant magic Lambda: the odd rate follows tau_eff
         const float te_m = 0.5f + c.lam / (te - 0.5f);
+        if constexpr (DIVX) {
+          // direction o = OPP(i)'s s is i's and its d is -d: one pair of
+          // quotients for both (trt_pair)
+          const float b = 2.0f * te, bm = 2.0f * te_m;
+          const float y = __frcp_rn(b), ym = __frcp_rn(bm);
 #pragma unroll
-        for (int i = 0; i < Q; ++i) {
-          const float s = fneq[i] + fneq[OPP(i)];
-          const float d = fneq[i] - fneq[OPP(i)];
-          post[i] = p[i] - s / (2.0f * te) - d / (2.0f * te_m);
+          for (int i = 0; i < Q; ++i) {
+            const int o = OPP(i);
+            if (o < i) continue;
+            trt_pair(p, fneq[i] + fneq[o], fneq[i] - fneq[o], i, b, y, bm,
+                     ym, post);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < Q; ++i) {
+            const float s = fneq[i] + fneq[OPP(i)];
+            const float d = fneq[i] - fneq[OPP(i)];
+            post[i] = p[i] - s / (2.0f * te) - d / (2.0f * te_m);
+          }
         }
+      } else if constexpr (DIVX) {
+        const float y = __frcp_rn(te);
+#pragma unroll
+        for (int i = 0; i < Q; ++i) post[i] = p[i] - div_exact(fneq[i], te, y);
       } else {
 #pragma unroll
         for (int i = 0; i < Q; ++i) post[i] = p[i] - fneq[i] / te;
       }
     } else if constexpr (COLL == kBGK) {
+      if constexpr (DIVX) {
 #pragma unroll
-      for (int i = 0; i < Q; ++i) post[i] = p[i] - (p[i] - feq[i]) / c.tau;
+        for (int i = 0; i < Q; ++i) {
+          post[i] = p[i] - div_exact(p[i] - feq[i], c.tau, rcp[0]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < Q; ++i) post[i] = p[i] - (p[i] - feq[i]) / c.tau;
+      }
     } else if constexpr (COLL == kTRT) {
+      if constexpr (DIVX) {
 #pragma unroll
-      for (int i = 0; i < Q; ++i) {
-        const int o = OPP(i);
-        const float s = (p[i] + p[o]) - (feq[i] + feq[o]);
-        const float d = (p[i] - p[o]) - (feq[i] - feq[o]);
-        post[i] = p[i] - s / c.two_tau - d / c.two_tau_m;
+        for (int i = 0; i < Q; ++i) {
+          const int o = OPP(i);
+          if (o < i) continue;
+          trt_pair(p, (p[i] + p[o]) - (feq[i] + feq[o]),
+                   (p[i] - p[o]) - (feq[i] - feq[o]), i, c.two_tau, rcp[1],
+                   c.two_tau_m, rcp[2], post);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < Q; ++i) {
+          const int o = OPP(i);
+          const float s = (p[i] + p[o]) - (feq[i] + feq[o]);
+          const float d = (p[i] - p[o]) - (feq[i] - feq[o]);
+          post[i] = p[i] - s / c.two_tau - d / c.two_tau_m;
+        }
       }
     } else {
       // MRT: f - K (f - feq), each row summed in column order
@@ -616,6 +758,22 @@ __device__ __forceinline__ float collide_store(const float* p,
     }
   }
   return usq;
+}
+
+// block_sum's sum written to *slot (the paired kernel's blocks are
+// numbered over a 3-D grid); block_sum itself keeps its code for the
+// instances the paired kernel leaves as they were.
+__device__ __forceinline__ void block_sum_to(double v,
+                                             double* __restrict__ slot) {
+  __shared__ double red[kBlock];
+  red[threadIdx.x] = v;
+  __syncthreads();
+#pragma unroll
+  for (unsigned s = kBlock / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *slot = red[0];
 }
 
 // Fixed-order block sum in double, written to partials[blockIdx.x].

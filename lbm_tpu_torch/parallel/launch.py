@@ -2,7 +2,8 @@
 
     results = spawn(fn, world, args, backend="gloo", device="cpu")
 
-runs fn(mesh, *args) on `world` spawned processes, each joined to one
+runs fn(mesh, *args) on `world` spawned processes (gloo ranks on the
+machine's cards unless device="cpu" asks for the CPU), each joined to one
 torch.distributed group through a FileStore in a fresh temporary
 directory (no port to pick), and returns the ranks' return values in
 rank order. fn and its arguments and results cross by pickle: fn is a
@@ -32,7 +33,7 @@ import traceback
 from typing import Any, Callable, Optional
 
 
-def _rank_main(rank: int, world: int, backend: str, device: Optional[str],
+def _rank_main(rank: int, world: int, backend: str, device: str,
                store_path: str, threads: Optional[int], fn: Callable,
                args: tuple, results) -> None:
     import torch
@@ -56,17 +57,19 @@ def _rank_main(rank: int, world: int, backend: str, device: Optional[str],
 
 
 def spawn(fn: Callable, world: int, args: tuple = (), backend: str = "gloo",
-          device: Optional[str] = None, timeout: Optional[float] = None,
+          device: str = "cuda", timeout: Optional[float] = None,
           threads: Optional[int] = None,
           store_dir: Optional[str] = None) -> list[Any]:
     """fn(mesh, *args) on `world` ranks; their results in rank order.
-    timeout: seconds for the whole call (None: no limit), after which
+    device: the gloo ranks' device, 'cuda' (the default; a rank raises
+    without a card) or 'cpu'. timeout: seconds for the whole call (None:
+    no limit), after which
     every rank is killed; threads: torch threads a rank (default: CPU
     ranks share the machine's cores, CUDA ranks keep torch's default);
     store_dir: where the FileStore's directory is made (default: the
     system's temporary directory). Each rank's process group bounds one
     wait by mesh.TIMEOUT_S."""
-    if threads is None and backend == "gloo" and (device or "cpu") == "cpu":
+    if threads is None and backend == "gloo" and device == "cpu":
         threads = max(1, (os.cpu_count() or 1) // world)
     ctx = multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="lbm_tpu_torch_store_", dir=store_dir)

@@ -117,23 +117,23 @@ class LatticeMesh:
         return bool((ints == ints[0]).all())
 
 
-def mesh_device(backend: str, rank: int, device=None) -> torch.device:
-    """The device of rank `rank`: cuda:rank under nccl; under gloo the
-    CPU, or with device 'cuda' card rank % device_count (ranks share
-    cards)."""
+def mesh_device(backend: str, rank: int, device="cuda") -> torch.device:
+    """The device of rank `rank`: cuda:rank under nccl; under gloo, with
+    device 'cuda' (the default) card rank % device_count (ranks share
+    cards), with 'cpu' the CPU. 'cuda' without a card raises, as
+    engine/runner.resolve_device does."""
     if backend == "nccl":
         return torch.device("cuda", rank)
-    device = torch.device("cpu" if device is None else device)
+    from lbm_tpu_torch.engine.runner import resolve_device
+
+    device = resolve_device(device)
     if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("gloo ranks on 'cuda' need a CUDA card; "
-                               "torch.cuda.is_available() is False")
         return torch.device("cuda", rank % torch.cuda.device_count())
     return device
 
 
 def lattice_mesh(n: Optional[int] = None, backend: Optional[str] = None,
-                 device=None, rank: Optional[int] = None, store=None,
+                 device="cuda", rank: Optional[int] = None, store=None,
                  init_method: Optional[str] = None) -> LatticeMesh:
     """This process's LatticeMesh, joining the default process group
     first if it is not up: from a `store` (a torch.distributed.FileStore)
@@ -141,8 +141,8 @@ def lattice_mesh(n: Optional[int] = None, backend: Optional[str] = None,
     'tcp://localhost:29512'), or from the environment torchrun sets
     (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT). backend: 'nccl' or
     'gloo' (default: the running group's, else 'gloo'); device: the gloo
-    ranks' device type ('cpu' or 'cuda'). Every wait is bounded by
-    TIMEOUT_S."""
+    ranks' device type, 'cuda' (the default; raises without a card) or
+    'cpu'. Every wait is bounded by TIMEOUT_S."""
     if dist.is_initialized():
         backend = backend or dist.get_backend()
     backend = backend or "gloo"

@@ -780,6 +780,66 @@ def test_bf16_pair_kernel_matches_plain(device, branch):
     torch.testing.assert_close(vp, vq, rtol=1e-5, atol=0.0)
 
 
+# The paired bf16 kernel's edges (case, options): an odd nz (the last z
+# cell a pair of its own, rows that start at odd elements) with z planes
+# on the even halves of their pairs; z planes on the odd halves; an odd
+# cell count (every direction's plane at the other parity), a force and a
+# moving lid; walls beside fluid cells inside one pair in each.
+PAIR_EDGES = {
+    "odd nz, z planes on even halves": (
+        "coronary", dict(shape=(64, 48, 95), radius=4, pulsatile=(4, 8))),
+    "z planes on odd halves": (
+        "coronary", dict(shape=(64, 48, 96), radius=4, pulsatile=(4, 8))),
+    "odd cell count, trt+force": (
+        "gravity_channel", dict(n=23, nz=25, fz=1e-4, collision="trt")),
+    "odd cell count, moving lid": (
+        "lid_driven_cavity", dict(n=25, lid="bounceback")),
+}
+
+
+@pytest.mark.parametrize("label", sorted(PAIR_EDGES))
+def test_bf16_paired_kernel_edges(device, label):
+    """The paired bf16 kernel over its pair list (where the case has one)
+    and over the box, 40 steps each against step_plain on bf16 state: f
+    bit for bit, velsums at 1e-5 relative; a non-fluid cell (a wall half
+    of a pair included) keeps its initial words in both buffers."""
+    name, kw = PAIR_EDGES[label]
+    cc = compile_case(get_case(name, **kw), device)
+    f0 = initial_f(cc).to(torch.bfloat16)
+    fp = f0
+    vs_p = torch.zeros(40, dtype=torch.float64, device=device)
+    for t in range(40):
+        fp, vs_p[t] = K.step_plain(fp, cc, t)
+    keep = ~cc.fluid[None].expand(19, *cc.shape)
+    for all_blocks in ((False, True) if cc.fluid_pairs is not None
+                       else (True,)):
+        fk, buf = f0.clone(), f0.clone()
+        vs_k = torch.zeros(40, dtype=torch.float64, device=device)
+        K.reset_launches()
+        for t in range(40):
+            K.step(fk, buf, cc, vs_k, t, t, all_blocks)
+            fk, buf = buf, fk
+        torch.cuda.synchronize()
+        assert K.launches == {
+            f"lbm_collide_stream[{K.instance(cc)}+bf16]": 40}
+        assert torch.equal(fk, fp), all_blocks
+        torch.testing.assert_close(vs_k, vs_p, rtol=1e-5, atol=0.0)
+        assert torch.equal(fk[keep], f0[keep])
+        assert torch.equal(buf[keep], f0[keep])
+
+
+# div_exact's hard divisors (significands of all ones, where one
+# correction misses) and 1
+@pytest.mark.parametrize("b", [0.99999994, 1.9999999, 0.49999997, 1.0])
+def test_div_exact_matches_ieee_division(device, b):
+    """The paired kernel's division against IEEE a / b over all 2^32 fp32
+    dividends (every exponent and significand, zeros, subnormals, inf and
+    NaN): no quotient differs, and the host's reciprocal of a launch
+    divisor equals __frcp_rn."""
+    bad, rcp_equal = K.div_exact_check(b, device)
+    assert bad == 0 and rcp_equal
+
+
 def test_bf16_extract_rows_and_lowmem_read(device):
     f = torch.randn(19, 13, 12, 16, device=device).to(torch.bfloat16)
     g = torch.randn(19, 9, 7, 5, device=device).to(torch.bfloat16)

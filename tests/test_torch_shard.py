@@ -219,6 +219,25 @@ def test_dryrun_multichip_on_four_ranks():
         "sharded scalar kernel route, lid"]
 
 
+def test_gloo_ranks_default_to_the_card():
+    """A gloo rank's device is the card unless the caller asks for the
+    CPU: mesh_device, lattice_mesh and spawn default to 'cuda', which on
+    a machine without a card raises in resolve_device's words; 'cpu'
+    gives the CPU."""
+    import inspect
+
+    from lbm_tpu_torch.parallel.mesh import lattice_mesh, mesh_device
+
+    for fn in (mesh_device, lattice_mesh, spawn):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert mesh_device("gloo", 3, "cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert mesh_device("gloo", 0).type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="pass device='cpu'"):
+            mesh_device("gloo", 0)
+
+
 def test_a_failing_or_hung_rank_fails_the_run(tmp_path):
     """A rank that raises fails the spawn with its traceback; ranks that
     outlast the deadline are killed and the spawn fails."""
