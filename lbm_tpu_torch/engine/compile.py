@@ -29,7 +29,10 @@ then moved to the device once:
     that hold a fluid cell (`fluid_pair_ids`), and `pair_launch`, the
     bf16 kernel's list: the interior pairs (`pair_interior_bits`) first,
     a thread a pair, then the other pairs' fluid cells, a thread a cell;
-    `live_tiles`, built at first
+    `fluid_launch`, built at first use, the fp32 kernel's launch over the
+    same cells (`fluid_launch_tables`: each row's fluid runs in
+    sector-aligned segments, a word of wall links a lane), which replaces
+    `fluid_cells` there; `live_tiles`, built at first
     use, the ids of the fused pair's
     units (an x segment of a (y, z) column tile, TILE) under the same
     rule;
@@ -108,6 +111,15 @@ SKIP_BELOW = 0.95
 # TILE[0] planes of a TILE[1] x TILE[2] (y, z) column tile (kSeg, kTY and
 # kTZ in kernels/csrc/collide_stream2.cuh).
 TILE = (64, 8, 32)
+# The fp32 collide-stream kernel's launch over the fluid cells
+# (FluidLaunch): segments of SEG cells of one (x, y) row, aligned to SEG
+# in the flattened cell id (kSegLanes in kernels/csrc/
+# collide_stream_list.cuh: 32 bytes of fp32 a direction, one sector); a
+# lane's word: LANE_IDLE (bit 0) for a cell of the row that is not fluid,
+# LANE_OUT (every bit) for one outside the row (kIdle, kOut there).
+SEG = 8
+LANE_IDLE = 1
+LANE_OUT = -1
 
 
 def _phi_np(u: np.ndarray, dirs: np.ndarray) -> np.ndarray:
@@ -281,6 +293,13 @@ class CompiledCase:
         device, built at first use."""
         return pair_interior_bits(
             self.mask, [(bc.axis, bc.consumer_coord) for bc in self.bcs])
+
+    @functools.cached_property
+    def fluid_launch(self) -> FluidLaunch:
+        """fluid_launch_tables of the mask, in the moving walls' form when
+        the case has them, built at first use on the device: the fp32
+        collide-stream kernel's launch over the fluid cells."""
+        return fluid_launch_tables(self.mask, self.wall_velocity is not None)
 
     @functools.cached_property
     def fluid_pairs(self) -> torch.Tensor:
@@ -616,6 +635,98 @@ def pair_interior_bits(mask: torch.Tensor, planes) -> torch.Tensor:
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
+@dataclasses.dataclass(frozen=True)
+class FluidLaunch:
+    """The fp32 collide-stream kernel's launch over the fluid cells
+    (collide_stream_list_kernel, fluid_launch_tables): a thread a lane of
+    SEG-cell segments. segs (n, 2) int32: a segment's x | y << 16 and the
+    z of its lane 0 (from 1 - SEG up); links (SEG n,) int32: each lane's
+    word, LANE_IDLE or LANE_OUT, or a fluid cell's wall links (bit i:
+    direction i's source is a wall, or with moving walls a wall or a
+    moving wall); moving: with moving walls, each lane's moving-source
+    bits (bit i: direction i's source is a moving wall), else None."""
+
+    segs: torch.Tensor
+    links: torch.Tensor
+    moving: Optional[torch.Tensor] = None
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in
+                   (self.segs, self.links, self.moving) if t is not None)
+
+
+def fluid_launch_tables(mask: torch.Tensor, moving: bool = False,
+                        halo=None) -> FluidLaunch:
+    """The FluidLaunch of a box's FLUID cells, on mask's device. Each run
+    of fluid cells of an (x, y) row is covered by segments of SEG cells
+    aligned to SEG in the flattened cell id (z fastest), so that a
+    direction's loads and stores of a segment's lanes fill whole 32-byte
+    sectors of fp32; segments ascend as the cells do, so a block holds
+    neighbouring y rows of one x. A lane whose cell lies in the row but
+    is not fluid is LANE_IDLE; one outside the row (its id in the row
+    before or after) is LANE_OUT; a fluid cell's word holds its wall
+    links, so the kernel loads no mask byte and computes no cell id
+    from a division. moving: the instance's form with moving walls (a
+    MOVING source is a link too, and `moving` marks it). halo: a shard's
+    (axis, mask_lo, mask_hi), whose sources across its faces are the
+    neighbours' rows (ShardCase). A box without a fluid cell launches one
+    segment of LANE_OUT lanes."""
+    nx, ny, nz = mask.shape
+    if max(nx, ny) >= 1 << 16:
+        raise ValueError(f"box {tuple(mask.shape)}: the fluid-cell launch "
+                         "packs x and y in 16 bits each")
+    dev = mask.device
+    lane = torch.arange(SEG, device=dev)
+    cells = torch.nonzero(mask.reshape(-1) == CellType.FLUID).reshape(-1)
+    if not len(cells):
+        out = torch.full((SEG,), LANE_OUT, dtype=torch.int32, device=dev)
+        return FluidLaunch(
+            segs=torch.zeros((1, 2), dtype=torch.int32, device=dev),
+            links=out, moving=torch.zeros_like(out) if moving else None)
+    row = cells // nz
+    base = cells - cells % SEG
+    new = torch.ones_like(cells, dtype=torch.bool)
+    new[1:] = (row[1:] != row[:-1]) | (base[1:] != base[:-1])
+    seg_of = torch.cumsum(new, 0) - 1
+    srow, sbase = row[new], base[new]
+    z0 = sbase - srow * nz
+    segs = torch.stack([srow // ny | (srow % ny) << 16, z0], 1)
+    lz = z0[:, None] + lane
+    words = torch.where((lz < 0) | (lz >= nz), LANE_OUT, LANE_IDLE)
+    x, y, z = cells // (ny * nz), row % ny, cells % nz
+    ext, shard_axis = mask, None
+    if halo is not None:
+        shard_axis, lo, hi = halo
+        ext = torch.cat([lo.unsqueeze(shard_axis), mask,
+                         hi.unsqueeze(shard_axis)], shard_axis)
+    stop = ext == CellType.WALL
+    if moving:
+        stop |= ext == CellType.MOVING
+    links = torch.zeros_like(cells)
+    mlinks = torch.zeros_like(cells)
+    for i in range(1, D3Q19.Q):
+        src = []
+        for a, (c, n) in enumerate(zip((x, y, z), (nx, ny, nz))):
+            s = c - int(D3Q19.E[i][a])
+            src.append(s + 1 if a == shard_axis else s % n)
+        links |= stop[src[0], src[1], src[2]].long() << i
+        if moving:
+            mlinks |= (ext[src[0], src[1], src[2]]
+                       == CellType.MOVING).long() << i
+    at = seg_of * SEG + (cells - base)
+    words = words.reshape(-1)
+    words[at] = links
+    mwords = None
+    if moving:
+        mwords = torch.zeros_like(words)
+        mwords[at] = mlinks
+    return FluidLaunch(segs=segs.to(torch.int32),
+                       links=words.to(torch.int32),
+                       moving=None if mwords is None
+                       else mwords.to(torch.int32))
+
+
 def pair_bits_of(bits: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Bool per pair id of `ids`: its bit in `bits`
     (pair_interior_bits)."""
@@ -708,6 +819,15 @@ class ShardCase(CompiledCase):
         if self.wall_velocity is None:
             return None
         return self._halo_neighbors(CellType.MOVING)
+
+    @functools.cached_property
+    def fluid_launch(self) -> FluidLaunch:
+        """The window's FluidLaunch, its links across the shard's faces
+        from the neighbours' rows mask_lo and mask_hi (K1d's launch over
+        the fluid cells)."""
+        return fluid_launch_tables(
+            self.mask, self.wall_velocity is not None,
+            (self.shard_axis, self.mask_lo, self.mask_hi))
 
     def _halo_neighbors(self, label: int) -> torch.Tensor:
         """neighbor_wall of the window with the neighbours' rows beyond
@@ -974,6 +1094,8 @@ __all__ = ["CompiledBC", "CompiledCase", "ShardCase", "compile_case",
            "canonical_device", "check_supported", "check_z_windows",
            "CURVED_REFUSAL",
            "fluid_cell_ids", "fluid_pair_ids", "pair_interior_bits",
+           "FluidLaunch", "fluid_launch_tables", "SEG", "LANE_IDLE",
+           "LANE_OUT",
            "pair_bits_of", "fold_cell_ids",
            "fuse2_refusal",
            "kernel_refusal", "wk_footprint",

@@ -283,10 +283,13 @@ class Simulation:
                                     self.shard_axis, self.device)
         if backend == "kernel":
             kernels.collision_descriptor(self.cc)  # refuses what it lacks
-            if (self.store_dtype == torch.bfloat16
-                    and self.device.type == "cuda"
-                    and not has_windkessel(self.cc.bcs)):
-                kernels.pair_launch(self.cc)  # the bf16 launch list: set-up
+            if self.device.type == "cuda" and not has_windkessel(
+                    self.cc.bcs):
+                # the launch tables: set-up, not the first chunk's time
+                if self.store_dtype == torch.bfloat16:
+                    kernels.pair_launch(self.cc)
+                elif self.cc.fluid_cells is not None:
+                    _ = self.cc.fluid_launch
         self._step = self._make_step()
         self._usq_fn: Optional[Callable] = None
         self.reset()

@@ -1,17 +1,22 @@
 """Build the CUDA kernel libraries with nvcc at first use and load them
 with ctypes.
 
-Eight sources in nine translation units, each its own shared object,
+Nine sources in ten translation units, each its own shared object,
 compiled side by side (one nvcc process each, started together):
 kernels/csrc/collide_stream.cu (the collide-stream kernel in its 18
 collision-branch instances, each with and without the z planes' code,
-and the moments kernel on fp32 state), kernels/csrc/collide_stream_bf16.cu
+a thread a cell of the box, and the moments kernel on fp32 state),
+kernels/csrc/collide_stream_list.cu (the 18 branches of the fp32 step
+over a vessel's fluid cells, each with the z planes' code,
+collide_stream_list.cuh: a thread a lane of sector-aligned segments of
+each row's fluid runs, its wall links in a word), kernels/csrc/collide_stream_bf16.cu
 (the same on bf16 state as the paired kernel, a thread a pair of z
 neighbours: 14 branches, no force field),
 kernels/csrc/collide_stream2.cu and collide_stream2_bf16.cu (the fused
 pair of steps, an x-marching column, in its 14 instances and the chunked
 state read, on fp32 and on bf16 state), kernels/csrc/collide_stream_halo.cu (the sharded
-collide-stream step, 14 branches with and without z planes, built twice:
+collide-stream step, 14 branches with and without z planes, over the
+box and over the shard's fluid cells, built twice:
 with -DLBM_HALO_AXIS=0 for shards of a box split along x, =1 along y)
 kernels/csrc/scalar_stream.cu (the D3Q7 scalar kernel in its 8
 instances and its record reduction), kernels/csrc/windkessel.cu (the
@@ -50,6 +55,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 SOURCE = CSRC / "collide_stream.cu"
+LIST_SOURCE = CSRC / "collide_stream_list.cu"
 BF16_SOURCE = CSRC / "collide_stream_bf16.cu"
 SCALAR_SOURCE = CSRC / "scalar_stream.cu"
 PAIR_SOURCE = CSRC / "collide_stream2.cu"
@@ -110,10 +116,9 @@ def _declare(lib: ctypes.CDLL, sfx: str = "") -> None:
         ci, ci, ci,             # nx, ny, nz
         vp, vp,                 # collision int row, float row
         ci, vp, vp, vp, vp,     # n_bc, bc_int, bc_float, valid, phi_star
-        vp, ci,                 # fluid-cell list or null (bf16: the
-                                # launch list), its length
-        *([ci, vp, ci] if sfx else []),  # bf16: the list's pairs, the
-                                         # box's interior bits, box form
+        # bf16: the launch list, its length, its pairs, the box's
+        # interior bits, the box form
+        *([vp, ci, ci, vp, ci] if sfx else []),
         vp, ci,                 # partials, n_partials
         vp, ci,                 # series, t
         vp,                     # g of a field force, or null
@@ -129,21 +134,55 @@ def _declare(lib: ctypes.CDLL, sfx: str = "") -> None:
         lib.lbm_div_exact_check.restype = ci
 
 
+def _list_args(tail: list) -> list:
+    """The argument types of a launch over the fluid cells (engine/compile
+    .FluidLaunch), then `tail` and the stream."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return [
+        vp, vp,                 # src, dst
+        ci, ci, ci,             # nx, ny, nz
+        vp, vp,                 # collision int row, float row
+        ci, vp, vp, vp, vp,     # n_bc, bc_int, bc_float, valid, phi_star
+        vp, vp, vp, ci,         # segs, links, moving or null, n_segs
+        vp, ci,                 # partials, n_partials
+        vp, ci,                 # series, t
+        *tail,
+        vp,                     # stream
+    ]
+
+
+def _declare_list(lib: ctypes.CDLL) -> None:
+    """Declare the fp32 step over the fluid cells: lbm_collide_stream's
+    arguments with the launch tables in place of the mask."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.lbm_list_block_size.argtypes = []
+    lib.lbm_list_block_size.restype = ci
+    lib.lbm_error_string.argtypes = [ci]
+    lib.lbm_error_string.restype = ctypes.c_char_p
+    lib.lbm_collide_stream_list.argtypes = _list_args([vp])  # g or null
+    lib.lbm_collide_stream_list.restype = ci
+
+
 def _declare_halo(lib: ctypes.CDLL) -> None:
-    """Declare the sharded step's entry point: lbm_collide_stream's
-    arguments without the field force, plus the halo axis and planes."""
+    """Declare the sharded step's entry points: lbm_collide_stream's
+    arguments without the field force, plus the halo axis and planes, and
+    the same over the shard's fluid cells (lbm_collide_stream_list's
+    arguments without the field force, plus the halo)."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.lbm_block_size.argtypes = []
     lib.lbm_block_size.restype = ci
     lib.lbm_error_string.argtypes = [ci]
     lib.lbm_error_string.restype = ctypes.c_char_p
     halo = [ci, vp, vp, vp, vp]  # axis, lo, hi, mask_lo, mask_hi
+    lib.lbm_list_block_size.argtypes = []
+    lib.lbm_list_block_size.restype = ci
+    lib.lbm_collide_stream_halo_list.argtypes = _list_args(halo)
+    lib.lbm_collide_stream_halo_list.restype = ci
     lib.lbm_collide_stream_halo.argtypes = [
         vp, vp, vp,             # src, dst, mask
         ci, ci, ci,             # nx, ny, nz
         vp, vp,                 # collision int row, float row
         ci, vp, vp, vp, vp,     # n_bc, bc_int, bc_float, valid, phi_star
-        vp, ci,                 # fluid-cell list or null, its length
         vp, ci,                 # partials, n_partials
         vp, ci,                 # series, t
         *halo,
@@ -252,6 +291,7 @@ def _declare_pair(lib: ctypes.CDLL, sfx: str = "") -> None:
 # name -> (source, declare, extra nvcc flags)
 _SOURCES = {
     "collide_stream": (SOURCE, _declare, ()),
+    "collide_stream_list": (LIST_SOURCE, _declare_list, ()),
     "collide_stream_bf16": (BF16_SOURCE,
                             functools.partial(_declare, sfx="_bf16"), ()),
     "collide_stream2": (PAIR_SOURCE, _declare_pair, ()),
@@ -355,6 +395,12 @@ def load_library(bf16: bool = False) -> Library:
     return _load_all()["collide_stream_bf16" if bf16 else "collide_stream"]
 
 
+def load_list_library() -> Library:
+    """The fp32 collide-stream library of the launch over the fluid cells
+    (built with the others if needed)."""
+    return _load_all()["collide_stream_list"]
+
+
 def load_pair_library(bf16: bool = False) -> Library:
     """The fused-pair and row-extract library, of bf16 state with bf16
     (built with the others if needed)."""
@@ -387,10 +433,12 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-__all__ = ["Library", "load_library", "load_pair_library",
+__all__ = ["Library", "load_library", "load_list_library",
+           "load_pair_library",
            "load_halo_library", "load_scalar_library", "load_wk_library",
            "check", "nvcc_path",
-           "SOURCE", "BF16_SOURCE", "PAIR_SOURCE", "PAIR_BF16_SOURCE",
+           "SOURCE", "LIST_SOURCE", "BF16_SOURCE", "PAIR_SOURCE",
+           "PAIR_BF16_SOURCE",
            "HALO_SOURCE", "SCALAR_SOURCE", "WK_SOURCE", "WK_BF16_SOURCE",
            "HEADER",
            "BUILD_DIR",

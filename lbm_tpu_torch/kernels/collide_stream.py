@@ -3,8 +3,13 @@ fluid-cell list and the z planes of K5 + K6), moments (K3), fused-pair
 (K2) and row-extract (K4) kernels, their plain PyTorch versions, and
 launch counters.
 
-  collide_stream  -> lbm_collide_stream (kernels/csrc/collide_stream.cuh):
-  (alias step)       one whole step in one launch, replacing
+  collide_stream  -> lbm_collide_stream (kernels/csrc/collide_stream.cuh)
+  (alias step)       over the box, or lbm_collide_stream_list
+                     (collide_stream_list.cuh) over a float32 case's fluid
+                     cells (its CompiledCase.fluid_launch: sector-aligned
+                     segments of each row's fluid runs, a word of wall
+                     links a lane; counted "lbm_collide_stream_list[bgk]"):
+                     one whole step in one launch, replacing
                      lbm_tpu/kernels/collide_stream.py::_kernel (BGK and
                      the K1b branches: TRT, Guo force, moving walls,
                      LES/rheology closures, MRT; series phases; live-tile
@@ -70,10 +75,13 @@ shard of a box split along x (axis 0) or y (axis 1)
 _kernel with halo_axis, and its sharded z fixup) pulls across the shard's
 faces from lo and hi, the (5, A, B) planes its ring neighbours sent,
 testing walls against mask_lo and mask_hi, their rows' (A, B) labels
-(the ShardCase's own: cc.halo(lo, hi) builds the tuple). Their plain
-versions take the same halo, and their counters end in
-"+halo" ("lbm_collide_stream[bgk+halo]"). A shard is float32 and has no
-force field, as lbm_tpu's sharded path.
+(the ShardCase's own: cc.halo(lo, hi) builds the tuple); a shard with a
+fluid-cell list launches lbm_collide_stream_halo_list over its
+fluid_launch, whose face rows' links come from those rows. Their plain
+versions take the same halo, and their counters end in "+halo"
+("lbm_collide_stream[bgk+halo]", "lbm_collide_stream_list[bgk+halo]");
+counter_name gives the one a case's step counts. A shard is float32 and
+has no force field, as lbm_tpu's sharded path.
 
 The state is float32 or bfloat16 (bf16 storage, lbm_tpu's pack_state
 dtype=bfloat16): the bf16 kernels and plain versions widen every load to
@@ -103,6 +111,7 @@ import torch
 from lbm_tpu_torch.core.lattice import D3Q19, momentum
 from lbm_tpu_torch.core.rheology import closure_constants
 from lbm_tpu_torch.engine.compile import (
+    SEG,
     CompiledBC,
     CompiledCase,
     TILE,
@@ -722,9 +731,11 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
     (cc.step_bcs: the x/y planes and the z planes); writes the fluid
     velsum, sum over fluid cells of |u| after their NEE rewrite, into
     series[slot] (float64). Only fluid cells are written: out must
-    already hold f's non-fluid cells. The launch takes a thread a fluid
-    cell of the case's list (cc.fluid_cells), or a thread a cell of the
-    box when that is None or with all_blocks; on bf16 state (the paired
+    already hold f's non-fluid cells. On float32 state the launch takes a
+    thread a lane of cc.fluid_launch (segments of the fluid cells' runs,
+    lbm_collide_stream_list) when the case has a fluid-cell list
+    (cc.fluid_cells), or a thread a cell of the box when that is None or
+    with all_blocks; on bf16 state (the paired
     kernel) a thread an entry of cc.pair_launch: an interior pair of
     z-neighbour cells, or a cell (the interior pairs from the box, their
     bits in cc.pair_interior, when the case has no fluid-cell list or
@@ -769,25 +780,29 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
         out.copy_(f_new)
         series[slot] = vs
         return out
-    from lbm_tpu_torch.kernels._build import check
-
-    lib = _library(f, halo)
-    launch, tail, name = _entry(lib, name, f, g_ptr, halo)
     nx, ny, nz = cc.shape
     n_cells = nx * ny * nz
     if n_cells >= 2**31:
         raise ValueError(f"{n_cells} cells: the kernel indexes cells in int32")
+    route = launch_route(cc, f.dtype, all_blocks)
+    if route == "lbm_collide_stream_list":
+        _collide_stream_list(f, out, cc, series, slot, t, ci, cf, name,
+                             g_ptr, halo, route)
+        return out
+    from lbm_tpu_torch.kernels._build import check
+
+    lib = _library(f, halo)
+    launch, tail, name = _entry(lib, name, f, g_ptr, halo)
     if _bf16(f):
         streamed, ids, n_inner = pair_launch(cc)
         box = streamed and (all_blocks or cc.fluid_cells is None)
-        n_listed, grid = ids.numel(), _pair_grid(cc.shape, ids, n_inner,
-                                                 box, f, out)
-        interior = (n_inner, cc.pair_interior.data_ptr(), int(box))
+        grid = _pair_grid(cc.shape, ids, n_inner, box, f, out)
+        # the launch list, its pairs, the box's interior bits, the form
+        listed = (ids.data_ptr(), ids.numel(), n_inner,
+                  cc.pair_interior.data_ptr(), int(box))
     else:
-        ids = None if all_blocks else cc.fluid_cells
-        n_listed = n_cells if ids is None else ids.numel()
-        grid = max(1, -(-n_listed // lib.lbm_block_size()))
-        interior = ()
+        grid = max(1, -(-n_cells // lib.lbm_block_size()))
+        listed = ()
     bcs = cc.step_bcs
     (ints, floats, valid, phis), partials = _launch_scratch(
         cc, "k1", bcs, t, grid)
@@ -797,13 +812,71 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
             f.data_ptr(), out.data_ptr(), cc.mask.data_ptr(),
             nx, ny, nz, ci.ctypes.data, cf.ctypes.data,
             len(bcs), ints.ctypes.data, floats.ctypes.data,
-            ctypes.addressof(valid), ctypes.addressof(phis),
-            None if ids is None else ids.data_ptr(), n_listed, *interior,
+            ctypes.addressof(valid), ctypes.addressof(phis), *listed,
             partials.data_ptr(), grid, series.data_ptr(), slot, *tail,
             stream)
-    check(lib, err, f"lbm_collide_stream[{name}]")
-    _count(f"lbm_collide_stream[{name}]")
+    check(lib, err, f"{route}[{name}]")
+    _count(f"{route}[{name}]")
     return out
+
+
+def launch_route(cc: CompiledCase, dtype=torch.float32,
+                 all_blocks: bool = False) -> str:
+    """The launch collide_stream makes for a step of cc on state of
+    `dtype`, named as its launch counters begin: "lbm_collide_stream_list"
+    for float32 state over the case's fluid cells (a case with a
+    fluid-cell list, without windkessel outlets, not all_blocks:
+    collide_stream_list_kernel over cc.fluid_launch), else
+    "lbm_collide_stream" (the box, the paired bf16 kernel, the fold)."""
+    listed = (dtype != torch.bfloat16 and not all_blocks
+              and cc.fluid_cells is not None and not has_windkessel(cc.bcs))
+    return "lbm_collide_stream_list" if listed else "lbm_collide_stream"
+
+
+def counter_name(cc: CompiledCase, dtype=torch.float32,
+                 field: ForceField | None = None, halo: bool = False,
+                 all_blocks: bool = False) -> str:
+    """The launch counter (`launches`) that collide_stream adds one to
+    for a step of cc on state of `dtype`: launch_route's name and the
+    instance (instance) with '+wk', '+halo' and '+bf16' as the launch
+    has them."""
+    wk = has_windkessel(cc.bcs)
+    name = instance(cc, field) + ("+wk" if wk else "+halo" if halo else "")
+    if dtype == torch.bfloat16:
+        name += "+bf16"
+    return f"{launch_route(cc, dtype, all_blocks)}[{name}]"
+
+
+def _collide_stream_list(f, out, cc: CompiledCase, series, slot: int,
+                         t: int, ci, cf, name: str, g_ptr, halo,
+                         route: str) -> None:
+    """collide_stream's launch of fp32 state over the case's fluid cells:
+    one launch of lbm_collide_stream_list (a shard's: of
+    lbm_collide_stream_halo_list) over cc.fluid_launch, and its
+    reduction, counted under route (launch_route's name)."""
+    from lbm_tpu_torch.kernels._build import check
+
+    tables = cc.fluid_launch
+    lib = _library(f, halo, listed=True)
+    launch, tail, name = _entry(lib, name, f, g_ptr, halo, listed=True)
+    n_segs = tables.segs.shape[0]
+    grid = -(-n_segs * SEG // lib.lbm_list_block_size())
+    nx, ny, nz = cc.shape
+    bcs = cc.step_bcs
+    (ints, floats, valid, phis), partials = _launch_scratch(
+        cc, "k1", bcs, t, grid)
+    with torch.cuda.device(f.device):
+        stream = torch.cuda.current_stream(f.device).cuda_stream
+        err = launch(
+            f.data_ptr(), out.data_ptr(), nx, ny, nz, ci.ctypes.data,
+            cf.ctypes.data, len(bcs), ints.ctypes.data, floats.ctypes.data,
+            ctypes.addressof(valid), ctypes.addressof(phis),
+            tables.segs.data_ptr(), tables.links.data_ptr(),
+            None if tables.moving is None else tables.moving.data_ptr(),
+            n_segs, partials.data_ptr(), grid, series.data_ptr(), slot,
+            *tail, stream)
+    check(lib, err, f"{route}[{name}]")
+    _count(f"{route}[{name}]")
 
 
 def _collide_stream_wk(f, out, cc: CompiledCase, series, slot: int, t: int,
@@ -896,25 +969,31 @@ def _pair_grid(shape, ids, n_inner: int, box: bool, f, out) -> int:
     return per_x * (nx + -(-(ids.numel() - n_inner) // (per_x * block)))
 
 
-def _library(f, halo):
-    """The library whose kernels step f: its storage type's, or a shard's
-    of its axis."""
-    from lbm_tpu_torch.kernels._build import load_halo_library, load_library
+def _library(f, halo, listed: bool = False):
+    """The library whose kernels step f: its storage type's (listed: the
+    fp32 launch over the fluid cells'), or a shard's of its axis."""
+    from lbm_tpu_torch.kernels._build import (
+        load_halo_library,
+        load_library,
+        load_list_library,
+    )
 
-    return (load_library(_bf16(f)) if halo is None
-            else load_halo_library(halo[0])).lib
+    if halo is not None:
+        return load_halo_library(halo[0]).lib
+    return (load_list_library() if listed else load_library(_bf16(f))).lib
 
 
-def _entry(lib, name: str, f, g_ptr, halo):
-    """(the collide-stream C entry for f's storage or a shard's halo, the
-    arguments after the series slot but the stream, the counter's
-    instance name)."""
+def _entry(lib, name: str, f, g_ptr, halo, listed: bool = False):
+    """(the collide-stream C entry for f's storage or a shard's halo, over
+    the box or, listed, over the fluid cells, the arguments after the
+    series slot but the stream, the counter's instance name)."""
+    over = "_list" if listed else ""
     if halo is None:
         sfx = "_bf16" if _bf16(f) else ""
-        return (getattr(lib, f"lbm_collide_stream{sfx}"), (g_ptr,),
+        return (getattr(lib, f"lbm_collide_stream{over}{sfx}"), (g_ptr,),
                 _tagged(name, f))
     axis, lo, hi, mask_lo, mask_hi = halo
-    return (getattr(lib, "lbm_collide_stream_halo"),
+    return (getattr(lib, f"lbm_collide_stream_halo{over}"),
             (axis, lo.data_ptr(), hi.data_ptr(), mask_lo.data_ptr(),
              mask_hi.data_ptr()), f"{name}+halo")
 
@@ -1152,4 +1231,5 @@ __all__ = ["collide_stream", "collide_stream_plain", "fix_z_plane_plain",
            "live_block_ids", "macro", "macro_plain", "launches",
            "reset_launches", "instance", "collision_tables",
            "collision_descriptor", "CINT", "CFLOAT", "ForceField",
-           "div_exact_check", "pair_launch", "PAIR_LANES", "PAIR_ROWS"]
+           "div_exact_check", "pair_launch", "PAIR_LANES", "PAIR_ROWS",
+           "counter_name", "launch_route"]

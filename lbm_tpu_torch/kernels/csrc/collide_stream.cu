@@ -14,18 +14,19 @@ const char* lbm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// The step over the box: a case with a fluid-cell list launches
+// lbm_collide_stream_list (collide_stream_list.cu).
 int lbm_collide_stream(const float* src, float* dst, const int8_t* mask,
                        int nx, int ny, int nz, const int* coll_int,
                        const float* coll_float, int n_bc, const int* bc_int,
                        const float* bc_float, const void* const* valid_ptrs,
-                       const void* const* phi_ptrs, const int* cells,
-                       int n_listed, double* partials, int n_partials,
-                       double* series, int t, const float* gfield,
-                       void* stream) {
+                       const void* const* phi_ptrs, double* partials,
+                       int n_partials, double* series, int t,
+                       const float* gfield, void* stream) {
   return collide_stream<float>(src, dst, mask, nx, ny, nz, coll_int,
                                coll_float, n_bc, bc_int, bc_float, valid_ptrs,
-                               phi_ptrs, cells, n_listed, partials,
-                               n_partials, series, t, gfield, stream);
+                               phi_ptrs, nullptr, 0, partials, n_partials,
+                               series, t, gfield, stream);
 }
 
 int lbm_macro(const float* f, float* rho, float* u, long long n_cells,

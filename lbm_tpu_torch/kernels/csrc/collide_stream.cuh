@@ -99,11 +99,12 @@
 // writes both), so a wall, DEAD or GHOST cell costs its mask byte and
 // nothing more. In a vessel tree 1.2% of the cells are fluid (the
 // full-size coronary; 93% of its 256-cell blocks hold none): there the
-// launch takes the ascending list of the fluid cells (a thread a listed
-// cell), so warps carry fluid cells densely and consecutive threads still
-// take consecutive z cells of a vessel's rows, at 4 bytes a cell for the
-// list. Velsum partials are reduced in double and in a fixed order, so
-// the stop rule fires at the same step in every run.
+// fp32 launch takes the fluid cells' runs in sector-aligned segments, a
+// word of wall links a lane (collide_stream_list_kernel,
+// collide_stream_list.cuh; the box form below still reads a list where
+// the windkessel fold's launch gives it one). Velsum partials are reduced
+// in double and in a fixed order, so the stop rule fires at the same step
+// in every run.
 //
 // The z planes. On the TPU, z is the lane axis of lbm_tpu's rows, so its
 // in-kernel rewrite (_row_fix) takes x/y planes only, and each z-plane

@@ -1,12 +1,12 @@
 // The sharded collide-stream step (K1d, with its z planes) on fp32 state:
-// the kernel of collide_stream.cuh with HALO = LBM_HALO_AXIS, 0
-// for a shard of a box split along x and 1 for one split along y, each in
-// the 14 collision-branch instances lbm_tpu's sharded path takes (every
-// fp32 branch but the force field's). kernels/_build.py compiles this
-// source twice, with -DLBM_HALO_AXIS=0 and =1, into two shared objects
-// built beside the others (30 s each on the H100's host; one unit of both
-// axes took 126 s), and the unsharded instances of collide_stream.cu keep
-// their code, registers and spills.
+// the kernel of collide_stream.cuh over a shard's box and the list kernel
+// of collide_stream_list.cuh over its fluid cells, with HALO =
+// LBM_HALO_AXIS, 0 for a shard of a box split along x and 1 for one split
+// along y, each in the 14 collision-branch instances lbm_tpu's sharded
+// path takes (every fp32 branch but the force field's). kernels/_build.py
+// compiles this source twice, with -DLBM_HALO_AXIS=0 and =1, into two
+// shared objects built beside the others, and the unsharded instances of
+// collide_stream.cu keep their code, registers and spills.
 //
 // lbm_collide_stream_halo replaces lbm_tpu/kernels/collide_stream.py::
 // _kernel's halo_axis branch (its halo operands :1386-1406, the ring-row
@@ -32,7 +32,7 @@
 // one row of the state each. The exchange that fills the planes runs
 // before the launch, outside the kernel (parallel/sharded.py).
 
-#include "collide_stream.cuh"
+#include "collide_stream_list.cuh"
 
 #if !defined(LBM_HALO_AXIS) || (LBM_HALO_AXIS != 0 && LBM_HALO_AXIS != 1)
 #error "build with -DLBM_HALO_AXIS=0 (x shards) or -DLBM_HALO_AXIS=1 (y)"
@@ -56,6 +56,8 @@ extern "C" {
 
 int lbm_block_size() { return kBlock; }
 
+int lbm_list_block_size() { return kListBlock; }
+
 const char* lbm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
@@ -63,23 +65,47 @@ const char* lbm_error_string(int err) {
 // lbm_collide_stream's arguments (no force field) plus the shard axis
 // (0: x, 1: y; the unit's LBM_HALO_AXIS, or the call is refused) and its
 // halo planes: lo, hi (5, A, B) fp32, mask_lo, mask_hi (A, B) int8, with
-// (A, B) = (ny, nz) or (nx, nz) of the local box (nx, ny, nz).
+// (A, B) = (ny, nz) or (nx, nz) of the local box (nx, ny, nz). The step
+// over the shard's box: a shard with a fluid-cell list launches
+// lbm_collide_stream_halo_list.
 int lbm_collide_stream_halo(const float* src, float* dst, const int8_t* mask,
                             int nx, int ny, int nz, const int* coll_int,
                             const float* coll_float, int n_bc,
                             const int* bc_int, const float* bc_float,
                             const void* const* valid_ptrs,
-                            const void* const* phi_ptrs, const int* cells,
-                            int n_listed, double* partials, int n_partials,
-                            double* series, int t, int halo_axis,
-                            const float* lo, const float* hi,
+                            const void* const* phi_ptrs, double* partials,
+                            int n_partials, double* series, int t,
+                            int halo_axis, const float* lo, const float* hi,
                             const int8_t* mask_lo, const int8_t* mask_hi,
                             void* stream) {
   if (halo_axis != LBM_HALO_AXIS) return (int)cudaErrorInvalidValue;
   return collide_stream<float, LBM_HALO_AXIS>(
       src, dst, mask, nx, ny, nz, coll_int, coll_float, n_bc, bc_int,
-      bc_float, valid_ptrs, phi_ptrs, cells, n_listed, partials, n_partials,
+      bc_float, valid_ptrs, phi_ptrs, nullptr, 0, partials, n_partials,
       series, t, nullptr, stream, make_halo(lo, hi, mask_lo, mask_hi));
+}
+
+// The same step over the shard's fluid cells (collide_stream_list.cuh):
+// lbm_collide_stream_list's arguments plus the shard axis and its planes.
+int lbm_collide_stream_halo_list(const float* src, float* dst, int nx,
+                                 int ny, int nz, const int* coll_int,
+                                 const float* coll_float, int n_bc,
+                                 const int* bc_int, const float* bc_float,
+                                 const void* const* valid_ptrs,
+                                 const void* const* phi_ptrs,
+                                 const int* segs, const int* links,
+                                 const int* moving, int n_segs,
+                                 double* partials, int n_partials,
+                                 double* series, int t, int halo_axis,
+                                 const float* lo, const float* hi,
+                                 const int8_t* mask_lo,
+                                 const int8_t* mask_hi, void* stream) {
+  if (halo_axis != LBM_HALO_AXIS) return (int)cudaErrorInvalidValue;
+  return collide_stream_list<float, LBM_HALO_AXIS>(
+      src, dst, nx, ny, nz, coll_int, coll_float, n_bc, bc_int, bc_float,
+      valid_ptrs, phi_ptrs, segs, links, moving, n_segs, partials,
+      n_partials, series, t, nullptr, stream,
+      make_halo(lo, hi, mask_lo, mask_hi));
 }
 
 }  // extern "C"

@@ -4,11 +4,11 @@ state of the clinical coronary (the full coronary with
 tools/demo_clinical_washout.py's RCR values, 2000 steps in): CUDA events
 over back-to-back launches, in turns, of
   fold    the fold's launch (collide_stream_wk_kernel [bgk+wk]) and its
-          reduction, its launch list the fold's (footprint cells last);
-  plain   the [bgk+z] instance of lbm_collide_stream with the same
-          descriptors (its windkessel planes at their fixed rho) and its
-          reduction, over the fold's list;
-  sorted  the same [bgk+z] launch over the ascending fluid-cell list;
+          reduction, its launch list the fold's (footprint cells first);
+  plain   the [bgk+z] instance of the fp32 launch over the fluid cells
+          (lbm_collide_stream_list: sector-aligned segments, a word of
+          wall links a lane) with the same descriptors (its windkessel
+          planes at their fixed rho) and its reduction;
 each on two copies of the state in turn (the plain launches change the
 outlets' physics: only their time is read). With --sass, the instruction
 counts of the two kernels' SASS (cuobjdump from the CUDA toolkit). With
@@ -32,14 +32,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 
 def main() -> int:
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("fold_ab: needs a CUDA card", file=sys.stderr)
         return 1
     from lbm_tpu_torch.cases import get_case
-    from lbm_tpu_torch.engine.compile import fluid_cell_ids
+    from lbm_tpu_torch.engine.compile import SEG, fluid_launch_tables
     from lbm_tpu_torch.engine.runner import Simulation
     from lbm_tpu_torch.kernels import _build
     from lbm_tpu_torch.kernels import collide_stream as K
@@ -58,34 +57,33 @@ def main() -> int:
     state = [sim.f.clone(), sim._spare.clone()]
     wk = sim.wk.clone()
     series = torch.zeros(1, dtype=torch.float64, device=device)
-    lib = _build.load_library().lib
+    lib = _build.load_list_library().lib
     _, ci, cf = K.collision_descriptor(cc)
     nx, ny, nz = cc.shape
     bcs = cc.step_bcs
-    lists = {"fold": cc.fluid_cells,
-             "sorted": torch.from_numpy(fluid_cell_ids(
-                 np.asarray(spec.mask))).to(device)}
+    tables = fluid_launch_tables(cc.mask)
 
-    def plain(ids):
-        grid = max(1, -(-ids.numel() // lib.lbm_block_size()))
+    def plain():
+        n_segs = tables.segs.shape[0]
+        grid = -(-n_segs * SEG // lib.lbm_list_block_size())
         (ints, floats, valid, phis), partials = K._launch_scratch(
             cc, "k1", bcs, 0, grid)
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.lbm_collide_stream(
-            state[0].data_ptr(), state[1].data_ptr(), cc.mask.data_ptr(),
-            nx, ny, nz, ci.ctypes.data, cf.ctypes.data, len(bcs),
-            ints.ctypes.data, floats.ctypes.data, ctypes.addressof(valid),
-            ctypes.addressof(phis), ids.data_ptr(), ids.numel(),
-            partials.data_ptr(), grid, series.data_ptr(), 0, None, stream)
-        _build.check(lib, err, "lbm_collide_stream[bgk+z]")
+        err = lib.lbm_collide_stream_list(
+            state[0].data_ptr(), state[1].data_ptr(), nx, ny, nz,
+            ci.ctypes.data, cf.ctypes.data, len(bcs), ints.ctypes.data,
+            floats.ctypes.data, ctypes.addressof(valid),
+            ctypes.addressof(phis), tables.segs.data_ptr(),
+            tables.links.data_ptr(), None, n_segs, partials.data_ptr(),
+            grid, series.data_ptr(), 0, None, stream)
+        _build.check(lib, err, "lbm_collide_stream_list[bgk+z]")
         state.reverse()
 
     def fold():
         K.collide_stream(state[0], state[1], cc, series, 0, 0, wk=wk)
         state.reverse()
 
-    runs = {"fold": fold, "plain": lambda: plain(lists["fold"]),
-            "sorted": lambda: plain(lists["sorted"])}
+    runs = {"fold": fold, "plain": plain}
 
     def ms(fn, iters=1000):
         for _ in range(100):
@@ -107,8 +105,9 @@ def main() -> int:
     if "--sass" in sys.argv[1:]:
         tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
         out["sass"] = {}
-        for unit, pat in (("collide_stream",
-                           r"collide_stream_kernelILi0ELb0ELi0ELb0EfLin1ELb1E"),
+        for unit, pat in (("collide_stream_list",
+                           r"collide_stream_list_kernelILi0ELb0ELi0ELb0EfLin1"
+                           r"ELb1E"),
                           ("windkessel",
                            r"collide_stream_wk_kernelILi0ELb0ELi0ELb0EfE")):
             so = _build._object_path(unit)

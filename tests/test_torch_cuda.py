@@ -30,6 +30,10 @@ def device():
                                     ("poiseuille", 24)])
 def test_collide_stream_kernel_matches_plain(device, name, n):
     cc = compile_case(get_case(name, n=n), device)
+    # the lid at 32^3 has a fluid-cell list (its walls leave fewer than
+    # 95% of the blocks live), the channel at 24^3 none
+    counter = {"lid_driven_cavity": "lbm_collide_stream_list[bgk]",
+               "poiseuille": "lbm_collide_stream[bgk]"}[name]
     f = initial_f(cc)
     fk, buf = f.clone(), f.clone()
     vs_k = torch.zeros(4, dtype=torch.float64, device=device)
@@ -40,7 +44,7 @@ def test_collide_stream_kernel_matches_plain(device, name, n):
         fk, buf = buf, fk
         f, vs_p[t] = K.collide_stream_plain(f, cc, t)
     torch.cuda.synchronize()
-    assert K.launches["lbm_collide_stream[bgk]"] == 4
+    assert K.launches[counter] == 4
     torch.testing.assert_close(fk, f, rtol=3e-6, atol=1e-7)
     torch.testing.assert_close(vs_k, vs_p, rtol=1e-5, atol=0.0)
 
@@ -88,7 +92,7 @@ def test_vessel_step_matches_plain(device, name, kw):
         fk, buf = buf, fk
         f, vs_p[t] = K.step_plain(f, cc, t)
     torch.cuda.synchronize()
-    assert K.launches == {"lbm_collide_stream[bgk]": 12}
+    assert K.launches == {"lbm_collide_stream_list[bgk]": 12}
     torch.testing.assert_close(fk, f, rtol=3e-6, atol=1e-7)
     torch.testing.assert_close(vs_k, vs_p, rtol=1e-5, atol=0.0)
 
@@ -139,13 +143,79 @@ def test_fix_z_plane_kernel_matches_plain(device, inst):
             fk[r], bufs[r] = bufs[r], fk[r]
             fp[r], vp[r, t - 20] = K.step_plain(fp[r], c, t, halo=halo_p[r])
     torch.cuda.synchronize()
-    assert K.launches == {f"lbm_collide_stream[{inst}]": 8 * len(ccs)}
+    # fp32 over the fluid cells (the shards' too), bf16 by the paired kernel
+    counter = {"bgk": "lbm_collide_stream_list[bgk]",
+               "trt+cy": "lbm_collide_stream_list[trt+cy]",
+               "bgk+bf16": "lbm_collide_stream[bgk+bf16]",
+               "bgk+halo": "lbm_collide_stream_list[bgk+halo]"}[inst]
+    assert K.launches == {counter: 8 * len(ccs)}
     for a, b in zip(fk, fp):
         if inst == "trt+cy":
             torch.testing.assert_close(a, b, rtol=3e-6, atol=1e-7)
         else:
             assert torch.equal(a, b)
     torch.testing.assert_close(vk, vp, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("how", ["trt+cy", "bgk, 2 shards along y"])
+def test_fluid_launch_matches_plain_and_the_box(device, how):
+    """The fp32 launch over the fluid cells (collide_stream_list_kernel:
+    sector-aligned segments of each row's fluid runs, a word of wall links
+    a lane) on the small pulsatile coronary, 8 steps from a 20-step
+    state, with TRT + Carreau blood, or BGK on 2 shards along y (K1d, the
+    links of the face rows from the neighbours' rows): each step against
+    the launch over every cell of the box (all_blocks) from the same
+    state, bit for bit, and the run against step_plain, bit for bit
+    (Carreau blood: rtol 3e-6 / atol 1e-7); velsums at 1e-5."""
+    from lbm_tpu_torch.bridge import shard_window
+    from lbm_tpu_torch.engine.compile import compile_shard
+    from lbm_tpu_torch.parallel.halo import ring_planes
+
+    kw = dict(shape=(64, 48, 96), radius=4, pulsatile=(4, 8))
+    if how == "trt+cy":
+        units = get_case("coronary", **kw).units
+        kw.update(collision="trt", rheology=carreau_blood(units))
+    spec = get_case("coronary", **kw)
+    cc = compile_case(spec, device)
+    f0 = initial_f(cc)
+    for t in range(20):
+        f0, _ = K.step_plain(f0, cc, t)
+    world = 1 if how == "trt+cy" else 2
+    ccs = ([cc] if world == 1 else
+           [compile_shard(spec, r, world, 1, device) for r in range(world)])
+    fk = [f0 if world == 1 else shard_window(f0, r, world, 1)
+          for r in range(world)]
+    fp = [x.clone() for x in fk]
+    vk = torch.zeros(world, 8, dtype=torch.float64, device=device)
+    vb = torch.zeros(world, 8, dtype=torch.float64, device=device)
+    vp = torch.zeros(world, 8, dtype=torch.float64, device=device)
+    K.reset_launches()
+    for t in range(20, 28):
+        halos = [None] * world
+        halos_p = [None] * world
+        if world > 1:
+            halos = [c.halo(*p) for c, p in zip(ccs, ring_planes(fk, 1))]
+            halos_p = [c.halo(*p) for c, p in zip(ccs, ring_planes(fp, 1))]
+        for r, c in enumerate(ccs):
+            assert c.fluid_cells is not None
+            box = K.collide_stream(fk[r], fk[r].clone(), c, vb[r], t - 20, t,
+                                   all_blocks=True, halo=halos[r])
+            fk[r] = K.collide_stream(fk[r], fk[r].clone(), c, vk[r], t - 20,
+                                     t, halo=halos[r])
+            assert torch.equal(fk[r], box)
+            fp[r], vp[r, t - 20] = K.step_plain(fp[r], c, t, halo=halos_p[r])
+    torch.cuda.synchronize()
+    tag = "+halo" if world > 1 else ""
+    assert K.launches == {
+        f"lbm_collide_stream_list[{K.instance(cc)}{tag}]": 8 * world,
+        f"lbm_collide_stream[{K.instance(cc)}{tag}]": 8 * world}
+    for a, b in zip(fk, fp):
+        if how == "trt+cy":
+            torch.testing.assert_close(a, b, rtol=3e-6, atol=1e-7)
+        else:
+            assert torch.equal(a, b)
+    torch.testing.assert_close(vk, vp, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(vk, vb, rtol=1e-12, atol=0.0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -233,6 +303,22 @@ BRANCHES = {
     "trt+cy": ("lid_driven_cavity", dict(n=24, collision="trt",
                                          rheology=CARREAU), False),
 }
+# branch -> the launch counter of its step: over the fluid cells of the
+# small boxes with a fluid-cell list, over the box of the channels without
+BRANCH_COUNTERS = {
+    "bgk+force": "lbm_collide_stream_list[bgk+force]",
+    "trt": "lbm_collide_stream_list[trt]",
+    "trt+force": "lbm_collide_stream_list[trt+force]",
+    "moving": "lbm_collide_stream_list[bgk+moving]",
+    "trt+moving": "lbm_collide_stream_list[trt+moving]",
+    "mrt": "lbm_collide_stream_list[mrt]",
+    "smag": "lbm_collide_stream_list[bgk+smag]",
+    "plaw": "lbm_collide_stream[bgk+plaw]",
+    "cy": "lbm_collide_stream[bgk+cy]",
+    "cy1.5": "lbm_collide_stream[bgk+cy]",
+    "casson": "lbm_collide_stream[bgk+casson]",
+    "trt+cy": "lbm_collide_stream_list[trt+cy]",
+}
 
 
 @pytest.mark.parametrize("branch", sorted(BRANCHES))
@@ -254,7 +340,7 @@ def test_branch_kernel_matches_plain(device, branch):
         fk, buf = buf, fk
         f, vs_p[t] = K.step_plain(f, cc, t)
     torch.cuda.synchronize()
-    assert K.launches == {f"lbm_collide_stream[{K.instance(cc)}]": 40}
+    assert K.launches == {BRANCH_COUNTERS[branch]: 40}
     if exact:
         assert torch.equal(fk, f)
     else:
@@ -285,7 +371,7 @@ def test_blood_closure_in_the_z_plane_fixup(device):
         fk, buf = buf, fk
         f, vs_p[t] = K.step_plain(f, cc, t)
     torch.cuda.synchronize()
-    assert K.launches == {"lbm_collide_stream[trt+cy]": 12}
+    assert K.launches == {"lbm_collide_stream_list[trt+cy]": 12}
     torch.testing.assert_close(fk, f, rtol=3e-6, atol=1e-7)
     torch.testing.assert_close(vs_k, vs_p, rtol=1e-5, atol=0.0)
 
@@ -402,7 +488,7 @@ def test_scalar_kernel_coupled_matches_plain(device):
     sb = _run_plain(b, 24, rec)
     torch.cuda.synchronize()
     assert S.launches == {"lbm_scalar_stream[live]": 24}
-    assert K.launches["lbm_collide_stream[bgk]"] == 24
+    assert K.launches["lbm_collide_stream_list[bgk]"] == 24
     assert torch.equal(a.f, b.f) and torch.equal(a.g, b.g)
     assert abs(sa - sb).max() <= 1e-12
 
@@ -497,8 +583,10 @@ def test_thermal_kernels_match_plain(device, label):
     a.run(40)
     _run_plain(b, 40, [])
     torch.cuda.synchronize()
-    coll = opts.get("collision", "bgk")
-    assert K.launches == {f"lbm_collide_stream[{coll}+field]": 40}
+    assert K.instance(a.cc, a.field) == \
+        f"{opts.get('collision', 'bgk')}+field"
+    assert K.launches == {
+        f"lbm_collide_stream[{opts.get('collision', 'bgk')}+field]": 40}
     assert S.launches == {"lbm_scalar_stream[live+force+dirichlet]": 40}
     assert torch.equal(a.f, b.f) and torch.equal(a.g, b.g)
     rho, u = a.macro()
@@ -537,7 +625,7 @@ def test_force_field_with_z_planes_and_moving_walls(device, coll, sliding):
     _run_plain(b, 40, [])
     torch.cuda.synchronize()
     inst = f"{coll}+field" + ("+moving" if sliding else "")
-    assert K.launches == {f"lbm_collide_stream[{inst}]": 40}
+    assert K.launches == {f"lbm_collide_stream_list[{inst}]": 40}
     assert S.launches == {"lbm_scalar_stream[live+force]": 40}
     assert torch.equal(a.f, b.f) and torch.equal(a.g, b.g)
     assert float(a.concentration().abs().max()) > 0
@@ -612,8 +700,11 @@ def test_pair_kernel_matches_two_single_steps_and_plain(device, branch):
     K.reset_launches()
     (fp, vp), (fs, vs), (fq, vq) = _pair_run(cc, 40, device)
     inst = K.instance(cc)
+    # K1 over the fluid cells of the small boxes, over the channel's box
+    k1 = ("lbm_collide_stream" if branch == "casson"
+          else "lbm_collide_stream_list")
     assert K.launches == {f"lbm_collide_stream2[{inst}]": 20,
-                          f"lbm_collide_stream[{inst}]": 40}
+                          f"{k1}[{inst}]": 40}
     assert torch.equal(fp, fs)
     if exact:
         assert torch.equal(fp, fq)
@@ -680,7 +771,7 @@ def test_runner_odd_tail_runs_one_single_step(device):
     K.reset_launches()
     ra = a.run(max_steps=14, time_save=7, verbose=False)
     assert K.launches == {"lbm_collide_stream2[bgk]": 6,
-                          "lbm_collide_stream[bgk]": 2}
+                          "lbm_collide_stream_list[bgk]": 2}
     rb = b.run(max_steps=14, time_save=7, verbose=False)
     assert torch.equal(a.f, b.f)
     assert abs(ra.velsum_series - rb.velsum_series).max() <= \
@@ -923,9 +1014,18 @@ def test_halo_kernels_match_plain_and_the_whole_box(device, branch, world):
                 fp[r], vp[r, t] = K.step_plain(fp[r], c, t,
                                                halo=c.halo(*planes_p[r]))
         torch.cuda.synchronize()
-        inst = K.instance(cc)
-        assert K.launches == {f"lbm_collide_stream[{inst}]": 20,
-                              f"lbm_collide_stream[{inst}+halo]": 20 * world}
+        # each shard's K1d over its fluid cells where it has a fluid-cell
+        # list: every shard but the two middle ones of a small box split
+        # in 4 along x; the channel (cy) has none
+        listed = [branch != "cy" and not (world == 4 and axis == 0
+                                          and r in (1, 2))
+                  for r in range(world)]
+        want = [("lbm_collide_stream_list" if x else "lbm_collide_stream")
+                + f"[{K.instance(cc)}+halo]" for x in listed]
+        whole_k1 = "lbm_collide_stream" if branch == "cy" else \
+            "lbm_collide_stream_list"
+        assert K.launches == {f"{whole_k1}[{K.instance(cc)}]": 20,
+                              **{w: 20 * want.count(w) for w in want}}
         stitched = gather_windows(fk, axis, spec.shape[axis])
         for r in range(world):
             if exact:
@@ -958,7 +1058,7 @@ def test_sharded_simulation_on_one_card(device):
     live = sim.spec.mask != 0
     assert (out["f"][:, live] == f[:, live]).all()
     assert (out["f"][:, ~live] == 0).all()
-    assert out["launches"]["lbm_collide_stream[bgk+halo]"] == 12
+    assert out["launches"]["lbm_collide_stream_list[bgk+halo]"] == 12
     assert not [k for k in out["launches"] if "fix_z_plane" in k]
 
 

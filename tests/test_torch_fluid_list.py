@@ -1,9 +1,11 @@
-"""The launch lists of the collide-stream kernel (the fluid-cell list, and
-the bf16 kernel's list of aligned z pairs) and of the fused pair (x
-segments of (y, z) column tiles) against brute force, and the plain versions' contract that the kernels rely on: a step
-leaves every non-fluid cell as f has it, so a kernel that stores fluid
-cells only agrees with its plain version given an `out` that starts as a
-copy of f. On the CPU, against lbm_tpu's masks for the same cases."""
+"""The launch lists of the collide-stream kernel (the fluid-cell list, the
+fp32 kernel's launch tables over the fluid cells, and the bf16 kernel's
+list of aligned z pairs) and of the fused pair (x segments of (y, z)
+column tiles) against brute force, and the plain versions' contract that
+the kernels rely on: a step leaves every non-fluid cell as f has it, so
+a kernel that stores fluid cells only agrees with its plain version given
+an `out` that starts as a copy of f. On the CPU, against lbm_tpu's masks
+for the same cases."""
 
 import numpy as np
 import pytest
@@ -12,10 +14,14 @@ import torch
 from lbm_tpu.cases import get_case as ref_get_case
 from lbm_tpu_torch.cases import get_case
 from lbm_tpu_torch.engine.compile import (
+    LANE_IDLE,
+    LANE_OUT,
+    SEG,
     TILE,
     compile_case,
     compile_shard,
     fluid_cell_ids,
+    fluid_launch_tables,
     fluid_pair_ids,
     live_block_ids,
     pair_interior_bits,
@@ -285,3 +291,221 @@ def test_pair_plain_from_a_copy_equals_two_single_steps_off_the_fluid():
     K.step2(f, pair, cc, series, 2, 2)
     assert torch.equal(pair, b)
     assert series[0] == series[2] and series[1] == series[3]
+
+
+# -- the fp32 kernel's launch over the fluid cells (FluidLaunch) -----------
+
+
+def brute_launch(mask, moving=False, halo=None):
+    """{flat cell id: (segment, lane, links, moving bits)} of every fluid
+    cell, the segments' (x, y, z of lane 0) and each lane's word as the
+    launch tables must hold them, by walking every cell and testing each
+    direction's source label: a wall (or, moving, a moving wall) sets the
+    link bit, a moving wall the moving bit; a shard's sources across its
+    faces are the neighbours' rows (halo: axis, mask_lo, mask_hi)."""
+    from lbm_tpu_torch.core.lattice import D3Q19
+
+    mask = np.asarray(mask)
+    nx, ny, nz = mask.shape
+    ext, axis = mask, None
+    if halo is not None:
+        axis, lo, hi = halo
+        ext = np.concatenate([np.expand_dims(np.asarray(lo), axis), mask,
+                              np.expand_dims(np.asarray(hi), axis)], axis)
+    stop = {int(CellType.WALL)} | ({int(CellType.MOVING)} if moving else set())
+    segs, words, cells = [], [], {}
+    for flat in np.flatnonzero(mask.reshape(-1) == CellType.FLUID):
+        x, y, z = np.unravel_index(flat, mask.shape)
+        base = flat - flat % SEG
+        z0 = int(base - (x * ny + y) * nz)
+        if not segs or segs[-1] != (x, y, z0):
+            segs.append((int(x), int(y), z0))
+            for lane in range(SEG):
+                zl = z0 + lane
+                words.append(LANE_OUT if not 0 <= zl < nz else
+                             LANE_IDLE)
+        links = mbits = 0
+        for i in range(1, 19):
+            src = []
+            for a, (c, n) in enumerate(zip((x, y, z), (nx, ny, nz))):
+                v = int(c) - int(D3Q19.E[i][a])
+                src.append(v + 1 if a == axis else v % n)
+            label = int(ext[tuple(src)])
+            links |= (label in stop) << i
+            mbits |= (moving and label == CellType.MOVING) << i
+        lane = int(z - z0)
+        words[(len(segs) - 1) * SEG + lane] = links
+        cells[int(flat)] = (len(segs) - 1, lane, links, mbits)
+    if not segs:
+        segs, words = [(0, 0, 0)], [LANE_OUT] * SEG
+    return segs, words, cells
+
+
+def check_launch(mask, tables, moving=False, halo=None):
+    """The FluidLaunch `tables` of mask against brute_launch: the same
+    segments (x | y << 16, z0), sector-aligned in the flattened id and
+    ascending, every fluid cell in one lane with its links (and moving
+    bits), every other lane LANE_IDLE inside its row or LANE_OUT."""
+    mask = np.asarray(mask)
+    _, ny, nz = mask.shape
+    segs, words, cells = brute_launch(mask, moving, halo)
+    got = tables.segs.cpu().numpy()
+    assert tables.segs.dtype == tables.links.dtype == torch.int32
+    assert got[:, 0].tolist() == [x | y << 16 for x, y, _ in segs]
+    assert got[:, 1].tolist() == [z0 for _, _, z0 in segs]
+    assert tables.links.tolist() == words
+    base = (got[:, 0] & 0xFFFF) * ny * nz + (got[:, 0] >> 16) * nz + got[:, 1]
+    if cells:
+        assert (base % SEG == 0).all() and (np.diff(base) >= 0).all()
+    if moving:
+        mwords = tables.moving.tolist()
+        want = [0] * len(words)
+        for seg, lane, _, mbits in cells.values():
+            want[seg * SEG + lane] = mbits
+        assert mwords == want
+    else:
+        assert tables.moving is None
+    return len(cells)
+
+
+@pytest.mark.parametrize("name,kw", CASES + [
+    ("lid_driven_cavity", dict(n=12, lid="bounceback")),
+    ("gravity_channel", dict(n=20, nz=3)),
+])
+def test_fluid_launch_matches_brute_force(name, kw):
+    """The fp32 kernel's launch tables of each case (the coronary, also
+    pulsatile, the curved vessel, the pipe, the lids, one with a moving
+    lid, a z of 3 cells) against a walk over every fluid cell and its 18
+    sources; the case's own tables (CompiledCase.fluid_launch) the
+    same, in its moving walls' form where it has them."""
+    spec = get_case(name, **kw)
+    cc = compile_case(spec)
+    moving = cc.wall_velocity is not None
+    assert moving == (kw.get("lid") == "bounceback")
+    n = check_launch(spec.mask, cc.fluid_launch, moving)
+    assert n == int(cc.fluid.sum())
+    assert cc.fluid_launch.nbytes == (cc.fluid_launch.segs.numel()
+                                      + cc.fluid_launch.links.numel()
+                                      * (2 if moving else 1)) * 4
+
+
+@pytest.mark.parametrize("shape,share", [((130, 17, 70), 0.004),
+                                         ((70, 9, 33), 0.02),
+                                         ((5, 40, 65), 0.0),
+                                         ((19, 11, 12), 0.3)])
+@pytest.mark.parametrize("moving", [False, True])
+def test_fluid_launch_on_random_masks(shape, share, moving):
+    """Random masks (walls, moving walls, ghost and dead cells; odd nz;
+    a box without a fluid cell, which launches one segment of LANE_OUT
+    lanes; dense fluid whose runs cross the sector boundaries): the launch
+    tables against brute force, in both forms."""
+    rng = np.random.default_rng(11)
+    draw = rng.random(shape)
+    mask = np.full(shape, CellType.DEAD, np.int8)
+    for k, label in enumerate((CellType.FLUID, CellType.WALL,
+                               CellType.MOVING, CellType.GHOST)):
+        mask[(draw >= k * share) & (draw < (k + 1) * share)] = label
+    tables = fluid_launch_tables(torch.from_numpy(mask), moving)
+    assert check_launch(mask, tables, moving) == int(
+        (mask == CellType.FLUID).sum())
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_fluid_launch_of_shards(world, axis):
+    """compile_shard's shards of the pulsatile coronary along x and y (the
+    lid with its moving wall along y): each window's launch tables
+    against brute force over its mask and the halo rows mask_lo and
+    mask_hi, which set the links of its face rows."""
+    for name, kw, axes in (
+            ("coronary", dict(shape=(32, 32, 32), radius=5,
+                              pulsatile=(4, 8)), (1,)),
+            ("lid_driven_cavity", dict(n=12, lid="bounceback"), (0, 1))):
+        if axis not in axes:
+            continue
+        spec = get_case(name, **kw)
+        for rank in range(world):
+            sc = compile_shard(spec, rank, world, axis)
+            halo = (axis, sc.mask_lo.numpy(), sc.mask_hi.numpy())
+            check_launch(sc.mask.numpy(), sc.fluid_launch,
+                         sc.wall_velocity is not None, halo)
+
+
+@pytest.mark.parametrize("name,kw,shard", [
+    ("coronary", dict(CORONARY, pulsatile=(4, 8)), None),
+    ("lid_driven_cavity", dict(n=12, lid="bounceback"), None),
+    ("coronary", dict(shape=(32, 32, 32), radius=5), (1, 2)),
+    ("lid_driven_cavity", dict(n=12, lid="bounceback"), (0, 4)),
+])
+def test_fluid_launch_pulls_the_dense_pull(name, kw, shard):
+    """The pull as the list kernel makes it from the tables (each fluid
+    lane's cell from its segment, direction i from its own opposite
+    population where link bit i is set, + bb[i] where its moving bit is,
+    else from x - e_i, or across a shard's face from the plane its
+    neighbour sent) against the dense step's pull with bounce-back
+    (engine/step.pulled_state without boundaries), bit for bit, on a
+    random state."""
+    from lbm_tpu_torch.core.lattice import D3Q19
+    from lbm_tpu_torch.engine.step import halo_ext, moving_bb_terms, \
+        pulled_state
+    from lbm_tpu_torch.parallel.halo import ring_planes
+
+    spec = get_case(name, **kw)
+    rng = np.random.default_rng(2)
+    if shard is None:
+        cc = compile_case(spec)
+        halo = None
+    else:
+        axis, world = shard
+        cc = compile_shard(spec, 1, world, axis)
+    f = torch.from_numpy(rng.uniform(0.02, 0.06, (19,) + cc.shape)
+                         .astype(np.float32))
+    nx, ny, nz = cc.shape
+    src = f
+    if shard is not None:
+        lo, hi = (torch.from_numpy(rng.uniform(0.02, 0.06, (5,) + tuple(
+            n for a, n in enumerate(cc.shape) if a != axis))
+            .astype(np.float32)) for _ in range(2))
+        halo = cc.halo(lo, hi)
+        src = halo_ext(f, axis, lo, hi)
+    want = pulled_state(cc, f, 0, bcs=[], halo=halo)
+    tables = cc.fluid_launch
+    words = tables.links.long()
+    k = torch.nonzero((words & LANE_IDLE) == 0).reshape(-1)
+    seg = tables.segs.long()[k // SEG]
+    x, y, z = seg[:, 0] & 0xFFFF, seg[:, 0] >> 16, seg[:, 1] + k % SEG
+    assert bool(cc.fluid[x, y, z].all()) and len(k) == int(cc.fluid.sum())
+    bb = (None if cc.wall_velocity is None
+          else moving_bb_terms(cc.wall_velocity))
+    for i in range(19):
+        ex, ey, ez = (int(v) for v in D3Q19.E[i])
+        s = [x - ex, y - ey, (z - ez) % nz]
+        for a, n in ((0, nx), (1, ny)):
+            s[a] = s[a] + 1 if shard is not None and a == axis else s[a] % n
+        pulled = src[i][s[0], s[1], s[2]]
+        own = ((words[k] >> i) & 1).bool() if i else torch.zeros_like(
+            k, dtype=torch.bool)
+        got = torch.where(own, f[D3Q19.OPP[i]][x, y, z], pulled)
+        if bb is not None:
+            mv = ((tables.moving.long()[k] >> i) & 1).bool()
+            got = torch.where(mv, f[D3Q19.OPP[i]][x, y, z] + float(bb[i]),
+                              got)
+        assert torch.equal(got, want[i][x, y, z]), i
+
+
+def test_list_constants_equal_the_source():
+    """SEG, LANE_IDLE and LANE_OUT against kSegLanes, kIdle and kOut in
+    kernels/csrc/collide_stream_list.cuh."""
+    import re
+    from pathlib import Path
+
+    src = (Path(K.__file__).parent / "csrc" / "collide_stream_list.cuh"
+           ).read_text()
+
+    def const(name):
+        return int(re.search(rf"{name} = (0x[0-9a-f]+|\d+)u?;", src)
+                   .group(1), 0)
+
+    assert const("kSegLanes") == SEG
+    assert const("kIdle") == LANE_IDLE
+    assert const("kOut") == LANE_OUT & 0xFFFFFFFF
