@@ -321,6 +321,32 @@ the dense transports' and windkessel outlets' halo steps):
      unsharded dense runs of (b) and (c) need no kernel and run while the
      kernels build (phase 2). With two or more cards phase 17 runs (a)
      over NCCL too.
+The differentiable and Lectures-family modules (engine/adjoint.py, ibm.py,
+multiphase.py, binary.py: lbm_tpu steps them through its XLA dense step,
+the port through its dense torch step, replayed as CUDA graphs on the
+card), all but 21a's kernel run while the kernels build (phase 2), first
+there, so their graph captures come before the build's library loads:
+ 21. (a) the adjoint at tools/demo_adjoint.py's default width (coronary
+     96x96x120 r=7, four RCR outlets (1e-4, 5e3, 2e-3), a 600-step
+     rollout, remat chunk 30): one value and gradient of the flow-split
+     loss against the target 0.40/0.27/0.20/0.13 with its s/iteration
+     and peak device memory (past 60 GiB the next smaller chunk of
+     20/15/10), d loss / d log Rd_0 against central differences (h =
+     0.1) at rtol 2e-2, three fit_windkessel iterations whose last loss is
+     below the first; after the build the fitted terminations through
+     Simulation on the kernel route (the windkessel fold) for 2000 steps,
+     fields finite; (b) transport_rollout on a frozen poiseuille 64^3
+     field, its diffusivity gradient against central differences at rtol
+     2e-2; (c) lbm_tpu's slow physics anchors with their tests' shapes,
+     steps and assertions: the 3D Laplace law (40^3, 3 x 3000 steps), the
+     Gibbs-Thomson droplet (40^3, 8000 steps), Stokes' second problem,
+     after the CUDA-graph step against the eager step, bit for bit; (d)
+     ShanChen (G = -5), BinaryFluid and IBMFlow (two plates in a
+     body-forced periodic channel, one and two forcing sweeps) at 256^3,
+     200 steps each: finite, mass or Sigma phi within 1e-5 relative, the
+     two-sweep no-slip defect below 0.6 of the one-sweep one, ms/step and
+     peak device memory. Its results are printed as one JSON object
+     {"phase21": ...}.
 The CLI's runs (phases 8, 12 and 19) call lbm_tpu_torch.cli.main in this
 process, as `python -m lbm_tpu_torch` does (cli_run), but for run
 --shard, which spawns its ranks. Each phase's seconds are printed
@@ -330,7 +356,11 @@ the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --nccl
 
-runs phase 17 alone on every card of the machine (two or more).
+runs phase 17 alone on every card of the machine (two or more), and
+
+    python3 chip_smoke.py --phase21
+
+phase 21 alone on one card.
 """
 
 from __future__ import annotations
@@ -4666,6 +4696,507 @@ def curved_path(device, full) -> dict:
     return out
 
 
+# -- phase 21: the adjoint, Shan-Chen, binary and IBM modules (no kernel:
+# lbm_tpu steps them through its XLA dense step, the port through its
+# dense torch step), all but 21a's kernel verification while the kernels
+# build ----------------------------------------------------------------------
+ADJ_CASE = dict(shape=(96, 96, 120), radius=7,
+                windkessel=[(1e-4, 5e3, 2e-3)] * 4)
+ADJ_TARGET = (0.40, 0.27, 0.20, 0.13)   # tools/demo_adjoint.py's defaults
+ADJ_STEPS = 600
+ADJ_CHUNKS = (30, 20, 15, 10)           # each divides ADJ_STEPS
+ADJ_PEAK_GIB = 60.0
+ADJ_VERIFY_STEPS = 2000
+P21_BOX = 256                           # phase 21d's full-width boxes
+P21D_STEPS = 200
+
+
+def p21_box(shape, tau=1.0, force=None):
+    """A fully periodic all-FLUID box of the port's CaseSpec (lbm_tpu's
+    tests' _free_box / _box)."""
+    import numpy as np
+
+    from lbm_tpu_torch.core.units import UnitSystem
+    from lbm_tpu_torch.engine.spec import CaseSpec
+    from lbm_tpu_torch.geometry.mask import CellType
+
+    return CaseSpec(name="box", shape=tuple(shape), tau=tau,
+                    units=UnitSystem(CH=1.0, C_U=1.0, C_rho=1.0),
+                    mask=np.full(shape, int(CellType.FLUID), np.int32),
+                    boundaries=[], force=force)
+
+
+def adjoint_during_build(device) -> dict:
+    """Phase 21a without its kernel run: at demo_adjoint's default width
+    (coronary 96x96x120 r=7, four RCR outlets, a 600-step rollout) one
+    value and gradient of the split loss with s/iteration and peak device
+    memory (past 60 GiB, the largest remat chunk of 20/15/10 under it);
+    d loss / d log Rd_0 against central differences (h = 0.1, rtol 2e-2);
+    three fit_windkessel iterations, whose last loss is below the
+    first."""
+    import torch
+
+    from lbm_tpu_torch.cases import get_case
+    from lbm_tpu_torch.engine import adjoint
+    from lbm_tpu_torch.engine.compile import compile_case
+
+    spec = get_case("coronary", **ADJ_CASE)
+    cc = compile_case(spec, device)
+    target = torch.tensor(ADJ_TARGET, dtype=torch.float32, device=device)
+    base = torch.from_numpy(adjoint.wk_params(cc)).to(device)
+
+    def loss_at(log_rd, chunk, graphs):
+        theta = torch.cat([base[:, :2], torch.exp(log_rd)[:, None]], dim=1)
+        f, _ = adjoint.rollout(cc, theta, ADJ_STEPS, remat_chunk=chunk,
+                               graphs=graphs)
+        return torch.sum((adjoint.flow_split(cc, f) - target) ** 2)
+
+    x0 = torch.log(base[:, 2])
+    tried = []
+    for chunk in ADJ_CHUNKS:
+        graphs = adjoint.RolloutGraphs(cc) if device.type == "cuda" else None
+        mem0 = mem_start(device)
+        t0 = time.perf_counter()
+        x = x0.clone().requires_grad_(True)
+        loss = loss_at(x, chunk, graphs)
+        (grad,) = torch.autograd.grad(loss, x)
+        torch.cuda.synchronize()
+        s_iter = time.perf_counter() - t0
+        peak = peak_gib(device, mem0)
+        tried.append((chunk, s_iter, peak))
+        print(f"[21a] value and gradient of the split loss, coronary "
+              f"{ADJ_CASE['shape']} r={ADJ_CASE['radius']}, {ADJ_STEPS}-step "
+              f"rollout, remat_chunk {chunk}: {s_iter:.2f} s/iteration "
+              f"(forward + backward), peak device memory {peak:.2f} GiB, "
+              f"loss {float(loss.detach()):.6e}, grad "
+              f"{[float(v) for v in grad]}", flush=True)
+        if peak <= ADJ_PEAK_GIB:
+            break
+        print(f"[21a] peak {peak:.2f} GiB passes {ADJ_PEAK_GIB} GiB: the "
+              "next smaller chunk", flush=True)
+    require(peak <= ADJ_PEAK_GIB, f"21a: peak {peak:.2f} GiB at every chunk "
+            f"{tried}")
+    free_device()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        h = torch.zeros_like(x0)
+        h[0] = 0.1
+        fd = (float(loss_at(x0 + h, chunk, graphs))
+              - float(loss_at(x0 - h, chunk, graphs))) / 0.2
+        torch.cuda.synchronize()
+        s_fwd = (time.perf_counter() - t0) / 2
+    auto = float(grad[0])
+    rel = abs(auto - fd) / max(abs(fd), 1e-30)
+    print(f"[21a] d loss / d log Rd_0: autograd {auto:.6e}, central "
+          f"differences (h = 0.1) {fd:.6e}, rel {rel:.3e} (rtol 2e-2); a "
+          f"forward rollout {s_fwd:.2f} s", flush=True)
+    require(auto != 0.0 and rel <= 2e-2,
+            f"21a: the adjoint gradient {auto} against FD {fd} (rel {rel})")
+    del graphs
+    free_device()
+    t0 = time.perf_counter()
+    theta, hist = adjoint.fit_windkessel(
+        spec, ADJ_TARGET, n_steps=ADJ_STEPS, iters=3, lr=0.3,
+        remat_chunk=chunk, verbose=True, device=device)
+    torch.cuda.synchronize()
+    s_fit = time.perf_counter() - t0
+    losses = [h_[0] for h_ in hist]
+    print(f"[21a] fit_windkessel: 3 iterations in {s_fit:.1f} s "
+          f"({s_fit / 3:.2f} s/iteration), losses {losses}, fitted Rd "
+          f"{[float(v) for v in theta[:, 2]]}", flush=True)
+    require(losses[-1] < losses[0],
+            f"21a: the fit's loss did not fall: {losses}")
+    free_device()
+    mark("21a (the adjoint)")
+    return {"s_per_iter": s_iter, "peak_gib": peak, "remat_chunk": chunk,
+            "tried": tried, "grad": auto, "fd": fd, "fd_rel": rel,
+            "s_forward": s_fwd, "fit_s_per_iter": s_fit / 3,
+            "losses": losses, "theta": theta}
+
+
+def adjoint_verify(device, theta) -> dict:
+    """Phase 21a's kernel run: the fitted terminations through Simulation
+    on the kernel route (the windkessel fold), ADJ_VERIFY_STEPS steps; the
+    fields finite; the split printed."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.cases import get_case
+    from lbm_tpu_torch.engine.diagnostics import plane_flux
+    from lbm_tpu_torch.engine.runner import Simulation
+
+    spec = get_case("coronary", **dict(
+        ADJ_CASE, windkessel=[tuple(map(float, row)) for row in theta]))
+    sim = Simulation(spec, device=device)
+    t0 = time.perf_counter()
+    sim.run(max_steps=ADJ_VERIFY_STEPS, time_save=500, verbose=False)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    rho, u = (a.cpu().numpy() for a in sim.macro())
+    require(sim.backend == "kernel" and np.isfinite(rho).all()
+            and np.isfinite(u).all() and bool(torch.isfinite(sim.f).all())
+            and bool(torch.isfinite(sim.wk).all()),
+            "21a: the fitted terminations' kernel run is not finite")
+    idx = [k for k, b in enumerate(spec.boundaries)
+           if b.windkessel is not None]
+    q = np.asarray([plane_flux(spec, u, k) for k in idx])
+    split = q / q.sum()
+    print(f"[21a] fitted terminations through Simulation (backend "
+          f"{sim.backend}: the windkessel fold), {sim.t} steps in {s:.2f} s: "
+          f"finite; split {' '.join(f'{v:.4f}' for v in split)} (target "
+          f"{ADJ_TARGET}, after 3 iterations), P_c "
+          f"{sim.wk.cpu().numpy()}", flush=True)
+    free_device()
+    return {"verify_s": s, "split": split.tolist()}
+
+
+def diffusivity_during_build(device) -> dict:
+    """Phase 21b: transport_rollout on a frozen poiseuille 64^3 field (300
+    dense flow steps) from a banded initial contrast, d mean((series -
+    obs)^2) / d log(tau_g - 1/2) through a 40-step rollout against central
+    differences (eps 1e-2, rtol 2e-2)."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.cases import get_case
+    from lbm_tpu_torch.engine import adjoint
+    from lbm_tpu_torch.engine.runner import Simulation
+    from lbm_tpu_torch.engine.scalar import ScalarTransport
+
+    spec = get_case("poiseuille", n=64)
+    sim = Simulation(spec, device=device, backend="dense")
+    sim.run(max_steps=300, time_save=100, verbose=False)
+    u = sim.macro()[1]
+    # contrast filling the vessel in x-periodic bands: its outlet record
+    # moves with D from the first step (a front from the inlet would take
+    # hundreds of steps to reach the far plane of a 64^3 box)
+    x = np.arange(64, dtype=np.float32)[:, None, None]
+    c0 = np.broadcast_to(1.0 + 0.5 * np.cos(2.0 * np.pi * x / 16.0),
+                         (64, 64, 64)).astype(np.float32)
+    st = ScalarTransport(spec, u, D=0.03, inlet_c={0: 1.0}, c0=c0,
+                         device=device, backend="dense")
+    obs = adjoint.transport_rollout(st, 0.5 + 4 * 0.05, 40, [1],
+                                    remat_chunk=20)
+
+    def loss(x):
+        s = adjoint.transport_rollout(st, 0.5 + torch.exp(x), 40, [1],
+                                      remat_chunk=20)
+        return torch.mean((s - obs) ** 2)
+
+    x0 = torch.log(torch.tensor(4 * 0.03, dtype=torch.float32,
+                                device=device))
+    t0 = time.perf_counter()
+    x = x0.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(loss(x), x)
+    torch.cuda.synchronize()
+    s_grad = time.perf_counter() - t0
+    with torch.no_grad():
+        fd = (float(loss(x0 + 1e-2)) - float(loss(x0 - 1e-2))) / 2e-2
+    g = float(g)
+    rel = abs(g - fd) / max(abs(fd), 1e-30)
+    print(f"[21b] diffusivity gradient, poiseuille 64^3 frozen field, "
+          f"40-step transport rollout: autograd {g:.6e}, central "
+          f"differences {fd:.6e}, rel {rel:.3e} (rtol 2e-2); value and "
+          f"gradient {s_grad:.2f} s", flush=True)
+    require(g != 0.0 and rel <= 2e-2,
+            f"21b: the diffusivity gradient {g} against FD {fd}")
+    free_device()
+    mark("21b (the diffusivity gradient)")
+    return {"grad": g, "fd": fd, "fd_rel": rel, "s_grad": s_grad}
+
+
+def physics_anchors(device) -> dict:
+    """Phase 21c: lbm_tpu's slow physics anchors on the card, each with its
+    test's shapes, steps and assertions: the 3D Laplace law
+    (tests/test_multiphase.py::test_laplace_law_3d), the Gibbs-Thomson
+    droplet (tests/test_binary.py::test_gibbs_thomson_droplet_matches_
+    analytic_sigma), Stokes' second problem (tests/test_ibm.py::
+    test_ibm_stokes_second_problem_envelope); first the CUDA-graph
+    replay against the eager step, bit for bit."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.engine.binary import (
+        BinaryFluid,
+        chemical_potential,
+        interface_width,
+        surface_tension,
+    )
+    from lbm_tpu_torch.engine.ibm import IBMFlow, marker_plane
+    from lbm_tpu_torch.engine.multiphase import ShanChen, eos_pressure
+
+    out = {}
+    # the graph replay is the eager step
+    n = 40
+    rng = np.random.default_rng(0)
+    rho0 = (np.log(2.0) * (1.0 + 0.01 * rng.standard_normal((n, n, n)))
+            ).astype(np.float32)
+    runs = {}
+    for graph in (False, True):
+        sc = ShanChen(p21_box((n, n, n)), G=-5.0, rho_init=rho0,
+                      device=device, graph=graph)
+        sc.run(20)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sc.run(200)
+        torch.cuda.synchronize()
+        runs[graph] = (sc, (time.perf_counter() - t0) / 200 * 1e3)
+    require(torch.equal(runs[True][0].f, runs[False][0].f),
+            "21c: the CUDA-graph ShanChen step differs from the eager one")
+    bf = [BinaryFluid(p21_box((n, n, n), tau=0.8), A=0.002, kappa=0.008,
+                      phi_init=np.tanh(rho0 - np.log(2.0)) * 50.0,
+                      device=device, graph=graph) for graph in (False, True)]
+    for b in bf:
+        b.run(50)
+    require(torch.equal(bf[0].f, bf[1].f) and torch.equal(bf[0].g, bf[1].g),
+            "21c: the CUDA-graph BinaryFluid step differs from the eager one")
+    out["sc_ms_eager"], out["sc_ms_graph"] = runs[False][1], runs[True][1]
+    print(f"[21c] ShanChen 40^3 ms/step: eager {runs[False][1]:.4f}, CUDA "
+          f"graph {runs[True][1]:.4f} (bit for bit the same state; "
+          f"BinaryFluid too)", flush=True)
+
+    # the Laplace law
+    t0 = time.perf_counter()
+    dps, inv_r = [], []
+    for R in (6, 8, 10):
+        x, y, z = np.meshgrid(*(np.arange(n) - n / 2,) * 3, indexing="ij")
+        r = np.sqrt(x * x + y * y + z * z)
+        sc = ShanChen(p21_box((n, n, n)), G=-5.0,
+                      rho_init=np.where(r < R, 1.8, 0.16).astype(np.float32),
+                      device=device)
+        sc.run(3000)
+        rho = sc.rho().cpu().numpy()
+        require(np.isfinite(rho).all(), f"21c: Laplace R={R} not finite")
+        c = n // 2
+
+        def p_of(v):
+            return float(eos_pressure(torch.tensor(v, dtype=torch.float32),
+                                      -5.0))
+
+        p_in = p_of(rho[c - 2:c + 2, c - 2:c + 2, c - 2:c + 2].mean())
+        p_out = p_of(np.concatenate([rho[:3].ravel(),
+                                     rho[-3:].ravel()]).mean())
+        dps.append(p_in - p_out)
+        inv_r.append(1.0 / R)
+    dps, inv_r = np.asarray(dps), np.asarray(inv_r)
+    slope, icpt = np.polyfit(inv_r, dps, 1)
+    resid = float(np.abs(np.polyval((slope, icpt), inv_r) - dps).max()
+                  / dps.max())
+    s_lap = time.perf_counter() - t0
+    print(f"[21c] Laplace law, 40^3, R 6/8/10, 3 x 3000 steps in "
+          f"{s_lap:.1f} s ({s_lap / 9000 * 1e3:.4f} ms/step): dp "
+          f"{dps.tolist()}, sigma {slope / 2:.6e}, fit residual {resid:.4f} "
+          "(dp > 0, sigma > 0, residual < 0.1)", flush=True)
+    require((dps > 0).all() and slope / 2 > 0 and resid < 0.1,
+            f"21c: the Laplace law: dp {dps}, slope {slope}, resid {resid}")
+    out.update(laplace_dp=dps.tolist(), laplace_sigma=slope / 2,
+               laplace_resid=resid, laplace_s=s_lap)
+
+    # Gibbs-Thomson
+    t0 = time.perf_counter()
+    A, K = 0.002, 0.008
+    sig, xi = surface_tension(A, K), interface_width(A, K)
+    R = 8
+    x, y, z = np.meshgrid(*(np.arange(n) - n / 2,) * 3, indexing="ij")
+    r = np.sqrt(x * x + y * y + z * z)
+    bf = BinaryFluid(p21_box((n, n, n), tau=0.8), A=A, kappa=K,
+                     phi_init=np.tanh((R - r) / xi).astype(np.float32),
+                     device=device)
+    bf.run(8000)
+    phi = bf.phi()
+    require(bool(torch.isfinite(phi).all()), "21c: Gibbs-Thomson not finite")
+    mu = chemical_potential(phi, A, K).cpu().numpy()
+    c = n // 2
+    dmu = float(mu[c - 2:c + 2, c - 2:c + 2, c - 2:c + 2].mean()
+                - np.concatenate([mu[:3].ravel(), mu[-3:].ravel()]).mean())
+    s_gt = time.perf_counter() - t0
+    rel = abs(dmu - sig / R) / (sig / R)
+    print(f"[21c] Gibbs-Thomson droplet, 40^3 R=8, 8000 steps in "
+          f"{s_gt:.1f} s ({s_gt / 8000 * 1e3:.4f} ms/step): mu_in - mu_out "
+          f"{dmu:.6e} against sigma/R {sig / R:.6e}, rel {rel:.4f} "
+          "(rtol 0.15)", flush=True)
+    require(rel <= 0.15, f"21c: Gibbs-Thomson {dmu} against {sig / R}")
+    out.update(gibbs_dmu=dmu, gibbs_rel=rel, gibbs_s=s_gt)
+
+    # Stokes' second problem
+    t0 = time.perf_counter()
+    shape = (4, 4, 48)
+    tau, period, U0, zp = 0.8, 500, 0.02, 24.0
+    nu = (tau - 0.5) / 3.0
+    omega = 2.0 * np.pi / period
+    k = np.sqrt(omega / (2.0 * nu))
+    plate = marker_plane(zp, 2, shape)
+
+    def U_of_t(t):
+        u = np.zeros_like(plate)
+        u[:, 0] = np.float32(U0) * np.cos(np.float32(omega) * np.float32(t))
+        return u
+
+    flow = IBMFlow(p21_box(shape, tau=tau), plate,
+                   motion=(lambda t: plate, U_of_t), device=device)
+    flow.run(2 * period)
+    samples = []
+    for _ in range(10):
+        flow.run(period // 10)
+        samples.append(flow.macro()[1][0][2, 2, :].cpu().numpy())
+    amp = (np.max(samples, axis=0) - np.min(samples, axis=0)) / 2.0
+    dz = np.arange(shape[2], dtype=np.float64) - zp
+    sel = (dz >= 2.0) & (dz <= 8.0)
+    slope, icpt = np.polyfit(dz[sel], np.log(amp[sel]), 1)
+    shift = (icpt - np.log(U0)) / k
+    s_st = time.perf_counter() - t0
+    print(f"[21c] Stokes' second problem, 4x4x48, 1500 steps in {s_st:.1f} s"
+          f" ({s_st / 1500 * 1e3:.4f} ms/step): decay {-slope:.6f} against "
+          f"k {k:.6f} (rtol 0.05), origin shift {shift:.4f} (< 1.2 cells)",
+          flush=True)
+    require(abs(-slope - k) <= 0.05 * k and abs(shift) < 1.2,
+            f"21c: Stokes decay {-slope} against {k}, shift {shift}")
+    out.update(stokes_decay=-slope, stokes_k=k, stokes_shift=shift,
+               stokes_s=s_st)
+    free_device()
+    mark("21c (lbm_tpu's slow physics anchors)")
+    return out
+
+
+def full_width_multiphase(device) -> dict:
+    """Phase 21d: ShanChen (G = -5), BinaryFluid and IBMFlow (two
+    marker_plane plates in a body-forced periodic channel) at 256^3 for
+    200 steps each: fields finite, total mass (Sigma phi for the binary
+    liquid) within 1e-5 relative in float64 sums, ms/step and peak device
+    memory. IBM runs twice, with two forcing sweeps and with one, and one
+    more step from each final state with its own sweeps: the two-sweep
+    no-slip defect below 0.6 of the one-sweep one (tests/test_ibm.py's
+    multi-direct-forcing contract, whose flows develop apart; from one
+    state the ratio is the sweep's fixed 0.625)."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.engine import ibm
+    from lbm_tpu_torch.engine.binary import BinaryFluid, interface_width
+    from lbm_tpu_torch.engine.multiphase import ShanChen
+
+    n = P21_BOX
+    shape = (n, n, n)
+    rng = np.random.default_rng(21)
+    out = {}
+
+    def timed(obj, total):
+        m0 = total()
+        mem0 = mem_start(device)
+        t0 = time.perf_counter()
+        obj.run(P21D_STEPS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / P21D_STEPS * 1e3
+        peak = peak_gib(device, mem0)
+        m1 = total()
+        return ms, peak, m0, m1, abs(m1 - m0) / abs(m0)
+
+    rho0 = (np.log(2.0) * (1.0 + 0.01 * rng.standard_normal(shape))
+            ).astype(np.float32)
+    sc = ShanChen(p21_box(shape), G=-5.0, rho_init=rho0, device=device)
+    del rho0
+    ms, peak, m0, m1, rel = timed(sc, sc.total_mass)
+    ok = bool(torch.isfinite(sc.f).all())
+    print(f"[21d] ShanChen G=-5 {n}^3, {P21D_STEPS} steps: {ms:.4f} "
+          f"ms/step (CUDA graph), peak {peak:.2f} GiB, finite {ok}, mass "
+          f"{m0:.10e} -> {m1:.10e} (rel {rel:.3e})", flush=True)
+    require(ok and rel <= 1e-5, f"21d: ShanChen finite {ok}, mass rel {rel}")
+    out["shan_chen"] = {"ms": ms, "peak_gib": peak, "mass_rel": rel}
+    del sc
+    free_device()
+
+    x, y, z = np.meshgrid(*(np.arange(n, dtype=np.float32) - n / 2,) * 3,
+                          indexing="ij")
+    r = np.sqrt(x * x + y * y + z * z)
+    del x, y, z
+    A, K = 0.002, 0.008
+    phi0 = np.tanh((80.0 - r) / interface_width(A, K)).astype(np.float32)
+    del r
+    bf = BinaryFluid(p21_box(shape, tau=0.8), A=A, kappa=K, phi_init=phi0,
+                     device=device)
+    del phi0
+    ms, peak, m0, m1, rel = timed(bf, bf.total_phi)
+    ok = bool(torch.isfinite(bf.f).all()) and bool(torch.isfinite(bf.g).all())
+    print(f"[21d] BinaryFluid {n}^3 (a droplet of radius 80), "
+          f"{P21D_STEPS} steps: {ms:.4f} ms/step (CUDA graph), peak "
+          f"{peak:.2f} GiB, finite {ok}, Sigma phi {m0:.10e} -> {m1:.10e} "
+          f"(rel {rel:.3e})", flush=True)
+    require(ok and rel <= 1e-5, f"21d: BinaryFluid finite {ok}, phi rel {rel}")
+    out["binary"] = {"ms": ms, "peak_gib": peak, "phi_rel": rel}
+    del bf
+    free_device()
+
+    spec = p21_box(shape, tau=1.0, force=(1e-5, 0.0, 0.0))
+    plates = np.concatenate([ibm.marker_plane(32.0, 2, shape),
+                             ibm.marker_plane(224.0, 2, shape)])
+    Xm = torch.from_numpy(plates).to(device)
+    flat, w = ibm._support(Xm, shape)
+    defects, runs = [], []
+    for n_iter in (2, 1):
+        flow = ibm.IBMFlow(spec, plates, n_iter=n_iter, device=device)
+
+        def mass():
+            return float(flow.f.sum(dtype=torch.float64))
+
+        ms, peak, m0, m1, rel = timed(flow, mass)
+        ok = bool(torch.isfinite(flow.f).all())
+        step = ibm.make_ibm_step(flow.cc, n_iter=n_iter)
+        u = step(flow.f, flow.t, Xm, torch.zeros_like(Xm))[2]
+        defects.insert(0, float(ibm.interp(u, flat, w).abs().max()))
+        runs.append((ms, peak, ok, rel))
+        print(f"[21d] IBMFlow {n}^3, two plates ({len(plates)} markers), "
+              f"gravity 1e-5, n_iter {n_iter}, {P21D_STEPS} steps: "
+              f"{ms:.4f} ms/step, peak {peak:.2f} GiB, finite {ok}, mass "
+              f"rel {rel:.3e}; one more step's no-slip defect "
+              f"{defects[0]:.6e}", flush=True)
+        del flow, u
+        free_device()
+    ms, peak, ok, rel = runs[0]
+    print(f"[21d] IBM no-slip defect: one sweep {defects[0]:.6e}, two "
+          f"{defects[1]:.6e} (ratio {defects[1] / defects[0]:.4f} < 0.6; "
+          "each flow developed with its own sweeps, as lbm_tpu's test)",
+          flush=True)
+    require(all(r[2] and r[3] <= 1e-5 for r in runs)
+            and defects[1] < 0.6 * defects[0],
+            f"21d: IBM runs (ms, peak, finite, mass rel) {runs}, defects "
+            f"{defects}")
+    out["ibm"] = {"ms": ms, "peak_gib": peak, "mass_rel": rel,
+                  "defects": defects, "ms_one_sweep": runs[1][0]}
+    mark("21d (multiphase and IBM at 256^3)")
+    return out
+
+
+def phase21_during_build(device) -> dict:
+    """Phase 21's kernel-free parts (21b, 21c, 21d, 21a's fit), run while
+    the kernels build."""
+    return {"21b": diffusivity_during_build(device),
+            "21c": physics_anchors(device),
+            "21d": full_width_multiphase(device),
+            "21a": adjoint_during_build(device)}
+
+
+def phase21_main() -> int:
+    """`chip_smoke.py --phase21`: phase 21 alone on one card (the card's
+    name and power limit first), 21a's kernel run building what it
+    needs."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --phase21: no CUDA card", file=sys.stderr)
+        return 1
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip(), flush=True)
+    device = torch.device("cuda", 0)
+    res = phase21_during_build(device)
+    res["21a"].update(adjoint_verify(device, res["21a"].pop("theta")))
+    print(json.dumps({"phase21": res}, default=float), flush=True)
+    print(f"[done] phase 21 in {time.perf_counter() - T_START:.1f} s",
+          flush=True)
+    return 0
+
+
 def nccl_main() -> int:
     """`chip_smoke.py --nccl`: phase 17 alone on every card (two or
     more), the card's name and power limit first."""
@@ -4728,6 +5259,7 @@ def main() -> int:
     p20_dir = tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_")
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         building = pool.submit(_build.load_library)
+        p21 = phase21_during_build(device)
         pipe = curved_during_build(device)
         curved_a = curved_sparse_dense(device)
         p20_dense = sharded_dense_references(device, p20_dir.name)
@@ -4939,6 +5471,8 @@ def main() -> int:
               f"{k} {v[0]}, {v[1] + v[2]}, {stack.get(k)}, {k1_blocks[k]}"
               for k, v in sorted(trt_field.items())), flush=True)
     mark("1, 2")
+    p21["21a"].update(adjoint_verify(device, p21["21a"].pop("theta")))
+    mark("21a (the kernel run)")
 
     # -- phase 3: kernels vs plain versions --------------------------------
     from lbm_tpu_torch.cases import get_case
@@ -5828,6 +6362,7 @@ def main() -> int:
           f"{t64['k3_plain']:.4f}; total "
           f"{time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"phase19": curved}), flush=True)
+    print(json.dumps({"phase21": p21}, default=float), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5836,4 +6371,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(nccl_main() if sys.argv[1:] == ["--nccl"] else main())
+    sys.exit(nccl_main() if sys.argv[1:] == ["--nccl"] else
+             phase21_main() if sys.argv[1:] == ["--phase21"] else main())

@@ -15,6 +15,9 @@ rank's ceil(n / world) rows, the rows past the box filled) and comes
 back whole (`gather_windows`).
 A sparse state crosses as lbm_tpu's compacted (19, n_pad) array without
 its lane padding (`sparse_state_from_reference`, and back).
+An IBMFlow, ShanChen or BinaryFluid crosses as its (f, g, t)
+(`lattice_state_from_reference`, `lattice_state_to_numpy`), adjoint's RCR
+parameters as an (n_wk, 3) theta array (`theta_from_numpy`).
 Nothing here imports lbm_tpu: a reference object is read by attribute.
 """
 
@@ -214,7 +217,66 @@ def transport_kwargs_from_reference(tr, u=None, wall_c=None, c0=None) -> dict:
     return kw
 
 
+def lattice_state_from_reference(obj) -> dict:
+    """{"f", "g", "t"} of a lbm_tpu IBMFlow, ShanChen or BinaryFluid (read
+    by attribute) as NumPy float32 arrays in the port's layouts: f (19, X,
+    Y, Z), g the (7, X, Y, Z) order-parameter state of a BinaryFluid (None
+    for the others), t the step count. The same dict of a port object is
+    lattice_state_to_numpy's, so either package can start from it."""
+    g = getattr(obj, "g", None)
+    return {"f": np.array(obj.f, dtype=np.float32, copy=True),
+            "g": None if g is None else np.array(g, dtype=np.float32,
+                                                   copy=True),
+            "t": int(obj.t)}
+
+
+def lattice_state_to_numpy(obj) -> dict:
+    """{"f", "g", "t"} of a port IBMFlow, ShanChen or BinaryFluid as NumPy
+    float32 arrays (g None but for a BinaryFluid): lbm_tpu's objects take
+    them as jnp.asarray(state["f"]) and so on."""
+    g = getattr(obj, "g", None)
+    return {"f": obj.f.detach().cpu().float().numpy().copy(),
+            "g": None if g is None else g.detach().cpu().float().numpy()
+            .copy(),
+            "t": int(obj.t)}
+
+
+def load_lattice_state(obj, state: dict) -> None:
+    """Load a lattice_state_from_reference dict into a port IBMFlow,
+    ShanChen or BinaryFluid, on the object's device."""
+    dev = obj.cc.device
+    f = np.asarray(state["f"], np.float32)
+    if f.shape != tuple(obj.f.shape):
+        raise ValueError(f"f shape {f.shape} != {tuple(obj.f.shape)}")
+    obj.f = torch.from_numpy(np.ascontiguousarray(f)).to(dev, copy=True)
+    if state.get("g") is not None:
+        if not hasattr(obj, "g"):
+            raise ValueError("the state has g, the object has none")
+        obj.g = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(state["g"], np.float32))).to(dev, copy=True)
+    obj.t = int(state["t"])
+
+
+def theta_from_numpy(theta, device="cpu", requires_grad: bool = False):
+    """An (n_wk, 3) (Rp, C, Rd) array (lbm_tpu's adjoint.wk_params or a
+    jax array) as the port's fp32 theta tensor on `device`."""
+    th = np.array(theta, dtype=np.float32, copy=True)
+    if th.ndim != 2 or th.shape[1] != 3:
+        raise ValueError(f"theta must be (n_wk, 3), got {th.shape}")
+    return torch.from_numpy(th).to(device).requires_grad_(requires_grad)
+
+
+def theta_to_numpy(theta) -> np.ndarray:
+    """The port's theta tensor (or an array) as an (n_wk, 3) float32 NumPy
+    array, for lbm_tpu's rollout."""
+    if torch.is_tensor(theta):
+        return theta.detach().cpu().float().numpy().copy()
+    return np.array(theta, dtype=np.float32, copy=True)
+
+
 __all__ = ["case_from_reference", "as_float32", "state_from_numpy",
            "state_to_numpy", "shard_window", "gather_windows",
            "unpack_lattice", "transport_state_from_reference",
-           "load_transport_state", "transport_kwargs_from_reference"]
+           "load_transport_state", "transport_kwargs_from_reference",
+           "lattice_state_from_reference", "lattice_state_to_numpy",
+           "load_lattice_state", "theta_from_numpy", "theta_to_numpy"]

@@ -88,7 +88,7 @@ def phi(u, dirs=None):
 
     u: (3, ...) fp32 tensor. Returns (Q', ...) with Q' = len(dirs) or 19.
     """
-    u = u.to(torch.float32)
+    u = u.to(torch.float32).unbind(0)   # one view each, one backward node
     usq = u[0] * u[0] + u[1] * u[1] + u[2] * u[2]
     dirs = range(D3Q19.Q) if dirs is None else [int(i) for i in dirs]
     out = []
@@ -109,12 +109,14 @@ def feq(rho, u, dirs=None):
 
 def momentum(f):
     """(rho, (mx, my, mz)): rho = sum_i f_i, m = sum_i e_i f_i, each summed
-    in direction order."""
-    rho = f[0]
+    in direction order. f is unbound once: under autograd its reads are
+    one backward node, not one that fills a whole-state gradient for each
+    direction read."""
+    fs = f.unbind(0)
+    rho = fs[0]
     for i in range(1, D3Q19.Q):
-        rho = rho + f[i]
-    mom = tuple(_signed_sum([f[i] for i in range(D3Q19.Q)], D3Q19.E[:, a])
-                for a in range(3))
+        rho = rho + fs[i]
+    mom = tuple(_signed_sum(fs, D3Q19.E[:, a]) for a in range(3))
     return rho, mom
 
 

@@ -39,7 +39,9 @@ two compute the same pass. For the coupled class they differ as in
 lbm_tpu: the dense route advects in the flow step's in-step Guo velocity
 (m + F/2)/rho and can compensate the discrete divergence (div_fix); the
 kernel route rebuilds (m' - F/2)/rho from the post-collision state, equal
-in exact arithmetic, and has no div_fix. Not ported: a traced tau_g.
+in exact arithmetic, and has no div_fix. A traced tau_g (a tensor that
+gradients flow through) is engine/adjoint.transport_rollout's, over the
+dense pass of a ScalarTransport's statics.
 
 mesh= (a parallel/mesh.LatticeMesh) splits the box along shard_axis
 (default: the first axis without a boundary plane) over the group's
@@ -277,35 +279,38 @@ def defect(u_proj, nbr_block, bcs, halo=None):
     return d
 
 
-def transport_pass(g, t: int, phi, nbr_block, bcs, omega: float,
-                   inv_tau: float, div_comp, source: float, fluid,
+def transport_pass(g, t: int, phi, nbr_block, bcs, omega, inv_tau,
+                   div_comp, source: float, fluid,
                    dirichlet=None, halo=None):
     """One step of g at integer step t given the equilibrium factor phi:
     (g', c) with c the post-stream concentration of every cell. omega =
-    1 - 1/tau_g and inv_tau = 1/tau_g are fp32 values; dirichlet is
+    1 - 1/tau_g and inv_tau = 1/tau_g are fp32 values, floats or, on
+    engine/adjoint.transport_rollout's differentiable route, 0-dim fp32
+    tensors (gradients flow through them); dirichlet is
     (nbr_dir, cw2) from dirichlet_walls or None; halo: a dense shard's
     (axis, lo, hi), lo the low neighbour's last row of the up crossing
     channel and hi the high neighbour's first row of the down one
     (crossing_channels), each (A, B)."""
-    pulled = [g[0]]
+    gs = g.unbind(0)        # under autograd one backward node for the reads
+    pulled = [gs[0]]
     for i in range(1, Q7):
-        own_opp = g[OPP7[i]]
+        own_opp = gs[OPP7[i]]
         v = torch.where(nbr_block[i - 1], own_opp,
-                        pull_axis(g[i], E7[i], halo))
+                        pull_axis(gs[i], E7[i], halo))
         if dirichlet is not None:
             v = torch.where(dirichlet[0][i - 1], dirichlet[1][i - 1] - own_opp,
                             v)
         pulled.append(v)
     for bc in bcs:
         ph = phi[bc.dir].select(bc.axis, bc.coord)
-        own = [g[i].select(bc.axis, bc.coord) for i in range(Q7)]
+        own = [gs[i].select(bc.axis, bc.coord) for i in range(Q7)]
         c_prev = own[0]
         for i in range(1, Q7):
             c_prev = c_prev + own[i]
         c_star = bc.c_star_at(t)
         if c_star is None:
             c_star = c_prev
-        val = c_star * ph + (own[bc.dir] - c_prev * ph) * float(omega)
+        val = c_star * ph + (own[bc.dir] - c_prev * ph) * omega
         plane = pulled[bc.dir].select(bc.axis, bc.coord)
         plane.copy_(torch.where(bc.valid, val, plane))
     c = pulled[0]
@@ -314,7 +319,7 @@ def transport_pass(g, t: int, phi, nbr_block, bcs, omega: float,
     c_comp = None if div_comp is None else c * div_comp
     post = []
     for i in range(Q7):
-        p = pulled[i] - (pulled[i] - c * phi[i]) * float(inv_tau)
+        p = pulled[i] - (pulled[i] - c * phi[i]) * inv_tau
         if c_comp is not None:
             p = p + c_comp * float(W7[i])
         if source:

@@ -72,6 +72,13 @@ _OPP_IDX = [int(o) for o in _OPP]  # advanced index of the opposites
 _F32 = np.float32
 
 
+def _opposite(x):
+    """x's 19 directions in opposite order, x[OPP] (a stack of x's
+    unbound rows: no host index tensor, so a CUDA graph can capture it)."""
+    rows = x.unbind(0)
+    return torch.stack([rows[j] for j in _OPP_IDX])
+
+
 def _c(value, like):
     """`value` as a 0-dim fp32 tensor on like's device: a divisor (or a
     dividend) that PyTorch divides by exactly, as the kernels do."""
@@ -153,25 +160,33 @@ def streamed(f, nbr_wall, nbr_moving=None, bb=None, halo=None,
     bouzidi), where the wall branch becomes a f[opp] + b_up up + b_loc
     f[i], up direction opp(i)'s own direct pull (lbm_tpu's order), applied
     to all links at once after the pull (core/bouzidi.apply_links)."""
+    pulled = torch.stack(_streamed_list(f, nbr_wall, nbr_moving, bb, halo))
+    if bouzidi is not None:
+        apply_links(pulled, f, bouzidi)
+    return pulled
+
+
+def _streamed_list(f, nbr_wall, nbr_moving=None, bb=None, halo=None):
+    """streamed's 19 pulled directions before the stack (no Bouzidi links),
+    a list of (X, Y, Z) tensors; f is unbound once, so under autograd its
+    19 reads are one backward node."""
+    fs = f.unbind(0)
     if halo is None:
         def pull(i):
-            return pull_one(f[i], _E[i])
+            return pull_one(fs[i], _E[i])
     else:
         axis, lo, hi = halo
-        ext = halo_ext(f, axis, lo, hi)
+        ext = halo_ext(f, axis, lo, hi).unbind(0)
         n = f.shape[1 + axis]
 
         def pull(i):
             return pull_one(ext[i], _E[i]).narrow(axis, 1, n)
-    pulled = [f[0]]
+    pulled = [fs[0]]
     for i in range(1, D3Q19.Q):
-        v = torch.where(nbr_wall[i], f[_OPP[i]], pull(i))
+        v = torch.where(nbr_wall[i], fs[_OPP[i]], pull(i))
         if nbr_moving is not None:
-            v = torch.where(nbr_moving[i], f[_OPP[i]] + float(bb[i]), v)
+            v = torch.where(nbr_moving[i], fs[_OPP[i]] + float(bb[i]), v)
         pulled.append(v)
-    pulled = torch.stack(pulled)
-    if bouzidi is not None:
-        apply_links(pulled, f, bouzidi)
     return pulled
 
 
@@ -179,8 +194,19 @@ def windkessel_update(p_c, q, wk):
     """One backward-Euler step (dt = 1 step) of the 3-element windkessel
     C dP_c/dt = Q - P_c / Rd, P_in = Q Rp + P_c: (P_c', P_in) as fp32
     0-dim tensors, in lbm_tpu's operation order, (P_c + Q / C) / (1 +
-    1 / (Rd C)) with the denominator composed in fp32 (lbm_tpu folds it
-    at trace time). wk: the (Rp, C, Rd) triple."""
+    1 / (Rd C)) with the denominator composed in fp32.
+
+    wk: the (Rp, C, Rd) triple, either static numbers (folded into fp32
+    constants, as lbm_tpu folds them at trace time) or a (3,) fp32 tensor,
+    the differentiable route of engine/adjoint.py: the same operations on
+    tensors, so gradients flow through the RCR values, and bit for bit
+    the static route's values."""
+    if torch.is_tensor(wk):
+        rp, cap, rd = wk[0], wk[1], wk[2]
+        one = torch.ones((), dtype=torch.float32, device=q.device)
+        denom = one + one / (rd * cap)
+        p_new = (p_c + q / cap) / denom
+        return p_new, q * rp + p_new
     rp, cap, rd = (_F32(v) for v in wk)
     denom = _F32(1.0) + _F32(1.0) / (rd * cap)
     p_new = (p_c + q / _c(cap, q)) / _c(denom, q)
@@ -205,7 +231,10 @@ def windkessel_flux(u_axis, bc: CompiledBC):
 def apply_bc_fixup(pulled, f_src, bc: CompiledBC, t: int, force=None,
                    wk_p=None, rho_star=None):
     """Overwrite the pulled populations on one NEE boundary's consumer
-    plane, in place, at absolute step t. Reads the pre-step f_src of the
+    plane, in place, at absolute step t. pulled: the (19, X, Y, Z) tensor
+    or a list of its 19 directions (pulled_state's, whose directions are
+    tensors of their own: a write into one is one direction's under
+    autograd, not the whole state's). Reads the pre-step f_src of the
     plane's own cells; u_prev carries the same F/2 shift as the
     collide's u.
 
@@ -234,7 +263,8 @@ def apply_bc_fixup(pulled, f_src, bc: CompiledBC, t: int, force=None,
         rho_star = rho_prev[None]
     else:
         rho_star = bc.rho_fixed
-    src_dirs = src_pl[list(bc.dirs)]
+    src_rows = src_pl.unbind(0)
+    src_dirs = torch.stack([src_rows[i] for i in bc.dirs])
     val = rho_star * phi_star + (src_dirs - feq_nbr) * bc.omega
     for d, i in enumerate(bc.dirs):
         plane = pulled[i].select(bc.axis, bc.consumer_coord)
@@ -250,10 +280,15 @@ def halo_mask_ext(mask, axis: int, mask_lo, mask_hi):
 
 
 def _streamed_case(cc: CompiledCase, f, halo=None):
+    """The case's pull: the stacked (19, X, Y, Z) tensor with Bouzidi links,
+    else the list of 19 directions (the plane rewrites then write into
+    each direction's own tensor, and pulled_state stacks them last)."""
     bb = (None if cc.wall_velocity is None
           else moving_bb_terms(cc.wall_velocity))
-    return streamed(f, cc.nbr_wall, cc.nbr_moving, bb,
-                    None if halo is None else halo[:3], cc.bouzidi)
+    halo = None if halo is None else halo[:3]
+    if cc.bouzidi is not None:
+        return streamed(f, cc.nbr_wall, cc.nbr_moving, bb, halo, cc.bouzidi)
+    return _streamed_list(f, cc.nbr_wall, cc.nbr_moving, bb, halo)
 
 
 def pulled_state(cc: CompiledCase, f, t: int, bcs=None, halo=None,
@@ -275,7 +310,7 @@ def pulled_state(cc: CompiledCase, f, t: int, bcs=None, halo=None,
                                  "pulled_state_wk with the carried state")
             rho = rho_wk[bc.wk_index]
         pulled = apply_bc_fixup(pulled, f, bc, t, cc.force, rho_star=rho)
-    return pulled
+    return pulled if torch.is_tensor(pulled) else torch.stack(pulled)
 
 
 def windkessel_fluxes(cc: CompiledCase, f):
@@ -294,13 +329,16 @@ def windkessel_fluxes(cc: CompiledCase, f):
 
 
 def pulled_state_wk(cc: CompiledCase, f, t: int, wk, halo=None,
-                    reduce=None):
+                    reduce=None, theta=None):
     """pulled_state of a case with windkessel outlets: wk is the (n_wk,)
     fp32 carried P_c (compile.wk_init's order); returns (pulled, wk')
     with every boundary applied in boundary order, as lbm_tpu's (each
     outlet's rho* from its Q of the pre-step state). halo: a shard's, as
     in pulled_state; reduce: what turns the (n_wk,) flux partials into
-    the whole footprints' sums (a mesh's add_in_rank_order)."""
+    the whole footprints' sums (a mesh's add_in_rank_order). theta: None,
+    or an (n_wk, 3) fp32 tensor of (Rp, C, Rd) rows in place of the
+    boundaries' static triples (engine/adjoint.py's differentiable
+    route)."""
     q = windkessel_fluxes(cc, f)
     if reduce is not None:
         q = reduce(q)
@@ -308,7 +346,8 @@ def pulled_state_wk(cc: CompiledCase, f, t: int, wk, halo=None,
     for bc in cc.bcs:
         if bc.windkessel is not None:
             k = bc.wk_index
-            p_new, p_in = windkessel_update(wk[k], q[k], bc.windkessel)
+            p_new, p_in = windkessel_update(
+                wk[k], q[k], bc.windkessel if theta is None else theta[k])
             rho.append(windkessel_rho(bc, p_in))
             wk_new.append(p_new)
     return (pulled_state(cc, f, t, halo=halo, rho_wk=torch.stack(rho)),
@@ -374,8 +413,9 @@ def collide(pulled, f_eq, tau: float, tau_minus: Optional[float] = None,
         return pulled - _matvec(mrt_k, pulled - f_eq)
     if tau_minus is None:
         return pulled - (pulled - f_eq) / _c(_F32(tau), pulled)
-    s = (pulled + pulled[_OPP_IDX]) - (f_eq + f_eq[_OPP_IDX])
-    d = (pulled - pulled[_OPP_IDX]) - (f_eq - f_eq[_OPP_IDX])
+    p_o, e_o = _opposite(pulled), _opposite(f_eq)
+    s = (pulled + p_o) - (f_eq + e_o)
+    d = (pulled - p_o) - (f_eq - e_o)
     return (pulled - s / _c(2 * _F32(tau), pulled)
             - d / _c(_F32(2.0 * tau_minus), pulled))
 
@@ -471,8 +511,9 @@ def post_collision(cc: CompiledCase, pulled, f_eq, rho, u, force=_UNSET):
             f_post = pulled - fneq / te[None]
         else:
             te_m = closure_tau_minus(te, cc.tau, cc.tau_minus)
-            s = fneq + fneq[_OPP_IDX]
-            d = fneq - fneq[_OPP_IDX]
+            fneq_o = _opposite(fneq)
+            s = fneq + fneq_o
+            d = fneq - fneq_o
             f_post = pulled - s / (2.0 * te[None]) - d / (2.0 * te_m[None])
         if force is not None:
             f_post = f_post + guo_source(u, force, cc.tau, tau_local=te,

@@ -763,7 +763,7 @@ def collide_stream(f, out, cc: CompiledCase, series, slot: int, t: int,
         if all_blocks:
             raise ValueError("a case with windkessel outlets launches over "
                              "its fluid-cell list, the outlets' footprint "
-                             "cells last (compile.fold_cell_ids)")
+                             "cells first (compile.fold_cell_ids)")
         _check_wk(wk, cc)
         stage = wk_stage(cc)
         if prime or stage.of != _state_key(f):

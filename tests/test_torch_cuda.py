@@ -1279,3 +1279,129 @@ def test_live_cell_wss_route_matches_the_dense_route(device, monkeypatch):
     acc.sample_sim(sim)
     torch.testing.assert_close(acc.tawss_field(), dense, rtol=1e-6,
                                atol=1e-12)
+
+
+def _periodic_box(shape, tau=1.0, force=None):
+    import numpy as np
+
+    from lbm_tpu_torch.core.units import UnitSystem
+    from lbm_tpu_torch.engine.spec import CaseSpec
+    from lbm_tpu_torch.geometry.mask import CellType
+
+    return CaseSpec(name="box", shape=shape, tau=tau,
+                    units=UnitSystem(CH=1.0, C_U=1.0, C_rho=1.0),
+                    mask=np.full(shape, int(CellType.FLUID), np.int32),
+                    boundaries=[], force=force)
+
+
+def test_adjoint_gradient_on_the_card_matches_the_cpu(device):
+    """d P_c(final) / d log Rd through a 60-step rollout of poiseuille n=12
+    with a windkessel outlet, on the card against the CPU port: value and
+    gradient at rtol 1e-4 (the card's sums and divisions round apart from
+    the CPU's in the last bits, over 60 steps and their adjoint)."""
+    from lbm_tpu_torch.engine import adjoint
+
+    spec = get_case("poiseuille", n=12, windkessel=(5e-4, 24000.0, 2.5e-3))
+    out = []
+    for dev in (device, torch.device("cpu")):
+        cc = compile_case(spec, dev)
+        base = torch.from_numpy(adjoint.wk_params(cc)).to(dev)
+        x = torch.log(base[0, 2]).requires_grad_(True)
+        theta = torch.cat([base[:, :2], torch.exp(x).reshape(1, 1)], 1)
+        loss = adjoint.rollout(cc, theta, 60, remat_chunk=20)[1][0]
+        (g,) = torch.autograd.grad(loss, x)
+        out.append((float(loss), float(g)))
+    (lc, gc), (lp, gp) = out
+    assert gp != 0.0
+    assert abs(lc - lp) <= 1e-4 * abs(lp) and abs(gc - gp) <= 1e-4 * abs(gp)
+
+
+@pytest.mark.parametrize("name", ["ShanChen", "BinaryFluid", "IBMFlow"])
+def test_multiphase_and_ibm_steps_on_the_card_match_the_cpu(device, name):
+    """One eager step and 20 CUDA-graph steps (IBMFlow: 20 eager) on the
+    card against the CPU from the same seeded state: rtol 1e-5 / atol 1e-7
+    (exp rounds apart on the card; IBM's index_add_ adds in no fixed order
+    there)."""
+    import numpy as np
+
+    from lbm_tpu_torch.engine.binary import BinaryFluid
+    from lbm_tpu_torch.engine.ibm import IBMFlow, marker_plane
+    from lbm_tpu_torch.engine.multiphase import ShanChen
+
+    shape = (16, 12, 20)
+    rng = np.random.default_rng(5)
+    noise = rng.standard_normal(shape).astype(np.float32)
+
+    def make(dev):
+        if name == "ShanChen":
+            return ShanChen(_periodic_box(shape), G=-5.0,
+                            rho_init=np.log(2.0) * (1 + 0.01 * noise),
+                            device=dev)
+        if name == "BinaryFluid":
+            return BinaryFluid(_periodic_box(shape, tau=0.8), A=0.002,
+                               kappa=0.008, phi_init=np.tanh(noise),
+                               device=dev)
+        plates = np.concatenate([marker_plane(3.0, 2, shape),
+                                 marker_plane(15.5, 2, shape)])
+        return IBMFlow(_periodic_box(shape, force=(1e-5, 0.0, 0.0)), plates,
+                       device=dev)
+
+    card, cpu = make(device), make("cpu")
+    for n in (1, 20):
+        card.run(n)
+        cpu.run(n)
+        torch.testing.assert_close(card.f.cpu(), cpu.f, rtol=1e-5, atol=1e-7)
+        if name == "BinaryFluid":
+            torch.testing.assert_close(card.g.cpu(), cpu.g, rtol=1e-5,
+                                       atol=1e-7)
+
+
+@pytest.mark.parametrize("name", ["ShanChen", "BinaryFluid"])
+def test_step_graph_replays_the_eager_step(device, name):
+    """engine/graph.StepGraph: 30 graph replays equal 30 eager steps bit
+    for bit (the same kernels in the same order)."""
+    import numpy as np
+
+    from lbm_tpu_torch.engine.binary import BinaryFluid
+    from lbm_tpu_torch.engine.multiphase import ShanChen
+
+    shape = (20, 16, 12)
+    noise = np.random.default_rng(9).standard_normal(shape).astype(np.float32)
+    runs = []
+    for graph in (False, True):
+        if name == "ShanChen":
+            obj = ShanChen(_periodic_box(shape), G=-5.0,
+                           rho_init=np.log(2.0) * (1 + 0.01 * noise),
+                           device=device, graph=graph)
+        else:
+            obj = BinaryFluid(_periodic_box(shape, tau=0.8), A=0.002,
+                              kappa=0.008, phi_init=np.tanh(noise),
+                              device=device, graph=graph)
+        obj.run(10)
+        obj.run(20)
+        runs.append(obj)
+    assert runs[0].t == runs[1].t == 30
+    assert torch.equal(runs[0].f, runs[1].f)
+    if name == "BinaryFluid":
+        assert torch.equal(runs[0].g, runs[1].g)
+
+
+def test_adjoint_graph_route_equals_the_eager_route(device):
+    """engine/adjoint.rollout on the card: the CUDA-graph route's 60-step
+    state equals the eager route's bit for bit, and its d P_c / d log Rd
+    (a chunk's graphed backward) the eager autograd's at rtol 1e-6."""
+    from lbm_tpu_torch.engine import adjoint
+
+    cc = compile_case(get_case("poiseuille", n=12,
+                               windkessel=(5e-4, 24000.0, 2.5e-3)), device)
+    out = []
+    for graph in (False, None):
+        base = torch.from_numpy(adjoint.wk_params(cc)).to(device)
+        x = torch.log(base[0, 2]).requires_grad_(True)
+        theta = torch.cat([base[:, :2], torch.exp(x).reshape(1, 1)], 1)
+        f, wk = adjoint.rollout(cc, theta, 60, remat_chunk=20, graph=graph)
+        (g,) = torch.autograd.grad(wk[0], x)
+        out.append((f.detach(), wk.detach(), float(g)))
+    (fe, wke, ge), (fg, wkg, gg) = out
+    assert torch.equal(fe, fg) and torch.equal(wke, wkg)
+    assert ge != 0.0 and abs(gg - ge) <= 1e-6 * abs(ge)

@@ -546,3 +546,23 @@ def test_windkessel_plane_meeting_another_boundary_is_refused():
                                  window=(0, 48, 0, 24))
     with pytest.raises(ValueError, match="boundary 0 rewrites cells inside"):
         check_z_windows(bcs, cc.shape)
+
+
+def test_fold_refuses_all_blocks_naming_the_footprint_first():
+    """A case with windkessel outlets launches the fold over its fluid-cell
+    list, whose head is the outlets' footprint cells (compile.
+    fold_cell_ids): the refusal of all_blocks says so."""
+    cc = compile_case(get_case("coronary", **COR))
+    f = initial_f(cc)
+    wk = torch.from_numpy(wk_init(cc.bcs))
+    series = torch.zeros(1, dtype=torch.float64)
+    with pytest.raises(ValueError, match=(
+            "launches over its fluid-cell list, the outlets' footprint "
+            "cells first \\(compile.fold_cell_ids\\)")):
+        K.collide_stream(f, f.clone(), cc, series, 0, 0, all_blocks=True,
+                         wk=wk)
+    head = np.concatenate([wk_footprint(bc, cc.shape)[0] for bc in cc.bcs
+                           if bc.windkessel is not None])
+    fluid = np.asarray(cc.spec.mask).reshape(-1) == CellType.FLUID
+    head = head[fluid[head]]
+    np.testing.assert_array_equal(cc.fluid_cells[:len(head)].numpy(), head)
