@@ -347,7 +347,37 @@ there, so their graph captures come before the build's library loads:
      two-sweep no-slip defect below 0.6 of the one-sweep one, ms/step and
      peak device memory. Its results are printed as one JSON object
      {"phase21": ...}.
-The CLI's runs (phases 8, 12 and 19) call lbm_tpu_torch.cli.main in this
+The geometry pipeline and the bifurcation case (geometry/native.py,
+preprocess.py, reconstruct.py, cases/bifurcation.py, tools/
+l0l7_bifurcation.py), on synthetic inputs made from a seed (a Y
+bifurcation in the case's 64 x 83 x 32 box, a surface reconstructed from
+4000 points sampled on it (rasterized at 3/4 of the box's resolution),
+an inlet parabola of peak 0.05 in bc.txt's layout; the reference's
+bif.stl, geo.txt and bc.txt are not in the repository), after phase 12:
+ 22. (a) the port's lbm_geo library built with g++ (its seconds), the
+     synthetic inputs, smooth_mesh (inverse-distance, 8 iterations, and
+     curvature, 1) on the surface's blocky mesh against the NumPy plain
+     version at 1e-9, voxelize_mesh of the surface at spacing 1 against
+     the NumPy parity cast (the cells that differ counted, at most 0.1%),
+     and those voxels, their open ends extruded and labeled, leave a
+     fluid path from the inlet to the outlet;
+     (b) the bifurcation case on the kernel route, the list K1
+     (lbm_collide_stream_list[bgk]: a field inlet with rho extrapolated
+     at y = 1, rho* = 1 with u extrapolated at y = 81), against
+     step_plain for 200 steps (phase 3's contract: f at rtol 3e-6 / atol
+     1e-7, velsum at 1e-5 relative), then K1 alone and K3, counters reset
+     just before and read just after; (c) the L0->L7 chain through
+     tools/l0l7_bifurcation.l0l7: the surface voxelized back at spacing 1,
+     its open ends extruded, then 4400 steps on it and on the synthetic
+     geo.txt, counters reset just before and read just after (the list K1
+     8800 times, K3 at least twice), both runs finite with max|u| within
+     3x the inlet peak, their midplanes at z = 16 correlated at 0.9 or
+     more; the residual, ms/step, MLUPS, compare_midplane's stats and
+     the 3D common-fluid |du|max/|u|max printed; (d)
+     `run --case bifurcation --opt geo_path=... bc_path=... --steps 400
+     --snapshots` writes VTK, CONVERGENCE.log and the snapshots. Its
+     results are printed as one JSON object {"phase22": ...}.
+The CLI's runs (phases 8, 12, 19 and 22) call lbm_tpu_torch.cli.main in this
 process, as `python -m lbm_tpu_torch` does (cli_run), but for run
 --shard, which spawns its ranks. Each phase's seconds are printed
 ("[t] phase ... took ... s").
@@ -360,7 +390,11 @@ runs phase 17 alone on every card of the machine (two or more), and
 
     python3 chip_smoke.py --phase21
 
-phase 21 alone on one card.
+phase 21 alone on one card, and
+
+    python3 chip_smoke.py --phase22
+
+phase 22 alone on one card.
 """
 
 from __future__ import annotations
@@ -1881,14 +1915,22 @@ def profile_steps(run, steps):
     sees no device activity. A window in which the tracer lost launches
     (no kernel seen 0.95 times a step or more, where each of these runs
     launches one at least once a step) is measured again, up to twice;
-    every window's reading is printed and the fullest is returned."""
+    every window's reading is printed and the fullest is returned. A
+    window whose filler kernels (FILLER) came back short prints what the
+    tracer dropped from them."""
     windows = []
     for _ in range(3):
-        by_name, busy = _profile_window(run, steps)
+        by_name, busy, fill = _profile_window(run, steps)
         seen = max((v[1] for v in by_name.values()), default=0.0)
-        windows.append((by_name, busy, seen))
+        windows.append((by_name, busy, seen, fill))
         if seen >= 0.95:
             break
+    for w in windows:
+        if w[3] != (FILLER, FILLER):
+            print(f"[profile] the tracer dropped filler kernels: "
+                  f"{w[3][0]} of {FILLER} seen before the run, {w[3][1]} "
+                  f"of {FILLER} after it; the run's busiest kernel "
+                  f"{w[2]:.3f} launches a step", flush=True)
     if len(windows) > 1:
         print("[profile] the tracer lost launches: launches a step of the "
               "busiest kernel, device ms a step, in each of the "
@@ -1899,8 +1941,18 @@ def profile_steps(run, steps):
     return best[0], best[1]
 
 
+# spin kernels (torch.cuda._sleep) launched inside the recorded cycle on
+# either side of the run, to take in the run's place the kernel records
+# the tracer drops at a window's edge (probes/tracer_age.py: the first 16
+# records after profile() opened, 0.2 s idle before them; in this
+# script's long process, behind 20 warm-up launches, 0.92-0.95 of a
+# path's launches were seen); they stay out of the table
+FILLER = 256
+
+
 def _profile_window(run, steps):
-    """One profiler window over run(): profile_steps' table."""
+    """One profiler window over run(): profile_steps' table, and the
+    filler kernels seen before and after the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1912,36 +1964,50 @@ def _profile_window(run, steps):
     # in a later one); the window closes 0.1 s after the last kernel ended,
     # in case the tracer drops kernels whose device timestamps fall past
     # the window's end (probes/tracer_window.py tests which end loses
-    # them)
+    # them); FILLER spin kernels on either side of the run
     cycles = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                 on_trace_ready=lambda p: cycles.append(p.key_averages())
-                 ) as prof:
+                 on_trace_ready=lambda p: cycles.append(
+                     (p.key_averages(), p.events()))) as prof:
         warm = torch.zeros(1, device="cuda")
-        for _ in range(20):
+        for _ in range(FILLER):
             warm.add_(1.0)
         torch.cuda.synchronize()
         time.sleep(0.2)
         prof.step()
         time.sleep(0.1)
+        for _ in range(FILLER):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        for _ in range(FILLER):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
         time.sleep(0.1)
         prof.step()
     by_name, busy_ms = {}, 0.0
-    for ev in cycles[0] if cycles else ():
+    table, events = cycles[0] if cycles else ((), ())
+    for ev in table:
         if not str(ev.device_type).endswith("CUDA"):
             continue  # host-side events; their kernels are listed apart
-        if ev.key.startswith("ProfilerStep"):
-            continue  # the schedule's step annotation spans the kernels
+        if ev.key.startswith("ProfilerStep") or "spin_kernel" in ev.key:
+            continue  # the schedule's step annotation; the fillers
         dev_ms = getattr(ev, "device_time_total", 0.0) / 1e3
         if dev_ms > 0:
             by_name[ev.key] = (dev_ms / steps, ev.count / steps)
             busy_ms += dev_ms
-    return by_name, busy_ms / wall_ms
+    # the fillers before and after the run, split at its first kernel
+    starts = [(("spin_kernel" in ev.name), ev.time_range.start)
+              for ev in events if str(ev.device_type).endswith("CUDA")
+              and not ev.name.startswith("ProfilerStep")]
+    first = min((t for spin, t in starts if not spin), default=float("inf"))
+    before = sum(1 for spin, t in starts if spin and t < first)
+    after = sum(1 for spin, t in starts if spin and t > first)
+    return by_name, busy_ms / wall_ms, (before, after)
 
 
 def print_profile(tag, by_name, busy, ms):
@@ -5175,6 +5241,312 @@ def phase21_during_build(device) -> dict:
             "21a": adjoint_during_build(device)}
 
 
+# -- phase 22: the geometry pipeline and the bifurcation case -------------
+# The reference's bif.stl, geo.txt and bc.txt are not in the repository,
+# so phase 22 (and the port's tests, which import these helpers) runs the
+# case and the L0->L7 loop on synthetic inputs made from a seed: a Y
+# bifurcation in the case's 64 x 83 x 32 box, a surface reconstructed from
+# points sampled on it, and an inlet profile in bc.txt's layout.
+BIF_SHAPE = (64, 83, 32)
+BIF_SEED = 22
+BIF_POINTS = 4000
+BIF_INLET_PEAK = 0.05        # lattice units, the parabola's peak at y = 1
+BIF_STEPS = 4400             # the reference's fixed run (l0l7's default)
+# the grid reconstruct_surface rasterizes the cloud on: 3/4 of the box's
+# own, so that each slice's ring of samples closes after one dilation at
+# the fork too, where the union's surface is sparsest in y (on the box's
+# own grid the fork's slices stay hollow, and the lumen is cut there)
+BIF_SURFACE_GRID = (48, 64, 24)
+BIF_CHECK_STEPS = SMALL_STEPS
+
+
+def bif_capsules() -> list:
+    """The synthetic Y bifurcation's tubes as (start, end, radius) in cell
+    coordinates: the parent along y from y = 0 to 40 (radius 9, centred at
+    x = 32, z = 16), and two daughters leaving its end at +-25 degrees in
+    the x-y plane (radius 6.5) up to y = 82."""
+    import numpy as np
+
+    fork = (32.0, 40.0, 16.0)
+    reach = 42.0 * np.tan(np.radians(25.0))
+    return [((32.0, 0.0, 16.0), fork, 9.0)] + [
+        (fork, (32.0 + s * reach, 82.0, 16.0), 6.5) for s in (-1, 1)]
+
+
+def _segment_distance(p, a, b):
+    """Distance of the points p (..., 3) from the segment a-b."""
+    import numpy as np
+
+    a, b = np.asarray(a), np.asarray(b)
+    d = b - a
+    t = np.clip(((p - a) @ d) / (d @ d), 0.0, 1.0)
+    return np.linalg.norm(p - (a + t[..., None] * d), axis=-1)
+
+
+def bif_occupancy():
+    """The union of the capsules at the cell centres (integer coordinates)
+    with the box's outer ring cleared, as stl_to_occupancy leaves it:
+    (64, 83, 32) int32, the synthetic "shipped" geo.txt."""
+    import numpy as np
+
+    grid = np.stack(np.meshgrid(*[np.arange(n, dtype=np.float64)
+                                  for n in BIF_SHAPE], indexing="ij"), -1)
+    occ = np.zeros(BIF_SHAPE, bool)
+    for a, b, r in bif_capsules():
+        occ |= _segment_distance(grid, a, b) <= r
+    occ[[0, -1]] = occ[:, [0, -1]] = occ[:, :, [0, -1]] = False
+    return occ.astype(np.int32)
+
+
+def bif_cloud(seed: int = BIF_SEED, n: int = BIF_POINTS):
+    """n points on the bifurcation's surface: each capsule's wall and its
+    two hemispherical ends where no other capsule holds them, within 0 <=
+    y <= 82 (the tubes stay open at the box's ends), jittered by 1e-3:
+    (n, 3)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    caps = bif_capsules()
+    pts = []
+    for i, (a, b, r) in enumerate(caps):
+        a, b = np.asarray(a), np.asarray(b)
+        length = np.linalg.norm(b - a)
+        axis = (b - a) / length
+        e1 = np.cross(axis, [0.0, 0.0, 1.0])
+        e1 /= np.linalg.norm(e1)
+        e2 = np.cross(axis, e1)
+        m = int(2.0 * n * r * length / 1000.0)
+        t, th = rng.uniform(0, 1, m), rng.uniform(0, 2 * np.pi, m)
+        side = (a + t[:, None] * (b - a) + r * (np.cos(th)[:, None] * e1
+                                                + np.sin(th)[:, None] * e2))
+        ends = []
+        for end, out in ((a, -axis), (b, axis)):
+            d = rng.standard_normal((int(2.0 * n * r * r / 1000.0), 3))
+            d /= np.linalg.norm(d, axis=1, keepdims=True)
+            ends.append(end + r * d[d @ out > 0])
+        p = np.concatenate([side] + ends)
+        keep = (p[:, 1] >= 0) & (p[:, 1] <= 82)
+        for j, (a2, b2, r2) in enumerate(caps):
+            if j != i:
+                keep &= _segment_distance(p, a2, b2) > r2
+        pts.append(p[keep])
+    pts = np.concatenate(pts)
+    pts = pts[rng.choice(len(pts), n, replace=False)]
+    return pts + 1e-3 * rng.standard_normal(pts.shape)
+
+
+def bif_open(mask) -> bool:
+    """Whether a bifurcation mask's inlet cells reach its outlet cells
+    through its fluid cells (6-connected)."""
+    import numpy as np
+    import scipy.ndimage as ndi
+
+    mask = np.asarray(mask)
+    lab, _ = ndi.label(np.isin(mask, (2, 3, 4)))
+    return bool((set(np.unique(lab[mask == 2]))
+                 & set(np.unique(lab[mask == 3]))) - {0})
+
+
+def write_binary_stl(path: str, verts, faces) -> None:
+    """A binary STL of the triangles verts[faces] (float32, their normals
+    from the corners' order)."""
+    import numpy as np
+
+    tri = np.asarray(verts, np.float64)[np.asarray(faces)]
+    n = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    n /= np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-30)
+    rec = np.zeros(len(tri), np.dtype([("v", "<f4", (12,)), ("a", "<u2")]))
+    rec["v"] = np.concatenate([n, tri.reshape(-1, 9)], axis=1)
+    with open(path, "wb") as fh:
+        fh.write(b"synthetic bifurcation".ljust(80, b" "))
+        fh.write(np.uint32(len(tri)).tobytes())
+        fh.write(rec.tobytes())
+
+
+def bif_bc_slabs():
+    """bc.txt's two (nx, nz) slabs: slab 0 all zeros (the shipped file's
+    quirk), slab 1 a parabola of peak BIF_INLET_PEAK over the parent
+    tube's cross-section at y = 1."""
+    import numpy as np
+
+    nx, _, nz = BIF_SHAPE
+    (cx, _, cz), _, r = bif_capsules()[0]
+    x, z = np.meshgrid(np.arange(nx), np.arange(nz), indexing="ij")
+    r2 = ((x - cx) ** 2 + (z - cz) ** 2) / r ** 2
+    return np.stack([np.zeros((nx, nz)),
+                     np.where(r2 < 1, BIF_INLET_PEAK * (1 - r2), 0.0)])
+
+
+def bifurcation_inputs(out_dir: str, seed: int = BIF_SEED,
+                       surface: bool = True) -> dict:
+    """Write the synthetic geo.txt (bif_occupancy, save_geo's xyz order),
+    bc.txt (bif_bc_slabs in load_bc's layout) and, with `surface`, bif.stl
+    (reconstruct_surface of bif_cloud on BIF_SURFACE_GRID, a binary STL
+    in cell units: l0l7 voxelizes it back at spacing 1) into out_dir:
+    {"geo", "bc", "stl": paths, "surface_s": seconds of the surface}."""
+    import numpy as np
+
+    from lbm_tpu_torch.geometry.io import save_geo
+    from lbm_tpu_torch.geometry.reconstruct import reconstruct_surface
+
+    paths = {k: os.path.join(out_dir, n) for k, n in (
+        ("geo", "geo.txt"), ("bc", "bc.txt"), ("stl", "bif.stl"))}
+    save_geo(paths["geo"], bif_occupancy(), order="xyz")
+    with open(paths["bc"], "w") as fh:
+        fh.write(" ".join(f"{v:.9g}" for s in bif_bc_slabs()
+                          for v in s.T.ravel()))
+    paths["surface_s"] = 0.0
+    if surface:
+        t0 = time.perf_counter()
+        verts, faces = reconstruct_surface(bif_cloud(seed),
+                                           BIF_SURFACE_GRID)
+        write_binary_stl(paths["stl"], verts, faces)
+        paths["surface_s"] = time.perf_counter() - t0
+        paths["stl_triangles"] = int(len(faces))
+    return paths
+
+
+def bifurcation_path(device) -> dict:
+    """Phase 22: (a) the port's lbm_geo build (g++) and its seconds, the
+    synthetic inputs, smooth_mesh (both modes) and voxelize_mesh on the
+    native library against their NumPy plain versions; (b) the bifurcation
+    case on the kernel route (the list K1: a y-plane field inlet with rho
+    extrapolated, a y-plane rho* = 1 outlet with u extrapolated) against
+    step_plain for BIF_CHECK_STEPS steps, then K3, counters reset just
+    before and read just after; (c) the L0->L7 chain through
+    tools/l0l7_bifurcation.l0l7, BIF_STEPS steps on each geometry, its
+    counters reset just before and read just after; (d) `run --case
+    bifurcation --snapshots` through the CLI in this process."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.cases import get_case
+    from lbm_tpu_torch.cases.bifurcation import build_labels
+    from lbm_tpu_torch.engine.compile import compile_case
+    from lbm_tpu_torch.geometry import native, preprocess, reconstruct
+    from lbm_tpu_torch.kernels import collide_stream as K
+    from lbm_tpu_torch.tools.l0l7_bifurcation import l0l7
+
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+    lib = native.load()
+    out["gxx"] = {"built": lib.built, "build_s": lib.build_seconds,
+                  "cmd": " ".join((native.compiler(),) + native.CXX_FLAGS)}
+    print(f"[22a] lbm_geo {'built' if lib.built else 'found'} at "
+          f"{os.path.relpath(lib.path, ROOT)} in {lib.build_seconds:.2f} s "
+          f"({out['gxx']['cmd']})", flush=True)
+    tmp = tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_")
+    files = bifurcation_inputs(tmp.name)
+    out["surface_s"] = files["surface_s"]
+    # the blocky mesh reconstruct_surface smooths, and the surface's voxels
+    occ, origin, spacing = reconstruct.cloud_to_occupancy(
+        bif_cloud(), BIF_SURFACE_GRID)
+    verts, faces = reconstruct.voxel_boundary_mesh(occ, origin, spacing)
+    smooth = {}
+    for mode, iters in (("inversedistance", 8), ("curvature", 1)):
+        a = native.smooth_mesh(verts, faces, iters, mode)
+        b = native.smooth_mesh(verts, faces, iters, mode, native=False)
+        smooth[mode] = float(np.abs(a - b).max())
+        require(smooth[mode] <= 1e-9, f"smooth_mesh {mode}: native and "
+                f"NumPy differ by {smooth[mode]:.3e} > 1e-9")
+    tris = native.load_stl(files["stl"])
+    vox = native.voxelize_mesh(tris, BIF_SHAPE, spacing=1.0)
+    vox_np = native.voxelize_mesh(tris, BIF_SHAPE, spacing=1.0, native=False)
+    n_diff = int((vox != vox_np).sum())
+    require(n_diff <= 1e-3 * vox.size, f"voxelize_mesh: {n_diff} of "
+            f"{vox.size} cells differ between native and NumPy")
+    self_flag = preprocess.extrude_open_ends(
+        preprocess.stl_to_occupancy(files["stl"], BIF_SHAPE, spacing=1.0),
+        axis=1)
+    require(bif_open(build_labels(self_flag)), "the surface voxelized back "
+            "at spacing 1 leaves no fluid path from inlet to outlet")
+    out.update(smooth_max_abs_err=smooth, voxels_differing=n_diff,
+               voxels=int(vox.sum()), triangles=files["stl_triangles"])
+    seconds["a"] = time.perf_counter() - t0
+    print(f"[22a] synthetic inputs: a Y bifurcation {BIF_SHAPE}, occupancy "
+          f"{bif_occupancy().mean():.4f}; its surface from {BIF_POINTS} "
+          f"points (seed {BIF_SEED}) by reconstruct_surface in "
+          f"{files['surface_s']:.2f} s, {files['stl_triangles']} "
+          f"triangles; native vs NumPy: smoothing max abs err "
+          f"{smooth}, voxels at spacing 1 differing {n_diff} of "
+          f"{vox.size} ({int(vox.sum())} occupied); {seconds['a']:.1f} s",
+          flush=True)
+
+    # (b) the case on the kernel route against step_plain, then K3
+    t1 = time.perf_counter()
+    spec = get_case("bifurcation", geo_path=files["geo"], bc_path=files["bc"])
+    errs = {"K1a": 0.0, "Kz": 0.0, "K3": 0.0}
+    K.reset_launches()
+    e = compare_case(("bifurcation", {}), BIF_CHECK_STEPS, device, errs,
+                     spec=spec, label=f"bifurcation {BIF_SHAPE} synthetic")
+    check_counts = dict(K.launches)
+    cc = compile_case(spec, device)
+    route = K.counter_name(cc)
+    require(route == "lbm_collide_stream_list[bgk]"
+            and check_counts.get(route, 0) >= BIF_CHECK_STEPS
+            and check_counts.get("lbm_macro", 0) >= 1,
+            f"bifurcation check launches {check_counts} (want {route} "
+            f"{BIF_CHECK_STEPS}+ and lbm_macro)")
+    out.update(check_max_abs_err=e, check_launches=check_counts,
+               fluid_cells=int(cc.fluid_cells.numel()))
+    del cc
+    seconds["b"] = time.perf_counter() - t1
+    print(f"[22b] bifurcation: {route} over {out['fluid_cells']} fluid "
+          f"cells, launches {check_counts}; {seconds['b']:.1f} s",
+          flush=True)
+
+    # (c) the L0->L7 chain, the slice's main path
+    t2 = time.perf_counter()
+    free_device()
+    K.reset_launches()
+    chain = l0l7(files["stl"], files["geo"], files["bc"], steps=BIF_STEPS,
+                 spacing=1.0, device=device, backend="kernel",
+                 log=lambda s: print(f"[22c] {s}", flush=True))
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    require(counts.get(route, 0) == 2 * BIF_STEPS
+            and counts.get("lbm_macro", 0) >= 2,
+            f"L0->L7 launches {counts} (want {route} {2 * BIF_STEPS} and "
+            "lbm_macro at least twice)")
+    for tag in ("shipped-geo", "self-voxelized"):
+        run = chain[tag]
+        require(run["finite"] and run["u_max"] <= 3 * run["inlet_peak"]
+                and run["steps"] == BIF_STEPS,
+                f"L0->L7 {tag}: {run} (want {BIF_STEPS} steps, finite, "
+                "max|u| within 3x the inlet peak)")
+    # the two geometries' developed flows agree where both are fluid (a
+    # CPU run of the same chain: l2_rel 0.174, corr 0.979): a surface
+    # that cut the lumen, or a run that lost the inlet, shows here
+    stats = chain["compare_midplane"]
+    require(stats["corr"] >= 0.9, f"L0->L7 midplanes: {stats} (want the "
+            "correlation of the two runs' midplanes at least 0.9)")
+    out.update(path=chain, launches=counts)
+    seconds["c"] = time.perf_counter() - t2
+    print(f"[22c] L0->L7 chain: launches {counts}; {seconds['c']:.1f} s",
+          flush=True)
+
+    # (d) the CLI
+    t3 = time.perf_counter()
+    cdir = os.path.join(tmp.name, "cli")
+    proc = cli_run(["run", "--case", "bifurcation", "--opt",
+                    f"geo_path={files['geo']}", f"bc_path={files['bc']}",
+                    "--steps", "400", "--time-save", "200", "--snapshots",
+                    "--out", cdir])
+    require(proc.returncode == 0, f"CLI run --case bifurcation failed "
+            f"({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    names = sorted(os.listdir(cdir))
+    require({"meas1.txt", "s1_out.txt", "vel.csv", "CONVERGENCE.log"}
+            <= set(names) and any(n.endswith(".vtk") for n in names),
+            f"CLI run --case bifurcation wrote {names}")
+    seconds["d"] = time.perf_counter() - t3
+    print(f"[22d] CLI run --case bifurcation --snapshots wrote {names}; "
+          f"{total_line(proc.stdout)}; {seconds['d']:.1f} s", flush=True)
+    tmp.cleanup()
+    out["seconds"] = seconds
+    mark("22")
+    return out
+
+
 def phase21_main() -> int:
     """`chip_smoke.py --phase21`: phase 21 alone on one card (the card's
     name and power limit first), 21a's kernel run building what it
@@ -5193,6 +5565,26 @@ def phase21_main() -> int:
     res["21a"].update(adjoint_verify(device, res["21a"].pop("theta")))
     print(json.dumps({"phase21": res}, default=float), flush=True)
     print(f"[done] phase 21 in {time.perf_counter() - T_START:.1f} s",
+          flush=True)
+    return 0
+
+
+def phase22_main() -> int:
+    """`chip_smoke.py --phase22`: phase 22 alone on one card (the card's
+    name and power limit first), its first kernel launch building the
+    kernels."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --phase22: no CUDA card", file=sys.stderr)
+        return 1
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip(), flush=True)
+    res = bifurcation_path(torch.device("cuda", 0))
+    print(json.dumps({"phase22": res}, default=float), flush=True)
+    print(f"[done] phase 22 in {time.perf_counter() - T_START:.1f} s",
           flush=True)
     return 0
 
@@ -5925,6 +6317,7 @@ def main() -> int:
     mark("8")
     nu32 = cli_transport_and_thermal()
     mark("12")
+    p22 = bifurcation_path(device)
 
     # -- phase 17: several cards over NCCL --------------------------------
     n_cards = torch.cuda.device_count()
@@ -5969,7 +6362,11 @@ def main() -> int:
              list_ptxas["collide_stream_list_kernel[bgk]"][1:3]),
          "blocks_per_sm": list_blocks["collide_stream_list_kernel[bgk]"],
          "vessel_path": vp, "coupled_washout_path": coupled_vp,
-         "phase19_launches": curved["straight"]["kernel_launches"]},
+         "phase19_launches": curved["straight"]["kernel_launches"],
+         "bifurcation_launches": p22["launches"][
+             "lbm_collide_stream_list[bgk]"],
+         "bifurcation_max_abs_err": p22["check_max_abs_err"]["k1a"],
+         "bifurcation_fluid_cells": p22["fluid_cells"]},
         {"name": "lbm_collide_stream_list[trt+cy]", "route": "cuda",
          "source": K1_LIST_SOURCE,
          "replaces": "lbm_tpu/kernels/collide_stream.py:1333 (K1b branches)",
@@ -6077,6 +6474,8 @@ def main() -> int:
          "force_shift_max_abs_err": k1b_errs["K3_force"],
          "force_launches": force_counts["lbm_macro[force]"],
          "lid256_launches": lid_counts["lbm_macro"],
+         "bifurcation_launches": p22["launches"]["lbm_macro"],
+         "bifurcation_max_abs_err": p22["check_max_abs_err"]["k3"],
          "lid256_ms": t256["k3"], "lid256_plain_ms": t256["k3_plain"],
          "lid256_bound_ms": bound_ms(256**3 * (19 * 4 + 4 * 4)),
          "lid256_library_ms": t256["k3_library"]},
@@ -6363,6 +6762,7 @@ def main() -> int:
           f"{time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"phase19": curved}), flush=True)
     print(json.dumps({"phase21": p21}, default=float), flush=True)
+    print(json.dumps({"phase22": p22}, default=float), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6372,4 +6772,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(nccl_main() if sys.argv[1:] == ["--nccl"] else
-             phase21_main() if sys.argv[1:] == ["--phase21"] else main())
+             phase21_main() if sys.argv[1:] == ["--phase21"] else
+             phase22_main() if sys.argv[1:] == ["--phase22"] else main())

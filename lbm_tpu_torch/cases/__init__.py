@@ -20,6 +20,7 @@ def register(name: str):
 def _load_all() -> None:
     # imported for their registration side effect, lazily to avoid cycles
     from lbm_tpu_torch.cases import (  # noqa: F401
+        bifurcation,
         coronary,
         curved_vessel,
         gravity_channel,

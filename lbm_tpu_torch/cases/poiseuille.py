@@ -86,3 +86,9 @@ def build(
         rheology=rheology,
         force=force,
     )
+
+
+def analytic_profile(n: int, u_max_phys: float = 0.15, C_U: float = 1.5441):
+    """The exact steady solution on the pipe cross-section (lattice
+    units)."""
+    return pipe_parabola(n, n, u_max_phys / C_U)

@@ -21,6 +21,8 @@
     python -m lbm_tpu_torch run --device cpu --case coronary --shard 2 \
         --opt shape=[48,32,40] radius=5
     python -m lbm_tpu_torch run --case pipe --backend dense
+    python -m lbm_tpu_torch run --case bifurcation --snapshots \
+        --opt geo_path=/path/geo.txt bc_path=/path/bc.txt
     python -m lbm_tpu_torch run --case coronary --opt curved=true \
         --backend sparse --snapshots --profile out/trace
     python -m lbm_tpu_torch list

@@ -40,6 +40,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from lbm_tpu_torch.core.lattice import D3Q19, _signed_sum
+
 _TE_LO = 0.5005     # default tau_eff clip: nu >= 1.67e-4 lattice units
 _TE_HI = 20.0       # ... and nu <= 6.5 (huge, but finite: plug cores)
 _ITERS = 8          # Picard iterations
@@ -222,5 +224,31 @@ def tau_eff_from_p(p, inv_rho, tau0: float, closure):
     return torch.clamp(te, float(k["lo"]), float(k["hi"]))
 
 
+def pi_norm(fneq):
+    """P = sqrt(2 Pi:Pi), Pi_ab = sum_i e_ia e_ib fneq_i: each Pi_ab a
+    signed sum in direction order, Pi:Pi = Pxx^2 + Pyy^2 + Pzz^2 +
+    2 (Pxy^2 + Pxz^2 + Pyz^2)."""
+    e = D3Q19.E
+
+    def pi(a, b):
+        return _signed_sum([fneq[i] for i in range(D3Q19.Q)],
+                           e[:, a] * e[:, b])
+
+    pxx, pyy, pzz = pi(0, 0), pi(1, 1), pi(2, 2)
+    pxy, pxz, pyz = pi(0, 1), pi(0, 2), pi(1, 2)
+    s = (pxx * pxx + pyy * pyy + pzz * pzz
+         + 2.0 * (pxy * pxy + pxz * pxz + pyz * pyz))
+    return torch.sqrt(2.0 * s)
+
+
+def tau_eff(fneq, rho, tau: float, closure):
+    """Per-cell tau_eff of a closure from the full (19, ...) pre-collision
+    f_neq and rho: P = sqrt(2 Pi:Pi), then tau_eff_from_p (the dense
+    path's form; subsumes engine/step.les_tau_eff, closure ('smag', cs))."""
+    safe = torch.where(rho == 0, torch.ones_like(rho), rho)
+    return tau_eff_from_p(pi_norm(fneq), torch.ones_like(rho) / safe,
+                          tau, closure)
+
+
 __all__ = ["normalize_closure", "nu_of_gamma", "tau_eff_from_p",
-           "closure_constants", "carreau_blood"]
+           "tau_eff", "pi_norm", "closure_constants", "carreau_blood"]

@@ -59,7 +59,7 @@ import torch
 
 from lbm_tpu_torch.core.bouzidi import apply_links
 from lbm_tpu_torch.core.lattice import D3Q19, _signed_sum, momentum, phi
-from lbm_tpu_torch.core.rheology import tau_eff_from_p
+from lbm_tpu_torch.core.rheology import pi_norm, tau_eff
 from lbm_tpu_torch.engine.compile import (
     CompiledBC,
     CompiledCase,
@@ -370,27 +370,10 @@ def _matvec(mat: np.ndarray, vecs):
     return torch.stack(out)
 
 
-def pi_norm(fneq):
-    """P = sqrt(2 Pi:Pi), Pi_ab = sum_i e_ia e_ib fneq_i: each Pi_ab a
-    signed sum in direction order, Pi:Pi = Pxx^2 + Pyy^2 + Pzz^2 +
-    2 (Pxy^2 + Pxz^2 + Pyz^2)."""
-    def pi(a, b):
-        return _signed_sum([fneq[i] for i in range(D3Q19.Q)],
-                           _E[:, a] * _E[:, b])
-
-    pxx, pyy, pzz = pi(0, 0), pi(1, 1), pi(2, 2)
-    pxy, pxz, pyz = pi(0, 1), pi(0, 2), pi(1, 2)
-    s = (pxx * pxx + pyy * pyy + pzz * pzz
-         + 2.0 * (pxy * pxy + pxz * pxz + pyz * pyz))
-    return torch.sqrt(2.0 * s)
-
-
-def tau_eff(fneq, rho, tau: float, closure):
-    """Per-cell tau_eff of a closure from the pre-collision f_neq and
-    rho."""
-    safe = torch.where(rho == 0, torch.ones_like(rho), rho)
-    return tau_eff_from_p(pi_norm(fneq), torch.ones_like(rho) / safe,
-                          tau, closure)
+def les_tau_eff(fneq, rho, tau: float, cs: float):
+    """Smagorinsky's per-cell tau_eff: closure ('smag', cs) of
+    core/rheology.tau_eff (lbm_tpu's back-compat wrapper)."""
+    return tau_eff(fneq, rho, tau, ("smag", float(cs)))
 
 
 def closure_tau_minus(te, tau: float, tau_minus: float):
@@ -560,6 +543,25 @@ def make_step(cc: CompiledCase) -> Callable:
     return step
 
 
+def make_first_step(cc: CompiledCase) -> Callable:
+    """The reference's literal FIRST step: every neighbour slot, wall and
+    NEE boundary alike, still holds its initial feq (the reference's
+    boundary pass has not run yet when its first update reads the freshly
+    initialized state), so fluid cells pull every direction directly:
+    plain rolls, no bounce-back or NEE rewrite. It differs from make_step
+    only where an initial velocity at a wall or boundary cell disagrees
+    with what the fused rewrites reproduce (Poiseuille's rim wall cells,
+    whose initial state carries the parabola); from step 2 on make_step
+    is exact. Opt-in, for strict transient parity."""
+
+    def first_step(f, t):
+        pulled = torch.stack([f[0]] + [pull_one(f[i], _E[i])
+                                        for i in range(1, D3Q19.Q)])
+        return step_tail(cc, f, pulled)
+
+    return first_step
+
+
 def make_step_wk(cc: CompiledCase) -> Callable:
     """The dense step of a case with windkessel (RCR) outlets: (f, t,
     wk) -> (f', rho, u, wk') with wk the (n_wk,) fp32 carried P_c
@@ -646,7 +648,7 @@ def init_override(cc: CompiledCase, rho, u):
             torch.where(cc.fluid[None], u, cc.u0))
 
 
-__all__ = ["make_step", "make_step_wk", "make_step_force",
+__all__ = ["make_step", "make_first_step", "make_step_wk", "make_step_force",
            "pulled_state_wk", "windkessel_update", "windkessel_flux",
            "windkessel_fluxes",
            "windkessel_rho", "boussinesq_force", "is_force_field", "guo_rates",
@@ -657,4 +659,5 @@ __all__ = ["make_step", "make_step_wk", "make_step_force",
            "apply_bc_fixup", "pulled_state", "post_collision", "step_tail",
            "fluid_speed_sum", "guo_source", "guo_constants", "half_force",
            "velocity", "moving_bb_terms", "closure_tau_minus", "tau_eff",
+           "les_tau_eff",
            "tau_eff_field", "pi_norm"]

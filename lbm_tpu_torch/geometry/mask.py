@@ -1,5 +1,5 @@
 """Cell labels and mask derivation (NumPy on the host; a jax-free copy of
-the parts of lbm_tpu/geometry/mask.py the ported cases use).
+lbm_tpu/geometry/mask.py).
 
 The label scheme: not-used 0, wall 1, inlet 2, outlet 3, fluid 4,
 ghost -1, moving wall -2; extra outlet labels (5, 6, 7, ...) are allowed.
@@ -88,6 +88,29 @@ def end_plane_min_label(
     return geo
 
 
+def end_plane_copy_label(
+    geo: np.ndarray, axis: int, coord: int, ref_coord: int, target: int
+) -> np.ndarray:
+    """The bifurcation's end relabel: on the plane `coord`, looking at the
+    already-labeled plane `ref_coord` one cell inward, cells become 0,
+    except wall where the inward neighbor is wall (1) and `target` (2
+    inlet / 3 outlet) where it is fluid (4). Restricted to the lateral
+    interior 1..N-2 like the reference loops."""
+    lat = [a for a in range(3) if a != axis]
+    idx: list = [slice(None)] * 3
+    idx[axis] = coord
+    idx[lat[0]] = slice(1, geo.shape[lat[0]] - 1)
+    idx[lat[1]] = slice(1, geo.shape[lat[1]] - 1)
+    ridx = list(idx)
+    ridx[axis] = ref_coord
+    ref = geo[tuple(ridx)]
+    out = np.zeros_like(ref)
+    out[ref == CellType.WALL] = CellType.WALL
+    out[ref == CellType.FLUID] = target
+    geo[tuple(idx)] = out
+    return geo
+
+
 def ghost_dilate(geo: np.ndarray, source_labels=(CellType.WALL,)) -> np.ndarray:
     """Mark any 18-neighbor of a source-labeled interior cell that is DEAD
     as GHOST (-1). Only sources in the interior box 1..N-2 emit."""
@@ -114,5 +137,5 @@ def compact_index(geo: np.ndarray) -> tuple[np.ndarray, int]:
     return np.transpose(idx_t, (2, 1, 0)), int(flat.sum())
 
 
-__all__ = ["CellType", "compact_index", "erode_label", "end_plane_min_label",
-           "ghost_dilate"]
+__all__ = ["CellType", "compact_index", "erode_label", "end_plane_copy_label",
+           "end_plane_min_label", "ghost_dilate"]

@@ -11,6 +11,8 @@ with lbm_tpu's tools/<name>.py arguments and defaults plus --device
   demo_blood_wss          Carreau blood on the coronary tree, WSS in Pa
   demo_clinical_washout   pulsatile coronary, RCR outlets, coupled washout
   ffr_sweep               resting and hyperemic FFR against stenosis
+  l0l7_bifurcation        STL -> voxels -> the bifurcation case, its
+                          midplane against the shipped geometry's run
 """
 
 

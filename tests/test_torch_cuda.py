@@ -1405,3 +1405,52 @@ def test_adjoint_graph_route_equals_the_eager_route(device):
     (fe, wke, ge), (fg, wkg, gg) = out
     assert torch.equal(fe, fg) and torch.equal(wke, wkg)
     assert ge != 0.0 and abs(gg - ge) <= 1e-6 * abs(ge)
+
+
+def _bifurcation_spec(tmp_path):
+    """The bifurcation case on chip_smoke's synthetic geo.txt and bc.txt
+    (the reference's files are not in the repository)."""
+    import chip_smoke
+
+    files = chip_smoke.bifurcation_inputs(str(tmp_path), surface=False)
+    return get_case("bifurcation", geo_path=files["geo"],
+                    bc_path=files["bc"])
+
+
+def test_bifurcation_kernel_step_matches_plain(device, tmp_path):
+    """The bifurcation (a field inlet with rho extrapolated at y=1, rho* =
+    1 with u extrapolated at y=ny-2) on the list K1 against step_plain
+    over 20 steps, f at rtol 3e-6 / atol 1e-7 and velsum at 1e-5, each a
+    launch under its literal counter."""
+    cc = compile_case(_bifurcation_spec(tmp_path), device)
+    assert K.counter_name(cc) == "lbm_collide_stream_list[bgk]"
+    f = initial_f(cc)
+    fk, buf = f.clone(), f.clone()
+    vs_k = torch.zeros(20, dtype=torch.float64, device=device)
+    vs_p = torch.zeros(20, dtype=torch.float64, device=device)
+    K.reset_launches()
+    for t in range(20):
+        K.step(fk, buf, cc, vs_k, t, t)
+        fk, buf = buf, fk
+        f, vs_p[t] = K.step_plain(f, cc, t)
+    torch.cuda.synchronize()
+    assert K.launches["lbm_collide_stream_list[bgk]"] == 20
+    torch.testing.assert_close(fk, f, rtol=3e-6, atol=1e-7)
+    torch.testing.assert_close(vs_k, vs_p, rtol=1e-5, atol=0.0)
+
+
+def test_bifurcation_macro_on_the_card_matches_plain(device, tmp_path):
+    """Simulation(bifurcation).macro() after 40 kernel steps: one K3
+    launch, equal to the same state's plain moments (K3 at rtol 1e-6 /
+    atol 1e-7) with the non-fluid cells' initial values."""
+    from lbm_tpu_torch.engine.step import init_override
+
+    sim = Simulation(_bifurcation_spec(tmp_path), device=device)
+    sim.run(max_steps=40, time_save=20, verbose=False)
+    K.reset_launches()
+    rho, u = sim.macro()
+    assert K.launches["lbm_macro"] == 1
+    rho_p, u_p = init_override(sim.cc, *K.macro_plain(sim.f, sim.cc.force))
+    torch.testing.assert_close(rho, rho_p, rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(u, u_p, rtol=1e-6, atol=1e-7)
+    assert torch.isfinite(u).all() and float(u.abs().max()) < 0.15

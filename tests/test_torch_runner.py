@@ -187,9 +187,10 @@ def test_cli_writes_vtk_and_convergence_log(tmp_path):
     listing = subprocess.run([sys.executable, "-m", "lbm_tpu_torch", "list"],
                              cwd=ROOT, capture_output=True, text=True,
                              timeout=120)
-    assert listing.stdout.split() == ["coronary", "curved_vessel",
-                                      "gravity_channel", "lid_driven_cavity",
-                                      "pipe", "poiseuille"]
+    assert listing.stdout.split() == ["bifurcation", "coronary",
+                                      "curved_vessel", "gravity_channel",
+                                      "lid_driven_cavity", "pipe",
+                                      "poiseuille"]
 
 
 _FORCE = dict(force=(1e-6, 0.0, 0.0))
@@ -269,9 +270,14 @@ def test_port_never_imports_jax():
         "'lbm_tpu_torch.'):\n"
         "    if m.name != 'lbm_tpu_torch.__main__':\n"
         "        importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' "
-        "or k.startswith(('jax.', 'jaxlib', 'lbm_tpu.')) or k == 'lbm_tpu')\n"
+        "bad = sorted(k for k in sys.modules if k in ('jax', 'lbm_tpu', "
+        "'tools') or k.startswith(('jax.', 'jaxlib', 'lbm_tpu.', 'tools.')))\n"
         "assert not bad, bad\n"
+        "from lbm_tpu_torch.geometry import native\n"
+        "from lbm_tpu_torch.kernels import _build\n"
+        "assert native._LIB is None, 'an import built the geometry library'\n"
+        "assert _build._load_all.cache_info().currsize == 0, 'an import "
+        "built the kernels'\n"
         "print(len([k for k in sys.modules if k.startswith('lbm_tpu_torch')]))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

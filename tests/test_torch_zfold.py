@@ -13,12 +13,15 @@ against brute force on the CPU:
 The masks are lbm_tpu's for the same cases (the test imports both
 packages)."""
 
+import inspect
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from lbm_tpu.cases import get_case as ref_get_case
-from lbm_tpu_torch.cases import coronary, get_case, list_cases
+from lbm_tpu_torch.cases import bifurcation, coronary, get_case, list_cases
 from lbm_tpu_torch.cases import thermal as thermal_cases
 from lbm_tpu_torch.core.lattice import momentum, phi
 from lbm_tpu_torch.engine.compile import (
@@ -37,6 +40,8 @@ from lbm_tpu_torch.engine.scalar import (
 from lbm_tpu_torch.engine.step import initial_f, pulled_state, velocity
 from lbm_tpu_torch.geometry.mask import CellType
 from lbm_tpu_torch.kernels import collide_stream as K
+
+import chip_smoke
 
 CORONARY = dict(shape=(24, 20, 32), radius=4)
 VESSELS = [
@@ -222,7 +227,24 @@ TEST_SIZES = {
     "lid_driven_cavity": [dict(n=12), dict(n=64, lid="bounceback")],
     "poiseuille": [dict(n=16)],
     "gravity_channel": [dict(n=20, nz=3)],
+    # built on chip_smoke's synthetic geo.txt and bc.txt (the case reads
+    # its geometry from files; its defaults are the reference's)
+    "bifurcation": [dict(synthetic=True)],
 }
+
+
+def _case_kwargs(name, kw, tmp_path):
+    """The options to build `name` with: the bifurcation's synthetic files
+    in place of `synthetic`, and None for its defaults where the
+    reference's files are not on this machine."""
+    if name != "bifurcation":
+        return kw
+    if kw.get("synthetic"):
+        files = chip_smoke.bifurcation_inputs(str(tmp_path), surface=False)
+        return dict(geo_path=files["geo"], bc_path=files["bc"])
+    params = inspect.signature(bifurcation.build).parameters
+    defaults = [params[k].default for k in ("geo_path", "bc_path")]
+    return kw if all(os.path.exists(p) for p in defaults) else None
 
 
 def _counts(boundaries):
@@ -231,7 +253,7 @@ def _counts(boundaries):
 
 
 @pytest.mark.parametrize("name", sorted(TEST_SIZES))
-def test_every_case_fits_the_descriptor_capacity(name):
+def test_every_case_fits_the_descriptor_capacity(name, tmp_path):
     """Every registered case at its defaults and at the sizes the tests
     and the card run give it, the thermal boxes and the full coronary
     (291 x 291 x 372, its boundaries built without its mask) hold at
@@ -240,6 +262,9 @@ def test_every_case_fits_the_descriptor_capacity(name):
     z planes)."""
     assert sorted(TEST_SIZES) == list_cases()
     for kw in [{}] + TEST_SIZES[name]:
+        kw = _case_kwargs(name, kw, tmp_path)
+        if kw is None:
+            continue
         spec = get_case(name, **kw)
         n_xy, n_z = _counts(spec.boundaries)
         assert n_xy <= MAX_BCS and n_z <= MAX_Z_BCS
