@@ -16,7 +16,10 @@ no result line):
      over the fluid cells (collide_stream_list_kernel, collide_stream_list
      .cu, 18 instances, and the two shard units' 28) as LIST_PTXAS and
      HALO_LIST_PTXAS have them, 768 threads an SM;
-  3. hold each kernel against its plain PyTorch version on the card (f
+  3. hold each kernel against its plain PyTorch version on the card
+     (the scalar and thermal checks of 3b and the K1d checks of 3e run
+     in a process of their own beside the others; every timing of phase
+     3 comes after all of them) (f
      at rtol 3e-6, atol 1e-7; velsum at 1e-5 relative; macro() after
      SMALL_STEPS (200) steps at relative L2 <= 1e-5; K3 at rtol 1e-6,
      atol 1e-7): the whole step and each kernel alone on lid 64^3,
@@ -225,7 +228,9 @@ shard axis) and Simulation(mesh=) on torch.distributed:
      every rank, K1d [bgk+halo] once a step on every rank and no z-plane
      fixup launch; ms/step and the
      exchange's ms a step of the one-card arrangement;
-  8d. (inside phase 8) `run --shard 1` on the 64^3 cavity over NCCL
+  8d. (inside phase 8) `run --shard 1` on the 64^3 cavity over NCCL (a
+     process of its own, started with the build, its rank waiting for the
+     build's lock; phase 8 checks what it wrote)
      writes VTK and CONVERGENCE.log;
  17. with two or more cards, the NCCL path on up to 4 of them, one rank
      a card: the full coronary on y, 200 steps, held as in phase 16
@@ -288,8 +293,10 @@ lbm_windkessel_flux, its prime, from windkessel.cu):
      backend='sparse' (2000 steps) and 'dense' (200), f at the fluid
      cells of the two at the same tolerance and their velsum at 1e-5
      relative after 200 steps, ms/step and peak device memory of each, a
-     20-step profile of the sparse step (19a); the pipe n=36 nz=4 R=13.7
-     after 4000 dense steps, curved and
+     20-step profile of the sparse step (19a); in phase 3's process of
+     its own (after its scalar and K1d checks, beside phase 3's other
+     checks; its ms/step share the card with them), the pipe n=36 nz=4
+     R=13.7 after 4000 dense steps, curved and
      staircase, its Hagen-Poiseuille error under 0.008 and under 0.35x
      the staircase's, and, in a process of its own, python -m
      lbm_tpu_torch run --case pipe on the kernel backend, which must
@@ -377,6 +384,39 @@ bif.stl, geo.txt and bc.txt are not in the repository), after phase 12:
      `run --case bifurcation --opt geo_path=... bc_path=... --steps 400
      --snapshots` writes VTK, CONVERGENCE.log and the snapshots. Its
      results are printed as one JSON object {"phase22": ...}.
+The 512^3 demos and the profile tools (lbm_tpu_torch/tools/
+demo_512_outputs, demo_512_sharded, demo_512_washout, profile_clinical,
+profile_shard), at their defaults, after phase 22; the 512^3 coronary
+(radius 14) built once for 23a-23c by a process of its own started
+after the build; its files, which the ranks of 23c map, and the phase's
+own go to a .chip_smoke_ directory on the faster of the checkout and
+the temporary directory (the write rates printed):
+ 23. (a) demo_512_outputs' stages: lowmem by its size, 20 + 20 steps of
+     the list K1 (40 launches, no fixup), macro() through K3 (0 < |u|max
+     <= 3x the inlet speed), the live-cell wss() (its first call timed),
+     the binary VTK (walked field by field: DENSITY, PRESSURE, VELOCITY of
+     the cropped box, K3 at least once), the uncompressed checkpoint (K4
+     ceil(512 / chunk_rows) times inside its save), host MemAvailable and
+     free disk checked first, a second Simulation restored from it beside
+     the first and both stepped 5 steps: bit-equal; (c) demo_512_sharded:
+     8 gloo ranks sharing the card, the spec handed over as files each
+     rank maps, 2 steps of K1d over each rank's fluid cells (2 launches a
+     rank), fewer listed lanes than window cells, the steps' velsums within
+     1e-5 of (a)'s, each window finite with zeros at DEAD cells without a
+     gather, its first and last y rows written; (b) demo_512_washout: its
+     flow's first 2 steps, those rows bit-equal to the unsharded state,
+     2000 flow steps, K7 over the scalar's cell list 3000 steps with
+     every boundary recorded (a 500-step warm-up chunk, then chunks of
+     500), phase 9's washout checks, at most two kernel launches a step
+     in a 200-step profile; (d) profile_clinical's six rows at
+     291x291x372 r=10 (300 steps warm, 300 timed), each row's launches a
+     step from the counters (the collide-stream launch once a step, K8
+     once a step where coupled, the fold's prime and the usq residual's K3
+     at most once a chunk) and its collide-stream kernel's device ms from
+     one profiler window; (e) profile_shard's four variants at lid 256^3
+     (100 steps), each one more run counted: K1a for v1, K1d over the box
+     for v2-v4, once a step. Its results are printed as one JSON object
+     {"phase23": ...}.
 The CLI's runs (phases 8, 12, 19 and 22) call lbm_tpu_torch.cli.main in this
 process, as `python -m lbm_tpu_torch` does (cli_run), but for run
 --shard, which spawns its ranks. Each phase's seconds are printed
@@ -394,7 +434,11 @@ phase 21 alone on one card, and
 
     python3 chip_smoke.py --phase22
 
-phase 22 alone on one card.
+phase 22 alone on one card, and
+
+    python3 chip_smoke.py --phase23
+
+phase 23 alone on one card.
 """
 
 from __future__ import annotations
@@ -405,6 +449,7 @@ import gc
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -565,6 +610,28 @@ T_START = time.perf_counter()
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+# processes the script starts to run beside its phases: any still running
+# when the script exits (a phase failed before collecting it) is killed
+_CHILDREN: list = []
+
+
+def _kill_children() -> None:
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def child(proc: subprocess.Popen) -> subprocess.Popen:
+    """proc, killed at exit if it is still running then."""
+    if not _CHILDREN:
+        import atexit
+
+        atexit.register(_kill_children)
+    _CHILDREN.append(proc)
+    return proc
 
 
 def require(cond, msg: str) -> None:
@@ -4401,12 +4468,13 @@ def total_line(stdout: str) -> str:
                  if "TOTAL RUNNING TIME" in ln), "no TOTAL RUNNING TIME line")
 
 
-def curved_during_build(device) -> dict:
-    """Phase 19's parts that need no kernel, run while the kernels build:
-    the pipe's Hagen-Poiseuille error, curved and staircase, on 'dense'
-    (its ms/step shares the host with nvcc), and python -m lbm_tpu_torch
-    run --case pipe on the kernel backend, in a process of its own, which
-    must exit non-zero with lbm_tpu's refusal."""
+def curved_pipe_path(device) -> dict:
+    """Phase 19c, which needs no kernel (side_checks runs it beside phase
+    3's checks): the pipe's Hagen-Poiseuille error, curved and
+    staircase, on 'dense' (its ms/step shares the card with those
+    checks), and python -m lbm_tpu_torch run --case pipe on the kernel
+    backend, in a process of its own, which must exit non-zero with
+    lbm_tpu's refusal."""
     from lbm_tpu_torch.engine.compile import CURVED_REFUSAL
 
     tag = "[19]"
@@ -4426,8 +4494,9 @@ def curved_during_build(device) -> dict:
     require(eb < 0.008 and eb < 0.35 * es,
             f"{tag} pipe error curved {eb:.4f}, staircase {es:.4f}: not "
             "under 0.008 and 0.35x the staircase's")
-    print(f"{tag} pipe n=36 R=13.7, 4000 dense steps (while the kernels "
-          f"build): Hagen-Poiseuille error curved {eb:.5f} ({ms_b:.4f} "
+    print(f"{tag} pipe n=36 R=13.7, 4000 dense steps (beside phase 3's "
+          "checks): "
+          f"Hagen-Poiseuille error curved {eb:.5f} ({ms_b:.4f} "
           f"ms/step), staircase {es:.5f} ({ms_s:.4f} ms/step), ratio "
           f"{eb / es:.3f}", flush=True)
     require(refusal.returncode != 0 and CURVED_REFUSAL in err,
@@ -4441,6 +4510,129 @@ def curved_during_build(device) -> dict:
     return {"curved_err": eb, "staircase_err": es, "curved_ms": ms_b,
             "staircase_ms": ms_s, "refusal_exit": refusal.returncode,
             "wall_s": time.perf_counter() - t0}
+
+
+# phase 8's `run --shard 1` and the files it must write
+CLI_SHARD = ["run", "--case", "lid_driven_cavity", "--steps", "500",
+             "--time-save", "100", "--shard", "1", "--opt", "n=64"]
+CLI_SHARD_FILES = ["CONVERGENCE.log", "lid_driven_cavity_500.vtk"]
+
+
+def cli_shard_start() -> tuple:
+    """`python -m lbm_tpu_torch` CLI_SHARD --out <a .chip_smoke_ directory>
+    started in a process of its own; returns what cli_shard_wait takes."""
+    tmp = tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_")
+    argv = [*CLI_SHARD, "--out", os.path.join(tmp.name, "out")]
+    with open(os.path.join(tmp.name, "stdout"), "w") as out, \
+            open(os.path.join(tmp.name, "stderr"), "w") as err:
+        proc = child(subprocess.Popen(
+            [sys.executable, "-m", "lbm_tpu_torch", *argv], cwd=ROOT,
+            stdout=out, stderr=err, text=True))
+    return proc, tmp, time.perf_counter()
+
+
+def cli_shard_wait(started) -> None:
+    """Phase 8's check of cli_shard_start's run: exit 0 and
+    CLI_SHARD_FILES written; its directory is removed."""
+    proc, tmp, t0 = started
+    proc.wait(timeout=600)
+    with tmp as d:
+        with open(os.path.join(d, "stdout")) as out, \
+                open(os.path.join(d, "stderr")) as err:
+            stdout, stderr = out.read(), err.read()
+        require(proc.returncode == 0,
+                f"CLI {' '.join(CLI_SHARD)} failed ({proc.returncode}):\n"
+                f"{stdout}\n{stderr}")
+        files = sorted(os.listdir(os.path.join(d, "out")))
+        require(all(w in files for w in CLI_SHARD_FILES),
+                f"CLI outputs of {' '.join(CLI_SHARD)} missing: {files}")
+    last = stdout.strip().splitlines()[-2:]
+    print(f"[8] CLI {' '.join(CLI_SHARD[1:])} (a process of its own, "
+          f"started with the build) ran in {time.perf_counter() - t0:.1f} s "
+          f"wrote {files}; {' | '.join(last)}", flush=True)
+
+
+def halo_comparisons(full, device) -> dict:
+    """Phase 3e's checks: K1d and its halo z fixup on 4 shards held in one
+    process, every branch (halo_cases) for 20 steps, then the lid 256^3
+    on x and the full coronary on y on 2 and 4 shards for 2 steps, each
+    against its plain version and the whole-box step: {case: max abs
+    err}."""
+    from lbm_tpu_torch.cases import get_case
+
+    halo_err = {}
+    for label, name, kw, axis, exact in halo_cases():
+        halo_err[f"{label}, 4 shards"] = compare_halo(
+            label, get_case(name, **kw), axis, 4, 20, device, exact)
+    lid256 = get_case("lid_driven_cavity", n=256)
+    for world in (2, 4):
+        halo_err[f"lid 256^3 on x, {world} shards"] = compare_halo(
+            "lid 256^3 on x", lid256, 0, world, 2, device, True)
+        halo_err[f"coronary full on y, {world} shards"] = compare_halo(
+            "coronary full on y", full, 1, world, 2, device, True)
+    return halo_err
+
+
+def side_checks(device, u_path: str) -> dict:
+    """What runs in a process of its own (side_checks_start) beside phase
+    3's other checks, which share nothing with it: the scalar and thermal
+    kernels against their plain versions (scalar_comparisons; the steady
+    full coronary's velocity field, which scalar_timings reuses, saved
+    to u_path), K1d against its plain version (halo_comparisons), then
+    phase 19c (curved_pipe_path). It times no kernel; main times none
+    until it has ended."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.cases import get_case
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    full = get_case("coronary", **FULL_CORONARY)
+    scalar_err, path_err, u_full = scalar_comparisons(full, device)
+    np.save(u_path, u_full.cpu().numpy())
+    del u_full
+    free_device()
+    mark("3 (K7, K8, K1e checks)")
+    halo_err = halo_comparisons(full, device)
+    del full
+    free_device()
+    mark("3e (K1d checks)")
+    return {"scalar_err": scalar_err, "path_err": path_err,
+            "halo_err": halo_err, "pipe": curved_pipe_path(device)}
+
+
+def side_checks_start(u_path: str) -> tuple:
+    """side_checks in a process of its own on the card, its output kept
+    for side_checks_wait."""
+    code = ("import json, sys, torch\n"
+            "import chip_smoke as C\n"
+            "print(json.dumps(C.side_checks(torch.device('cuda', 0), "
+            "sys.argv[1]), default=float))\n")
+    log = tempfile.TemporaryFile("w+", dir=ROOT, prefix=".chip_smoke_")
+    return child(subprocess.Popen(
+        [sys.executable, "-c", code, u_path], cwd=ROOT, stdout=log,
+        stderr=subprocess.STDOUT, text=True)), log, time.perf_counter()
+
+
+def side_checks_wait(started) -> dict:
+    """side_checks' results from side_checks_start's process, its lines
+    printed first (its phase clock its own)."""
+    proc, log, t_start = started
+    t0 = time.perf_counter()
+    proc.wait(timeout=1200)
+    log.seek(0)
+    lines = log.read().strip().splitlines()
+    log.close()
+    print(f"[3] the scalar and K1d checks and phase 19c ran in a process of "
+          f"their own, started {t0 - t_start:.1f} s before phase 3's other "
+          f"checks ended (waited {time.perf_counter() - t0:.1f} s more); "
+          "its lines:", flush=True)
+    for line in lines[:-1]:
+        print(line.replace("[t] phase", "[t, the side process] phase"),
+              flush=True)
+    require(proc.returncode == 0, f"the side process of phase 3's checks "
+            f"failed ({proc.returncode}): {lines[-1] if lines else ''}")
+    return json.loads(lines[-1])
 
 
 def mem_start(device) -> int:
@@ -4581,7 +4773,7 @@ def curved_path(device, full) -> dict:
     pull, and both routes on the default coronary, below lbm_tpu's line
     (first call and a later one); run --case pipe on 'dense' and 'sparse'
     and the curved coronary with --snapshots and --profile through the
-    CLI (curved_during_build has the pipe's error and the refusal, and
+    CLI (curved_pipe_path has the pipe's error and the refusal, and
     curved_sparse_dense the curved coronary)."""
     import dataclasses
 
@@ -5547,6 +5739,535 @@ def bifurcation_path(device) -> dict:
     return out
 
 
+# -- phase 23: the 512^3 demos and the profile tools ------------------------
+P23_N = 512
+P23_STEPS = 20            # demo_512_outputs' chunk (its default)
+P23_RESUME = 5            # its --resume-steps
+P23_RANKS = 8             # demo_512_sharded's --ndev
+P23_SHARD_STEPS = 2       # its --steps
+P23_FLOW = 2000           # demo_512_washout's --flow-steps
+P23_WASHOUT = 3000        # its --steps
+P23_BOLUS = 800           # its --bolus
+P23_CHUNK = 500           # its --chunk
+P23_DISK_BYTES = 16e9     # the VTK (~2.6 GB) and the checkpoint (10.2 GB)
+P23_HOST_GB = 24.0        # the checkpoint's read and its load (10.2 GB each)
+
+
+def p23_workdir():
+    """Phase 23's files go to the faster of the checkout and the system's
+    temporary directory that has P23_DISK_BYTES free: each gets a
+    .chip_smoke_ directory and a 256 MB write with fsync. Returns (the
+    chosen TemporaryDirectory, {base: (free GB, write GB/s)})."""
+    rates, dirs = {}, {}
+    block = os.urandom(1 << 20) * 256
+    for base in dict.fromkeys((ROOT, tempfile.gettempdir())):
+        tmp = tempfile.TemporaryDirectory(dir=base, prefix=".chip_smoke_")
+        path = os.path.join(tmp.name, "rate")
+        t0 = time.perf_counter()
+        with open(path, "wb") as fh:
+            fh.write(block)
+            fh.flush()
+            os.fsync(fh.fileno())
+        rate = len(block) / (time.perf_counter() - t0) / 1e9
+        os.remove(path)
+        rates[base] = (shutil.disk_usage(tmp.name).free / 1e9, rate)
+        dirs[base] = tmp
+    ok = [b for b in rates if rates[b][0] * 1e9 >= P23_DISK_BYTES]
+    require(ok, f"[23] no directory has {P23_DISK_BYTES / 1e9:.0f} GB free "
+            f"for phase 23's files: (free GB, write GB/s) {rates}")
+    best = max(ok, key=lambda b: rates[b][1])
+    for b, tmp in dirs.items():
+        if b != best:
+            tmp.cleanup()
+    print(f"[23] phase 23's files under {best} (free GB, write GB/s of 256 "
+          f"MB with fsync: {rates})", flush=True)
+    return dirs[best], rates
+
+
+def vtk_walk(path: str) -> tuple[tuple, list]:
+    """((nx, ny, nz), the field names in order) of a binary
+    STRUCTURED_POINTS file, walked header by header over each field's
+    big-endian f4 block; the walk must end at the file's last byte."""
+    import numpy as np
+
+    size = os.path.getsize(path)
+    with open(path, "rb") as fh:
+        head = fh.read(4096)
+        end = head.index(b"\n", head.index(b"POINT_DATA")) + 1
+        lines = head[:end].decode().splitlines()
+        require(lines[0] == "# vtk DataFile Version 2.0"
+                and lines[2] == "BINARY", f"VTK header {lines}")
+        dims = tuple(int(v) for v in lines[4].split()[1:])
+        n = int(np.prod(dims))
+        pos, names = end, []
+        while pos < size:
+            fh.seek(pos)
+            chunk = fh.read(256)
+            line = chunk[:chunk.index(b"\n")]
+            kind, name, _ = line.decode().split()
+            pos += len(line) + 1
+            if kind == "SCALARS":
+                require(chunk[len(line) + 1:].startswith(
+                    b"LOOKUP_TABLE default\n"), f"VTK {name}: no lookup table")
+                pos += len(b"LOOKUP_TABLE default\n")
+            pos += 4 * n * (3 if kind == "VECTORS" else 1)
+            fh.seek(pos)
+            require(fh.read(1) == b"\n", f"VTK {name}: no newline at {pos}")
+            pos += 1
+            names.append(name)
+    require(pos == size, f"VTK walk ended at {pos} of {size} bytes")
+    return dims, names
+
+
+def p23_outputs(device, spec, work) -> dict:
+    """23a: demo_512_outputs' stages at its defaults on the 512^3 spec:
+    counters reset just before and read just after each stage; the
+    original run kept alive, stepped P23_RESUME more steps beside the
+    restored one, bit-equal."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.engine import checkpoint
+    from lbm_tpu_torch.kernels import collide_stream as K
+    from lbm_tpu_torch.tools import demo_512_outputs as D
+
+    tag = "[23a] demo_512_outputs 512^3"
+    stages, clock = {}, [time.perf_counter()]
+
+    def stage(name):
+        now = time.perf_counter()
+        stages[name] = now - clock[0]
+        clock[0] = now
+
+    n = spec.shape[0]
+    live = D.live_cells(spec)
+    base = mem_start(device)
+    t0 = time.perf_counter()
+    sim = D.make_sim(spec, device, False)  # lowmem by its size
+    setup_s = time.perf_counter() - t0
+    route = K.counter_name(sim.cc)
+    require(route.startswith("lbm_collide_stream_list["),
+            f"{tag}: the step takes {route}, not the list K1")
+    K.reset_launches()
+    vs1, first_s = D.chunk(sim, P23_STEPS)
+    vs2, elapsed = D.chunk(sim, P23_STEPS)
+    torch.cuda.synchronize()
+    run_counts = dict(K.launches)
+    require(run_counts == {route: 2 * P23_STEPS},
+            f"{tag}: launches {run_counts} (want {route} {2 * P23_STEPS}, "
+            "no fixup)")
+    dt = elapsed / P23_STEPS
+    stage("set-up and 40 steps")
+    K.reset_launches()
+    umax = D.u_max(sim)
+    macro_counts = dict(K.launches)
+    u_in = 0.1745 / 2.74909090909091
+    require(macro_counts == {"lbm_macro": 1} and 0 < umax <= 3 * u_in,
+            f"{tag}: macro() launches {macro_counts}, |u|max {umax}")
+    stage("macro")
+    w = D.wss_stats(sim)
+    stage("wss")
+    require(sim._wss_via_sparse() and np.isfinite(w["max_pa"])
+            and w["max_pa"] > 0, f"{tag}: wss {w}")
+    avail = mem_available_gb()
+    require(avail > P23_HOST_GB, f"{tag}: host MemAvailable {avail:.1f} GB "
+            f"< {P23_HOST_GB} GB for the checkpoint's read and load")
+    free = shutil.disk_usage(work).free
+    need = (5 * n**3 + 19 * n**3) * 4 * 1.05  # the VTK's fields, then f
+    require(free > need, f"{tag}: {free / 1e9:.1f} GB free under {work}, "
+            f"< {need / 1e9:.1f} GB for the VTK and the checkpoint")
+    K.reset_launches()
+    path, vtk_s = D.write_vtk(sim, work)
+    vtk_counts = dict(K.launches)
+    dims, names = vtk_walk(path)
+    vtk_bytes = os.path.getsize(path)
+    crops = spec.vtk_crops
+    require(vtk_counts.get("lbm_macro", 0) >= 1 and names == [
+        "DENSITY", "PRESSURE", "VELOCITY"] and dims == tuple(
+            s - 2 * c for s, c in zip(spec.shape, crops)),
+        f"{tag}: VTK {dims} {names}, launches {vtk_counts}")
+    os.remove(path)
+    stage("vtk")
+    cpath = os.path.join(work, D.CKPT_NAME)
+    K.reset_launches()
+    ck_s = D.write_checkpoint(sim, cpath)
+    ck_counts = dict(K.launches)
+    ck_bytes = os.path.getsize(cpath)
+    n_chunks = -(-n // K.chunk_rows(spec.shape))
+    require(ck_counts == {"lbm_extract_rows": n_chunks},
+            f"{tag}: the checkpoint's save launched {ck_counts} (want K4 "
+            f"{n_chunks})")
+    stage("checkpoint")
+    t1 = time.perf_counter()
+    sim2 = D.make_sim(spec, device, False)
+    t2 = time.perf_counter()
+    checkpoint.restore(sim2, cpath)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t2
+    os.remove(cpath)
+    K.reset_launches()
+    r2, _ = D.chunk(sim2, P23_RESUME)
+    torch.cuda.synchronize()
+    resume_counts = dict(K.launches)
+    r1, _ = D.chunk(sim, P23_RESUME)
+    torch.cuda.synchronize()
+    require(resume_counts == {route: P23_RESUME}
+            and sim2.t == sim.t == 2 * P23_STEPS + P23_RESUME
+            and torch.equal(sim.f, sim2.f) and np.array_equal(r1, r2),
+            f"{tag}: the resumed run ({resume_counts}, t {sim2.t}) is not "
+            "bit-equal to the original stepped the same steps")
+    stage("restore and resume")
+    peak = peak_gib(device, base)
+    state_gb = sim.f.numel() * 4 / 1e9
+    out = {"velsum": float(vs1.sum()), "velsum_series": vs1[:2].tolist(),
+           "ms": dt * 1e3, "mlups_live": live / dt / 1e6,
+           "mlups_box": n**3 / dt / 1e6, "first_chunk_s": first_s,
+           "setup_s": setup_s, "u_max": umax, "wss": w,
+           "vtk_s": vtk_s, "vtk_gb_per_s": vtk_bytes / vtk_s / 1e9,
+           "vtk_bytes": vtk_bytes, "ckpt_write_s": ck_s,
+           "ckpt_gb_per_s": ck_bytes / ck_s / 1e9, "ckpt_bytes": ck_bytes,
+           "restore_setup_s": t2 - t1, "ckpt_read_s": read_s,
+           "peak_gib": peak, "host_mem_available_gb": avail,
+           "launches": {"run": run_counts, "macro": macro_counts,
+                        "vtk": vtk_counts, "checkpoint": ck_counts,
+                        "resume": resume_counts},
+           "live": live, "fluid": int(sim.cc.fluid_cells.numel()),
+           "stage_s": stages}
+    print(f"{tag} ({live} non-DEAD cells, {out['fluid']} fluid; lowmem; "
+          f"set-up {setup_s:.1f} s, the first chunk {first_s:.1f} s): "
+          f"{dt * 1e3:.4f} ms/step ({P23_STEPS} steps, host clock, "
+          f"synchronized), {out['mlups_live']:.0f} MLUPS(live), "
+          f"{out['mlups_box']:.0f} MLUPS(box); velsum of the first chunk "
+          f"{out['velsum']:.6e}; |u|max {umax:.4f}; wss() first call "
+          f"{w['seconds']:.2f} s, {w['count']} cells, mean {w['mean_pa']:.3f}"
+          f" Pa, max {w['max_pa']:.3f} Pa; VTK {vtk_bytes / 1e9:.2f} GB in "
+          f"{vtk_s:.1f} s ({out['vtk_gb_per_s']:.2f} GB/s), {dims} "
+          f"{names}; checkpoint {ck_bytes / 1e9:.2f} GB written in "
+          f"{ck_s:.1f} s ({out['ckpt_gb_per_s']:.2f} GB/s, {n_chunks} K4 "
+          f"chunks), restored in {read_s:.1f} s (+ {t2 - t1:.1f} s of "
+          f"set-up); the resumed {P23_RESUME} steps bit-equal to the "
+          f"original's; 2 x {state_gb:.1f} GB states x 2 runs, peak device "
+          f"memory {peak:.2f} GiB; host MemAvailable {avail:.1f} GB; "
+          f"launches {out['launches']}; seconds by stage "
+          f"{ {k: round(v, 1) for k, v in stages.items()} }", flush=True)
+    del sim, sim2
+    free_device()
+    return out
+
+
+def p23_sharded(spec_dir, work, ref_velsum) -> tuple[dict, str]:
+    """23c: demo_512_sharded at its defaults (P23_RANKS gloo ranks sharing
+    the card, P23_SHARD_STEPS steps) on the 512^3 spec: its checks, K1d
+    over each rank's fluid cells once a step, the steps' velsums within
+    1e-5 of 23a's unsharded run's, and each rank's window's first and last
+    y rows written for 23b. Returns (the numbers, the rows' directory)."""
+    import numpy as np
+
+    from lbm_tpu_torch.tools import demo_512_sharded as S
+
+    tag = f"[23c] demo_512_sharded 512^3 on y, {P23_RANKS} gloo ranks"
+    rows_dir = tempfile.mkdtemp(prefix="rows_", dir=work)
+    t0 = time.perf_counter()
+    ranks = S.run_sharded(spec_dir, P23_RANKS, P23_SHARD_STEPS, "cuda",
+                          timeout=600, rows_dir=rows_dir)
+    wall_s = time.perf_counter() - t0
+    out = S.report(ranks, P23_N, P23_RANKS)
+    k1d = "lbm_collide_stream_list[bgk+halo]"
+    require(all(c == {k1d: P23_SHARD_STEPS} for c in out["launches"]),
+            f"{tag}: launches {out['launches']} (want {k1d} "
+            f"{P23_SHARD_STEPS} on every rank)")
+    v_rel = float(np.max(np.abs(np.asarray(out["velsum"])
+                                - np.asarray(ref_velsum))
+                         / np.abs(ref_velsum)))
+    require(v_rel <= 1e-5, f"{tag}: velsum {out['velsum']} against the "
+            f"unsharded {ref_velsum}: rel err {v_rel:.3e} > 1e-5")
+    out.update(velsum_rel_err=v_rel, wall_s=wall_s,
+               setup_s=max(r["setup_s"] for r in ranks),
+               peak_gib=max(r["peak_gib"] for r in ranks),
+               exchange_share=max(out["exchange_ms"]) / max(out["ms"]))
+    print(f"{tag}: velsum rel err against 23a's unsharded steps "
+          f"{v_rel:.3e}; per-rank ms/step {[round(m, 3) for m in out['ms']]}"
+          f", the exchange alone {[round(e, 3) for e in out['exchange_ms']]}"
+          f" ms ({out['exchange_share']:.1%} of the slowest step); set-up "
+          f"{out['setup_s']:.1f} s a rank, peak device memory "
+          f"{out['peak_gib']:.2f} GiB a rank; {wall_s:.1f} s with the spawn",
+          flush=True)
+    return out, rows_dir
+
+
+def p23_washout(device, spec, rows_dir) -> dict:
+    """23b: demo_512_washout at its defaults on the 512^3 spec; its flow's
+    first P23_SHARD_STEPS steps first, against which 23c's rows are held
+    bit for bit (zeros at DEAD cells, as f_standard() has them); K7 and
+    the record counted; phase 9's washout checks; a profile."""
+    import numpy as np
+    import torch
+
+    from lbm_tpu_torch.engine.runner import Simulation
+    from lbm_tpu_torch.geometry.mask import CellType
+    from lbm_tpu_torch.kernels import collide_stream as K
+    from lbm_tpu_torch.kernels import scalar_stream as S
+    from lbm_tpu_torch.tools import demo_512_washout as W
+
+    tag = "[23b] demo_512_washout 512^3"
+    base = mem_start(device)
+    t0 = time.perf_counter()
+    sim = Simulation(spec, device=device, backend="kernel")
+    setup_s = time.perf_counter() - t0
+    K.reset_launches()
+    sim.run(max_steps=P23_SHARD_STEPS, time_save=P23_SHARD_STEPS,
+            verbose=False)
+    dead = sim.cc.mask == CellType.DEAD
+    rows = spec.shape[1] // P23_RANKS
+    n_rows = 0
+    for r in range(P23_RANKS):
+        saved = np.load(os.path.join(rows_dir, f"rows_{r}.npy"))
+        for k, y in enumerate((r * rows, r * rows + rows - 1)):
+            want = torch.where(dead[:, y], 0.0, sim.f[:, :, y])
+            require(torch.equal(torch.from_numpy(saved[k]).to(device), want),
+                    f"{tag}: rank {r}'s y row {y} after {P23_SHARD_STEPS} "
+                    "steps differs from the unsharded state's")
+            n_rows += 1
+    res = W.run_flow(sim, P23_FLOW - P23_SHARD_STEPS)
+    torch.cuda.synchronize()
+    flow_counts = dict(K.launches)
+    route = K.counter_name(sim.cc)
+    require(flow_counts.get(route) == P23_FLOW,
+            f"{tag}: flow launches {flow_counts}")
+    flow_ms = res.elapsed_s / res.steps * 1e3
+    u = sim.macro()[1]
+    del sim
+    free_device()
+    t0 = time.perf_counter()
+    st = W.transport(spec, u, P23_BOLUS, device)
+    del u
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    rec = list(range(len(spec.boundaries)))
+    S.reset_launches()
+    warm, timed, nst, elapsed = W.washout(st, P23_WASHOUT, P23_CHUNK, rec)
+    counts = dict(S.launches)
+    k7 = "lbm_scalar_stream[frozen]"
+    require(counts == {k7: P23_WASHOUT}, f"{tag}: transport launches "
+            f"{counts} (want {k7} {P23_WASHOUT}, the record in each)")
+    series = np.concatenate([warm, timed], axis=0)
+    check_washout(tag, st, series, P23_BOLUS)
+    ms = elapsed / nst * 1e3
+    peaks = [float(timed[:, k].max()) for k in rec]
+    by_name, busy = profile_steps(lambda: st.run(200, record=rec), 200)
+    print_profile(tag, by_name, busy, ms)
+    prof = path_profile(tag, by_name, ms, 2)
+    peak = peak_gib(device, base)
+    listed = st.sc.cells.numel() if st.sc.cells is not None else None
+    print(f"{tag}: flow {P23_FLOW} steps at {flow_ms:.4f} ms/step ({route}, "
+          f"set-up {setup_s:.1f} s); {n_rows} rows of 23c's ranks bit-equal "
+          f"to the unsharded state after {P23_SHARD_STEPS} steps; transport "
+          f"set-up {t_setup:.1f} s ({listed} cells listed), {nst} timed "
+          f"steps at {ms:.4f} ms/step (host clock, synchronized); series "
+          f"peaks {[round(p, 4) for p in peaks]}, total() {st.total():.2f}; "
+          f"peak device memory {peak:.2f} GiB; launches {counts}",
+          flush=True)
+    out = dict(prof, flow_ms=flow_ms, flow_launches=flow_counts.get(route),
+               transport_ms=ms, peaks=peaks, total=st.total(),
+               peak_gib=peak, launches=counts, rows_bit_equal=n_rows,
+               listed_cells=listed)
+    del st
+    free_device()
+    return out
+
+
+def p23_clinical(device) -> dict:
+    """23d: profile_clinical at its defaults, each row's launches a step
+    from the counters (a run of its --steps, counters reset just before
+    and read just after) held to the bounds of phases 5, 10 and 18, a
+    1-step run's wall ms (what a run costs beyond its steps), and its
+    collide-stream kernel's device ms from one _profile_window of 200
+    steps."""
+    import torch
+
+    from lbm_tpu_torch.kernels import collide_stream as K
+    from lbm_tpu_torch.kernels import scalar_stream as S
+    from lbm_tpu_torch.tools import profile_clinical as P
+
+    args = P.parse_args([])
+    shape = tuple(int(s) for s in args.shape.split(","))
+    out, prev = {}, None
+    for name in P.ROWS:
+        tag = f"[23d] profile_clinical {name}"
+        t0 = time.perf_counter()
+        kind, spec = P.row_spec(name, shape, args.radius)
+        obj, run = P.make_row(kind, spec, device)
+        ms = P.time_row(run, args.steps)
+        total = time.perf_counter() - t0
+        K.reset_launches()
+        S.reset_launches()
+        run(args.steps)
+        torch.cuda.synchronize()
+        counts = {**K.launches, **S.launches}
+        cc = obj.cc
+        route = K.counter_name(cc)
+        wk = "+wk" in route
+        per_step = {k: v / args.steps for k, v in counts.items()}
+        once = {k: v for k, v in counts.items()
+                if k not in (route, "lbm_scalar_stream[live]")}
+        require(counts.get(route) == args.steps
+                and (kind != "coupled" or counts.get(
+                    "lbm_scalar_stream[live]") == args.steps)
+                and all(v <= 1 for v in once.values())
+                and (not wk or once.get("lbm_windkessel_flux") == 1)
+                and not [k for k in counts if "fix_z_plane" in k],
+                f"{tag}: launches {counts} over {args.steps} steps")
+        # what a run costs beyond its steps: a 1-step run's wall time
+        t1 = time.perf_counter()
+        run(1)
+        one_ms = (time.perf_counter() - t1) * 1e3
+        by_name, busy, fill = _profile_window(lambda: run(200), 200)
+        dev = {short_name(k): v[0] / v[1] for k, v in by_name.items()
+               if v[1] and ("collide_stream" in k)}
+        note = "" if prev is None else f" (delta {ms - prev:+.2f})"
+        print(f"{name:<14} {ms:6.2f} ms/step{note}  [total incl. set-up "
+              f"{total:.0f}s]; {route}: launches a step {per_step}; device "
+              f"ms a launch {dev}; busy {busy:.3f}; fillers seen {fill}; "
+              f"a 1-step run {one_ms:.3f} ms", flush=True)
+        out[name] = {"ms": ms, "total_s": total, "route": route,
+                     "one_step_run_ms": one_ms,
+                     "launches": counts, "launches_per_step": per_step,
+                     "k1_device_ms": dev, "busy": busy}
+        prev = ms
+        del obj, run
+        free_device()
+    return out
+
+
+def p23_shard(device) -> dict:
+    """23e: profile_shard at its defaults, each variant's launches over
+    one more run of its --steps (counters reset just before and read just
+    after): K1a for v1, K1d over the box for v2-v4, once a step."""
+    import torch
+
+    from lbm_tpu_torch.kernels import collide_stream as K
+    from lbm_tpu_torch.tools import profile_shard as P
+
+    args = P.parse_args([])
+    counts = {}
+
+    def hook(name, step, f):
+        out = f.clone()
+        series = torch.zeros(args.steps, dtype=torch.float64, device=f.device)
+        K.reset_launches()
+        for k in range(args.steps):
+            step(f, out, series, k, k)
+            f, out = out, f
+        torch.cuda.synchronize()
+        counts[name] = dict(K.launches)
+
+    res = P.variants(args.n, device, set(args.variants.split(",")),
+                     args.steps, hook=hook)
+    n3 = args.n ** 3
+    for name, dt in res.items():
+        c = counts[name]
+        halo = name != "v1_unsharded"
+        require(len(c) == 1 and list(c.values()) == [args.steps]
+                and list(c)[0].endswith("+halo]") == halo,
+                f"[23e] profile_shard {name}: launches {c}")
+        print(f"{name}: {dt * 1e3:.2f} ms/step, {n3 / dt / 1e6:.0f} MLUPS; "
+              f"launches {c}", flush=True)
+    return {name: {"ms": dt * 1e3, "mlups": n3 / dt / 1e6,
+                   "launches": counts[name]} for name, dt in res.items()}
+
+
+def p23_spec_start(work_dir: str) -> tuple:
+    """Start building the 512^3 spec in a process of its own, which writes
+    it to work_dir/spec (demo_512_sharded.save_spec): the build's ~15 s of
+    host work run beside the card's phases. Returns what p23_spec_wait
+    takes."""
+    spec_dir = os.path.join(work_dir, "spec")
+    os.mkdir(spec_dir)
+    code = ("import sys, time\n"
+            "t0 = time.perf_counter()\n"
+            "from lbm_tpu_torch.tools import coronary_cube\n"
+            "from lbm_tpu_torch.tools import demo_512_sharded as S\n"
+            "S.save_spec(coronary_cube(int(sys.argv[1])), sys.argv[2])\n"
+            "print(f'{time.perf_counter() - t0:.1f}')\n")
+    proc = child(subprocess.Popen(
+        [sys.executable, "-c", code, str(P23_N), spec_dir],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True))
+    return proc, spec_dir, time.perf_counter()
+
+
+def p23_spec_wait(started) -> tuple:
+    """(the spec p23_spec_start's process wrote, mapped read-only; its
+    directory; the process's seconds; the seconds waited for it)."""
+    from lbm_tpu_torch.tools import demo_512_sharded as S
+
+    proc, spec_dir, t0 = started
+    t1 = time.perf_counter()
+    out, _ = proc.communicate(timeout=900)
+    require(proc.returncode == 0, f"[23] the 512^3 spec's process failed "
+            f"({proc.returncode}):\n{out}")
+    waited = time.perf_counter() - t1
+    spec = S.load_spec(spec_dir)
+    print(f"[23] coronary {P23_N}^3 spec (radius {max(6, P23_N // 36)}) "
+          f"built and written in a process of its own in "
+          f"{float(out.split()[-1]):.1f} s, started "
+          f"{t1 - t0:.1f} s before phase 23; waited {waited:.1f} s",
+          flush=True)
+    return spec, spec_dir, float(out.split()[-1]), waited
+
+
+def phase23(device, work, disk, started) -> dict:
+    """Phase 23: the 512^3 demos and the profile tools (23a, 23c, 23b,
+    23d, 23e) in the TemporaryDirectory `work` (p23_workdir, its write
+    rates `disk`); the 512^3 spec the process `started`
+    (p23_spec_start) wrote there serves 23a-23c."""
+    spec, spec_dir, spec_s, waited = p23_spec_wait(started)
+    out = {"spec_s": spec_s, "spec_waited_s": waited, "disk": disk}
+    try:
+        out["a"] = p23_outputs(device, spec, work.name)
+        mark("23a")
+        out["c"], rows_dir = p23_sharded(spec_dir, work.name,
+                                         out["a"]["velsum_series"])
+        mark("23c")
+        out["b"] = p23_washout(device, spec, rows_dir)
+        mark("23b")
+    finally:
+        del spec
+        work.cleanup()
+    out["d"] = p23_clinical(device)
+    mark("23d")
+    out["e"] = p23_shard(device)
+    mark("23e")
+    return out
+
+
+def phase23_main() -> int:
+    """`chip_smoke.py --phase23`: phase 23 alone on one card (the card's
+    name and power limit first), the kernels built side by side with the
+    512^3 spec's process."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --phase23: no CUDA card", file=sys.stderr)
+        return 1
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip(), flush=True)
+    from lbm_tpu_torch.kernels import _build
+
+    work, disk = p23_workdir()
+    started = p23_spec_start(work.name)
+    lib = _build.load_library()
+    print(f"[23] kernels {'built' if lib.built else 'found'} in "
+          f"{lib.build_seconds:.2f} s", flush=True)
+    res = phase23(torch.device("cuda", 0), work, disk, started)
+    print(json.dumps({"phase23": res}, default=float), flush=True)
+    print(f"[done] phase 23 in {time.perf_counter() - T_START:.1f} s",
+          flush=True)
+    return 0
+
+
 def phase21_main() -> int:
     """`chip_smoke.py --phase21`: phase 21 alone on one card (the card's
     name and power limit first), 21a's kernel run building what it
@@ -5624,6 +6345,17 @@ def main() -> int:
     t_all = time.perf_counter()
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False  # full fp32 yardsticks
+    # the modules the phases import, then gc.freeze(): free_device's ~200
+    # gc.collect() calls scan only what the run itself made
+    import torch.distributed  # noqa: F401
+    import torch.profiler  # noqa: F401
+
+    import lbm_tpu_torch.engine.scalar  # noqa: F401
+    import lbm_tpu_torch.engine.sparse  # noqa: F401
+    import lbm_tpu_torch.engine.stress  # noqa: F401
+    import lbm_tpu_torch.engine.thermal  # noqa: F401
+    import lbm_tpu_torch.parallel.launch  # noqa: F401
+    gc.freeze()
 
     # -- phase 1: card and toolchain ---------------------------------------
     smi = subprocess.run(
@@ -5651,8 +6383,12 @@ def main() -> int:
     p20_dir = tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_")
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         building = pool.submit(_build.load_library)
+        # phase 8's `run --shard 1`: a process of its own (it spawns its
+        # rank over NCCL; ~30 s, most of it start-up), started here so its
+        # start-up runs beside the build; its rank waits for the build's
+        # lock, and phase 8 checks what it wrote
+        shard_cli = cli_shard_start()
         p21 = phase21_during_build(device)
-        pipe = curved_during_build(device)
         curved_a = curved_sparse_dense(device)
         p20_dense = sharded_dense_references(device, p20_dir.name)
         lib = building.result()
@@ -5863,10 +6599,20 @@ def main() -> int:
               f"{k} {v[0]}, {v[1] + v[2]}, {stack.get(k)}, {k1_blocks[k]}"
               for k, v in sorted(trt_field.items())), flush=True)
     mark("1, 2")
+    # phase 23's files and its 512^3 spec, built by a process of its own
+    # beside the card's phases
+    p23_work, p23_disk = p23_workdir()
+    p23_started = p23_spec_start(p23_work.name)
     p21["21a"].update(adjoint_verify(device, p21["21a"].pop("theta")))
     mark("21a (the kernel run)")
 
     # -- phase 3: kernels vs plain versions --------------------------------
+    # the scalar, thermal and K1d checks, then phase 19c, in a process of
+    # their own (side_checks) beside the checks below; phase 3's timings
+    # start once it has ended, so nothing else shares the card with them
+    side_dir = tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_")
+    u_path = os.path.join(side_dir.name, "u_full.npy")
+    side = side_checks_start(u_path)
     from lbm_tpu_torch.cases import get_case
     from lbm_tpu_torch.core.rheology import carreau_blood
     from lbm_tpu_torch.engine.runner import Simulation
@@ -5941,31 +6687,6 @@ def main() -> int:
           "full sizes): " + "; ".join(f"{k} {v:.3e}" for k, v in
                                       branch_err.items()), flush=True)
 
-    t64 = time_lid(64, device, iters_k=2000, iters_p=100)
-    t256 = time_lid(256, device, iters_k=TIME_ITERS, iters_p=20,
-                    with_list=True)
-    copy = copy_rate(device)
-    tv = time_vessel(full, device)
-    free_device()
-    # one collide-stream launch per branch at lid 256^3, and the force
-    # path's instance at gravity_channel 256^3
-    lid_units = get_case("lid_driven_cavity", n=16).units
-    k1b_time = {}
-    for label, kw in (("bgk", {}), ("trt", dict(collision="trt")),
-                      ("mrt", dict(collision="mrt")),
-                      ("smag", dict(smagorinsky_cs=0.15)),
-                      ("carreau", dict(rheology=carreau_blood(lid_units))),
-                      ("moving lid", dict(lid="bounceback"))):
-        k1b_time[f"lid 256^3 {label}"] = time_k1a(
-            get_case("lid_driven_cavity", n=256, **kw), device, TIME_ITERS,
-            10, f"lid 256^3 {label}")
-    k1b_time["gravity_channel 256^3 trt+force"] = time_k1a(
-        get_case("gravity_channel", n=256, nz=256, collision="trt"), device,
-        TIME_ITERS, 10, "gravity_channel 256^3")
-    k1b_time["coronary full trt+carreau"] = time_k1a(
-        blood, device, 1000, 5, "coronary full, fluid list")
-    mark("3 (K1)")
-
     # the fused pair (K2), SMALL_STEPS // 2 launches each against two K1
     # launches and its plain version, then lid 256^3 for 2 launches; K4
     # against its plain version on a stepped 256^3 state; K2 timings
@@ -5986,16 +6707,6 @@ def main() -> int:
         "lid 256^3 bgk", get_case("lid_driven_cavity", n=256), 2, device,
         True)
     k4_err = compare_rows(device)
-    k2_time = {}
-    for label, name, kw in (
-            ("lid 256^3 bgk", "lid_driven_cavity", dict(n=256)),
-            ("lid 256^3 trt", "lid_driven_cavity", dict(n=256,
-                                                         collision="trt")),
-            ("gravity_channel 256^3 trt+force", "gravity_channel",
-             dict(n=256, nz=256, collision="trt"))):
-        k2_time[label] = time_pair(get_case(name, **kw), device, 100, label)
-    mark("3 (K2, K4)")
-
     # bf16 storage (3d): every bf16 instance against its plain version
     # for 200 steps, K2 bf16 against its plain pair and two bf16 K1
     # launches, K3 and K4 bf16, the paths' shapes for 2 steps; timings
@@ -6035,6 +6746,55 @@ def main() -> int:
               f"{k} {v:.3e}" for k, v in bf16_err.items())
           + f"; values differing after {SMALL_STEPS} steps: " + "; ".join(
               f"{k} {v}" for k, v in bf16_diff.items() if v), flush=True)
+    mark("3 (K1, K2, K4, bf16 checks)")
+    side_res = side_checks_wait(side)
+    scalar_err, path_err, halo_err, pipe = (
+        side_res[k] for k in ("scalar_err", "path_err", "halo_err", "pipe"))
+    print("[3] scalar/thermal max abs err per instance "
+          f"({SMALL_STEPS} steps; 2 at "
+          "the full sizes): "
+          + "; ".join(f"{k} {v:.3e}" for k, v in scalar_err.items())
+          + "; at the paths' own shapes: "
+          + "; ".join(f"{k} {v:.3e}" for k, v in path_err.items()),
+          flush=True)
+    u_full = torch.from_numpy(np.load(u_path)).to(device)
+    side_dir.cleanup()
+    mark("3 (the side process waited for)")
+
+    # phase 3's timings
+    t64 = time_lid(64, device, iters_k=2000, iters_p=100)
+    t256 = time_lid(256, device, iters_k=TIME_ITERS, iters_p=20,
+                    with_list=True)
+    copy = copy_rate(device)
+    tv = time_vessel(full, device)
+    free_device()
+    # one collide-stream launch per branch at lid 256^3, and the force
+    # path's instance at gravity_channel 256^3
+    lid_units = get_case("lid_driven_cavity", n=16).units
+    k1b_time = {}
+    for label, kw in (("bgk", {}), ("trt", dict(collision="trt")),
+                      ("mrt", dict(collision="mrt")),
+                      ("smag", dict(smagorinsky_cs=0.15)),
+                      ("carreau", dict(rheology=carreau_blood(lid_units))),
+                      ("moving lid", dict(lid="bounceback"))):
+        k1b_time[f"lid 256^3 {label}"] = time_k1a(
+            get_case("lid_driven_cavity", n=256, **kw), device, TIME_ITERS,
+            10, f"lid 256^3 {label}")
+    k1b_time["gravity_channel 256^3 trt+force"] = time_k1a(
+        get_case("gravity_channel", n=256, nz=256, collision="trt"), device,
+        TIME_ITERS, 10, "gravity_channel 256^3")
+    k1b_time["coronary full trt+carreau"] = time_k1a(
+        blood, device, 1000, 5, "coronary full, fluid list")
+    mark("3 (K1 timings)")
+    k2_time = {}
+    for label, name, kw in (
+            ("lid 256^3 bgk", "lid_driven_cavity", dict(n=256)),
+            ("lid 256^3 trt", "lid_driven_cavity", dict(n=256,
+                                                         collision="trt")),
+            ("gravity_channel 256^3 trt+force", "gravity_channel",
+             dict(n=256, nz=256, collision="trt"))):
+        k2_time[label] = time_pair(get_case(name, **kw), device, 100, label)
+    mark("3 (K2 timings)")
     t256_bf16 = time_lid(256, device, iters_k=TIME_ITERS, iters_p=20,
                          dtype=torch.bfloat16)
     tv_bf16 = time_vessel(full, device, dtype=torch.bfloat16)
@@ -6050,38 +6810,14 @@ def main() -> int:
           f"; coronary full K1a [bgk+bf16] {tv_bf16['k1a_live']:.4f} (fp32 "
           f"{tv['k1a_live']:.4f}), [trt+cy+bf16] {k1_cy_bf16['ms']:.4f} (fp32 "
           f"{k1b_time['coronary full trt+carreau']['ms']:.4f})", flush=True)
-    mark("3d (bf16)")
-
-    # the scalar and thermal kernels (K7, K8, K1e)
-    scalar_err, path_err, u_full = scalar_comparisons(full, device)
-    print("[3] scalar/thermal max abs err per instance "
-          f"({SMALL_STEPS} steps; 2 at "
-          "the full sizes): "
-          + "; ".join(f"{k} {v:.3e}" for k, v in scalar_err.items())
-          + "; at the paths' own shapes: "
-          + "; ".join(f"{k} {v:.3e}" for k, v in path_err.items()),
-          flush=True)
+    mark("3d (bf16 timings)")
     ts = scalar_timings(full, u_full, device)
     del u_full
-    mark("3 (K7, K8, K1e)")
-
-    # the sharded step (3e): K1d and its halo z fixup on 4 shards held in
-    # one process, every branch, against their plain versions and the
-    # whole-box step; at the paths' shapes on 2 and 4 shards for 2 steps;
-    # timings
-    halo_err = {}
-    for label, name, kw, axis, exact in halo_cases():
-        halo_err[f"{label}, 4 shards"] = compare_halo(
-            label, get_case(name, **kw), axis, 4, 20, device, exact)
+    mark("3 (K7, K8, K1e timings)")
     lid256 = get_case("lid_driven_cavity", n=256)
-    for world in (2, 4):
-        halo_err[f"lid 256^3 on x, {world} shards"] = compare_halo(
-            "lid 256^3 on x", lid256, 0, world, 2, device, True)
-        halo_err[f"coronary full on y, {world} shards"] = compare_halo(
-            "coronary full on y", full, 1, world, 2, device, True)
     th_lid = time_halo(lid256, 0, 4, device, "lid 256^3 on x")
     th_cor = time_halo(full, 1, 4, device, "coronary full on y")
-    mark("3e (K1d)")
+    mark("3e (K1d timings)")
 
     # -- phase 4: the lid main path ----------------------------------------
     spec = get_case("lid_driven_cavity", n=256)
@@ -6244,7 +6980,7 @@ def main() -> int:
     mark("18")
 
     # -- phase 19: curved walls and the live-cell backend ------------------
-    curved = dict(curved_path(device, full), curved=curved_a, pipe=pipe)
+    curved = dict(curved_path(device, full), curved=curved_a)
     free_device()
     mark("19")
 
@@ -6274,9 +7010,7 @@ def main() -> int:
              ["lid_driven_cavity_500.vtk"]),
             ("coronary", ["--dtype", "bf16", "--lowmem", "--checkpoint-every",
                           "1", "--vtk-final"], "200",
-             ["coronary_200.vtk", "coronary.ckpt.npz"]),
-            ("lid_driven_cavity", ["n=64", "--shard", "1"], "500",
-             ["lid_driven_cavity_500.vtk"])):
+             ["coronary_200.vtk", "coronary.ckpt.npz"])):
         with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") \
                 as tmp:
             t0 = time.perf_counter()
@@ -6285,12 +7019,7 @@ def main() -> int:
             argv = ["run", "--case", case, "--steps", steps, "--time-save",
                     "100", "--out", tmp, *args] + (["--opt", *kv] if kv
                                                     else [])
-            # --shard spawns its ranks: a process of its own; the other
-            # runs in this one
-            proc = (subprocess.run(
-                [sys.executable, "-m", "lbm_tpu_torch", *argv], cwd=ROOT,
-                capture_output=True, text=True, timeout=600)
-                if "--shard" in args else cli_run(argv))
+            proc = cli_run(argv)
             require(proc.returncode == 0,
                     f"CLI run of {case} failed ({proc.returncode}):\n"
                     f"{proc.stdout}\n{proc.stderr}")
@@ -6313,11 +7042,14 @@ def main() -> int:
             print(f"[8] CLI {case} {' '.join(opts)} run in "
                   f"{time.perf_counter() - t0:.1f} s wrote {files}; "
                   f"{' | '.join(last)}", flush=True)
-
+    # --shard spawns its rank: a process of its own, started with the
+    # build (cli_shard_start)
+    cli_shard_wait(shard_cli)
     mark("8")
     nu32 = cli_transport_and_thermal()
     mark("12")
     p22 = bifurcation_path(device)
+    p23 = phase23(device, p23_work, p23_disk, p23_started)
 
     # -- phase 17: several cards over NCCL --------------------------------
     n_cards = torch.cuda.device_count()
@@ -6344,7 +7076,8 @@ def main() -> int:
          "card_copy_ms": copy["ms"], "card_copy_gb_per_s": copy["gb_per_s"],
          "registers": bgk[0], "spill_bytes": bgk[1] + bgk[2],
          "blocks_per_sm": k1_blocks["collide_stream_kernel[bgk]"],
-         "coronary_every_cell_ms": tv["k1a_all"]},
+         "coronary_every_cell_ms": tv["k1a_all"],
+         "p23_profile_shard_launches": p23["e"]["v1_unsharded"]["launches"]},
         {"name": "lbm_collide_stream_list[bgk]", "route": "cuda",
          "source": K1_LIST_SOURCE,
          "replaces": "lbm_tpu/kernels/collide_stream.py:1333 (K1c: the "
@@ -6366,7 +7099,14 @@ def main() -> int:
          "bifurcation_launches": p22["launches"][
              "lbm_collide_stream_list[bgk]"],
          "bifurcation_max_abs_err": p22["check_max_abs_err"]["k1a"],
-         "bifurcation_fluid_cells": p22["fluid_cells"]},
+         "bifurcation_fluid_cells": p22["fluid_cells"],
+         "p23_launches": {
+             "outputs_512_run": p23["a"]["launches"]["run"],
+             "outputs_512_resume": p23["a"]["launches"]["resume"],
+             "washout_512_flow": p23["b"]["flow_launches"],
+             "profile_clinical": {
+                 k: v["launches"] for k, v in p23["d"].items()
+                 if "+wk" not in v["route"]}}},
         {"name": "lbm_collide_stream_list[trt+cy]", "route": "cuda",
          "source": K1_LIST_SOURCE,
          "replaces": "lbm_tpu/kernels/collide_stream.py:1333 (K1b branches)",
@@ -6464,7 +7204,10 @@ def main() -> int:
          "clinical_path": clin["path"], "pc_recurrence": clin["pc_recurrence"],
          "wss": clin["wss"], "clinical_coupled_path": clin["coupled"],
          "coupled_launches": clin["coupled_counts"][
-             "lbm_collide_stream[bgk+wk]"]},
+             "lbm_collide_stream[bgk+wk]"],
+         "p23_profile_clinical_launches": {
+             k: v["launches"] for k, v in p23["d"].items()
+             if "+wk" in v["route"]}},
         {"name": "lbm_macro", "route": "cuda", "source": K1A_SOURCE,
          "replaces": "lbm_tpu/kernels/collide_stream.py:2470",
          "launches": counts["lbm_macro"],
@@ -6478,7 +7221,9 @@ def main() -> int:
          "bifurcation_max_abs_err": p22["check_max_abs_err"]["k3"],
          "lid256_ms": t256["k3"], "lid256_plain_ms": t256["k3_plain"],
          "lid256_bound_ms": bound_ms(256**3 * (19 * 4 + 4 * 4)),
-         "lid256_library_ms": t256["k3_library"]},
+         "lid256_library_ms": t256["k3_library"],
+         "p23_launches": {"macro_512": p23["a"]["launches"]["macro"],
+                          "vtk_512": p23["a"]["launches"]["vtk"]}},
         {"name": "lbm_scalar_stream[frozen+comp]", "route": "cuda",
          "source": K7_SOURCE,
          "replaces": "lbm_tpu/kernels/scalar_stream.py:507 (K7, _subtile7 "
@@ -6500,6 +7245,7 @@ def main() -> int:
          "record_bound_ms": ts["k7_coronary"]["record_bound_ms"],
          "footprint_cells": ts["k7_coronary"]["footprint_cells"],
          "washout_path": washout_vp,
+         "p23_washout_512_launches": p23["b"]["launches"],
          "registers": {k: v[0] for k, v in ptxas.items()
                        if k.startswith("scalar")},
          "build_s": slib.build_seconds},
@@ -6539,6 +7285,9 @@ def main() -> int:
          "bound_ms": ts["k8_coronary"]["bound_ms"], "bound_by": "bytes",
          "library_ms": None,
          "listed_cells": ts["k8_coronary"]["listed_cells"],
+         "p23_profile_clinical_launches": {
+             k: v["launches"] for k, v in p23["d"].items()
+             if "lbm_scalar_stream[live]" in v["launches"]},
          "coupled_washout_path": coupled_vp},
         {"name": "lbm_scalar_stream[live+force+dirichlet]", "route": "cuda",
          "source": K7_SOURCE,
@@ -6610,6 +7359,7 @@ def main() -> int:
          "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
          "bound_by": "bytes", "library_ms": k4["library_ms"],
          "chunk_mb": k4["chunk_mb"], "read_512_s": k4["read_s"],
+         "p23_checkpoint_launches": p23["a"]["launches"]["checkpoint"],
          "read_512_gb_per_s": k4["read_gb_per_s"],
          "device_rise_mb": k4["device_rise_mb"],
          "registers": {k: v[0] for k, v in ptxas.items()
@@ -6722,6 +7472,7 @@ def main() -> int:
          "path_ms_per_step_one_card": sh_cor["ms"],
          "path_exchange_ms_one_card": sh_cor["exchange_ms"],
          "path_velsum_rel_err": sh_cor["velsum_rel_err"],
+         "p23_sharded_512_launches_per_rank": p23["c"]["launches"],
          "registers": {k: v[0] for k, v in ptxas_halo.items()},
          "spill_bytes": {k: v[1] + v[2] for k, v in ptxas_halo.items()},
          "build_s": [h.build_seconds for h in hlibs]},
@@ -6738,7 +7489,10 @@ def main() -> int:
          "k1a_same_shard_device_ms": th_lid["k1a_device_ms"],
          "local_shape": th_lid["shape"], "shard_axis": "x",
          "path_ms_per_step_one_card": sh_lid["ms"],
-         "path_exchange_ms_one_card": sh_lid["exchange_ms"]},
+         "path_exchange_ms_one_card": sh_lid["exchange_ms"],
+         "p23_profile_shard_launches": {
+             k: v["launches"] for k, v in p23["e"].items()
+             if k != "v1_unsharded"}},
         {"name": "lbm_collide_stream_list[bgk+halo] z planes",
          "route": "cuda", "source": K1D_SOURCE,
          "replaces": "lbm_tpu/parallel/pallas_sharded.py:380 (the sharded "
@@ -6760,9 +7514,11 @@ def main() -> int:
           f"{t64['k1a_plain']:.4f}, K3 {t64['k3']:.4f} plain "
           f"{t64['k3_plain']:.4f}; total "
           f"{time.perf_counter() - t_all:.1f} s", flush=True)
+    curved["pipe"] = pipe
     print(json.dumps({"phase19": curved}), flush=True)
     print(json.dumps({"phase21": p21}, default=float), flush=True)
     print(json.dumps({"phase22": p22}, default=float), flush=True)
+    print(json.dumps({"phase23": p23}, default=float), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6773,4 +7529,5 @@ def main() -> int:
 if __name__ == "__main__":
     sys.exit(nccl_main() if sys.argv[1:] == ["--nccl"] else
              phase21_main() if sys.argv[1:] == ["--phase21"] else
-             phase22_main() if sys.argv[1:] == ["--phase22"] else main())
+             phase22_main() if sys.argv[1:] == ["--phase22"] else
+             phase23_main() if sys.argv[1:] == ["--phase23"] else main())

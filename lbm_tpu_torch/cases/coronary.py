@@ -218,6 +218,25 @@ def _boundaries(inlet_x, outlet_x, sub_planes, sub_labels,
     return bcs
 
 
+# the last few synthetic voxel trees' labels, by (shape, radius,
+# stenosis): a run's cases that share a geometry (windkessel, pulsatile,
+# collision variants) build its tree once
+_LABELS: dict = {}
+_LABELS_KEPT = 4
+
+
+def _memo_labels(key: tuple, make) -> np.ndarray:
+    """make()'s labels, built once a key (the _LABELS_KEPT last used
+    kept), a fresh copy."""
+    labels = _LABELS.pop(key, None)
+    if labels is None:
+        labels = make()
+        while len(_LABELS) >= _LABELS_KEPT:
+            _LABELS.pop(next(iter(_LABELS)))
+    _LABELS[key] = labels
+    return labels.copy()
+
+
 @register("coronary")
 def build(
     geo_path: str | None = None,
@@ -302,10 +321,13 @@ def build(
                 # branch, 3 diameters long
                 sten = (float(stenosis), (inlet_x + branch_xs[0]) / 2.0,
                         3.0 * radius)
-            flag = synthetic_tree_flag(nx, ny, nz, radius, inlet_x,
-                                       outlet_x, branch_xs, caps,
-                                       stenosis=sten)
-            mask = build_labels(flag, inlet_x, outlet_x, subs)
+            mask = _memo_labels(
+                (tuple(shape), radius, sten),
+                lambda: build_labels(
+                    synthetic_tree_flag(nx, ny, nz, radius, inlet_x,
+                                        outlet_x, branch_xs, caps,
+                                        stenosis=sten),
+                    inlet_x, outlet_x, subs))
 
     sub_planes = [s[0] for s in subs]
     bcs = _boundaries(inlet_x, outlet_x, sub_planes, sub_labels=(5, 6, 7),

@@ -1009,11 +1009,17 @@ def compile_shard(spec: CaseSpec, rank: int, world: int, shard_axis: int,
 def _residual_offsets(u0: np.ndarray, static: np.ndarray) -> dict:
     """velsum_offset and usq_offset: sum |u0| and |u0|^2 over the cells
     `static` selects (the non-fluid ones, which hold their initial state
-    for good), in float64."""
-    speed0 = np.sqrt(np.sum(u0.astype(np.float64) ** 2, axis=0))
-    return {"velsum_offset": float(np.sum(speed0[static], dtype=np.float64)),
-            "usq_offset": float(np.sum(speed0[static] ** 2,
-                                       dtype=np.float64))}
+    for good), in float64. |u0| is taken only where u0 is nonzero (the
+    boundary planes), and the sums run over the same array of the static
+    cells' speeds as a whole-box |u0| would give, bit for bit."""
+    flat = u0.reshape(3, -1)
+    moving = np.flatnonzero(np.any(flat != 0, axis=0))
+    speed0 = np.zeros(flat.shape[1])
+    speed0[moving] = np.sqrt(np.sum(
+        flat[:, moving].astype(np.float64) ** 2, axis=0))
+    sel = speed0[static.ravel()]
+    return {"velsum_offset": float(np.sum(sel, dtype=np.float64)),
+            "usq_offset": float(np.sum(sel ** 2, dtype=np.float64))}
 
 
 def _live_lists(mask: np.ndarray, device) -> dict:

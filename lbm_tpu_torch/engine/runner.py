@@ -351,6 +351,10 @@ class Simulation:
                    else torch.from_numpy(w0).to(self.device))
         self._last_velsum: Optional[float] = None
         self._last_usq: Optional[float] = None
+        # run()'s cell counts (non-solid, FLUID, box), made on its first
+        # call: two passes over the box's mask on the host took tens of
+        # ms a run at 291x291x372, which timed short runs read as steps
+        self._cell_counts: Optional[tuple[int, int, int]] = None
 
     def f_standard(self):
         """f in the portable (19, nx, ny, nz) float32 layout: the state
@@ -365,9 +369,17 @@ class Simulation:
 
             return scatter_dense(self.sc, self.f)
         if self.mesh is not None:
-            dead = (self.cc.mask == CellType.DEAD)[None]
-            return self._gather(torch.where(dead, 0.0, self.f), 1)
+            return self._gather(self.window_standard(), 1)
         return self.f.float()
+
+    def window_standard(self):
+        """Under a mesh, this rank's part of f_standard(), not gathered:
+        its window in float32 with zeros at DEAD cells (pad rows
+        included)."""
+        if self.mesh is None:
+            raise ValueError("window_standard() is a sharded run's")
+        dead = (self.cc.mask == CellType.DEAD)[None]
+        return torch.where(dead, 0.0, self.f)
 
     def set_f_standard(self, f):
         """Load a (19, nx, ny, nz) state (array or tensor) into both
@@ -676,16 +688,21 @@ class Simulation:
         elapsed = time.perf_counter() - t_start
         steps = self.t - steps_done_at_start
         rate = steps / max(elapsed, 1e-12) / 1e6
-        mask = np.asarray(spec.mask)
+        if self._cell_counts is None:
+            mask = np.asarray(spec.mask)
+            self._cell_counts = (int((mask != 0).sum()),
+                                 int((mask == 4).sum()),
+                                 int(np.prod(spec.shape)))
+        n_cells, n_fluid, n_box = self._cell_counts
         return RunResult(
             steps=steps,
             residual=residual,
             residual_history=history,
             elapsed_s=elapsed,
-            mlups=int((mask != 0).sum()) * rate,
+            mlups=n_cells * rate,
             converged=converged,
-            mlups_live=int((mask == 4).sum()) * rate,
-            mlups_box=int(np.prod(spec.shape)) * rate,
+            mlups_live=n_fluid * rate,
+            mlups_box=n_box * rate,
             velsum_series=(np.concatenate(samples) if samples else None),
         )
 

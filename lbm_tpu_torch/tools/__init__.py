@@ -13,7 +13,27 @@ with lbm_tpu's tools/<name>.py arguments and defaults plus --device
   ffr_sweep               resting and hyperemic FFR against stenosis
   l0l7_bifurcation        STL -> voxels -> the bifurcation case, its
                           midplane against the shipped geometry's run
+  demo_512_outputs        the 512^3 coronary under lowmem: macro(), the
+                          live-cell wss(), a binary VTK, an uncompressed
+                          checkpoint restored and stepped on
+  demo_512_washout        512^3 flow, then K7 through a recorded washout
+  demo_512_sharded        the 512^3 coronary on y over 8 gloo ranks (K1d)
+  profile_clinical        the clinical step's cost, one mechanism a row
+  profile_shard           the sharded step's overhead on one rank
 """
+
+
+def coronary_cube(n: int):
+    """The n^3 synthetic coronary tree of lbm_tpu's 512^3 demos (radius
+    max(6, n // 36)) with the 'velsum' residual: the runner then keeps
+    each step's velsum (the coronary's stop count, 10**9, never ends a
+    run) and reads no macro() a chunk."""
+    import dataclasses
+
+    from lbm_tpu_torch.cases import get_case
+
+    spec = get_case("coronary", shape=(n, n, n), radius=max(6, n // 36))
+    return dataclasses.replace(spec, residual_flavor="velsum")
 
 
 def device_label(device) -> str:

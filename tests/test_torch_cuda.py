@@ -1454,3 +1454,74 @@ def test_bifurcation_macro_on_the_card_matches_plain(device, tmp_path):
     torch.testing.assert_close(rho, rho_p, rtol=1e-6, atol=1e-7)
     torch.testing.assert_close(u, u_p, rtol=1e-6, atol=1e-7)
     assert torch.isfinite(u).all() and float(u.abs().max()) < 0.15
+
+
+def test_demo_512_outputs_stages_on_the_card(device, tmp_path):
+    """demo_512_outputs' stages at n=64 with lowmem forced, on the card and
+    on the CPU (the plain versions): the first chunk's velsums, |u|max and
+    the WSS cells' count, mean and max at 1e-5 relative; on the card the
+    checkpoint (K4's chunked read) restored into a fresh Simulation and
+    stepped 2 steps, bit-equal to the original run stepped the same
+    steps."""
+    import numpy as np
+
+    from lbm_tpu_torch.tools import coronary_cube
+    from lbm_tpu_torch.tools import demo_512_outputs as D
+
+    spec = coronary_cube(64)
+    got = {}
+    for dev in (device, torch.device("cpu")):
+        sim = D.make_sim(spec, dev, True)
+        vs, _ = D.chunk(sim, 4)
+        D.chunk(sim, 4)
+        got[dev.type] = (vs, D.u_max(sim), D.wss_stats(sim))
+        if dev.type != "cuda":
+            continue
+        path = str(tmp_path / "demo512.ckpt.npz")
+        K.reset_launches()
+        D.write_checkpoint(sim, path)
+        assert K.launches == {"lbm_extract_rows": -(-64 // K.chunk_rows(
+            spec.shape))}
+        sim2, _ = D.restore_sim(spec, path, device, True)
+        r2, _ = D.chunk(sim2, 2)
+        r1, _ = D.chunk(sim, 2)
+        assert sim2.t == sim.t == 10
+        assert torch.equal(sim.f, sim2.f) and np.array_equal(r1, r2)
+    (vs_k, u_k, w_k), (vs_p, u_p, w_p) = got["cuda"], got["cpu"]
+    np.testing.assert_allclose(vs_k, vs_p, rtol=1e-5)
+    np.testing.assert_allclose(u_k, u_p, rtol=1e-5)
+    assert w_k["count"] == w_p["count"] > 0
+    np.testing.assert_allclose([w_k["mean_pa"], w_k["max_pa"]],
+                               [w_p["mean_pa"], w_p["max_pa"]], rtol=1e-5)
+
+
+def test_demo_512_sharded_on_two_card_ranks(device, tmp_path):
+    """demo_512_sharded at n=64 on 2 gloo ranks sharing the card: each
+    step's velsum against the unsharded card run at 1e-5 relative, K1d
+    over each rank's fluid cells once a step, every window finite with
+    zeros at DEAD cells, and each window's first and last y rows bit-equal
+    to the unsharded state's (zeros at DEAD cells)."""
+    import numpy as np
+
+    from lbm_tpu_torch.geometry.mask import CellType
+    from lbm_tpu_torch.tools import coronary_cube
+    from lbm_tpu_torch.tools import demo_512_sharded as S
+
+    spec = coronary_cube(64)
+    spec_dir = tmp_path / "spec"
+    spec_dir.mkdir()
+    S.save_spec(spec, str(spec_dir))
+    ranks = S.run_sharded(str(spec_dir), 2, 2, "cuda", timeout=300,
+                          rows_dir=str(tmp_path))
+    out = S.report(ranks, 64, 2)
+    assert out["launches"] == [{"lbm_collide_stream_list[bgk+halo]": 2}] * 2
+    sim = Simulation(spec, device=device)
+    res = sim.run(max_steps=2, time_save=2, verbose=False)
+    np.testing.assert_allclose(
+        out["velsum"], res.velsum_series - sim.case.velsum_offset, rtol=1e-5)
+    dead = sim.cc.mask == CellType.DEAD
+    for r in range(2):
+        rows = np.load(S.window_rows_path(str(tmp_path), r))
+        for k, y in enumerate((32 * r, 32 * r + 31)):
+            want = torch.where(dead[:, y], 0.0, sim.f[:, :, y]).cpu()
+            assert torch.equal(torch.from_numpy(rows[k]), want), (r, y)
