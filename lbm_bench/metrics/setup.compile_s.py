@@ -1,0 +1,6 @@
+"""setup.compile_s: seconds of the harness's span around the set-up's call
+into the program's compile layer (see BENCHMARK.json and PERF.md)."""
+
+
+def read(ctx):
+    return ctx["spans"].get("setup.compile_s")

@@ -1,0 +1,6 @@
+"""setup.kernels_s: seconds of the harness's span around the set-up's call
+into the program's kernels layer (see BENCHMARK.json and PERF.md)."""
+
+
+def read(ctx):
+    return ctx["spans"].get("setup.kernels_s")
